@@ -7,11 +7,12 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --profile   # adds a torch.profiler breakdown of one step
 
 It builds the hand-written CUDA kernels from ``csrc/``, holds each one
-against its plain PyTorch version at the shapes the sd3unet_gq_0.25 main
-path gives it, then drives that path (encode -> 2^16 GQ search -> dequant)
-through the engine a user would build from ``configs/sd3unet_gq_0.25.yaml``
-at bs=16, 256x256, bf16, with seeded random weights, and checks what comes
-out.  Every phase prints one JSON line.  The line before the last is the
+against its plain PyTorch version at the shapes the main paths give it,
+then drives each path (encode -> 2^16 GQ search -> dequant) through the
+engine a user would build from its config at bs=16, 256x256, bf16, with
+seeded random weights, and checks what comes out: sd3unet_gq_0.25 (the
+UNet, ``configs/sd3unet_gq_0.25.yaml``), then bsqvit_gq_0.25 (the ViT,
+``configs/bsqvit_gq_0.25.yaml``).  Every phase prints one JSON line.  The line before the last is the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and prints
 no result line.  Nothing here imports JAX or the JAX package.
@@ -37,6 +38,7 @@ PEAK_HBM = 3.35e12      # bytes/s
 BATCH = 16
 RES = 256
 SEED = 0
+SLEEP_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz boost clock
 
 # tolerances, each with its reason
 BF16_RTOL = 1e-2   # kernel vs plain differ only in fp32 summation order; after
@@ -60,7 +62,12 @@ def require(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of one call, by CUDA events around `iters` calls."""
+    """Mean device time of one call, by CUDA events around `iters` calls.
+
+    The calls are queued behind a device sleep of about 50 ms, so the host
+    has enqueued them before the first one starts and the events time the
+    device's work: a LayerNorm launch takes less device time than its
+    Python wrapper takes on the host."""
     import torch
 
     for _ in range(warmup):
@@ -68,6 +75,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -142,7 +150,7 @@ def check_gq(gen):
             "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/gq_argmax.cu",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/gq_pallas.py:83",
             "tolerance": f"indices equal, or a float64 near-tie (relative {NEAR_TIE})",
-            "per_step": 1, "shapes": [shape]}
+            "per_step": 1, "path": "sd3unet", "shapes": [shape]}
 
 
 def _bf16_err(got, want):
@@ -228,12 +236,12 @@ def check_resample(gen, kind: str):
                 "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/downsample_conv.cu",
                 "replaces": "vqvae_from_gaussian_vae_tpu/ops/downsample_conv.py:125",
                 "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}; stats rtol {STATS_RTOL}",
-                "per_step": 3, "shapes": shapes}
+                "per_step": 3, "path": "sd3unet", "shapes": shapes}
     return {"name": "upsample_nearest_conv3x3_gn", "route": "cuda",
             "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/upsample_conv.cu",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/upsample_conv.py:199",
             "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}; stats rtol {STATS_RTOL}",
-            "per_step": 3, "shapes": shapes}
+            "per_step": 3, "path": "sd3unet", "shapes": shapes}
 
 
 def check_flash(gen):
@@ -263,27 +271,144 @@ def check_flash(gen):
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:319",
-            "tolerance": f"bf16 atol {FLASH_ATOL}", "per_step": 5, "shapes": [shape]}
+            "tolerance": f"bf16 atol {FLASH_ATOL}", "per_step": 5, "path": "sd3unet",
+            "shapes": [shape]}
+
+
+def check_flash_qkv(gen):
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+
+    b, l, heads, d = BATCH, 32 * 32, 12, 64  # the ViT's attention, width 768
+    c = heads * d
+    qkv = torch.randn((b, l, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = d ** -0.5
+    o_k = fa.flash_attention_qkv_cuda(qkv, scale, heads)
+    o_p = fa.flash_attention_qkv_plain(qkv, scale, heads)
+    torch.cuda.synchronize()
+    err = float((o_k.float() - o_p.float()).abs().max())
+    require(err <= FLASH_ATOL, f"packed flash: kernel vs plain error {err} > {FLASH_ATOL}")
+    # the library call reads head-major q, k, v made beforehand
+    qh, kh, vh = (t.reshape(b, l, heads, d).transpose(1, 2).contiguous()
+                  for t in qkv.chunk(3, dim=-1))
+    flops = 4.0 * b * heads * l * l * d
+    nbytes = 2 * (qkv.numel() + o_k.numel())
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    shape = {"shape": f"qkv ({b},{l},3x{heads}x{d}) bf16",
+             "kernel_ms": time_ms(lambda: fa.flash_attention_qkv_cuda(qkv, scale, heads)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_qkv_plain(qkv, scale, heads),
+                                 iters=3, warmup=1),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
+             "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+             "max_abs_err": err}
+    return {"name": "flash_attention_qkv_fwd", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:401",
+            "tolerance": f"bf16 atol {FLASH_ATOL}", "per_step": 24, "path": "bsqvit",
+            "shapes": [shape]}
+
+
+def check_layer_norm(gen, add: bool):
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
+
+    rows, c = BATCH * 32 * 32, 768  # the ViT's (B*L, width) token rows
+    x = (2 * torch.randn((rows, c), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    d = torch.randn((rows, c), generator=gen, device="cuda").to(torch.bfloat16)
+    w = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    w16, b16 = w.to(torch.bfloat16), bias.to(torch.bfloat16)  # for the library call
+    if add:
+        s_k, y_k = ln.layer_norm_add_cuda(x, d, w, bias)
+        s_p, y_p = ln.layer_norm_add_plain(x, d, w, bias)
+        torch.cuda.synchronize()
+        require(torch.equal(s_k, s_p), "LN-add: kernel's s differs from plain x + d")
+        kernel = lambda: ln.layer_norm_add_cuda(x, d, w, bias)  # noqa: E731
+        plain = lambda: ln.layer_norm_add_plain(x, d, w, bias)  # noqa: E731
+        library = lambda: F.layer_norm(x + d, (c,), w16, b16, 1e-5)  # noqa: E731
+        nbytes = 2 * 4 * x.numel() + 2 * 4 * c
+        flops = 9.0 * x.numel()  # add; sum; centre, square, sum; normalise, scale, shift
+    else:
+        y_k = ln.layer_norm_cuda(x, w, bias)
+        y_p = ln.layer_norm_plain(x, w, bias)
+        torch.cuda.synchronize()
+        kernel = lambda: ln.layer_norm_cuda(x, w, bias)  # noqa: E731
+        plain = lambda: ln.layer_norm_plain(x, w, bias)  # noqa: E731
+        library = lambda: F.layer_norm(x, (c,), w16, b16, 1e-5)  # noqa: E731
+        nbytes = 2 * 2 * x.numel() + 2 * 4 * c
+        flops = 8.0 * x.numel()
+    err, ratio = _bf16_err(y_k, y_p)
+    require(ratio <= 1.0, f"LN{'-add' if add else ''}: kernel vs plain error {err} beyond "
+                          f"atol {BF16_ATOL} + rtol {BF16_RTOL}")
+    bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
+    shape = {"shape": f"x ({rows},{c}) bf16" + (" + d" if add else ""),
+             "kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
+             "library_ms": time_ms(library),
+             "library": "x + d, then F.layer_norm (two calls)" if add else "F.layer_norm",
+             "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+             "max_abs_err": err, "err_over_tol": ratio}
+    name = "layer_norm_add_fwd" if add else "layer_norm_fwd"
+    return {"name": name, "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/layer_norm.cu",
+            "replaces": ("vqvae_from_gaussian_vae_tpu/ops/layer_norm.py:192" if add
+                         else "vqvae_from_gaussian_vae_tpu/ops/layer_norm.py:159"),
+            "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}"
+                         + ("; s bit-equal" if add else ""),
+            "per_step": 46 if add else 6, "path": "bsqvit", "shapes": [shape]}
 
 
 # ---------------------------------------------------------------------------
-# the main path
+# the main paths
 
 
 def launch_counters():
     from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv, flash_attention, gq_cuda
-    from vqvae_from_gaussian_vae_tpu_torch.ops import upsample_conv
+    from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm, upsample_conv
 
     return {"gq_argmax": gq_cuda.gq_argmax_cuda,
             "downsample_conv3x3_gn": downsample_conv.downsample_conv3x3_gn_cuda,
             "upsample_nearest_conv3x3_gn": upsample_conv.upsample_nearest_conv3x3_gn_cuda,
-            "flash_attention_fwd": flash_attention.flash_attention_cuda}
+            "flash_attention_fwd": flash_attention.flash_attention_cuda,
+            "flash_attention_qkv_fwd": flash_attention.flash_attention_qkv_cuda,
+            "layer_norm_fwd": layer_norm.layer_norm_cuda,
+            "layer_norm_add_fwd": layer_norm.layer_norm_add_cuda}
 
 
-def build_engine(dtype: str):
+def _unet_step_flops(enc_cfg):
+    from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
+
+    return F.unet_encoder_flops(enc_cfg) + F.unet_decoder_flops(enc_cfg)
+
+
+def _vit_step_flops(enc_cfg):
+    from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
+
+    return F.vit_flops(enc_cfg) + F.vit_decoder_flops(enc_cfg)
+
+
+# each main path: its config, the launches of one encode -> dequant step
+# (every counter not named is 0), its latent and index shapes (one index
+# group per latent pixel or token), and its FLOP per image besides the search
+PATHS = {
+    "sd3unet": {"config": "configs/sd3unet_gq_0.25.yaml",
+                "launches": {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
+                             "upsample_nearest_conv3x3_gn": 3, "flash_attention_fwd": 5},
+                "z": (BATCH, 32, 32, 16), "indices": (BATCH, 32, 32, 1),
+                "flops": _unet_step_flops},
+    "bsqvit": {"config": "configs/bsqvit_gq_0.25.yaml",
+               "launches": {"gq_argmax": 1, "flash_attention_qkv_fwd": 24,
+                            "layer_norm_fwd": 6, "layer_norm_add_fwd": 46},
+               "z": (BATCH, 32 * 32, 16), "indices": (BATCH, 32 * 32, 1),
+               "flops": _vit_step_flops},
+}
+
+
+def build_engine(config: str, dtype: str):
     from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
 
-    cfg = load_config(os.path.join(ROOT, "configs", "sd3unet_gq_0.25.yaml"))
+    cfg = load_config(os.path.join(ROOT, config))
     params = cfg["model"]["params"]
     params["loss_config"] = None
     for key in ("encoder_config", "decoder_config"):
@@ -296,13 +421,15 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def run_e2e(gen, profile: bool):
+def run_e2e(gen, profile: bool, path: str):
     import torch
     from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import argmax_blocked, score_operands
     from vqvae_from_gaussian_vae_tpu_torch.quantization.gaussian import _split_posterior
     from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
 
-    engine, cfg = build_engine("bfloat16")
+    spec = PATHS[path]
+    torch.cuda.reset_peak_memory_stats()
+    engine, cfg = build_engine(spec["config"], "bfloat16")
     x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
     counters = launch_counters()
 
@@ -312,22 +439,23 @@ def run_e2e(gen, profile: bool):
     z, reg = engine.encode(x, return_reg_log=True)
     xhat = engine.dequant(reg["indices"])
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    expected = {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
-                "upsample_nearest_conv3x3_gn": 3, "flash_attention_fwd": 5}
-    require(launches == expected, f"launches per step {launches} != {expected}")
+    all_launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {name: spec["launches"].get(name, 0) for name in counters}
+    require(all_launches == expected, f"{path}: launches per step {all_launches} != {expected}")
+    launches = {name: n for name, n in all_launches.items() if name in spec["launches"]}
 
     idx = reg["indices"]
-    require(tuple(z.shape) == (BATCH, 32, 32, 16), f"z shape {tuple(z.shape)}")
-    require(tuple(idx.shape) == (BATCH, 32, 32, 1) and idx.dtype == torch.int32,
+    require(tuple(z.shape) == spec["z"], f"z shape {tuple(z.shape)}")
+    require(tuple(idx.shape) == spec["indices"] and idx.dtype == torch.int32,
             f"indices {tuple(idx.shape)} {idx.dtype}")
     require(int(idx.min()) >= 0 and int(idx.max()) < 65536, "index out of range")
     require(tuple(xhat.shape) == (BATCH, RES, RES, 3), f"xhat shape {tuple(xhat.shape)}")
     require(bool(torch.isfinite(xhat.float()).all()), "dequant output not finite")
     require(bool(torch.isfinite(z).all()), "zhat not finite")
 
-    # dequant(indices) must be decode(zhat): the same latents through the same decoder
-    xrec = engine.decode(z)
+    # dequant(indices) must be decode(zhat): the same latents through the same
+    # decoder, and the engine's clamp
+    xrec = engine.module._clamp(engine.decode(z))
     deq_err = float((xrec.float() - xhat.float()).abs().max())
     require(deq_err <= FLASH_ATOL, f"dequant(indices) vs decode(zhat) differ by {deq_err}")
 
@@ -343,7 +471,7 @@ def run_e2e(gen, profile: bool):
 
     # a small input against a float32 engine of the same weights (plain convs,
     # einsum attention; TF32 off)
-    ref_engine, _ = build_engine("float32")
+    ref_engine, _ = build_engine(spec["config"], "float32")
     xs = x[:2]
     z16, _ = engine.encode(xs, unregularized=True)
     z32, _ = ref_engine.encode(xs, unregularized=True)
@@ -371,9 +499,8 @@ def run_e2e(gen, profile: bool):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     enc_cfg = cfg["model"]["params"]["encoder_config"]["params"]
-    step_flops = BATCH * (F.unet_encoder_flops(enc_cfg) + F.unet_decoder_flops(enc_cfg)
-                          + F.gq_search_flops(32 * 32, 16, 65536))
-    result = {"phase": "e2e", "config": "configs/sd3unet_gq_0.25.yaml", "dtype": "bfloat16",
+    step_flops = BATCH * (spec["flops"](enc_cfg) + F.gq_search_flops(32 * 32, 16, 65536))
+    result = {"phase": "e2e", "path": path, "config": spec["config"], "dtype": "bfloat16",
               "batch": BATCH, "resolution": RES, "launches_per_step": launches,
               "z": list(z.shape), "indices": list(idx.shape), "xhat": list(xhat.shape),
               "dequant_vs_decode_max_abs": deq_err,
@@ -458,18 +585,23 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = []
     for check in (check_gq, lambda g: check_resample(g, "down"),
-                  lambda g: check_resample(g, "up"), check_flash):
+                  lambda g: check_resample(g, "up"), check_flash, check_flash_qkv,
+                  lambda g: check_layer_norm(g, False), lambda g: check_layer_norm(g, True)):
         k = check(gen)
         emit({"phase": "kernel", **k})
         kernels.append(k)
+        torch.cuda.empty_cache()
 
-    e2e = run_e2e(gen, args.profile)
-    emit(e2e)
+    e2e = {}
+    for path in PATHS:
+        e2e[path] = run_e2e(gen, args.profile, path)
+        emit(e2e[path])
+        torch.cuda.empty_cache()
 
     summary = []
     for k in kernels:
         shapes = k["shapes"]
-        # one main-path step's launches: the flash kernel runs 5 times at its one shape
+        # one main-path step's launches: e.g. the flash kernel runs 5 times at its one shape
         reps = k["per_step"] // len(shapes)
 
         def total(key, shapes=shapes, reps=reps):
@@ -478,7 +610,8 @@ def main(argv=None) -> int:
 
         summary.append({"name": k["name"], "route": k["route"], "source": k["source"],
                         "replaces": k["replaces"],
-                        "launches": e2e["launches_per_step"][k["name"]],
+                        "launches": e2e[k["path"]]["launches_per_step"][k["name"]],
+                        "path": k["path"],
                         "max_abs_err": max(s["max_abs_err"] for s in shapes),
                         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
                         "bound_ms": total("bound_ms"),

@@ -1,13 +1,13 @@
-"""The port's plain flash-attention forward against the JAX package's
-flash_blc Pallas kernel (interpret mode): float32 within 1e-4, bf16 within
-the JAX flash tests' 2e-2."""
+"""The port's plain flash-attention forward, unpacked and packed-QKV,
+against the JAX package's flash_blc Pallas kernels (interpret mode):
+float32 within 1e-4, bf16 within the JAX flash tests' 2e-2."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from vqvae_from_gaussian_vae_tpu.ops.flash_blc import flash_attention_blc
+from vqvae_from_gaussian_vae_tpu.ops.flash_blc import flash_attention_blc, flash_attention_qkv
 from vqvae_from_gaussian_vae_tpu.ops.flash_blc import sdpa_token_major as jax_sdpa
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
 
@@ -51,9 +51,32 @@ def test_sdpa_token_major_matches_jax(dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,d", [(2, 128, 2, 64), (1, 256, 3, 128)])
+def test_plain_packed_flash_matches_jax_kernel(b, l, h, d, dtype):
+    """q | k | v read from one (B, L, 3C) projection output."""
+    (jqkv,), (qkv,) = _cast([np.concatenate(_qkv(b, l, h * d, seed=d), axis=-1)], dtype)
+    scale = d ** -0.5
+    got = fa.flash_attention_qkv_plain(qkv, scale, h)
+    want = flash_attention_qkv(jqkv, scale, h, True)
+    assert got.shape == (b, l, h * d) and got.dtype == qkv.dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(fa.flash_attention_qkv(qkv, scale, h), got)
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert torch.equal(fa.flash_attention_plain(q, k, v, scale, h), got)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     q = torch.zeros((1, 64, 64), dtype=torch.bfloat16)
     before = fa.flash_attention_cuda.launches
     with pytest.raises(ValueError):
         fa.flash_attention_cuda(q, q, q, 0.125, 1)
     assert fa.flash_attention_cuda.launches == before
+
+
+def test_packed_kernel_wrapper_refuses_cpu_tensors():
+    before = fa.flash_attention_qkv_cuda.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention_qkv_cuda(torch.zeros((1, 64, 192), dtype=torch.bfloat16), 0.125, 1)
+    assert fa.flash_attention_qkv_cuda.launches == before

@@ -1,6 +1,6 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card,
-at shapes the main path does not give them: ragged tiles, several heads,
-other head dims and widths, exact ties.
+"""The CUDA kernels against their plain PyTorch versions, on the card, at
+shapes the main paths do not give them: ragged tiles and row counts,
+several heads, other head dims and widths, exact ties.
 
 Needs a CUDA card, nvcc and no JAX (the port's tests of the JAX package run
 on the CPU); everything here skips where there is no card.  On the card:
@@ -13,6 +13,7 @@ import torch
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
 from vqvae_from_gaussian_vae_tpu_torch.ops import upsample_conv as up
 from vqvae_from_gaussian_vae_tpu_torch.ops.gq_cuda import gq_argmax_cuda
 from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import (
@@ -145,3 +146,84 @@ def test_gq_inputs_stay_on_the_card(gen):
     a = torch.zeros((4, 8), device="cuda")
     with pytest.raises(ValueError):
         gq_argmax_cuda(a, torch.zeros((8, 16)))
+
+
+LN_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}  # summation order only
+
+
+def _ln_case(gen, rows, c, dtype):
+    x = (2 * torch.randn((rows, c), generator=gen, device="cuda") + 0.5).to(dtype)
+    d = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+    w = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    return x, d, w, b
+
+
+def _close(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol + tol * want.float().abs()).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c", [(13, 8), (1000, 200), (77, 768), (5, 1024), (9, 4096)])
+def test_layer_norm_kernels_match_plain(gen, rows, c, dtype):
+    x, d, w, b = _ln_case(gen, rows, c, dtype)
+    before = (ln.layer_norm_cuda.launches, ln.layer_norm_add_cuda.launches)
+    y = ln.layer_norm(x, w, b)
+    s, y2 = ln.layer_norm_add(x, d, w, b)
+    assert (ln.layer_norm_cuda.launches, ln.layer_norm_add_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _close(y, ln.layer_norm_plain(x, w, b), LN_TOL[dtype])
+    s_p, y2_p = ln.layer_norm_add_plain(x, d, w, b)
+    assert torch.equal(s, s_p)
+    _close(y2, y2_p, LN_TOL[dtype])
+
+
+@pytest.mark.parametrize("c", [12, 4104])
+def test_layer_norm_kernels_refuse_unsupported_widths(gen, c):
+    x = torch.zeros((4, c), dtype=torch.bfloat16, device="cuda")
+    w, b = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    before = (ln.layer_norm_cuda.launches, ln.layer_norm_add_cuda.launches)
+    with pytest.raises(ValueError):
+        ln.layer_norm_cuda(x, w, b)
+    with pytest.raises(ValueError):
+        ln.layer_norm_add_cuda(x, x, w, b)
+    assert (ln.layer_norm_cuda.launches, ln.layer_norm_add_cuda.launches) == before
+
+
+def test_layer_norm_kernels_refuse_strided_rows(gen):
+    x = torch.zeros((4, 512), dtype=torch.bfloat16, device="cuda")[:, :256]
+    w, b = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+    with pytest.raises(ValueError):
+        ln.layer_norm_cuda(x, w, b)
+
+
+@pytest.mark.parametrize("l", [64, 1024])
+@pytest.mark.parametrize("h,d", [(12, 64), (4, 128)])
+def test_packed_flash_kernel_matches_plain(gen, l, h, d):
+    qkv = torch.randn((2, l, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    before = fa.flash_attention_qkv_cuda.launches
+    got = fa.flash_attention_qkv(qkv, d ** -0.5, h)
+    assert fa.flash_attention_qkv_cuda.launches == before + 1
+    want = fa.flash_attention_qkv_plain(qkv, d ** -0.5, h)
+    assert got.shape == want.shape == (2, l, h * d)
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL
+    # the same kernel on contiguous copies of q, k, v gives the same bits
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    assert torch.equal(fa.flash_attention_cuda(q, k, v, d ** -0.5, h), got)
+
+
+@pytest.mark.parametrize("l,h,d", [(100, 2, 64), (128, 4, 32), (128, 1, 96)])
+def test_packed_flash_kernel_refuses_unsupported_shapes(gen, l, h, d):
+    qkv = torch.zeros((1, l, 3 * h * d), dtype=torch.bfloat16, device="cuda")
+    before = fa.flash_attention_qkv_cuda.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention_qkv_cuda(qkv, 0.125, h)
+    assert fa.flash_attention_qkv_cuda.launches == before
+
+
+def test_packed_flash_kernel_refuses_strided_qkv(gen):
+    qkv = torch.zeros((1, 64, 2 * 3 * 64), dtype=torch.bfloat16, device="cuda")[..., ::2]
+    with pytest.raises(ValueError):
+        fa.flash_attention_qkv_cuda(qkv, 0.125, 1)

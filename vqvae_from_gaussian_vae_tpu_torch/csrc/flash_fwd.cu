@@ -22,6 +22,13 @@
 // ~176 KB of shared memory at D=512.  Products run on bf16 tensor cores
 // through nvcuda::wmma; the accumulator lives in shared memory so the
 // per-row rescale of the online softmax is a plain elementwise pass.
+//
+// The packed entry (gvq_flash_fwd_qkv, for the ViT's attention) runs the
+// same kernel with q, k and v read in place from the (B, L, 3C) QKV
+// projection output: the input token stride (3C) and the q/k/v base
+// offsets (0, C, 2C) are separate from the output's stride (C).  At the ViT
+// shape (B=16, L=1024, H=12, D=64) one launch is 5.15e10 FLOP over 101 MB,
+// so it is tensor-core bound too (52 us at the bf16 peak).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,7 +61,8 @@ struct FlashLayout {
 template <int D>
 __global__ void __launch_bounds__(kFThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int L, int H, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int L, int H, int in_stride,
+                 float scale) {
   using namespace nvcuda;
   using Lay = FlashLayout<D>;
   constexpr int LDQ = Lay::kLdQ;
@@ -77,12 +85,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * kFq;
-  const size_t rs = (size_t)H * D;  // token stride
+  const size_t rs = (size_t)in_stride;  // token stride of q, k and v
+  const size_t ors = (size_t)H * D;     // token stride of o
   const size_t base = (size_t)b * L * rs + (size_t)h * D;
   const bf16* qb = q + base;
   const bf16* kb = k + base;
   const bf16* vb = v + base;
-  bf16* ob = o + base;
+  bf16* ob = o + (size_t)b * L * ors + (size_t)h * D;
 
   for (int e = tid; e < kFq * CPR; e += kFThreads) {
     const int r = e / CPR, c = (e % CPR) * 8;
@@ -205,20 +214,33 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                Os[r * LDO + c + i + 1] * inv);
       pk[i >> 1] = *reinterpret_cast<uint32_t*>(&r2);
     }
-    *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * rs + c) = packed;
+    *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * ors + c) = packed;
   }
 }
 
 template <int D>
 int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int L, int H,
-                 float scale, cudaStream_t stream) {
+                 int in_stride, float scale, cudaStream_t stream) {
   const size_t smem = FlashLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(L / kFq, B * H);
-  flash_fwd_kernel<D><<<grid, kFThreads, smem, stream>>>(q, k, v, o, L, H, scale);
+  flash_fwd_kernel<D><<<grid, kFThreads, smem, stream>>>(q, k, v, o, L, H, in_stride, scale);
   return (int)cudaGetLastError();
+}
+
+int flash_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int L, int H,
+                int D, int in_stride, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || L % kFkv != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_flash<64>(q, k, v, o, B, L, H, in_stride, scale, s);
+    case 128: return launch_flash<128>(q, k, v, o, B, L, H, in_stride, scale, s);
+    case 256: return launch_flash<256>(q, k, v, o, B, L, H, in_stride, scale, s);
+    case 512: return launch_flash<512>(q, k, v, o, B, L, H, in_stride, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -227,19 +249,21 @@ int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, in
 // D one of 64, 128, 256, 512.
 extern "C" int gvq_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                              int L, int H, int D, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || L % kFkv != 0) return (int)cudaErrorInvalidValue;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_flash<64>(qp, kp, vp, op, B, L, H, scale, s);
-    case 128: return launch_flash<128>(qp, kp, vp, op, B, L, H, scale, s);
-    case 256: return launch_flash<256>(qp, kp, vp, op, B, L, H, scale, s);
-    case 512: return launch_flash<512>(qp, kp, vp, op, B, L, H, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return flash_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<bf16*>(o), B, L, H, D, H * D,
+                     scale, stream);
+}
+
+// The packed entry (replaces flash_blc.py _fwd_call_packed): q, k and v are
+// read in place from the contiguous (B, L, 3C) QKV projection output, q | k
+// | v along channels (C = H*D), at token stride 3C and channel offsets 0, C
+// and 2C; o is (B, L, C).  No q/k/v copy exists.  Same shape rules.
+extern "C" int gvq_flash_fwd_qkv(const void* qkv, void* o, int B, int L, int H, int D,
+                                 float scale, void* stream) {
+  const bf16* p = static_cast<const bf16*>(qkv);
+  const size_t c = (size_t)H * D;
+  return flash_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), B, L, H, D, 3 * H * D, scale,
+                     stream);
 }
 
 // Message for an error code returned by any gvq_* entry point.

@@ -100,17 +100,23 @@ def resolve_device(device=None) -> torch.device:
 
 
 def init_weights(module: nn.Module, seed: int) -> None:
-    """Seeded weights: conv kernels N(0, 1/fan_in) (the lecun-normal scale of
-    the JAX package's default init), biases 0, GroupNorm affine (1, 0)."""
+    """Seeded weights: conv kernels (O, I, kh, kw), Linear weights (O, I)
+    and the attention's ``in_proj_weight`` (3C, C) N(0, 1/fan_in) (the
+    lecun-normal scale of the JAX package's default init); the ViT's
+    positional embedding N(0, 0.02^2), as its JAX init; biases 0; GroupNorm
+    and LayerNorm affine (1, 0); LayerScale ``gamma`` keeps its init value."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if name.endswith("latent_mean") or name.endswith("latent_std"):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("latent_mean", "latent_std", "gamma"):
                 continue
-            if p.dim() == 4:
-                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            if leaf == "positional_embedding":
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+            elif p.dim() in (2, 4):
+                fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
-            elif name.endswith("bias"):
+            elif leaf.endswith("bias"):
                 p.zero_()
             else:
                 p.fill_(1.0)

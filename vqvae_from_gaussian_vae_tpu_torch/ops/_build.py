@@ -35,6 +35,9 @@ _SIGNATURES = {
     "gvq_downsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_upsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_qkv": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "gvq_layer_norm_add_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 

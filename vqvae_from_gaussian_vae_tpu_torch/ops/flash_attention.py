@@ -1,8 +1,10 @@
 """Flash-attention forward on token-major (B, L, H*D) tensors.
 
-Replaces the TPU kernel ``vqvae_from_gaussian_vae_tpu/ops/flash_blc.py``
-(``_fwd_impl``, called through ``flash_attention_blc`` and the front door
-``sdpa_token_major``), forward only.  Per head: softmax(q k^T * scale) v
+Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/flash_blc.py``,
+forward only: ``_fwd_impl`` (called through ``flash_attention_blc`` and the
+front door ``sdpa_token_major``) and its packed entry ``_fwd_call_packed``
+(``flash_attention_qkv``, which reads q, k and v in place from the ViT's
+(B, L, 3C) QKV projection).  Per head: softmax(q k^T * scale) v
 with float32 scores, p rounded to v's dtype before the P.V product
 (float32 accumulation), the row sum over the float32 p, and the normaliser
 applied at the end.  The CUDA kernel (``csrc/flash_fwd.cu``) runs for CUDA
@@ -69,6 +71,52 @@ def flash_attention(q, k, v, sm_scale: float, num_heads: int):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale, num_heads)
     return flash_attention_cuda(q, k, v, sm_scale, num_heads)
+
+
+def flash_attention_qkv_plain(qkv, sm_scale: float, num_heads: int):
+    """Plain version of the packed kernel; qkv (B, L, 3C), q | k | v along
+    channels -> (B, L, C)."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    return flash_attention_plain(q, k, v, sm_scale, num_heads)
+
+
+def flash_attention_qkv_cuda(qkv, sm_scale: float, num_heads: int):
+    """Launch the packed kernel on the contiguous (B, L, 3C) bf16 projection
+    output, in place: no split, no copy.  L a multiple of 64, head dim in
+    SUPPORTED_HEAD_DIMS."""
+    if not qkv.is_cuda:
+        raise ValueError("packed flash kernel takes a CUDA tensor")
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError(f"packed flash kernel takes bf16, got {qkv.dtype}")
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"packed flash kernel: shape {tuple(qkv.shape)} with {num_heads} heads")
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    if d not in SUPPORTED_HEAD_DIMS or l % 64:
+        raise ValueError(f"packed flash kernel: L={l}, D={d} unsupported (L % 64 == 0, "
+                         f"D in {SUPPORTED_HEAD_DIMS})")
+    if not qkv.is_contiguous():
+        raise ValueError("packed flash kernel reads q, k, v in place: qkv must be contiguous")
+    o = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.gvq_flash_fwd_qkv(qkv.data_ptr(), o.data_ptr(), b, l, num_heads, d,
+                                    float(sm_scale), _build.stream_of(qkv))
+    _build.check(err, "gvq_flash_fwd_qkv")
+    flash_attention_qkv_cuda.launches += 1
+    return o
+
+
+flash_attention_qkv_cuda.launches = 0
+
+
+def flash_attention_qkv(qkv, sm_scale: float, num_heads: int):
+    """(B, L, 3C) -> (B, L, C): the packed kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_plain(qkv, sm_scale, num_heads)
+    return flash_attention_qkv_cuda(qkv, sm_scale, num_heads)
 
 
 def sdpa_token_major(q, k, v, sm_scale: float = None):

@@ -30,6 +30,10 @@ for _jax_path, _pit_path, _port_path in (
      "models.autoencoder.AutoencodingEngine"),
     ("models.unet.Encoder", "pit.modules.unet.Encoder", "models.unet.Encoder"),
     ("models.unet.Decoder", "pit.modules.unet.Decoder", "models.unet.Decoder"),
+    ("models.vit.TransformerEncoder", "pit.modules.vit.TransformerEncoder",
+     "models.vit.TransformerEncoder"),
+    ("models.vit.TransformerDecoder", "pit.modules.vit.TransformerDecoder",
+     "models.vit.TransformerDecoder"),
     ("quantization.gaussian.GaussianQuantRegularizer",
      "pit.quantization.gaussian.GaussianQuantRegularizer",
      "quantization.gaussian.GaussianQuantRegularizer"),

@@ -5,10 +5,15 @@ dicts of arrays) onto the port's ``pit``-named state_dict:
 
   * path ``encoder / down_0 / block_1 / conv1 / kernel`` ->
     key ``encoder.down.0.block.1.conv1.weight``: a ``<list>_<i>`` segment
-    is list element i, except the mid block's own ``block_1`` / ``block_2``
+    is list element i, except the mid block's own ``block_1`` / ``block_2``;
+    the ViT's ``resblocks_<i>`` and the decoder's ``ffn_<i>`` likewise
   * conv kernel HWIO (kh, kw, I, O) -> OIHW (O, I, kh, kw)
-  * GroupNorm ``scale`` -> ``weight``
+  * Dense kernel (I, O) -> Linear weight (O, I)
+  * attention ``in_proj / {kernel (C, 3C), bias}`` -> torch's
+    ``in_proj_weight`` (3C, C) and ``in_proj_bias``
+  * GroupNorm and LayerNorm ``scale`` -> ``weight``
   * latent statistics (1, 1, 1, C) -> the reference's (1, C, 1, 1)
+  * ``positional_embedding`` and LayerScale ``gamma`` unchanged
 
 The reverse direction needs no code here: the JAX package's
 ``utils/torch_convert.py:convert_state_dict`` loads a port state_dict.
@@ -22,7 +27,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_LIST_SEGMENT = re.compile(r"^(down|up|block|attn)_(\d+)$")
+_LIST_SEGMENT = re.compile(r"^(down|up|block|attn|resblocks|ffn)_(\d+)$")
 
 
 def _key(path) -> str:
@@ -35,7 +40,10 @@ def _key(path) -> str:
         else:
             out.append(seg)
     leaf = path[-1]
-    out.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
+    if out and out[-1] == "in_proj":  # nn.MultiheadAttention's packed projection
+        out[-1] = {"kernel": "in_proj_weight", "bias": "in_proj_bias"}[leaf]
+    else:
+        out.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
     return ".".join(out)
 
 
@@ -57,5 +65,7 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             v = v.transpose(0, 3, 1, 2)
         elif v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)
+        elif v.ndim == 2 and path[-1] == "kernel":
+            v = v.T
         sd[_key(path)] = torch.tensor(v)  # a copy: the source may be read-only
     return sd

@@ -72,3 +72,52 @@ def unet_decoder_flops(cfg: Dict) -> float:
 def gq_search_flops(rows: int, group: int, n_samples: int) -> float:
     """One (R, 2G) x (2G, N) product."""
     return 2.0 * rows * 2 * group * n_samples
+
+
+def _vit_trunk_flops(cfg: Dict) -> float:
+    p = cfg["patch_size"]
+    l = (cfg["image_size"] // p) ** 2
+    w = cfg["width"]
+    layers = cfg["layers"]
+    mlp = cfg.get("mlp_ratio", 4.0)
+    per_layer = (2.0 * l * w * w * 4 + 2.0 * 2.0 * l * l * w
+                 + 2.0 * l * w * (w * mlp) * 2)
+    return layers * per_layer
+
+
+def vit_flops(cfg: Dict) -> float:
+    """Encoder-side ViT forward: trunk + patch projection + quant head
+    (models/vit.py TransformerEncoder)."""
+    p = cfg["patch_size"]
+    l = (cfg["image_size"] // p) ** 2
+    w = cfg["width"]
+    z = cfg.get("z_channels", 0)
+    quant = 2.0 * l * w * (2 * z if cfg.get("double_z", True) else z)
+    return _vit_trunk_flops(cfg) + 2.0 * l * (3 * p * p) * w + quant
+
+
+def vit_decoder_flops(cfg: Dict) -> float:
+    """Decoder-side ViT forward: post_quant_embed + trunk + tanh-FFN output
+    head + conv_out patch head (models/vit.py TransformerDecoder)."""
+    p = cfg["patch_size"]
+    l = (cfg["image_size"] // p) ** 2
+    w = cfg["width"]
+    z = cfg.get("z_channels", 0)
+    out_feats = 3 * p * p
+    heads = 2.0 * l * z * w  # post_quant_embed
+    if cfg.get("use_ffn_output", True):
+        ffn = cfg.get("dim_ffn_output", 3072)
+        heads += 2.0 * l * w * ffn + 2.0 * l * ffn * out_feats
+    else:
+        heads += 2.0 * l * w * out_feats
+    return _vit_trunk_flops(cfg) + heads
+
+
+def vit_layernorm_elems(cfg: Dict) -> float:
+    """Elements through LayerNorm sites in ONE ViT trunk forward
+    (models/vit.py): ln_1 + ln_2 per ResidualAttentionBlock plus
+    ln_pre/ln_post.  Each site reads and writes its (L, W) activation
+    once, so the bandwidth floor is elems * bytes/elem * 2 / HBM_BW."""
+    p = cfg["patch_size"]
+    l = (cfg["image_size"] // p) ** 2
+    return (2 * cfg["layers"] + 2) * l * cfg["width"]
