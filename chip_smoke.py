@@ -4,16 +4,23 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py             # what a check of the port runs
-    python3 chip_smoke.py --profile   # adds a torch.profiler breakdown of one step
+    python3 chip_smoke.py --profile   # adds a torch.profiler breakdown of each step
 
 It builds the hand-written CUDA kernels from ``csrc/``, holds each one
 against its plain PyTorch version at the shapes the main paths give it,
-then drives each path (encode -> 2^16 GQ search -> dequant) through the
-engine a user would build from its config at bs=16, 256x256, bf16, with
-seeded random weights, and checks what comes out: sd3unet_gq_0.25 (the
-UNet, ``configs/sd3unet_gq_0.25.yaml``), then bsqvit_gq_0.25 (the ViT,
-``configs/bsqvit_gq_0.25.yaml``).  Every phase prints one JSON line.  The line before the last is the
-card's ``nvidia-smi`` name and power limit; the last line is
+then drives each path through the entry points a user calls, at bs=16,
+256x256, with seeded random weights, and checks what comes out:
+
+  * tokenization (encode -> 2^16 GQ search -> dequant, bf16) of
+    sd3unet_gq_0.25 (the UNet) and bsqvit_gq_0.25 (the ViT);
+  * the two-phase GAN training pair of bsqvit_gq_0.25 with the bf16
+    overlay (``configs/overlays/bf16_compute.yaml``: bf16 compute, float32
+    parameters and optimizer state), full width and depth: ae steps and
+    disc steps with exact kernel launch counts, an eval step, and one ae
+    step's gradient held against a float32 engine's.
+
+Every phase prints one JSON line.  The line before the last is the card's
+``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and prints
 no result line.  Nothing here imports JAX or the JAX package.
 """
@@ -46,6 +53,12 @@ BF16_ATOL = 1e-2   # bf16 rounding that is at most one bf16 ulp (2^-7 relative)
 STATS_RTOL = 1e-5  # the stats epilogue vs a float64 reduce of the stored output
 FLASH_ATOL = 2e-2  # bf16 attention bar of the JAX package's flash tests
 NEAR_TIE = 1e-5    # relative float64 score gap under which two GQ codes tie
+Z_ATOL = 1e-3      # the log-normaliser: float32 sums in another order
+FLASH_BWD_REL = 2e-2  # max error over max |grad|: the JAX package's flash bar
+LN_BWD_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}  # dx: summation order only
+PARAM_GRAD_REL = 1e-4  # dweight, dbias: float32 sums over 16384 rows in another order
+TRAIN_GRAD_REL_L2 = 0.1  # one ae step's bf16 gradient vs a float32 engine's
+TRAIN_GRAD_TENSOR_REL_L2 = 0.2  # the same, each tensor alone (worst measured: 8-9%)
 
 
 def emit(obj) -> None:
@@ -309,6 +322,164 @@ def check_flash_qkv(gen):
             "shapes": [shape]}
 
 
+def check_flash_qkv_res(gen):
+    """The packed training forward: o and z against the plain version; its
+    time beside the inference entry's (the z store must not slow the
+    inference form)."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+
+    b, l, heads, d = BATCH, 32 * 32, 12, 64
+    c = heads * d
+    qkv = torch.randn((b, l, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = d ** -0.5
+    o_k, z_k = fa.flash_attention_qkv_res_cuda(qkv, scale, heads)
+    o_p, z_p = fa.flash_attention_qkv_res_plain(qkv, scale, heads)
+    torch.cuda.synchronize()
+    err = float((o_k.float() - o_p.float()).abs().max())
+    z_err = float((z_k - z_p).abs().max())
+    require(err <= FLASH_ATOL, f"packed flash (training form): o error {err} > {FLASH_ATOL}")
+    require(z_err <= Z_ATOL, f"packed flash (training form): z error {z_err} > {Z_ATOL}")
+    require(torch.equal(o_k, fa.flash_attention_qkv_cuda(qkv, scale, heads)),
+            "packed flash: the training form's o differs from the inference form's")
+    qh, kh, vh = (t.reshape(b, l, heads, d).transpose(1, 2).contiguous()
+                  for t in qkv.chunk(3, dim=-1))
+    flops = 4.0 * b * heads * l * l * d
+    nbytes = 2 * (qkv.numel() + o_k.numel()) + 4 * z_k.numel()
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    shape = {"shape": f"qkv ({b},{l},3x{heads}x{d}) bf16 -> o, z (B,H,L) f32",
+             "kernel_ms": time_ms(lambda: fa.flash_attention_qkv_res_cuda(qkv, scale, heads)),
+             "inference_form_ms": time_ms(lambda: fa.flash_attention_qkv_cuda(qkv, scale, heads)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_qkv_res_plain(qkv, scale, heads),
+                                 iters=3, warmup=1),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
+             "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+             "max_abs_err": max(err, z_err), "o_max_abs_err": err, "z_max_abs_err": z_err}
+    return {"name": "flash_attention_qkv_res_fwd", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:409",
+            "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}", "per_step": 24,
+            "path": "bsqvit_train_ae", "shapes": [shape]}
+
+
+def check_flash_qkv_bwd(gen):
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+
+    b, l, heads, d = BATCH, 32 * 32, 12, 64
+    c = heads * d
+    qkv = torch.randn((b, l, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, l, c), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = d ** -0.5
+    o, z = fa.flash_attention_qkv_res_cuda(qkv, scale, heads)
+    got = fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, scale, heads)
+    want = fa.flash_attention_qkv_bwd_plain(qkv, o, z, do, scale, heads)
+    again = fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, scale, heads)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "packed flash backward: two runs differ")
+    errs = []
+    for name, g, w in zip("qkv", got.chunk(3, dim=-1), want.chunk(3, dim=-1)):
+        rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        require(rel <= FLASH_BWD_REL, f"packed flash backward: d{name} error {rel} of max |grad|")
+        errs.append(rel)
+    err = float((got.float() - want.float()).abs().max())
+    del want
+    # the library call: SDPA's backward on head-major tensors, forward outside
+    qh, kh, vh = (t.reshape(b, l, heads, d).transpose(1, 2).contiguous().requires_grad_()
+                  for t in qkv.chunk(3, dim=-1))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    doh = do.reshape(b, l, heads, d).transpose(1, 2).contiguous()
+    library = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)  # noqa: E731
+    flops = 5 * 2.0 * b * heads * l * l * d
+    nbytes = 2 * (2 * qkv.numel() + o.numel() + do.numel()) + 4 * z.numel()
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    shape = {"shape": f"qkv ({b},{l},3x{heads}x{d}), o, do bf16, z f32 -> dqkv bf16",
+             "kernel_ms": time_ms(lambda: fa.flash_attention_qkv_bwd_cuda(
+                 qkv, o, z, do, scale, heads)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_qkv_bwd_plain(
+                 qkv, o, z, do, scale, heads), iters=2, warmup=1),
+             "library_ms": time_ms(library), "library": "SDPA backward (autograd), head-major",
+             "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+             "max_abs_err": err, "rel_err_dq_dk_dv": errs, "bit_reproducible": True}
+    return {"name": "flash_attention_qkv_bwd", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:444",
+            "tolerance": f"max error / max |grad| <= {FLASH_BWD_REL} per dq, dk, dv; "
+                         "bit-equal across runs",
+            "per_step": 24, "path": "bsqvit_train_ae", "shapes": [shape]}
+
+
+def check_layer_norm_bwd(gen, add: bool):
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
+
+    rows, c = BATCH * 32 * 32, 768
+    shapes = []
+    for dtype, main in ((torch.bfloat16, True), (torch.float32, False)):
+        x = (2 * torch.randn((rows, c), generator=gen, device="cuda") + 0.5).to(dtype)
+        dy = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+        ds_in = torch.randn((rows, c), generator=gen, device="cuda").to(dtype) if add else None
+        w = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+        if add:
+            kernel = lambda: ln.layer_norm_add_bwd_cuda(x, w, dy, ds_in)  # noqa: E731
+        else:
+            kernel = lambda: ln.layer_norm_bwd_cuda(x, w, dy)  # noqa: E731
+        plain = lambda: ln.layer_norm_bwd_plain(x, w, dy, ds_in=ds_in)  # noqa: E731
+        got, want, again = kernel(), plain(), kernel()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"LN{'-add' if add else ''} backward: two runs differ")
+        tol = LN_BWD_TOL[str(dtype)]
+        dx_err = float((got[0].float() - want[0].float()).abs().max())
+        require(bool(((got[0].float() - want[0].float()).abs()
+                      <= tol + tol * want[0].float().abs()).all()),
+                f"LN{'-add' if add else ''} backward {dtype}: dx error {dx_err}")
+        p_err = 0.0
+        for g, wnt in zip(got[1:], want[1:]):
+            rel = float((g - wnt).abs().max() / wnt.abs().max())
+            require(rel <= PARAM_GRAD_REL, f"LN backward {dtype}: dweight/dbias error {rel}")
+            p_err = max(p_err, rel)
+        # the library call: autograd of F.layer_norm (after x + d for the add
+        # variant), forward outside the timed region
+        xl = x.detach().clone().requires_grad_()
+        wl = w.to(dtype).clone().requires_grad_()  # a copy: w itself stays without grad
+        bl = torch.zeros((c,), device="cuda", dtype=dtype, requires_grad=True)
+        if add:
+            dl = torch.zeros_like(x, requires_grad=True)
+            yl = F.layer_norm(xl + dl, (c,), wl, bl, 1e-5)
+            ins = (xl, dl, wl, bl)
+        else:
+            yl = F.layer_norm(xl, (c,), wl, bl, 1e-5)
+            ins = (xl, wl, bl)
+        library = lambda: torch.autograd.grad(yl, ins, dy, retain_graph=True)  # noqa: E731
+        e = x.element_size()
+        nbytes = e * (4 if add else 3) * x.numel() + 4 * 3 * c
+        flops = 12.0 * x.numel()
+        bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
+        shapes.append({"shape": f"x ({rows},{c}) {str(dtype).split('.')[-1]}"
+                                + (" + ds_in" if add else ""), "main_path": main,
+                       "kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                       "library_ms": time_ms(library),
+                       "library": ("autograd of x + d, then F.layer_norm" if add
+                                   else "autograd of F.layer_norm"),
+                       "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+                       "max_abs_err": dx_err, "param_grad_rel_err": p_err,
+                       "bit_reproducible": True})
+        del x, dy, ds_in, got, want, again, xl, yl
+        torch.cuda.empty_cache()
+    name = "layer_norm_add_bwd" if add else "layer_norm_bwd"
+    return {"name": name, "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/layer_norm.cu",
+            "replaces": ("vqvae_from_gaussian_vae_tpu/ops/layer_norm.py:209" if add
+                         else "vqvae_from_gaussian_vae_tpu/ops/layer_norm.py:172"),
+            "tolerance": "dx atol = rtol 1e-2 (bf16) / 1e-4 (f32); dweight, dbias "
+                         f"max error / max |value| <= {PARAM_GRAD_REL}; bit-equal across runs",
+            "per_step": 46 if add else 6, "path": "bsqvit_train_ae", "shapes": shapes}
+
+
 def check_layer_norm(gen, add: bool):
     import torch
     import torch.nn.functional as F
@@ -372,8 +543,30 @@ def launch_counters():
             "upsample_nearest_conv3x3_gn": upsample_conv.upsample_nearest_conv3x3_gn_cuda,
             "flash_attention_fwd": flash_attention.flash_attention_cuda,
             "flash_attention_qkv_fwd": flash_attention.flash_attention_qkv_cuda,
+            "flash_attention_qkv_res_fwd": flash_attention.flash_attention_qkv_res_cuda,
+            "flash_attention_qkv_bwd": flash_attention.flash_attention_qkv_bwd_cuda,
             "layer_norm_fwd": layer_norm.layer_norm_cuda,
-            "layer_norm_add_fwd": layer_norm.layer_norm_add_cuda}
+            "layer_norm_add_fwd": layer_norm.layer_norm_add_cuda,
+            "layer_norm_bwd": layer_norm.layer_norm_bwd_cuda,
+            "layer_norm_add_bwd": layer_norm.layer_norm_add_bwd_cuda}
+
+
+def counted(counters, fn):
+    """Run fn with every launch count set to 0 just before it; return
+    (fn's result, the counts just after)."""
+    import torch
+
+    for k in counters.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in counters.items()}
+
+
+def require_launches(label, got, expected):
+    want = {name: expected.get(name, 0) for name in got}
+    require(got == want, f"{label}: launches {got} != {want}")
+    return {name: n for name, n in got.items() if name in expected}
 
 
 def _unet_step_flops(enc_cfg):
@@ -414,6 +607,35 @@ def build_engine(config: str, dtype: str):
     for key in ("encoder_config", "decoder_config"):
         params[key]["params"]["dtype"] = dtype
     return instantiate_from_config(cfg["model"], seed=SEED, device="cuda"), cfg
+
+
+# the GAN training pair on bsqvit_gq_0.25 + the bf16 overlay: launches of one
+# ae step (both trunks with a gradient), one disc step (both trunks without:
+# encode in the train branch, decode on the inference path) and one eval step
+TRAIN_CONFIGS = ["configs/bsqvit_gq_0.25.yaml", "configs/overlays/bf16_compute.yaml"]
+TRAIN_LAUNCHES = {
+    "ae": {"flash_attention_qkv_res_fwd": 24, "flash_attention_qkv_bwd": 24,
+           "layer_norm_fwd": 6, "layer_norm_add_fwd": 46, "layer_norm_bwd": 6,
+           "layer_norm_add_bwd": 46},
+    "disc": {"flash_attention_qkv_fwd": 24, "layer_norm_fwd": 6, "layer_norm_add_fwd": 46},
+    "eval": {"gq_argmax": 1, "flash_attention_qkv_fwd": 24, "layer_norm_fwd": 6,
+             "layer_norm_add_fwd": 46},
+}
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+
+
+def build_trainer(dtype: str, seed: int = SEED):
+    from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
+    from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import make_optimizers
+    from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
+
+    cfg = load_config([os.path.join(ROOT, c) for c in TRAIN_CONFIGS])
+    params = cfg["model"]["params"]
+    params["encoder_config"]["params"]["dtype"] = dtype
+    params["decoder_config"]["params"]["dtype"] = dtype
+    params["loss_config"]["params"]["dtype"] = dtype
+    engine = instantiate_from_config(cfg["model"], seed=seed, device="cuda")
+    return engine, TrainStepBuilder(engine, *make_optimizers(1e-4)), cfg
 
 
 def rel_l2(a, b) -> float:
@@ -510,9 +732,174 @@ def run_e2e(gen, profile: bool, path: str):
               "step_flops": step_flops,
               "achieved_tflops": step_flops * iters / dt / 1e12,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if path == "bsqvit":
+        result["float32_master_weights"] = stored_weights_cost(engine, step, iters)
     if profile:
         result["profile"] = profile_step(step)
     return result
+
+
+def stored_weights_cost(engine, step, iters):
+    """What float32 master weights cost the inference step: the step as it
+    runs (the Linear weights cast to bf16 at each use) against the same step
+    with the weights stored in bf16 (the casts then no-ops), in turns."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.models.vit import CastLinear, MultiheadAttention
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / iters
+
+    params = []
+    for m in engine.module.modules():
+        if isinstance(m, CastLinear):
+            params += [(p, m.compute_dtype) for p in (m.weight, m.bias) if p is not None]
+        elif isinstance(m, MultiheadAttention):
+            params += [(m.in_proj_weight, m.dtype), (m.in_proj_bias, m.dtype)]
+    masters = [p.data for p, _ in params]
+    cast = [run()]
+    for p, dt in params:
+        p.data = p.data.to(dt)
+    stored = [run(), run()]
+    for (p, _), master in zip(params, masters):
+        p.data = master
+    cast.append(run())
+    return {"cast_at_use_ms": cast, "stored_bf16_ms": stored,
+            "cost_ms": sum(cast) / 2 - sum(stored) / 2}
+
+
+def _finite(log) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(v).all()) for v in log.values())
+
+
+def run_train(gen, profile: bool):
+    """The two-phase GAN pair of bsqvit_gq_0.25 at full width and depth,
+    bs=16, 256x256, bf16 compute with float32 master weights, through the
+    entry points a user calls: config -> engine with its loss ->
+    make_optimizers -> TrainStepBuilder -> init_state -> ae_step / disc_step
+    -> eval_step."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
+
+    torch.cuda.reset_peak_memory_stats()
+    engine, builder, cfg = build_trainer("bfloat16")
+    require(all(p.dtype == torch.float32 for _, p in builder.ae_named_parameters()
+                + builder.disc_named_parameters()), "a trained parameter is not float32")
+    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    x2 = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    batch, batch2 = {"img": x}, {"img": x2}
+    state = builder.init_state(SEED, batch)
+    state.step = engine.loss.disc_start + 10  # both phases run their real graphs
+    counters = launch_counters()
+    watched = {"decoder.conv_out.weight": builder.last_layer,
+               "encoder.transformer.resblocks.0.attn.in_proj_weight":
+                   engine.encoder.transformer.resblocks[0].attn.in_proj_weight,
+               "loss.logvar": engine.loss.logvar,
+               "loss.discriminator.main.0.weight": engine.loss.discriminator.main[0].weight}
+    before = {k: p.detach().clone() for k, p in watched.items()}
+    duals0 = {k: float(v) for k, v in state.duals.items()}
+
+    (state_log, ae_counts) = counted(counters, lambda: builder.ae_step(state, batch, True))
+    _, log = state_log
+    duals_ae = {k: float(v) for k, v in state.duals.items()}
+    ae_launches = require_launches("ae step", ae_counts, TRAIN_LAUNCHES["ae"])
+    require(_finite(log), f"ae step: a loss is not finite: {log}")
+    d_weight = float(log["train/scalars/d_weight"])
+    require(d_weight > 0.0, f"ae step: d_weight {d_weight} is not positive")
+    (state_log, disc_counts) = counted(counters, lambda: builder.disc_step(state, batch))
+    _, log_d = state_log
+    disc_launches = require_launches("disc step", disc_counts, TRAIN_LAUNCHES["disc"])
+    require(_finite(log_d), f"disc step: a loss is not finite: {log_d}")
+    (log_e, eval_counts) = counted(counters, lambda: builder.eval_step(state, batch2))
+    eval_launches = require_launches("eval step", eval_counts, TRAIN_LAUNCHES["eval"])
+    require(_finite(log_e), f"eval step: a loss is not finite: {log_e}")
+    moved = {k: float((p.detach() - before[k]).abs().max()) for k, p in watched.items()}
+    require(all(v > 0 for v in moved.values()), f"a parameter did not change: {moved}")
+    duals1 = {k: float(v) for k, v in state.duals.items()}
+    # lam moves by a factor lam_factor or its inverse on every training forward
+    require(duals_ae["lam"] != duals0["lam"] and duals1["lam"] != duals_ae["lam"],
+            f"the duals did not change: {duals0} -> {duals_ae} -> {duals1}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    for _ in range(TRAIN_WARMUP):
+        builder.ae_step(state, batch, True)
+        builder.disc_step(state, batch)
+    ae_ms, disc_ms = [], []
+    for _ in range(TRAIN_TIMED):
+        ae_ms.append(timed(lambda: builder.ae_step(state, batch, True)))
+        disc_ms.append(timed(lambda: builder.disc_step(state, batch)))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ae_mean, disc_mean = sum(ae_ms) / len(ae_ms), sum(disc_ms) / len(disc_ms)
+    enc_cfg = cfg["model"]["params"]["encoder_config"]["params"]
+    disc_cfg = cfg["model"]["params"]["loss_config"]["params"]["discriminator_config"]["params"]
+    fl = F.gan_train_step_flops_from_backbone(
+        F.vit_flops(enc_cfg), F.vit_decoder_flops(enc_cfg), img=RES, ndf=disc_cfg["ndf"],
+        n_layers=disc_cfg["n_layers"])
+    pair_flops = BATCH * (fl["ae_step"] + fl["disc_step"])
+    tflops = pair_flops / ((ae_mean + disc_mean) / 1e3) / 1e12
+    result = {"phase": "train", "path": "bsqvit_gq_0.25 GAN pair",
+              "configs": TRAIN_CONFIGS, "dtype": "bfloat16 compute, float32 parameters",
+              "batch": BATCH, "resolution": RES, "step": state.step,
+              "launches_per_ae_step": ae_launches, "launches_per_disc_step": disc_launches,
+              "launches_per_eval_step": eval_launches,
+              "ae_log": {k: float(v) for k, v in log.items()},
+              "disc_log": {k: float(v) for k, v in log_d.items()},
+              "eval_log": {k: float(v) for k, v in log_e.items()},
+              "param_max_change": moved, "duals": {"before": duals0, "after_ae": duals_ae, "after_disc": duals1},
+              "ae_ms": ae_mean, "disc_ms": disc_mean, "ae_ms_all": ae_ms,
+              "disc_ms_all": disc_ms, "pair_img_per_s": 2 * BATCH / ((ae_mean + disc_mean) / 1e3),
+              "pair_flops": pair_flops, "flops_accounting": "gan_train_step_flops_from_backbone",
+              "achieved_tflops": tflops, "bf16_peak_share": tflops * 1e12 / PEAK_BF16,
+              "peak_mem_gib": peak_gib}
+    if profile:
+        result["profile_ae"] = profile_step(lambda: builder.ae_step(state, batch, True))
+        result["profile_disc"] = profile_step(lambda: builder.disc_step(state, batch))
+    result["bf16_vs_fp32_grad"] = train_grad_check(engine, builder, state, gen)
+    del builder, engine
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_grad_check(engine, builder, state, gen):
+    """One ae step's gradient of the bf16 engine against a float32 engine
+    with the same weights (engine and loss head), batch and eps, at bs=2;
+    TF32 is off."""
+    import torch
+
+    ref_engine, ref_builder, _ = build_trainer("float32")
+    ref_engine.load_state_dict(engine.state_dict())
+    ref_engine.loss.load_state_dict(engine.loss.state_dict())
+    x = torch.rand((2, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    tokens = engine.encoder.grid_size[0] * engine.encoder.grid_size[1]
+    eps = torch.randn((2, tokens, engine.encoder.z_channels), generator=gen, device="cuda")
+    g16, log16, _ = builder.ae_grads(state, {"img": x}, True, eps=eps)
+    g32, log32, _ = ref_builder.ae_grads(state, {"img": x}, True, eps=eps)
+    per = {k: rel_l2(g16[k], g32[k]) for k in g32}
+    worst = max(per, key=per.get)
+    total = rel_l2(torch.cat([g16[k].flatten() for k in g32]),
+                   torch.cat([g32[k].flatten() for k in g32]))
+    require(total <= TRAIN_GRAD_REL_L2,
+            f"bf16 vs float32 ae gradient: rel L2 {total} (worst {worst}: {per[worst]})")
+    require(per[worst] <= TRAIN_GRAD_TENSOR_REL_L2,
+            f"bf16 vs float32 ae gradient of {worst}: rel L2 {per[worst]}")
+    del ref_builder, ref_engine
+    torch.cuda.empty_cache()
+    return {"batch": 2, "rel_l2_all": total, "worst_tensor": worst, "worst_rel_l2": per[worst],
+            "d_weight": [float(log16["train/scalars/d_weight"]),
+                         float(log32["train/scalars/d_weight"])],
+            "loss_total": [float(log16["train/loss/total"]), float(log32["train/loss/total"])]}
 
 
 def profile_step(step):
@@ -586,21 +973,28 @@ def main(argv=None) -> int:
     kernels = []
     for check in (check_gq, lambda g: check_resample(g, "down"),
                   lambda g: check_resample(g, "up"), check_flash, check_flash_qkv,
-                  lambda g: check_layer_norm(g, False), lambda g: check_layer_norm(g, True)):
+                  lambda g: check_layer_norm(g, False), lambda g: check_layer_norm(g, True),
+                  check_flash_qkv_res, check_flash_qkv_bwd,
+                  lambda g: check_layer_norm_bwd(g, False),
+                  lambda g: check_layer_norm_bwd(g, True)):
         k = check(gen)
         emit({"phase": "kernel", **k})
         kernels.append(k)
         torch.cuda.empty_cache()
 
-    e2e = {}
+    launches = {}
     for path in PATHS:
-        e2e[path] = run_e2e(gen, args.profile, path)
-        emit(e2e[path])
+        e2e = run_e2e(gen, args.profile, path)
+        emit(e2e)
+        launches[path] = e2e["launches_per_step"]
         torch.cuda.empty_cache()
+    train = run_train(gen, args.profile)
+    emit(train)
+    launches["bsqvit_train_ae"] = train["launches_per_ae_step"]
 
     summary = []
     for k in kernels:
-        shapes = k["shapes"]
+        shapes = [s for s in k["shapes"] if s.get("main_path", True)]
         # one main-path step's launches: e.g. the flash kernel runs 5 times at its one shape
         reps = k["per_step"] // len(shapes)
 
@@ -610,7 +1004,7 @@ def main(argv=None) -> int:
 
         summary.append({"name": k["name"], "route": k["route"], "source": k["source"],
                         "replaces": k["replaces"],
-                        "launches": e2e[k["path"]]["launches_per_step"][k["name"]],
+                        "launches": launches[k["path"]][k["name"]],
                         "path": k["path"],
                         "max_abs_err": max(s["max_abs_err"] for s in shapes),
                         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),

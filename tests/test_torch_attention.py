@@ -1,6 +1,7 @@
-"""The port's plain flash-attention forward, unpacked and packed-QKV,
-against the JAX package's flash_blc Pallas kernels (interpret mode):
-float32 within 1e-4, bf16 within the JAX flash tests' 2e-2."""
+"""The port's plain flash attention, unpacked and packed-QKV, forward and
+the packed backward, against the JAX package's flash_blc Pallas kernels
+(interpret mode): float32 within 1e-4, bf16 within the JAX flash tests'
+2e-2."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -80,3 +81,76 @@ def test_packed_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         fa.flash_attention_qkv_cuda(torch.zeros((1, 64, 192), dtype=torch.bfloat16), 0.125, 1)
     assert fa.flash_attention_qkv_cuda.launches == before
+
+
+@pytest.mark.parametrize("launch", ["unpacked", "packed", "packed_res", "packed_bwd"])
+def test_kernel_launches_refuse_grad_outside_autograd(launch):
+    """A direct launch on a tensor that wants a gradient raises before it
+    looks at the device: the unpacked entry and the packed inference form
+    have no backward, and the training form and the backward run only
+    inside the packed entry's autograd Function, with grad off."""
+    qkv = torch.zeros((1, 64, 192), dtype=torch.bfloat16, requires_grad=True)
+    o, z = torch.zeros((1, 64, 64), dtype=torch.bfloat16), torch.zeros((1, 1, 64))
+    calls = {"unpacked": lambda: fa.flash_attention_cuda(o, o, qkv[..., :64], 0.125, 1),
+             "packed": lambda: fa.flash_attention_qkv_cuda(qkv, 0.125, 1),
+             "packed_res": lambda: fa.flash_attention_qkv_res_cuda(qkv, 0.125, 1),
+             "packed_bwd": lambda: fa.flash_attention_qkv_bwd_cuda(qkv, o, z, o, 0.125, 1)}
+    with pytest.raises(RuntimeError, match="cut off from autograd"):
+        calls[launch]()
+    with torch.no_grad(), pytest.raises(ValueError):  # then the CPU tensor is refused
+        calls[launch]()
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def test_plain_packed_flash_bwd_matches_jax_kernel_vjp():
+    """The port's plain training forward (o, z) and plain backward (dqkv)
+    against the JAX packed entry and its VJP (interpret mode), bf16 at
+    (1, 256, 4, 64); the bar is the JAX flash tests' max error over max
+    |grad| < 2e-2."""
+    import jax
+
+    from vqvae_from_gaussian_vae_tpu.ops.flash_blc import _fwd_hpb, _fwd_res_call_packed
+
+    b, l, h, d = 1, 256, 4, 64
+    rng = np.random.default_rng(21)
+    qkv = rng.standard_normal((b, l, 3 * h * d)).astype(np.float32)
+    do = rng.standard_normal((b, l, h * d)).astype(np.float32)
+    jqkv, jdo = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(do, jnp.bfloat16)
+    tqkv, tdo = torch.from_numpy(qkv).to(torch.bfloat16), torch.from_numpy(do).to(torch.bfloat16)
+    sm = d ** -0.5
+
+    o_p, z_p = fa.flash_attention_qkv_res_plain(tqkv, sm, h)
+    jo, jz = _fwd_res_call_packed(jqkv, sm, h, True)
+    np.testing.assert_allclose(_np(o_p), np.asarray(jo, np.float32), atol=2e-2, rtol=2e-2)
+    hpb = _fwd_hpb(l, h, d, 2)  # z lanes: head within its group, 128 lanes a group
+    lanes = [(hh // hpb) * 128 + hh % hpb for hh in range(h)]
+    jz_bhl = np.asarray(jz, np.float32)[..., lanes].transpose(0, 2, 1)
+    np.testing.assert_allclose(z_p.numpy(), jz_bhl, atol=1e-3, rtol=1e-4)
+
+    _, vjp = jax.vjp(lambda a: flash_attention_qkv(a, sm, h, True), jqkv)
+    (want,) = vjp(jdo)
+    got = fa.flash_attention_qkv_bwd_plain(tqkv, o_p, z_p, tdo, sm, h)
+    assert got.shape == tqkv.shape and got.dtype == torch.bfloat16
+    want = np.asarray(want, np.float32)
+    for name, g, w in zip("qkv", np.split(_np(got), 3, axis=-1), np.split(want, 3, axis=-1)):
+        rel = float(np.abs(g - w).max() / np.abs(w).max())
+        assert rel < 2e-2, f"d{name}: {rel}"
+
+
+def test_packed_flash_autograd_function_matches_torch_autograd():
+    """flash_attention_qkv under autograd (the training forward and the
+    plain backward on the CPU) against torch autograd of the plain forward,
+    float32 operands in bf16-exact values."""
+    qkv = torch.from_numpy(np.random.default_rng(22).standard_normal((1, 64, 3 * 128))
+                           .astype(np.float32)).to(torch.bfloat16)
+    a = qkv.clone().requires_grad_()
+    fa.flash_attention_qkv(a, 0.125, 2).float().square().sum().backward()
+    ref = qkv.float().requires_grad_()
+    q, k, v = (t.reshape(1, 64, 2, 64) for t in ref.chunk(3, dim=-1))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * 0.125, dim=-1)
+    torch.einsum("bhqk,bkhd->bqhd", p, v).square().sum().backward()
+    rel = float((a.grad.float() - ref.grad).abs().max() / ref.grad.abs().max())
+    assert rel < 2e-2, rel

@@ -227,3 +227,146 @@ def test_packed_flash_kernel_refuses_strided_qkv(gen):
     qkv = torch.zeros((1, 64, 2 * 3 * 64), dtype=torch.bfloat16, device="cuda")[..., ::2]
     with pytest.raises(ValueError):
         fa.flash_attention_qkv_cuda(qkv, 0.125, 1)
+
+
+# --- backward kernels and the training forward --------------------------------
+
+LN_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # summation order only
+
+
+def _ln_bwd_case(gen, rows, c, dtype):
+    x, d, w, _ = _ln_case(gen, rows, c, dtype)
+    dy = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+    return x, d, w, dy
+
+
+def _close_rel(got, want, tol):
+    """Elementwise within tol of want's largest magnitude: dweight and
+    dbias are sums over all rows, so their error scales with the sum."""
+    scale = float(want.float().abs().max()) or 1.0
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c", [(13, 8), (1000, 768), (77, 200), (3000, 4096), (16384, 768)])
+def test_layer_norm_bwd_kernel_matches_plain(gen, rows, c, dtype):
+    x, _, w, dy = _ln_bwd_case(gen, rows, c, dtype)
+    before = ln.layer_norm_bwd_cuda.launches
+    dx, dw, db = ln.layer_norm_bwd_cuda(x, w, dy)
+    assert ln.layer_norm_bwd_cuda.launches == before + 1
+    dx_p, dw_p, db_p = ln.layer_norm_bwd_plain(x, w, dy)
+    _close(dx, dx_p, LN_BWD_TOL[dtype])
+    assert dw.dtype == db.dtype == torch.float32
+    _close_rel(dw, dw_p, LN_BWD_TOL[torch.float32])
+    _close_rel(db, db_p, LN_BWD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c", [(13, 8), (1000, 768), (77, 200), (3000, 4096)])
+def test_layer_norm_add_bwd_kernel_matches_plain(gen, rows, c, dtype):
+    x, d, w, dy = _ln_bwd_case(gen, rows, c, dtype)
+    s = (x.float() + d.float()).to(dtype)
+    ds_in = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+    before = ln.layer_norm_add_bwd_cuda.launches
+    dx, dw, db = ln.layer_norm_add_bwd_cuda(s, w, dy, ds_in)
+    assert ln.layer_norm_add_bwd_cuda.launches == before + 1
+    dx_p, dw_p, db_p = ln.layer_norm_bwd_plain(s, w, dy, ds_in=ds_in)
+    _close(dx, dx_p, LN_BWD_TOL[dtype])
+    _close_rel(dw, dw_p, LN_BWD_TOL[torch.float32])
+    _close_rel(db, db_p, LN_BWD_TOL[torch.float32])
+
+
+def test_layer_norm_bwd_kernels_are_bit_reproducible(gen):
+    x, _, w, dy = _ln_bwd_case(gen, 16384, 768, torch.bfloat16)
+    first = ln.layer_norm_bwd_cuda(x, w, dy)
+    second = ln.layer_norm_bwd_cuda(x, w, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_layer_norm_autograd_runs_the_kernels(gen):
+    x, d, w, dy = _ln_bwd_case(gen, 64, 256, torch.bfloat16)
+    x, d, w = (t.clone().requires_grad_() for t in (x, d, w))
+    b = torch.zeros(256, device="cuda", requires_grad=True)
+    before = (ln.layer_norm_bwd_cuda.launches, ln.layer_norm_add_bwd_cuda.launches)
+    s, y = ln.layer_norm_add(x, d, w, b)
+    y2 = ln.layer_norm(s, w, b)
+    (y.float() * dy.float()).sum().add((y2.float() * dy.float()).sum()).backward()
+    assert (ln.layer_norm_bwd_cuda.launches, ln.layer_norm_add_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(x.grad, d.grad) and w.grad.dtype == torch.float32
+
+
+FLASH_BWD_REL = 2e-2  # max error over max |grad|: the JAX package's flash bar
+
+
+def _rel_max(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("l", [64, 1024])
+@pytest.mark.parametrize("h,d", [(12, 64), (2, 128)])
+def test_packed_flash_training_forward_matches_plain(gen, l, h, d):
+    qkv = torch.randn((2, l, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    before = fa.flash_attention_qkv_res_cuda.launches
+    o, z = fa.flash_attention_qkv_res_cuda(qkv, d ** -0.5, h)
+    assert fa.flash_attention_qkv_res_cuda.launches == before + 1
+    o_p, z_p = fa.flash_attention_qkv_res_plain(qkv, d ** -0.5, h)
+    assert z.shape == (2, h, l) and z.dtype == torch.float32
+    assert float((z - z_p).abs().max()) <= 1e-3 * max(1.0, float(z_p.abs().max()))
+    # the same kernel as the inference entry: o is bit-equal
+    assert torch.equal(o, fa.flash_attention_qkv_cuda(qkv, d ** -0.5, h))
+    assert float((o.float() - o_p.float()).abs().max()) <= FLASH_ATOL
+
+
+@pytest.mark.parametrize("l", [64, 1024])
+@pytest.mark.parametrize("b,h,d", [(2, 12, 64), (1, 2, 128)])
+def test_packed_flash_bwd_kernel_matches_plain(gen, l, b, h, d):
+    qkv = torch.randn((b, l, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, l, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    o, z = fa.flash_attention_qkv_res_cuda(qkv, d ** -0.5, h)
+    before = fa.flash_attention_qkv_bwd_cuda.launches
+    got = fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, d ** -0.5, h)
+    assert fa.flash_attention_qkv_bwd_cuda.launches == before + 1
+    want = fa.flash_attention_qkv_bwd_plain(qkv, o, z, do, d ** -0.5, h)
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16
+    for g, w in zip(got.chunk(3, dim=-1), want.chunk(3, dim=-1)):  # dq, dk, dv
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+
+
+def test_packed_flash_bwd_kernel_is_bit_reproducible(gen):
+    qkv = torch.randn((2, 1024, 3 * 768), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((2, 1024, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    o, z = fa.flash_attention_qkv_res_cuda(qkv, 0.125, 12)
+    first = fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, 0.125, 12)
+    assert torch.equal(first, fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, 0.125, 12))
+
+
+def test_packed_flash_autograd_runs_the_kernels(gen):
+    qkv = torch.randn((1, 128, 3 * 256), generator=gen, device="cuda").to(torch.bfloat16)
+    qkv.requires_grad_()
+    before = (fa.flash_attention_qkv_res_cuda.launches, fa.flash_attention_qkv_bwd_cuda.launches,
+              fa.flash_attention_qkv_cuda.launches)
+    fa.flash_attention_qkv(qkv, 0.125, 4).float().square().sum().backward()
+    assert (fa.flash_attention_qkv_res_cuda.launches, fa.flash_attention_qkv_bwd_cuda.launches,
+            fa.flash_attention_qkv_cuda.launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert qkv.grad.shape == qkv.shape and bool(torch.isfinite(qkv.grad.float()).all())
+
+
+def test_kernels_without_a_backward_refuse_grad(gen):
+    """No wrapper returns a tensor cut off from autograd: the kernels that
+    have no backward yet raise when a gradient is wanted."""
+    q = torch.zeros((1, 64, 512), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, q, q, 512 ** -0.5, 1)
+    qkv = torch.zeros((1, 64, 3 * 128), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_qkv_cuda(qkv, 0.125, 2)
+    x, _, w, bias = _conv_case(gen, (1, 8, 8, 32), 128, False)
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        down.downsample_conv3x3_gn(x, w, bias)
+    with pytest.raises(RuntimeError, match="no backward"):
+        up.upsample_nearest_conv3x3_gn(x, w, bias)
+    with torch.no_grad():  # without a gradient they run
+        down.downsample_conv3x3_gn(x, w, bias)
+        fa.flash_attention(q, q, q, 512 ** -0.5, 1)

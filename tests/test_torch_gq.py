@@ -122,6 +122,12 @@ def test_regularizer_eval_and_dequant_match_jax():
 
 
 def test_regularizer_train_branch_raises():
+    """The train branch returns the reparameterised sample and the KL
+    statistics (tests/test_torch_gq_train.py holds it to the JAX package);
+    it still refuses a posterior whose channels do not split in two."""
     port = GaussianQuantRegularizer(format="bchw", n_samples=256, group=4, seed=7)
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, 2, 2, 8), train=True)
+    eps = torch.ones(1, 2, 2, 4)
+    zhat, info = port(torch.zeros(1, 2, 2, 8), train=True, eps=eps)
+    assert torch.equal(zhat, eps) and float(info["bits-mean"]) == 0.0
+    with pytest.raises(RuntimeError):
+        port(torch.zeros(1, 2, 2, 7), train=True, eps=eps)

@@ -201,16 +201,19 @@ def test_engine_api_shapes(fp32_engines, image):
 def test_config_targets_resolve_onto_the_port():
     for spelling in ("vqvae_from_gaussian_vae_tpu.models.unet.Encoder", "pit.modules.unet.Encoder"):
         assert resolve_target(spelling) == "vqvae_from_gaussian_vae_tpu_torch.models.unet.Encoder"
-    for target in ("vqvae_from_gaussian_vae_tpu.losses.discriminator_loss."
-                   "GeneralLPIPSWithDiscriminator",
-                   "vqvae_from_gaussian_vae_tpu.data.dataset.ImageDataModuleFromConfig"):
-        with pytest.raises(NotImplementedError, match=target.rsplit(".", 1)[1]):
-            instantiate_from_config({"target": target, "params": {}})
+    for spelling in ("vqvae_from_gaussian_vae_tpu.losses.discriminator_loss."
+                     "GeneralLPIPSWithDiscriminator",
+                     "pit.modules.losses.discriminator_loss.GeneralLPIPSWithDiscriminator"):
+        assert resolve_target(spelling) == ("vqvae_from_gaussian_vae_tpu_torch.losses."
+                                            "discriminator_loss.GeneralLPIPSWithDiscriminator")
+    target = "vqvae_from_gaussian_vae_tpu.data.dataset.ImageDataModuleFromConfig"
+    with pytest.raises(NotImplementedError, match="ImageDataModuleFromConfig"):
+        instantiate_from_config({"target": target, "params": {}})
     cfg = load_config(CONFIG, [t for t in TINY if "loss_config" not in t])
-    with pytest.raises(NotImplementedError, match="GeneralLPIPSWithDiscriminator"):
-        instantiate_from_config(copy.deepcopy(cfg["model"]), device="cpu")
+    eng = instantiate_from_config(copy.deepcopy(cfg["model"]), device="cpu")
+    assert type(eng.loss).__name__ == "GeneralLPIPSWithDiscriminator"
     eng = instantiate_from_config(copy.deepcopy(cfg["model"]), device="cpu", eval_only=True)
-    assert eng.encoder.dtype == torch.float32
+    assert eng.encoder.dtype == torch.float32 and eng.loss is None
 
 
 def test_engine_defaults_to_the_card():

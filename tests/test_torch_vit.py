@@ -217,7 +217,9 @@ def test_dtype_dotlist_reaches_both_backbones():
     cfg = load_config(CONFIG, TINY + [_P + "dtype=bfloat16"])
     eng = instantiate_from_config(copy.deepcopy(cfg["model"]), device="cpu")
     assert eng.encoder.dtype == eng.decoder.dtype == torch.bfloat16
-    assert eng.decoder.conv_out.weight.dtype == torch.bfloat16
+    # the weights are float32 master copies; the Linear layers compute in bf16
+    assert eng.decoder.conv_out.weight.dtype == torch.float32
+    assert eng.decoder.conv_out.compute_dtype == torch.bfloat16
     assert eng.decoder.transformer.resblocks[0].ln_1.weight.dtype == torch.float32
 
 

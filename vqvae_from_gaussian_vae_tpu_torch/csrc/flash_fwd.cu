@@ -29,6 +29,14 @@
 // offsets (0, C, 2C) are separate from the output's stride (C).  At the ViT
 // shape (B=16, L=1024, H=12, D=64) one launch is 5.15e10 FLOP over 101 MB,
 // so it is tensor-core bound too (52 us at the bf16 peak).
+//
+// The training entry (gvq_flash_fwd_qkv_res, replacing flash_blc.py
+// _fwd_res_call_packed) is the packed entry that also writes the
+// per-(row, head) log-normaliser z = m + ln(sum) in float32, laid out
+// (B, H, L), which the backward (csrc/flash_bwd.cu) turns back into
+// p = exp(s - z) with no max or sum pass.  The online softmax already holds
+// m and the row sum, so z costs one store per row; the inference entries
+// pass no z pointer and skip it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,8 +69,8 @@ struct FlashLayout {
 template <int D>
 __global__ void __launch_bounds__(kFThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int L, int H, int in_stride,
-                 float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ z, int L,
+                 int H, int in_stride, float scale) {
   using namespace nvcuda;
   using Lay = FlashLayout<D>;
   constexpr int LDQ = Lay::kLdQ;
@@ -216,29 +224,30 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * ors + c) = packed;
   }
+  if (z != nullptr && tid < kFq) z[(size_t)blockIdx.y * L + q0 + tid] = row_m[tid] + logf(row_l[tid]);
 }
 
 template <int D>
-int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int L, int H,
-                 int in_stride, float scale, cudaStream_t stream) {
+int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* z, int B, int L,
+                 int H, int in_stride, float scale, cudaStream_t stream) {
   const size_t smem = FlashLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(L / kFq, B * H);
-  flash_fwd_kernel<D><<<grid, kFThreads, smem, stream>>>(q, k, v, o, L, H, in_stride, scale);
+  flash_fwd_kernel<D><<<grid, kFThreads, smem, stream>>>(q, k, v, o, z, L, H, in_stride, scale);
   return (int)cudaGetLastError();
 }
 
-int flash_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int L, int H,
-                int D, int in_stride, float scale, void* stream) {
+int flash_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* z, int B, int L,
+                int H, int D, int in_stride, float scale, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || L % kFkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_flash<64>(q, k, v, o, B, L, H, in_stride, scale, s);
-    case 128: return launch_flash<128>(q, k, v, o, B, L, H, in_stride, scale, s);
-    case 256: return launch_flash<256>(q, k, v, o, B, L, H, in_stride, scale, s);
-    case 512: return launch_flash<512>(q, k, v, o, B, L, H, in_stride, scale, s);
+    case 64: return launch_flash<64>(q, k, v, o, z, B, L, H, in_stride, scale, s);
+    case 128: return launch_flash<128>(q, k, v, o, z, B, L, H, in_stride, scale, s);
+    case 256: return launch_flash<256>(q, k, v, o, z, B, L, H, in_stride, scale, s);
+    case 512: return launch_flash<512>(q, k, v, o, z, B, L, H, in_stride, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -250,8 +259,8 @@ int flash_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int
 extern "C" int gvq_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                              int L, int H, int D, float scale, void* stream) {
   return flash_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<bf16*>(o), B, L, H, D, H * D,
-                     scale, stream);
+                     static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr, B, L, H, D,
+                     H * D, scale, stream);
 }
 
 // The packed entry (replaces flash_blc.py _fwd_call_packed): q, k and v are
@@ -262,8 +271,19 @@ extern "C" int gvq_flash_fwd_qkv(const void* qkv, void* o, int B, int L, int H, 
                                  float scale, void* stream) {
   const bf16* p = static_cast<const bf16*>(qkv);
   const size_t c = (size_t)H * D;
-  return flash_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), B, L, H, D, 3 * H * D, scale,
-                     stream);
+  return flash_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), nullptr, B, L, H, D, 3 * H * D,
+                     scale, stream);
+}
+
+// The training form of the packed entry: also writes z (B, H, L) float32,
+// z = m + ln(sum) of each row's scaled scores.  Same shape rules.
+extern "C" int gvq_flash_fwd_qkv_res(const void* qkv, void* o, void* z, int B, int L, int H,
+                                     int D, float scale, void* stream) {
+  const bf16* p = static_cast<const bf16*>(qkv);
+  const size_t c = (size_t)H * D;
+  if (z == nullptr) return (int)cudaErrorInvalidValue;
+  return flash_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), static_cast<float*>(z), B, L, H,
+                     D, 3 * H * D, scale, stream);
 }
 
 // Message for an error code returned by any gvq_* entry point.

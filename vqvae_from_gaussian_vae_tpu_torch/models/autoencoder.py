@@ -1,4 +1,4 @@
-"""The tokenizer engine, inference path.
+"""The tokenizer engine.
 
 Port of ``vqvae_from_gaussian_vae_tpu/models/autoencoder.py``:
 ``EngineModule`` is the ``nn.Module`` (encoder + regularizer + decoder, and
@@ -13,9 +13,13 @@ config-instantiated object with the public API::
 
 Images are NHWC in [-1, 1], indices (B, h, w, ng) int32, as in the JAX
 package.  The engine runs on the CUDA device unless the caller passes
-``device="cpu"``; weights come from ``seed`` (or a checkpoint).  Training,
-the loss and the vf branch are not ported: a loss config is accepted only
-with ``eval_only=True`` or as None, and ``use_vf`` raises.
+``device="cpu"``; weights come from ``seed`` (or a checkpoint).  The public
+API above runs under ``torch.inference_mode``.  With a ``loss_config`` (and
+not ``eval_only``) the engine also builds its loss head (``engine.loss``),
+and ``EngineModule`` offers the training pieces the GAN step uses
+(``encode(..., train=True, duals=...)``, ``decode_pre_last_layer``,
+``decode_last_layer``, ``last_layer_path``; ``parallel/train_step.py``).
+The vf branch is not ported: ``use_vf`` raises.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch.nn as nn
 
 from vqvae_from_gaussian_vae_tpu_torch.utils.config import instantiate_from_config
 
-# training-only config keys: accepted so training YAMLs load, unused at inference
+# trainer keys: accepted so training YAMLs load, unused until the trainer is
+# ported (the optimizer knobs are make_optimizers' arguments)
 _TRAINING_KEYS = (
     "optimizer_config", "lr_g_factor", "trainable_ae_params", "ae_optimizer_args",
     "trainable_disc_params", "disc_optimizer_args", "disc_start_iter",
@@ -68,24 +73,44 @@ class EngineModule(nn.Module):
         return x
 
     def encode(self, x, return_reg_log: bool = False, unregularized: bool = False,
-               generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
+               train: bool = False, duals=None, generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None):
+        """``train=True`` takes the regularizer's train branch (the
+        reparameterised sample and the KL loss, weighted by ``duals``)."""
         z = self.encoder(x)
         if unregularized:
             return z, {}
-        z, reg_log = self.regularization(z, generator=generator, eps=eps)
+        z, reg_log = self.regularization(z, train=train, duals=duals, generator=generator,
+                                         eps=eps)
         z = self._standardize(z)
         return (z, reg_log) if return_reg_log else z
 
     def decode(self, z):
         return self.decoder(self._unstandardize(z))
 
+    def decode_pre_last_layer(self, z):
+        """The decoder up to (excluding) its last layer."""
+        return self.decoder.pre_last_layer(self._unstandardize(z))
+
+    def decode_last_layer(self, h):
+        """The decoder's last layer and the clamp: decode_pre_last_layer then
+        decode_last_layer is decode with the clamp, so the adaptive GAN
+        weight differentiates the graph the loss sees."""
+        return self._clamp(self.decoder.last_layer(h))
+
+    @property
+    def last_layer_path(self) -> str:
+        """The name of the weight the adaptive GAN weight differentiates."""
+        return ".".join(("decoder",) + tuple(self.decoder.last_layer_path()))
+
     def dequant(self, indices):
         # as the reference: dequant routes through decode (un-standardising)
         return self._clamp(self.decode(self.regularization.dequant(indices)))
 
-    def forward(self, x, generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None):
-        z, reg_log = self.encode(x, return_reg_log=True, generator=generator, eps=eps)
+    def forward(self, x, train: bool = False, duals=None,
+                generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
+        z, reg_log = self.encode(x, return_reg_log=True, train=train, duals=duals,
+                                 generator=generator, eps=eps)
         return z, self._clamp(self.decode(z)), reg_log
 
 
@@ -122,8 +147,29 @@ def init_weights(module: nn.Module, seed: int) -> None:
                 p.fill_(1.0)
 
 
+def init_loss_weights(loss: nn.Module, seed: int) -> None:
+    """Seeded loss-head weights, as the JAX package initialises them: the
+    LPIPS convs and heads N(0, 1/fan_in) with zero biases, the
+    discriminator's convs N(0, 0.02^2) with zero biases (the reference's
+    weights_init), ActNorm (loc 0, scale 1) until its data init, BatchNorm
+    (1, 0); ``logvar`` keeps its ``logvar_init``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in loss.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name == "logvar" or leaf in ("loc", "scale"):
+                continue
+            if p.dim() == 4:
+                std = 0.02 if name.startswith("discriminator.") else p[0].numel() ** -0.5
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+            elif leaf == "bias":
+                p.zero_()
+            else:
+                p.fill_(1.0)
+
+
 class AutoencodingEngine:
-    """Config-driven tokenizer (inference)."""
+    """Config-driven tokenizer."""
 
     def __init__(self, *, encoder_config: Dict, decoder_config: Dict,
                  regularizer_config: Dict, input_key: str = "img",
@@ -144,9 +190,8 @@ class AutoencodingEngine:
             raise ValueError("set ckpt_path or ckpt_engine, not both")
         del input_key  # the data pipeline's batch key; no data module is ported yet
         self.device = resolve_device(device)
-        if loss_config and not eval_only:
-            # no loss is ported yet: this raises NotImplementedError naming it
-            instantiate_from_config(loss_config)
+        self.loss = (instantiate_from_config(loss_config)
+                     if loss_config and not eval_only else None)
         self.encoder = instantiate_from_config(encoder_config)
         self.decoder = instantiate_from_config(decoder_config)
         self.regularization = instantiate_from_config(regularizer_config)
@@ -166,6 +211,11 @@ class AutoencodingEngine:
         self.module.to("cpu")
         init_weights(self.module, seed)
         self.module.to(self.device, memory_format=torch.channels_last)
+        if self.loss is not None:
+            self.loss.to("cpu")
+            init_loss_weights(self.loss, seed + 1)
+            self.loss.load_pretrained()
+            self.loss.to(self.device)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return self.module.state_dict()

@@ -1,4 +1,4 @@
-"""BSQ-ViT transformer backbone ("bsqvit"), inference path.
+"""BSQ-ViT transformer backbone ("bsqvit").
 
 Port of ``vqvae_from_gaussian_vae_tpu/models/vit.py``: Linear patchify with
 the channel-major (c, sh, sw) patch-feature order, a learned positional
@@ -9,16 +9,18 @@ Parameter names are the reference's ``pit`` state_dict names
 (``transformer.resblocks.0.attn.in_proj_weight``, Linear weights (O, I),
 LayerNorm ``weight``/``bias``, ``ffn.0``).
 
-Layout: tokens are batch-first (B, L, C) throughout; images NHWC.  Linear
-weights are stored in the compute ``dtype`` (the JAX package keeps them
-float32 and casts the operands, which rounds alike); LayerNorm affines,
-LayerScale and the positional embedding stay float32.
+Layout: tokens are batch-first (B, L, C) throughout; images NHWC.  Every
+parameter is float32, the optimizer's master copy; the Linear projections
+cast their weights and inputs to the compute ``dtype`` at use, as the JAX
+package's Dense layers do, so the gradients reach the float32 weights
+through the casts.
 
-On the bf16 path each LayerNorm goes through ``ops/layer_norm.py`` (the
-residual add fused into the next norm's read, as the JAX model's streamed
-pre-LN trunk does) and each unmasked attention through the packed flash
+Each LayerNorm goes through ``ops/layer_norm.py`` (the residual add fused
+into the next norm's read, as the JAX model's streamed pre-LN trunk does)
+and, on the bf16 path, each unmasked attention through the packed flash
 entry ``ops/flash_attention.py:flash_attention_qkv``.  The device only
-decides, inside each op, between the kernel and its plain version.
+decides, inside each op, between the kernel and its plain version; when a
+gradient is wanted, each op runs its training forward and backward kernel.
 """
 
 from __future__ import annotations
@@ -35,12 +37,19 @@ from vqvae_from_gaussian_vae_tpu_torch.ops.layer_norm import layer_norm, layer_n
 from vqvae_from_gaussian_vae_tpu_torch.utils.config import as_torch_dtype
 
 
-def _cast_linears(module: nn.Module, dtype: torch.dtype) -> None:
-    """Store the Linear projections in the compute dtype (the attention's
-    in_proj is made in it)."""
-    for m in module.modules():
-        if isinstance(m, nn.Linear):
-            m.to(dtype)
+class CastLinear(nn.Linear):
+    """``nn.Linear`` with float32 weights, computed in ``dtype``: the input,
+    weight and bias are cast at use (the JAX package's ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = as_torch_dtype(dtype)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class FusedLayerNorm(nn.Module):
@@ -90,14 +99,15 @@ class MultiheadAttention(nn.Module):
         super().__init__()
         self.n_head = n_head
         self.dtype = as_torch_dtype(dtype)
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, dtype=self.dtype))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, dtype=self.dtype))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = CastLinear(d_model, d_model, dtype=dtype)
 
     def forward(self, x, attn_mask=None):
         b, l, c = x.shape
         hd = c // self.n_head
-        qkv = F.linear(x.to(self.dtype), self.in_proj_weight, self.in_proj_bias)
+        qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
+                       self.in_proj_bias.to(self.dtype))
         if attn_mask is None and qkv.dtype == torch.bfloat16:
             out = flash_attention_qkv(qkv, hd ** -0.5, self.n_head)
         else:
@@ -114,11 +124,11 @@ class _MLP(nn.Module):
     def __init__(self, width: int, mlp_width: int, dtype=torch.float32):
         super().__init__()
         self.dtype = as_torch_dtype(dtype)
-        self.c_fc = nn.Linear(width, mlp_width)
-        self.c_proj = nn.Linear(mlp_width, width)
+        self.c_fc = CastLinear(width, mlp_width, dtype=dtype)
+        self.c_proj = CastLinear(mlp_width, width, dtype=dtype)
 
     def forward(self, x):
-        x = self.c_fc(x.to(self.dtype))
+        x = self.c_fc(x)
         # bf16 takes the tanh approximation, float32 the exact erf, as the
         # JAX model does
         x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
@@ -209,7 +219,8 @@ def _check_inference_knobs(act_layer: str, norm_layer: str, remat: bool) -> None
     if act_layer.lower() != "gelu" or norm_layer.lower() != "layer_norm":
         raise ValueError(f"unsupported act_layer {act_layer!r} / norm_layer {norm_layer!r}")
     if remat:
-        raise NotImplementedError("remat is a training knob; training is not ported yet")
+        raise NotImplementedError("remat (activation checkpointing) waits for the trainer "
+                                  "slice of the port (ROADMAP A10)")
 
 
 def _mask_block(grid: Tuple[int, int], mask_block_size: int) -> int:
@@ -235,18 +246,19 @@ class TransformerEncoder(nn.Module):
         self.grid_size = (image_size // patch_size, image_size // patch_size)
         self.mask_type = mask_type or "none"
         self.mask_block_size = mask_block_size
-        self.conv1 = nn.Linear(3 * patch_size * patch_size, width, bias=not ln_pre)
+        self.conv1 = CastLinear(3 * patch_size * patch_size, width, bias=not ln_pre,
+                                dtype=self.dtype)
         self.positional_embedding = nn.Parameter(
             torch.empty(self.grid_size[0] * self.grid_size[1], width))
         self.ln_pre = FusedLayerNorm(width, dtype=self.dtype) if ln_pre else None
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
                                        dtype=self.dtype)
         self.ln_post = FusedLayerNorm(width, dtype=self.dtype)
-        self.quant_embed = nn.Linear(width, 2 * z_channels if double_z else z_channels)
-        _cast_linears(self, self.dtype)
+        self.quant_embed = CastLinear(width, 2 * z_channels if double_z else z_channels,
+                                      dtype=self.dtype)
 
     def forward(self, x):
-        x = self.conv1(_patchify(x.to(self.dtype), self.patch))
+        x = self.conv1(_patchify(x, self.patch))
         x = x + self.positional_embedding.to(x.dtype)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
@@ -279,22 +291,22 @@ class TransformerDecoder(nn.Module):
         self.mask_block_size = mask_block_size
         out_feats = self.out_channels * patch_size * patch_size
         if use_ffn_output:
-            self.ffn = nn.Sequential(nn.Linear(width, dim_ffn_output), nn.Tanh())
-            self.conv_out = nn.Linear(dim_ffn_output, out_feats)
+            self.ffn = nn.Sequential(CastLinear(width, dim_ffn_output, dtype=self.dtype),
+                                     nn.Tanh())
+            self.conv_out = CastLinear(dim_ffn_output, out_feats, dtype=self.dtype)
         else:
             self.ffn = None
-            self.conv_out = nn.Linear(width, out_feats)
+            self.conv_out = CastLinear(width, out_feats, dtype=self.dtype)
         self.positional_embedding = nn.Parameter(
             torch.empty(self.grid_size[0] * self.grid_size[1], width))
         self.ln_pre = FusedLayerNorm(width, dtype=self.dtype) if ln_pre else None
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
                                        dtype=self.dtype)
         self.ln_post = FusedLayerNorm(width, dtype=self.dtype) if ln_post else None
-        self.post_quant_embed = nn.Linear(z_channels, width)
-        _cast_linears(self, self.dtype)
+        self.post_quant_embed = CastLinear(z_channels, width, dtype=self.dtype)
 
     def _trunk(self, x):
-        x = self.post_quant_embed(x.to(self.dtype))
+        x = self.post_quant_embed(x)
         x = x + self.positional_embedding.to(x.dtype)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
@@ -317,3 +329,9 @@ class TransformerDecoder(nn.Module):
     def last_layer(self, x):
         """conv_out + unpatchify; pre_last_layer then last_layer is forward."""
         return _unpatchify(self.conv_out(x), self.grid_size, self.patch, self.out_channels)
+
+    @staticmethod
+    def last_layer_path() -> Tuple[str, ...]:
+        """The weight the adaptive GAN weight differentiates against (the
+        reference decoder's ``get_last_layer``: conv_out's weight)."""
+        return ("conv_out", "weight")

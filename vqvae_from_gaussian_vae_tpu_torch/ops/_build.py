@@ -38,6 +38,10 @@ _SIGNATURES = {
     "gvq_flash_fwd_qkv": [_P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "gvq_layer_norm_add_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_qkv_res": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_bwd_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_layer_norm_add_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -138,6 +142,17 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().gvq_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a launch with no backward wired to it would be asked for
+    a gradient: its output would be cut off from autograd."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: no backward kernel is wired to this call, so its output "
+                           "would be cut off from autograd; call it under torch.no_grad() or "
+                           "on tensors that do not require grad")
 
 
 def stream_of(t) -> int:

@@ -42,6 +42,7 @@ def downsample_conv3x3_gn_plain(x, w, bias, add=None):
 def downsample_conv3x3_gn_cuda(x, w, bias, add=None):
     """Launch the kernel: bf16 CUDA tensors, C a multiple of 32, O a multiple
     of 128, even H and W."""
+    _build.refuse_grad("downsample kernel", x, w, bias, add)
     b, h, wd, c = x.shape
     o = w.shape[-1]
     if not x.is_cuda or x.dtype != torch.bfloat16:

@@ -1,15 +1,23 @@
-"""Flash-attention forward on token-major (B, L, H*D) tensors.
+"""Flash attention on token-major (B, L, H*D) tensors.
 
-Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/flash_blc.py``,
-forward only: ``_fwd_impl`` (called through ``flash_attention_blc`` and the
-front door ``sdpa_token_major``) and its packed entry ``_fwd_call_packed``
-(``flash_attention_qkv``, which reads q, k and v in place from the ViT's
-(B, L, 3C) QKV projection).  Per head: softmax(q k^T * scale) v
-with float32 scores, p rounded to v's dtype before the P.V product
-(float32 accumulation), the row sum over the float32 p, and the normaliser
-applied at the end.  The CUDA kernel (``csrc/flash_fwd.cu``) runs for CUDA
-tensors; the plain version below runs for CPU tensors and is what the
-kernel is held to on the card.
+Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/flash_blc.py``:
+``_fwd_impl`` (called through ``flash_attention_blc`` and the front door
+``sdpa_token_major``; forward only here) and the packed entries, which read
+q, k and v in place from the ViT's (B, L, 3C) QKV projection:
+``_fwd_call_packed`` (``flash_attention_qkv`` at inference),
+``_fwd_res_call_packed`` (the training forward, which also writes the
+per-(row, head) log-normaliser z) and ``_bwd_call_packed`` (the backward).
+Per head: softmax(q k^T * scale) v with float32 scores, p rounded to v's
+dtype before the P.V product (float32 accumulation), the row sum over the
+float32 p, and the normaliser applied at the end.  The backward rebuilds
+p = exp(s - z) and writes dq | dk | dv as one (B, L, 3C) tensor.
+
+``flash_attention_qkv`` is a ``torch.autograd.Function`` when a gradient
+is wanted.  The unpacked entry has no backward yet: its kernel wrapper
+raises when a gradient is wanted rather than return a tensor cut off from
+autograd.  The CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``)
+run for CUDA tensors; the plain versions below run for CPU tensors and are
+what the kernels are held to on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256, 512)
+BWD_HEAD_DIMS = (64, 128)  # the packed backward kernel's head dims
 
 
 def flash_attention_plain(q, k, v, sm_scale: float, num_heads: int):
@@ -40,6 +49,7 @@ def flash_attention_cuda(q, k, v, sm_scale: float, num_heads: int):
     """Launch the kernel: bf16 CUDA tensors, L a multiple of 64, head dim in
     SUPPORTED_HEAD_DIMS."""
     b, l, c = q.shape
+    _build.refuse_grad("flash kernel (unpacked)", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash kernel takes CUDA tensors on one device")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -80,24 +90,30 @@ def flash_attention_qkv_plain(qkv, sm_scale: float, num_heads: int):
     return flash_attention_plain(q, k, v, sm_scale, num_heads)
 
 
-def flash_attention_qkv_cuda(qkv, sm_scale: float, num_heads: int):
-    """Launch the packed kernel on the contiguous (B, L, 3C) bf16 projection
-    output, in place: no split, no copy.  L a multiple of 64, head dim in
-    SUPPORTED_HEAD_DIMS."""
+def _check_packed(name: str, qkv, num_heads: int, head_dims=SUPPORTED_HEAD_DIMS):
+    """Raise on what the packed kernels do not take; return (B, L, C, D)."""
     if not qkv.is_cuda:
-        raise ValueError("packed flash kernel takes a CUDA tensor")
+        raise ValueError(f"{name} takes a CUDA tensor")
     if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"packed flash kernel takes bf16, got {qkv.dtype}")
+        raise ValueError(f"{name} takes bf16, got {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
-        raise ValueError(f"packed flash kernel: shape {tuple(qkv.shape)} with {num_heads} heads")
+        raise ValueError(f"{name}: shape {tuple(qkv.shape)} with {num_heads} heads")
     b, l, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
-    if d not in SUPPORTED_HEAD_DIMS or l % 64:
-        raise ValueError(f"packed flash kernel: L={l}, D={d} unsupported (L % 64 == 0, "
-                         f"D in {SUPPORTED_HEAD_DIMS})")
+    if d not in head_dims or l % 64:
+        raise ValueError(f"{name}: L={l}, D={d} unsupported (L % 64 == 0, D in {head_dims})")
     if not qkv.is_contiguous():
-        raise ValueError("packed flash kernel reads q, k, v in place: qkv must be contiguous")
+        raise ValueError(f"{name} reads q, k, v in place: qkv must be contiguous")
+    return b, l, c, d
+
+
+def flash_attention_qkv_cuda(qkv, sm_scale: float, num_heads: int):
+    """Launch the packed kernel on the contiguous (B, L, 3C) bf16 projection
+    output, in place: no split, no copy.  L a multiple of 64, head dim in
+    SUPPORTED_HEAD_DIMS.  The inference form: no z, no gradient."""
+    _build.refuse_grad("packed flash kernel (inference form)", qkv)
+    b, l, c, d = _check_packed("packed flash kernel", qkv, num_heads)
     o = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
     lib = _build.library()
     with torch.cuda.device(qkv.device):
@@ -111,9 +127,114 @@ def flash_attention_qkv_cuda(qkv, sm_scale: float, num_heads: int):
 flash_attention_qkv_cuda.launches = 0
 
 
+def flash_attention_qkv_res_plain(qkv, sm_scale: float, num_heads: int):
+    """Plain version of the packed training forward: (o, z), z (B, H, L)
+    float32, z = m + ln(sum) of each row's scaled scores."""
+    b, l, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    q, k, _ = (t.reshape(b, l, num_heads, d).float() for t in qkv.chunk(3, dim=-1))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
+    m = s.amax(dim=-1)
+    z = m + torch.log(torch.exp(s - m[..., None]).sum(dim=-1))
+    return flash_attention_qkv_plain(qkv, sm_scale, num_heads), z
+
+
+def flash_attention_qkv_res_cuda(qkv, sm_scale: float, num_heads: int):
+    """Launch the packed training forward: (o, z) as the plain version."""
+    _build.refuse_grad("packed flash kernel (training form, outside its autograd Function)",
+                       qkv)
+    b, l, c, d = _check_packed("packed flash kernel (training form)", qkv, num_heads)
+    o = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
+    z = torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.gvq_flash_fwd_qkv_res(qkv.data_ptr(), o.data_ptr(), z.data_ptr(), b, l,
+                                        num_heads, d, float(sm_scale), _build.stream_of(qkv))
+    _build.check(err, "gvq_flash_fwd_qkv_res")
+    flash_attention_qkv_res_cuda.launches += 1
+    return o, z
+
+
+flash_attention_qkv_res_cuda.launches = 0
+
+
+def flash_attention_qkv_bwd_plain(qkv, o, z, do, sm_scale: float, num_heads: int):
+    """Plain version of the packed backward kernel: dqkv (B, L, 3C) in qkv's
+    dtype from the forward's qkv, o, z and the cotangent do of o.
+
+    p = exp(s - z) with no max or sum pass; di = rowsum(do * o) in float32;
+    ds = p (do v^T - di) scale rounded to the IO dtype; dq = ds k,
+    dk = ds^T q, dv = round(p)^T do, each accumulated in float32."""
+    b, l, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    io = qkv.dtype
+    q, k, v = (t.reshape(b, l, num_heads, d).float() for t in qkv.chunk(3, dim=-1))
+    dof = do.reshape(b, l, num_heads, d).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
+    p = torch.exp(s - z[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v)
+    di = (dof * o.reshape(b, l, num_heads, d).float()).sum(dim=-1).permute(0, 2, 1)
+    ds = (p * (dp - di[..., None]) * sm_scale).to(io).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(io).float(), dof)
+    return torch.cat([t.reshape(b, l, num_heads * d) for t in (dq, dk, dv)], dim=-1).to(io)
+
+
+def flash_attention_qkv_bwd_cuda(qkv, o, z, do, sm_scale: float, num_heads: int):
+    """Launch the packed backward kernels: dqkv (B, L, 3C) bf16, written
+    at channel offsets 0, C and 2C with no concatenation pass."""
+    _build.refuse_grad("packed flash backward kernel", qkv, o, z, do)  # no double backward
+    b, l, c, d = _check_packed("packed flash backward kernel", qkv, num_heads, BWD_HEAD_DIMS)
+    for name, t, shape, dtype in (("o", o, (b, l, c), qkv.dtype), ("do", do, (b, l, c), qkv.dtype),
+                                  ("z", z, (b, num_heads, l), torch.float32)):
+        if t.device != qkv.device or tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"packed flash backward kernel: {name} must be a contiguous "
+                             f"{shape} {dtype} tensor on {qkv.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    dqkv = torch.empty_like(qkv)
+    di = torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.gvq_flash_bwd_qkv(qkv.data_ptr(), o.data_ptr(), z.data_ptr(), do.data_ptr(),
+                                    di.data_ptr(), dqkv.data_ptr(), b, l, num_heads, d,
+                                    float(sm_scale), _build.stream_of(qkv))
+    _build.check(err, "gvq_flash_bwd_qkv")
+    flash_attention_qkv_bwd_cuda.launches += 1
+    return dqkv
+
+
+flash_attention_qkv_bwd_cuda.launches = 0
+
+
+class _FlashQKVFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, sm_scale, num_heads):
+        if qkv.device.type == "cpu":
+            o, z = flash_attention_qkv_res_plain(qkv, sm_scale, num_heads)
+        else:
+            o, z = flash_attention_qkv_res_cuda(qkv, sm_scale, num_heads)
+        ctx.save_for_backward(qkv, o, z)
+        ctx.sm_scale, ctx.num_heads = sm_scale, num_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, z = ctx.saved_tensors
+        do = do.contiguous()
+        bwd = flash_attention_qkv_bwd_plain if qkv.device.type == "cpu" \
+            else flash_attention_qkv_bwd_cuda
+        return bwd(qkv, o, z, do, ctx.sm_scale, ctx.num_heads), None, None
+
+
 def flash_attention_qkv(qkv, sm_scale: float, num_heads: int):
     """(B, L, 3C) -> (B, L, C): the packed kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors.  When a gradient is wanted, the training
+    forward (with z) and the packed backward run through an autograd
+    Function."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FlashQKVFn.apply(qkv, sm_scale, num_heads)
     if qkv.device.type == "cpu":
         return flash_attention_qkv_plain(qkv, sm_scale, num_heads)
     return flash_attention_qkv_cuda(qkv, sm_scale, num_heads)

@@ -1,18 +1,26 @@
-"""Row LayerNorm forward, and the fused residual add + LayerNorm.
+"""Row LayerNorm, and the fused residual add + LayerNorm, with their backward.
 
-Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/layer_norm.py``
-(``_ln_fwd_2d`` / ``_ln_fwd_kernel`` and ``_ln_add_fwd_2d`` /
-``_ln_add_fwd_kernel``, behind ``layer_norm`` and ``layer_norm_add``),
-forward only.  Over the last axis, with float32 statistics, the variance as
-the mean of ``(x - mean)^2``, and the output in the input's dtype:
+Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/layer_norm.py``:
+``_ln_fwd_2d`` / ``_ln_fwd_kernel``, ``_ln_add_fwd_2d`` /
+``_ln_add_fwd_kernel``, ``_ln_bwd_2d`` / ``_ln_bwd_kernel`` and
+``_ln_add_bwd_2d`` / ``_ln_add_bwd_kernel``, behind ``layer_norm`` and
+``layer_norm_add``.  Over the last axis, with float32 statistics, the
+variance as the mean of ``(x - mean)^2``, and the output in the input's
+dtype:
 
     layer_norm(x, w, b)         -> LN(x)
     layer_norm_add(x, d, w, b)  -> (s, LN(s)),  s = x + d rounded to x's dtype
 
 The add variant takes its statistics from the rounded ``s``, as the TPU
-kernel does.  The CUDA kernels (``csrc/layer_norm.cu``) run for CUDA
-tensors; the plain versions below run for CPU tensors and are what the
-kernels are held to on the card.
+kernel does.  Both are ``torch.autograd.Function``s when a gradient is
+wanted: the forward saves only its input (``x``, or the add variant's
+``s``), and the backward recomputes the row statistics from it; the add
+variant's backward adds the cotangent of ``s`` to dx and returns dx for both
+``x`` and ``d``.  dweight and dbias are float32 sums over all rows.
+
+The CUDA kernels (``csrc/layer_norm.cu``) run for CUDA tensors; the plain
+versions below run for CPU tensors and are what the kernels are held to on
+the card.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 # IO dtype -> the C entry points' dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_C = 4096  # a row of at most 128 floats in each lane's registers
+ROWS_PER_BLOCK = 8
+MAX_BWD_BLOCKS = 264  # the backward's grid: two blocks on each of 132 SMs
 
 
 def layer_norm_plain(x, weight, bias, eps: float = 1e-5):
@@ -39,6 +49,28 @@ def layer_norm_add_plain(x, delta, weight, bias, eps: float = 1e-5):
     """Plain version of the LN-add kernel: (s, LN(s))."""
     s = (x.float() + delta.float()).to(x.dtype)
     return s, layer_norm_plain(s, weight, bias, eps)
+
+
+def layer_norm_bwd_plain(x, weight, dy, eps: float = 1e-5, ds_in=None):
+    """Plain version of the LN backward kernels: (dx, dweight, dbias).
+
+    The row statistics are recomputed from x; with ``ds_in`` (the add
+    variant, x being its saved s) the cotangent of s is added to dx before
+    rounding.  dweight and dbias are float32."""
+    c = x.shape[-1]
+    xf = x.float().reshape(-1, c)
+    dyf = dy.float().reshape(-1, c)
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    wdy = dyf * weight.float()
+    c1 = wdy.mean(dim=-1, keepdim=True)
+    c2 = (wdy * xhat).mean(dim=-1, keepdim=True)
+    dx = (wdy - c1 - xhat * c2) * rstd
+    if ds_in is not None:
+        dx = dx + ds_in.float().reshape(-1, c)
+    return (dx.to(x.dtype).reshape(x.shape), (dyf * xhat).sum(dim=0), dyf.sum(dim=0))
 
 
 def _check(name: str, x, others, weight, bias) -> int:
@@ -64,6 +96,7 @@ def _check(name: str, x, others, weight, bias) -> int:
 def layer_norm_cuda(x, weight, bias, eps: float = 1e-5):
     """Launch the LN kernel: (..., C) float32 or bf16 CUDA rows, float32
     weight and bias, C a multiple of 8 up to MAX_C."""
+    _build.refuse_grad("layer_norm kernel (outside its autograd Function)", x, weight, bias)
     c = _check("layer_norm kernel", x, (), weight, bias)
     y = torch.empty_like(x)
     rows = x.numel() // c
@@ -84,6 +117,8 @@ layer_norm_cuda.launches = 0
 
 def layer_norm_add_cuda(x, delta, weight, bias, eps: float = 1e-5):
     """Launch the LN-add kernel: (s, LN(s)) with s = x + delta in x's dtype."""
+    _build.refuse_grad("layer_norm_add kernel (outside its autograd Function)", x, delta,
+                       weight, bias)
     c = _check("layer_norm_add kernel", x, (delta,), weight, bias)
     s, y = torch.empty_like(x), torch.empty_like(x)
     rows = x.numel() // c
@@ -102,17 +137,127 @@ def layer_norm_add_cuda(x, delta, weight, bias, eps: float = 1e-5):
 layer_norm_add_cuda.launches = 0
 
 
+def bwd_blocks(rows: int) -> int:
+    """The backward kernels' grid: one (2, C) float32 partial per block."""
+    return max(1, min(-(-rows // ROWS_PER_BLOCK), MAX_BWD_BLOCKS))
+
+
+def _bwd_cuda(name, x, weight, dy, ds_in, eps):
+    others = (dy,) if ds_in is None else (dy, ds_in)
+    _build.refuse_grad(name, x, weight, *others)  # no double backward
+    c = _check(name, x, others, weight, weight)
+    rows = x.numel() // c
+    dx = torch.empty_like(x)
+    dgb = torch.zeros((2, c), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dgb[0], dgb[1]
+    nblocks = bwd_blocks(rows)
+    part = torch.empty((nblocks, 2, c), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    code, stream = _DTYPE_CODES[x.dtype], _build.stream_of(x)
+    with torch.cuda.device(x.device):
+        if ds_in is None:
+            err = lib.gvq_layer_norm_bwd(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                                         dx.data_ptr(), part.data_ptr(), dgb.data_ptr(), rows, c,
+                                         nblocks, code, float(eps), stream)
+        else:
+            err = lib.gvq_layer_norm_add_bwd(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                                             ds_in.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                                             dgb.data_ptr(), rows, c, nblocks, code, float(eps),
+                                             stream)
+    _build.check(err, "gvq_layer_norm_bwd" if ds_in is None else "gvq_layer_norm_add_bwd")
+    return dx, dgb[0], dgb[1]
+
+
+def layer_norm_bwd_cuda(x, weight, dy, eps: float = 1e-5):
+    """Launch the LN backward kernels: (dx, dweight, dbias) from the
+    forward's input x and the cotangent dy (both (..., C), one dtype)."""
+    out = _bwd_cuda("layer_norm backward kernel", x, weight, dy, None, eps)
+    layer_norm_bwd_cuda.launches += 1
+    return out
+
+
+layer_norm_bwd_cuda.launches = 0
+
+
+def layer_norm_add_bwd_cuda(s, weight, dy, ds_in, eps: float = 1e-5):
+    """Launch the LN-add backward kernels: (dx, dweight, dbias) from the
+    forward's rounded sum s and the cotangents dy (of y) and ds_in (of s)."""
+    out = _bwd_cuda("layer_norm_add backward kernel", s, weight, dy, ds_in, eps)
+    layer_norm_add_bwd_cuda.launches += 1
+    return out
+
+
+layer_norm_add_bwd_cuda.launches = 0
+
+
+def _on_cpu(x) -> bool:
+    return x.device.type == "cpu"
+
+
+class _LayerNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        if _on_cpu(x):
+            return layer_norm_plain(x, weight, bias, eps)
+        return layer_norm_cuda(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        if _on_cpu(x):
+            dx, dw, db = layer_norm_bwd_plain(x, weight, dy, ctx.eps)
+        else:
+            dx, dw, db = layer_norm_bwd_cuda(x, weight, dy, ctx.eps)
+        return dx, dw, db, None
+
+
+class _LayerNormAddFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, delta, weight, bias, eps):
+        ctx.set_materialize_grads(True)  # an unused s gives a zero ds_in
+        if _on_cpu(x):
+            s, y = layer_norm_add_plain(x, delta, weight, bias, eps)
+        else:
+            s, y = layer_norm_add_cuda(x, delta, weight, bias, eps)
+        ctx.save_for_backward(s, weight)
+        ctx.eps = eps
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds_in, dy):
+        s, weight = ctx.saved_tensors
+        dy, ds_in = dy.contiguous(), ds_in.contiguous()
+        if _on_cpu(s):
+            dx, dw, db = layer_norm_bwd_plain(s, weight, dy, ctx.eps, ds_in=ds_in)
+        else:
+            dx, dw, db = layer_norm_add_bwd_cuda(s, weight, dy, ds_in, ctx.eps)
+        return dx, dx, dw, db, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     """LN over the last axis: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if x.device.type == "cpu":
+    for CPU tensors; differentiable (backward kernel) when a gradient is
+    wanted."""
+    if _wants_grad(x, weight, bias):
+        return _LayerNormFn.apply(x, weight, bias, eps)
+    if _on_cpu(x):
         return layer_norm_plain(x, weight, bias, eps)
     return layer_norm_cuda(x, weight, bias, eps)
 
 
 def layer_norm_add(x, delta, weight, bias, eps: float = 1e-5):
     """(s, LN(s)) with s = x + delta: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if x.device.type == "cpu":
+    version for CPU tensors; differentiable when a gradient is wanted."""
+    if _wants_grad(x, delta, weight, bias):
+        return _LayerNormAddFn.apply(x, delta, weight, bias, eps)
+    if _on_cpu(x):
         return layer_norm_add_plain(x, delta, weight, bias, eps)
     return layer_norm_add_cuda(x, delta, weight, bias, eps)

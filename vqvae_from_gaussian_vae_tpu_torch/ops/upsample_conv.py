@@ -72,6 +72,7 @@ def upsample_nearest_conv3x3_gn_plain(x, w, bias, add=None):
 def upsample_nearest_conv3x3_gn_cuda(x, w, bias, add=None):
     """Launch the kernel: bf16 CUDA tensors, C a multiple of 32, O a multiple
     of 128.  k22 is computed here, once per call, not per block."""
+    _build.refuse_grad("upsample kernel", x, w, bias, add)
     b, h, wd, c = x.shape
     o = w.shape[-1]
     if not x.is_cuda or x.dtype != torch.bfloat16:

@@ -37,6 +37,12 @@ for _jax_path, _pit_path, _port_path in (
     ("quantization.gaussian.GaussianQuantRegularizer",
      "pit.quantization.gaussian.GaussianQuantRegularizer",
      "quantization.gaussian.GaussianQuantRegularizer"),
+    ("losses.discriminator_loss.GeneralLPIPSWithDiscriminator",
+     "pit.modules.losses.discriminator_loss.GeneralLPIPSWithDiscriminator",
+     "losses.discriminator_loss.GeneralLPIPSWithDiscriminator"),
+    ("losses.discriminator.NLayerDiscriminator",
+     "pit.modules.lpips.model.model.NLayerDiscriminator",
+     "losses.discriminator.NLayerDiscriminator"),
 ):
     _PORT_TARGETS[f"vqvae_from_gaussian_vae_tpu.{_jax_path}"] = f"{_PKG}.{_port_path}"
     _PORT_TARGETS[_pit_path] = f"{_PKG}.{_port_path}"
@@ -44,6 +50,13 @@ for _jax_path, _pit_path, _port_path in (
 # prefixes of targets that belong to the JAX package or the reference; any of
 # them not in _PORT_TARGETS is a module the port does not have yet
 _UNPORTED_PREFIXES = ("vqvae_from_gaussian_vae_tpu.", "pit.", "main.")
+
+
+def default(val: Any, d: Any) -> Any:
+    """``val`` unless it is None, else ``d`` (called if callable)."""
+    if val is not None:
+        return val
+    return d() if callable(d) else d
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}

@@ -15,6 +15,13 @@ dicts of arrays) onto the port's ``pit``-named state_dict:
   * latent statistics (1, 1, 1, C) -> the reference's (1, C, 1, 1)
   * ``positional_embedding`` and LayerScale ``gamma`` unchanged
 
+and the loss head's tree (the JAX train state's ``loss_params``) onto the
+port's loss state_dict: ``perceptual_loss / net / features_N`` ->
+``perceptual_loss.net.features.N``, ``lin{k} / model_1`` ->
+``lin{k}.model.1``, ``discriminator / main_i`` -> ``discriminator.main.i``
+(ActNorm ``loc`` / ``scale`` (1, 1, 1, C) -> the reference's (1, C, 1, 1)),
+and the scalar ``logvar``.
+
 The reverse direction needs no code here: the JAX package's
 ``utils/torch_convert.py:convert_state_dict`` loads a port state_dict.
 """
@@ -27,10 +34,11 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_LIST_SEGMENT = re.compile(r"^(down|up|block|attn|resblocks|ffn)_(\d+)$")
+_LIST_SEGMENT = re.compile(r"^(down|up|block|attn|resblocks|ffn|features|main|model)_(\d+)$")
+_NCHW_STATS = ("latent_mean", "latent_std", "loc", "scale")  # (1, 1, 1, C) -> (1, C, 1, 1)
 
 
-def _key(path) -> str:
+def _key(path, keep_leaf: bool = False) -> str:
     out = []
     for i, seg in enumerate(path[:-1]):
         m = _LIST_SEGMENT.match(seg)
@@ -43,7 +51,7 @@ def _key(path) -> str:
     if out and out[-1] == "in_proj":  # nn.MultiheadAttention's packed projection
         out[-1] = {"kernel": "in_proj_weight", "bias": "in_proj_bias"}[leaf]
     else:
-        out.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
+        out.append(leaf if keep_leaf else {"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
     return ".".join(out)
 
 
@@ -56,16 +64,17 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX engine param tree (nested mappings of numpy or array leaves) ->
-    port state_dict."""
+    """JAX engine (or loss-head) param tree (nested mappings of numpy or
+    array leaves) -> port state_dict."""
     sd = {}
     for path, value in _flatten(params):
         v = np.asarray(value, dtype=np.float32)
-        if path[-1] in ("latent_mean", "latent_std"):
+        stats = path[-1] in _NCHW_STATS and v.ndim == 4  # not LayerNorm's 1-D scale
+        if stats:
             v = v.transpose(0, 3, 1, 2)
         elif v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)
         elif v.ndim == 2 and path[-1] == "kernel":
             v = v.T
-        sd[_key(path)] = torch.tensor(v)  # a copy: the source may be read-only
+        sd[_key(path, keep_leaf=stats)] = torch.tensor(v)  # a copy: the source may be read-only
     return sd
