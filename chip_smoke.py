@@ -13,8 +13,9 @@ then drives each path through the entry points a user calls, at bs=16,
 
   * tokenization (encode -> 2^16 GQ search -> dequant, bf16) of
     sd3unet_gq_0.25 (the UNet) and bsqvit_gq_0.25 (the ViT);
-  * the two-phase GAN training pair of bsqvit_gq_0.25 with the bf16
-    overlay (``configs/overlays/bf16_compute.yaml``: bf16 compute, float32
+  * the two-phase GAN training pair of bsqvit_gq_0.25 and of
+    sd3unet_gq_0.25, each with the bf16 overlay
+    (``configs/overlays/bf16_compute.yaml``: bf16 compute, float32
     parameters and optimizer state), full width and depth: ae steps and
     disc steps with exact kernel launch counts, an eval step, and one ae
     step's gradient held against a float32 engine's.
@@ -58,7 +59,12 @@ FLASH_BWD_REL = 2e-2  # max error over max |grad|: the JAX package's flash bar
 LN_BWD_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}  # dx: summation order only
 PARAM_GRAD_REL = 1e-4  # dweight, dbias: float32 sums over 16384 rows in another order
 TRAIN_GRAD_REL_L2 = 0.1  # one ae step's bf16 gradient vs a float32 engine's
-TRAIN_GRAD_TENSOR_REL_L2 = 0.2  # the same, each tensor alone (worst measured: 8-9%)
+TRAIN_GRAD_TENSOR_REL_L2 = 0.2  # the same, each tensor alone (worst measured: 7-11%)
+# a gradient that is zero in exact arithmetic (attention's k bias: softmax is
+# shift-invariant) has no relative error; it is one whose float32 norm is
+# under this share of the whole gradient's, and is reported, not held
+ZERO_GRAD_REL = 1e-6
+WGRAD_REL = 1e-3  # float32 sums of exact bf16 products in another order, over max |dw|
 
 
 def emit(obj) -> None:
@@ -411,6 +417,180 @@ def check_flash_qkv_bwd(gen):
             "per_step": 24, "path": "bsqvit_train_ae", "shapes": [shape]}
 
 
+def check_resample_bwd(gen, kind: str):
+    """The resample backward at the training step's shapes: dgrad and wgrad
+    against their plain versions, the wgrad bit-equal across two runs; the
+    library yardstick is cuDNN's convolution backward of the same conv, on
+    the padded (downsample) or interpolated (upsample) input, each gradient
+    alone (output_mask) and both in one call (no add, no statistics fold,
+    and for the upsample dx of the high-resolution input)."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down
+    from vqvae_from_gaussian_vae_tpu_torch.ops import upsample_conv as up
+
+    if kind == "down":
+        cases = [(BATCH, 256, 256, 128), (BATCH, 128, 128, 256), (BATCH, 64, 64, 512)]
+        dgrad_k, dgrad_p = down.downsample_dgrad_cuda, down.downsample_dgrad_plain
+        wgrad_k, wgrad_p = down.downsample_wgrad_cuda, down.downsample_wgrad_plain
+    else:
+        cases = [(BATCH, 32, 32, 512), (BATCH, 64, 64, 512), (BATCH, 128, 128, 256)]
+        dgrad_k, dgrad_p = up.upsample_dgrad_cuda, up.upsample_dgrad_plain
+        wgrad_k, wgrad_p = up.upsample_wgrad_cuda, up.upsample_wgrad_plain
+    dshapes, wshapes = [], []
+    for shape in cases:
+        b, h, w, c = shape
+        x, _, wt, _ = _conv_inputs(gen, shape, False)
+        gshape = (b, h // 2, w // 2, c) if kind == "down" else (b, 2 * h, 2 * w, c)
+        g = torch.randn(gshape, generator=gen, device="cuda").to(torch.bfloat16)
+        wop = wt if kind == "down" else up.phase_kernels(wt)  # dgrad's weight operand
+        dx_k, dx_p = dgrad_k(g, wop), dgrad_p(g, wop)
+        dw_k, dw_k2, dw_p = wgrad_k(x, g), wgrad_k(x, g), wgrad_p(x, g)
+        torch.cuda.synchronize()
+        err, ratio = _bf16_err(dx_k, dx_p)
+        require(ratio <= 1.0, f"{kind} dgrad {shape}: kernel vs plain error {err} beyond "
+                              f"atol {BF16_ATOL} + rtol {BF16_RTOL}")
+        require(torch.equal(dw_k, dw_k2), f"{kind} wgrad {shape}: two runs differ")
+        w_err = float((dw_k - dw_p).abs().max())
+        w_rel = w_err / float(dw_p.abs().max())
+        require(w_rel <= WGRAD_REL, f"{kind} wgrad {shape}: error {w_rel} of max |dw|")
+        del dx_p, dw_p, dw_k2
+        # the library call: convolution_backward of the conv the op computes
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC buffer: channels_last
+        g_cl = g.permute(0, 3, 1, 2)
+        if kind == "down":
+            x_in = F.pad(x_cl, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+            stride, pad = [2, 2], [0, 0]
+            flops = 2.0 * b * (h // 2) * (w // 2) * 9 * c * c
+            w_out = 9 * c * c
+        else:
+            x_in = F.interpolate(x_cl, scale_factor=2.0, mode="nearest")
+            stride, pad = [1, 1], [1, 1]
+            flops = 2.0 * b * h * w * 16 * c * c
+            w_out = 16 * c * c  # dk22
+
+        def library(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                g_cl, x_in, w_oihw, None, stride, pad, [1, 1], False, [0, 0], 1, mask)
+
+        both_ms = time_ms(library([True, True, False]))
+        d_bytes = 2 * (g.numel() + wop.numel() + x.numel())
+        w_bytes = 2 * (x.numel() + g.numel()) + 4 * w_out
+        label = f"x {tuple(shape)}, g {tuple(gshape)} bf16"
+        for out, kern, plain, lib_mask, nbytes, e in (
+                (dshapes, lambda: dgrad_k(g, wop), lambda: dgrad_p(g, wop),
+                 [True, False, False], d_bytes, {"max_abs_err": err, "err_over_tol": ratio}),
+                (wshapes, lambda: wgrad_k(x, g), lambda: wgrad_p(x, g),
+                 [False, True, False], w_bytes,
+                 {"max_abs_err": w_err, "rel_err_of_max": w_rel, "bit_reproducible": True})):
+            bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+            out.append({"shape": label, "kernel_ms": time_ms(kern),
+                        "plain_ms": time_ms(plain, iters=3, warmup=1),
+                        "library_ms": time_ms(library(lib_mask)), "library_dx_dw_ms": both_ms,
+                        "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes, **e})
+        del x, g, x_in, dx_k, dw_k
+        torch.cuda.empty_cache()
+    src, jax_file = (("downsample_bwd.cu", "downsample_conv.py") if kind == "down"
+                     else ("upsample_bwd.cu", "upsample_conv.py"))
+    op = "downsample" if kind == "down" else "upsample"
+    lines = {"down": (496, 576), "up": (641, 732)}[kind]
+    common = {"route": "cuda", "source": f"vqvae_from_gaussian_vae_tpu_torch/csrc/{src}",
+              "per_step": 3, "path": "sd3unet_train_ae"}
+    return [{"name": f"{op}_dgrad", **common,
+             "replaces": f"vqvae_from_gaussian_vae_tpu/ops/{jax_file}:{lines[0]}",
+             "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}", "shapes": dshapes},
+            {"name": f"{op}_wgrad", **common,
+             "replaces": f"vqvae_from_gaussian_vae_tpu/ops/{jax_file}:{lines[1]}",
+             "tolerance": f"max error / max |dw| <= {WGRAD_REL}; bit-equal across runs",
+             "shapes": wshapes}]
+
+
+def check_flash_res(gen):
+    """The unpacked training forward (the UNet AttnBlock's): o and z against
+    the plain version; its time beside the inference entry's."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+
+    b, l, heads, d = BATCH, 32 * 32, 1, 512
+    q, k, v = (torch.randn((b, l, heads * d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = d ** -0.5
+    o_k, z_k = fa.flash_attention_res_cuda(q, k, v, scale, heads)
+    o_p, z_p = fa.flash_attention_res_plain(q, k, v, scale, heads)
+    torch.cuda.synchronize()
+    err = float((o_k.float() - o_p.float()).abs().max())
+    z_err = float((z_k - z_p).abs().max())
+    require(err <= FLASH_ATOL, f"flash (training form): o error {err} > {FLASH_ATOL}")
+    require(z_err <= Z_ATOL, f"flash (training form): z error {z_err} > {Z_ATOL}")
+    require(torch.equal(o_k, fa.flash_attention_cuda(q, k, v, scale, heads)),
+            "flash: the training form's o differs from the inference form's")
+    qh, kh, vh = (t.view(b, l, heads, d).transpose(1, 2) for t in (q, k, v))
+    flops = 4.0 * b * heads * l * l * d
+    nbytes = 4 * q.numel() * 2 + 4 * z_k.numel()
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    shape = {"shape": f"q,k,v ({b},{l},{heads}x{d}) bf16 -> o, z (B,H,L) f32",
+             "kernel_ms": time_ms(lambda: fa.flash_attention_res_cuda(q, k, v, scale, heads)),
+             "inference_form_ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, scale, heads)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_res_plain(q, k, v, scale, heads)),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
+             "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+             "max_abs_err": max(err, z_err), "o_max_abs_err": err, "z_max_abs_err": z_err}
+    return {"name": "flash_attention_res_fwd", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:387",
+            "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}", "per_step": 5,
+            "path": "sd3unet_train_ae", "shapes": [shape]}
+
+
+def check_flash_bwd(gen):
+    """The unpacked D=512 backward at the UNet AttnBlock's shape."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+
+    b, l, heads, d = BATCH, 32 * 32, 1, 512
+    q, k, v, do = (torch.randn((b, l, heads * d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, z = fa.flash_attention_res_cuda(q, k, v, scale, heads)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, z, do, scale, heads)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, z, do, scale, heads)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, z, do, scale, heads)
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(got, again)), "flash backward: two runs differ")
+    errs = []
+    for name, g, w in zip("qkv", got, want):
+        rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        require(rel <= FLASH_BWD_REL, f"flash backward: d{name} error {rel} of max |grad|")
+        errs.append(rel)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    del want, again
+    qh, kh, vh = (t.view(b, l, heads, d).transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    doh = do.view(b, l, heads, d).transpose(1, 2).contiguous()
+    library = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)  # noqa: E731
+    flops = 5 * 2.0 * b * heads * l * l * d
+    nbytes = 2 * 8 * q.numel() + 4 * z.numel()  # q, k, v, o, do in; dq, dk, dv out
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    shape = {"shape": f"q,k,v,o,do ({b},{l},{heads}x{d}) bf16, z f32 -> dq,dk,dv bf16",
+             "kernel_ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
+                 q, k, v, o, z, do, scale, heads)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
+                 q, k, v, o, z, do, scale, heads), iters=3, warmup=1),
+             "library_ms": time_ms(library), "library": "SDPA backward (autograd), head-major",
+             "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+             "max_abs_err": err, "rel_err_dq_dk_dv": errs, "bit_reproducible": True}
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:439",
+            "tolerance": f"max error / max |grad| <= {FLASH_BWD_REL} per dq, dk, dv; "
+                         "bit-equal across runs",
+            "per_step": 5, "path": "sd3unet_train_ae", "shapes": [shape]}
+
+
 def check_layer_norm_bwd(gen, add: bool):
     import torch
     import torch.nn.functional as F
@@ -548,7 +728,13 @@ def launch_counters():
             "layer_norm_fwd": layer_norm.layer_norm_cuda,
             "layer_norm_add_fwd": layer_norm.layer_norm_add_cuda,
             "layer_norm_bwd": layer_norm.layer_norm_bwd_cuda,
-            "layer_norm_add_bwd": layer_norm.layer_norm_add_bwd_cuda}
+            "layer_norm_add_bwd": layer_norm.layer_norm_add_bwd_cuda,
+            "downsample_dgrad": downsample_conv.downsample_dgrad_cuda,
+            "downsample_wgrad": downsample_conv.downsample_wgrad_cuda,
+            "upsample_dgrad": upsample_conv.upsample_dgrad_cuda,
+            "upsample_wgrad": upsample_conv.upsample_wgrad_cuda,
+            "flash_attention_res_fwd": flash_attention.flash_attention_res_cuda,
+            "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda}
 
 
 def counted(counters, fn):
@@ -569,16 +755,13 @@ def require_launches(label, got, expected):
     return {name: n for name, n in got.items() if name in expected}
 
 
-def _unet_step_flops(enc_cfg):
+def _backbone_flops(kind: str, enc_cfg):
+    """(encoder, decoder) FLOP per image of a backbone."""
     from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
 
-    return F.unet_encoder_flops(enc_cfg) + F.unet_decoder_flops(enc_cfg)
-
-
-def _vit_step_flops(enc_cfg):
-    from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
-
-    return F.vit_flops(enc_cfg) + F.vit_decoder_flops(enc_cfg)
+    if kind == "unet":
+        return F.unet_encoder_flops(enc_cfg), F.unet_decoder_flops(enc_cfg)
+    return F.vit_flops(enc_cfg), F.vit_decoder_flops(enc_cfg)
 
 
 # each main path: its config, the launches of one encode -> dequant step
@@ -589,12 +772,12 @@ PATHS = {
                 "launches": {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
                              "upsample_nearest_conv3x3_gn": 3, "flash_attention_fwd": 5},
                 "z": (BATCH, 32, 32, 16), "indices": (BATCH, 32, 32, 1),
-                "flops": _unet_step_flops},
+                "flops": lambda cfg: sum(_backbone_flops("unet", cfg))},
     "bsqvit": {"config": "configs/bsqvit_gq_0.25.yaml",
                "launches": {"gq_argmax": 1, "flash_attention_qkv_fwd": 24,
                             "layer_norm_fwd": 6, "layer_norm_add_fwd": 46},
                "z": (BATCH, 32 * 32, 16), "indices": (BATCH, 32 * 32, 1),
-               "flops": _vit_step_flops},
+               "flops": lambda cfg: sum(_backbone_flops("vit", cfg))},
 }
 
 
@@ -609,27 +792,49 @@ def build_engine(config: str, dtype: str):
     return instantiate_from_config(cfg["model"], seed=SEED, device="cuda"), cfg
 
 
-# the GAN training pair on bsqvit_gq_0.25 + the bf16 overlay: launches of one
+# the GAN training pairs, each config plus the bf16 overlay: launches of one
 # ae step (both trunks with a gradient), one disc step (both trunks without:
-# encode in the train branch, decode on the inference path) and one eval step
-TRAIN_CONFIGS = ["configs/bsqvit_gq_0.25.yaml", "configs/overlays/bf16_compute.yaml"]
-TRAIN_LAUNCHES = {
-    "ae": {"flash_attention_qkv_res_fwd": 24, "flash_attention_qkv_bwd": 24,
-           "layer_norm_fwd": 6, "layer_norm_add_fwd": 46, "layer_norm_bwd": 6,
-           "layer_norm_add_bwd": 46},
-    "disc": {"flash_attention_qkv_fwd": 24, "layer_norm_fwd": 6, "layer_norm_add_fwd": 46},
-    "eval": {"gq_argmax": 1, "flash_attention_qkv_fwd": 24, "layer_norm_fwd": 6,
-             "layer_norm_add_fwd": 46},
+# encode in the train branch, decode on the inference path) and one eval
+# step; the parameters whose change the run checks; the latent tokens of an
+# image (eps's shape)
+BF16_OVERLAY = "configs/overlays/bf16_compute.yaml"
+TRAIN_PATHS = {
+    "bsqvit": {
+        "configs": ["configs/bsqvit_gq_0.25.yaml", BF16_OVERLAY],
+        "launches": {
+            "ae": {"flash_attention_qkv_res_fwd": 24, "flash_attention_qkv_bwd": 24,
+                   "layer_norm_fwd": 6, "layer_norm_add_fwd": 46, "layer_norm_bwd": 6,
+                   "layer_norm_add_bwd": 46},
+            "disc": {"flash_attention_qkv_fwd": 24, "layer_norm_fwd": 6,
+                     "layer_norm_add_fwd": 46},
+            "eval": {"gq_argmax": 1, "flash_attention_qkv_fwd": 24, "layer_norm_fwd": 6,
+                     "layer_norm_add_fwd": 46}},
+        "watched": ["decoder.conv_out.weight",
+                    "encoder.transformer.resblocks.0.attn.in_proj_weight"],
+        "tokens": 32 * 32, "backbone_flops": lambda cfg: _backbone_flops("vit", cfg)},
+    "sd3unet": {
+        "configs": ["configs/sd3unet_gq_0.25.yaml", BF16_OVERLAY],
+        "launches": {
+            "ae": {"downsample_conv3x3_gn": 3, "downsample_dgrad": 3, "downsample_wgrad": 3,
+                   "upsample_nearest_conv3x3_gn": 3, "upsample_dgrad": 3, "upsample_wgrad": 3,
+                   "flash_attention_res_fwd": 5, "flash_attention_bwd": 5},
+            "disc": {"downsample_conv3x3_gn": 3, "upsample_nearest_conv3x3_gn": 3,
+                     "flash_attention_fwd": 5},
+            "eval": {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
+                     "upsample_nearest_conv3x3_gn": 3, "flash_attention_fwd": 5}},
+        "watched": ["decoder.conv_out.weight", "encoder.down.0.downsample.conv.weight",
+                    "decoder.up.1.upsample.conv.weight", "encoder.down.3.attn.0.q.weight"],
+        "tokens": 32 * 32, "backbone_flops": lambda cfg: _backbone_flops("unet", cfg)},
 }
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
-def build_trainer(dtype: str, seed: int = SEED):
+def build_trainer(path: str, dtype: str, seed: int = SEED):
     from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import make_optimizers
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
 
-    cfg = load_config([os.path.join(ROOT, c) for c in TRAIN_CONFIGS])
+    cfg = load_config([os.path.join(ROOT, c) for c in TRAIN_PATHS[path]["configs"]])
     params = cfg["model"]["params"]
     params["encoder_config"]["params"]["dtype"] = dtype
     params["decoder_config"]["params"]["dtype"] = dtype
@@ -778,17 +983,18 @@ def _finite(log) -> bool:
     return all(bool(torch.isfinite(v).all()) for v in log.values())
 
 
-def run_train(gen, profile: bool):
-    """The two-phase GAN pair of bsqvit_gq_0.25 at full width and depth,
-    bs=16, 256x256, bf16 compute with float32 master weights, through the
-    entry points a user calls: config -> engine with its loss ->
+def run_train(gen, profile: bool, path: str):
+    """The two-phase GAN pair of one config (``TRAIN_PATHS``) at full width
+    and depth, bs=16, 256x256, bf16 compute with float32 master weights,
+    through the entry points a user calls: config -> engine with its loss ->
     make_optimizers -> TrainStepBuilder -> init_state -> ae_step / disc_step
     -> eval_step."""
     import torch
     from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
 
+    spec = TRAIN_PATHS[path]
     torch.cuda.reset_peak_memory_stats()
-    engine, builder, cfg = build_trainer("bfloat16")
+    engine, builder, cfg = build_trainer(path, "bfloat16")
     require(all(p.dtype == torch.float32 for _, p in builder.ae_named_parameters()
                 + builder.disc_named_parameters()), "a trained parameter is not float32")
     x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
@@ -797,28 +1003,28 @@ def run_train(gen, profile: bool):
     state = builder.init_state(SEED, batch)
     state.step = engine.loss.disc_start + 10  # both phases run their real graphs
     counters = launch_counters()
-    watched = {"decoder.conv_out.weight": builder.last_layer,
-               "encoder.transformer.resblocks.0.attn.in_proj_weight":
-                   engine.encoder.transformer.resblocks[0].attn.in_proj_weight,
-               "loss.logvar": engine.loss.logvar,
-               "loss.discriminator.main.0.weight": engine.loss.discriminator.main[0].weight}
+    require(builder.last_layer_path == "decoder.conv_out.weight",
+            f"the adaptive weight's last layer is {builder.last_layer_path}")
+    watched = {name: engine.module.get_parameter(name) for name in spec["watched"]}
+    watched["loss.logvar"] = engine.loss.logvar
+    watched["loss.discriminator.main.0.weight"] = engine.loss.discriminator.main[0].weight
     before = {k: p.detach().clone() for k, p in watched.items()}
     duals0 = {k: float(v) for k, v in state.duals.items()}
 
     (state_log, ae_counts) = counted(counters, lambda: builder.ae_step(state, batch, True))
     _, log = state_log
     duals_ae = {k: float(v) for k, v in state.duals.items()}
-    ae_launches = require_launches("ae step", ae_counts, TRAIN_LAUNCHES["ae"])
-    require(_finite(log), f"ae step: a loss is not finite: {log}")
+    ae_launches = require_launches(f"{path} ae step", ae_counts, spec["launches"]["ae"])
+    require(_finite(log), f"{path} ae step: a loss is not finite: {log}")
     d_weight = float(log["train/scalars/d_weight"])
-    require(d_weight > 0.0, f"ae step: d_weight {d_weight} is not positive")
+    require(d_weight > 0.0, f"{path} ae step: d_weight {d_weight} is not positive")
     (state_log, disc_counts) = counted(counters, lambda: builder.disc_step(state, batch))
     _, log_d = state_log
-    disc_launches = require_launches("disc step", disc_counts, TRAIN_LAUNCHES["disc"])
-    require(_finite(log_d), f"disc step: a loss is not finite: {log_d}")
+    disc_launches = require_launches(f"{path} disc step", disc_counts, spec["launches"]["disc"])
+    require(_finite(log_d), f"{path} disc step: a loss is not finite: {log_d}")
     (log_e, eval_counts) = counted(counters, lambda: builder.eval_step(state, batch2))
-    eval_launches = require_launches("eval step", eval_counts, TRAIN_LAUNCHES["eval"])
-    require(_finite(log_e), f"eval step: a loss is not finite: {log_e}")
+    eval_launches = require_launches(f"{path} eval step", eval_counts, spec["launches"]["eval"])
+    require(_finite(log_e), f"{path} eval step: a loss is not finite: {log_e}")
     moved = {k: float((p.detach() - before[k]).abs().max()) for k, p in watched.items()}
     require(all(v > 0 for v in moved.values()), f"a parameter did not change: {moved}")
     duals1 = {k: float(v) for k, v in state.duals.items()}
@@ -845,12 +1051,12 @@ def run_train(gen, profile: bool):
     enc_cfg = cfg["model"]["params"]["encoder_config"]["params"]
     disc_cfg = cfg["model"]["params"]["loss_config"]["params"]["discriminator_config"]["params"]
     fl = F.gan_train_step_flops_from_backbone(
-        F.vit_flops(enc_cfg), F.vit_decoder_flops(enc_cfg), img=RES, ndf=disc_cfg["ndf"],
+        *spec["backbone_flops"](enc_cfg), img=RES, ndf=disc_cfg["ndf"],
         n_layers=disc_cfg["n_layers"])
     pair_flops = BATCH * (fl["ae_step"] + fl["disc_step"])
     tflops = pair_flops / ((ae_mean + disc_mean) / 1e3) / 1e12
-    result = {"phase": "train", "path": "bsqvit_gq_0.25 GAN pair",
-              "configs": TRAIN_CONFIGS, "dtype": "bfloat16 compute, float32 parameters",
+    result = {"phase": "train", "path": f"{path}_gq_0.25 GAN pair",
+              "configs": spec["configs"], "dtype": "bfloat16 compute, float32 parameters",
               "batch": BATCH, "resolution": RES, "step": state.step,
               "launches_per_ae_step": ae_launches, "launches_per_disc_step": disc_launches,
               "launches_per_eval_step": eval_launches,
@@ -866,37 +1072,45 @@ def run_train(gen, profile: bool):
     if profile:
         result["profile_ae"] = profile_step(lambda: builder.ae_step(state, batch, True))
         result["profile_disc"] = profile_step(lambda: builder.disc_step(state, batch))
-    result["bf16_vs_fp32_grad"] = train_grad_check(engine, builder, state, gen)
+    result["bf16_vs_fp32_grad"] = train_grad_check(path, engine, builder, state, gen)
     del builder, engine
     torch.cuda.empty_cache()
     return result
 
 
-def train_grad_check(engine, builder, state, gen):
+def train_grad_check(path, engine, builder, state, gen):
     """One ae step's gradient of the bf16 engine against a float32 engine
     with the same weights (engine and loss head), batch and eps, at bs=2;
-    TF32 is off."""
+    TF32 is off.  A tensor whose float32 gradient is zero in exact
+    arithmetic (``ZERO_GRAD_REL``) has no relative error and is reported
+    apart."""
     import torch
 
-    ref_engine, ref_builder, _ = build_trainer("float32")
+    ref_engine, ref_builder, _ = build_trainer(path, "float32")
     ref_engine.load_state_dict(engine.state_dict())
     ref_engine.loss.load_state_dict(engine.loss.state_dict())
     x = torch.rand((2, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
-    tokens = engine.encoder.grid_size[0] * engine.encoder.grid_size[1]
-    eps = torch.randn((2, tokens, engine.encoder.z_channels), generator=gen, device="cuda")
+    eps = torch.randn((2, TRAIN_PATHS[path]["tokens"], engine.encoder.z_channels), generator=gen,
+                      device="cuda")
     g16, log16, _ = builder.ae_grads(state, {"img": x}, True, eps=eps)
     g32, log32, _ = ref_builder.ae_grads(state, {"img": x}, True, eps=eps)
-    per = {k: rel_l2(g16[k], g32[k]) for k in g32}
+    whole = float(torch.cat([g.flatten() for g in g32.values()]).double().norm())
+    zero = {k: [float(g16[k].double().norm()), float(g32[k].double().norm())]
+            for k in g32 if float(g32[k].double().norm()) < ZERO_GRAD_REL * whole}
+    per = {k: rel_l2(g16[k], g32[k]) for k in g32 if k not in zero}
     worst = max(per, key=per.get)
     total = rel_l2(torch.cat([g16[k].flatten() for k in g32]),
                    torch.cat([g32[k].flatten() for k in g32]))
     require(total <= TRAIN_GRAD_REL_L2,
-            f"bf16 vs float32 ae gradient: rel L2 {total} (worst {worst}: {per[worst]})")
+            f"{path} bf16 vs float32 ae gradient: rel L2 {total} (worst {worst}: {per[worst]})")
     require(per[worst] <= TRAIN_GRAD_TENSOR_REL_L2,
-            f"bf16 vs float32 ae gradient of {worst}: rel L2 {per[worst]}")
+            f"{path} bf16 vs float32 ae gradient of {worst}: rel L2 {per[worst]}")
     del ref_builder, ref_engine
     torch.cuda.empty_cache()
+    top = sorted(per, key=per.get, reverse=True)[:5]
     return {"batch": 2, "rel_l2_all": total, "worst_tensor": worst, "worst_rel_l2": per[worst],
+            "next_worst": {k: per[k] for k in top[1:]},
+            "zero_gradient_tensors": zero,
             "d_weight": [float(log16["train/scalars/d_weight"]),
                          float(log32["train/scalars/d_weight"])],
             "loss_total": [float(log16["train/loss/total"]), float(log32["train/loss/total"])]}
@@ -976,10 +1190,13 @@ def main(argv=None) -> int:
                   lambda g: check_layer_norm(g, False), lambda g: check_layer_norm(g, True),
                   check_flash_qkv_res, check_flash_qkv_bwd,
                   lambda g: check_layer_norm_bwd(g, False),
-                  lambda g: check_layer_norm_bwd(g, True)):
-        k = check(gen)
-        emit({"phase": "kernel", **k})
-        kernels.append(k)
+                  lambda g: check_layer_norm_bwd(g, True),
+                  lambda g: check_resample_bwd(g, "down"), lambda g: check_resample_bwd(g, "up"),
+                  check_flash_res, check_flash_bwd):
+        out = check(gen)
+        for k in (out if isinstance(out, list) else [out]):
+            emit({"phase": "kernel", **k})
+            kernels.append(k)
         torch.cuda.empty_cache()
 
     launches = {}
@@ -988,9 +1205,11 @@ def main(argv=None) -> int:
         emit(e2e)
         launches[path] = e2e["launches_per_step"]
         torch.cuda.empty_cache()
-    train = run_train(gen, args.profile)
-    emit(train)
-    launches["bsqvit_train_ae"] = train["launches_per_ae_step"]
+    for path in TRAIN_PATHS:
+        train = run_train(gen, args.profile, path)
+        emit(train)
+        launches[f"{path}_train_ae"] = train["launches_per_ae_step"]
+        torch.cuda.empty_cache()
 
     summary = []
     for k in kernels:

@@ -1,7 +1,6 @@
 """The port's plain flash attention, unpacked and packed-QKV, forward and
-the packed backward, against the JAX package's flash_blc Pallas kernels
-(interpret mode): float32 within 1e-4, bf16 within the JAX flash tests'
-2e-2."""
+backward, against the JAX package's flash_blc Pallas kernels (interpret
+mode): float32 within 1e-4, bf16 within the JAX flash tests' 2e-2."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -154,3 +153,39 @@ def test_packed_flash_autograd_function_matches_torch_autograd():
     torch.einsum("bhqk,bkhd->bqhd", p, v).square().sum().backward()
     rel = float((a.grad.float() - ref.grad).abs().max() / ref.grad.abs().max())
     assert rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unpacked_flash_autograd_matches_jax_vjp(dtype):
+    """flash_attention under autograd (the training forward and the plain
+    backward on the CPU: the UNet AttnBlock's path) against jax.grad of
+    flash_attention_blc (its _fwd_res_call and _bwd_call kernels, interpret
+    mode) at the AttnBlock's head layout, H 1, D 512, L 128; and the plain
+    z against the JAX forward's z lane.  The bar: max error over max |grad|,
+    1e-4 (float32) or the JAX flash tests' 2e-2 (bf16)."""
+    import jax
+
+    from vqvae_from_gaussian_vae_tpu.ops.flash_blc import _fwd_res_call
+
+    b, l, h, d = 1, 128, 1, 512
+    sm = d ** -0.5
+    arrays = _qkv(b, l, h * d, seed=31) + [np.random.default_rng(32).standard_normal(
+        (b, l, h * d)).astype(np.float32)]
+    (jq, jk, jv, jdo), (q, k, v, do) = _cast(arrays, dtype)
+    o_p, z_p = fa.flash_attention_res_plain(q, k, v, sm, h)
+    _, jz = _fwd_res_call(jq, jk, jv, sm, h, True)
+    np.testing.assert_allclose(z_p.numpy(), np.asarray(jz, np.float32)[..., :h].transpose(0, 2, 1),
+                               atol=1e-3, rtol=1e-4)
+
+    _, vjp = jax.vjp(lambda a, b_, c: flash_attention_blc(a, b_, c, sm, h, True), jq, jk, jv)
+    want = vjp(jdo)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, sm, h)
+    assert type(out.grad_fn).__name__.startswith("_FlashFn")
+    assert torch.equal(out.detach(), o_p)
+    out.backward(do)
+    for name, t, w in zip("qkv", leaves, want):
+        w = np.asarray(w, np.float32)
+        assert t.grad.dtype == t.dtype
+        rel = float(np.abs(_np(t.grad) - w).max() / np.abs(w).max())
+        assert rel < TOL[dtype], f"d{name}: {rel}"

@@ -353,20 +353,188 @@ def test_packed_flash_autograd_runs_the_kernels(gen):
 
 
 def test_kernels_without_a_backward_refuse_grad(gen):
-    """No wrapper returns a tensor cut off from autograd: the kernels that
-    have no backward yet raise when a gradient is wanted."""
+    """No wrapper returns a tensor cut off from autograd: every direct launch
+    raises when a gradient is wanted (the forward launches have their
+    backward only inside the public ops' autograd Functions, and the
+    backward launches have no double backward); the public ops then run
+    their Functions."""
     q = torch.zeros((1, 64, 512), dtype=torch.bfloat16, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fa.flash_attention(q, q, q, 512 ** -0.5, 1)
     qkv = torch.zeros((1, 64, 3 * 128), dtype=torch.bfloat16, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fa.flash_attention_qkv_cuda(qkv, 0.125, 2)
     x, _, w, bias = _conv_case(gen, (1, 8, 8, 32), 128, False)
     w.requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        down.downsample_conv3x3_gn(x, w, bias)
-    with pytest.raises(RuntimeError, match="no backward"):
-        up.upsample_nearest_conv3x3_gn(x, w, bias)
-    with torch.no_grad():  # without a gradient they run
+    g_down = torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    g_up = torch.zeros((1, 16, 16, 128), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    z = torch.zeros((1, 1, 64), device="cuda")
+    launches = [
+        lambda: fa.flash_attention_cuda(q, q, q, 512 ** -0.5, 1),
+        lambda: fa.flash_attention_res_cuda(q, q, q, 512 ** -0.5, 1),
+        lambda: fa.flash_attention_bwd_cuda(q, q, q, q, z, q, 512 ** -0.5, 1),
+        lambda: fa.flash_attention_qkv_cuda(qkv, 0.125, 2),
+        lambda: down.downsample_conv3x3_gn_cuda(x, w, bias),
+        lambda: up.upsample_nearest_conv3x3_gn_cuda(x, w, bias),
+        lambda: down.downsample_dgrad_cuda(g_down, w),
+        lambda: down.downsample_wgrad_cuda(x, g_down),
+        lambda: up.upsample_dgrad_cuda(g_up, up.phase_kernels(w)),
+        lambda: up.upsample_wgrad_cuda(x, g_up),
+    ]
+    for launch in launches:
+        with pytest.raises(RuntimeError, match="no backward"):
+            launch()
+    # the public ops take their autograd Functions under grad
+    assert down.downsample_conv3x3_gn(x, w, bias)[0].grad_fn is not None
+    assert up.upsample_nearest_conv3x3_gn(x, w, bias)[0].grad_fn is not None
+    assert fa.flash_attention(q, q, q, 512 ** -0.5, 1).grad_fn is not None
+    with torch.no_grad():  # without a gradient the forward launches run
         down.downsample_conv3x3_gn(x, w, bias)
         fa.flash_attention(q, q, q, 512 ** -0.5, 1)
+
+
+# --- the resample backward (dgrad, wgrad) and the unpacked flash backward -----
+
+WGRAD_REL = 1e-3  # float32 sums of exact bf16 products in another order, over max |dw|
+
+
+def _bwd_case(gen, shape, o, up_op):
+    """x (B, H, W, C), w (3, 3, C, O) and a cotangent g of the op's output."""
+    b, h, wd, c = shape
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((3, 3, c, o), generator=gen, device="cuda") / (3 * c ** 0.5)).to(torch.bfloat16)
+    gshape = (b, 2 * h, 2 * wd, o) if up_op else (b, h // 2, wd // 2, o)
+    g = torch.randn(gshape, generator=gen, device="cuda").to(torch.bfloat16)
+    return x, w, g
+
+
+@pytest.mark.parametrize("shape,o", [
+    ((2, 10, 14, 32), 128),   # 35 output pixels: one ragged M tile; dgrad N = 32 < 128
+    ((1, 2, 2, 256), 512),    # one output pixel: a single band
+    ((3, 18, 34, 256), 128),  # 153 output pixels: two M tiles, the second ragged
+    ((2, 32, 32, 32), 512),
+])
+def test_downsample_bwd_kernels_match_plain(gen, shape, o):
+    x, w, g = _bwd_case(gen, shape, o, False)
+    before = (down.downsample_dgrad_cuda.launches, down.downsample_wgrad_cuda.launches)
+    dx = down.downsample_dgrad_cuda(g, w)
+    dw = down.downsample_wgrad_cuda(x, g)
+    assert (down.downsample_dgrad_cuda.launches, down.downsample_wgrad_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _close(dx, down.downsample_dgrad_plain(g, w), BF16_RTOL)
+    assert dw.shape == (3, 3, shape[-1], o) and dw.dtype == torch.float32
+    _close_rel(dw, down.downsample_wgrad_plain(x, g), WGRAD_REL)
+    assert torch.equal(dw, down.downsample_wgrad_cuda(x, g))
+
+
+@pytest.mark.parametrize("shape,o", [
+    ((2, 5, 7, 32), 128),     # 35 pixels: one ragged M tile
+    ((1, 1, 1, 256), 512),    # one low-resolution pixel: every halo masked
+    ((1, 12, 20, 256), 128),  # two M tiles, two N tiles in dgrad
+    ((2, 16, 16, 32), 512),
+])
+def test_upsample_bwd_kernels_match_plain(gen, shape, o):
+    x, w, g = _bwd_case(gen, shape, o, True)
+    k22 = up.phase_kernels(w)
+    before = (up.upsample_dgrad_cuda.launches, up.upsample_wgrad_cuda.launches)
+    dx = up.upsample_dgrad_cuda(g, k22)
+    dk22 = up.upsample_wgrad_cuda(x, g)
+    assert (up.upsample_dgrad_cuda.launches, up.upsample_wgrad_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _close(dx, up.upsample_dgrad_plain(g, k22), BF16_RTOL)
+    assert dk22.shape == (2, 2, 2, 2, shape[-1], o) and dk22.dtype == torch.float32
+    _close_rel(dk22, up.upsample_wgrad_plain(x, g), WGRAD_REL)
+    assert torch.equal(dk22, up.upsample_wgrad_cuda(x, g))
+
+
+def test_resample_bwd_kernels_refuse_unsupported_widths(gen):
+    x, w, g = _bwd_case(gen, (1, 8, 8, 32), 48, False)  # O not a multiple of 32
+    with pytest.raises(ValueError):
+        down.downsample_dgrad_cuda(g, w)
+    x, w, g = _bwd_case(gen, (1, 4, 4, 12), 128, True)  # C not a multiple of 8
+    with pytest.raises(ValueError):
+        up.upsample_wgrad_cuda(x, g)
+    with pytest.raises(ValueError):
+        up.upsample_dgrad_cuda(g.float(), up.phase_kernels(w))
+
+
+@pytest.mark.parametrize("op", ["down", "up"])
+@pytest.mark.parametrize("with_add", [False, True])
+def test_resample_autograd_runs_the_kernels(gen, op, with_add):
+    """Under grad the public op runs its forward, dgrad and wgrad kernels
+    once each, folds the statistics' cotangent, and sends dx to x and add;
+    the gradients agree with float32 autograd of the plain forward on the
+    same bf16 values."""
+    shape = (2, 16, 16, 32)
+    x, w, _ = _bwd_case(gen, shape, 128, op == "up")
+    add = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) if with_add else None
+    bias = torch.randn((128,), generator=gen, device="cuda")
+    public = down.downsample_conv3x3_gn if op == "down" else up.upsample_nearest_conv3x3_gn
+    plain = down.downsample_conv3x3_gn_plain if op == "down" else \
+        up.upsample_nearest_conv3x3_gn_plain
+    counters = ((down.downsample_conv3x3_gn_cuda, down.downsample_dgrad_cuda,
+                 down.downsample_wgrad_cuda) if op == "down" else
+                (up.upsample_nearest_conv3x3_gn_cuda, up.upsample_dgrad_cuda,
+                 up.upsample_wgrad_cuda))
+    before = [c.launches for c in counters]
+    leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+    a = None if add is None else add.clone().requires_grad_()
+    y, stats = public(leaves[0], leaves[1], leaves[2], a)
+    gy = torch.randn(y.shape, generator=gen, device="cuda")
+    gs = torch.randn(stats.shape, generator=gen, device="cuda") / y[0, ..., 0].numel()
+    ((y.float() * gy).sum() + (stats * gs).sum()).backward()
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    ref = [t.float().requires_grad_() for t in (x, w, bias)]
+    ra = None if add is None else add.float().requires_grad_()
+    y32, s32 = plain(ref[0], ref[1], ref[2], ra)
+    ((y32 * gy).sum() + (s32 * gs).sum()).backward()
+    for got, want in zip(leaves, ref):
+        _close_rel(got.grad, want.grad, 2e-2)
+    if add is not None:
+        assert torch.equal(a.grad, leaves[0].grad)
+
+
+@pytest.mark.parametrize("b,l,h,d", [(2, 64, 2, 128), (1, 256, 4, 128), (2, 128, 1, 512),
+                                     (1, 1024, 1, 512)])
+def test_flash_training_forward_and_bwd_match_plain(gen, b, l, h, d):
+    q, k, v, do = (torch.randn((b, l, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    before = (fa.flash_attention_res_cuda.launches, fa.flash_attention_bwd_cuda.launches)
+    o, z = fa.flash_attention_res_cuda(q, k, v, scale, h)
+    o_p, z_p = fa.flash_attention_res_plain(q, k, v, scale, h)
+    assert z.shape == (b, h, l) and z.dtype == torch.float32
+    assert float((z - z_p).abs().max()) <= 1e-3 * max(1.0, float(z_p.abs().max()))
+    assert torch.equal(o, fa.flash_attention_cuda(q, k, v, scale, h))
+    assert float((o.float() - o_p.float()).abs().max()) <= FLASH_ATOL
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, z, do, scale, h)
+    assert (fa.flash_attention_res_cuda.launches, fa.flash_attention_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, z, do, scale, h)
+    for g, w in zip(got, want):  # dq, dk, dv
+        assert g.shape == q.shape and g.dtype == torch.bfloat16
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, z, do, scale, h)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_packed_flash_bwd_kernel_takes_d512(gen):
+    """The packed entry shares the backward kernels, D = 512 tiling included."""
+    qkv = torch.randn((1, 128, 3 * 512), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((1, 128, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    o, z = fa.flash_attention_qkv_res_cuda(qkv, 512 ** -0.5, 1)
+    got = fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, 512 ** -0.5, 1)
+    want = fa.flash_attention_qkv_bwd_plain(qkv, o, z, do, 512 ** -0.5, 1)
+    for g, w in zip(got.chunk(3, dim=-1), want.chunk(3, dim=-1)):
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+
+
+def test_unpacked_flash_autograd_runs_the_kernels(gen):
+    q, k, v = (torch.randn((1, 128, 512), generator=gen, device="cuda").to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    before = (fa.flash_attention_res_cuda.launches, fa.flash_attention_bwd_cuda.launches,
+              fa.flash_attention_cuda.launches)
+    fa.flash_attention(q, k, v, 512 ** -0.5, 1).float().square().sum().backward()
+    assert (fa.flash_attention_res_cuda.launches, fa.flash_attention_bwd_cuda.launches,
+            fa.flash_attention_cuda.launches) == (before[0] + 1, before[1] + 1, before[2])
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    p = torch.softmax(ref[0] @ ref[1].transpose(1, 2) * 512 ** -0.5, dim=-1)
+    (p @ ref[2]).square().sum().backward()
+    for got, want in zip((q, k, v), ref):
+        assert _rel_max(got.grad, want.grad) <= FLASH_BWD_REL

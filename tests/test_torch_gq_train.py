@@ -1,7 +1,8 @@
 """The port's GQ train branch and dual update against the JAX package's:
 with eps injected into both (the JAX draw patched to return the numpy
 eps), the sample, kl_loss, the bits statistics and the dual update agree
-within 1e-6 relative, in both token and image layouts and in every KL band."""
+within 1e-6 relative, in the token layout and both spellings of the image
+layout, and in every KL band."""
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,8 @@ def _posterior(shape, seed):
     return np.concatenate([mu, logvar], axis=-1).astype(np.float32)
 
 
-@pytest.mark.parametrize("fmt,shape", [("blc", (2, 24, 16)), ("bhwc", (2, 4, 6, 16))])
+@pytest.mark.parametrize("fmt,shape", [("blc", (2, 24, 16)), ("bhwc", (2, 4, 6, 16)),
+                                       ("bchw", (2, 6, 4, 16))])  # the UNet configs' format
 def test_train_branch_matches_jax(fmt, shape, monkeypatch):
     z = _posterior(shape, seed=1)
     eps = np.random.default_rng(2).standard_normal(shape[:-1] + (shape[-1] // 2,)) \

@@ -111,8 +111,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(op):
 @pytest.mark.parametrize("op", [down.downsample_conv3x3_gn_cuda,
                                 up.upsample_nearest_conv3x3_gn_cuda])
 def test_kernel_wrappers_refuse_grad(op):
-    """The resample kernels have no backward yet: asked for a gradient, a
-    wrapper raises rather than return a tensor cut off from autograd."""
+    """A direct launch of a forward kernel has no backward wired to it (the
+    public op's autograd Function has): asked for a gradient, the wrapper
+    raises rather than return a tensor cut off from autograd."""
     x = torch.zeros((1, 8, 8, 32), dtype=torch.bfloat16)
     w = torch.zeros((3, 3, 32, 128), dtype=torch.bfloat16, requires_grad=True)
     before = op.launches

@@ -1,19 +1,33 @@
-// Implicit-GEMM 3x3 convolution core shared by the fused resample kernels
-// (downsample_conv.cu, upsample_conv.cu).
+// Implicit-GEMM 3x3 convolution core shared by the resample kernels, forward
+// (downsample_conv.cu, upsample_conv.cu) and input gradient
+// (downsample_bwd.cu, upsample_bwd.cu).
 //
-// Both ops are a sum of small-tap convolutions over an NHWC bf16 input, so
-// one kernel body serves both:
+// All four ops are a sum of small-tap convolutions over an NHWC bf16 input,
+// so one kernel body serves them, picked by MODE:
 //
-//   M = output pixels of one sample (for the upsample: low-resolution pixels
-//       of one phase), N = output channels, K = taps x C.
+//   M = output pixels of one sample (of one phase, where the op has phases),
+//   N = output channels, K = taps x input channels.
 //
-//   down (UP=false): 9 taps; output pixel (mh, mw) reads input
-//       (2*mh + a, 2*mw + b), a, b in 0..2; row H / column W are the (0,1)
-//       zero pad.
-//   up   (UP=true): 4 taps per phase (di, dj); output pixel (2*mh+di,
-//       2*mw+dj) reads input (mh + di + a - 1, mw + dj + b - 1), a, b in
-//       0..1, with zero halos outside the image; the weights are the phase
-//       kernels k22[di, dj, a, b] computed once by the wrapper.
+//   kDownFwd: 9 taps; output pixel (mh, mw) reads input (2*mh + a,
+//       2*mw + b), a, b in 0..2; row H / column W are the (0,1) zero pad.
+//   kUpFwd: 4 taps per phase (di, dj); output pixel (2*mh+di, 2*mw+dj)
+//       reads input (mh + di + a - 1, mw + dj + b - 1), a, b in 0..1, with
+//       zero halos outside the image; the weights are the phase kernels
+//       k22[di, dj, a, b] computed once by the wrapper.
+//   kDownDgrad: the adjoint of kDownFwd, input = the cotangent g
+//       (B, H/2, W/2, O).  Parity phase (pm, pn) of dx takes the taps
+//       r = pm, pm+2 (<= 2) and s = pn, pn+2: dx[2*mh+pm, 2*mw+pn] =
+//       sum g[mh - (r-pm)/2, mw - (s-pn)/2] . w[r, s]^T (9 taps over the 4
+//       phases: 4, 2, 2, 1); negative g rows and columns are zero.
+//   kUpDgrad: the adjoint of kUpFwd (the 4x4 stride-2 adjoint as 16
+//       low-resolution taps), input = g (B, 2H, 2W, O): dx[mh, mw] = sum
+//       over (di, dj, a, b) of g[2*(mh-dr)+di, 2*(mw-dc)+dj] . k22^T, with
+//       dr = di+a-1, dc = dj+b-1, zero where mh-dr or mw-dc leaves the image.
+//
+// The weights are laid out (taps, K channels, N channels); the gradient
+// modes take w^T (HWOI) and k22^T.  They have no bias and no statistics,
+// and N (the forward's input channels) may be any multiple of 8: the last
+// channel tile is masked.
 //
 // Work per block: a 128-pixel x 128-channel output tile of one sample,
 // 8 warps in a 4 x 2 grid, each warp 32 x 64 on bf16 tensor cores through
@@ -55,16 +69,27 @@ constexpr size_t kConvSmemAB =
 constexpr size_t kConvSmemC = (size_t)kConvBM * kConvLDC * sizeof(float);
 constexpr size_t kConvSmem = kConvSmemAB > kConvSmemC ? kConvSmemAB : kConvSmemC;
 
+enum ConvMode { kDownFwd = 0, kUpFwd = 1, kDownDgrad = 2, kUpDgrad = 3 };
+
+__host__ __device__ constexpr bool conv_is_fwd(int mode) {
+  return mode == kDownFwd || mode == kUpFwd;
+}
+
+__host__ __device__ constexpr int conv_phases(int mode) {
+  return mode == kUpFwd || mode == kDownDgrad ? 4 : 1;
+}
+
 struct ConvArgs {
-  const bf16* x;      // (B, H, W, C)
-  const bf16* add;    // (B, H, W, C) or null
-  const bf16* w;      // (taps, C, O): HWIO for the downsample, k22 for the upsample
-  const float* bias;  // (O,) bf16-rounded values held as f32
-  bf16* y;            // output, NHWC
-  float* partial;     // (B, P, 2, O) per-block statistics
+  const bf16* x;      // input (B, H, W, C): x, or the cotangent g for the gradient modes
+  const bf16* add;    // (B, H, W, C) or null (forward modes)
+  const bf16* w;      // (taps, C, O): HWIO, k22, HWOI (w^T) or k22^T
+  const float* bias;  // (O,) bf16-rounded values held as f32 (forward modes)
+  bf16* y;            // output (B, out_h, out_w, O)
+  float* partial;     // (B, P, 2, O) per-block statistics (forward modes)
   int B, H, W, C, O;
   int Mh, Mw;         // M grid of one sample (and one phase)
   int n_mt;           // M tiles per sample (and phase)
+  int out_h, out_w;
 };
 
 __device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
@@ -85,7 +110,7 @@ __device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
   return out;
 }
 
-template <bool UP, bool ADD>
+template <int MODE, bool ADD>
 __global__ void __launch_bounds__(kConvThreads)
 conv_igemm_kernel(ConvArgs g) {
   using namespace nvcuda;
@@ -100,17 +125,23 @@ conv_igemm_kernel(ConvArgs g) {
   const int warp = tid >> 5;
   const int warp_m = warp >> 1;  // 0..3: 32-row slab
   const int warp_n = warp & 1;   // 0..1: 64-column slab
+  constexpr bool FWD = conv_is_fwd(MODE);
   const int mt = blockIdx.x;
   const int b = blockIdx.y;
-  const int n_nt = g.O / kConvBN;
-  const int phase = UP ? (int)blockIdx.z / n_nt : 0;
+  const int n_nt = (g.O + kConvBN - 1) / kConvBN;
+  const int phase = (int)blockIdx.z / n_nt;
   const int nt = (int)blockIdx.z % n_nt;
   const int di = phase >> 1, dj = phase & 1;
   const int n0 = nt * kConvBN;
   const int m_total = g.Mh * g.Mw;
-  constexpr int TAPS = UP ? 4 : 9;
+  // kDownDgrad: phase (di, dj) = (pm, pn) takes 2 row taps for pm = 0 (r = 0, 2), else 1
+  const int dg_cols = dj == 0 ? 2 : 1;
+  const int taps = MODE == kDownFwd ? 9
+                 : MODE == kUpFwd ? 4
+                 : MODE == kUpDgrad ? 16
+                 : (di == 0 ? 2 : 1) * dg_cols;
   const int kc_steps = g.C / kConvBK;
-  const int ksteps = TAPS * kc_steps;
+  const int ksteps = taps * kc_steps;
 
   // A tile: 128 pixels x 32 channels = 512 chunks of 8 channels, 2 per thread
   int a_mh[2], a_mw[2];
@@ -130,14 +161,25 @@ conv_igemm_kernel(ConvArgs g) {
   auto load_tile = [&](int ks) {
     const int t = ks / kc_steps;
     const int c0 = (ks % kc_steps) * kConvBK;
-    const int dr = UP ? di + (t >> 1) - 1 : t / 3;
-    const int dc = UP ? dj + (t & 1) - 1 : t % 3;
+    // input pixel (r, s) = (rm * mh + dr, rm * mw + dc), and the weight tap
+    int rm = 1, dr = 0, dc = 0, wtap = t;
+    if (MODE == kDownFwd) {
+      rm = 2, dr = t / 3, dc = t % 3;
+    } else if (MODE == kUpFwd) {
+      dr = di + (t >> 1) - 1, dc = dj + (t & 1) - 1, wtap = phase * 4 + t;
+    } else if (MODE == kDownDgrad) {
+      const int tr = t / dg_cols, tc = t % dg_cols;  // r = di + 2 tr, s = dj + 2 tc
+      dr = -tr, dc = -tc, wtap = (di + 2 * tr) * 3 + dj + 2 * tc;
+    } else {  // kUpDgrad: t = (tdi, tdj, a, b); g row 2 (mh - (tdi + a - 1)) + tdi
+      const int tdi = t >> 3, tdj = (t >> 2) & 1;
+      rm = 2, dr = tdi - 2 * (tdi + ((t >> 1) & 1) - 1), dc = tdj - 2 * (tdj + (t & 1) - 1);
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int id = tid + i * kConvThreads;
       const int cpart = id & 3;
-      const int r = UP ? a_mh[i] + dr : 2 * a_mh[i] + dr;
-      const int s = UP ? a_mw[i] + dc : 2 * a_mw[i] + dc;
+      const int r = rm * a_mh[i] + dr;
+      const int s = rm * a_mw[i] + dc;
       const bool ok = a_ok[i] && r >= 0 && r < g.H && s >= 0 && s < g.W;
       if (ok) {
         const size_t off = (((size_t)b * g.H + r) * g.W + s) * g.C + c0 + cpart * 8;
@@ -148,14 +190,14 @@ conv_igemm_kernel(ConvArgs g) {
         if (ADD) radd[i] = zero4;
       }
     }
-    const int wtap = UP ? phase * 4 + t : t;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int id = tid + i * kConvThreads;
       const int k = id >> 4;          // 16 chunks per 128-wide row
       const int col = (id & 15) * 8;
-      rb[i] = *reinterpret_cast<const uint4*>(
-          g.w + ((size_t)wtap * g.C + c0 + k) * g.O + n0 + col);
+      rb[i] = n0 + col < g.O ? *reinterpret_cast<const uint4*>(
+                                   g.w + ((size_t)wtap * g.C + c0 + k) * g.O + n0 + col)
+                             : zero4;
     }
   };
 
@@ -207,36 +249,37 @@ conv_igemm_kernel(ConvArgs g) {
                               acc[i][j], kConvLDC, wmma::mem_row_major);
   __syncthreads();
 
-  // bias, bf16 rounding, store; Cs keeps the rounded value for the stats
-  const int out_h = UP ? 2 * g.H : g.Mh;
-  const int out_w = UP ? 2 * g.W : g.Mw;
+  // (bias,) bf16 rounding, store; Cs keeps the rounded value for the stats
+  constexpr bool INTERLEAVE = conv_phases(MODE) == 4;  // output pixel (2 mh + di, 2 mw + dj)
   for (int id = tid; id < kConvBM * (kConvBN / 8); id += kConvThreads) {
     const int p = id >> 4;
     const int cc = (id & 15) * 8;
     const int m = mt * kConvBM + p;
     float* crow = Cs + p * kConvLDC + cc;
-    if (m < m_total) {
+    if (m < m_total && n0 + cc < g.O) {
       const int mh = m / g.Mw, mw = m % g.Mw;
-      const int oh = UP ? 2 * mh + di : mh;
-      const int ow = UP ? 2 * mw + dj : mw;
+      const int oh = INTERLEAVE ? 2 * mh + di : mh;
+      const int ow = INTERLEAVE ? 2 * mw + dj : mw;
       uint4 packed;
       uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
       for (int e = 0; e < 8; e += 2) {
-        __nv_bfloat162 r2 = __floats2bfloat162_rn(crow[e] + g.bias[n0 + cc + e],
-                                                 crow[e + 1] + g.bias[n0 + cc + e + 1]);
+        const float b0 = FWD ? g.bias[n0 + cc + e] : 0.0f;
+        const float b1 = FWD ? g.bias[n0 + cc + e + 1] : 0.0f;
+        __nv_bfloat162 r2 = __floats2bfloat162_rn(crow[e] + b0, crow[e + 1] + b1);
         float2 back = __bfloat1622float2(r2);
         crow[e] = back.x;
         crow[e + 1] = back.y;
         pk[e >> 1] = *reinterpret_cast<uint32_t*>(&r2);
       }
       *reinterpret_cast<uint4*>(
-          g.y + (((size_t)b * out_h + oh) * out_w + ow) * g.O + n0 + cc) = packed;
+          g.y + (((size_t)b * g.out_h + oh) * g.out_w + ow) * g.O + n0 + cc) = packed;
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) crow[e] = 0.0f;
     }
   }
+  if (!FWD) return;
   __syncthreads();
 
   // per-block channel statistics: two threads per column, fixed order
@@ -256,8 +299,7 @@ conv_igemm_kernel(ConvArgs g) {
   if (half == 0) {
     s += red_s[col];
     ss += red_ss[col];
-    const int n_phase = UP ? 4 : 1;
-    const size_t slot = (size_t)b * (n_phase * g.n_mt) + (size_t)phase * g.n_mt + mt;
+    const size_t slot = (size_t)b * (conv_phases(MODE) * g.n_mt) + (size_t)phase * g.n_mt + mt;
     g.partial[(slot * 2 + 0) * g.O + n0 + col] = s;
     g.partial[(slot * 2 + 1) * g.O + n0 + col] = ss;
   }
@@ -276,29 +318,38 @@ __global__ void conv_stats_reduce_kernel(const float* __restrict__ partial,
   stats[idx] = acc;
 }
 
-template <bool UP>
+template <int MODE, bool ADD>
+inline cudaError_t launch_igemm(const ConvArgs& g, cudaStream_t stream) {
+  const dim3 grid(g.n_mt, g.B, conv_phases(MODE) * ((g.O + kConvBN - 1) / kConvBN));
+  cudaError_t err = cudaFuncSetAttribute(conv_igemm_kernel<MODE, ADD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kConvSmem);
+  if (err != cudaSuccess) return err;
+  conv_igemm_kernel<MODE, ADD><<<grid, kConvThreads, kConvSmem, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// the forward modes: the conv with its epilogue, then the statistics reduce
+template <int MODE>
 inline int launch_conv(const ConvArgs& g, float* stats, cudaStream_t stream) {
+  static_assert(conv_is_fwd(MODE), "launch_conv runs the forward modes");
   if (g.C % kConvBK != 0 || g.O % kConvBN != 0 || g.n_mt <= 0) return (int)cudaErrorInvalidValue;
-  const int n_phase = UP ? 4 : 1;
-  const dim3 grid(g.n_mt, g.B, n_phase * (g.O / kConvBN));
-  cudaError_t err;
-  if (g.add != nullptr) {
-    err = cudaFuncSetAttribute(conv_igemm_kernel<UP, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kConvSmem);
-    if (err != cudaSuccess) return (int)err;
-    conv_igemm_kernel<UP, true><<<grid, kConvThreads, kConvSmem, stream>>>(g);
-  } else {
-    err = cudaFuncSetAttribute(conv_igemm_kernel<UP, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kConvSmem);
-    if (err != cudaSuccess) return (int)err;
-    conv_igemm_kernel<UP, false><<<grid, kConvThreads, kConvSmem, stream>>>(g);
-  }
-  err = cudaGetLastError();
+  cudaError_t err = g.add != nullptr ? launch_igemm<MODE, true>(g, stream)
+                                     : launch_igemm<MODE, false>(g, stream);
   if (err != cudaSuccess) return (int)err;
   const int total = g.B * 2 * g.O;
   conv_stats_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-      g.partial, stats, g.B, n_phase * g.n_mt, g.O);
+      g.partial, stats, g.B, conv_phases(MODE) * g.n_mt, g.O);
   return (int)cudaGetLastError();
+}
+
+// the gradient modes: one launch, no statistics
+template <int MODE>
+inline int launch_dgrad(const ConvArgs& g, cudaStream_t stream) {
+  static_assert(!conv_is_fwd(MODE), "launch_dgrad runs the gradient modes");
+  if (g.C % kConvBK != 0 || g.O % 8 != 0 || g.O <= 0 || g.n_mt <= 0 || g.add != nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_igemm<MODE, false>(g, stream);
 }
 
 }  // namespace

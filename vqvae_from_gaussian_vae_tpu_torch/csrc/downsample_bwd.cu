@@ -1,0 +1,75 @@
+// Backward of the fused stride-2 3x3 downsample conv for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of vqvae_from_gaussian_vae_tpu/ops/downsample_conv.py
+// reached from the custom VJP's backward (_downsample_bwd_pallas_t):
+//   gvq_downsample_dgrad  <- _downsample_dgrad -> pl.pallas_call (body _dgrad_kernel)
+//   gvq_downsample_wgrad  <- _downsample_wgrad -> pl.pallas_call (body _wgrad_kernel)
+// The wrapper folds the statistics cotangent into g (float32, then bf16) and
+// sums dbias before these run, as the JAX backward does.
+//
+// dgrad: dx (B, H, W, C) from g (B, H/2, W/2, O) and w^T, the 4 parity
+// phases of shifted g . w[r, s]^T (9 taps over the phases: 4, 2, 2, 1),
+// interleaved into dx; negative g rows and columns (the top row of band 0
+// in the TPU kernel) are zero.  It runs the forward's implicit-GEMM body
+// (conv_igemm.cuh, mode kDownDgrad): M = low-resolution pixels of one
+// phase, N = C, K = the phase's taps x O, bf16 tensor cores with float32
+// accumulators, no zero-stuffed or padded copy of g.
+//
+// wgrad: dw (9, C, O) float32, the strided input views x[2i+r, 2j+s]
+// against g over all B * H/2 * W/2 pixels (conv_wgrad.cuh): per-block
+// float32 partials over fixed pixel chunks and an ordered second pass, no
+// atomics, so two runs give the same bits.
+//
+// What bounds them on an H100: each is 7.7e10 FLOP per launch at the three
+// encoder shapes (bs=16), against 67 to 337 MB of traffic (dgrad: g in, dx
+// out; wgrad: x and g in), so the tensor cores bound the 64x64x512 level
+// and the bytes the 256x256x128 one.
+#include "conv_wgrad.cuh"
+
+// g (B, Ho, Wo, O) bf16; wt (3, 3, O, C) bf16 (w^T per tap); dx (B, 2 Ho,
+// 2 Wo, C) bf16.  All contiguous; O a multiple of 32, C of 8.
+extern "C" int gvq_downsample_dgrad(const void* g, const void* wt, void* dx, int B, int Ho,
+                                    int Wo, int O, int C, void* stream) {
+  if (B <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaErrorInvalidValue;
+  gvq::ConvArgs a{};
+  a.x = static_cast<const gvq::bf16*>(g);
+  a.w = static_cast<const gvq::bf16*>(wt);
+  a.y = static_cast<gvq::bf16*>(dx);
+  a.B = B;
+  a.H = Ho;
+  a.W = Wo;
+  a.C = O;
+  a.O = C;
+  a.Mh = Ho;
+  a.Mw = Wo;
+  a.n_mt = (Ho * Wo + gvq::kConvBM - 1) / gvq::kConvBM;
+  a.out_h = 2 * Ho;
+  a.out_w = 2 * Wo;
+  return gvq::launch_dgrad<gvq::kDownDgrad>(a, static_cast<cudaStream_t>(stream));
+}
+
+// x (B, H, W, C) bf16 (the forward's input, x + add summed and rounded
+// where the forward had one); g (B, H/2, W/2, O) bf16; partial (splits, 9,
+// C, O) float32 scratch; dw (9, C, O) float32.  H, W even; C and O
+// multiples of 8; splits * chunk must cover B * H/2 * W/2 pixels.
+extern "C" int gvq_downsample_wgrad(const void* x, const void* g, void* partial, void* dw, int B,
+                                    int H, int W, int C, int O, int splits, int chunk,
+                                    void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || H % 2 != 0 || W % 2 != 0) return (int)cudaErrorInvalidValue;
+  gvq::WgradArgs a{};
+  a.x = static_cast<const gvq::bf16*>(x);
+  a.g = static_cast<const gvq::bf16*>(g);
+  a.partial = static_cast<float*>(partial);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.O = O;
+  a.Hg = H / 2;
+  a.Wg = W / 2;
+  a.Mh = H / 2;
+  a.Mw = W / 2;
+  a.chunk = chunk;
+  return gvq::launch_wgrad<false>(a, splits, static_cast<float*>(dw),
+                                  static_cast<cudaStream_t>(stream));
+}

@@ -36,5 +36,7 @@ extern "C" int gvq_downsample_conv(const void* x, const void* add, const void* w
   g.Mh = H / 2;
   g.Mw = W / 2;
   g.n_mt = (g.Mh * g.Mw + gvq::kConvBM - 1) / gvq::kConvBM;
-  return gvq::launch_conv<false>(g, stats, static_cast<cudaStream_t>(stream));
+  g.out_h = g.Mh;
+  g.out_w = g.Mw;
+  return gvq::launch_conv<gvq::kDownFwd>(g, stats, static_cast<cudaStream_t>(stream));
 }

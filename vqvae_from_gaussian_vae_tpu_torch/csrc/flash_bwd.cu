@@ -1,35 +1,49 @@
-// Flash-attention backward for the packed (B, L, 3C) QKV layout, bf16, for
-// Hopper (sm_90a).
+// Flash-attention backward on token-major bf16 tensors, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of vqvae_from_gaussian_vae_tpu/ops/flash_blc.py
-// reached from _bwd_call_packed (_bwd_impl -> pl.pallas_call, body
-// _bwd_kernel).  Per head, with s = q k^T * scale and the forward's
-// log-normaliser z (csrc/flash_fwd.cu, gvq_flash_fwd_qkv_res):
+// _bwd_impl -> pl.pallas_call (body _bwd_kernel), reached from two entries:
+//   gvq_flash_bwd_qkv  <- _bwd_call_packed (the ViT: q, k, v read in place
+//                         from the (B, L, 3C) QKV projection output)
+//   gvq_flash_bwd      <- _bwd_call (the UNet AttnBlock: separate (B, L, C)
+//                         q, k, v; H=1, D=512 on the main path)
+// Per head, with s = q k^T * scale and the forward's log-normaliser z
+// (csrc/flash_fwd.cu, gvq_flash_fwd_qkv_res / gvq_flash_fwd_res):
 //
 //   p  = exp(s - z)                      (no max or sum pass)
 //   di = rowsum(do * o)                  (float32)
 //   ds = p * (do v^T - di) * scale       (rounded to bf16)
 //   dq = ds k,  dk = ds^T q,  dv = bf16(p)^T do   (float32 accumulation)
 //
-// q, k and v are read in place from the QKV projection output at channel
-// offsets 0, C and 2C (token stride 3C); dq, dk and dv are written into ONE
-// (B, L, 3C) tensor at the same offsets, so the projection's backward reads
-// it as it is (the JAX package concatenates three (B, L, C) arrays).
+// The inputs have one token stride and the outputs another, so the packed
+// entry reads q, k and v at channel offsets 0, C and 2C of the projection
+// (stride 3C) and writes dq | dk | dv into ONE (B, L, 3C) tensor at the same
+// offsets, which the projection's backward reads as it is (the JAX package
+// concatenates three (B, L, C) arrays); the unpacked entry has stride C
+// both ways and three outputs.
 //
-// What bounds it on an H100: at the ViT shape (B=16, L=1024, H=12, D=64)
-// the five products are 1.29e11 FLOP against ~200 MB of traffic, so it is
-// tensor-core bound (0.13 ms at the bf16 dense peak).  The TPU kernel keeps
-// a head group's whole K and V in VMEM and accumulates dk, dv across q
-// blocks in scratch; a block here has at most 227 KB of shared memory and
-// no order across blocks, so both sides are tiled into 64-row tiles and the
-// work is split in two kernels with no float atomics (the gradients are
-// bit-reproducible): one over (K/V tile, b, h) that streams the q tiles
+// What bounds it on an H100: the five products.  At the ViT shape (B=16,
+// L=1024, H=12, D=64) that is 1.29e11 FLOP against ~200 MB of traffic, at
+// the UNet shape (B=16, L=1024, H=1, D=512) 8.6e10 FLOP against ~100 MB:
+// tensor-core bound both (0.13 and 0.087 ms at the bf16 dense peak).  The
+// TPU kernel keeps a head group's whole K and V in VMEM and accumulates
+// dk, dv across q blocks in scratch; a block here has at most 227 KB of
+// shared memory and no order across blocks, so both sides are tiled and
+// the work is split in two kernels with no float atomics (the gradients
+// are bit-reproducible): one over (K/V tile, b, h) that streams the q tiles
 // and accumulates dk and dv in tensor-core fragments, and one over
 // (q tile, b, h) that streams K/V and accumulates dq.  Each recomputes s and
 // do v^T, so the pair runs seven products instead of five.  di comes from a
 // small pre-pass.  Products run on bf16 tensor cores through nvcuda::wmma
 // with float32 accumulators; the elementwise steps read the float32 score
 // tiles from shared memory.
+//
+// Tiling: D = 64 and 128 take 64-row tiles and 8 warps.  At D = 512 four
+// D-wide bf16 tiles (K, V, Q, dO) of 64 rows and the float32 output staging
+// tile would need ~450 KB, so D = 512 takes 32-row tiles (~209 KB of shared
+// memory) and 16 warps: each warp then holds 4 + 4 accumulator fragments of
+// dk and dv (64 registers) instead of 16, under the 128 registers a thread
+// of a 512-thread block may use.  The score tiles (32 x 32) are 8 fragments,
+// computed by 8 warps while the others wait (tiles_abt).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,90 +55,125 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
-constexpr int kT = 64;          // rows of a q tile and of a K/V tile
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kLdS = kT + 4;    // f32 pitch of the score tiles
-constexpr int kLdP = kT + 8;    // bf16 pitch of the p / ds tiles
-
-template <int D>
+template <int D, int T>
 struct BwdLayout {
+  static constexpr int kLdS = T + 4;  // f32 pitch of the score tiles
+  static constexpr int kLdP = T + 8;  // bf16 pitch of the p / ds tiles
   static constexpr int kLdT = D + 8;  // bf16 pitch of the q, k, v, do tiles
   static constexpr int kLdA = D + 4;  // f32 pitch of the output staging tile
-  static constexpr size_t kTile = (size_t)kT * kLdT * sizeof(bf16);
+  static constexpr size_t kTile = (size_t)T * kLdT * sizeof(bf16);
   static constexpr size_t kA = 0;                 // first input tile
   static constexpr size_t kB = kA + kTile;        // second
   static constexpr size_t kC = kB + kTile;        // third
   static constexpr size_t kD = kC + kTile;        // fourth
   static constexpr size_t kS = kD + kTile;        // s, f32
-  static constexpr size_t kDP = kS + (size_t)kT * kLdS * sizeof(float);   // do v^T, f32
-  static constexpr size_t kP = kDP + (size_t)kT * kLdS * sizeof(float);   // bf16(p)
-  static constexpr size_t kDS = kP + (size_t)kT * kLdP * sizeof(bf16);    // bf16(ds)
-  static constexpr size_t kAcc = kDS + (size_t)kT * kLdP * sizeof(bf16);  // output staging
-  static constexpr size_t kRow = kAcc + (size_t)kT * kLdA * sizeof(float);  // z, di
-  static constexpr size_t kBytes = kRow + 2 * kT * sizeof(float);
+  static constexpr size_t kDP = kS + (size_t)T * kLdS * sizeof(float);   // do v^T, f32
+  static constexpr size_t kP = kDP + (size_t)T * kLdS * sizeof(float);   // bf16(p)
+  static constexpr size_t kDS = kP + (size_t)T * kLdP * sizeof(bf16);    // bf16(ds)
+  static constexpr size_t kAcc = kDS + (size_t)T * kLdP * sizeof(bf16);  // output staging
+  static constexpr size_t kRow = kAcc + (size_t)T * kLdA * sizeof(float);  // z, di
+  static constexpr size_t kBytes = kRow + 2 * T * sizeof(float);
+  // blocks an SM can hold by shared memory (at most 2 are asked for): at
+  // D = 64 two fit, and __launch_bounds__ then keeps registers to 128 a
+  // thread so that two do
+  static constexpr int kMinBlocks = 2 * kBytes <= 232448 ? 2 : 1;
 };
 
-template <int D>
+struct BwdArgs {
+  const bf16* q;       // (B, L, .) at token stride in_stride, head h at channel h * D
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;    // (B, L, H * D)
+  const float* z;      // (B, H, L)
+  const float* di;     // (B, H, L)
+  bf16* dq;            // at token stride out_stride
+  bf16* dk;
+  bf16* dv;
+  int L, H, in_stride, out_stride;
+  float scale;
+};
+
+template <int D, int T, int THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t stride) {
-  constexpr int LDT = BwdLayout<D>::kLdT;
+  constexpr int LDT = BwdLayout<D, T>::kLdT;
   constexpr int CPR = D / 8;
-  for (int e = threadIdx.x; e < kT * CPR; e += kThreads) {
+  for (int e = threadIdx.x; e < T * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * 8;
     *reinterpret_cast<uint4*>(dst + r * LDT + c) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
   }
 }
 
-// out (64 x 64, f32, pitch kLdS) = A B^T with A, B (64 x D) bf16 tiles;
-// warp w computes the fragments (w >> 1, 2 (w & 1)) and (w >> 1, 2 (w & 1) + 1)
-template <int D>
-__device__ __forceinline__ void tile_abt(const bf16* a, const bf16* b, float* out) {
-  constexpr int LDT = BwdLayout<D>::kLdT;
-  const int warp = threadIdx.x >> 5;
-  const int fr = warp >> 1;
+// out1 = A1 B1^T and out2 = A2 B2^T (T x T, f32, pitch kLdS) with A, B (T x D)
+// bf16 tiles.  A warp's task is CPT (at most 2) adjacent fragments of one
+// fragment row of one product: the A fragment of each k step is loaded once
+// for both, and their MMA chains are independent.  With 8 warps and 64-row
+// tiles each warp takes two tasks; with 16 warps and 32-row tiles there are
+// 8 one-fragment tasks and the other 8 warps wait.
+template <int D, int T, int WARPS>
+__device__ __forceinline__ void tiles_abt(const bf16* a1, const bf16* b1, float* out1,
+                                          const bf16* a2, const bf16* b2, float* out2) {
+  using Lay = BwdLayout<D, T>;
+  constexpr int LDT = Lay::kLdT;
+  constexpr int RF = T / 16;
+  constexpr int SHARE = 2 * RF * RF / WARPS;
+  constexpr int CPT = SHARE < 1 ? 1 : (SHARE > 2 ? 2 : SHARE);  // fragments of a task
+  constexpr int GROUPS = RF / CPT;
+  constexpr int TASKS = 2 * RF * GROUPS;
+  for (int task = threadIdx.x >> 5; task < TASKS; task += WARPS) {
+    const bool second = task >= RF * GROUPS;
+    const int fr = (task / GROUPS) % RF, fc0 = (task % GROUPS) * CPT;
+    const bf16* a = (second ? a2 : a1) + fr * 16 * LDT;
+    const bf16* b = (second ? b2 : b1) + fc0 * 16 * LDT;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CPT];
 #pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int fc = (warp & 1) * 2 + t;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
+    for (int c = 0; c < CPT; ++c) wmma::fill_fragment(acc[c], 0.0f);
+#pragma unroll 4
     for (int kk = 0; kk < D; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + fr * 16 * LDT + kk, LDT);
-      wmma::load_matrix_sync(fb, b + fc * 16 * LDT + kk, LDT);
-      wmma::mma_sync(acc, fa, fb, acc);
+      wmma::load_matrix_sync(fa, a + kk, LDT);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fb, b + c * 16 * LDT + kk, LDT);
+        wmma::mma_sync(acc[c], fa, fb, acc[c]);
+      }
     }
-    wmma::store_matrix_sync(out + fr * 16 * kLdS + fc * 16, acc, kLdS, wmma::mem_row_major);
+    float* out = (second ? out2 : out1) + fr * 16 * Lay::kLdS + fc0 * 16;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      wmma::store_matrix_sync(out + c * 16, acc[c], Lay::kLdS, wmma::mem_row_major);
   }
 }
 
 // p = exp(s * scale - z), ds = p (dp - di) scale, both rounded to bf16
+template <int T, int THREADS>
 __device__ __forceinline__ void probs_and_ds(const float* S, const float* dP, const float* z,
                                              const float* di, float scale, bf16* P, bf16* dS) {
-  for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
-    const int r = e / kT, c = e % kT;
-    const float p = expf(S[r * kLdS + c] * scale - z[r]);
-    const float ds = p * (dP[r * kLdS + c] - di[r]) * scale;
-    if (P != nullptr) P[r * kLdP + c] = __float2bfloat16(p);
-    dS[r * kLdP + c] = __float2bfloat16(ds);
+  constexpr int LDS = T + 4, LDP = T + 8;
+  for (int e = threadIdx.x; e < T * T; e += THREADS) {
+    const int r = e / T, c = e % T;
+    const float p = expf(S[r * LDS + c] * scale - z[r]);
+    const float ds = p * (dP[r * LDS + c] - di[r]) * scale;
+    if (P != nullptr) P[r * LDP + c] = __float2bfloat16(p);
+    dS[r * LDP + c] = __float2bfloat16(ds);
   }
 }
 
-// write NF accumulator fragments (rows fr, columns cb..cb+NF-1 of a 64 x D
-// tile) through the f32 staging tile to dst (64 x D bf16, token stride)
-template <int D, int NF>
+// write NF accumulator fragments (rows fr, columns cb..cb+NF-1 of a T x D
+// tile) through the f32 staging tile to dst (T x D bf16, token stride)
+template <int D, int T, int THREADS, int NF>
 __device__ __forceinline__ void write_out(
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[NF], float* stage, int fr, int cb,
     bf16* dst, size_t stride) {
-  constexpr int LDA = BwdLayout<D>::kLdA;
+  constexpr int LDA = BwdLayout<D, T>::kLdA;
   constexpr int CPR = D / 8;
 #pragma unroll
   for (int f = 0; f < NF; ++f)
     wmma::store_matrix_sync(stage + fr * 16 * LDA + (cb + f) * 16, acc[f], LDA,
                             wmma::mem_row_major);
   __syncthreads();
-  for (int e = threadIdx.x; e < kT * CPR; e += kThreads) {
+  for (int e = threadIdx.x; e < T * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * 8;
     uint4 packed;
     uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
@@ -159,15 +208,24 @@ __global__ void flash_bwd_di_kernel(const bf16* __restrict__ o, const bf16* __re
   di[((size_t)b * H + h) * L + l] = acc;
 }
 
-// dk and dv of one 64-row K/V tile of one (b, h): stream the q tiles
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                      const float* __restrict__ z, const float* __restrict__ di,
-                      bf16* __restrict__ dqkv, int L, int H, float scale) {
-  using Lay = BwdLayout<D>;
+// The accumulator fragments a warp owns in a T x D output: row fragment
+// warp % RF, NF consecutive column fragments from (warp / RF) * NF
+template <int D, int T, int WARPS>
+struct OutFrags {
+  static constexpr int RF = T / 16;
+  static constexpr int NF = RF * (D / 16) / WARPS;
+  static_assert(NF * WARPS == RF * (D / 16), "the output fragments must split evenly");
+};
+
+// dk and dv of one T-row K/V tile of one (b, h): stream the q tiles
+template <int D, int T, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, (BwdLayout<D, T>::kMinBlocks))
+flash_bwd_dkdv_kernel(BwdArgs g) {
+  constexpr int THREADS = WARPS * 32;
+  using Lay = BwdLayout<D, T>;
   constexpr int LDT = Lay::kLdT;
-  constexpr int NF = D / 32;  // accumulator fragments a warp owns, per output
+  constexpr int RF = OutFrags<D, T, WARPS>::RF;
+  constexpr int NF = OutFrags<D, T, WARPS>::NF;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem + Lay::kA);
   bf16* Vs = reinterpret_cast<bf16*>(smem + Lay::kB);
@@ -179,23 +237,24 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::kDS);
   float* stage = reinterpret_cast<float*>(smem + Lay::kAcc);
   float* zs = reinterpret_cast<float*>(smem + Lay::kRow);
-  float* dis = zs + kT;
+  float* dis = zs + T;
 
   const int warp = threadIdx.x >> 5;
+  const int L = g.L, H = g.H;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int k0 = blockIdx.x * kT;
+  const int k0 = blockIdx.x * T;
+  const size_t is = (size_t)g.in_stride, os = (size_t)g.out_stride;
   const size_t C = (size_t)H * D;
-  const size_t s3 = 3 * C;  // token stride of qkv and dqkv
-  const bf16* qb = qkv + (size_t)b * L * s3 + (size_t)h * D;
-  const bf16* dob = dout + (size_t)b * L * C + (size_t)h * D;
-  const float* zb = z + (size_t)blockIdx.y * L;
-  const float* dib = di + (size_t)blockIdx.y * L;
+  const size_t in_base = (size_t)b * L * is + (size_t)h * D;
+  const bf16* qb = g.q + in_base;
+  const bf16* dob = g.dout + (size_t)b * L * C + (size_t)h * D;
+  const float* zb = g.z + (size_t)blockIdx.y * L;
+  const float* dib = g.di + (size_t)blockIdx.y * L;
 
-  load_tile<D>(Ks, qb + C + (size_t)k0 * s3, s3);
-  load_tile<D>(Vs, qb + 2 * C + (size_t)k0 * s3, s3);
+  load_tile<D, T, THREADS>(Ks, g.k + in_base + (size_t)k0 * is, is);
+  load_tile<D, T, THREADS>(Vs, g.v + in_base + (size_t)k0 * is, is);
 
-  // warp w owns output rows (w >> 1) and columns (w & 1) * NF .. + NF - 1
-  const int fr = warp >> 1, cb = (warp & 1) * NF;
+  const int fr = warp % RF, cb = (warp / RF) * NF;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[NF], dv[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
@@ -203,24 +262,23 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
     wmma::fill_fragment(dv[f], 0.0f);
   }
 
-  for (int q0 = 0; q0 < L; q0 += kT) {
-    load_tile<D>(Qs, qb + (size_t)q0 * s3, s3);
-    load_tile<D>(dOs, dob + (size_t)q0 * C, C);
-    if (threadIdx.x < kT) {
+  for (int q0 = 0; q0 < L; q0 += T) {
+    load_tile<D, T, THREADS>(Qs, qb + (size_t)q0 * is, is);
+    load_tile<D, T, THREADS>(dOs, dob + (size_t)q0 * C, C);
+    if (threadIdx.x < T) {
       zs[threadIdx.x] = zb[q0 + threadIdx.x];
       dis[threadIdx.x] = dib[q0 + threadIdx.x];
     }
     __syncthreads();
-    tile_abt<D>(Qs, Ks, Ss);    // s (q x kv), unscaled
-    tile_abt<D>(dOs, Vs, dPs);  // do v^T (q x kv)
+    tiles_abt<D, T, WARPS>(Qs, Ks, Ss, dOs, Vs, dPs);  // s and do v^T (q x kv), unscaled
     __syncthreads();
-    probs_and_ds(Ss, dPs, zs, dis, scale, Ps, dSs);
+    probs_and_ds<T, THREADS>(Ss, dPs, zs, dis, g.scale, Ps, dSs);
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kT; kk += 16) {  // over the q rows of the tile
+    for (int kk = 0; kk < T; kk += 16) {  // over the q rows of the tile
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pt, dst;
-      wmma::load_matrix_sync(pt, Ps + kk * kLdP + fr * 16, kLdP);    // p^T (kv x q)
-      wmma::load_matrix_sync(dst, dSs + kk * kLdP + fr * 16, kLdP);  // ds^T
+      wmma::load_matrix_sync(pt, Ps + kk * Lay::kLdP + fr * 16, Lay::kLdP);    // p^T (kv x q)
+      wmma::load_matrix_sync(dst, dSs + kk * Lay::kLdP + fr * 16, Lay::kLdP);  // ds^T
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fdo, fq;
@@ -233,20 +291,20 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
     __syncthreads();
   }
 
-  bf16* out = dqkv + (size_t)b * L * s3 + (size_t)h * D + (size_t)k0 * s3;
-  write_out<D, NF>(dk, stage, fr, cb, out + C, s3);
-  write_out<D, NF>(dv, stage, fr, cb, out + 2 * C, s3);
+  const size_t out_off = (size_t)b * L * os + (size_t)h * D + (size_t)k0 * os;
+  write_out<D, T, THREADS, NF>(dk, stage, fr, cb, g.dk + out_off, os);
+  write_out<D, T, THREADS, NF>(dv, stage, fr, cb, g.dv + out_off, os);
 }
 
-// dq of one 64-row q tile of one (b, h): stream the K/V tiles
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                    const float* __restrict__ z, const float* __restrict__ di,
-                    bf16* __restrict__ dqkv, int L, int H, float scale) {
-  using Lay = BwdLayout<D>;
+// dq of one T-row q tile of one (b, h): stream the K/V tiles
+template <int D, int T, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, (BwdLayout<D, T>::kMinBlocks))
+flash_bwd_dq_kernel(BwdArgs g) {
+  constexpr int THREADS = WARPS * 32;
+  using Lay = BwdLayout<D, T>;
   constexpr int LDT = Lay::kLdT;
-  constexpr int NF = D / 32;
+  constexpr int RF = OutFrags<D, T, WARPS>::RF;
+  constexpr int NF = OutFrags<D, T, WARPS>::NF;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::kA);
   bf16* dOs = reinterpret_cast<bf16*>(smem + Lay::kB);
@@ -257,40 +315,40 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::kDS);
   float* stage = reinterpret_cast<float*>(smem + Lay::kAcc);
   float* zs = reinterpret_cast<float*>(smem + Lay::kRow);
-  float* dis = zs + kT;
+  float* dis = zs + T;
 
   const int warp = threadIdx.x >> 5;
+  const int L = g.L, H = g.H;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * kT;
+  const int q0 = blockIdx.x * T;
+  const size_t is = (size_t)g.in_stride, os = (size_t)g.out_stride;
   const size_t C = (size_t)H * D;
-  const size_t s3 = 3 * C;
-  const bf16* qb = qkv + (size_t)b * L * s3 + (size_t)h * D;
+  const size_t in_base = (size_t)b * L * is + (size_t)h * D;
 
-  load_tile<D>(Qs, qb + (size_t)q0 * s3, s3);
-  load_tile<D>(dOs, dout + (size_t)b * L * C + (size_t)h * D + (size_t)q0 * C, C);
-  if (threadIdx.x < kT) {
-    zs[threadIdx.x] = z[(size_t)blockIdx.y * L + q0 + threadIdx.x];
-    dis[threadIdx.x] = di[(size_t)blockIdx.y * L + q0 + threadIdx.x];
+  load_tile<D, T, THREADS>(Qs, g.q + in_base + (size_t)q0 * is, is);
+  load_tile<D, T, THREADS>(dOs, g.dout + (size_t)b * L * C + (size_t)h * D + (size_t)q0 * C, C);
+  if (threadIdx.x < T) {
+    zs[threadIdx.x] = g.z[(size_t)blockIdx.y * L + q0 + threadIdx.x];
+    dis[threadIdx.x] = g.di[(size_t)blockIdx.y * L + q0 + threadIdx.x];
   }
 
-  const int fr = warp >> 1, cb = (warp & 1) * NF;
+  const int fr = warp % RF, cb = (warp / RF) * NF;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) wmma::fill_fragment(dq[f], 0.0f);
 
-  for (int k0 = 0; k0 < L; k0 += kT) {
-    load_tile<D>(Ks, qb + C + (size_t)k0 * s3, s3);
-    load_tile<D>(Vs, qb + 2 * C + (size_t)k0 * s3, s3);
+  for (int k0 = 0; k0 < L; k0 += T) {
+    load_tile<D, T, THREADS>(Ks, g.k + in_base + (size_t)k0 * is, is);
+    load_tile<D, T, THREADS>(Vs, g.v + in_base + (size_t)k0 * is, is);
     __syncthreads();
-    tile_abt<D>(Qs, Ks, Ss);
-    tile_abt<D>(dOs, Vs, dPs);
+    tiles_abt<D, T, WARPS>(Qs, Ks, Ss, dOs, Vs, dPs);
     __syncthreads();
-    probs_and_ds(Ss, dPs, zs, dis, scale, nullptr, dSs);
+    probs_and_ds<T, THREADS>(Ss, dPs, zs, dis, g.scale, nullptr, dSs);
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kT; kk += 16) {  // over the kv rows of the tile
+    for (int kk = 0; kk < T; kk += 16) {  // over the kv rows of the tile
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fds;
-      wmma::load_matrix_sync(fds, dSs + fr * 16 * kLdP + kk, kLdP);
+      wmma::load_matrix_sync(fds, dSs + fr * 16 * Lay::kLdP + kk, Lay::kLdP);
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fk;
@@ -300,30 +358,43 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     }
     __syncthreads();
   }
-  write_out<D, NF>(dq, stage, fr, cb, dqkv + (size_t)b * L * s3 + (size_t)h * D + (size_t)q0 * s3,
-                   s3);
+  write_out<D, T, THREADS, NF>(dq, stage, fr, cb,
+                               g.dq + (size_t)b * L * os + (size_t)h * D + (size_t)q0 * os, os);
 }
 
-template <int D>
-int launch_bwd(const bf16* qkv, const bf16* o, const float* z, const bf16* dout, float* di,
-               bf16* dqkv, int B, int L, int H, float scale, cudaStream_t stream) {
-  const size_t smem = BwdLayout<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+template <int D, int T, int WARPS>
+int launch_bwd(const BwdArgs& g, const bf16* o, float* di, int B, cudaStream_t stream) {
+  const size_t smem = BwdLayout<D, T>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, T, WARPS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, T, WARPS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)B * L * H;
-  flash_bwd_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(o, dout, di, B, L, H, D);
+  const size_t rows = (size_t)B * g.L * g.H;
+  flash_bwd_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(o, g.dout, di, B, g.L,
+                                                                          g.H, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(L / kT, B * H);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, stream>>>(qkv, dout, z, di, dqkv, L, H, scale);
+  const dim3 grid(g.L / T, B * g.H);
+  flash_bwd_dkdv_kernel<D, T, WARPS><<<grid, WARPS * 32, smem, stream>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(qkv, dout, z, di, dqkv, L, H, scale);
+  flash_bwd_dq_kernel<D, T, WARPS><<<grid, WARPS * 32, smem, stream>>>(g);
   return (int)cudaGetLastError();
+}
+
+int bwd_entry(const BwdArgs& g, const void* o, void* di, int B, int D, void* stream) {
+  if (B <= 0 || g.H <= 0 || g.L <= 0 || g.L % 64 != 0) return (int)cudaErrorInvalidValue;
+  const bf16* op = static_cast<const bf16*>(o);
+  float* dip = static_cast<float*>(di);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_bwd<64, 64, 8>(g, op, dip, B, s);
+    case 128: return launch_bwd<128, 64, 8>(g, op, dip, B, s);
+    case 512: return launch_bwd<512, 32, 16>(g, op, dip, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -331,21 +402,30 @@ int launch_bwd(const bf16* qkv, const bf16* o, const float* z, const bf16* dout,
 // qkv (B, L, 3C) bf16: q | k | v along channels, C = H * D; o and do (B, L,
 // C) bf16; z (B, H, L) float32 from gvq_flash_fwd_qkv_res; di (B, H, L)
 // float32 scratch; dqkv (B, L, 3C) bf16 gets dq | dk | dv.  All contiguous.
-// L a multiple of 64, D 64 or 128.
+// L a multiple of 64, D 64, 128 or 512.
 extern "C" int gvq_flash_bwd_qkv(const void* qkv, const void* o, const void* z, const void* dout,
                                  void* di, void* dqkv, int B, int L, int H, int D, float scale,
                                  void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || L % kT != 0) return (int)cudaErrorInvalidValue;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* op = static_cast<const bf16*>(o);
-  const float* zp = static_cast<const float*>(z);
-  const bf16* dp = static_cast<const bf16*>(dout);
-  float* dip = static_cast<float*>(di);
+  const bf16* in = static_cast<const bf16*>(qkv);
   bf16* out = static_cast<bf16*>(dqkv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_bwd<64>(q, op, zp, dp, dip, out, B, L, H, scale, s);
-    case 128: return launch_bwd<128>(q, op, zp, dp, dip, out, B, L, H, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const size_t c = (size_t)H * D;
+  const BwdArgs g{in, in + c, in + 2 * c, static_cast<const bf16*>(dout),
+                  static_cast<const float*>(z), static_cast<const float*>(di),
+                  out, out + c, out + 2 * c, L, H, (int)(3 * c), (int)(3 * c), scale};
+  return bwd_entry(g, o, di, B, D, stream);
+}
+
+// The unpacked entry: q, k, v, o, do, dq, dk, dv (B, L, H*D) bf16; z (B, H,
+// L) float32 from gvq_flash_fwd_res; di (B, H, L) float32 scratch.  All
+// contiguous; the same shape rules.
+extern "C" int gvq_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                             const void* z, const void* dout, void* di, void* dq, void* dk,
+                             void* dv, int B, int L, int H, int D, float scale, void* stream) {
+  const int c = H * D;
+  const BwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                  static_cast<const float*>(z), static_cast<const float*>(di),
+                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                  L, H, c, c, scale};
+  return bwd_entry(g, o, di, B, D, stream);
 }

@@ -30,13 +30,13 @@
 // shape (B=16, L=1024, H=12, D=64) one launch is 5.15e10 FLOP over 101 MB,
 // so it is tensor-core bound too (52 us at the bf16 peak).
 //
-// The training entry (gvq_flash_fwd_qkv_res, replacing flash_blc.py
-// _fwd_res_call_packed) is the packed entry that also writes the
-// per-(row, head) log-normaliser z = m + ln(sum) in float32, laid out
-// (B, H, L), which the backward (csrc/flash_bwd.cu) turns back into
-// p = exp(s - z) with no max or sum pass.  The online softmax already holds
-// m and the row sum, so z costs one store per row; the inference entries
-// pass no z pointer and skip it.
+// The training entries (gvq_flash_fwd_qkv_res, replacing flash_blc.py
+// _fwd_res_call_packed, and gvq_flash_fwd_res, replacing _fwd_res_call for
+// the UNet's unpacked D=512 attention) also write the per-(row, head)
+// log-normaliser z = m + ln(sum) in float32, laid out (B, H, L), which the
+// backward (csrc/flash_bwd.cu) turns back into p = exp(s - z) with no max or
+// sum pass.  The online softmax already holds m and the row sum, so z costs
+// one store per row; the inference entries pass no z pointer and skip it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -261,6 +261,16 @@ extern "C" int gvq_flash_fwd(const void* q, const void* k, const void* v, void* 
   return flash_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                      static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr, B, L, H, D,
                      H * D, scale, stream);
+}
+
+// The training form of the unpacked entry: also writes z (B, H, L) float32,
+// z = m + ln(sum) of each row's scaled scores.  Same shape rules.
+extern "C" int gvq_flash_fwd_res(const void* q, const void* k, const void* v, void* o, void* z,
+                                 int B, int L, int H, int D, float scale, void* stream) {
+  if (z == nullptr) return (int)cudaErrorInvalidValue;
+  return flash_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(z), B,
+                     L, H, D, H * D, scale, stream);
 }
 
 // The packed entry (replaces flash_blc.py _fwd_call_packed): q, k and v are

@@ -37,5 +37,7 @@ extern "C" int gvq_upsample_conv(const void* x, const void* add, const void* k22
   g.Mh = H;
   g.Mw = W;
   g.n_mt = (H * W + gvq::kConvBM - 1) / gvq::kConvBM;
-  return gvq::launch_conv<true>(g, stats, static_cast<cudaStream_t>(stream));
+  g.out_h = 2 * H;
+  g.out_w = 2 * W;
+  return gvq::launch_conv<gvq::kUpFwd>(g, stats, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-"""SD3-style convolutional VAE backbone ("sd3unet"), inference path.
+"""SD3-style convolutional VAE backbone ("sd3unet").
 
 Port of ``vqvae_from_gaussian_vae_tpu/models/unet.py``: swish, GroupNorm(32,
 eps=1e-6), ResNet blocks, single-head attention at the configured
@@ -12,14 +12,23 @@ Layout: ``Encoder`` and ``Decoder`` take and return NHWC tensors (the JAX
 package's layout); inside, activations are NCHW-shaped tensors in
 channels_last memory, which is the NHWC buffer the kernels read.
 
+Every parameter is float32, the optimizer's master copy; the convolutions
+cast their weights and inputs to the compute ``dtype`` at use
+(``CastConv2d``, the JAX package's ``nn.Conv(dtype=...)``), so a gradient
+reaches the float32 weight through the cast.
+
 With ``dtype`` bf16 and ``fused_*`` on, the resamples go through the fused
 kernels (``ops/downsample_conv.py``, ``ops/upsample_conv.py``) exactly where
-the JAX model's ``_resample_fuses`` takes its Pallas path, minus the "backend
-is TPU" clause: the device only decides, inside each op, between the kernel
-and its plain version.  So a bf16 run walks the same fused structure on any
-device -- the resample emits GroupNorm statistics that the next resblock
-consumes (``group_norm_from_stats``), and a level's last resblock defers
-its residual add into the resample.
+the JAX model's ``_resample_fuses`` takes its Pallas path (``train_ok``:
+training too), minus the "backend is TPU" clause: the device only decides,
+inside each op, between the kernel and its plain version.  So a bf16 run
+walks the same fused structure on any device -- the resample emits
+GroupNorm statistics that the next resblock consumes
+(``group_norm_from_stats``), and a level's last resblock defers its
+residual add into the resample.  When a gradient is wanted, the resamples
+and the attention run their autograd Functions (training forward, then
+the backward kernels), with the statistics' cotangent folded into the
+resample's.
 """
 
 from __future__ import annotations
@@ -67,13 +76,18 @@ def group_norm_from_stats(x, stats, scale, bias, num_groups: int = 32, eps: floa
     return y.to(x.dtype)
 
 
-def _cast_convs(module: nn.Module, dtype: torch.dtype) -> None:
-    """Store conv weights in the compute dtype; GroupNorm's affine stays
-    float32, as the JAX package keeps every parameter float32 and casts only
-    the convs' operands."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            m.to(dtype)
+class CastConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with float32 weights, computed in ``dtype``: the input,
+    weight and bias are cast at use (the JAX package's ``nn.Conv(dtype=...)``)."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = as_torch_dtype(dtype)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 def _resample_fuses(flag: bool, h: int, dtype) -> bool:
@@ -105,7 +119,7 @@ class Upsample(nn.Module):
         self.fused = fused
         self.dtype = as_torch_dtype(dtype)
         if with_conv:
-            self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
+            self.conv = CastConv2d(in_channels, in_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x, with_stats: bool = False, add=None):
         use_fused = self.with_conv and _resample_fuses(self.fused, x.shape[2], self.dtype)
@@ -117,7 +131,7 @@ class Upsample(nn.Module):
                 y = self.conv(y)
             return (y, None) if with_stats else y
         y, stats = upsample_nearest_conv3x3_gn(
-            _nhwc(x), self.conv.weight.permute(2, 3, 1, 0), self.conv.bias,
+            _nhwc(x), self.conv.weight.to(self.dtype).permute(2, 3, 1, 0), self.conv.bias,
             add=None if add is None else _nhwc(add))
         y = _nchw(y)
         return (y, stats) if with_stats else y
@@ -134,7 +148,7 @@ class Downsample(nn.Module):
         self.fused = fused
         self.dtype = as_torch_dtype(dtype)
         if with_conv:
-            self.conv = nn.Conv2d(in_channels, in_channels, 3, stride=2, padding=0)
+            self.conv = CastConv2d(in_channels, in_channels, 3, stride=2, padding=0, dtype=dtype)
 
     def forward(self, x, with_stats: bool = False, add=None):
         use_fused = self.with_conv and _resample_fuses(self.fused, x.shape[2], self.dtype)
@@ -147,7 +161,7 @@ class Downsample(nn.Module):
                 y = F.avg_pool2d(x, 2, 2)
             return (y, None) if with_stats else y
         y, stats = downsample_conv3x3_gn(
-            _nhwc(x), self.conv.weight.permute(2, 3, 1, 0), self.conv.bias,
+            _nhwc(x), self.conv.weight.to(self.dtype).permute(2, 3, 1, 0), self.conv.bias,
             add=None if add is None else _nhwc(add))
         y = _nchw(y)
         return (y, stats) if with_stats else y
@@ -160,20 +174,20 @@ class ResnetBlock(nn.Module):
     the consuming resample to sum."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
-                 conv_shortcut: bool = False, dropout: float = 0.0):
+                 conv_shortcut: bool = False, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         out_ch = out_channels or in_channels
         self.in_channels, self.out_channels = in_channels, out_ch
         self.norm1 = Normalize(in_channels)
-        self.conv1 = nn.Conv2d(in_channels, out_ch, 3, padding=1)
+        self.conv1 = CastConv2d(in_channels, out_ch, 3, padding=1, dtype=dtype)
         self.norm2 = Normalize(out_ch)
         self.dropout = nn.Dropout(dropout)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = CastConv2d(out_ch, out_ch, 3, padding=1, dtype=dtype)
         if in_channels != out_ch:
             if conv_shortcut:
-                self.conv_shortcut = nn.Conv2d(in_channels, out_ch, 3, padding=1)
+                self.conv_shortcut = CastConv2d(in_channels, out_ch, 3, padding=1, dtype=dtype)
             else:
-                self.nin_shortcut = nn.Conv2d(in_channels, out_ch, 1)
+                self.nin_shortcut = CastConv2d(in_channels, out_ch, 1, dtype=dtype)
 
     def forward(self, x, in_stats=None, defer_add: bool = False):
         if in_stats is not None:
@@ -198,14 +212,14 @@ class AttnBlock(nn.Module):
     """Single-head self-attention over the spatial grid; q/k/v/proj_out are
     1x1 convs, scale c^-0.5, through ``sdpa_token_major``."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, dtype=torch.float32):
         super().__init__()
         c = in_channels
         self.norm = Normalize(c)
-        self.q = nn.Conv2d(c, c, 1)
-        self.k = nn.Conv2d(c, c, 1)
-        self.v = nn.Conv2d(c, c, 1)
-        self.proj_out = nn.Conv2d(c, c, 1)
+        self.q = CastConv2d(c, c, 1, dtype=dtype)
+        self.k = CastConv2d(c, c, 1, dtype=dtype)
+        self.v = CastConv2d(c, c, 1, dtype=dtype)
+        self.proj_out = CastConv2d(c, c, 1, dtype=dtype)
 
     def forward(self, x):
         b, c, hh, ww = x.shape
@@ -218,9 +232,9 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(_nchw(o))
 
 
-def make_attn(in_channels: int, attn_type: str = "vanilla"):
+def make_attn(in_channels: int, attn_type: str = "vanilla", dtype=torch.float32):
     if attn_type in ("vanilla", "vanilla-xformers"):
-        return AttnBlock(in_channels)
+        return AttnBlock(in_channels, dtype=dtype)
     if attn_type == "none":
         return None
     if attn_type == "linear":
@@ -238,9 +252,9 @@ class _DownLevel(nn.Module):
         self.fused_downsample = fused_downsample
         self.dtype = dtype
         self.block = nn.ModuleList(
-            ResnetBlock(i, o, dropout=dropout) for i, o in block_specs)
+            ResnetBlock(i, o, dropout=dropout, dtype=dtype) for i, o in block_specs)
         if use_attn:
-            self.attn = nn.ModuleList(make_attn(o, attn_type) for _, o in block_specs)
+            self.attn = nn.ModuleList(make_attn(o, attn_type, dtype) for _, o in block_specs)
         if has_downsample:
             self.downsample = Downsample(block_specs[-1][1], resamp_with_conv,
                                          fused=fused_downsample, dtype=dtype)
@@ -265,20 +279,21 @@ class _DownLevel(nn.Module):
 
 
 class _Mid(nn.Module):
-    def __init__(self, channels: int, dropout: float):
+    def __init__(self, channels: int, dropout: float, dtype):
         super().__init__()
-        self.block_1 = ResnetBlock(channels, dropout=dropout)
-        self.block_2 = ResnetBlock(channels, dropout=dropout)
+        self.block_1 = ResnetBlock(channels, dropout=dropout, dtype=dtype)
+        self.block_2 = ResnetBlock(channels, dropout=dropout, dtype=dtype)
 
     def forward(self, x):
         return self.block_2(self.block_1(x))
 
 
-def _check_inference_knobs(fused_gn_conv: bool, remat: bool) -> None:
+def _check_knobs(fused_gn_conv: bool, remat: bool) -> None:
     if fused_gn_conv:
         raise NotImplementedError("fused_gn_conv is not ported yet")
     if remat:
-        raise NotImplementedError("remat is a training knob; training is not ported yet")
+        raise NotImplementedError("remat (activation checkpointing) waits for the trainer "
+                                  "slice of the port")
 
 
 class Encoder(nn.Module):
@@ -292,12 +307,12 @@ class Encoder(nn.Module):
                  remat: bool = False, fused_gn_conv: bool = False,
                  fused_downsample: bool = True, dtype=torch.float32):
         super().__init__()
-        _check_inference_knobs(fused_gn_conv, remat)
+        _check_knobs(fused_gn_conv, remat)
         self.dtype = as_torch_dtype(dtype)
         self.z_channels = z_channels
         attn_type = "linear" if use_linear_attn else attn_type
         n_res = len(ch_mult)
-        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        self.conv_in = CastConv2d(in_channels, ch, 3, padding=1, dtype=dtype)
         in_ch_mult = (1,) + tuple(ch_mult)
         levels = []
         curr_res = resolution
@@ -316,11 +331,10 @@ class Encoder(nn.Module):
             if i_level != n_res - 1:
                 curr_res //= 2
         self.down = nn.ModuleList(levels)
-        self.mid = _Mid(ch * ch_mult[-1], dropout)
+        self.mid = _Mid(ch * ch_mult[-1], dropout, self.dtype)
         self.norm_out = Normalize(ch * ch_mult[-1])
-        self.conv_out = nn.Conv2d(ch * ch_mult[-1], 2 * z_channels if double_z else z_channels,
-                                  3, padding=1)
-        _cast_convs(self, self.dtype)
+        self.conv_out = CastConv2d(ch * ch_mult[-1], 2 * z_channels if double_z else z_channels,
+                                   3, padding=1, dtype=dtype)
 
     def forward(self, x):
         h = self.conv_in(_nchw(x).to(self.dtype))
@@ -330,6 +344,12 @@ class Encoder(nn.Module):
         h = self.mid(h)
         h = nonlinearity(self.norm_out(h))
         return _nhwc(self.conv_out(h))
+
+    @staticmethod
+    def last_layer_path() -> Tuple[str, ...]:
+        """The encoder's final projection (the vf adaptive weight's target in
+        the JAX package; the vf branch is not ported)."""
+        return ("conv_out", "weight")
 
 
 class _UpLevel(nn.Module):
@@ -342,9 +362,9 @@ class _UpLevel(nn.Module):
         self.fused_upsample = fused_upsample
         self.dtype = dtype
         self.block = nn.ModuleList(
-            ResnetBlock(i, o, dropout=dropout) for i, o in block_specs)
+            ResnetBlock(i, o, dropout=dropout, dtype=dtype) for i, o in block_specs)
         if use_attn:
-            self.attn = nn.ModuleList(make_attn(o, attn_type) for _, o in block_specs)
+            self.attn = nn.ModuleList(make_attn(o, attn_type, dtype) for _, o in block_specs)
         if has_upsample:
             self.upsample = Upsample(block_specs[-1][1], resamp_with_conv,
                                      fused=fused_upsample, dtype=dtype)
@@ -381,7 +401,7 @@ class Decoder(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         del in_channels, double_z  # accepted for config aliasing with the encoder
-        _check_inference_knobs(fused_gn_conv, remat)
+        _check_knobs(fused_gn_conv, remat)
         self.dtype = as_torch_dtype(dtype)
         self.give_pre_end = give_pre_end
         self.tanh_out = tanh_out
@@ -389,8 +409,8 @@ class Decoder(nn.Module):
         n_res = len(ch_mult)
         block_in = ch * ch_mult[n_res - 1]
         curr_res = resolution // 2 ** (n_res - 1)
-        self.conv_in = nn.Conv2d(z_channels, block_in, 3, padding=1)
-        self.mid = _Mid(block_in, dropout)
+        self.conv_in = CastConv2d(z_channels, block_in, 3, padding=1, dtype=dtype)
+        self.mid = _Mid(block_in, dropout, self.dtype)
         levels = [None] * n_res
         for i_level in reversed(range(n_res)):
             block_out = ch * ch_mult[i_level]
@@ -407,8 +427,7 @@ class Decoder(nn.Module):
                 curr_res *= 2
         self.up = nn.ModuleList(levels)
         self.norm_out = Normalize(block_in)
-        self.conv_out = nn.Conv2d(block_in, out_ch, 3, padding=1)
-        _cast_convs(self, self.dtype)
+        self.conv_out = CastConv2d(block_in, out_ch, 3, padding=1, dtype=dtype)
 
     def _trunk(self, z):
         h = self.conv_in(_nchw(z).to(self.dtype))
@@ -434,3 +453,9 @@ class Decoder(nn.Module):
         if self.tanh_out:
             h = torch.tanh(h)
         return _nhwc(h)
+
+    @staticmethod
+    def last_layer_path() -> Tuple[str, ...]:
+        """The weight the adaptive GAN weight differentiates against (the
+        reference decoder's ``get_last_layer``: conv_out's weight)."""
+        return ("conv_out", "weight")

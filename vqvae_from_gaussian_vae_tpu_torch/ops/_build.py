@@ -42,6 +42,12 @@ _SIGNATURES = {
     "gvq_flash_bwd_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_layer_norm_add_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_downsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gvq_downsample_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gvq_upsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gvq_upsample_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -144,12 +150,18 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+def wants_grad(*tensors) -> bool:
+    """True where autograd records an op on these tensors (None skipped):
+    the public ops then run their autograd Functions."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """Raise where a launch with no backward wired to it would be asked for
     a gradient: its output would be cut off from autograd."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    if wants_grad(*tensors):
         raise RuntimeError(f"{name}: no backward kernel is wired to this call, so its output "
                            "would be cut off from autograd; call it under torch.no_grad() or "
                            "on tensors that do not require grad")

@@ -1,16 +1,27 @@
-"""Fused stride-2 3x3 downsample conv with GroupNorm statistics.
+"""Fused stride-2 3x3 downsample conv with GroupNorm statistics, and its
+backward.
 
-Replaces the TPU kernel ``vqvae_from_gaussian_vae_tpu/ops/downsample_conv.py``
-(``_downsample_conv``), forward only.  The op: (0,1) zero pad (one row at
-the bottom, one column at the right), stride-2 3x3 conv, bias, with an
-optional residual ``x + add`` summed first (rounded to the compute dtype),
-and per-sample per-channel (sum, sum of squares) of the output as stored in
-the compute dtype, shaped (B, 2, O), for the consumer's GroupNorm.
+Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/downsample_conv.py``:
+``_downsample_conv`` (the forward) and, behind the custom VJP
+``downsample_conv3x3_gn_vjp`` / ``_add_vjp``, ``_downsample_dgrad`` and
+``_downsample_wgrad``.  The op: (0,1) zero pad (one row at the bottom, one
+column at the right), stride-2 3x3 conv, bias, with an optional residual
+``x + add`` summed first (rounded to the compute dtype), and per-sample
+per-channel (sum, sum of squares) of the output as stored in the compute
+dtype, shaped (B, 2, O), for the consumer's GroupNorm.
+
+The backward folds the statistics cotangent into the output's in float32,
+``ybar = g_y + g_sum + 2 y g_sumsq`` on the stored y, sums ``dbias`` from
+it, rounds it to the compute dtype, and runs dgrad (the 4 parity phases of
+shifted ``ybar w^T``) and wgrad (the (3, 3, C, O) float32 weight gradient);
+with the deferred add, x and add get the same dx.
 
 Layout at this surface is the JAX package's: x and add (B, H, W, C), weight
-HWIO (3, 3, C, O), output (B, H/2, W/2, O).  The CUDA kernel
-(``csrc/downsample_conv.cu``) runs for CUDA tensors; the plain version below
-runs for CPU tensors and is what the kernel is held to on the card.
+HWIO (3, 3, C, O), output (B, H/2, W/2, O).  The CUDA kernels
+(``csrc/downsample_conv.cu``, ``csrc/downsample_bwd.cu``) run for CUDA
+tensors; the plain versions below run for CPU tensors and are what the
+kernels are held to on the card.  When a gradient is wanted,
+``downsample_conv3x3_gn`` is a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -25,6 +36,32 @@ def channel_stats(y: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, 2, C) float32 (sum, sum of squares) over H, W."""
     yf = y.float()
     return torch.stack([yf.sum(dim=(1, 2)), (yf * yf).sum(dim=(1, 2))], dim=1)
+
+
+def resample_bwd_operands(x, add, y, gy, gstats, bias_dtype):
+    """The backward's operands shared by both resamples: the input as the
+    forward's kernel convolved it (x + add, rounded); the cotangent of y,
+    ``gy + g_sum + 2 y g_sumsq`` in float32 on the stored y where the
+    (B, 2, O) statistics were consumed, then rounded to x's dtype; and
+    dbias, its float32 sum.  gy or gstats is None where unused."""
+    if add is not None:
+        x = (x.float() + add.float()).to(x.dtype)
+    g = torch.zeros(y.shape, dtype=torch.float32, device=y.device) if gy is None else gy.float()
+    if gstats is not None:
+        gs = gstats.float()
+        g = g + gs[:, 0, None, None, :] + 2.0 * y.float() * gs[:, 1, None, None, :]
+    return x.contiguous(), g.to(x.dtype).contiguous(), g.sum(dim=(0, 1, 2)).to(bias_dtype)
+
+
+def wgrad_splits(pixels: int, taps: int, c: int, o: int, chunk_align: int = 32):
+    """(splits, chunk) of a weight-gradient launch: the pixels are cut into
+    fixed chunks (a multiple of 32) so that about four waves of blocks fill
+    the card's 132 SMs; a function of the shape only, so a result repeats."""
+    tiles = taps * -(-c // 128) * -(-o // 128)
+    want = max(1, min(-(-4 * 132 // tiles), -(-pixels // 512)))
+    chunk = -(-pixels // want)
+    chunk = -(-chunk // chunk_align) * chunk_align
+    return -(-pixels // chunk), chunk
 
 
 def downsample_conv3x3_gn_plain(x, w, bias, add=None):
@@ -78,9 +115,122 @@ def downsample_conv3x3_gn_cuda(x, w, bias, add=None):
 downsample_conv3x3_gn_cuda.launches = 0
 
 
+def downsample_dgrad_plain(g, w):
+    """Plain dgrad: the cotangent g (B, H/2, W/2, O) -> dx (B, H, W, C) in
+    g's dtype, the adjoint of the (0,1)-padded stride-2 conv (the 4 parity
+    phases of shifted g w[r, s]^T, interleaved; the pad row and column get
+    no gradient); float32 math on operands rounded to g's dtype."""
+    _, ho, wo, _ = g.shape
+    wt = w.to(g.dtype).float().permute(3, 2, 0, 1)  # (O, C, 3, 3)
+    dx = F.conv_transpose2d(g.permute(0, 3, 1, 2).float(), wt, stride=2)
+    return dx[:, :, :2 * ho, :2 * wo].to(g.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def downsample_wgrad_plain(x, g):
+    """Plain wgrad: dw (3, 3, C, O) float32, the strided input views
+    x[2i+r, 2j+s] (row H and column W the zero pad) against g over every
+    pixel."""
+    _, h, wd, c = x.shape
+    xp = F.pad(x.float(), (0, 0, 0, 1, 0, 1))
+    gf = g.float().reshape(-1, g.shape[-1])
+    taps = [xp[:, r:r + h:2, s:s + wd:2, :].reshape(-1, c).t() @ gf
+            for r in range(3) for s in range(3)]
+    return torch.stack(taps).reshape(3, 3, c, -1)
+
+
+def check_bf16_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous bf16 CUDA tensor on the
+    first one's device (what the backward kernels read in place)."""
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != tensors[0].device:
+            raise ValueError(f"{name} takes contiguous bf16 CUDA tensors on one device, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def downsample_dgrad_cuda(g, w):
+    """Launch the dgrad kernel: g (B, H/2, W/2, O) contiguous bf16 CUDA,
+    O a multiple of 32, C a multiple of 8 -> dx (B, H, W, C) bf16."""
+    _build.refuse_grad("downsample dgrad kernel", g, w)  # no double backward
+    b, ho, wo, o = g.shape
+    c = w.shape[2]
+    check_bf16_cuda("downsample dgrad kernel", g)
+    if tuple(w.shape) != (3, 3, c, o) or w.device != g.device or o % 32 or c % 8:
+        raise ValueError(f"downsample dgrad kernel: w {tuple(w.shape)} for g {tuple(g.shape)} "
+                         "(O % 32 == 0, C % 8 == 0)")
+    wt = w.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()  # w[r, s]^T, (3, 3, O, C)
+    dx = torch.empty((b, 2 * ho, 2 * wo, c), dtype=g.dtype, device=g.device)
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        err = lib.gvq_downsample_dgrad(g.data_ptr(), wt.data_ptr(), dx.data_ptr(), b, ho, wo, o,
+                                       c, _build.stream_of(g))
+    _build.check(err, "gvq_downsample_dgrad")
+    downsample_dgrad_cuda.launches += 1
+    return dx
+
+
+downsample_dgrad_cuda.launches = 0
+
+
+def downsample_wgrad_cuda(x, g):
+    """Launch the wgrad kernels: x (B, H, W, C) and g (B, H/2, W/2, O)
+    contiguous bf16 CUDA, C and O multiples of 8 -> dw (3, 3, C, O)
+    float32, bit-reproducible."""
+    _build.refuse_grad("downsample wgrad kernel", x, g)
+    b, h, wd, c = x.shape
+    o = g.shape[-1]
+    check_bf16_cuda("downsample wgrad kernel", x, g)
+    if tuple(g.shape) != (b, h // 2, wd // 2, o) or h % 2 or wd % 2 or c % 8 or o % 8:
+        raise ValueError(f"downsample wgrad kernel: g {tuple(g.shape)} for x {tuple(x.shape)} "
+                         "(H, W even; C % 8 == 0, O % 8 == 0)")
+    splits, chunk = wgrad_splits(b * (h // 2) * (wd // 2), 9, c, o)
+    partial = torch.empty((splits, 9, c, o), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.gvq_downsample_wgrad(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                                       dw.data_ptr(), b, h, wd, c, o, splits, chunk,
+                                       _build.stream_of(x))
+    _build.check(err, "gvq_downsample_wgrad")
+    downsample_wgrad_cuda.launches += 1
+    return dw
+
+
+downsample_wgrad_cuda.launches = 0
+
+
+class _DownsampleFn(torch.autograd.Function):
+    """The fused downsample with its backward: the forward kernel, then
+    dgrad and wgrad on the folded cotangent (JAX ``_down_vjp_fwd`` /
+    ``_down_vjp_bwd`` and the ``_add`` pair)."""
+
+    @staticmethod
+    def forward(ctx, x, add, w, bias):
+        ctx.set_materialize_grads(False)  # unconsumed statistics give g_stats None
+        cpu = x.device.type == "cpu"
+        y, stats = (downsample_conv3x3_gn_plain if cpu else downsample_conv3x3_gn_cuda)(
+            x, w, bias, add)
+        ctx.save_for_backward(x, add, w, y)
+        ctx.bias_dtype = bias.dtype
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        x, add, w, y = ctx.saved_tensors
+        x, g, dbias = resample_bwd_operands(x, add, y, gy, gstats, ctx.bias_dtype)
+        if x.device.type == "cpu":
+            dx, dw = downsample_dgrad_plain(g, w), downsample_wgrad_plain(x, g)
+        else:
+            dx, dw = downsample_dgrad_cuda(g, w), downsample_wgrad_cuda(x, g)
+        return dx, (None if add is None else dx), dw.to(w.dtype), dbias
+
+
 def downsample_conv3x3_gn(x, w, bias, add=None):
     """(B,H,W,C) -> ((B,H/2,W/2,O), (B,2,O) float32 stats): the kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors; differentiable (dgrad
+    and wgrad kernels) when a gradient is wanted."""
+    if _build.wants_grad(x, w, bias, add):
+        return _DownsampleFn.apply(x, add, w, bias)
     if x.device.type == "cpu":
         return downsample_conv3x3_gn_plain(x, w, bias, add)
     return downsample_conv3x3_gn_cuda(x, w, bias, add)

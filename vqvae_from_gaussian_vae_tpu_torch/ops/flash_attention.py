@@ -1,19 +1,22 @@
 """Flash attention on token-major (B, L, H*D) tensors.
 
 Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/flash_blc.py``:
-``_fwd_impl`` (called through ``flash_attention_blc`` and the front door
-``sdpa_token_major``; forward only here) and the packed entries, which read
-q, k and v in place from the ViT's (B, L, 3C) QKV projection:
-``_fwd_call_packed`` (``flash_attention_qkv`` at inference),
-``_fwd_res_call_packed`` (the training forward, which also writes the
-per-(row, head) log-normaliser z) and ``_bwd_call_packed`` (the backward).
-Per head: softmax(q k^T * scale) v with float32 scores, p rounded to v's
-dtype before the P.V product (float32 accumulation), the row sum over the
-float32 p, and the normaliser applied at the end.  The backward rebuilds
-p = exp(s - z) and writes dq | dk | dv as one (B, L, 3C) tensor.
+the unpacked entries (``flash_attention_blc``, reached through the front
+door ``sdpa_token_major`` by the UNet's AttnBlock): ``_fwd_call`` at
+inference, ``_fwd_res_call`` (the training forward, which also writes the
+per-(row, head) log-normaliser z) and ``_bwd_call`` (the backward); and the
+packed entries, which read q, k and v in place from the ViT's (B, L, 3C)
+QKV projection: ``_fwd_call_packed`` (``flash_attention_qkv`` at
+inference), ``_fwd_res_call_packed`` and ``_bwd_call_packed``.  Per head:
+softmax(q k^T * scale) v with float32 scores, p rounded to v's dtype before
+the P.V product (float32 accumulation), the row sum over the float32 p,
+and the normaliser applied at the end.  The backward rebuilds
+p = exp(s - z); the packed one writes dq | dk | dv as one (B, L, 3C)
+tensor.
 
-``flash_attention_qkv`` is a ``torch.autograd.Function`` when a gradient
-is wanted.  The unpacked entry has no backward yet: its kernel wrapper
+``flash_attention`` and ``flash_attention_qkv`` are
+``torch.autograd.Function``s when a gradient is wanted (the training
+forward, then the backward kernel); a direct launch of a kernel wrapper
 raises when a gradient is wanted rather than return a tensor cut off from
 autograd.  The CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``)
 run for CUDA tensors; the plain versions below run for CPU tensors and are
@@ -27,7 +30,7 @@ import torch
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256, 512)
-BWD_HEAD_DIMS = (64, 128)  # the packed backward kernel's head dims
+BWD_HEAD_DIMS = (64, 128, 512)  # the backward kernels' head dims
 
 
 def flash_attention_plain(q, k, v, sm_scale: float, num_heads: int):
@@ -45,22 +48,61 @@ def flash_attention_plain(q, k, v, sm_scale: float, num_heads: int):
     return o.to(v.dtype).reshape(b, l, c)
 
 
-def flash_attention_cuda(q, k, v, sm_scale: float, num_heads: int):
-    """Launch the kernel: bf16 CUDA tensors, L a multiple of 64, head dim in
-    SUPPORTED_HEAD_DIMS."""
+def flash_attention_res_plain(q, k, v, sm_scale: float, num_heads: int):
+    """Plain version of the training forward: (o, z), z (B, H, L) float32,
+    z = m + ln(sum) of each row's scaled scores."""
     b, l, c = q.shape
-    _build.refuse_grad("flash kernel (unpacked)", q, k, v)
+    d = c // num_heads
+    s = torch.einsum("bqhd,bkhd->bhqk", q.reshape(b, l, num_heads, d).float(),
+                     k.reshape(b, l, num_heads, d).float()) * sm_scale
+    m = s.amax(dim=-1)
+    z = m + torch.log(torch.exp(s - m[..., None]).sum(dim=-1))
+    return flash_attention_plain(q, k, v, sm_scale, num_heads), z
+
+
+def flash_attention_bwd_plain(q, k, v, o, z, do, sm_scale: float, num_heads: int):
+    """Plain version of the backward kernels: (dq, dk, dv), each (B, L, C)
+    in q's dtype, from the forward's q, k, v, o, z and the cotangent do of o.
+
+    p = exp(s - z) with no max or sum pass; di = rowsum(do * o) in float32;
+    ds = p (do v^T - di) scale rounded to the IO dtype; dq = ds k,
+    dk = ds^T q, dv = round(p)^T do, each accumulated in float32."""
+    b, l, c = q.shape
+    d = c // num_heads
+    io = q.dtype
+    qf, kf, vf, of, dof = (t.reshape(b, l, num_heads, d).float() for t in (q, k, v, o, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - z[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    di = (dof * of).sum(dim=-1).permute(0, 2, 1)
+    ds = (p * (dp - di[..., None]) * sm_scale).to(io).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(io).float(), dof)
+    return tuple(t.reshape(b, l, c).to(io) for t in (dq, dk, dv))
+
+
+def _check_unpacked(name: str, q, k, v, num_heads: int, head_dims=SUPPORTED_HEAD_DIMS):
+    """Raise on what the unpacked kernels do not take; return (B, L, C, D)."""
+    b, l, c = q.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash kernel takes CUDA tensors on one device")
+        raise ValueError(f"{name} takes CUDA tensors on one device")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"flash kernel takes bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{name} takes bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != q.shape or v.shape != q.shape or c % num_heads:
-        raise ValueError(f"flash kernel: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} with {num_heads} heads")
     d = c // num_heads
-    if d not in SUPPORTED_HEAD_DIMS or l % 64:
-        raise ValueError(f"flash kernel: L={l}, D={d} unsupported (L % 64 == 0, "
-                         f"D in {SUPPORTED_HEAD_DIMS})")
+    if d not in head_dims or l % 64:
+        raise ValueError(f"{name}: L={l}, D={d} unsupported (L % 64 == 0, D in {head_dims})")
+    return b, l, c, d
+
+
+def flash_attention_cuda(q, k, v, sm_scale: float, num_heads: int):
+    """Launch the kernel: bf16 CUDA tensors, L a multiple of 64, head dim in
+    SUPPORTED_HEAD_DIMS.  The inference form: no z, no gradient."""
+    _build.refuse_grad("flash kernel (unpacked)", q, k, v)
+    b, l, _, d = _check_unpacked("flash kernel", q, k, v, num_heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lib = _build.library()
@@ -75,9 +117,82 @@ def flash_attention_cuda(q, k, v, sm_scale: float, num_heads: int):
 flash_attention_cuda.launches = 0
 
 
+def flash_attention_res_cuda(q, k, v, sm_scale: float, num_heads: int):
+    """Launch the unpacked training forward: (o, z) as the plain version."""
+    _build.refuse_grad("flash kernel (unpacked training form, outside its autograd Function)",
+                       q, k, v)
+    b, l, _, d = _check_unpacked("flash kernel (training form)", q, k, v, num_heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    z = torch.empty((b, num_heads, l), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.gvq_flash_fwd_res(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                    z.data_ptr(), b, l, num_heads, d, float(sm_scale),
+                                    _build.stream_of(q))
+    _build.check(err, "gvq_flash_fwd_res")
+    flash_attention_res_cuda.launches += 1
+    return o, z
+
+
+flash_attention_res_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float, num_heads: int):
+    """Launch the unpacked backward kernels: (dq, dk, dv) bf16 (B, L, C)."""
+    _build.refuse_grad("flash backward kernel (unpacked)", q, k, v, o, z, do)
+    b, l, c, d = _check_unpacked("flash backward kernel", q, k, v, num_heads, BWD_HEAD_DIMS)
+    for name, t, shape, dtype in (("q", q, (b, l, c), q.dtype), ("k", k, (b, l, c), q.dtype),
+                                  ("v", v, (b, l, c), q.dtype), ("o", o, (b, l, c), q.dtype),
+                                  ("do", do, (b, l, c), q.dtype),
+                                  ("z", z, (b, num_heads, l), torch.float32)):
+        if t.device != q.device or tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"flash backward kernel: {name} must be a contiguous {shape} "
+                             f"{dtype} tensor on {q.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    di = torch.empty((b, num_heads, l), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.gvq_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                z.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                                dk.data_ptr(), dv.data_ptr(), b, l, num_heads, d,
+                                float(sm_scale), _build.stream_of(q))
+    _build.check(err, "gvq_flash_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+class _FlashFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, num_heads):
+        if q.device.type == "cpu":
+            o, z = flash_attention_res_plain(q, k, v, sm_scale, num_heads)
+        else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            o, z = flash_attention_res_cuda(q, k, v, sm_scale, num_heads)
+        ctx.save_for_backward(q, k, v, o, z)
+        ctx.sm_scale, ctx.num_heads = sm_scale, num_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, z = ctx.saved_tensors
+        do = do.contiguous()
+        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
+        return (*bwd(q, k, v, o, z, do, ctx.sm_scale, ctx.num_heads), None, None)
+
+
 def flash_attention(q, k, v, sm_scale: float, num_heads: int):
     """(B, L, H*D) x3 -> (B, L, H*D): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors.  When a gradient is wanted, the training
+    forward (with z) and the backward run through an autograd Function."""
+    if _build.wants_grad(q, k, v):
+        return _FlashFn.apply(q, k, v, sm_scale, num_heads)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale, num_heads)
     return flash_attention_cuda(q, k, v, sm_scale, num_heads)
@@ -128,15 +243,9 @@ flash_attention_qkv_cuda.launches = 0
 
 
 def flash_attention_qkv_res_plain(qkv, sm_scale: float, num_heads: int):
-    """Plain version of the packed training forward: (o, z), z (B, H, L)
-    float32, z = m + ln(sum) of each row's scaled scores."""
-    b, l, c3 = qkv.shape
-    d = c3 // 3 // num_heads
-    q, k, _ = (t.reshape(b, l, num_heads, d).float() for t in qkv.chunk(3, dim=-1))
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
-    m = s.amax(dim=-1)
-    z = m + torch.log(torch.exp(s - m[..., None]).sum(dim=-1))
-    return flash_attention_qkv_plain(qkv, sm_scale, num_heads), z
+    """Plain version of the packed training forward: (o, z) of the
+    unpacked one on q | k | v."""
+    return flash_attention_res_plain(*qkv.chunk(3, dim=-1), sm_scale, num_heads)
 
 
 def flash_attention_qkv_res_cuda(qkv, sm_scale: float, num_heads: int):
@@ -160,25 +269,9 @@ flash_attention_qkv_res_cuda.launches = 0
 
 def flash_attention_qkv_bwd_plain(qkv, o, z, do, sm_scale: float, num_heads: int):
     """Plain version of the packed backward kernel: dqkv (B, L, 3C) in qkv's
-    dtype from the forward's qkv, o, z and the cotangent do of o.
-
-    p = exp(s - z) with no max or sum pass; di = rowsum(do * o) in float32;
-    ds = p (do v^T - di) scale rounded to the IO dtype; dq = ds k,
-    dk = ds^T q, dv = round(p)^T do, each accumulated in float32."""
-    b, l, c3 = qkv.shape
-    d = c3 // 3 // num_heads
-    io = qkv.dtype
-    q, k, v = (t.reshape(b, l, num_heads, d).float() for t in qkv.chunk(3, dim=-1))
-    dof = do.reshape(b, l, num_heads, d).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
-    p = torch.exp(s - z[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v)
-    di = (dof * o.reshape(b, l, num_heads, d).float()).sum(dim=-1).permute(0, 2, 1)
-    ds = (p * (dp - di[..., None]) * sm_scale).to(io).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(io).float(), dof)
-    return torch.cat([t.reshape(b, l, num_heads * d) for t in (dq, dk, dv)], dim=-1).to(io)
+    dtype, the unpacked backward's dq | dk | dv along channels."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    return torch.cat(flash_attention_bwd_plain(q, k, v, o, z, do, sm_scale, num_heads), dim=-1)
 
 
 def flash_attention_qkv_bwd_cuda(qkv, o, z, do, sm_scale: float, num_heads: int):
@@ -233,7 +326,7 @@ def flash_attention_qkv(qkv, sm_scale: float, num_heads: int):
     version for CPU tensors.  When a gradient is wanted, the training
     forward (with z) and the packed backward run through an autograd
     Function."""
-    if torch.is_grad_enabled() and qkv.requires_grad:
+    if _build.wants_grad(qkv):
         return _FlashQKVFn.apply(qkv, sm_scale, num_heads)
     if qkv.device.type == "cpu":
         return flash_attention_qkv_plain(qkv, sm_scale, num_heads)

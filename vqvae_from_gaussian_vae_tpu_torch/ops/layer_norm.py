@@ -238,15 +238,11 @@ class _LayerNormAddFn(torch.autograd.Function):
         return dx, dx, dw, db, None
 
 
-def _wants_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     """LN over the last axis: the kernel for CUDA tensors, the plain version
     for CPU tensors; differentiable (backward kernel) when a gradient is
     wanted."""
-    if _wants_grad(x, weight, bias):
+    if _build.wants_grad(x, weight, bias):
         return _LayerNormFn.apply(x, weight, bias, eps)
     if _on_cpu(x):
         return layer_norm_plain(x, weight, bias, eps)
@@ -256,7 +252,7 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
 def layer_norm_add(x, delta, weight, bias, eps: float = 1e-5):
     """(s, LN(s)) with s = x + delta: the kernel for CUDA tensors, the plain
     version for CPU tensors; differentiable when a gradient is wanted."""
-    if _wants_grad(x, delta, weight, bias):
+    if _build.wants_grad(x, delta, weight, bias):
         return _LayerNormAddFn.apply(x, delta, weight, bias, eps)
     if _on_cpu(x):
         return layer_norm_add_plain(x, delta, weight, bias, eps)

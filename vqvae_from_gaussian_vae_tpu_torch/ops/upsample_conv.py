@@ -1,7 +1,10 @@
-"""Fused nearest-x2 upsample + 3x3 conv with GroupNorm statistics.
+"""Fused nearest-x2 upsample + 3x3 conv with GroupNorm statistics, and its
+backward.
 
-Replaces the TPU kernel ``vqvae_from_gaussian_vae_tpu/ops/upsample_conv.py``
-(``_upsample_conv_hwbc``), forward only.  Nearest x2 duplicates pixels, so
+Replaces the TPU kernels of ``vqvae_from_gaussian_vae_tpu/ops/upsample_conv.py``:
+``_upsample_conv_hwbc`` (the forward) and, behind the custom VJP
+``upsample_nearest_conv3x3_gn_vjp`` / ``_add_vjp``, ``_upsample_dgrad`` and
+``_upsample_wgrad``.  Nearest x2 duplicates pixels, so
 the 3x3 same conv of the upsampled image equals four 2x2 phase convs on the
 low-resolution input with the tap-group kernels of ``phase_kernels``:
 
@@ -11,10 +14,19 @@ low-resolution input with the tap-group kernels of ``phase_kernels``:
 summed first, rounded to the compute dtype; the op also returns
 per-sample per-channel (sum, sum of squares) of the stored output, (B, 2, O).
 
+The backward is the same phase algebra in reverse: the adjoint of the op
+is a 4x4 stride-2 conv, which splits into 16 low-resolution taps.  It folds
+the statistics cotangent into the output's (float32, then rounded), sums
+``dbias``, runs dgrad (dx from the cotangent's phases and k22^T) and wgrad
+(dk22, float32), and maps dk22 back to dw through ``phase_kernels_vjp``;
+with the deferred add, x and add get the same dx.
+
 Layout at this surface is the JAX package's: x (B, H, W, C), weight HWIO
-(3, 3, C, O), output (B, 2H, 2W, O).  The CUDA kernel
-(``csrc/upsample_conv.cu``) runs for CUDA tensors; the plain version below
-runs for CPU tensors and is what the kernel is held to on the card.
+(3, 3, C, O), output (B, 2H, 2W, O).  The CUDA kernels
+(``csrc/upsample_conv.cu``, ``csrc/upsample_bwd.cu``) run for CUDA tensors;
+the plain versions below run for CPU tensors and are what the kernels are
+held to on the card.  When a gradient is wanted,
+``upsample_nearest_conv3x3_gn`` is a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -23,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
-from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import channel_stats
+from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import (
+    channel_stats, check_bf16_cuda, resample_bwd_operands, wgrad_splits)
 
 _GROUPS = {0: ((0,), (1, 2)), 1: ((0, 1), (2,))}  # phase d -> tap rows of group a
 
@@ -47,6 +60,21 @@ def phase_kernels(w: torch.Tensor) -> torch.Tensor:
                             acc = acc + wf[r, s]
                     k22[di, dj, a, bb] = acc
     return k22.to(w.dtype)
+
+
+def phase_kernels_vjp(dk22: torch.Tensor) -> torch.Tensor:
+    """The VJP of ``phase_kernels``: dk22 (2, 2, 2, 2, C, O) -> dw (3, 3, C, O),
+    each tap the sum of the phase-kernel gradients whose group holds it
+    (float32, as JAX's ``jax.vjp(phase_kernels, ...)``)."""
+    dw = torch.zeros((3, 3) + tuple(dk22.shape[-2:]), dtype=torch.float32, device=dk22.device)
+    for di in (0, 1):
+        for dj in (0, 1):
+            for a in (0, 1):
+                for bb in (0, 1):
+                    for r in _GROUPS[di][a]:
+                        for s in _GROUPS[dj][bb]:
+                            dw[r, s] += dk22[di, dj, a, bb].float()
+    return dw
 
 
 def upsample_nearest_conv3x3_gn_plain(x, w, bias, add=None):
@@ -107,9 +135,130 @@ def upsample_nearest_conv3x3_gn_cuda(x, w, bias, add=None):
 upsample_nearest_conv3x3_gn_cuda.launches = 0
 
 
+def upsample_dgrad_plain(g, k22):
+    """Plain dgrad: the cotangent g (B, 2H, 2W, O) -> dx (B, H, W, C) in g's
+    dtype, dx[i, j] = sum over (di, dj, a, b) of g[2(i-dr)+di, 2(j-dc)+dj]
+    k22[di, dj, a, b]^T with dr = di+a-1, dc = dj+b-1 (zero outside the
+    image): per phase, a 3x3 conv whose taps sit at (1-dr, 1-dc); float32
+    math on operands rounded to g's dtype."""
+    kf = k22.to(g.dtype).float()
+    gf = g.permute(0, 3, 1, 2).float()
+    dx = None
+    for di in (0, 1):
+        for dj in (0, 1):
+            frame = torch.zeros((kf.shape[-2], kf.shape[-1], 3, 3), device=g.device)
+            for a in (0, 1):
+                for bb in (0, 1):
+                    frame[:, :, 2 - di - a, 2 - dj - bb] = kf[di, dj, a, bb]
+            part = F.conv2d(F.pad(gf[:, :, di::2, dj::2], (1, 1, 1, 1)), frame)
+            dx = part if dx is None else dx + part
+    return dx.to(g.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def upsample_wgrad_plain(x, g):
+    """Plain wgrad: dk22 (2, 2, 2, 2, C, O) float32, dk22[di, dj, a, b] =
+    sum over low-resolution pixels of x[i+dr, j+dc]^T g[2i+di, 2j+dj]
+    (zero outside the image)."""
+    _, h, wd, c = x.shape
+    o = g.shape[-1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    dk22 = torch.empty((2, 2, 2, 2, c, o), dtype=torch.float32, device=x.device)
+    for di in (0, 1):
+        for dj in (0, 1):
+            gp = g[:, di::2, dj::2, :].float().reshape(-1, o)
+            for a in (0, 1):
+                for bb in (0, 1):
+                    xs = xp[:, di + a:di + a + h, dj + bb:dj + bb + wd, :].reshape(-1, c)
+                    dk22[di, dj, a, bb] = xs.t() @ gp
+    return dk22
+
+
+def upsample_dgrad_cuda(g, k22):
+    """Launch the dgrad kernel: g (B, 2H, 2W, O) contiguous bf16 CUDA, k22
+    (2, 2, 2, 2, C, O), O a multiple of 32, C of 8 -> dx (B, H, W, C) bf16."""
+    _build.refuse_grad("upsample dgrad kernel", g, k22)  # no double backward
+    b, h2, w2, o = g.shape
+    c = k22.shape[-2]
+    check_bf16_cuda("upsample dgrad kernel", g)
+    if tuple(k22.shape) != (2, 2, 2, 2, c, o) or k22.device != g.device or h2 % 2 or w2 % 2 \
+            or o % 32 or c % 8:
+        raise ValueError(f"upsample dgrad kernel: k22 {tuple(k22.shape)} for g {tuple(g.shape)} "
+                         "(even 2H, 2W; O % 32 == 0, C % 8 == 0)")
+    k22t = k22.to(torch.bfloat16).transpose(-1, -2).contiguous()  # (16, O, C)
+    dx = torch.empty((b, h2 // 2, w2 // 2, c), dtype=g.dtype, device=g.device)
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        err = lib.gvq_upsample_dgrad(g.data_ptr(), k22t.data_ptr(), dx.data_ptr(), b, h2 // 2,
+                                     w2 // 2, o, c, _build.stream_of(g))
+    _build.check(err, "gvq_upsample_dgrad")
+    upsample_dgrad_cuda.launches += 1
+    return dx
+
+
+upsample_dgrad_cuda.launches = 0
+
+
+def upsample_wgrad_cuda(x, g):
+    """Launch the wgrad kernels: x (B, H, W, C) and g (B, 2H, 2W, O)
+    contiguous bf16 CUDA, C and O multiples of 8 -> dk22 (2, 2, 2, 2, C, O)
+    float32, bit-reproducible."""
+    _build.refuse_grad("upsample wgrad kernel", x, g)
+    b, h, wd, c = x.shape
+    o = g.shape[-1]
+    check_bf16_cuda("upsample wgrad kernel", x, g)
+    if tuple(g.shape) != (b, 2 * h, 2 * wd, o) or c % 8 or o % 8:
+        raise ValueError(f"upsample wgrad kernel: g {tuple(g.shape)} for x {tuple(x.shape)} "
+                         "(C % 8 == 0, O % 8 == 0)")
+    splits, chunk = wgrad_splits(b * h * wd, 16, c, o)
+    partial = torch.empty((splits, 16, c, o), dtype=torch.float32, device=x.device)
+    dk22 = torch.empty((2, 2, 2, 2, c, o), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.gvq_upsample_wgrad(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                                     dk22.data_ptr(), b, h, wd, c, o, splits, chunk,
+                                     _build.stream_of(x))
+    _build.check(err, "gvq_upsample_wgrad")
+    upsample_wgrad_cuda.launches += 1
+    return dk22
+
+
+upsample_wgrad_cuda.launches = 0
+
+
+class _UpsampleFn(torch.autograd.Function):
+    """The fused upsample with its backward: the forward kernel, then dgrad
+    and wgrad on the folded cotangent and the phase-kernel VJP (JAX
+    ``_up_vjp_fwd`` / ``_up_vjp_bwd`` and the ``_add`` pair)."""
+
+    @staticmethod
+    def forward(ctx, x, add, w, bias):
+        ctx.set_materialize_grads(False)  # unconsumed statistics give g_stats None
+        cpu = x.device.type == "cpu"
+        y, stats = (upsample_nearest_conv3x3_gn_plain if cpu else upsample_nearest_conv3x3_gn_cuda)(
+            x, w, bias, add)
+        ctx.save_for_backward(x, add, w, y)
+        ctx.bias_dtype = bias.dtype
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        x, add, w, y = ctx.saved_tensors
+        x, g, dbias = resample_bwd_operands(x, add, y, gy, gstats, ctx.bias_dtype)
+        k22 = phase_kernels(w)  # float32 sums, rounded to w's dtype, as the forward's
+        if x.device.type == "cpu":
+            dx, dk22 = upsample_dgrad_plain(g, k22), upsample_wgrad_plain(x, g)
+        else:
+            dx, dk22 = upsample_dgrad_cuda(g, k22), upsample_wgrad_cuda(x, g)
+        dw = phase_kernels_vjp(dk22)
+        return dx, (None if add is None else dx), dw.to(w.dtype), dbias
+
+
 def upsample_nearest_conv3x3_gn(x, w, bias, add=None):
     """(B,H,W,C) -> ((B,2H,2W,O), (B,2,O) float32 stats): the kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors; differentiable (dgrad
+    and wgrad kernels) when a gradient is wanted."""
+    if _build.wants_grad(x, w, bias, add):
+        return _UpsampleFn.apply(x, add, w, bias)
     if x.device.type == "cpu":
         return upsample_nearest_conv3x3_gn_plain(x, w, bias, add)
     return upsample_nearest_conv3x3_gn_cuda(x, w, bias, add)
