@@ -18,7 +18,13 @@ then drives each path through the entry points a user calls, at bs=16,
     (``configs/overlays/bf16_compute.yaml``: bf16 compute, float32
     parameters and optimizer state), full width and depth: ae steps and
     disc steps with exact kernel launch counts, an eval step, and one ae
-    step's gradient held against a float32 engine's.
+    step's gradient held against a float32 engine's;
+  * the UNet's default-off kernels: sd3unet_gq_0.25 tokenization with
+    ``fused_gn_conv: true`` (the fused GroupNorm + swish + conv), and its
+    GAN pair with ``fused_gn_conv: true``, ``GVQ_CONV_WGRAD=1`` and
+    ``GVQ_GN_BWD=1`` (the resblock conv's wgrad and the GroupNorm + swish
+    backward), set here around that pair only.  It refuses to start when
+    one of the UNet's kernel variables is already set.
 
 Every phase prints one JSON line.  The line before the last is the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -65,6 +71,18 @@ TRAIN_GRAD_TENSOR_REL_L2 = 0.2  # the same, each tensor alone (worst measured: 7
 # under this share of the whole gradient's, and is reported, not held
 ZERO_GRAD_REL = 1e-6
 WGRAD_REL = 1e-3  # float32 sums of exact bf16 products in another order, over max |dw|
+FUSED_F32_TOL = 1e-4  # the fused GN conv's float32 variant: float32 sums in another order
+# the UNet's kernel switches: the smoke sets the training kernels' pair itself
+KERNEL_ENV = ("GVQ_DISABLE_FUSED_KERNELS", "GVQ_FUSED_TRAIN", "GVQ_CONV_WGRAD", "GVQ_GN_BWD")
+
+# sd3unet_gq_0.25's resblock 3x3 convs (H = W, C -> O) and how many run at
+# each per step: 24 resblocks, conv1 and conv2 each (the fused GN conv per
+# inference step, the conv wgrad per ae step)
+UNET_CONVS = [(256, 128, 128, 9), (256, 256, 128, 1), (128, 128, 256, 1), (128, 256, 256, 8),
+              (128, 512, 256, 1), (64, 256, 512, 1), (64, 512, 512, 9), (32, 512, 512, 18)]
+# its GroupNorm + swish sites (H = W, C) per ae step: 48 less the 6 that
+# normalise from a fused resample's statistics
+UNET_GN_SITES = [(256, 128, 9), (128, 256, 8), (64, 512, 8), (32, 512, 17)]
 
 
 def emit(obj) -> None:
@@ -172,10 +190,14 @@ def check_gq(gen):
             "per_step": 1, "path": "sd3unet", "shapes": [shape]}
 
 
-def _bf16_err(got, want):
+def _within(got, want, atol, rtol):
+    """(max abs error, max error over atol + rtol |want|)."""
     d = (got.float() - want.float()).abs()
-    ratio = float((d / (BF16_ATOL + BF16_RTOL * want.float().abs())).max())
-    return float(d.max()), ratio
+    return float(d.max()), float((d / (atol + rtol * want.float().abs())).max())
+
+
+def _bf16_err(got, want):
+    return _within(got, want, BF16_ATOL, BF16_RTOL)
 
 
 def _stats_err(y, stats) -> float:
@@ -710,13 +732,172 @@ def check_layer_norm(gen, add: bool):
             "per_step": 46 if add else 6, "path": "bsqvit", "shapes": [shape]}
 
 
+def check_fused_gn_conv(gen):
+    """The fused GroupNorm + swish + conv at every resblock conv shape of
+    the sd3unet inference step (bf16), with a residual, and in float32 at a
+    small shape.  Library: F.group_norm, F.silu, then cuDNN's conv, in the
+    compute dtype (three calls)."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import fused_gn_conv as fgc
+
+    cases = [(BATCH, h, c, o, n, torch.bfloat16, False) for h, c, o, n in UNET_CONVS]
+    cases += [(BATCH, 128, 512, 256, 0, torch.bfloat16, True), (2, 32, 64, 64, 0, torch.float32, False)]
+    shapes = []
+    for b, h, c, o, n, dtype, residual in cases:
+        x = (2 * torch.randn((b, h, h, c), generator=gen, device="cuda") + 0.3).to(dtype)
+        gamma = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+        beta = 0.3 * torch.randn((c,), generator=gen, device="cuda")
+        w = torch.randn((3, 3, c, o), generator=gen, device="cuda") / (3 * c ** 0.5)
+        bias = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+        res = torch.randn((b, h, h, o), generator=gen, device="cuda").to(dtype) if residual else None
+        args = (x, gamma, beta, w, bias, res)
+        y_k = fgc.fused_gn_swish_conv_cuda(*args)
+        y_p = fgc.fused_gn_swish_conv_plain(*args)
+        torch.cuda.synchronize()
+        tol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (FUSED_F32_TOL, FUSED_F32_TOL)
+        err, ratio = _within(y_k, y_p, *tol)
+        require(ratio <= 1.0, f"fused GN conv {(b, h, h, c, o)} {dtype}: error {err} beyond "
+                              f"atol {tol[0]} + rtol {tol[1]}")
+        del y_p
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC buffer: channels_last
+        w_cl = w.to(dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        g_d, b_d, bias_d = gamma.to(dtype), beta.to(dtype), bias.to(dtype)
+        library = lambda: F.conv2d(F.silu(F.group_norm(x_cl, 32, g_d, b_d, 1e-6)),  # noqa: E731
+                                   w_cl, bias_d, padding=1)
+        e = x.element_size()
+        flops = 2.0 * b * h * h * 9 * c * o
+        nbytes = e * (x.numel() + y_k.numel() * (2 if residual else 1) + w.numel()) + 4 * (2 * c + o)
+        bnd, by = bound_ms(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        shapes.append({"shape": f"x ({b},{h},{h},{c}) -> O {o} {str(dtype).split('.')[-1]}"
+                                + (" + residual" if residual else ""),
+                       "main_path": n > 0, "per_step": n,
+                       "kernel_ms": time_ms(lambda: fgc.fused_gn_swish_conv_cuda(*args)),
+                       "plain_ms": time_ms(lambda: fgc.fused_gn_swish_conv_plain(*args),
+                                           iters=3, warmup=1),
+                       "library_ms": time_ms(library), "bound_ms": bnd, "bound_by": by,
+                       "flops": flops, "bytes": nbytes, "max_abs_err": err,
+                       "err_over_tol": ratio})
+        del x, res, y_k, args
+        torch.cuda.empty_cache()
+    return {"name": "fused_gn_swish_conv", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/fused_gn_conv.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/fused_gn_conv.py:141",
+            "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}; float32 atol "
+                         f"{FUSED_F32_TOL} + rtol {FUSED_F32_TOL}",
+            "per_step": 48, "path": "sd3unet_fused_gn_conv", "shapes": shapes}
+
+
+def check_conv3x3_wgrad(gen):
+    """The resblock conv's wgrad at every conv shape of the sd3unet ae step,
+    bit-equal across two runs.  Library: cuDNN's convolution_backward, dw
+    only."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train as c3
+
+    shapes = []
+    for h, c, o, n in UNET_CONVS:
+        x = torch.randn((BATCH, h, h, c), generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn((BATCH, h, h, o), generator=gen, device="cuda").to(torch.bfloat16)
+        dw_k, dw_k2, dw_p = c3.conv3x3_wgrad_cuda(x, g), c3.conv3x3_wgrad_cuda(x, g), \
+            c3.conv3x3_wgrad_plain(x, g)
+        torch.cuda.synchronize()
+        require(torch.equal(dw_k, dw_k2), f"conv3x3 wgrad {(h, c, o)}: two runs differ")
+        err = float((dw_k - dw_p).abs().max())
+        rel = err / float(dw_p.abs().max())
+        require(rel <= WGRAD_REL, f"conv3x3 wgrad {(h, c, o)}: error {rel} of max |dw|")
+        del dw_k2, dw_p
+        w_cl = (torch.randn((o, c, 3, 3), generator=gen, device="cuda") / (3 * c ** 0.5)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        library = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            g_cl, x_cl, w_cl, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False])
+        flops = 2.0 * BATCH * h * h * 9 * c * o
+        nbytes = 2 * (x.numel() + g.numel()) + 4 * dw_k.numel()
+        bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+        shapes.append({"shape": f"x ({BATCH},{h},{h},{c}), g O {o} bf16", "per_step": n,
+                       "kernel_ms": time_ms(lambda: c3.conv3x3_wgrad_cuda(x, g)),
+                       "plain_ms": time_ms(lambda: c3.conv3x3_wgrad_plain(x, g), iters=3,
+                                           warmup=1),
+                       "library_ms": time_ms(library), "bound_ms": bnd, "bound_by": by,
+                       "flops": flops, "bytes": nbytes, "max_abs_err": err,
+                       "rel_err_of_max": rel, "bit_reproducible": True})
+        del x, g, dw_k
+        torch.cuda.empty_cache()
+    return {"name": "conv3x3_wgrad", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/conv3x3_wgrad.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/conv3x3_train.py:78",
+            "tolerance": f"max error / max |dw| <= {WGRAD_REL}; bit-equal across runs",
+            "per_step": 48, "path": "sd3unet_kernels_train_ae", "shapes": shapes}
+
+
+def check_gn_swish_bwd(gen):
+    """The GroupNorm + swish backward at every site shape of the sd3unet ae
+    step, bit-equal across two runs.  Library: autograd of F.group_norm and
+    F.silu in bf16 (forward outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
+
+    tol = LN_BWD_TOL["torch.bfloat16"]
+    shapes = []
+    for h, c, n in UNET_GN_SITES:
+        x = (2 * torch.randn((BATCH, h, h, c), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        dy = torch.randn((BATCH, h, h, c), generator=gen, device="cuda").to(torch.bfloat16)
+        gamma = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+        beta = 0.2 * torch.randn((c,), generator=gen, device="cuda")
+        _, (mean_c, rstd_c) = gsb.gn_swish_ref(x, gamma, beta)
+        args = (x, dy, mean_c, rstd_c, gamma, beta)
+        got, again = gsb.gn_swish_bwd_cuda(*args), gsb.gn_swish_bwd_cuda(*args)
+        want = gsb.gn_swish_bwd_plain(*args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"GN + swish backward {(h, c)}: two runs differ")
+        dx_err, ratio = _within(got[0], want[0], tol, tol)
+        require(ratio <= 1.0, f"GN + swish backward {(h, c)}: dx error {dx_err}")
+        p_err = 0.0
+        for g, wnt in zip(got[1:], want[1:]):
+            rel = float((g - wnt).abs().max() / wnt.abs().max())
+            require(rel <= PARAM_GRAD_REL, f"GN + swish backward {(h, c)}: dgamma/dbeta {rel}")
+            p_err = max(p_err, rel)
+        del got, again, want
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        wl = gamma.to(torch.bfloat16).requires_grad_()
+        bl = beta.to(torch.bfloat16).requires_grad_()
+        yl = F.silu(F.group_norm(xl, 32, wl, bl, 1e-6))
+        dyl = dy.permute(0, 3, 1, 2)
+        library = lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl, retain_graph=True)  # noqa: E731
+        flops = 35.0 * x.numel()  # both passes' float32 arithmetic, exp counted once
+        nbytes = 2 * 3 * x.numel() + 4 * (2 * BATCH * c + 4 * c)
+        bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
+        shapes.append({"shape": f"x, dy ({BATCH},{h},{h},{c}) bf16", "per_step": n,
+                       "kernel_ms": time_ms(lambda: gsb.gn_swish_bwd_cuda(*args)),
+                       "plain_ms": time_ms(lambda: gsb.gn_swish_bwd_plain(*args), iters=3,
+                                           warmup=1),
+                       "library_ms": time_ms(library),
+                       "library": "autograd of F.group_norm, F.silu (bf16)",
+                       "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+                       "max_abs_err": dx_err, "err_over_tol": ratio,
+                       "param_grad_rel_err": p_err, "bit_reproducible": True})
+        del x, dy, args, xl, yl
+        torch.cuda.empty_cache()
+    return {"name": "gn_swish_bwd", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/gn_swish_bwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/gn_swish_bwd.py:142",
+            "tolerance": f"dx atol = rtol {tol} (bf16); dgamma, dbeta max error / max |value| "
+                         f"<= {PARAM_GRAD_REL}; bit-equal across runs",
+            "per_step": 42, "path": "sd3unet_kernels_train_ae", "shapes": shapes}
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 
 
 def launch_counters():
-    from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv, flash_attention, gq_cuda
-    from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm, upsample_conv
+    from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train, downsample_conv
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention, fused_gn_conv, gn_swish_bwd
+    from vqvae_from_gaussian_vae_tpu_torch.ops import gq_cuda, layer_norm, upsample_conv
 
     return {"gq_argmax": gq_cuda.gq_argmax_cuda,
             "downsample_conv3x3_gn": downsample_conv.downsample_conv3x3_gn_cuda,
@@ -734,7 +915,10 @@ def launch_counters():
             "upsample_dgrad": upsample_conv.upsample_dgrad_cuda,
             "upsample_wgrad": upsample_conv.upsample_wgrad_cuda,
             "flash_attention_res_fwd": flash_attention.flash_attention_res_cuda,
-            "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda}
+            "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda,
+            "fused_gn_swish_conv": fused_gn_conv.fused_gn_swish_conv_cuda,
+            "conv3x3_wgrad": conv3x3_train.conv3x3_wgrad_cuda,
+            "gn_swish_bwd": gn_swish_bwd.gn_swish_bwd_cuda}
 
 
 def counted(counters, fn):
@@ -764,9 +948,11 @@ def _backbone_flops(kind: str, enc_cfg):
     return F.vit_flops(enc_cfg), F.vit_decoder_flops(enc_cfg)
 
 
-# each main path: its config, the launches of one encode -> dequant step
-# (every counter not named is 0), its latent and index shapes (one index
-# group per latent pixel or token), and its FLOP per image besides the search
+# each main path: its config (and the backbones' overrides), the launches of
+# one encode -> dequant step (every counter not named is 0), its latent and
+# index shapes (one index group per latent pixel or token), and its FLOP per
+# image besides the search
+UNET_FUSED = {"fused_gn_conv": True}
 PATHS = {
     "sd3unet": {"config": "configs/sd3unet_gq_0.25.yaml",
                 "launches": {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
@@ -778,26 +964,45 @@ PATHS = {
                             "layer_norm_fwd": 6, "layer_norm_add_fwd": 46},
                "z": (BATCH, 32 * 32, 16), "indices": (BATCH, 32 * 32, 1),
                "flops": lambda cfg: sum(_backbone_flops("vit", cfg))},
+    "sd3unet_fused_gn_conv": {"config": "configs/sd3unet_gq_0.25.yaml", "overrides": UNET_FUSED,
+                              "launches": {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
+                                           "upsample_nearest_conv3x3_gn": 3,
+                                           "flash_attention_fwd": 5, "fused_gn_swish_conv": 48},
+                              "z": (BATCH, 32, 32, 16), "indices": (BATCH, 32, 32, 1),
+                              "flops": lambda cfg: sum(_backbone_flops("unet", cfg))},
 }
 
 
-def build_engine(config: str, dtype: str):
+def _set_backbones(params, dtype: str, overrides) -> None:
+    for key in ("encoder_config", "decoder_config"):
+        params[key]["params"]["dtype"] = dtype
+        params[key]["params"].update(overrides)
+
+
+def build_engine(config: str, dtype: str, overrides=None):
     from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
 
     cfg = load_config(os.path.join(ROOT, config))
     params = cfg["model"]["params"]
     params["loss_config"] = None
-    for key in ("encoder_config", "decoder_config"):
-        params[key]["params"]["dtype"] = dtype
+    _set_backbones(params, dtype, overrides or {})
     return instantiate_from_config(cfg["model"], seed=SEED, device="cuda"), cfg
 
 
-# the GAN training pairs, each config plus the bf16 overlay: launches of one
-# ae step (both trunks with a gradient), one disc step (both trunks without:
-# encode in the train branch, decode on the inference path) and one eval
-# step; the parameters whose change the run checks; the latent tokens of an
-# image (eps's shape)
+# the GAN training pairs, each config plus the bf16 overlay (and the
+# backbones' overrides, and the environment set around the pair): launches of
+# one ae step (both trunks with a gradient), one disc step (both trunks
+# without: encode in the train branch, decode on the inference path) and one
+# eval step; the parameters whose change the run checks; the latent tokens of
+# an image (eps's shape)
 BF16_OVERLAY = "configs/overlays/bf16_compute.yaml"
+UNET_AE = {"downsample_conv3x3_gn": 3, "downsample_dgrad": 3, "downsample_wgrad": 3,
+           "upsample_nearest_conv3x3_gn": 3, "upsample_dgrad": 3, "upsample_wgrad": 3,
+           "flash_attention_res_fwd": 5, "flash_attention_bwd": 5}
+UNET_DISC = {"downsample_conv3x3_gn": 3, "upsample_nearest_conv3x3_gn": 3,
+             "flash_attention_fwd": 5}
+UNET_WATCHED = ["decoder.conv_out.weight", "encoder.down.0.downsample.conv.weight",
+                "decoder.up.1.upsample.conv.weight", "encoder.down.3.attn.0.q.weight"]
 TRAIN_PATHS = {
     "bsqvit": {
         "configs": ["configs/bsqvit_gq_0.25.yaml", BF16_OVERLAY],
@@ -814,16 +1019,19 @@ TRAIN_PATHS = {
         "tokens": 32 * 32, "backbone_flops": lambda cfg: _backbone_flops("vit", cfg)},
     "sd3unet": {
         "configs": ["configs/sd3unet_gq_0.25.yaml", BF16_OVERLAY],
-        "launches": {
-            "ae": {"downsample_conv3x3_gn": 3, "downsample_dgrad": 3, "downsample_wgrad": 3,
-                   "upsample_nearest_conv3x3_gn": 3, "upsample_dgrad": 3, "upsample_wgrad": 3,
-                   "flash_attention_res_fwd": 5, "flash_attention_bwd": 5},
-            "disc": {"downsample_conv3x3_gn": 3, "upsample_nearest_conv3x3_gn": 3,
-                     "flash_attention_fwd": 5},
-            "eval": {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
-                     "upsample_nearest_conv3x3_gn": 3, "flash_attention_fwd": 5}},
-        "watched": ["decoder.conv_out.weight", "encoder.down.0.downsample.conv.weight",
-                    "decoder.up.1.upsample.conv.weight", "encoder.down.3.attn.0.q.weight"],
+        "launches": {"ae": UNET_AE, "disc": UNET_DISC, "eval": {"gq_argmax": 1, **UNET_DISC}},
+        "watched": UNET_WATCHED,
+        "tokens": 32 * 32, "backbone_flops": lambda cfg: _backbone_flops("unet", cfg)},
+    # the UNet's default-off kernels: the fused GN conv on the disc step's
+    # decode and the eval step, the conv wgrad and the GN + swish backward
+    # in the ae step (42 sites: 48 less the 6 that take a resample's stats)
+    "sd3unet_kernels": {
+        "configs": ["configs/sd3unet_gq_0.25.yaml", BF16_OVERLAY],
+        "overrides": UNET_FUSED, "env": {"GVQ_CONV_WGRAD": "1", "GVQ_GN_BWD": "1"},
+        "launches": {"ae": {**UNET_AE, "conv3x3_wgrad": 48, "gn_swish_bwd": 42},
+                     "disc": {**UNET_DISC, "fused_gn_swish_conv": 28},
+                     "eval": {"gq_argmax": 1, **UNET_DISC, "fused_gn_swish_conv": 48}},
+        "watched": UNET_WATCHED + ["encoder.down.0.block.0.norm1.weight"],
         "tokens": 32 * 32, "backbone_flops": lambda cfg: _backbone_flops("unet", cfg)},
 }
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
@@ -834,10 +1042,10 @@ def build_trainer(path: str, dtype: str, seed: int = SEED):
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import make_optimizers
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
 
-    cfg = load_config([os.path.join(ROOT, c) for c in TRAIN_PATHS[path]["configs"]])
+    spec = TRAIN_PATHS[path]
+    cfg = load_config([os.path.join(ROOT, c) for c in spec["configs"]])
     params = cfg["model"]["params"]
-    params["encoder_config"]["params"]["dtype"] = dtype
-    params["decoder_config"]["params"]["dtype"] = dtype
+    _set_backbones(params, dtype, spec.get("overrides", {}))
     params["loss_config"]["params"]["dtype"] = dtype
     engine = instantiate_from_config(cfg["model"], seed=seed, device="cuda")
     return engine, TrainStepBuilder(engine, *make_optimizers(1e-4)), cfg
@@ -856,7 +1064,7 @@ def run_e2e(gen, profile: bool, path: str):
 
     spec = PATHS[path]
     torch.cuda.reset_peak_memory_stats()
-    engine, cfg = build_engine(spec["config"], "bfloat16")
+    engine, cfg = build_engine(spec["config"], "bfloat16", spec.get("overrides"))
     x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
     counters = launch_counters()
 
@@ -898,7 +1106,7 @@ def run_e2e(gen, profile: bool, path: str):
 
     # a small input against a float32 engine of the same weights (plain convs,
     # einsum attention; TF32 off)
-    ref_engine, _ = build_engine(spec["config"], "float32")
+    ref_engine, _ = build_engine(spec["config"], "float32", spec.get("overrides"))
     xs = x[:2]
     z16, _ = engine.encode(xs, unregularized=True)
     z32, _ = ref_engine.encode(xs, unregularized=True)
@@ -927,7 +1135,8 @@ def run_e2e(gen, profile: bool, path: str):
     dt = time.perf_counter() - t0
     enc_cfg = cfg["model"]["params"]["encoder_config"]["params"]
     step_flops = BATCH * (spec["flops"](enc_cfg) + F.gq_search_flops(32 * 32, 16, 65536))
-    result = {"phase": "e2e", "path": path, "config": spec["config"], "dtype": "bfloat16",
+    result = {"phase": "e2e", "path": path, "config": spec["config"],
+              "overrides": spec.get("overrides", {}), "dtype": "bfloat16",
               "batch": BATCH, "resolution": RES, "launches_per_step": launches,
               "z": list(z.shape), "indices": list(idx.shape), "xhat": list(xhat.shape),
               "dequant_vs_decode_max_abs": deq_err,
@@ -988,7 +1197,21 @@ def run_train(gen, profile: bool, path: str):
     and depth, bs=16, 256x256, bf16 compute with float32 master weights,
     through the entry points a user calls: config -> engine with its loss ->
     make_optimizers -> TrainStepBuilder -> init_state -> ae_step / disc_step
-    -> eval_step."""
+    -> eval_step; the path's environment is set around it and restored."""
+    env = TRAIN_PATHS[path].get("env", {})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return _run_train(gen, profile, path)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _run_train(gen, profile: bool, path: str):
     import torch
     from vqvae_from_gaussian_vae_tpu_torch.utils import flops as F
 
@@ -1055,8 +1278,9 @@ def run_train(gen, profile: bool, path: str):
         n_layers=disc_cfg["n_layers"])
     pair_flops = BATCH * (fl["ae_step"] + fl["disc_step"])
     tflops = pair_flops / ((ae_mean + disc_mean) / 1e3) / 1e12
-    result = {"phase": "train", "path": f"{path}_gq_0.25 GAN pair",
-              "configs": spec["configs"], "dtype": "bfloat16 compute, float32 parameters",
+    result = {"phase": "train", "path": path, "configs": spec["configs"],
+              "overrides": spec.get("overrides", {}), "env": spec.get("env", {}),
+              "dtype": "bfloat16 compute, float32 parameters",
               "batch": BATCH, "resolution": RES, "step": state.step,
               "launches_per_ae_step": ae_launches, "launches_per_disc_step": disc_launches,
               "launches_per_eval_step": eval_launches,
@@ -1159,6 +1383,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    preset = [k for k in KERNEL_ENV if k in os.environ]
+    if preset:
+        print(f"chip_smoke: unset {preset} first: the smoke drives each path with the UNet's "
+              "kernel switches it sets itself", file=sys.stderr)
+        return 4
     sys.path.insert(0, ROOT)
     try:
         from vqvae_from_gaussian_vae_tpu_torch.ops import _build
@@ -1192,7 +1421,8 @@ def main(argv=None) -> int:
                   lambda g: check_layer_norm_bwd(g, False),
                   lambda g: check_layer_norm_bwd(g, True),
                   lambda g: check_resample_bwd(g, "down"), lambda g: check_resample_bwd(g, "up"),
-                  check_flash_res, check_flash_bwd):
+                  check_flash_res, check_flash_bwd, check_fused_gn_conv, check_conv3x3_wgrad,
+                  check_gn_swish_bwd):
         out = check(gen)
         for k in (out if isinstance(out, list) else [out]):
             emit({"phase": "kernel", **k})
@@ -1214,12 +1444,14 @@ def main(argv=None) -> int:
     summary = []
     for k in kernels:
         shapes = [s for s in k["shapes"] if s.get("main_path", True)]
-        # one main-path step's launches: e.g. the flash kernel runs 5 times at its one shape
-        reps = k["per_step"] // len(shapes)
+        # one main-path step's launches at each shape: given per shape, or the
+        # step's launches spread evenly (the flash kernel runs 5 times at its one shape)
+        counts = [s.get("per_step", k["per_step"] // len(shapes)) for s in shapes]
 
-        def total(key, shapes=shapes, reps=reps):
+        def total(key, shapes=shapes, counts=counts):
             vals = [s[key] for s in shapes]
-            return None if any(v is None for v in vals) else reps * sum(vals)
+            return None if any(v is None for v in vals) else sum(
+                n * v for n, v in zip(counts, vals))
 
         summary.append({"name": k["name"], "route": k["route"], "source": k["source"],
                         "replaces": k["replaces"],

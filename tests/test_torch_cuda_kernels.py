@@ -11,8 +11,11 @@ on the CPU); everything here skips where there is no card.  On the card:
 import pytest
 import torch
 
+from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train as c3
 from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+from vqvae_from_gaussian_vae_tpu_torch.ops import fused_gn_conv as fgc
+from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
 from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
 from vqvae_from_gaussian_vae_tpu_torch.ops import upsample_conv as up
 from vqvae_from_gaussian_vae_tpu_torch.ops.gq_cuda import gq_argmax_cuda
@@ -538,3 +541,127 @@ def test_unpacked_flash_autograd_runs_the_kernels(gen):
     (p @ ref[2]).square().sum().backward()
     for got, want in zip((q, k, v), ref):
         assert _rel_max(got.grad, want.grad) <= FLASH_BWD_REL
+
+
+FUSED_F32_TOL = 1e-4  # the float32 variant: float32 sums in another order
+
+
+def _gn_conv_case(gen, shape, o, dtype, residual):
+    b, h, wd, c = shape
+    x = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.3).to(dtype)
+    gamma = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+    beta = 0.3 * torch.randn((c,), generator=gen, device="cuda")
+    w = torch.randn((3, 3, c, o), generator=gen, device="cuda") / (3 * c ** 0.5)
+    bias = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+    res = torch.randn((b, h, wd, o), generator=gen, device="cuda").to(dtype) if residual else None
+    return x, gamma, beta, w, bias, res
+
+
+@pytest.mark.parametrize("shape,o,dtype,residual", [
+    ((2, 16, 24, 64), 128, torch.bfloat16, False),
+    ((1, 32, 32, 128), 64, torch.bfloat16, True),    # O < 128: a masked N tile
+    ((2, 8, 40, 96), 136, torch.bfloat16, True),     # ragged M and N tiles
+    ((1, 1, 1, 32), 8, torch.bfloat16, False),       # one pixel: every neighbour is padding
+    ((2, 12, 20, 64), 32, torch.float32, False),
+    ((1, 9, 7, 32), 12, torch.float32, True),
+])
+def test_fused_gn_conv_kernel_matches_plain(gen, shape, o, dtype, residual):
+    args = _gn_conv_case(gen, shape, o, dtype, residual)
+    before = fgc.fused_gn_swish_conv_cuda.launches
+    got = fgc.fused_gn_swish_conv_cuda(*args)
+    assert fgc.fused_gn_swish_conv_cuda.launches == before + 1
+    _close(got, fgc.fused_gn_swish_conv_plain(*args),
+           BF16_RTOL if dtype == torch.bfloat16 else FUSED_F32_TOL)
+    assert torch.equal(fgc.fused_gn_swish_conv(*args), got)
+
+
+def test_fused_gn_conv_kernel_refuses_grad_and_unsupported_widths(gen):
+    x, gamma, beta, w, bias, _ = _gn_conv_case(gen, (1, 8, 8, 64), 64, torch.bfloat16, False)
+    with pytest.raises(RuntimeError):
+        fgc.fused_gn_swish_conv_cuda(x, gamma, beta, w.requires_grad_(), bias)
+    x, gamma, beta, w, bias, _ = _gn_conv_case(gen, (1, 8, 8, 48), 64, torch.bfloat16, False)
+    with pytest.raises(ValueError):  # C not a multiple of 32 in bf16
+        fgc.fused_gn_swish_conv_cuda(x, gamma, beta, w, bias)
+
+
+@pytest.mark.parametrize("shape,o", [
+    ((2, 16, 16, 64), 128),
+    ((1, 20, 12, 136), 72),   # C > 128 and O < 128: masked tiles on both edges
+    ((2, 33, 17, 8), 8),
+    ((16, 32, 32, 512), 512),
+])
+def test_conv3x3_wgrad_kernel_matches_plain(gen, shape, o):
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(shape[:3] + (o,), generator=gen, device="cuda").to(torch.bfloat16)
+    before = c3.conv3x3_wgrad_cuda.launches
+    dw = c3.conv3x3_wgrad_cuda(x, g)
+    assert c3.conv3x3_wgrad_cuda.launches == before + 1
+    assert dw.shape == (3, 3, shape[-1], o) and dw.dtype == torch.float32
+    _close_rel(dw, c3.conv3x3_wgrad_plain(x, g), WGRAD_REL)
+    assert torch.equal(dw, c3.conv3x3_wgrad_cuda(x, g))
+
+
+def test_conv3x3_autograd_runs_the_wgrad_kernel(gen):
+    x = torch.randn((2, 16, 16, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((3, 3, 64, 128), generator=gen, device="cuda") / 24
+    bias = torch.randn((128,), generator=gen, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+    before = c3.conv3x3_wgrad_cuda.launches
+    y = c3.conv3x3_same_wg(*leaves)
+    gy = torch.randn(y.shape, generator=gen, device="cuda")
+    (y.float() * gy).sum().backward()
+    assert c3.conv3x3_wgrad_cuda.launches == before + 1
+    assert leaves[1].grad.dtype == torch.float32 and leaves[2].grad.dtype == torch.float32
+    ref = [x.float().requires_grad_(), w.to(torch.bfloat16).float().requires_grad_(),
+           bias.to(torch.bfloat16).float().requires_grad_()]
+    y32 = torch.nn.functional.conv2d(ref[0].permute(0, 3, 1, 2), ref[1].permute(3, 2, 0, 1),
+                                     ref[2], padding=1).permute(0, 2, 3, 1)
+    (y32 * gy).sum().backward()
+    for got, want in zip(leaves, ref):
+        _close_rel(got.grad, want.grad, 2e-2)
+
+
+GN_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}  # dx: summation order only
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 16, 16, 64), torch.bfloat16),
+    ((1, 7, 9, 256), torch.float32),      # rows not a multiple of the band
+    ((3, 32, 32, 512), torch.bfloat16),
+    ((2, 4, 4, 2048), torch.float32),     # one row slot a block
+    ((16, 64, 64, 128), torch.bfloat16),
+])
+def test_gn_swish_bwd_kernel_matches_plain(gen, shape, dtype):
+    c = shape[-1]
+    x = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    gamma = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+    beta = 0.2 * torch.randn((c,), generator=gen, device="cuda")
+    _, (mean_c, rstd_c) = gsb.gn_swish_ref(x, gamma, beta)
+    before = gsb.gn_swish_bwd_cuda.launches
+    got = gsb.gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta)
+    assert gsb.gn_swish_bwd_cuda.launches == before + 1
+    want = gsb.gn_swish_bwd_plain(x, dy, mean_c, rstd_c, gamma, beta)
+    _close(got[0], want[0], GN_BWD_TOL[dtype])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32 and g.shape == (c,)
+        _close_rel(g, w, 1e-4)
+    again = gsb.gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gn_swish_autograd_runs_the_bwd_kernel(gen):
+    x = torch.randn((2, 16, 16, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    gamma = (1 + 0.3 * torch.randn((128,), generator=gen, device="cuda")).requires_grad_()
+    beta = (0.2 * torch.randn((128,), generator=gen, device="cuda")).requires_grad_()
+    xl = x.clone().requires_grad_()
+    before = gsb.gn_swish_bwd_cuda.launches
+    y = gsb.gn_swish(xl, gamma, beta)
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    (y.float() * dy).sum().backward()
+    assert gsb.gn_swish_bwd_cuda.launches == before + 1
+    ref = [x.float().requires_grad_(), gamma.detach().clone().requires_grad_(),
+           beta.detach().clone().requires_grad_()]
+    (gsb.gn_swish_ref(*ref)[0] * dy).sum().backward()
+    for got, want in zip((xl, gamma, beta), ref):
+        _close_rel(got.grad, want.grad, 2e-2)

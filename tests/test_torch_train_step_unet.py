@@ -20,7 +20,11 @@ bar the card's run holds the bf16 step to.  That comparison runs with the
 discriminator inactive: at this random init the adaptive weight is in the
 hundreds and multiplies bf16 rounding in the generator term's path, so
 that with the term on even the JAX package's own bf16 ae gradient lies
-beyond 0.1 of its float32 one.
+beyond 0.1 of its float32 one.  The same bf16 engine then runs its ae phase
+again with ``GVQ_CONV_WGRAD=1`` and ``GVQ_GN_BWD=1`` (read at forward time):
+every resblock conv takes the wgrad Function and every GroupNorm + swish site
+without resample statistics the GroupNorm + swish Function, and the gradient
+is held to the same JAX float32 one under the same bar.
 """
 
 import copy
@@ -38,6 +42,7 @@ from vqvae_from_gaussian_vae_tpu.parallel.train_state import make_optimizers as 
 from vqvae_from_gaussian_vae_tpu.parallel.train_step import TrainStepBuilder as JaxBuilder
 from vqvae_from_gaussian_vae_tpu.utils.torch_convert import convert_state_dict
 from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config
+from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train, gn_swish_bwd
 from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import make_optimizers
 from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
 
@@ -136,6 +141,13 @@ def _jax_state_from_port(jb, peng, x):
                             jb.ae_opt, jb.disc_opt)
 
 
+def _counting(fn, calls, key):
+    def wrapped(*args, **kwargs):
+        calls[key] += 1
+        return fn(*args, **kwargs)
+    return wrapped
+
+
 @pytest.fixture(scope="module")
 def run():
     """Both packages through init, the ae phase, the disc phase and eval."""
@@ -174,7 +186,18 @@ def _run(mp):
     peng16.load_state_dict(peng.state_dict())
     peng16.loss.load_state_dict(peng.loss.state_dict())
     pg16, _, _ = pb16.ae_grads(pstate, {"img": x1}, disc_active=False, eps=torch.from_numpy(e1))
-    out["ae_bf16"] = ({**_flat_grads(jg_eng), "loss.logvar": _np(jg_logvar)}, pg16, peng16)
+    jgrads16 = {**_flat_grads(jg_eng), "loss.logvar": _np(jg_logvar)}
+    out["ae_bf16"] = (jgrads16, pg16, peng16)
+    with pytest.MonkeyPatch.context() as m:  # the training kernels' Functions, counted
+        m.setenv("GVQ_CONV_WGRAD", "1")
+        m.setenv("GVQ_GN_BWD", "1")
+        calls = {"conv3x3_wgrad": 0, "gn_swish_bwd": 0}
+        for mod, name, key in ((conv3x3_train, "conv3x3_wgrad_plain", "conv3x3_wgrad"),
+                               (gn_swish_bwd, "gn_swish_bwd_plain", "gn_swish_bwd")):
+            m.setattr(mod, name, _counting(getattr(mod, name), calls, key))
+        pgk, _, _ = pb16.ae_grads(pstate, {"img": x1}, disc_active=False,
+                                  eps=torch.from_numpy(e1))
+    out["ae_bf16_kernels"] = (jgrads16, pgk, calls)
 
     mp.setattr(jax.random, "normal", _FixedNormal(e2))
 
@@ -229,6 +252,19 @@ def test_bf16_ae_gradient_is_near_the_jax_float32_one(run):
     assert set(pg16) == set(jgrads)
     names = sorted(jgrads)
     got = np.concatenate([pg16[k].float().numpy().ravel() for k in names])
+    want = np.concatenate([np.ravel(jgrads[k]) for k in names])
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert rel <= BF16_GRAD_REL_L2, rel
+
+
+def test_bf16_ae_gradient_through_the_training_kernels_is_near_the_jax_float32_one(run):
+    jgrads, pgk, calls = run["ae_bf16_kernels"]
+    # 10 resblocks: 20 convs; 20 GroupNorm + swish sites less the 2 that
+    # normalise from a fused resample's statistics
+    assert calls == {"conv3x3_wgrad": 20, "gn_swish_bwd": 18}
+    assert set(pgk) == set(jgrads)
+    names = sorted(jgrads)
+    got = np.concatenate([pgk[k].float().numpy().ravel() for k in names])
     want = np.concatenate([np.ravel(jgrads[k]) for k in names])
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
     assert rel <= BF16_GRAD_REL_L2, rel

@@ -1,8 +1,9 @@
 // Implicit-GEMM 3x3 convolution core shared by the resample kernels, forward
 // (downsample_conv.cu, upsample_conv.cu) and input gradient
-// (downsample_bwd.cu, upsample_bwd.cu).
+// (downsample_bwd.cu, upsample_bwd.cu), and by the fused GroupNorm + swish +
+// conv (fused_gn_conv.cu).
 //
-// All four ops are a sum of small-tap convolutions over an NHWC bf16 input,
+// All five ops are a sum of small-tap convolutions over an NHWC bf16 input,
 // so one kernel body serves them, picked by MODE:
 //
 //   M = output pixels of one sample (of one phase, where the op has phases),
@@ -23,6 +24,15 @@
 //       low-resolution taps), input = g (B, 2H, 2W, O): dx[mh, mw] = sum
 //       over (di, dj, a, b) of g[2*(mh-dr)+di, 2*(mw-dc)+dj] . k22^T, with
 //       dr = di+a-1, dc = dj+b-1, zero where mh-dr or mw-dc leaves the image.
+//   kSameGn: the stride-1 "same" 3x3 conv, 9 taps: output pixel (mh, mw)
+//       reads input (mh + a - 1, mw + b - 1), a, b in 0..2.  A prologue
+//       takes each loaded bf16 A chunk to float32, applies the per-(sample,
+//       channel) GroupNorm affine x * scale + shift and swish, and rounds to
+//       bf16 before the MMAs.  A tap outside the image contributes 0 AFTER
+//       the transform (the conv pads the normalised activation, not x), so
+//       the prologue writes zeros there rather than transforming the zero
+//       the load filled in.  The epilogue adds the float32 bias and, with
+//       ADD, the residual `add` (B, H, W, O), and rounds once; no stats.
 //
 // The weights are laid out (taps, K channels, N channels); the gradient
 // modes take w^T (HWOI) and k22^T.  They have no bias and no statistics,
@@ -37,7 +47,7 @@
 // compute (single shared buffer, no cp.async / TMA yet).
 //
 // Epilogue: accumulators go through shared memory, get the bias, round to
-// bf16 and are stored.  The GroupNorm statistics (sum, sum of squares) are
+// bf16 and are stored (kSameGn: bias, residual, one rounding).  The GroupNorm statistics (sum, sum of squares) are
 // taken over the ROUNDED bf16 values, as the TPU kernels do, per block and
 // channel, into a partial buffer (B, P, 2, O); a second kernel reduces the
 // P partials of each (sample, channel) in a fixed order, so results repeat
@@ -69,7 +79,7 @@ constexpr size_t kConvSmemAB =
 constexpr size_t kConvSmemC = (size_t)kConvBM * kConvLDC * sizeof(float);
 constexpr size_t kConvSmem = kConvSmemAB > kConvSmemC ? kConvSmemAB : kConvSmemC;
 
-enum ConvMode { kDownFwd = 0, kUpFwd = 1, kDownDgrad = 2, kUpDgrad = 3 };
+enum ConvMode { kDownFwd = 0, kUpFwd = 1, kDownDgrad = 2, kUpDgrad = 3, kSameGn = 4 };
 
 __host__ __device__ constexpr bool conv_is_fwd(int mode) {
   return mode == kDownFwd || mode == kUpFwd;
@@ -81,9 +91,11 @@ __host__ __device__ constexpr int conv_phases(int mode) {
 
 struct ConvArgs {
   const bf16* x;      // input (B, H, W, C): x, or the cotangent g for the gradient modes
-  const bf16* add;    // (B, H, W, C) or null (forward modes)
+  const bf16* add;    // (B, H, W, C) or null (forward modes); kSameGn: the residual (B, H, W, O)
   const bf16* w;      // (taps, C, O): HWIO, k22, HWOI (w^T) or k22^T
-  const float* bias;  // (O,) bf16-rounded values held as f32 (forward modes)
+  const float* bias;  // (O,) bf16-rounded values held as f32 (forward modes); f32 (kSameGn)
+  const float* scale; // (B, C) GroupNorm affine (kSameGn only)
+  const float* shift; // (B, C)
   bf16* y;            // output (B, out_h, out_w, O)
   float* partial;     // (B, P, 2, O) per-block statistics (forward modes)
   int B, H, W, C, O;
@@ -110,6 +122,31 @@ __device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
   return out;
 }
 
+__device__ __forceinline__ float swish(float h) { return h / (1.0f + __expf(-h)); }
+
+// kSameGn's prologue on 8 channels: swish(x * scale + shift) in float32,
+// rounded to bf16 (scale, shift: 8 consecutive float32, 16-byte aligned)
+__device__ __forceinline__ uint4 gn_swish_bf16x8(uint4 a, const float* scale,
+                                                 const float* shift) {
+  const float4 s0 = __ldg(reinterpret_cast<const float4*>(scale));
+  const float4 s1 = __ldg(reinterpret_cast<const float4*>(scale) + 1);
+  const float4 t0 = __ldg(reinterpret_cast<const float4*>(shift));
+  const float4 t1 = __ldg(reinterpret_cast<const float4*>(shift) + 1);
+  const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  const float sh[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+  uint4 out;
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+  uint32_t* po = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pa[i]));
+    __nv_bfloat162 r = __floats2bfloat162_rn(swish(f.x * sc[2 * i] + sh[2 * i]),
+                                             swish(f.y * sc[2 * i + 1] + sh[2 * i + 1]));
+    po[i] = *reinterpret_cast<uint32_t*>(&r);
+  }
+  return out;
+}
+
 template <int MODE, bool ADD>
 __global__ void __launch_bounds__(kConvThreads)
 conv_igemm_kernel(ConvArgs g) {
@@ -126,6 +163,10 @@ conv_igemm_kernel(ConvArgs g) {
   const int warp_m = warp >> 1;  // 0..3: 32-row slab
   const int warp_n = warp & 1;   // 0..1: 64-column slab
   constexpr bool FWD = conv_is_fwd(MODE);
+  constexpr bool GN = MODE == kSameGn;
+  constexpr bool ADD_IN = ADD && !GN;   // x + add summed into the operand
+  constexpr bool ADD_OUT = ADD && GN;   // the residual summed into the output
+  constexpr bool BIAS = FWD || GN;
   const int mt = blockIdx.x;
   const int b = blockIdx.y;
   const int n_nt = (g.O + kConvBN - 1) / kConvBN;
@@ -136,7 +177,7 @@ conv_igemm_kernel(ConvArgs g) {
   const int m_total = g.Mh * g.Mw;
   // kDownDgrad: phase (di, dj) = (pm, pn) takes 2 row taps for pm = 0 (r = 0, 2), else 1
   const int dg_cols = dj == 0 ? 2 : 1;
-  const int taps = MODE == kDownFwd ? 9
+  const int taps = MODE == kDownFwd || GN ? 9
                  : MODE == kUpFwd ? 4
                  : MODE == kUpDgrad ? 16
                  : (di == 0 ? 2 : 1) * dg_cols;
@@ -156,6 +197,7 @@ conv_igemm_kernel(ConvArgs g) {
   }
 
   uint4 ra[2], rb[2], radd[2];
+  bool a_in[2];  // the chunk lies in the image (kSameGn: transform it, else write 0)
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
 
   auto load_tile = [&](int ks) {
@@ -165,6 +207,8 @@ conv_igemm_kernel(ConvArgs g) {
     int rm = 1, dr = 0, dc = 0, wtap = t;
     if (MODE == kDownFwd) {
       rm = 2, dr = t / 3, dc = t % 3;
+    } else if (GN) {
+      dr = t / 3 - 1, dc = t % 3 - 1;
     } else if (MODE == kUpFwd) {
       dr = di + (t >> 1) - 1, dc = dj + (t & 1) - 1, wtap = phase * 4 + t;
     } else if (MODE == kDownDgrad) {
@@ -181,13 +225,14 @@ conv_igemm_kernel(ConvArgs g) {
       const int r = rm * a_mh[i] + dr;
       const int s = rm * a_mw[i] + dc;
       const bool ok = a_ok[i] && r >= 0 && r < g.H && s >= 0 && s < g.W;
+      a_in[i] = ok;
       if (ok) {
         const size_t off = (((size_t)b * g.H + r) * g.W + s) * g.C + c0 + cpart * 8;
         ra[i] = *reinterpret_cast<const uint4*>(g.x + off);
-        if (ADD) radd[i] = *reinterpret_cast<const uint4*>(g.add + off);
+        if (ADD_IN) radd[i] = *reinterpret_cast<const uint4*>(g.add + off);
       } else {
         ra[i] = zero4;
-        if (ADD) radd[i] = zero4;
+        if (ADD_IN) radd[i] = zero4;
       }
     }
 #pragma unroll
@@ -201,12 +246,18 @@ conv_igemm_kernel(ConvArgs g) {
     }
   };
 
-  auto store_tile = [&]() {
+  auto store_tile = [&](int ks) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int id = tid + i * kConvThreads;
       uint4 v = ra[i];
-      if (ADD) v = add_bf16x8(v, radd[i]);
+      if (ADD_IN) v = add_bf16x8(v, radd[i]);
+      if (GN) {
+        const int c = (ks % kc_steps) * kConvBK + (id & 3) * 8;
+        v = a_in[i] ? gn_swish_bf16x8(v, g.scale + (size_t)b * g.C + c,
+                                      g.shift + (size_t)b * g.C + c)
+                    : zero4;
+      }
       *reinterpret_cast<uint4*>(As + (id >> 2) * kConvLDA + (id & 3) * 8) = v;
       *reinterpret_cast<uint4*>(Bs + (id >> 4) * kConvLDB + (id & 15) * 8) = rb[i];
     }
@@ -221,7 +272,7 @@ conv_igemm_kernel(ConvArgs g) {
   load_tile(0);
   for (int ks = 0; ks < ksteps; ++ks) {
     __syncthreads();  // the previous step's MMAs are done with As / Bs
-    store_tile();
+    store_tile(ks);
     __syncthreads();
     if (ks + 1 < ksteps) load_tile(ks + 1);
 #pragma unroll
@@ -263,17 +314,31 @@ conv_igemm_kernel(ConvArgs g) {
       uint4 packed;
       uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
+      const size_t out_off = (((size_t)b * g.out_h + oh) * g.out_w + ow) * g.O + n0 + cc;
+      float res[8];
+      if (ADD_OUT) {
+        const uint4 rv = *reinterpret_cast<const uint4*>(g.add + out_off);
+        const __nv_bfloat162* r2v = reinterpret_cast<const __nv_bfloat162*>(&rv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(r2v[e]);
+          res[2 * e] = f.x;
+          res[2 * e + 1] = f.y;
+        }
+      }
+#pragma unroll
       for (int e = 0; e < 8; e += 2) {
-        const float b0 = FWD ? g.bias[n0 + cc + e] : 0.0f;
-        const float b1 = FWD ? g.bias[n0 + cc + e + 1] : 0.0f;
-        __nv_bfloat162 r2 = __floats2bfloat162_rn(crow[e] + b0, crow[e + 1] + b1);
+        const float b0 = BIAS ? g.bias[n0 + cc + e] : 0.0f;
+        const float b1 = BIAS ? g.bias[n0 + cc + e + 1] : 0.0f;
+        float v0 = crow[e] + b0, v1 = crow[e + 1] + b1;
+        if (ADD_OUT) v0 += res[e], v1 += res[e + 1];
+        __nv_bfloat162 r2 = __floats2bfloat162_rn(v0, v1);
         float2 back = __bfloat1622float2(r2);
         crow[e] = back.x;
         crow[e + 1] = back.y;
         pk[e >> 1] = *reinterpret_cast<uint32_t*>(&r2);
       }
-      *reinterpret_cast<uint4*>(
-          g.y + (((size_t)b * g.out_h + oh) * g.out_w + ow) * g.O + n0 + cc) = packed;
+      *reinterpret_cast<uint4*>(g.y + out_off) = packed;
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) crow[e] = 0.0f;

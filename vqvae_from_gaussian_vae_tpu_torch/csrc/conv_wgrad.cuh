@@ -1,7 +1,8 @@
 // Weight-gradient core shared by the resample backward kernels
-// (downsample_bwd.cu, upsample_bwd.cu).
+// (downsample_bwd.cu, upsample_bwd.cu) and the resblock conv's
+// (conv3x3_wgrad.cu).
 //
-// Both weight gradients are the same reduction: for each tap t,
+// All three weight gradients are the same reduction: for each tap t,
 //
 //   dW[t] (C x O) = sum over pixels p of X_t[p, :]^T . G[p, :]
 //
@@ -9,15 +10,20 @@
 // is the cotangent at p's output position and X_t the forward input at p's
 // tap-shifted position (zero outside the image):
 //
-//   down (UP=false): 9 taps (r, s); p = (b, i, j) over the (H/2, W/2)
+//   down (kWgDown): 9 taps (r, s); p = (b, i, j) over the (H/2, W/2)
 //       output grid; X_t[p] = x[b, 2i + r, 2j + s] (row H and column W are
 //       the (0,1) pad), G[p] = g[b, i, j].
-//   up   (UP=true):  16 taps (di, dj, a, bb); p = (b, i, j) over the
+//   up   (kWgUp):  16 taps (di, dj, a, bb); p = (b, i, j) over the
 //       low-resolution (H, W) grid; X_t[p] = x[b, i + di + a - 1,
 //       j + dj + bb - 1], G[p] = g[b, 2i + di, 2j + dj] (the phase-kernel
 //       gradient dk22; the wrapper maps it back to dw).
+//   same (kWgSame): 9 taps (r, s) of the stride-1 "same" conv; p = (b, i,
+//       j) over the (H, W) grid; X_t[p] = x[b, i + r - 1, j + s - 1] (zero
+//       outside the image), G[p] = g[b, i, j].  C and O need not be equal:
+//       the (C, O) tiles are masked at both edges.
 //
-// A GEMM with M = C, N = O and a long K (up to 262,144 pixels at bs=16).
+// A GEMM with M = C, N = O and a long K (up to 1,048,576 pixels at bs=16:
+// the resblock conv at 256x256).
 // Blocks take a 128 x 128 (C, O) tile of one tap and one fixed chunk of the
 // pixels ("split"), accumulate on bf16 tensor cores (nvcuda::wmma, float32
 // accumulators) and write their float32 partial to (splits, taps, C, O); a
@@ -37,6 +43,10 @@ constexpr int kWgLD = kConvBN + 8;  // smem pitch (bf16) of both K-major tiles
 constexpr size_t kWgSmemAB = 2 * (size_t)kConvBK * kWgLD * sizeof(bf16);
 constexpr size_t kWgSmem = kWgSmemAB > kConvSmemC ? kWgSmemAB : kConvSmemC;
 
+enum WgradMode { kWgDown = 0, kWgUp = 1, kWgSame = 2 };
+
+__host__ __device__ constexpr int wgrad_taps(int mode) { return mode == kWgUp ? 16 : 9; }
+
 struct WgradArgs {
   const bf16* x;   // forward input (B, H, W, C)
   const bf16* g;   // cotangent (B, Hg, Wg, O)
@@ -47,7 +57,7 @@ struct WgradArgs {
   int chunk;       // pixels per split, a multiple of kConvBK
 };
 
-template <bool UP>
+template <int MODE>
 __global__ void __launch_bounds__(kConvThreads)
 conv_wgrad_kernel(WgradArgs g) {
   using namespace nvcuda;
@@ -56,7 +66,7 @@ conv_wgrad_kernel(WgradArgs g) {
   bf16* Bs = As + kConvBK * kWgLD;            // BK pixels x 128 output channels
   float* Cs = reinterpret_cast<float*>(smem); // 128 x LDC, reused after the K loop
 
-  constexpr int TAPS = UP ? 16 : 9;
+  constexpr int TAPS = wgrad_taps(MODE);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int warp_m = warp >> 1;  // 0..3: 32 input channels
@@ -69,10 +79,13 @@ conv_wgrad_kernel(WgradArgs g) {
 
   // tap geometry: x at (xm * i + xr, xm * j + xc), g at (gm * i + gr, gm * j + gc)
   int xm, xr, xc, gm, gr, gc;
-  if (UP) {
+  if (MODE == kWgUp) {
     const int di = t >> 3, dj = (t >> 2) & 1;
     xm = 1, xr = di + ((t >> 1) & 1) - 1, xc = dj + (t & 1) - 1;
     gm = 2, gr = di, gc = dj;
+  } else if (MODE == kWgSame) {
+    xm = 1, xr = t / 3 - 1, xc = t % 3 - 1;
+    gm = 1, gr = 0, gc = 0;
   } else {
     xm = 2, xr = t / 3, xc = t % 3;
     gm = 1, gr = 0, gc = 0;
@@ -174,19 +187,19 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partial, float* __
 }
 
 // partial: (splits, taps, C, O) float32 scratch; out: (taps, C, O) float32
-template <bool UP>
+template <int MODE>
 inline int launch_wgrad(const WgradArgs& g, int splits, float* out, cudaStream_t stream) {
-  constexpr int TAPS = UP ? 16 : 9;
+  constexpr int TAPS = wgrad_taps(MODE);
   if (g.C % 8 != 0 || g.O % 8 != 0 || g.C <= 0 || g.O <= 0 || splits <= 0 ||
       g.chunk <= 0 || g.chunk % kConvBK != 0 ||
       (long long)splits * g.chunk < (long long)g.B * g.Mh * g.Mw)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = ((g.C + kConvBM - 1) / kConvBM) * ((g.O + kConvBN - 1) / kConvBN);
-  cudaError_t err = cudaFuncSetAttribute(conv_wgrad_kernel<UP>,
+  cudaError_t err = cudaFuncSetAttribute(conv_wgrad_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kWgSmem);
   if (err != cudaSuccess) return (int)err;
-  conv_wgrad_kernel<UP><<<dim3(n_tiles, TAPS, splits), kConvThreads, kWgSmem, stream>>>(g);
+  conv_wgrad_kernel<MODE><<<dim3(n_tiles, TAPS, splits), kConvThreads, kWgSmem, stream>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)TAPS * g.C * g.O;

@@ -70,6 +70,6 @@ extern "C" int gvq_downsample_wgrad(const void* x, const void* g, void* partial,
   a.Mh = H / 2;
   a.Mw = W / 2;
   a.chunk = chunk;
-  return gvq::launch_wgrad<false>(a, splits, static_cast<float*>(dw),
+  return gvq::launch_wgrad<gvq::kWgDown>(a, splits, static_cast<float*>(dw),
                                   static_cast<cudaStream_t>(stream));
 }

@@ -73,6 +73,6 @@ extern "C" int gvq_upsample_wgrad(const void* x, const void* g, void* partial, v
   a.Mh = H;
   a.Mw = W;
   a.chunk = chunk;
-  return gvq::launch_wgrad<true>(a, splits, static_cast<float*>(dk22),
+  return gvq::launch_wgrad<gvq::kWgUp>(a, splits, static_cast<float*>(dk22),
                                  static_cast<cudaStream_t>(stream));
 }

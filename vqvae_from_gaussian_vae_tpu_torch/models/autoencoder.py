@@ -75,9 +75,10 @@ class EngineModule(nn.Module):
     def encode(self, x, return_reg_log: bool = False, unregularized: bool = False,
                train: bool = False, duals=None, generator: Optional[torch.Generator] = None,
                eps: Optional[torch.Tensor] = None):
-        """``train=True`` takes the regularizer's train branch (the
-        reparameterised sample and the KL loss, weighted by ``duals``)."""
-        z = self.encoder(x)
+        """``train=True`` runs the encoder's training path and takes the
+        regularizer's train branch (the reparameterised sample and the KL
+        loss, weighted by ``duals``)."""
+        z = self.encoder(x, train=train)
         if unregularized:
             return z, {}
         z, reg_log = self.regularization(z, train=train, duals=duals, generator=generator,
@@ -85,18 +86,18 @@ class EngineModule(nn.Module):
         z = self._standardize(z)
         return (z, reg_log) if return_reg_log else z
 
-    def decode(self, z):
-        return self.decoder(self._unstandardize(z))
+    def decode(self, z, train: bool = False):
+        return self.decoder(self._unstandardize(z), train=train)
 
-    def decode_pre_last_layer(self, z):
+    def decode_pre_last_layer(self, z, train: bool = False):
         """The decoder up to (excluding) its last layer."""
-        return self.decoder.pre_last_layer(self._unstandardize(z))
+        return self.decoder.pre_last_layer(self._unstandardize(z), train=train)
 
-    def decode_last_layer(self, h):
+    def decode_last_layer(self, h, train: bool = False):
         """The decoder's last layer and the clamp: decode_pre_last_layer then
         decode_last_layer is decode with the clamp, so the adaptive GAN
         weight differentiates the graph the loss sees."""
-        return self._clamp(self.decoder.last_layer(h))
+        return self._clamp(self.decoder.last_layer(h, train=train))
 
     @property
     def last_layer_path(self) -> str:
@@ -111,7 +112,7 @@ class EngineModule(nn.Module):
                 generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
         z, reg_log = self.encode(x, return_reg_log=True, train=train, duals=duals,
                                  generator=generator, eps=eps)
-        return z, self._clamp(self.decode(z)), reg_log
+        return z, self._clamp(self.decode(z, train=train)), reg_log
 
 
 def resolve_device(device=None) -> torch.device:

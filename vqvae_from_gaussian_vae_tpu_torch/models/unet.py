@@ -29,18 +29,32 @@ residual add into the resample.  When a gradient is wanted, the resamples
 and the attention run their autograd Functions (training forward, then
 the backward kernels), with the statistics' cotangent folded into the
 resample's.
+
+``train`` reaches every module as in the JAX model.  ``ResnetBlock`` takes
+the JAX model's default-off kernels where it does: ``fused_gn_conv`` sends
+both GroupNorm + swish + conv pairs through ``ops/fused_gn_conv.py`` when
+not training; in bf16 training, ``GVQ_CONV_WGRAD=1`` gives the 3x3 convs the
+wgrad kernel (``ops/conv3x3_train.py``) and ``GVQ_GN_BWD=1`` the GroupNorm +
+swish sites the backward kernel (``ops/gn_swish_bwd.py``).  The environment
+is read at forward time, as the JAX model reads it at trace time;
+``GVQ_DISABLE_FUSED_KERNELS=1`` turns off the resample and training
+kernels, and ``GVQ_FUSED_TRAIN=0`` the resample kernels in training.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vqvae_from_gaussian_vae_tpu_torch.ops.conv3x3_train import conv3x3_same_wg
 from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import downsample_conv3x3_gn
 from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import sdpa_token_major
+from vqvae_from_gaussian_vae_tpu_torch.ops.fused_gn_conv import fused_gn_swish_conv
+from vqvae_from_gaussian_vae_tpu_torch.ops.gn_swish_bwd import gn_swish
 from vqvae_from_gaussian_vae_tpu_torch.ops.upsample_conv import upsample_nearest_conv3x3_gn
 from vqvae_from_gaussian_vae_tpu_torch.utils.config import as_torch_dtype
 
@@ -90,11 +104,22 @@ class CastConv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
-def _resample_fuses(flag: bool, h: int, dtype) -> bool:
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """The float32 OIHW weight as an HWIO view (the JAX package's layout)."""
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _kernels_disabled() -> bool:
+    return os.environ.get("GVQ_DISABLE_FUSED_KERNELS", "") == "1"
+
+
+def _resample_fuses(flag: bool, train: bool, h: int, dtype) -> bool:
     """True where Up/Downsample take the fused op (mirrors the JAX model's
-    condition without its TPU clause); lets a level defer its last
-    resblock's residual add into the op."""
-    return bool(flag) and h % 4 == 0 and dtype == torch.bfloat16
+    condition, ``train_ok`` set, without its TPU clause); lets a level defer
+    its last resblock's residual add into the op."""
+    if train and os.environ.get("GVQ_FUSED_TRAIN", "1") == "0":
+        return False
+    return bool(flag) and not _kernels_disabled() and h % 4 == 0 and dtype == torch.bfloat16
 
 
 class Normalize(nn.GroupNorm):
@@ -121,8 +146,8 @@ class Upsample(nn.Module):
         if with_conv:
             self.conv = CastConv2d(in_channels, in_channels, 3, padding=1, dtype=dtype)
 
-    def forward(self, x, with_stats: bool = False, add=None):
-        use_fused = self.with_conv and _resample_fuses(self.fused, x.shape[2], self.dtype)
+    def forward(self, x, train: bool = False, with_stats: bool = False, add=None):
+        use_fused = self.with_conv and _resample_fuses(self.fused, train, x.shape[2], self.dtype)
         if not use_fused:
             if add is not None:
                 raise ValueError("only the fused upsample takes a deferred add")
@@ -150,8 +175,8 @@ class Downsample(nn.Module):
         if with_conv:
             self.conv = CastConv2d(in_channels, in_channels, 3, stride=2, padding=0, dtype=dtype)
 
-    def forward(self, x, with_stats: bool = False, add=None):
-        use_fused = self.with_conv and _resample_fuses(self.fused, x.shape[2], self.dtype)
+    def forward(self, x, train: bool = False, with_stats: bool = False, add=None):
+        use_fused = self.with_conv and _resample_fuses(self.fused, train, x.shape[2], self.dtype)
         if not use_fused:
             if add is not None:
                 raise ValueError("only the fused downsample takes a deferred add")
@@ -171,17 +196,22 @@ class ResnetBlock(nn.Module):
     """norm1 -> swish -> conv1 -> norm2 -> swish -> (dropout) -> conv2, plus
     the (shortcut-projected) input.  ``in_stats`` normalises the input from
     the producing resample's statistics; ``defer_add`` returns (x, h) for
-    the consuming resample to sum."""
+    the consuming resample to sum.  ``fused_gn_conv`` and the training
+    kernels as the JAX model's ``ResnetBlock`` (module docstring); the same
+    parameters on every path."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
-                 conv_shortcut: bool = False, dropout: float = 0.0, dtype=torch.float32):
+                 conv_shortcut: bool = False, dropout: float = 0.0,
+                 fused_gn_conv: bool = False, dtype=torch.float32):
         super().__init__()
         out_ch = out_channels or in_channels
         self.in_channels, self.out_channels = in_channels, out_ch
+        self.dropout = dropout
+        self.fused_gn_conv = fused_gn_conv
+        self.dtype = as_torch_dtype(dtype)
         self.norm1 = Normalize(in_channels)
         self.conv1 = CastConv2d(in_channels, out_ch, 3, padding=1, dtype=dtype)
         self.norm2 = Normalize(out_ch)
-        self.dropout = nn.Dropout(dropout)
         self.conv2 = CastConv2d(out_ch, out_ch, 3, padding=1, dtype=dtype)
         if in_channels != out_ch:
             if conv_shortcut:
@@ -189,15 +219,41 @@ class ResnetBlock(nn.Module):
             else:
                 self.nin_shortcut = CastConv2d(in_channels, out_ch, 1, dtype=dtype)
 
-    def forward(self, x, in_stats=None, defer_add: bool = False):
-        if in_stats is not None:
-            h = _nchw(group_norm_from_stats(_nhwc(x), in_stats, self.norm1.weight,
-                                            self.norm1.bias))
+    def _gn_swish(self, norm: Normalize, x):
+        return _nchw(gn_swish(_nhwc(x.to(self.dtype)), norm.weight, norm.bias))
+
+    def _conv3(self, conv: CastConv2d, x, use_wg: bool):
+        if use_wg:
+            return _nchw(conv3x3_same_wg(_nhwc(x.to(self.dtype)), _hwio(conv), conv.bias))
+        return conv(x)
+
+    def forward(self, x, train: bool = False, in_stats=None, defer_add: bool = False):
+        use_fused = (self.fused_gn_conv and not train and self.dropout == 0.0
+                     and x.shape[2] % 8 == 0)
+        use_in_stats = in_stats is not None and not use_fused
+        if use_fused:
+            h = fused_gn_swish_conv(_nhwc(x.to(self.dtype)), self.norm1.weight, self.norm1.bias,
+                                    _hwio(self.conv1), self.conv1.bias)
+            h = fused_gn_swish_conv(h, self.norm2.weight, self.norm2.bias, _hwio(self.conv2),
+                                    self.conv2.bias)
+            h = _nchw(h)
         else:
-            h = self.norm1(x)
-        h = self.conv1(nonlinearity(h))
-        h = nonlinearity(self.norm2(h))
-        h = self.conv2(self.dropout(h))
+            env = os.environ
+            bf16_train = train and self.dtype == torch.bfloat16 and not _kernels_disabled()
+            use_wg = bf16_train and env.get("GVQ_CONV_WGRAD", "0") == "1"
+            use_gnb = bf16_train and env.get("GVQ_GN_BWD", "0") == "1"
+            if use_in_stats:
+                h = nonlinearity(_nchw(group_norm_from_stats(
+                    _nhwc(x), in_stats, self.norm1.weight, self.norm1.bias)))
+            elif use_gnb:
+                h = self._gn_swish(self.norm1, x)
+            else:
+                h = nonlinearity(self.norm1(x))
+            h = self._conv3(self.conv1, h, use_wg)
+            h = self._gn_swish(self.norm2, h) if use_gnb else nonlinearity(self.norm2(h))
+            if self.dropout > 0.0:
+                h = F.dropout(h, self.dropout, training=train)
+            h = self._conv3(self.conv2, h, use_wg)
         if self.in_channels != self.out_channels:
             if hasattr(self, "conv_shortcut"):
                 x = self.conv_shortcut(x)
@@ -245,52 +301,53 @@ def make_attn(in_channels: int, attn_type: str = "vanilla", dtype=torch.float32)
 class _DownLevel(nn.Module):
     def __init__(self, block_specs: Sequence[Tuple[int, int]], use_attn: bool, attn_type: str,
                  dropout: float, has_downsample: bool, resamp_with_conv: bool,
-                 fused_downsample: bool, dtype):
+                 fused_gn_conv: bool, fused_downsample: bool, dtype):
         super().__init__()
         self.use_attn = use_attn
         self.has_downsample = has_downsample
         self.fused_downsample = fused_downsample
         self.dtype = dtype
         self.block = nn.ModuleList(
-            ResnetBlock(i, o, dropout=dropout, dtype=dtype) for i, o in block_specs)
+            ResnetBlock(i, o, dropout=dropout, fused_gn_conv=fused_gn_conv, dtype=dtype)
+            for i, o in block_specs)
         if use_attn:
             self.attn = nn.ModuleList(make_attn(o, attn_type, dtype) for _, o in block_specs)
         if has_downsample:
             self.downsample = Downsample(block_specs[-1][1], resamp_with_conv,
                                          fused=fused_downsample, dtype=dtype)
 
-    def forward(self, x, in_stats=None):
+    def forward(self, x, train: bool = False, in_stats=None):
         n = len(self.block)
         defer = (self.has_downsample and not self.use_attn
-                 and _resample_fuses(self.fused_downsample, x.shape[2], self.dtype))
+                 and _resample_fuses(self.fused_downsample, train, x.shape[2], self.dtype))
         add = None
         for i, blk in enumerate(self.block):
             stats = in_stats if i == 0 else None
             if defer and i == n - 1:
-                x, add = blk(x, stats, defer_add=True)
+                x, add = blk(x, train, stats, defer_add=True)
             else:
-                x = blk(x, stats)
+                x = blk(x, train, stats)
                 if self.use_attn:
                     x = self.attn[i](x)
         out_stats = None
         if self.has_downsample:
-            x, out_stats = self.downsample(x, with_stats=True, add=add)
+            x, out_stats = self.downsample(x, train=train, with_stats=True, add=add)
         return x, out_stats
 
 
 class _Mid(nn.Module):
-    def __init__(self, channels: int, dropout: float, dtype):
+    def __init__(self, channels: int, dropout: float, fused_gn_conv: bool, dtype):
         super().__init__()
-        self.block_1 = ResnetBlock(channels, dropout=dropout, dtype=dtype)
-        self.block_2 = ResnetBlock(channels, dropout=dropout, dtype=dtype)
+        self.block_1 = ResnetBlock(channels, dropout=dropout, fused_gn_conv=fused_gn_conv,
+                                   dtype=dtype)
+        self.block_2 = ResnetBlock(channels, dropout=dropout, fused_gn_conv=fused_gn_conv,
+                                   dtype=dtype)
 
-    def forward(self, x):
-        return self.block_2(self.block_1(x))
+    def forward(self, x, train: bool = False):
+        return self.block_2(self.block_1(x, train), train)
 
 
-def _check_knobs(fused_gn_conv: bool, remat: bool) -> None:
-    if fused_gn_conv:
-        raise NotImplementedError("fused_gn_conv is not ported yet")
+def _check_knobs(remat: bool) -> None:
     if remat:
         raise NotImplementedError("remat (activation checkpointing) waits for the trainer "
                                   "slice of the port")
@@ -307,7 +364,7 @@ class Encoder(nn.Module):
                  remat: bool = False, fused_gn_conv: bool = False,
                  fused_downsample: bool = True, dtype=torch.float32):
         super().__init__()
-        _check_knobs(fused_gn_conv, remat)
+        _check_knobs(remat)
         self.dtype = as_torch_dtype(dtype)
         self.z_channels = z_channels
         attn_type = "linear" if use_linear_attn else attn_type
@@ -326,22 +383,22 @@ class Encoder(nn.Module):
             levels.append(_DownLevel(
                 specs, use_attn=(curr_res in attn_resolutions) and attn_type != "none",
                 attn_type=attn_type, dropout=dropout, has_downsample=i_level != n_res - 1,
-                resamp_with_conv=resamp_with_conv, fused_downsample=fused_downsample,
-                dtype=self.dtype))
+                resamp_with_conv=resamp_with_conv, fused_gn_conv=fused_gn_conv,
+                fused_downsample=fused_downsample, dtype=self.dtype))
             if i_level != n_res - 1:
                 curr_res //= 2
         self.down = nn.ModuleList(levels)
-        self.mid = _Mid(ch * ch_mult[-1], dropout, self.dtype)
+        self.mid = _Mid(ch * ch_mult[-1], dropout, fused_gn_conv, self.dtype)
         self.norm_out = Normalize(ch * ch_mult[-1])
         self.conv_out = CastConv2d(ch * ch_mult[-1], 2 * z_channels if double_z else z_channels,
                                    3, padding=1, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         h = self.conv_in(_nchw(x).to(self.dtype))
         stats = None
         for level in self.down:
-            h, stats = level(h, in_stats=stats)
-        h = self.mid(h)
+            h, stats = level(h, train=train, in_stats=stats)
+        h = self.mid(h, train)
         h = nonlinearity(self.norm_out(h))
         return _nhwc(self.conv_out(h))
 
@@ -355,36 +412,37 @@ class Encoder(nn.Module):
 class _UpLevel(nn.Module):
     def __init__(self, block_specs: Sequence[Tuple[int, int]], use_attn: bool, attn_type: str,
                  dropout: float, has_upsample: bool, resamp_with_conv: bool,
-                 fused_upsample: bool, dtype):
+                 fused_gn_conv: bool, fused_upsample: bool, dtype):
         super().__init__()
         self.use_attn = use_attn
         self.has_upsample = has_upsample
         self.fused_upsample = fused_upsample
         self.dtype = dtype
         self.block = nn.ModuleList(
-            ResnetBlock(i, o, dropout=dropout, dtype=dtype) for i, o in block_specs)
+            ResnetBlock(i, o, dropout=dropout, fused_gn_conv=fused_gn_conv, dtype=dtype)
+            for i, o in block_specs)
         if use_attn:
             self.attn = nn.ModuleList(make_attn(o, attn_type, dtype) for _, o in block_specs)
         if has_upsample:
             self.upsample = Upsample(block_specs[-1][1], resamp_with_conv,
                                      fused=fused_upsample, dtype=dtype)
 
-    def forward(self, x, in_stats=None):
+    def forward(self, x, train: bool = False, in_stats=None):
         n = len(self.block)
         defer = (self.has_upsample and not self.use_attn
-                 and _resample_fuses(self.fused_upsample, x.shape[2], self.dtype))
+                 and _resample_fuses(self.fused_upsample, train, x.shape[2], self.dtype))
         add = None
         for i, blk in enumerate(self.block):
             stats = in_stats if i == 0 else None
             if defer and i == n - 1:
-                x, add = blk(x, stats, defer_add=True)
+                x, add = blk(x, train, stats, defer_add=True)
             else:
-                x = blk(x, stats)
+                x = blk(x, train, stats)
                 if self.use_attn:
                     x = self.attn[i](x)
         out_stats = None
         if self.has_upsample:
-            x, out_stats = self.upsample(x, with_stats=True, add=add)
+            x, out_stats = self.upsample(x, train=train, with_stats=True, add=add)
         return x, out_stats
 
 
@@ -401,7 +459,7 @@ class Decoder(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         del in_channels, double_z  # accepted for config aliasing with the encoder
-        _check_knobs(fused_gn_conv, remat)
+        _check_knobs(remat)
         self.dtype = as_torch_dtype(dtype)
         self.give_pre_end = give_pre_end
         self.tanh_out = tanh_out
@@ -410,7 +468,7 @@ class Decoder(nn.Module):
         block_in = ch * ch_mult[n_res - 1]
         curr_res = resolution // 2 ** (n_res - 1)
         self.conv_in = CastConv2d(z_channels, block_in, 3, padding=1, dtype=dtype)
-        self.mid = _Mid(block_in, dropout, self.dtype)
+        self.mid = _Mid(block_in, dropout, fused_gn_conv, self.dtype)
         levels = [None] * n_res
         for i_level in reversed(range(n_res)):
             block_out = ch * ch_mult[i_level]
@@ -421,34 +479,36 @@ class Decoder(nn.Module):
             levels[i_level] = _UpLevel(
                 specs, use_attn=(curr_res in attn_resolutions) and attn_type != "none",
                 attn_type=attn_type, dropout=dropout, has_upsample=i_level != 0,
-                resamp_with_conv=resamp_with_conv, fused_upsample=fused_upsample,
-                dtype=self.dtype)
+                resamp_with_conv=resamp_with_conv, fused_gn_conv=fused_gn_conv,
+                fused_upsample=fused_upsample, dtype=self.dtype)
             if i_level != 0:
                 curr_res *= 2
         self.up = nn.ModuleList(levels)
         self.norm_out = Normalize(block_in)
         self.conv_out = CastConv2d(block_in, out_ch, 3, padding=1, dtype=dtype)
 
-    def _trunk(self, z):
+    def _trunk(self, z, train: bool):
         h = self.conv_in(_nchw(z).to(self.dtype))
-        h = self.mid(h)
+        h = self.mid(h, train)
         stats = None
         for i_level in reversed(range(len(self.up))):
-            h, stats = self.up[i_level](h, in_stats=stats)
+            h, stats = self.up[i_level](h, train=train, in_stats=stats)
         return h
 
-    def forward(self, z):
-        h = self._trunk(z)
+    def forward(self, z, train: bool = False):
+        h = self._trunk(z, train)
         if self.give_pre_end:
             return _nhwc(h)
         return self.last_layer(_nhwc(nonlinearity(self.norm_out(h))))
 
-    def pre_last_layer(self, z):
+    def pre_last_layer(self, z, train: bool = False):
         """Everything up to (excluding) conv_out, NHWC."""
-        return _nhwc(nonlinearity(self.norm_out(self._trunk(z))))
+        return _nhwc(nonlinearity(self.norm_out(self._trunk(z, train))))
 
-    def last_layer(self, h):
-        """conv_out (+ tanh) of ``pre_last_layer``'s NHWC output."""
+    def last_layer(self, h, train: bool = False):
+        """conv_out (+ tanh) of ``pre_last_layer``'s NHWC output (``train``
+        is accepted as the JAX model's; nothing here depends on it)."""
+        del train
         h = self.conv_out(_nchw(h))
         if self.tanh_out:
             h = torch.tanh(h)

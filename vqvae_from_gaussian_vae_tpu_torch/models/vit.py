@@ -257,7 +257,9 @@ class TransformerEncoder(nn.Module):
         self.quant_embed = CastLinear(width, 2 * z_channels if double_z else z_channels,
                                       dtype=self.dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """``train`` is accepted as the JAX ViT's; no layer depends on it."""
+        del train
         x = self.conv1(_patchify(x, self.patch))
         x = x + self.positional_embedding.to(x.dtype)
         if self.ln_pre is not None:
@@ -319,15 +321,18 @@ class TransformerDecoder(nn.Module):
             x = self.ffn(x)
         return x
 
-    def forward(self, x):
-        return self.last_layer(self._trunk(x))
+    def forward(self, x, train: bool = False):
+        """``train`` is accepted as the JAX ViT's; no layer depends on it."""
+        return self.last_layer(self._trunk(x), train)
 
-    def pre_last_layer(self, x):
+    def pre_last_layer(self, x, train: bool = False):
         """The trunk up to (excluding) conv_out."""
+        del train
         return self._trunk(x)
 
-    def last_layer(self, x):
+    def last_layer(self, x, train: bool = False):
         """conv_out + unpatchify; pre_last_layer then last_layer is forward."""
+        del train
         return _unpatchify(self.conv_out(x), self.grid_size, self.patch, self.out_channels)
 
     @staticmethod

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "gvq_downsample_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_upsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_upsample_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gvq_fused_gn_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gvq_fused_gn_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gvq_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,0 +1,114 @@
+"""Fused GroupNorm(32) + swish + 3x3 same conv (+ residual add), inference only.
+
+Replaces the TPU kernel of ``vqvae_from_gaussian_vae_tpu/ops/fused_gn_conv.py``
+(``_fused_gn_swish_conv``, front door ``fused_gn_swish_conv``).  The
+GroupNorm reduces to a per-(sample, channel) affine ``x * scale + shift``
+(``gn_affine``, plain torch outside the kernel, as in the JAX package); the
+kernel then forms ``swish(x * scale + shift)`` in float32, zero-pads it (the
+padding applies after GroupNorm and swish), rounds it once to x's dtype,
+convolves it with w cast to x's dtype, accumulates in float32, adds the
+float32 bias and the optional residual, and rounds once.
+
+Layout at this surface is the JAX package's: x (B, H, W, C), weight HWIO
+(3, 3, C, O), residual and output (B, H, W, O).  The CUDA kernel
+(``csrc/fused_gn_conv.cu``: bf16 on tensor cores, float32 on CUDA cores)
+runs for CUDA tensors; the plain version below runs for CPU tensors and is
+what the kernel is held to on the card.  Like the JAX op it has no backward:
+the kernel refuses inputs that want a gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+
+# x's dtype -> the C entry point
+_ENTRIES = {torch.bfloat16: "gvq_fused_gn_conv", torch.float32: "gvq_fused_gn_conv_f32"}
+
+
+def group_stats(x, num_groups: int = 32, eps: float = 1e-6):
+    """Per-(sample, channel) float32 GroupNorm (mean, rstd), each (B, C), of
+    NHWC x: var = E[x^2] - mean^2, unclamped, as the JAX ops take it."""
+    b, h, w, c = x.shape
+    cg = c // num_groups
+    xf = x.float().reshape(b, h * w, num_groups, cg)
+    mean = xf.mean(dim=(1, 3))
+    var = (xf * xf).mean(dim=(1, 3)) - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    return mean.repeat_interleave(cg, dim=1), rstd.repeat_interleave(cg, dim=1)
+
+
+def gn_affine(x, gamma, beta, num_groups: int = 32, eps: float = 1e-6):
+    """(scale, shift), float32 (B, C), with GN(x) * gamma + beta == x * scale + shift."""
+    mean_c, rstd_c = group_stats(x, num_groups, eps)
+    scale = gamma.float()[None, :] * rstd_c
+    shift = beta.float()[None, :] - mean_c * scale
+    return scale, shift
+
+
+def fused_gn_swish_conv_plain(x, gamma, beta, w, bias, residual=None, num_groups: int = 32,
+                              eps: float = 1e-6):
+    """Plain version: the kernel's arithmetic step by step in PyTorch ops."""
+    scale, shift = gn_affine(x, gamma, beta, num_groups, eps)
+    h = x.float() * scale[:, None, None, :] + shift[:, None, None, :]
+    h = (h * torch.sigmoid(h)).to(x.dtype)  # conv2d zero-pads this, the transformed input
+    wt = w.to(x.dtype).float().permute(3, 2, 0, 1)
+    y = F.conv2d(h.permute(0, 3, 1, 2).float(), wt, bias.float(), padding=1).permute(0, 2, 3, 1)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(x.dtype).contiguous()
+
+
+def fused_gn_swish_conv_cuda(x, gamma, beta, w, bias, residual=None, num_groups: int = 32,
+                             eps: float = 1e-6):
+    """Launch the kernel: bf16 (C a multiple of 32, O of 8) or float32 (C
+    and O multiples of 4) CUDA tensors; inference only."""
+    _build.refuse_grad("fused GroupNorm + swish + conv kernel", x, gamma, beta, w, bias, residual)
+    b, h, wd, c = x.shape
+    o = w.shape[-1]
+    if not x.is_cuda or x.dtype not in _ENTRIES:
+        raise ValueError(f"fused GroupNorm + swish + conv kernel takes bf16 or float32 CUDA "
+                         f"tensors, got {x.dtype} on {x.device}")
+    align_c, align_o = (32, 8) if x.dtype == torch.bfloat16 else (4, 4)
+    if tuple(w.shape) != (3, 3, c, o) or c % num_groups or c % align_c or o % align_o:
+        raise ValueError(f"fused GroupNorm + swish + conv kernel: unsupported shapes x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)} ({x.dtype}: C % {align_c}, "
+                         f"O % {align_o}, C % {num_groups} == 0)")
+    if gamma.shape != (c,) or beta.shape != (c,) or bias.shape != (o,):
+        raise ValueError("fused GroupNorm + swish + conv kernel: gamma, beta (C,), bias (O,)")
+    if residual is not None and (residual.shape != (b, h, wd, o) or residual.dtype != x.dtype):
+        raise ValueError("fused GroupNorm + swish + conv kernel: residual must be (B, H, W, O) "
+                         "in x's dtype")
+    if any(t.device != x.device for t in (gamma, beta, w, bias, residual) if t is not None):
+        raise ValueError("fused GroupNorm + swish + conv kernel: every tensor must lie on x's "
+                         "device")
+    x = x.contiguous()
+    scale, shift = gn_affine(x, gamma, beta, num_groups, eps)
+    wk = w.to(x.dtype).contiguous()
+    bias_f = bias.float().contiguous()
+    res = None if residual is None else residual.contiguous()
+    y = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
+    name = _ENTRIES[x.dtype]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = getattr(lib, name)(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wk.data_ptr(), bias_f.data_ptr(),
+            None if res is None else res.data_ptr(), y.data_ptr(), b, h, wd, c, o,
+            _build.stream_of(x))
+    _build.check(err, name)
+    fused_gn_swish_conv_cuda.launches += 1
+    return y
+
+
+fused_gn_swish_conv_cuda.launches = 0
+
+
+def fused_gn_swish_conv(x, gamma, beta, w, bias, residual=None, num_groups: int = 32,
+                        eps: float = 1e-6):
+    """(B, H, W, C) -> (B, H, W, O): the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_gn_swish_conv_plain(x, gamma, beta, w, bias, residual, num_groups, eps)
+    return fused_gn_swish_conv_cuda(x, gamma, beta, w, bias, residual, num_groups, eps)

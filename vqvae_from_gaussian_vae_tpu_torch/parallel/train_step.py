@@ -79,8 +79,8 @@ class TrainStepBuilder:
         """encode (train branch) -> (z, reg_log), decoder trunk h, xrec."""
         z, reg_log = self.module.encode(x, return_reg_log=True, train=True, duals=state.duals,
                                         generator=state.generator, eps=eps)
-        h = self.module.decode_pre_last_layer(z)
-        return z, reg_log, h, self.module.decode_last_layer(h)
+        h = self.module.decode_pre_last_layer(z, train=True)
+        return z, reg_log, h, self.module.decode_last_layer(h, train=True)
 
     def _adaptive_d_weight(self, nll, g):
         w = self.last_layer
@@ -130,7 +130,8 @@ class TrainStepBuilder:
     def disc_grads(self, state: TrainState, batch, eps: Optional[torch.Tensor] = None):
         """Phase 1's loss and gradients without an update: the engine
         encodes (train branch, for the sample and the dual statistics) and
-        decodes without gradients; the discriminator sees x and xrec."""
+        decodes on the inference path (``train=False``), without gradients;
+        the discriminator sees x and xrec."""
         x = self._input(batch, self.engine.device)
         with torch.no_grad():
             z, reg_log = self.module.encode(x, return_reg_log=True, train=True,
