@@ -24,7 +24,16 @@ then drives each path through the entry points a user calls, at bs=16,
     GAN pair with ``fused_gn_conv: true``, ``GVQ_CONV_WGRAD=1`` and
     ``GVQ_GN_BWD=1`` (the resblock conv's wgrad and the GroupNorm + swish
     backward), set here around that pair only.  It refuses to start when
-    one of the UNet's kernel variables is already set.
+    one of the kernel variables is already set;
+  * the head-major flash attention (``ops/flash_attention_lean.py``), an
+    op no model calls: one training call (forward with residuals, then the
+    backward) at B=1, H=12, L=8192, D=64;
+  * the kernel gates, read as the JAX package reads them: an sd3unet encode
+    -> dequant at 200x200 (its 25x25 AttnBlocks take the einsum path), a
+    2-layer bsqvit with ``GVQ_DISABLE_FUSED_KERNELS=1`` (no LayerNorm or
+    flash kernel), and a reduced-depth sd3unet ae step with
+    ``GVQ_DOWNSAMPLE_BWD=conv`` and ``GVQ_UPSAMPLE_BWD=conv`` (no resample
+    dgrad or wgrad kernel), each held to the default path.
 
 Every phase prints one JSON line.  The line before the last is the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -72,8 +81,17 @@ TRAIN_GRAD_TENSOR_REL_L2 = 0.2  # the same, each tensor alone (worst measured: 7
 ZERO_GRAD_REL = 1e-6
 WGRAD_REL = 1e-3  # float32 sums of exact bf16 products in another order, over max |dw|
 FUSED_F32_TOL = 1e-4  # the fused GN conv's float32 variant: float32 sums in another order
-# the UNet's kernel switches: the smoke sets the training kernels' pair itself
-KERNEL_ENV = ("GVQ_DISABLE_FUSED_KERNELS", "GVQ_FUSED_TRAIN", "GVQ_CONV_WGRAD", "GVQ_GN_BWD")
+PATH_SWITCH_REL_L2 = 2e-2  # one bf16 engine, kernels on against kernels off: bf16 rounds
+#                           at other places (flash's unnormalised p, the einsum's normalised p)
+# the kernel switches: the smoke sets each around the phase that reads it
+KERNEL_ENV = ("GVQ_DISABLE_FUSED_KERNELS", "GVQ_FUSED_TRAIN", "GVQ_CONV_WGRAD", "GVQ_GN_BWD",
+              "GVQ_DOWNSAMPLE_BWD", "GVQ_UPSAMPLE_BWD")
+# the head-major op's shapes (B, H, Lq, Lk, D): the JAX test's, the JAX op's
+# motivating bsqvit training shape, a long L (the op flow's), and a ragged
+# Lq != Lk at D = 256
+FLASH_LEAN_SHAPES = [(2, 4, 512, 512, 64), (8, 12, 1024, 1024, 64), (1, 12, 8192, 8192, 64),
+                     (2, 2, 200, 328, 256)]
+FLASH_LEAN_FLOW = FLASH_LEAN_SHAPES[2]
 
 # sd3unet_gq_0.25's resblock 3x3 convs (H = W, C -> O) and how many run at
 # each per step: 24 resblocks, conv1 and conv2 each (the fused GN conv per
@@ -894,9 +912,115 @@ def check_gn_swish_bwd(gen):
 # the main paths
 
 
+def lean_blocks(lq: int, lk: int):
+    """Block sizes of the head-major op that its checks accept at (lq, lk)."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention_lean import BlockSizes
+
+    bk = 512 if lk % 512 == 0 else lk
+    return BlockSizes(block_q=min(lq, 256), block_k_major=bk, block_k=bk, block_b=1,
+                      block_q_major_dkv=lq, block_k_major_dkv=bk, block_k_dkv=bk,
+                      block_q_dkv=lq, block_k_major_dq=bk, block_k_dq=bk, block_q_dq=lq)
+
+
+def _lean_inputs(gen, b, h, lq, lk, d):
+    import torch
+
+    q, do = (torch.randn((b, h, lq, d), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, h, lk, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def check_flash_lean(gen):
+    """The head-major op: one training call (the forward with z, then the
+    backward) through the public ``flash_attention`` with a gradient, held
+    to the plain versions, at each of ``FLASH_LEAN_SHAPES``; times of the
+    call against the plain versions' and SDPA's (forward, backward by
+    autograd) on the same head-major tensors."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
+
+    shapes = []
+    for b, h, lq, lk, d in FLASH_LEAN_SHAPES:
+        q, k, v, do = _lean_inputs(gen, b, h, lq, lk, d)
+        scale, blocks = d ** -0.5, lean_blocks(lq, lk)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def call():
+            o = fl.flash_attention(*leaves, scale, blocks)
+            return (o, *torch.autograd.grad(o, leaves, do))
+
+        got = [t.detach() for t in call()]
+        _, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+        o_p, z_p = fl.flash_attention_res_plain(q, k, v, scale)
+        want = fl.flash_attention_bwd_plain(q, k, v, o_p, z_p, do, scale)
+        again = fl.flash_attention_bwd_cuda(q, k, v, got[0], z, do, scale)
+        again2 = fl.flash_attention_bwd_cuda(q, k, v, got[0], z, do, scale)
+        torch.cuda.synchronize()
+        o_err = float((got[0].float() - o_p.float()).abs().max())
+        z_err = float((z - z_p).abs().max())
+        require(o_err <= FLASH_ATOL, f"head-major flash {(b, h, lq, lk, d)}: o error {o_err}")
+        require(z_err <= Z_ATOL, f"head-major flash {(b, h, lq, lk, d)}: z error {z_err}")
+        rels = []
+        for name, g, w in zip("qkv", got[1:], want):
+            rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            require(rel <= FLASH_BWD_REL, f"head-major flash {(b, h, lq, lk, d)}: d{name} error "
+                                          f"{rel} of max |grad|")
+            rels.append(rel)
+        require(all(torch.equal(x, y) for x, y in zip(again, again2)) and
+                all(torch.equal(x, y) for x, y in zip(again, got[1:])),
+                "head-major flash backward: two runs differ")
+        err = max([o_err] + [float((g.float() - w.float()).abs().max())
+                             for g, w in zip(got[1:], want)])
+        del got, want, again, again2, o_p, z_p
+
+        def plain():
+            o, zz = fl.flash_attention_res_plain(q, k, v, scale)
+            return fl.flash_attention_bwd_plain(q, k, v, o, zz, do, scale)
+
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def library():
+            o = F.scaled_dot_product_attention(*ref, scale=scale)
+            return torch.autograd.grad(o, ref, do)
+
+        eq, ek = b * h * lq * d, b * h * lk * d
+        flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d
+        bytes_f = 2 * (2 * eq + 2 * ek) + 4 * b * h * lq         # q, k, v in; o, z out
+        bytes_b = 2 * (3 * eq + 2 * ek) + 4 * b * h * lq + 2 * (eq + 2 * ek)
+        bnd, by = bound_ms(flops_f + flops_b, bytes_f + bytes_b, PEAK_BF16)
+        long = (b, h, lq, lk, d) == FLASH_LEAN_FLOW
+        shapes.append({
+            "shape": f"q ({b},{h},{lq},{d}), k, v ({b},{h},{lk},{d}) bf16: forward with z, "
+                     "then dq, dk, dv",
+            "main_path": long, "per_step": 1,
+            "kernel_ms": time_ms(call),
+            "forward_ms": time_ms(lambda: fl.flash_attention_fwd_cuda(
+                q, k, v, scale, save_residuals=True)),
+            "plain_ms": time_ms(plain, iters=3 if long else 10, warmup=1),
+            "library_ms": time_ms(library), "library": "SDPA forward + backward (autograd)",
+            "bound_ms": bnd, "bound_by": by,
+            "flops": flops_f + flops_b, "bytes": bytes_f + bytes_b,
+            "max_abs_err": err, "o_max_abs_err": o_err, "z_max_abs_err": z_err,
+            "rel_err_dq_dk_dv": rels, "bit_reproducible": True})
+        del q, k, v, do, leaves, ref
+        torch.cuda.empty_cache()
+    return {"name": "flash_attention_lean", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu, "
+                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_attention.py:118",
+            "counters": ["flash_attention_lean_fwd", "flash_attention_lean_bwd"],
+            "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}; max error / max |grad| "
+                         f"<= {FLASH_BWD_REL} per dq, dk, dv; bit-equal across runs",
+            "per_step": 1, "path": "flash_head_major", "shapes": shapes}
+
+
 def launch_counters():
     from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train, downsample_conv
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention, fused_gn_conv, gn_swish_bwd
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean
     from vqvae_from_gaussian_vae_tpu_torch.ops import gq_cuda, layer_norm, upsample_conv
 
     return {"gq_argmax": gq_cuda.gq_argmax_cuda,
@@ -918,7 +1042,9 @@ def launch_counters():
             "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda,
             "fused_gn_swish_conv": fused_gn_conv.fused_gn_swish_conv_cuda,
             "conv3x3_wgrad": conv3x3_train.conv3x3_wgrad_cuda,
-            "gn_swish_bwd": gn_swish_bwd.gn_swish_bwd_cuda}
+            "gn_swish_bwd": gn_swish_bwd.gn_swish_bwd_cuda,
+            "flash_attention_lean_fwd": flash_attention_lean.flash_attention_fwd_cuda,
+            "flash_attention_lean_bwd": flash_attention_lean.flash_attention_bwd_cuda}
 
 
 def counted(counters, fn):
@@ -1037,7 +1163,7 @@ TRAIN_PATHS = {
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
-def build_trainer(path: str, dtype: str, seed: int = SEED):
+def build_trainer(path: str, dtype: str, seed: int = SEED, overrides=None):
     from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import make_optimizers
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
@@ -1045,7 +1171,7 @@ def build_trainer(path: str, dtype: str, seed: int = SEED):
     spec = TRAIN_PATHS[path]
     cfg = load_config([os.path.join(ROOT, c) for c in spec["configs"]])
     params = cfg["model"]["params"]
-    _set_backbones(params, dtype, spec.get("overrides", {}))
+    _set_backbones(params, dtype, {**spec.get("overrides", {}), **(overrides or {})})
     params["loss_config"]["params"]["dtype"] = dtype
     engine = instantiate_from_config(cfg["model"], seed=seed, device="cuda")
     return engine, TrainStepBuilder(engine, *make_optimizers(1e-4)), cfg
@@ -1192,23 +1318,27 @@ def _finite(log) -> bool:
     return all(bool(torch.isfinite(v).all()) for v in log.values())
 
 
-def run_train(gen, profile: bool, path: str):
-    """The two-phase GAN pair of one config (``TRAIN_PATHS``) at full width
-    and depth, bs=16, 256x256, bf16 compute with float32 master weights,
-    through the entry points a user calls: config -> engine with its loss ->
-    make_optimizers -> TrainStepBuilder -> init_state -> ae_step / disc_step
-    -> eval_step; the path's environment is set around it and restored."""
-    env = TRAIN_PATHS[path].get("env", {})
+def with_env(env, fn):
+    """fn() with the variables of ``env`` set, then restored."""
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        return _run_train(gen, profile, path)
+        return fn()
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def run_train(gen, profile: bool, path: str):
+    """The two-phase GAN pair of one config (``TRAIN_PATHS``) at full width
+    and depth, bs=16, 256x256, bf16 compute with float32 master weights,
+    through the entry points a user calls: config -> engine with its loss ->
+    make_optimizers -> TrainStepBuilder -> init_state -> ae_step / disc_step
+    -> eval_step; the path's environment is set around it and restored."""
+    return with_env(TRAIN_PATHS[path].get("env", {}), lambda: _run_train(gen, profile, path))
 
 
 def _run_train(gen, profile: bool, path: str):
@@ -1340,6 +1470,154 @@ def train_grad_check(path, engine, builder, state, gen):
             "loss_total": [float(log16["train/loss/total"]), float(log32["train/loss/total"])]}
 
 
+def run_flash_head_major(gen):
+    """The head-major op's flow: one training call (forward with z, then the
+    backward) at ``FLASH_LEAN_FLOW`` through the public ``flash_attention``,
+    with its exact launches: one forward and one backward."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
+
+    b, h, lq, lk, d = FLASH_LEAN_FLOW
+    torch.cuda.reset_peak_memory_stats()
+    q, k, v, do = _lean_inputs(gen, b, h, lq, lk, d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    blocks = lean_blocks(lq, lk)
+
+    def call():
+        for t in leaves:
+            t.grad = None
+        o = fl.flash_attention(*leaves, d ** -0.5, blocks)
+        o.backward(do)
+        return o
+
+    o, counts = counted(launch_counters(), call)
+    launches = require_launches("flash_head_major", counts,
+                                {"flash_attention_lean_fwd": 1, "flash_attention_lean_bwd": 1})
+    require(o.shape == q.shape and o.dtype == torch.bfloat16, f"o {tuple(o.shape)} {o.dtype}")
+    require(all(t.grad.shape == t.shape and bool(torch.isfinite(t.grad.float()).all())
+                for t in leaves), "head-major flash: a gradient is not finite")
+    err = float((o.detach().float() - fl.flash_attention_res_plain(q, k, v, d ** -0.5)[0].float())
+                .abs().max())
+    require(err <= FLASH_ATOL, f"head-major flash: o vs plain error {err}")
+    return {"phase": "op", "path": "flash_head_major", "shape": list(FLASH_LEAN_FLOW),
+            "launches_per_call": launches, "o_vs_plain_max_abs": err,
+            "call_ms": time_ms(call), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+# the gates' checks: the sd3unet at 200x200 (downsample inputs 200, 100, 50:
+# the fused op where h % 4 == 0; upsample inputs 25, 50, 100; AttnBlocks at
+# 25x25 = 625 tokens, so no flash); the reduced-depth sd3unet ae step (one
+# resblock a level: 1 + 2 AttnBlocks)
+UNET_ODD_LAUNCHES = {"gq_argmax": 1, "downsample_conv3x3_gn": 2,
+                     "upsample_nearest_conv3x3_gn": 1}
+UNET_REDUCED = {"num_res_blocks": 1}
+UNET_REDUCED_AE = {**UNET_AE, "flash_attention_res_fwd": 3, "flash_attention_bwd": 3}
+CONV_BWD_ENV = {"GVQ_DOWNSAMPLE_BWD": "conv", "GVQ_UPSAMPLE_BWD": "conv"}
+VIT_REDUCED = {"layers": 2}
+VIT_REDUCED_LAUNCHES = {"gq_argmax": 1, "flash_attention_qkv_fwd": 4, "layer_norm_fwd": 6,
+                        "layer_norm_add_fwd": 6}
+
+
+def run_gate_unet_odd(gen):
+    """sd3unet_gq_0.25 encode -> dequant at 200x200, bs=2, bf16: its
+    AttnBlocks take the einsum path (no flash launch), the 200 and 100
+    downsamples the fused kernel; held to a float32 engine."""
+    import torch
+
+    engine, _ = build_engine(PATHS["sd3unet"]["config"], "bfloat16")
+    x = torch.rand((2, 200, 200, 3), generator=gen, device="cuda") * 2 - 1
+
+    def step():
+        zhat, reg = engine.encode(x, return_reg_log=True)
+        return zhat, reg["indices"], engine.dequant(reg["indices"])
+
+    (zhat, idx, xhat), counts = counted(launch_counters(), step)
+    launches = require_launches("sd3unet at 200x200", counts, UNET_ODD_LAUNCHES)
+    require(tuple(idx.shape) == (2, 25, 25, 1) and tuple(xhat.shape) == (2, 200, 200, 3),
+            f"sd3unet at 200x200: indices {tuple(idx.shape)}, xhat {tuple(xhat.shape)}")
+    require(bool(torch.isfinite(xhat.float()).all()), "sd3unet at 200x200: xhat not finite")
+    ref_engine, _ = build_engine(PATHS["sd3unet"]["config"], "float32")
+    enc_rel = rel_l2(engine.encode(x, unregularized=True)[0],
+                     ref_engine.encode(x, unregularized=True)[0])
+    dec_rel = rel_l2(engine.decode(zhat), ref_engine.decode(zhat))
+    require(enc_rel <= 0.1 and dec_rel <= 0.1,
+            f"sd3unet at 200x200, bf16 vs float32: encoder rel L2 {enc_rel}, decoder {dec_rel}")
+    del ref_engine, engine
+    torch.cuda.empty_cache()
+    return {"phase": "gate", "check": "sd3unet_200px", "batch": 2, "resolution": 200,
+            "launches_per_step": launches,
+            "bf16_vs_fp32_rel_l2": {"encoder": enc_rel, "decoder": dec_rel}}
+
+
+def run_gate_vit_disabled(gen):
+    """A 2-layer bsqvit_gq_0.25 (full width) encode -> dequant, bs=16, bf16,
+    with ``GVQ_DISABLE_FUSED_KERNELS=1``: no LayerNorm or flash launch, and
+    the values of the kernel path within ``PATH_SWITCH_REL_L2``."""
+    import torch
+
+    engine, _ = build_engine(PATHS["bsqvit"]["config"], "bfloat16", VIT_REDUCED)
+    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    zhat, _ = engine.encode(x, return_reg_log=True)
+    disabled = {"GVQ_DISABLE_FUSED_KERNELS": "1"}
+
+    def step():
+        _, reg = engine.encode(x, return_reg_log=True)
+        return engine.dequant(reg["indices"])
+
+    def values():
+        return engine.encode(x, unregularized=True)[0], engine.decode(zhat)
+
+    counters = launch_counters()
+    _, on = counted(counters, step)
+    _, off = with_env(disabled, lambda: counted(counters, step))
+    (z_on, d_on), (z_off, d_off) = values(), with_env(disabled, values)
+    launches_on = require_launches("bsqvit, 2 layers", on, VIT_REDUCED_LAUNCHES)
+    launches_off = require_launches("bsqvit, 2 layers, kernels disabled", off, {"gq_argmax": 1})
+    enc_rel, dec_rel = rel_l2(z_off, z_on), rel_l2(d_off, d_on)
+    require(enc_rel <= PATH_SWITCH_REL_L2 and dec_rel <= PATH_SWITCH_REL_L2,
+            f"bsqvit with the kernels disabled vs on: encoder rel L2 {enc_rel}, "
+            f"decoder {dec_rel}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"phase": "gate", "check": "bsqvit_kernels_disabled", "overrides": VIT_REDUCED,
+            "batch": BATCH, "launches_on": launches_on, "launches_disabled": launches_off,
+            "disabled_vs_on_rel_l2": {"encoder": enc_rel, "decoder": dec_rel}}
+
+
+def run_gate_conv_bwd(gen):
+    """One reduced-depth sd3unet ae step's gradient (bs=2, bf16 overlay)
+    with ``GVQ_DOWNSAMPLE_BWD=conv`` and ``GVQ_UPSAMPLE_BWD=conv``: no
+    resample dgrad or wgrad launch, and the gradient within
+    ``TRAIN_GRAD_REL_L2`` of the default step's."""
+    import torch
+
+    engine, builder, _ = build_trainer("sd3unet", "bfloat16", overrides=UNET_REDUCED)
+    x = torch.rand((2, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    eps = torch.randn((2, 32 * 32, engine.encoder.z_channels), generator=gen, device="cuda")
+    state = builder.init_state(SEED, {"img": x})
+    state.step = engine.loss.disc_start + 10
+
+    def grads():
+        return builder.ae_grads(state, {"img": x}, True, eps=eps)[0]
+
+    counters = launch_counters()
+    g_kernels, on = counted(counters, grads)
+    g_conv, conv = with_env(CONV_BWD_ENV, lambda: counted(counters, grads))
+    launches_on = require_launches("sd3unet ae, reduced", on, UNET_REDUCED_AE)
+    launches_conv = require_launches(
+        "sd3unet ae, reduced, conv-form resample backward", conv,
+        {k: n for k, n in UNET_REDUCED_AE.items() if not k.endswith(("_dgrad", "_wgrad"))})
+    total = rel_l2(torch.cat([g_conv[k].flatten() for k in g_kernels]),
+                   torch.cat([g_kernels[k].flatten() for k in g_kernels]))
+    require(total <= TRAIN_GRAD_REL_L2,
+            f"sd3unet ae gradient, conv-form vs kernel resample backward: rel L2 {total}")
+    del builder, engine
+    torch.cuda.empty_cache()
+    return {"phase": "gate", "check": "sd3unet_conv_form_resample_bwd", "overrides": UNET_REDUCED,
+            "env": CONV_BWD_ENV, "batch": 2, "launches_kernels": launches_on,
+            "launches_conv_form": launches_conv, "conv_vs_kernels_grad_rel_l2": total}
+
+
 def profile_step(step):
     """Device time over one encode -> dequant step: by kernel, and by the
     PyTorch op that launched it (the hand-written kernels, launched through
@@ -1385,7 +1663,7 @@ def main(argv=None) -> int:
         return 2
     preset = [k for k in KERNEL_ENV if k in os.environ]
     if preset:
-        print(f"chip_smoke: unset {preset} first: the smoke drives each path with the UNet's "
+        print(f"chip_smoke: unset {preset} first: the smoke drives each path with the "
               "kernel switches it sets itself", file=sys.stderr)
         return 4
     sys.path.insert(0, ROOT)
@@ -1422,7 +1700,7 @@ def main(argv=None) -> int:
                   lambda g: check_layer_norm_bwd(g, True),
                   lambda g: check_resample_bwd(g, "down"), lambda g: check_resample_bwd(g, "up"),
                   check_flash_res, check_flash_bwd, check_fused_gn_conv, check_conv3x3_wgrad,
-                  check_gn_swish_bwd):
+                  check_gn_swish_bwd, check_flash_lean):
         out = check(gen)
         for k in (out if isinstance(out, list) else [out]):
             emit({"phase": "kernel", **k})
@@ -1440,6 +1718,12 @@ def main(argv=None) -> int:
         emit(train)
         launches[f"{path}_train_ae"] = train["launches_per_ae_step"]
         torch.cuda.empty_cache()
+    op = run_flash_head_major(gen)
+    emit(op)
+    launches["flash_head_major"] = op["launches_per_call"]
+    torch.cuda.empty_cache()
+    for gate in (run_gate_unet_odd, run_gate_vit_disabled, run_gate_conv_bwd):
+        emit(gate(gen))
 
     summary = []
     for k in kernels:
@@ -1455,7 +1739,8 @@ def main(argv=None) -> int:
 
         summary.append({"name": k["name"], "route": k["route"], "source": k["source"],
                         "replaces": k["replaces"],
-                        "launches": launches[k["path"]][k["name"]],
+                        "launches": sum(launches[k["path"]][n]
+                                        for n in k.get("counters", [k["name"]])),
                         "path": k["path"],
                         "max_abs_err": max(s["max_abs_err"] for s in shapes),
                         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),

@@ -14,6 +14,7 @@ import torch
 from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train as c3
 from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
 from vqvae_from_gaussian_vae_tpu_torch.ops import fused_gn_conv as fgc
 from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
 from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
@@ -665,3 +666,95 @@ def test_gn_swish_autograd_runs_the_bwd_kernel(gen):
     (gsb.gn_swish_ref(*ref)[0] * dy).sum().backward()
     for got, want in zip((xl, gamma, beta), ref):
         _close_rel(got.grad, want.grad, 2e-2)
+
+
+# the head-major op (ops/flash_attention_lean.py): the smoke's four shapes,
+# then a single query row and a single key
+HEAD_MAJOR = [(2, 4, 512, 512, 64), (8, 12, 1024, 1024, 64), (1, 12, 8192, 8192, 64),
+              (2, 2, 200, 328, 256), (2, 2, 1, 300, 128), (2, 2, 77, 1, 512)]
+
+
+def _head_major(gen, b, h, lq, lk, d):
+    q, do = (torch.randn((b, h, lq, d), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, h, lk, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", HEAD_MAJOR)
+def test_head_major_kernels_match_plain(gen, b, h, lq, lk, d):
+    q, k, v, do = _head_major(gen, b, h, lq, lk, d)
+    scale = d ** -0.5
+    before = (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches)
+    o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+    o_p, z_p = fl.flash_attention_res_plain(q, k, v, scale)
+    assert o.shape == q.shape and z.shape == (b, h, lq) and z.dtype == torch.float32
+    assert float((o.float() - o_p.float()).abs().max()) <= FLASH_ATOL
+    assert float((z - z_p).abs().max()) <= 1e-3 * max(1.0, float(z_p.abs().max()))
+    assert torch.equal(o, fl.flash_attention_fwd_cuda(q, k, v, scale))
+    got = fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)
+    assert (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches) == \
+        (before[0] + 2, before[1] + 1)
+    want = fl.flash_attention_bwd_plain(q, k, v, o, z, do, scale)
+    for g, w, t in zip(got, want, (q, k, v)):  # dq, dk, dv
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+        if lk == 1 and t is not v:
+            # one key: p = 1 and ds = 0 in exact arithmetic, so dq and dk are
+            # rounding noise with no relative error; hold them to dv's scale
+            assert float(g.float().abs().max()) <= 1e-4 * float(want[2].float().abs().max())
+        else:
+            assert _rel_max(g, w) <= FLASH_BWD_REL
+    del want
+    again = fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_head_major_autograd_runs_the_kernels(gen):
+    q, k, v, do = _head_major(gen, 2, 2, 200, 328, 256)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    blocks = fl.BlockSizes(block_q=128, block_k_major=328, block_k=328, block_b=1,
+                           block_q_major_dkv=200, block_k_major_dkv=328, block_k_dkv=328,
+                           block_q_dkv=200, block_k_major_dq=328, block_k_dq=328,
+                           block_q_dq=200)
+    before = (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches)
+    fl.flash_attention(*leaves, 256 ** -0.5, blocks).backward(do)
+    assert (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    p = torch.softmax(ref[0] @ ref[1].transpose(-1, -2) * 256 ** -0.5, dim=-1)
+    (p @ ref[2]).backward(do.float())
+    for got, want in zip(leaves, ref):
+        assert _rel_max(got.grad, want.grad) <= FLASH_BWD_REL
+
+
+def test_head_major_kernels_refuse_float32_and_other_head_dims(gen):
+    """float32 CUDA inputs raise (no float32 kernel yet) and run nothing."""
+    before = (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches)
+    blocks = fl.BlockSizes.get_default(1, 1, 128, 128, 64)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 96)):
+        q = torch.zeros((1, 1, 128, d), dtype=dtype, device="cuda")
+        with pytest.raises(ValueError):
+            fl.flash_attention(q, q, q, 0.125, blocks)
+        with pytest.raises(ValueError):
+            fl.flash_attention(q.requires_grad_(), q, q, 0.125, blocks)
+    assert (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches) == before
+
+
+def test_flash_bwd_kernels_take_d256(gen):
+    """The unpacked and packed backward entries at D = 256 (32-row tiles)."""
+    q, k, v, do = (torch.randn((2, 128, 2 * 256), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 256 ** -0.5
+    o, z = fa.flash_attention_res_cuda(q, k, v, scale, 2)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, z, do, scale, 2)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, z, do, scale, 2)
+    for g, w in zip(got, want):
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+    qkv = torch.cat([q, k, v], dim=-1)
+    o, z = fa.flash_attention_qkv_res_cuda(qkv, scale, 2)
+    got = fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, scale, 2)
+    want = fa.flash_attention_qkv_bwd_plain(qkv, o, z, do, scale, 2)
+    for g, w in zip(got.chunk(3, dim=-1), want.chunk(3, dim=-1)):
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+    assert torch.equal(got, fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, scale, 2))

@@ -126,9 +126,17 @@ def test_trunk_routes_through_the_kernel_ops(bf16_engines, fp32_engines, image, 
                                              dtype, flash_calls):
     """Per trunk: ln_pre, block 0's ln_1 and ln_post are plain LN, every
     other norm is LN-add (2 * layers - 1); bf16 attention is the packed
-    flash entry, float32 the einsum form.  These are the launch counts the
-    card sees per trunk."""
+    flash entry where the shape gate takes it, float32 the einsum form.
+    These are the launch counts the card sees per trunk.  Here a trunk has
+    L = 64 tokens, which neither JAX's gate nor the port's takes (L % 128),
+    so bf16 runs the einsum form too; tests/test_torch_gates.py holds the
+    routing at L = 128."""
     peng = (bf16_engines if dtype == "bfloat16" else fp32_engines)[1]
+    blk = peng.encoder.transformer.resblocks[0]
+    tokens = peng.encoder.positional_embedding.shape[0]
+    hd = blk.ln_1.weight.shape[0] // blk.attn.n_head
+    if not vit.flash_supported(tokens, blk.attn.n_head, hd):
+        flash_calls = 0
     calls = {"ln": 0, "ln_add": 0, "flash": 0}
 
     def counted(key, fn):

@@ -37,13 +37,24 @@
 // with float32 accumulators; the elementwise steps read the float32 score
 // tiles from shared memory.
 //
+// The head-major entry gvq_flash_bwd_hm replaces the backward of
+// vqvae_from_gaussian_vae_tpu/ops/flash_attention.py (_bwd: the upstream
+// Pallas _flash_attention_bwd_dkv, then the lean dq pass _bwd_dq_lean) on
+// (B, H, L, D) tensors, with q's length Lq apart from k's Lk.  Every tensor's
+// batch, head and row strides are kernel arguments.  A partial last tile
+// loads zero rows, and its rows and columns past Lq or Lk get p = 0 and
+// ds = 0; the rows of dk, dv past Lk and of dq past Lq are not written.
+//
 // Tiling: D = 64 and 128 take 64-row tiles and 8 warps.  At D = 512 four
 // D-wide bf16 tiles (K, V, Q, dO) of 64 rows and the float32 output staging
 // tile would need ~450 KB, so D = 512 takes 32-row tiles (~209 KB of shared
 // memory) and 16 warps: each warp then holds 4 + 4 accumulator fragments of
 // dk and dv (64 registers) instead of 16, under the 128 registers a thread
 // of a 512-thread block may use.  The score tiles (32 x 32) are 8 fragments,
-// computed by 8 warps while the others wait (tiles_abt).
+// computed by 8 warps while the others wait (tiles_abt).  D = 256 takes
+// 32-row tiles too (~113 KB, two blocks an SM) and 8 warps: 4 + 4 fragments a
+// warp again, under the 128 registers that two 256-thread blocks leave each
+// thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,28 +90,40 @@ struct BwdLayout {
   static constexpr int kMinBlocks = 2 * kBytes <= 232448 ? 2 : 1;
 };
 
+// Where a tensor lies: element (b, h, row, d) sits at
+// b * Strides::b + h * Strides::h + row * Strides::row + d.
+struct Strides {
+  long long b, h, row;
+};
+
 struct BwdArgs {
-  const bf16* q;       // (B, L, .) at token stride in_stride, head h at channel h * D
-  const bf16* k;
+  const bf16* q;       // (B, H, Lq, D) as sq says
+  const bf16* k;       // (B, H, Lk, D) as skv says, and v
   const bf16* v;
-  const bf16* dout;    // (B, L, H * D)
-  const float* z;      // (B, H, L)
-  const float* di;     // (B, H, L)
-  bf16* dq;            // at token stride out_stride
-  bf16* dk;
+  const bf16* dout;    // as sdo says, and o
+  const float* z;      // (B, H, Lq)
+  const float* di;     // (B, H, Lq)
+  bf16* dq;            // as sdq says
+  bf16* dk;            // as sdkv says, and dv
   bf16* dv;
-  int L, H, in_stride, out_stride;
+  Strides sq, skv, sdo, sdq, sdkv;
+  int Lq, Lk, H;
   float scale;
 };
 
-template <int D, int T, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t stride) {
+// the first `rows` rows of a T-row tile from src (row stride `stride`); the
+// rest are zeros.  kTail: a tile may be partial (a launch of full tiles
+// compiles the row and column checks out, here and below)
+template <int D, int T, int THREADS, bool kTail>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride,
+                                          int rows) {
   constexpr int LDT = BwdLayout<D, T>::kLdT;
   constexpr int CPR = D / 8;
   for (int e = threadIdx.x; e < T * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * 8;
     *reinterpret_cast<uint4*>(dst + r * LDT + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
+        !kTail || r < rows ? *reinterpret_cast<const uint4*>(src + r * stride + c)
+                           : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -146,26 +169,31 @@ __device__ __forceinline__ void tiles_abt(const bf16* a1, const bf16* b1, float*
   }
 }
 
-// p = exp(s * scale - z), ds = p (dp - di) scale, both rounded to bf16
-template <int T, int THREADS>
+// p = exp(s * scale - z), ds = p (dp - di) scale, both rounded to bf16; a
+// q row past `rows` or a key column past `cols` (a partial tile) gets p = 0
+// and ds = 0, so it adds nothing to dq, dk or dv
+template <int T, int THREADS, bool kTail>
 __device__ __forceinline__ void probs_and_ds(const float* S, const float* dP, const float* z,
-                                             const float* di, float scale, bf16* P, bf16* dS) {
+                                             const float* di, float scale, int rows, int cols,
+                                             bf16* P, bf16* dS) {
   constexpr int LDS = T + 4, LDP = T + 8;
   for (int e = threadIdx.x; e < T * T; e += THREADS) {
     const int r = e / T, c = e % T;
-    const float p = expf(S[r * LDS + c] * scale - z[r]);
-    const float ds = p * (dP[r * LDS + c] - di[r]) * scale;
+    const bool in = !kTail || (r < rows && c < cols);
+    const float p = in ? expf(S[r * LDS + c] * scale - z[r]) : 0.0f;
+    const float ds = in ? p * (dP[r * LDS + c] - di[r]) * scale : 0.0f;
     if (P != nullptr) P[r * LDP + c] = __float2bfloat16(p);
     dS[r * LDP + c] = __float2bfloat16(ds);
   }
 }
 
 // write NF accumulator fragments (rows fr, columns cb..cb+NF-1 of a T x D
-// tile) through the f32 staging tile to dst (T x D bf16, token stride)
-template <int D, int T, int THREADS, int NF>
+// tile) through the f32 staging tile to the first `rows` rows of dst (T x D
+// bf16, row stride `stride`)
+template <int D, int T, int THREADS, int NF, bool kTail>
 __device__ __forceinline__ void write_out(
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[NF], float* stage, int fr, int cb,
-    bf16* dst, size_t stride) {
+    bf16* dst, long long stride, int rows) {
   constexpr int LDA = BwdLayout<D, T>::kLdA;
   constexpr int CPR = D / 8;
 #pragma unroll
@@ -175,6 +203,7 @@ __device__ __forceinline__ void write_out(
   __syncthreads();
   for (int e = threadIdx.x; e < T * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * 8;
+    if (kTail && r >= rows) continue;
     uint4 packed;
     uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
@@ -182,20 +211,30 @@ __device__ __forceinline__ void write_out(
       __nv_bfloat162 v2 = __floats2bfloat162_rn(stage[r * LDA + c + i], stage[r * LDA + c + i + 1]);
       pk[i >> 1] = *reinterpret_cast<uint32_t*>(&v2);
     }
-    *reinterpret_cast<uint4*>(dst + (size_t)r * stride + c) = packed;
+    *reinterpret_cast<uint4*>(dst + r * stride + c) = packed;
   }
   __syncthreads();
 }
 
-// di[b, h, l] = sum_d do[b, l, h D + d] * o[b, l, h D + d], one thread a row
+// di[b, h, l] = sum_d do[b, h, l, d] * o[b, h, l, d] (o and do as s says),
+// one thread a row; neighbouring threads take the index of the smaller
+// stride (the head in the token-major layouts, the row in the head-major one)
 __global__ void flash_bwd_di_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                    float* __restrict__ di, int B, int L, int H, int D) {
+                                    float* __restrict__ di, Strides s, int B, int L, int H,
+                                    int D) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)B * L * H) return;
-  const int h = (int)(idx % H);
-  const size_t bl = idx / H;  // b * L + l
-  const int b = (int)(bl / L), l = (int)(bl % L);
-  const size_t off = bl * (size_t)H * D + (size_t)h * D;
+  int b, h, l;
+  if (s.h < s.row) {
+    h = (int)(idx % H);
+    l = (int)((idx / H) % L);
+    b = (int)(idx / ((size_t)H * L));
+  } else {
+    l = (int)(idx % L);
+    h = (int)((idx / L) % H);
+    b = (int)(idx / ((size_t)H * L));
+  }
+  const long long off = b * s.b + h * s.h + l * s.row;
   float acc = 0.0f;
   for (int d = 0; d < D; d += 8) {
     alignas(16) bf16 oe[8];
@@ -218,7 +257,7 @@ struct OutFrags {
 };
 
 // dk and dv of one T-row K/V tile of one (b, h): stream the q tiles
-template <int D, int T, int WARPS>
+template <int D, int T, int WARPS, bool kTail>
 __global__ void __launch_bounds__(WARPS * 32, (BwdLayout<D, T>::kMinBlocks))
 flash_bwd_dkdv_kernel(BwdArgs g) {
   constexpr int THREADS = WARPS * 32;
@@ -240,19 +279,18 @@ flash_bwd_dkdv_kernel(BwdArgs g) {
   float* dis = zs + T;
 
   const int warp = threadIdx.x >> 5;
-  const int L = g.L, H = g.H;
+  const int Lq = g.Lq, Lk = g.Lk, H = g.H;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int k0 = blockIdx.x * T;
-  const size_t is = (size_t)g.in_stride, os = (size_t)g.out_stride;
-  const size_t C = (size_t)H * D;
-  const size_t in_base = (size_t)b * L * is + (size_t)h * D;
-  const bf16* qb = g.q + in_base;
-  const bf16* dob = g.dout + (size_t)b * L * C + (size_t)h * D;
-  const float* zb = g.z + (size_t)blockIdx.y * L;
-  const float* dib = g.di + (size_t)blockIdx.y * L;
+  const int krows = min(T, Lk - k0);  // a partial last K/V tile
+  const bf16* qb = g.q + b * g.sq.b + h * g.sq.h;
+  const bf16* dob = g.dout + b * g.sdo.b + h * g.sdo.h;
+  const float* zb = g.z + (size_t)blockIdx.y * Lq;
+  const float* dib = g.di + (size_t)blockIdx.y * Lq;
+  const long long kv_off = b * g.skv.b + h * g.skv.h + k0 * g.skv.row;
 
-  load_tile<D, T, THREADS>(Ks, g.k + in_base + (size_t)k0 * is, is);
-  load_tile<D, T, THREADS>(Vs, g.v + in_base + (size_t)k0 * is, is);
+  load_tile<D, T, THREADS, kTail>(Ks, g.k + kv_off, g.skv.row, krows);
+  load_tile<D, T, THREADS, kTail>(Vs, g.v + kv_off, g.skv.row, krows);
 
   const int fr = warp % RF, cb = (warp / RF) * NF;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[NF], dv[NF];
@@ -262,17 +300,19 @@ flash_bwd_dkdv_kernel(BwdArgs g) {
     wmma::fill_fragment(dv[f], 0.0f);
   }
 
-  for (int q0 = 0; q0 < L; q0 += T) {
-    load_tile<D, T, THREADS>(Qs, qb + (size_t)q0 * is, is);
-    load_tile<D, T, THREADS>(dOs, dob + (size_t)q0 * C, C);
+  for (int q0 = 0; q0 < Lq; q0 += T) {
+    const int qrows = min(T, Lq - q0);
+    load_tile<D, T, THREADS, kTail>(Qs, qb + q0 * g.sq.row, g.sq.row, qrows);
+    load_tile<D, T, THREADS, kTail>(dOs, dob + q0 * g.sdo.row, g.sdo.row, qrows);
     if (threadIdx.x < T) {
-      zs[threadIdx.x] = zb[q0 + threadIdx.x];
-      dis[threadIdx.x] = dib[q0 + threadIdx.x];
+      const bool in = !kTail || (int)threadIdx.x < qrows;
+      zs[threadIdx.x] = in ? zb[q0 + threadIdx.x] : 0.0f;
+      dis[threadIdx.x] = in ? dib[q0 + threadIdx.x] : 0.0f;
     }
     __syncthreads();
     tiles_abt<D, T, WARPS>(Qs, Ks, Ss, dOs, Vs, dPs);  // s and do v^T (q x kv), unscaled
     __syncthreads();
-    probs_and_ds<T, THREADS>(Ss, dPs, zs, dis, g.scale, Ps, dSs);
+    probs_and_ds<T, THREADS, kTail>(Ss, dPs, zs, dis, g.scale, qrows, T, Ps, dSs);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < T; kk += 16) {  // over the q rows of the tile
@@ -291,13 +331,14 @@ flash_bwd_dkdv_kernel(BwdArgs g) {
     __syncthreads();
   }
 
-  const size_t out_off = (size_t)b * L * os + (size_t)h * D + (size_t)k0 * os;
-  write_out<D, T, THREADS, NF>(dk, stage, fr, cb, g.dk + out_off, os);
-  write_out<D, T, THREADS, NF>(dv, stage, fr, cb, g.dv + out_off, os);
+  // the rows of dk and dv past Lk are not written
+  const long long out_off = b * g.sdkv.b + h * g.sdkv.h + k0 * g.sdkv.row;
+  write_out<D, T, THREADS, NF, kTail>(dk, stage, fr, cb, g.dk + out_off, g.sdkv.row, krows);
+  write_out<D, T, THREADS, NF, kTail>(dv, stage, fr, cb, g.dv + out_off, g.sdkv.row, krows);
 }
 
 // dq of one T-row q tile of one (b, h): stream the K/V tiles
-template <int D, int T, int WARPS>
+template <int D, int T, int WARPS, bool kTail>
 __global__ void __launch_bounds__(WARPS * 32, (BwdLayout<D, T>::kMinBlocks))
 flash_bwd_dq_kernel(BwdArgs g) {
   constexpr int THREADS = WARPS * 32;
@@ -318,18 +359,21 @@ flash_bwd_dq_kernel(BwdArgs g) {
   float* dis = zs + T;
 
   const int warp = threadIdx.x >> 5;
-  const int L = g.L, H = g.H;
+  const int Lq = g.Lq, Lk = g.Lk, H = g.H;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int q0 = blockIdx.x * T;
-  const size_t is = (size_t)g.in_stride, os = (size_t)g.out_stride;
-  const size_t C = (size_t)H * D;
-  const size_t in_base = (size_t)b * L * is + (size_t)h * D;
+  const int qrows = min(T, Lq - q0);  // a partial last q tile
+  const bf16* kb = g.k + b * g.skv.b + h * g.skv.h;
+  const bf16* vb = g.v + b * g.skv.b + h * g.skv.h;
 
-  load_tile<D, T, THREADS>(Qs, g.q + in_base + (size_t)q0 * is, is);
-  load_tile<D, T, THREADS>(dOs, g.dout + (size_t)b * L * C + (size_t)h * D + (size_t)q0 * C, C);
+  load_tile<D, T, THREADS, kTail>(Qs, g.q + b * g.sq.b + h * g.sq.h + q0 * g.sq.row, g.sq.row,
+                                  qrows);
+  load_tile<D, T, THREADS, kTail>(dOs, g.dout + b * g.sdo.b + h * g.sdo.h + q0 * g.sdo.row,
+                                  g.sdo.row, qrows);
   if (threadIdx.x < T) {
-    zs[threadIdx.x] = g.z[(size_t)blockIdx.y * L + q0 + threadIdx.x];
-    dis[threadIdx.x] = g.di[(size_t)blockIdx.y * L + q0 + threadIdx.x];
+    const bool in = !kTail || (int)threadIdx.x < qrows;
+    zs[threadIdx.x] = in ? g.z[(size_t)blockIdx.y * Lq + q0 + threadIdx.x] : 0.0f;
+    dis[threadIdx.x] = in ? g.di[(size_t)blockIdx.y * Lq + q0 + threadIdx.x] : 0.0f;
   }
 
   const int fr = warp % RF, cb = (warp / RF) * NF;
@@ -337,13 +381,15 @@ flash_bwd_dq_kernel(BwdArgs g) {
 #pragma unroll
   for (int f = 0; f < NF; ++f) wmma::fill_fragment(dq[f], 0.0f);
 
-  for (int k0 = 0; k0 < L; k0 += T) {
-    load_tile<D, T, THREADS>(Ks, g.k + in_base + (size_t)k0 * is, is);
-    load_tile<D, T, THREADS>(Vs, g.v + in_base + (size_t)k0 * is, is);
+  for (int k0 = 0; k0 < Lk; k0 += T) {
+    const int krows = min(T, Lk - k0);
+    load_tile<D, T, THREADS, kTail>(Ks, kb + k0 * g.skv.row, g.skv.row, krows);
+    load_tile<D, T, THREADS, kTail>(Vs, vb + k0 * g.skv.row, g.skv.row, krows);
     __syncthreads();
     tiles_abt<D, T, WARPS>(Qs, Ks, Ss, dOs, Vs, dPs);
     __syncthreads();
-    probs_and_ds<T, THREADS>(Ss, dPs, zs, dis, g.scale, nullptr, dSs);
+    // a key column past Lk gets p = 0
+    probs_and_ds<T, THREADS, kTail>(Ss, dPs, zs, dis, g.scale, qrows, krows, nullptr, dSs);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < T; kk += 16) {  // over the kv rows of the tile
@@ -358,40 +404,49 @@ flash_bwd_dq_kernel(BwdArgs g) {
     }
     __syncthreads();
   }
-  write_out<D, T, THREADS, NF>(dq, stage, fr, cb,
-                               g.dq + (size_t)b * L * os + (size_t)h * D + (size_t)q0 * os, os);
+  write_out<D, T, THREADS, NF, kTail>(dq, stage, fr, cb,
+                               g.dq + b * g.sdq.b + h * g.sdq.h + q0 * g.sdq.row, g.sdq.row,
+                               qrows);
+}
+
+template <int D, int T, int WARPS, bool kTail>
+int launch_bwd(const BwdArgs& g, const bf16* o, float* di, int B, cudaStream_t stream) {
+  const size_t smem = BwdLayout<D, T>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, T, WARPS, kTail>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, T, WARPS, kTail>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const size_t rows = (size_t)B * g.Lq * g.H;
+  flash_bwd_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(o, g.dout, di, g.sdo, B,
+                                                                          g.Lq, g.H, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_kernel<D, T, WARPS, kTail>
+      <<<dim3((g.Lk + T - 1) / T, B * g.H), WARPS * 32, smem, stream>>>(g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<D, T, WARPS, kTail>
+      <<<dim3((g.Lq + T - 1) / T, B * g.H), WARPS * 32, smem, stream>>>(g);
+  return (int)cudaGetLastError();
 }
 
 template <int D, int T, int WARPS>
 int launch_bwd(const BwdArgs& g, const bf16* o, float* di, int B, cudaStream_t stream) {
-  const size_t smem = BwdLayout<D, T>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, T, WARPS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, T, WARPS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)B * g.L * g.H;
-  flash_bwd_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(o, g.dout, di, B, g.L,
-                                                                          g.H, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(g.L / T, B * g.H);
-  flash_bwd_dkdv_kernel<D, T, WARPS><<<grid, WARPS * 32, smem, stream>>>(g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D, T, WARPS><<<grid, WARPS * 32, smem, stream>>>(g);
-  return (int)cudaGetLastError();
+  return g.Lq % T != 0 || g.Lk % T != 0 ? launch_bwd<D, T, WARPS, true>(g, o, di, B, stream)
+                                        : launch_bwd<D, T, WARPS, false>(g, o, di, B, stream);
 }
 
 int bwd_entry(const BwdArgs& g, const void* o, void* di, int B, int D, void* stream) {
-  if (B <= 0 || g.H <= 0 || g.L <= 0 || g.L % 64 != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || g.H <= 0 || g.Lq <= 0 || g.Lk <= 0) return (int)cudaErrorInvalidValue;
   const bf16* op = static_cast<const bf16*>(o);
   float* dip = static_cast<float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch_bwd<64, 64, 8>(g, op, dip, B, s);
     case 128: return launch_bwd<128, 64, 8>(g, op, dip, B, s);
+    case 256: return launch_bwd<256, 32, 8>(g, op, dip, B, s);
     case 512: return launch_bwd<512, 32, 16>(g, op, dip, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -402,16 +457,19 @@ int bwd_entry(const BwdArgs& g, const void* o, void* di, int B, int D, void* str
 // qkv (B, L, 3C) bf16: q | k | v along channels, C = H * D; o and do (B, L,
 // C) bf16; z (B, H, L) float32 from gvq_flash_fwd_qkv_res; di (B, H, L)
 // float32 scratch; dqkv (B, L, 3C) bf16 gets dq | dk | dv.  All contiguous.
-// L a multiple of 64, D 64, 128 or 512.
+// L a multiple of 64, D 64, 128, 256 or 512.
 extern "C" int gvq_flash_bwd_qkv(const void* qkv, const void* o, const void* z, const void* dout,
                                  void* di, void* dqkv, int B, int L, int H, int D, float scale,
                                  void* stream) {
+  if (L % 64 != 0) return (int)cudaErrorInvalidValue;
   const bf16* in = static_cast<const bf16*>(qkv);
   bf16* out = static_cast<bf16*>(dqkv);
-  const size_t c = (size_t)H * D;
+  const long long c = (long long)H * D, c3 = 3 * c;
+  const Strides packed{L * c3, D, c3}, plain{L * c, D, c};
   const BwdArgs g{in, in + c, in + 2 * c, static_cast<const bf16*>(dout),
                   static_cast<const float*>(z), static_cast<const float*>(di),
-                  out, out + c, out + 2 * c, L, H, (int)(3 * c), (int)(3 * c), scale};
+                  out, out + c, out + 2 * c, packed, packed, plain, packed, packed, L, L, H,
+                  scale};
   return bwd_entry(g, o, di, B, D, stream);
 }
 
@@ -421,11 +479,32 @@ extern "C" int gvq_flash_bwd_qkv(const void* qkv, const void* o, const void* z, 
 extern "C" int gvq_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                              const void* z, const void* dout, void* di, void* dq, void* dk,
                              void* dv, int B, int L, int H, int D, float scale, void* stream) {
-  const int c = H * D;
+  if (L % 64 != 0) return (int)cudaErrorInvalidValue;
+  const long long c = (long long)H * D;
+  const Strides tm{L * c, D, c};
   const BwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                   static_cast<const float*>(z), static_cast<const float*>(di),
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                  L, H, c, c, scale};
+                  tm, tm, tm, tm, tm, L, L, H, scale};
+  return bwd_entry(g, o, di, B, D, stream);
+}
+
+// The head-major entry (replaces vqvae_from_gaussian_vae_tpu/ops/flash_attention.py
+// _bwd: the upstream Pallas _flash_attention_bwd_dkv and the lean dq pass
+// _bwd_dq_lean): q, o, do, dq (B, H, Lq, D) and k, v, dk, dv (B, H, Lk, D)
+// bf16; z (B, H, Lq) float32 from gvq_flash_fwd_hm; di (B, H, Lq) float32
+// scratch.  All contiguous; any Lq, Lk >= 1; D 64, 128, 256 or 512.
+extern "C" int gvq_flash_bwd_hm(const void* q, const void* k, const void* v, const void* o,
+                                const void* z, const void* dout, void* di, void* dq, void* dk,
+                                void* dv, int B, int H, int Lq, int Lk, int D, float scale,
+                                void* stream) {
+  const long long hq = (long long)Lq * D, hk = (long long)Lk * D;
+  const Strides sq{H * hq, hq, D}, skv{H * hk, hk, D};
+  const BwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                  static_cast<const float*>(z), static_cast<const float*>(di),
+                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                  sq, skv, sq, sq, skv, Lq, Lk, H, scale};
   return bwd_entry(g, o, di, B, D, stream);
 }

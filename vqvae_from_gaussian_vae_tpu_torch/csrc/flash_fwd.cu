@@ -37,6 +37,16 @@
 // backward (csrc/flash_bwd.cu) turns back into p = exp(s - z) with no max or
 // sum pass.  The online softmax already holds m and the row sum, so z costs
 // one store per row; the inference entries pass no z pointer and skip it.
+//
+// The head-major entry (gvq_flash_fwd_hm, replacing the forward of
+// vqvae_from_gaussian_vae_tpu/ops/flash_attention.py, the upstream Pallas
+// _flash_attention_impl) runs the same kernel on (B, H, L, D) tensors with
+// q's length Lq apart from k's and v's Lk.  Every tensor's batch, head and
+// row strides are kernel arguments, so one body serves both layouts.  Any
+// Lq, Lk >= 1 is taken: a q row past Lq loads zeros and is not stored; a key
+// column past Lk loads zeros and scores -inf before the row max.  At
+// (B=1, H=12, L=8192, D=64) a launch is 2.1e11 FLOP over 50 MB: tensor-core
+// bound (0.21 ms at the bf16 peak).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,11 +76,27 @@ struct FlashLayout {
   static constexpr size_t kBytes = kStats + 3 * kFq * sizeof(float);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kFThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ z, int L,
-                 int H, int in_stride, float scale) {
+// Where one of q, k, v, o lies: element (b, h, row, d) sits at
+// b * Strides::b + h * Strides::h + row * Strides::row + d.
+struct Strides {
+  long long b, h, row;
+};
+
+struct FwdArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  float* z;         // (B, H, Lq) float32, or null for the inference form
+  Strides sq, skv, so;
+  int Lq, Lk, H;
+  float scale;
+};
+
+// kTail: the last q tile or K/V tile may be partial (Lq % 32 or Lk % 64);
+// a launch of full tiles compiles the row and column checks out
+template <int D, bool kTail>
+__global__ void __launch_bounds__(kFThreads) flash_fwd_kernel(FwdArgs g) {
   using namespace nvcuda;
   using Lay = FlashLayout<D>;
   constexpr int LDQ = Lay::kLdQ;
@@ -90,21 +116,22 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int Lq = g.Lq, Lk = g.Lk;
+  const int b = blockIdx.y / g.H;
+  const int h = blockIdx.y % g.H;
   const int q0 = blockIdx.x * kFq;
-  const size_t rs = (size_t)in_stride;  // token stride of q, k and v
-  const size_t ors = (size_t)H * D;     // token stride of o
-  const size_t base = (size_t)b * L * rs + (size_t)h * D;
-  const bf16* qb = q + base;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-  bf16* ob = o + (size_t)b * L * ors + (size_t)h * D;
+  const bf16* qb = g.q + b * g.sq.b + h * g.sq.h;
+  const bf16* kb = g.k + b * g.skv.b + h * g.skv.h;
+  const bf16* vb = g.v + b * g.skv.b + h * g.skv.h;
+  bf16* ob = g.o + b * g.so.b + h * g.so.h;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
+  // a q row past Lq loads zeros and is never stored
   for (int e = tid; e < kFq * CPR; e += kFThreads) {
     const int r = e / CPR, c = (e % CPR) * 8;
     *reinterpret_cast<uint4*>(Qs + r * LDQ + c) =
-        *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * rs + c);
+        !kTail || q0 + r < Lq ? *reinterpret_cast<const uint4*>(qb + (q0 + r) * g.sq.row + c)
+                              : zero;
   }
   for (int e = tid; e < kFq * D; e += kFThreads) Os[(e / D) * LDO + e % D] = 0.0f;
   if (tid < kFq) {
@@ -113,11 +140,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  for (int k0 = 0; k0 < L; k0 += kFkv) {
+  for (int k0 = 0; k0 < Lk; k0 += kFkv) {
+    // a key row past Lk loads zeros (its score is masked below)
     for (int e = tid; e < kFkv * CPR; e += kFThreads) {
       const int r = e / CPR, c = (e % CPR) * 8;
       *reinterpret_cast<uint4*>(KVs + r * LDQ + c) =
-          *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * rs + c);
+          !kTail || k0 + r < Lk ? *reinterpret_cast<const uint4*>(kb + (k0 + r) * g.skv.row + c)
+                                : zero;
     }
     __syncthreads();
 
@@ -137,19 +166,24 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
-    // V takes the K buffer; the online-softmax update runs on S meanwhile
+    // V takes the K buffer (zero rows past Lk: p is 0 there, and 0 * v must
+    // not meet stale data); the online-softmax update runs on S meanwhile
     for (int e = tid; e < kFkv * CPR; e += kFThreads) {
       const int r = e / CPR, c = (e % CPR) * 8;
       *reinterpret_cast<uint4*>(KVs + r * LDQ + c) =
-          *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * rs + c);
+          !kTail || k0 + r < Lk ? *reinterpret_cast<const uint4*>(vb + (k0 + r) * g.skv.row + c)
+                                : zero;
     }
-    {  // 8 threads per row, 8 scores each
+    {  // 8 threads per row, 8 scores each; a key column past Lk scores -inf
+       // before the row max, so it adds exactly 0 to the row sum (every tile
+       // holds at least one column below Lk, so the max stays finite)
       const int r = tid >> 3, part = tid & 7;
       float sv[8];
       float mx = -INFINITY;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        sv[i] = Ss[r * kLdS + part * 8 + i] * scale;
+        const int col = part * 8 + i;
+        sv[i] = !kTail || k0 + col < Lk ? Ss[r * kLdS + col] * g.scale : -INFINITY;
         mx = fmaxf(mx, sv[i]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -213,6 +247,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int e = tid; e < kFq * CPR; e += kFThreads) {
     const int r = e / CPR, c = (e % CPR) * 8;
+    if (kTail && q0 + r >= Lq) continue;
     const float inv = 1.0f / row_l[r];
     uint4 packed;
     uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
@@ -222,34 +257,50 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                Os[r * LDO + c + i + 1] * inv);
       pk[i >> 1] = *reinterpret_cast<uint32_t*>(&r2);
     }
-    *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * ors + c) = packed;
+    *reinterpret_cast<uint4*>(ob + (q0 + r) * g.so.row + c) = packed;
   }
-  if (z != nullptr && tid < kFq) z[(size_t)blockIdx.y * L + q0 + tid] = row_m[tid] + logf(row_l[tid]);
+  if (g.z != nullptr && tid < kFq && (!kTail || q0 + tid < Lq))
+    g.z[(size_t)blockIdx.y * Lq + q0 + tid] = row_m[tid] + logf(row_l[tid]);
 }
 
-template <int D>
-int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* z, int B, int L,
-                 int H, int in_stride, float scale, cudaStream_t stream) {
+template <int D, bool kTail>
+int launch_flash(const FwdArgs& g, int B, cudaStream_t stream) {
   const size_t smem = FlashLayout<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, kTail>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(L / kFq, B * H);
-  flash_fwd_kernel<D><<<grid, kFThreads, smem, stream>>>(q, k, v, o, z, L, H, in_stride, scale);
+  const dim3 grid((g.Lq + kFq - 1) / kFq, B * g.H);
+  flash_fwd_kernel<D, kTail><<<grid, kFThreads, smem, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
-int flash_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* z, int B, int L,
-                int H, int D, int in_stride, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || L % kFkv != 0) return (int)cudaErrorInvalidValue;
+template <int D>
+int launch_flash(const FwdArgs& g, int B, cudaStream_t stream) {
+  return g.Lq % kFq != 0 || g.Lk % kFkv != 0 ? launch_flash<D, true>(g, B, stream)
+                                              : launch_flash<D, false>(g, B, stream);
+}
+
+int flash_entry(const FwdArgs& g, int B, int D, void* stream) {
+  if (B <= 0 || g.H <= 0 || g.Lq <= 0 || g.Lk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_flash<64>(q, k, v, o, z, B, L, H, in_stride, scale, s);
-    case 128: return launch_flash<128>(q, k, v, o, z, B, L, H, in_stride, scale, s);
-    case 256: return launch_flash<256>(q, k, v, o, z, B, L, H, in_stride, scale, s);
-    case 512: return launch_flash<512>(q, k, v, o, z, B, L, H, in_stride, scale, s);
+    case 64: return launch_flash<64>(g, B, s);
+    case 128: return launch_flash<128>(g, B, s);
+    case 256: return launch_flash<256>(g, B, s);
+    case 512: return launch_flash<512>(g, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The token-major entries: q, k, v at token stride in_stride (head h at
+// channel h * D), o (B, L, H*D); L a multiple of 64.
+int token_major_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* z, int B,
+                      int L, int H, int D, int in_stride, float scale, void* stream) {
+  if (L % kFkv != 0) return (int)cudaErrorInvalidValue;
+  const long long is = in_stride, os = (long long)H * D;
+  const FwdArgs g{q, k, v, o, z, {L * is, D, is}, {L * is, D, is}, {L * os, D, os},
+                  L, L, H, scale};
+  return flash_entry(g, B, D, stream);
 }
 
 }  // namespace
@@ -258,9 +309,9 @@ int flash_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* z, 
 // D one of 64, 128, 256, 512.
 extern "C" int gvq_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                              int L, int H, int D, float scale, void* stream) {
-  return flash_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr, B, L, H, D,
-                     H * D, scale, stream);
+  return token_major_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr, B, L, H,
+                           D, H * D, scale, stream);
 }
 
 // The training form of the unpacked entry: also writes z (B, H, L) float32,
@@ -268,9 +319,9 @@ extern "C" int gvq_flash_fwd(const void* q, const void* k, const void* v, void* 
 extern "C" int gvq_flash_fwd_res(const void* q, const void* k, const void* v, void* o, void* z,
                                  int B, int L, int H, int D, float scale, void* stream) {
   if (z == nullptr) return (int)cudaErrorInvalidValue;
-  return flash_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(z), B,
-                     L, H, D, H * D, scale, stream);
+  return token_major_entry(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                           static_cast<float*>(z), B, L, H, D, H * D, scale, stream);
 }
 
 // The packed entry (replaces flash_blc.py _fwd_call_packed): q, k and v are
@@ -281,8 +332,8 @@ extern "C" int gvq_flash_fwd_qkv(const void* qkv, void* o, int B, int L, int H, 
                                  float scale, void* stream) {
   const bf16* p = static_cast<const bf16*>(qkv);
   const size_t c = (size_t)H * D;
-  return flash_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), nullptr, B, L, H, D, 3 * H * D,
-                     scale, stream);
+  return token_major_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), nullptr, B, L, H, D,
+                           3 * H * D, scale, stream);
 }
 
 // The training form of the packed entry: also writes z (B, H, L) float32,
@@ -292,8 +343,23 @@ extern "C" int gvq_flash_fwd_qkv_res(const void* qkv, void* o, void* z, int B, i
   const bf16* p = static_cast<const bf16*>(qkv);
   const size_t c = (size_t)H * D;
   if (z == nullptr) return (int)cudaErrorInvalidValue;
-  return flash_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), static_cast<float*>(z), B, L, H,
-                     D, 3 * H * D, scale, stream);
+  return token_major_entry(p, p + c, p + 2 * c, static_cast<bf16*>(o), static_cast<float*>(z), B,
+                           L, H, D, 3 * H * D, scale, stream);
+}
+
+// The head-major entry (replaces vqvae_from_gaussian_vae_tpu/ops/flash_attention.py
+// _fwd / flash_attention -> the upstream _flash_attention_impl): q, o (B, H,
+// Lq, D) and k, v (B, H, Lk, D) bf16, contiguous, any Lq, Lk >= 1 (the last
+// q and k tiles may be partial).  z (B, H, Lq) float32 is written where it is
+// not null (the training form).  Row stride D, head stride L * D, each with
+// its own L for q and for k, v.
+extern "C" int gvq_flash_fwd_hm(const void* q, const void* k, const void* v, void* o, void* z,
+                                int B, int H, int Lq, int Lk, int D, float scale, void* stream) {
+  const long long d = D, hq = (long long)Lq * D, hk = (long long)Lk * D;
+  const FwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(z),
+                  {H * hq, hq, d}, {H * hk, hk, d}, {H * hq, hq, d}, Lq, Lk, H, scale};
+  return flash_entry(g, B, D, stream);
 }
 
 // Message for an error code returned by any gvq_* entry point.

@@ -52,7 +52,8 @@ import torch.nn.functional as F
 
 from vqvae_from_gaussian_vae_tpu_torch.ops.conv3x3_train import conv3x3_same_wg
 from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import downsample_conv3x3_gn
-from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import sdpa_token_major
+from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import (
+    kernels_disabled, sdpa_token_major)
 from vqvae_from_gaussian_vae_tpu_torch.ops.fused_gn_conv import fused_gn_swish_conv
 from vqvae_from_gaussian_vae_tpu_torch.ops.gn_swish_bwd import gn_swish
 from vqvae_from_gaussian_vae_tpu_torch.ops.upsample_conv import upsample_nearest_conv3x3_gn
@@ -109,17 +110,13 @@ def _hwio(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0)
 
 
-def _kernels_disabled() -> bool:
-    return os.environ.get("GVQ_DISABLE_FUSED_KERNELS", "") == "1"
-
-
 def _resample_fuses(flag: bool, train: bool, h: int, dtype) -> bool:
     """True where Up/Downsample take the fused op (mirrors the JAX model's
     condition, ``train_ok`` set, without its TPU clause); lets a level defer
     its last resblock's residual add into the op."""
     if train and os.environ.get("GVQ_FUSED_TRAIN", "1") == "0":
         return False
-    return bool(flag) and not _kernels_disabled() and h % 4 == 0 and dtype == torch.bfloat16
+    return bool(flag) and not kernels_disabled() and h % 4 == 0 and dtype == torch.bfloat16
 
 
 class Normalize(nn.GroupNorm):
@@ -239,7 +236,7 @@ class ResnetBlock(nn.Module):
             h = _nchw(h)
         else:
             env = os.environ
-            bf16_train = train and self.dtype == torch.bfloat16 and not _kernels_disabled()
+            bf16_train = train and self.dtype == torch.bfloat16 and not kernels_disabled()
             use_wg = bf16_train and env.get("GVQ_CONV_WGRAD", "0") == "1"
             use_gnb = bf16_train and env.get("GVQ_GN_BWD", "0") == "1"
             if use_in_stats:
@@ -266,7 +263,8 @@ class ResnetBlock(nn.Module):
 
 class AttnBlock(nn.Module):
     """Single-head self-attention over the spatial grid; q/k/v/proj_out are
-    1x1 convs, scale c^-0.5, through ``sdpa_token_major``."""
+    1x1 convs, scale c^-0.5, through ``sdpa_token_major`` (flash where its
+    gate takes the grid's H*W tokens, the einsum path elsewhere)."""
 
     def __init__(self, in_channels: int, dtype=torch.float32):
         super().__init__()

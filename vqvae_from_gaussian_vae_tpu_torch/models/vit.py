@@ -18,7 +18,11 @@ through the casts.
 Each LayerNorm goes through ``ops/layer_norm.py`` (the residual add fused
 into the next norm's read, as the JAX model's streamed pre-LN trunk does)
 and, on the bf16 path, each unmasked attention through the packed flash
-entry ``ops/flash_attention.py:flash_attention_qkv``.  The device only
+entry ``ops/flash_attention.py:flash_attention_qkv``, where the JAX model
+takes its kernels (``layer_norm_uses_kernel``, ``mha_uses_flash``: the JAX
+conditions less their "backend is TPU" clause, read at each call, with
+``GVQ_DISABLE_FUSED_KERNELS=1`` turning both off); elsewhere the plain
+LayerNorm and the einsum attention run, on the card too.  The device only
 decides, inside each op, between the kernel and its plain version; when a
 gradient is wanted, each op runs its training forward and backward kernel.
 """
@@ -32,8 +36,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_attention_qkv
-from vqvae_from_gaussian_vae_tpu_torch.ops.layer_norm import layer_norm, layer_norm_add
+from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import (
+    flash_attention_qkv, flash_supported, kernels_disabled)
+from vqvae_from_gaussian_vae_tpu_torch.ops.layer_norm import (
+    layer_norm, layer_norm_add, layer_norm_add_plain, layer_norm_plain)
 from vqvae_from_gaussian_vae_tpu_torch.utils.config import as_torch_dtype
 
 
@@ -52,10 +58,30 @@ class CastLinear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+def layer_norm_uses_kernel(c: int) -> bool:
+    """The JAX ``FusedLayerNorm``'s kernel gate, less its TPU and init
+    clauses: rows whose width C is a multiple of 128, the kernels not
+    disabled."""
+    return c % 128 == 0 and not kernels_disabled()
+
+
+def mha_uses_flash(flash: bool, masked: bool, dtype, l: int, n_head: int, head_dim: int) -> bool:
+    """The JAX ``MultiheadAttention``'s flash gate, less its TPU clause: the
+    ``flash`` field, no mask, a shape the kernels take (``flash_supported``,
+    which differs from JAX's ``flash_blc_supported`` as its module says) and
+    the kernels not disabled; and bf16 values, since the port's flash kernels
+    take bf16 only (a float32 ViT keeps the einsum path, where JAX on a TPU
+    would run its float32 kernel)."""
+    return (flash and not masked and dtype == torch.bfloat16
+            and flash_supported(l, n_head, head_dim) and not kernels_disabled())
+
+
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis, eps 1e-5, float32 statistics, output in
     ``dtype``; with ``add`` the fused pair (s, y) = (x + add, LN(x + add))
-    that the streamed residual trunk uses."""
+    that the streamed residual trunk uses.  The kernels run where
+    ``layer_norm_uses_kernel`` holds; elsewhere the plain versions, with
+    autograd for their backward."""
 
     def __init__(self, width: int, eps: float = 1e-5, dtype=torch.float32):
         super().__init__()
@@ -65,10 +91,12 @@ class FusedLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(width))
 
     def forward(self, x, add=None):
+        kernel = layer_norm_uses_kernel(x.shape[-1])
         if add is not None:
-            return layer_norm_add(x.to(self.dtype), add.to(self.dtype), self.weight, self.bias,
-                                  self.eps)
-        return layer_norm(x.to(self.dtype), self.weight, self.bias, self.eps)
+            fn = layer_norm_add if kernel else layer_norm_add_plain
+            return fn(x.to(self.dtype), add.to(self.dtype), self.weight, self.bias, self.eps)
+        fn = layer_norm if kernel else layer_norm_plain
+        return fn(x.to(self.dtype), self.weight, self.bias, self.eps)
 
 
 def get_attention_mask(sequence_length: int, mask_type: str = "none", block_size: int = 16,
@@ -91,13 +119,15 @@ def get_attention_mask(sequence_length: int, mask_type: str = "none", block_size
 
 class MultiheadAttention(nn.Module):
     """torch ``nn.MultiheadAttention``-compatible packed-QKV self-attention
-    on batch-first tokens.  Unmasked bf16 attention reads q, k, v in place
-    from the (B, L, 3C) projection through ``flash_attention_qkv``; masked
-    and float32 attention keep the einsum form with a float32 softmax."""
+    on batch-first tokens.  Where ``mha_uses_flash`` holds, it reads q, k, v
+    in place from the (B, L, 3C) projection through ``flash_attention_qkv``;
+    elsewhere (``flash=False``, a mask, float32, a shape the kernels do not
+    take, the kernels disabled) the einsum form with a float32 softmax."""
 
-    def __init__(self, d_model: int, n_head: int, dtype=torch.float32):
+    def __init__(self, d_model: int, n_head: int, flash: bool = True, dtype=torch.float32):
         super().__init__()
         self.n_head = n_head
+        self.flash = flash
         self.dtype = as_torch_dtype(dtype)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
@@ -108,7 +138,7 @@ class MultiheadAttention(nn.Module):
         hd = c // self.n_head
         qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
                        self.in_proj_bias.to(self.dtype))
-        if attn_mask is None and qkv.dtype == torch.bfloat16:
+        if mha_uses_flash(self.flash, attn_mask is not None, qkv.dtype, l, self.n_head, hd):
             out = flash_attention_qkv(qkv, hd ** -0.5, self.n_head)
         else:
             q, k, v = (t.reshape(b, l, self.n_head, hd) for t in qkv.chunk(3, dim=-1))

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "gvq_fused_gn_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_bwd_hm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -14,7 +14,12 @@ The backward folds the statistics cotangent into the output's in float32,
 ``ybar = g_y + g_sum + 2 y g_sumsq`` on the stored y, sums ``dbias`` from
 it, rounds it to the compute dtype, and runs dgrad (the 4 parity phases of
 shifted ``ybar w^T``) and wgrad (the (3, 3, C, O) float32 weight gradient);
-with the deferred add, x and add get the same dx.
+with the deferred add, x and add get the same dx.  ``GVQ_DOWNSAMPLE_BWD=conv``
+(read at each backward, as the JAX package reads it) takes the conv-form
+adjoint instead, as JAX's ``_downsample_bwd_conv``: the adjoint of the
+padded stride-2 conv in float32 on the unrounded cotangent and the float32
+weight, by autograd (cuDNN on the card; the JAX package computes it outside
+any Pallas kernel too).
 
 Layout at this surface is the JAX package's: x and add (B, H, W, C), weight
 HWIO (3, 3, C, O), output (B, H/2, W/2, O).  The CUDA kernels
@@ -25,6 +30,8 @@ kernels are held to on the card.  When a gradient is wanted,
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -42,15 +49,27 @@ def resample_bwd_operands(x, add, y, gy, gstats, bias_dtype):
     """The backward's operands shared by both resamples: the input as the
     forward's kernel convolved it (x + add, rounded); the cotangent of y,
     ``gy + g_sum + 2 y g_sumsq`` in float32 on the stored y where the
-    (B, 2, O) statistics were consumed, then rounded to x's dtype; and
-    dbias, its float32 sum.  gy or gstats is None where unused."""
+    (B, 2, O) statistics were consumed (the dgrad and wgrad kernels take it
+    rounded to x's dtype, the conv form as it is); and dbias, its float32
+    sum.  gy or gstats is None where unused."""
     if add is not None:
         x = (x.float() + add.float()).to(x.dtype)
     g = torch.zeros(y.shape, dtype=torch.float32, device=y.device) if gy is None else gy.float()
     if gstats is not None:
         gs = gstats.float()
         g = g + gs[:, 0, None, None, :] + 2.0 * y.float() * gs[:, 1, None, None, :]
-    return x.contiguous(), g.to(x.dtype).contiguous(), g.sum(dim=(0, 1, 2)).to(bias_dtype)
+    return x.contiguous(), g, g.sum(dim=(0, 1, 2)).to(bias_dtype)
+
+
+def conv_adjoint(conv, x, w, g):
+    """(dx, dw) float32 of the linear map ``conv(x, w)`` (NCHW in, NCHW out,
+    w OIHW) at (x, w), against the NHWC float32 cotangent g, by autograd on
+    float32 copies: the conv-form resample backward."""
+    with torch.enable_grad():
+        xf = x.detach().float().permute(0, 3, 1, 2).requires_grad_()
+        wf = w.detach().float().permute(3, 2, 0, 1).requires_grad_()
+        dx, dw = torch.autograd.grad(conv(xf, wf), (xf, wf), g.permute(0, 3, 1, 2))
+    return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
 
 
 def wgrad_splits(pixels: int, taps: int, c: int, o: int, chunk_align: int = 32):
@@ -138,6 +157,19 @@ def downsample_wgrad_plain(x, g):
     return torch.stack(taps).reshape(3, 3, c, -1)
 
 
+def downsample_bwd_uses_conv() -> bool:
+    """JAX's switch of the downsample backward: ``GVQ_DOWNSAMPLE_BWD=conv``
+    takes the conv-form adjoint, anything else the dgrad and wgrad kernels."""
+    return os.environ.get("GVQ_DOWNSAMPLE_BWD", "pallas") == "conv"
+
+
+def downsample_bwd_conv(x, w, g):
+    """The conv-form adjoint (JAX ``_downsample_bwd_conv``): (dx, dw) float32
+    of the (0,1)-padded stride-2 3x3 conv at x (B, H, W, C), w HWIO, against
+    the float32 cotangent g (B, H/2, W/2, O)."""
+    return conv_adjoint(lambda t, wt: F.conv2d(F.pad(t, (0, 1, 0, 1)), wt, stride=2), x, w, g)
+
+
 def check_bf16_cuda(name: str, *tensors) -> None:
     """Raise unless every tensor is a contiguous bf16 CUDA tensor on the
     first one's device (what the backward kernels read in place)."""
@@ -201,8 +233,9 @@ downsample_wgrad_cuda.launches = 0
 
 class _DownsampleFn(torch.autograd.Function):
     """The fused downsample with its backward: the forward kernel, then
-    dgrad and wgrad on the folded cotangent (JAX ``_down_vjp_fwd`` /
-    ``_down_vjp_bwd`` and the ``_add`` pair)."""
+    dgrad and wgrad on the folded cotangent, or the conv-form adjoint where
+    ``downsample_bwd_uses_conv`` (JAX ``_down_vjp_fwd`` / ``_down_vjp_bwd``
+    and the ``_add`` pair)."""
 
     @staticmethod
     def forward(ctx, x, add, w, bias):
@@ -218,10 +251,15 @@ class _DownsampleFn(torch.autograd.Function):
     def backward(ctx, gy, gstats):
         x, add, w, y = ctx.saved_tensors
         x, g, dbias = resample_bwd_operands(x, add, y, gy, gstats, ctx.bias_dtype)
-        if x.device.type == "cpu":
-            dx, dw = downsample_dgrad_plain(g, w), downsample_wgrad_plain(x, g)
+        if downsample_bwd_uses_conv():
+            dx, dw = downsample_bwd_conv(x, w, g)
+            dx = dx.to(x.dtype)
         else:
-            dx, dw = downsample_dgrad_cuda(g, w), downsample_wgrad_cuda(x, g)
+            g = g.to(x.dtype).contiguous()
+            if x.device.type == "cpu":
+                dx, dw = downsample_dgrad_plain(g, w), downsample_wgrad_plain(x, g)
+            else:
+                dx, dw = downsample_dgrad_cuda(g, w), downsample_wgrad_cuda(x, g)
         return dx, (None if add is None else dx), dw.to(w.dtype), dbias
 
 

@@ -21,16 +21,56 @@ raises when a gradient is wanted rather than return a tensor cut off from
 autograd.  The CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``)
 run for CUDA tensors; the plain versions below run for CPU tensors and are
 what the kernels are held to on the card.
+
+Which path an attention takes is the JAX package's choice, read at call
+time as JAX reads it: ``sdpa_token_major`` (and the ViT's attention,
+``models/vit.py``) takes the kernel only for bf16 values, a shape that
+``flash_supported`` accepts and ``GVQ_DISABLE_FUSED_KERNELS`` not ``1``;
+everything else takes the einsum path, on the card too.  ``flash_supported``
+is JAX's ``flash_blc_supported`` (L a positive multiple of 128, D a multiple
+of 8) without its TPU clause (a legal VMEM tiling) and restricted to the
+head dims the Hopper kernels take, forward and backward.  The two gates
+differ in two classes of shapes, and only there:
+
+  * D a multiple of 8 but not one of ``SUPPORTED_HEAD_DIMS`` (D = 8, 32, 96,
+    ...): JAX runs its kernel, the port the einsum path;
+  * shapes whose TPU tiling does not fit VMEM (D = 512, H = 1, L = 4096, for
+    one): JAX runs the einsum path, the port its kernel.
+
+The values agree within the bf16 attention bar either way.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 
-SUPPORTED_HEAD_DIMS = (64, 128, 256, 512)
-BWD_HEAD_DIMS = (64, 128, 512)  # the backward kernels' head dims
+SUPPORTED_HEAD_DIMS = (64, 128, 256, 512)  # the kernels' head dims, forward and backward
+
+
+def flash_supported(l: int, num_heads: int, head_dim: int) -> bool:
+    """True where the flash kernels take an attention of L tokens and heads
+    of ``head_dim`` (JAX's ``flash_blc_supported`` without its TPU VMEM
+    clause, restricted to ``SUPPORTED_HEAD_DIMS``; ``num_heads`` is kept for
+    its signature and bounds nothing here)."""
+    del num_heads
+    return l > 0 and l % 128 == 0 and head_dim % 8 == 0 and head_dim in SUPPORTED_HEAD_DIMS
+
+
+def kernels_disabled() -> bool:
+    """``GVQ_DISABLE_FUSED_KERNELS=1``: every site takes its plain path."""
+    return os.environ.get("GVQ_DISABLE_FUSED_KERNELS", "") == "1"
+
+
+def sdpa_uses_flash(dtype, l: int, num_heads: int, head_dim: int) -> bool:
+    """The gate of ``sdpa_token_major`` (JAX ``ops/flash_blc.py``'s, less its
+    "backend is TPU" clause): bf16 values, a shape ``flash_supported`` takes,
+    and the kernels not disabled."""
+    return (dtype == torch.bfloat16 and flash_supported(l, num_heads, head_dim)
+            and not kernels_disabled())
 
 
 def flash_attention_plain(q, k, v, sm_scale: float, num_heads: int):
@@ -82,7 +122,7 @@ def flash_attention_bwd_plain(q, k, v, o, z, do, sm_scale: float, num_heads: int
     return tuple(t.reshape(b, l, c).to(io) for t in (dq, dk, dv))
 
 
-def _check_unpacked(name: str, q, k, v, num_heads: int, head_dims=SUPPORTED_HEAD_DIMS):
+def _check_unpacked(name: str, q, k, v, num_heads: int):
     """Raise on what the unpacked kernels do not take; return (B, L, C, D)."""
     b, l, c = q.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -93,8 +133,9 @@ def _check_unpacked(name: str, q, k, v, num_heads: int, head_dims=SUPPORTED_HEAD
         raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} with {num_heads} heads")
     d = c // num_heads
-    if d not in head_dims or l % 64:
-        raise ValueError(f"{name}: L={l}, D={d} unsupported (L % 64 == 0, D in {head_dims})")
+    if d not in SUPPORTED_HEAD_DIMS or l % 64:
+        raise ValueError(f"{name}: L={l}, D={d} unsupported "
+                         f"(L % 64 == 0, D in {SUPPORTED_HEAD_DIMS})")
     return b, l, c, d
 
 
@@ -141,7 +182,7 @@ flash_attention_res_cuda.launches = 0
 def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float, num_heads: int):
     """Launch the unpacked backward kernels: (dq, dk, dv) bf16 (B, L, C)."""
     _build.refuse_grad("flash backward kernel (unpacked)", q, k, v, o, z, do)
-    b, l, c, d = _check_unpacked("flash backward kernel", q, k, v, num_heads, BWD_HEAD_DIMS)
+    b, l, c, d = _check_unpacked("flash backward kernel", q, k, v, num_heads)
     for name, t, shape, dtype in (("q", q, (b, l, c), q.dtype), ("k", k, (b, l, c), q.dtype),
                                   ("v", v, (b, l, c), q.dtype), ("o", o, (b, l, c), q.dtype),
                                   ("do", do, (b, l, c), q.dtype),
@@ -205,7 +246,7 @@ def flash_attention_qkv_plain(qkv, sm_scale: float, num_heads: int):
     return flash_attention_plain(q, k, v, sm_scale, num_heads)
 
 
-def _check_packed(name: str, qkv, num_heads: int, head_dims=SUPPORTED_HEAD_DIMS):
+def _check_packed(name: str, qkv, num_heads: int):
     """Raise on what the packed kernels do not take; return (B, L, C, D)."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} takes a CUDA tensor")
@@ -216,8 +257,9 @@ def _check_packed(name: str, qkv, num_heads: int, head_dims=SUPPORTED_HEAD_DIMS)
     b, l, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
-    if d not in head_dims or l % 64:
-        raise ValueError(f"{name}: L={l}, D={d} unsupported (L % 64 == 0, D in {head_dims})")
+    if d not in SUPPORTED_HEAD_DIMS or l % 64:
+        raise ValueError(f"{name}: L={l}, D={d} unsupported "
+                         f"(L % 64 == 0, D in {SUPPORTED_HEAD_DIMS})")
     if not qkv.is_contiguous():
         raise ValueError(f"{name} reads q, k, v in place: qkv must be contiguous")
     return b, l, c, d
@@ -278,7 +320,7 @@ def flash_attention_qkv_bwd_cuda(qkv, o, z, do, sm_scale: float, num_heads: int)
     """Launch the packed backward kernels: dqkv (B, L, 3C) bf16, written
     at channel offsets 0, C and 2C with no concatenation pass."""
     _build.refuse_grad("packed flash backward kernel", qkv, o, z, do)  # no double backward
-    b, l, c, d = _check_packed("packed flash backward kernel", qkv, num_heads, BWD_HEAD_DIMS)
+    b, l, c, d = _check_packed("packed flash backward kernel", qkv, num_heads)
     for name, t, shape, dtype in (("o", o, (b, l, c), qkv.dtype), ("do", do, (b, l, c), qkv.dtype),
                                   ("z", z, (b, num_heads, l), torch.float32)):
         if t.device != qkv.device or tuple(t.shape) != shape or t.dtype != dtype \
@@ -337,14 +379,15 @@ def sdpa_token_major(q, k, v, sm_scale: float = None):
     """softmax(q k^T * sm_scale) v over token-major (B, L, H, D) inputs,
     returning (B, L, H*D).
 
-    bf16 values go through ``flash_attention`` (the kernel on the card);
-    float32 keeps the exact einsum path with a float32 softmax, as the JAX
-    package does for its float32 parity path.
+    Where ``sdpa_uses_flash`` holds, through ``flash_attention`` (the kernel
+    on the card); elsewhere (float32, a shape the kernels do not take, the
+    kernels disabled) the einsum path with a float32 softmax, as the JAX
+    package's fallback.
     """
     b, l, h, d = q.shape
     if sm_scale is None:
         sm_scale = d ** -0.5
-    if v.dtype == torch.bfloat16:
+    if sdpa_uses_flash(v.dtype, l, h, d):
         return flash_attention(q.to(v.dtype).reshape(b, l, h * d),
                                k.to(v.dtype).reshape(b, l, h * d),
                                v.reshape(b, l, h * d), sm_scale, h)

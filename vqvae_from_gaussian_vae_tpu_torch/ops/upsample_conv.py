@@ -19,7 +19,12 @@ is a 4x4 stride-2 conv, which splits into 16 low-resolution taps.  It folds
 the statistics cotangent into the output's (float32, then rounded), sums
 ``dbias``, runs dgrad (dx from the cotangent's phases and k22^T) and wgrad
 (dk22, float32), and maps dk22 back to dw through ``phase_kernels_vjp``;
-with the deferred add, x and add get the same dx.
+with the deferred add, x and add get the same dx.  ``GVQ_UPSAMPLE_BWD=conv``
+(read at each backward, as the JAX package reads it) takes the conv-form
+adjoint instead, as JAX's ``_upsample_bwd_conv``: the adjoint of nearest x2
+then the 3x3 same conv, in float32 on the unrounded cotangent and the
+float32 weight, by autograd (cuDNN on the card; the JAX package computes it
+outside any Pallas kernel too).
 
 Layout at this surface is the JAX package's: x (B, H, W, C), weight HWIO
 (3, 3, C, O), output (B, 2H, 2W, O).  The CUDA kernels
@@ -31,12 +36,14 @@ held to on the card.  When a gradient is wanted,
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import (
-    channel_stats, check_bf16_cuda, resample_bwd_operands, wgrad_splits)
+    channel_stats, check_bf16_cuda, conv_adjoint, resample_bwd_operands, wgrad_splits)
 
 _GROUPS = {0: ((0,), (1, 2)), 1: ((0, 1), (2,))}  # phase d -> tap rows of group a
 
@@ -173,6 +180,20 @@ def upsample_wgrad_plain(x, g):
     return dk22
 
 
+def upsample_bwd_uses_conv() -> bool:
+    """JAX's switch of the upsample backward: ``GVQ_UPSAMPLE_BWD=conv`` takes
+    the conv-form adjoint, anything else the dgrad and wgrad kernels."""
+    return os.environ.get("GVQ_UPSAMPLE_BWD", "pallas") == "conv"
+
+
+def upsample_bwd_conv(x, w, g):
+    """The conv-form adjoint (JAX ``_upsample_bwd_conv``): (dx, dw) float32
+    of nearest x2 then the 3x3 same conv at x (B, H, W, C), w HWIO, against
+    the float32 cotangent g (B, 2H, 2W, O)."""
+    return conv_adjoint(lambda t, wt: F.conv2d(F.interpolate(t, scale_factor=2.0, mode="nearest"),
+                                               wt, padding=1), x, w, g)
+
+
 def upsample_dgrad_cuda(g, k22):
     """Launch the dgrad kernel: g (B, 2H, 2W, O) contiguous bf16 CUDA, k22
     (2, 2, 2, 2, C, O), O a multiple of 32, C of 8 -> dx (B, H, W, C) bf16."""
@@ -227,8 +248,9 @@ upsample_wgrad_cuda.launches = 0
 
 class _UpsampleFn(torch.autograd.Function):
     """The fused upsample with its backward: the forward kernel, then dgrad
-    and wgrad on the folded cotangent and the phase-kernel VJP (JAX
-    ``_up_vjp_fwd`` / ``_up_vjp_bwd`` and the ``_add`` pair)."""
+    and wgrad on the folded cotangent and the phase-kernel VJP, or the
+    conv-form adjoint where ``upsample_bwd_uses_conv`` (JAX ``_up_vjp_fwd`` /
+    ``_up_vjp_bwd`` and the ``_add`` pair)."""
 
     @staticmethod
     def forward(ctx, x, add, w, bias):
@@ -244,12 +266,17 @@ class _UpsampleFn(torch.autograd.Function):
     def backward(ctx, gy, gstats):
         x, add, w, y = ctx.saved_tensors
         x, g, dbias = resample_bwd_operands(x, add, y, gy, gstats, ctx.bias_dtype)
-        k22 = phase_kernels(w)  # float32 sums, rounded to w's dtype, as the forward's
-        if x.device.type == "cpu":
-            dx, dk22 = upsample_dgrad_plain(g, k22), upsample_wgrad_plain(x, g)
+        if upsample_bwd_uses_conv():
+            dx, dw = upsample_bwd_conv(x, w, g)
+            dx = dx.to(x.dtype)
         else:
-            dx, dk22 = upsample_dgrad_cuda(g, k22), upsample_wgrad_cuda(x, g)
-        dw = phase_kernels_vjp(dk22)
+            g = g.to(x.dtype).contiguous()
+            k22 = phase_kernels(w)  # float32 sums, rounded to w's dtype, as the forward's
+            if x.device.type == "cpu":
+                dx, dk22 = upsample_dgrad_plain(g, k22), upsample_wgrad_plain(x, g)
+            else:
+                dx, dk22 = upsample_dgrad_cuda(g, k22), upsample_wgrad_cuda(x, g)
+            dw = phase_kernels_vjp(dk22)
         return dx, (None if add is None else dx), dw.to(w.dtype), dbias
 
 
