@@ -27,7 +27,12 @@ then drives each path through the entry points a user calls, at bs=16,
     one of the kernel variables is already set;
   * the head-major flash attention (``ops/flash_attention_lean.py``), an
     op no model calls: one training call (forward with residuals, then the
-    backward) at B=1, H=12, L=8192, D=64;
+    backward) at B=1, H=12, L=8192, D=64, in bf16 and in float32;
+  * the flash labs (``labs/``: softmax policies and stage depth of the
+    forward, its tilings, the backward's tilings and no-softmax control),
+    every default combo at (16, 1024, 12, 64) bf16 through the labs' own
+    ``run``, each checked output held to the einsum reference and to its
+    plain version (``matonly`` is timed only);
   * the kernel gates, read as the JAX package reads them: an sd3unet encode
     -> dequant at 200x200 (its 25x25 AttnBlocks take the einsum path), a
     2-layer bsqvit with ``GVQ_DISABLE_FUSED_KERNELS=1`` (no LayerNorm or
@@ -61,7 +66,6 @@ PEAK_HBM = 3.35e12      # bytes/s
 BATCH = 16
 RES = 256
 SEED = 0
-SLEEP_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz boost clock
 
 # tolerances, each with its reason
 BF16_RTOL = 1e-2   # kernel vs plain differ only in fp32 summation order; after
@@ -71,6 +75,8 @@ FLASH_ATOL = 2e-2  # bf16 attention bar of the JAX package's flash tests
 NEAR_TIE = 1e-5    # relative float64 score gap under which two GQ codes tie
 Z_ATOL = 1e-3      # the log-normaliser: float32 sums in another order
 FLASH_BWD_REL = 2e-2  # max error over max |grad|: the JAX package's flash bar
+FLASH_F32_REL = 1e-4  # float32 flash kernels vs plain, TF32 off: float32 sums in another
+#                       order, over the largest value
 LN_BWD_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}  # dx: summation order only
 PARAM_GRAD_REL = 1e-4  # dweight, dbias: float32 sums over 16384 rows in another order
 TRAIN_GRAD_REL_L2 = 0.1  # one ae step's bf16 gradient vs a float32 engine's
@@ -117,26 +123,12 @@ def require(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of one call, by CUDA events around `iters` calls.
+    """Mean device time of one call: ``labs/_timing.py``'s CUDA events around
+    `iters` calls queued behind a device sleep, so that they time the
+    device's work and not the host's."""
+    from vqvae_from_gaussian_vae_tpu_torch.labs._timing import time_ms as timed
 
-    The calls are queued behind a device sleep of about 50 ms, so the host
-    has enqueued them before the first one starts and the events time the
-    device's work: a LayerNorm launch takes less device time than its
-    Python wrapper takes on the host."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters, warmup)
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float):
@@ -922,14 +914,17 @@ def lean_blocks(lq: int, lk: int):
                       block_q_dkv=lq, block_k_major_dq=bk, block_k_dq=bk, block_q_dq=lq)
 
 
-def _lean_inputs(gen, b, h, lq, lk, d):
+def _lean_inputs(gen, b, h, lq, lk, d, dtype="bfloat16"):
     import torch
 
-    q, do = (torch.randn((b, h, lq, d), generator=gen, device="cuda").to(torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn((b, h, lk, d), generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(2))
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dt) for _ in range(2))
+    k, v = (torch.randn((b, h, lk, d), generator=gen, device="cuda").to(dt) for _ in range(2))
     return q, k, v, do
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
 def check_flash_lean(gen):
@@ -1017,10 +1012,84 @@ def check_flash_lean(gen):
             "per_step": 1, "path": "flash_head_major", "shapes": shapes}
 
 
+def check_flash_lean_f32(gen):
+    """The head-major op in float32 (its SIMT float32 kernels): one training
+    call through the public ``flash_attention`` with a gradient, held to the
+    plain versions within ``FLASH_F32_REL`` of their largest value, TF32
+    off, at each of ``FLASH_LEAN_SHAPES``; times of the call against the
+    plain versions' and SDPA's (float32, forward and backward by autograd)."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
+
+    shapes = []
+    for b, h, lq, lk, d in FLASH_LEAN_SHAPES:
+        q, k, v, do = _lean_inputs(gen, b, h, lq, lk, d, "float32")
+        scale, blocks = d ** -0.5, lean_blocks(lq, lk)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def call():
+            o = fl.flash_attention(*leaves, scale, blocks)
+            return (o, *torch.autograd.grad(o, leaves, do))
+
+        got = [t.detach() for t in call()]
+        _, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+        o_p, z_p = fl.flash_attention_res_plain(q, k, v, scale)
+        want = fl.flash_attention_bwd_plain(q, k, v, o_p, z_p, do, scale)
+        torch.cuda.synchronize()
+        rels = [_rel(got[0], o_p), _rel(z, z_p)] + [_rel(g, w) for g, w in zip(got[1:], want)]
+        for name, rel in zip(("o", "z", "dq", "dk", "dv"), rels):
+            require(got[0].dtype == torch.float32 and rel <= FLASH_F32_REL,
+                    f"float32 head-major flash {(b, h, lq, lk, d)}: {name} error {rel} of its "
+                    "largest value")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, [o_p, *want]))
+        del got, want, o_p, z_p
+
+        def plain():
+            o, zz = fl.flash_attention_res_plain(q, k, v, scale)
+            return fl.flash_attention_bwd_plain(q, k, v, o, zz, do, scale)
+
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def library():
+            o = F.scaled_dot_product_attention(*ref, scale=scale)
+            return torch.autograd.grad(o, ref, do)
+
+        eq, ek = b * h * lq * d, b * h * lk * d
+        flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d
+        bytes_f = 4 * (2 * eq + 2 * ek) + 4 * b * h * lq         # q, k, v in; o, z out
+        bytes_b = 4 * (3 * eq + 2 * ek) + 4 * b * h * lq + 4 * (eq + 2 * ek)
+        bnd, by = bound_ms(flops_f + flops_b, bytes_f + bytes_b, PEAK_FP32)
+        long = (b, h, lq, lk, d) == FLASH_LEAN_FLOW
+        shapes.append({
+            "shape": f"q ({b},{h},{lq},{d}), k, v ({b},{h},{lk},{d}) float32: forward with z, "
+                     "then dq, dk, dv",
+            "main_path": long, "per_step": 1,
+            "kernel_ms": time_ms(call, iters=3 if long else 10, warmup=1),
+            "forward_ms": time_ms(lambda: fl.flash_attention_fwd_cuda(
+                q, k, v, scale, save_residuals=True), iters=3 if long else 10, warmup=1),
+            "plain_ms": time_ms(plain, iters=3 if long else 10, warmup=1),
+            "library_ms": time_ms(library), "library": "SDPA forward + backward (autograd), "
+                                                       "float32",
+            "bound_ms": bnd, "bound_by": by,
+            "flops": flops_f + flops_b, "bytes": bytes_f + bytes_b,
+            "max_abs_err": err, "rel_err_o_z_dq_dk_dv": rels})
+        del q, k, v, do, leaves, ref
+        torch.cuda.empty_cache()
+    return {"name": "flash_attention_lean_f32", "route": "cuda",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu, "
+                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_attention.py:118",
+            "counters": ["flash_attention_lean_fwd", "flash_attention_lean_bwd"],
+            "tolerance": f"o, z, dq, dk, dv: max error / max |value| <= {FLASH_F32_REL} "
+                         "(float32, TF32 off)",
+            "per_step": 1, "path": "flash_head_major_f32", "shapes": shapes}
+
+
 def launch_counters():
     from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train, downsample_conv
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention, fused_gn_conv, gn_swish_bwd
-    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean, flash_lab
     from vqvae_from_gaussian_vae_tpu_torch.ops import gq_cuda, layer_norm, upsample_conv
 
     return {"gq_argmax": gq_cuda.gq_argmax_cuda,
@@ -1044,7 +1113,11 @@ def launch_counters():
             "conv3x3_wgrad": conv3x3_train.conv3x3_wgrad_cuda,
             "gn_swish_bwd": gn_swish_bwd.gn_swish_bwd_cuda,
             "flash_attention_lean_fwd": flash_attention_lean.flash_attention_fwd_cuda,
-            "flash_attention_lean_bwd": flash_attention_lean.flash_attention_bwd_cuda}
+            "flash_attention_lean_bwd": flash_attention_lean.flash_attention_bwd_cuda,
+            "flash_variant": flash_lab.flash_variant_cuda,
+            "flash_fwd_tiling": flash_lab.flash_fwd_tiling_cuda,
+            "flash_bwd_tiling": flash_lab.flash_bwd_tiling_cuda,
+            "flash_bwd_control": flash_lab.flash_bwd_control_cuda}
 
 
 def counted(counters, fn):
@@ -1470,16 +1543,17 @@ def train_grad_check(path, engine, builder, state, gen):
             "loss_total": [float(log16["train/loss/total"]), float(log32["train/loss/total"])]}
 
 
-def run_flash_head_major(gen):
+def run_flash_head_major(gen, dtype: str = "bfloat16"):
     """The head-major op's flow: one training call (forward with z, then the
     backward) at ``FLASH_LEAN_FLOW`` through the public ``flash_attention``,
-    with its exact launches: one forward and one backward."""
+    in bf16 or float32, with its exact launches: one forward and one
+    backward."""
     import torch
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
 
     b, h, lq, lk, d = FLASH_LEAN_FLOW
     torch.cuda.reset_peak_memory_stats()
-    q, k, v, do = _lean_inputs(gen, b, h, lq, lk, d)
+    q, k, v, do = _lean_inputs(gen, b, h, lq, lk, d, dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     blocks = lean_blocks(lq, lk)
 
@@ -1490,18 +1564,140 @@ def run_flash_head_major(gen):
         o.backward(do)
         return o
 
+    path = "flash_head_major" if dtype == "bfloat16" else "flash_head_major_f32"
     o, counts = counted(launch_counters(), call)
-    launches = require_launches("flash_head_major", counts,
+    launches = require_launches(path, counts,
                                 {"flash_attention_lean_fwd": 1, "flash_attention_lean_bwd": 1})
-    require(o.shape == q.shape and o.dtype == torch.bfloat16, f"o {tuple(o.shape)} {o.dtype}")
+    require(o.shape == q.shape and o.dtype == q.dtype, f"o {tuple(o.shape)} {o.dtype}")
     require(all(t.grad.shape == t.shape and bool(torch.isfinite(t.grad.float()).all())
                 for t in leaves), "head-major flash: a gradient is not finite")
-    err = float((o.detach().float() - fl.flash_attention_res_plain(q, k, v, d ** -0.5)[0].float())
-                .abs().max())
-    require(err <= FLASH_ATOL, f"head-major flash: o vs plain error {err}")
-    return {"phase": "op", "path": "flash_head_major", "shape": list(FLASH_LEAN_FLOW),
+    ref = fl.flash_attention_res_plain(q, k, v, d ** -0.5)[0]
+    err = float((o.detach().float() - ref.float()).abs().max())
+    bar = FLASH_ATOL if dtype == "bfloat16" else FLASH_F32_REL * float(ref.abs().max())
+    require(err <= bar, f"head-major flash ({dtype}): o vs plain error {err}")
+    del ref
+    return {"phase": "op", "path": path, "shape": list(FLASH_LEAN_FLOW), "dtype": dtype,
             "launches_per_call": launches, "o_vs_plain_max_abs": err,
-            "call_ms": time_ms(call), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "call_ms": time_ms(call, iters=10 if dtype == "bfloat16" else 3, warmup=1),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+# the flash labs' phase: per timed combo, a warm-up chain then 3 trials of 10
+# chains (labs/_timing.py:best_ms), then the checked launch
+LAB_CHAINS = 1 + 3 * 10
+
+
+def run_flash_labs(gen):
+    """The flash labs (B15-B17): every default combo of the three labs at
+    their full shape (16, 1024, 12, 64) bf16 through the labs' own ``run``,
+    with the launches counted; then each combo's checked output against the
+    einsum reference (``max_err``) and against its plain version, except
+    ``matonly`` (timed only: it divides by a row sum of raw scores).
+    Returns (one line per combo, the kernels line's entries)."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.labs import _common as LC
+    from vqvae_from_gaussian_vae_tpu_torch.labs import exp_flash_bwd_variants as lb
+    from vqvae_from_gaussian_vae_tpu_torch.labs import exp_flash_fwd_tilings as lt
+    from vqvae_from_gaussian_vae_tpu_torch.labs import exp_flash_variants as lv
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
+    from vqvae_from_gaussian_vae_tpu_torch.ops import flash_lab as FL
+
+    del gen  # the labs draw their own inputs, as the JAX labs do
+    q, k, v = LC.lab_inputs(3)
+    ref = LC.einsum_reference(q, k, v)
+    state = lb.lab_state()
+    q2, k2, v2, do, o, z = state
+    grads = LC.einsum_grads(q2, k2, v2, do)
+    tilings = lt.default_combos()
+
+    def drive():
+        return ([lv.run(var, dep, (q, k, v), ref) for var, dep in lv.DEFAULT_COMBOS]
+                + [lt.run(*t, (q, k, v), ref) for t in tilings]
+                + [lb.run(*c, state, None if c[3] else grads) for c in lb.DEFAULT_COMBOS])
+
+    results, counts = counted(launch_counters(), drive)
+    runnable = [t for t in tilings if lt.no_counterpart(*t) is None]
+    n_ctrl = sum(c[3] for c in lb.DEFAULT_COMBOS)
+    fwd_calls, bwd_calls = lv.LAYERS * LAB_CHAINS + 1, lb.LAYERS * LAB_CHAINS + 1
+    launches = require_launches("flash_labs", counts, {
+        "flash_variant": len(lv.DEFAULT_COMBOS) * fwd_calls,
+        "flash_fwd_tiling": len(runnable) * fwd_calls,
+        "flash_bwd_tiling": (len(lb.DEFAULT_COMBOS) - n_ctrl) * bwd_calls,
+        "flash_bwd_control": n_ctrl * bwd_calls})
+
+    # the plain versions, each once (timed), and the yardsticks
+    plain_fwd = {var: FL.flash_variant_plain(q, k, v, var, LC.SCALE, LC.H)
+                 for var, _ in lv.DEFAULT_COMBOS if var != "matonly"}
+    plain_bwd = fa.flash_attention_bwd_plain(q2, k2, v2, o, z, do, LC.SCALE, LC.H)
+    plain_ctrl = FL.flash_bwd_control_plain(q2, k2, v2, do, LC.H)
+    plain_ms = {
+        "fwd": time_ms(lambda: FL.flash_variant_plain(q, k, v, "base", LC.SCALE, LC.H),
+                       iters=3, warmup=1),
+        "bwd": time_ms(lambda: fa.flash_attention_bwd_plain(q2, k2, v2, o, z, do, LC.SCALE,
+                                                            LC.H), iters=3, warmup=1),
+        "ctrl": time_ms(lambda: FL.flash_bwd_control_plain(q2, k2, v2, do, LC.H), iters=3,
+                        warmup=1)}
+    sdpa = {"fwd": LC.sdpa_fwd_ms(q, k, v), "bwd": LC.sdpa_bwd_ms(q2, k2, v2, do)}
+
+    lines, best = [], {}
+    for r in results:
+        out = r.pop("out", None)
+        line = {"phase": "flash_lab", **r}
+        if "skipped" not in r:
+            bwd = r["lab"] == "exp_flash_bwd_variants"
+            control = r["combo"].endswith(":control")
+            if r["lab"] == "exp_flash_variants":
+                var = r["combo"].split(":")[0]
+                plain = None if var == "matonly" else plain_fwd[var]
+            elif r["lab"] == "exp_flash_fwd_tilings":
+                plain = plain_fwd["base"]
+            else:
+                plain = plain_ctrl if control else plain_bwd
+            if plain is None:
+                line["plain_err"] = None
+            elif bwd:
+                line["plain_err"] = max(_rel(g, w) for g, w in zip(out, plain))
+                require(line["plain_err"] <= FLASH_BWD_REL,
+                        f"flash lab {r['combo']}: {line['plain_err']} of max |out| from plain")
+            else:
+                line["plain_err"] = float((out.float() - plain.float()).abs().max())
+                require(line["plain_err"] <= FLASH_ATOL,
+                        f"flash lab {r['combo']}: {line['plain_err']} from its plain version")
+            if r["checked"]:
+                require(r["max_err"] <= FLASH_ATOL,
+                        f"flash lab {r['lab']} {r['combo']}: max_err {r['max_err']}")
+            line["sdpa_us"] = 1e3 * sdpa["bwd" if bwd else "fwd"]
+            best.setdefault(r["lab"] + (":control" if control else ""), []).append(line)
+        del out
+        lines.append(line)
+    for reason in lb.jax_default_reasons():
+        lines.append({"phase": "flash_lab", "lab": "exp_flash_bwd_variants", "skipped": reason})
+
+    def entry(name, key, combo, source, replaces, counter, plain_key, sdpa_key):
+        row = next(x for x in best[key] if x["combo"] == combo)
+        errs = [x["plain_err"] for x in best[key] if x["plain_err"] is not None]
+        return {"name": name, "route": "cuda",
+                "source": f"vqvae_from_gaussian_vae_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[counter], "path": "flash_labs",
+                "max_abs_err": max(errs), "ms": row["us_per_layer"] / 1e3,
+                "plain_ms": plain_ms[plain_key], "bound_ms": row["bound_us"] / 1e3,
+                "bound_by": row["bound_by"], "library_ms": sdpa[sdpa_key],
+                "per": f"one launch (one lab layer) of {combo}; max_abs_err over the lab's "
+                       "checked combos against their plain versions"}
+
+    summary = [
+        entry("flash_variant", "exp_flash_variants", "base:1", "flash_lab_fwd.cu",
+              "scripts/exp_flash_variants.py:54", "flash_variant", "fwd", "fwd"),
+        entry("flash_fwd_tiling", "exp_flash_fwd_tilings", "12:256:16", "flash_lab_fwd.cu",
+              "scripts/exp_flash_fwd_tilings.py:32", "flash_fwd_tiling", "fwd", "fwd"),
+        entry("flash_bwd_tiling", "exp_flash_bwd_variants", "64:8:1", "flash_lab_bwd.cu",
+              "scripts/exp_flash_bwd_variants.py:103", "flash_bwd_tiling", "bwd", "bwd"),
+        entry("flash_bwd_control", "exp_flash_bwd_variants:control", "64:8:1:control",
+              "flash_lab_bwd.cu", "scripts/exp_flash_bwd_variants.py:49", "flash_bwd_control",
+              "ctrl", "bwd")]
+    del q, k, v, ref, state, q2, k2, v2, do, o, z, grads, plain_fwd, plain_bwd, plain_ctrl
+    torch.cuda.empty_cache()
+    return lines, summary
 
 
 # the gates' checks: the sd3unet at 200x200 (downsample inputs 200, 100, 50:
@@ -1700,7 +1896,7 @@ def main(argv=None) -> int:
                   lambda g: check_layer_norm_bwd(g, True),
                   lambda g: check_resample_bwd(g, "down"), lambda g: check_resample_bwd(g, "up"),
                   check_flash_res, check_flash_bwd, check_fused_gn_conv, check_conv3x3_wgrad,
-                  check_gn_swish_bwd, check_flash_lean):
+                  check_gn_swish_bwd, check_flash_lean, check_flash_lean_f32):
         out = check(gen)
         for k in (out if isinstance(out, list) else [out]):
             emit({"phase": "kernel", **k})
@@ -1718,10 +1914,14 @@ def main(argv=None) -> int:
         emit(train)
         launches[f"{path}_train_ae"] = train["launches_per_ae_step"]
         torch.cuda.empty_cache()
-    op = run_flash_head_major(gen)
-    emit(op)
-    launches["flash_head_major"] = op["launches_per_call"]
-    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        op = run_flash_head_major(gen, dtype)
+        emit(op)
+        launches[op["path"]] = op["launches_per_call"]
+        torch.cuda.empty_cache()
+    lab_lines, lab_summary = run_flash_labs(gen)
+    for line in lab_lines:
+        emit(line)
     for gate in (run_gate_unet_odd, run_gate_vit_disabled, run_gate_conv_bwd):
         emit(gate(gen))
 
@@ -1748,7 +1948,7 @@ def main(argv=None) -> int:
                         "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
                         "library_ms": total("library_ms"),
                         "per": "one main-path step (sum over its launches)"})
-    emit({"kernels": summary})
+    emit({"kernels": summary + lab_summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,7 @@ from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train as c3
 from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
+from vqvae_from_gaussian_vae_tpu_torch.ops import flash_lab as fx
 from vqvae_from_gaussian_vae_tpu_torch.ops import fused_gn_conv as fgc
 from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
 from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
@@ -728,11 +729,49 @@ def test_head_major_autograd_runs_the_kernels(gen):
         assert _rel_max(got.grad, want.grad) <= FLASH_BWD_REL
 
 
-def test_head_major_kernels_refuse_float32_and_other_head_dims(gen):
-    """float32 CUDA inputs raise (no float32 kernel yet) and run nothing."""
+@pytest.mark.parametrize("b,h,lq,lk,d", HEAD_MAJOR[:4])
+def test_head_major_float32_kernels_match_plain(gen, b, h, lq, lk, d):
+    """The float32 kernels (SIMT, no TF32) at the smoke's four shapes: o, z
+    and dq, dk, dv within 1e-4 of the plain versions' largest value."""
+    q, k, v, do = (t.float() for t in _head_major(gen, b, h, lq, lk, d))
+    scale = d ** -0.5
+    o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+    o_p, z_p = fl.flash_attention_res_plain(q, k, v, scale)
+    assert o.dtype == torch.float32 and _rel_max(o, o_p) <= 1e-4 and _rel_max(z, z_p) <= 1e-4
+    got = fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)
+    want = fl.flash_attention_bwd_plain(q, k, v, o_p, z_p, do, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and _rel_max(g, w) <= 1e-4
+    del want
+    assert all(torch.equal(x, y) for x, y in
+               zip(got, fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)))
+
+
+def test_head_major_kernels_take_float32(gen):
+    """A float32 training call runs one forward and one backward kernel
+    launch and matches autograd of float32 attention."""
+    q, k, v, do = (t.float() for t in _head_major(gen, 1, 2, 200, 328, 128))
+    blocks = fl.BlockSizes(block_q=128, block_k_major=328, block_k=328, block_b=1,
+                           block_q_major_dkv=200, block_k_major_dkv=328, block_k_dkv=328,
+                           block_q_dkv=200, block_k_major_dq=328, block_k_dq=328,
+                           block_q_dq=200)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches)
+    fl.flash_attention(*leaves, 128 ** -0.5, blocks).backward(do)
+    assert (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    p = torch.softmax(ref[0] @ ref[1].transpose(-1, -2) * 128 ** -0.5, dim=-1)
+    (p @ ref[2]).backward(do)
+    for got, want in zip(leaves, ref):
+        assert _rel_max(got.grad, want.grad) <= 1e-4
+
+
+def test_head_major_kernels_refuse_other_head_dims_and_dtypes(gen):
+    """A head dim off 64/128/256/512, or float16, raises and runs nothing."""
     before = (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches)
     blocks = fl.BlockSizes.get_default(1, 1, 128, 128, 64)
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 96)):
+    for dtype, d in ((torch.float32, 96), (torch.bfloat16, 96), (torch.float16, 64)):
         q = torch.zeros((1, 1, 128, d), dtype=dtype, device="cuda")
         with pytest.raises(ValueError):
             fl.flash_attention(q, q, q, 0.125, blocks)
@@ -758,3 +797,61 @@ def test_flash_bwd_kernels_take_d256(gen):
     for g, w in zip(got.chunk(3, dim=-1), want.chunk(3, dim=-1)):
         assert _rel_max(g, w) <= FLASH_BWD_REL
     assert torch.equal(got, fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, scale, 2))
+
+
+# the flash labs' kernels (ops/flash_lab.py) against their plain versions,
+# at a small lab shape (B=2, L=256, H=12, D=64)
+LAB_SHAPE = (2, 256, 12 * 64)
+
+
+def _lab_inputs(gen, n):
+    return [torch.randn(LAB_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("variant,depth", fx.VARIANT_COMBOS)
+def test_flash_variant_kernels_match_plain(gen, variant, depth):
+    q, k, v = _lab_inputs(gen, 3)
+    before = fx.flash_variant_cuda.launches
+    got = fx.flash_variant_cuda(q, k, v, variant, depth, 0.125, 12)
+    assert fx.flash_variant_cuda.launches == before + 1 and got.shape == q.shape
+    if variant != "matonly":  # no softmax: a row sum of raw scores, ill-conditioned
+        want = fx.flash_variant_plain(q, k, v, variant, 0.125, 12)
+        assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL
+
+
+@pytest.mark.parametrize("hpb,rows,warps", fx.FWD_TILINGS)
+def test_flash_fwd_tiling_kernels_match_plain(gen, hpb, rows, warps):
+    q, k, v = _lab_inputs(gen, 3)
+    got = fx.flash_fwd_tiling_cuda(q, k, v, hpb, rows, warps, 0.125, 12)
+    want = fx.flash_variant_plain(q, k, v, "base", 0.125, 12)
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL
+
+
+@pytest.mark.parametrize("rows,warps,pipe", fx.BWD_TILINGS)
+def test_flash_bwd_tiling_kernels_match_plain(gen, rows, warps, pipe):
+    q, k, v, do = _lab_inputs(gen, 4)
+    o, z = fa.flash_attention_res_cuda(q, k, v, 0.125, 12)
+    got = fx.flash_bwd_tiling_cuda(q, k, v, o, z, do, rows, warps, pipe, 0.125, 12)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, z, do, 0.125, 12)
+    for g, w in zip(got, want):
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+
+
+@pytest.mark.parametrize("rows,warps,pipe", fx.BWD_CONTROLS)
+def test_flash_bwd_control_kernels_match_plain(gen, rows, warps, pipe):
+    q, k, v, do = _lab_inputs(gen, 4)
+    got = fx.flash_bwd_control_cuda(q, k, v, do, rows, warps, pipe, 12)
+    want = fx.flash_bwd_control_plain(q, k, v, do, 12)
+    for g, w in zip(got, want):
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+
+
+def test_flash_lab_kernels_refuse_uncompiled_combos(gen):
+    q, k, v = _lab_inputs(gen, 3)
+    before = fx.flash_fwd_tiling_cuda.launches
+    with pytest.raises(ValueError, match="compiled ones are"):
+        fx.flash_fwd_tiling_cuda(q, k, v, 4, 128, 8, 0.125, 12)
+    with pytest.raises(ValueError, match="compiled ones are"):
+        fx.flash_variant_cuda(q, k, v, "chunk", 2, 0.125, 12)
+    assert fx.flash_fwd_tiling_cuda.launches == before

@@ -1,14 +1,15 @@
 """The port's head-major flash attention (``ops/flash_attention_lean.py``)
 against the JAX package's ``ops/flash_attention.py``.
 
-The JAX op's Pallas kernels have no interpret path on the CPU, so the
-port's plain versions are held to the pure-JAX oracles of the installed
+The port's plain versions are held to the pure-JAX oracles of the installed
 upstream module (``mha_reference_no_custom_vjp``, ``mha_reference_bwd``),
-its output's shape and dtype to ``jax.eval_shape`` of the JAX op, and its
-``ValueError``s to the JAX op's over a grid of block sizes and lengths.
-Inputs come from a numpy seed.  Bars: float32 o and z within 1e-5 of the
-oracle's largest value, gradients within 1e-4 of their largest value
-(float32 sums in another order); bf16 o within the JAX flash test's 2e-2.
+the float32 op to the JAX op itself (its Pallas kernels in TPU interpret
+mode), its output's shape and dtype to ``jax.eval_shape`` of the JAX op,
+and its ``ValueError``s to the JAX op's over a grid of block sizes and
+lengths.  Inputs come from a numpy seed.  Bars: float32 o and z within
+1e-5 of the oracle's largest value, gradients within 1e-4 of their largest
+value (float32 sums in another order), and within 1e-5 of the JAX op's;
+bf16 o within the JAX flash test's 2e-2.
 """
 
 import jax
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as upstream
 
 from vqvae_from_gaussian_vae_tpu.ops import flash_attention as jfl
@@ -99,6 +101,26 @@ def test_bf16_forward_matches_einsum_and_the_jax_op_shape(b, h, lq, lk, d):
         port = fl.flash_attention(tq.to(tdt), tk.to(tdt), tv.to(tdt), scale,
                                   _blocks(fl.BlockSizes, lq, lk))
         assert tuple(port.shape) == out.shape and str(port.dtype).split(".")[1] == out.dtype.name
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 2, 256, 256, 64), (1, 1, 128, 384, 128)])
+def test_float32_op_matches_the_jax_op(b, h, lq, lk, d):
+    """The float32 op (its plain training forward and backward, what the
+    float32 kernels are held to on the card) against the JAX op itself in
+    float32, its Pallas kernels run in TPU interpret mode: o and each
+    gradient within 1e-5 of its largest value."""
+    q, k, v, do = _inputs(b, h, lq, lk, d, seed=5)
+    scale = d ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        o_j, vjp = jax.vjp(lambda a, b_, c: jfl.flash_attention(
+            a, b_, c, scale, _blocks(jfl.BlockSizes, lq, lk)), *map(jnp.asarray, (q, k, v)))
+        grads_j = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = fl.flash_attention(*leaves, scale, _blocks(fl.BlockSizes, lq, lk))
+    o.backward(torch.from_numpy(do))
+    assert o.dtype == torch.float32 and _rel(o.detach().numpy(), o_j) <= FWD_REL
+    for leaf, want in zip(leaves, grads_j):
+        assert _rel(leaf.grad.numpy(), want) <= FWD_REL
 
 
 def _raises(fn) -> bool:

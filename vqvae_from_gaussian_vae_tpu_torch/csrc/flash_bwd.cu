@@ -55,387 +55,28 @@
 // 32-row tiles too (~113 KB, two blocks an SM) and 8 warps: 4 + 4 fragments a
 // warp again, under the 128 registers that two 256-thread blocks leave each
 // thread.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+//
+// The bf16 bodies are csrc/flash_bwd.cuh; these entries instantiate them at
+// those tilings, one streamed tile pair in flight, with the softmax
+// recompute.  The lab of csrc/flash_lab_bwd.cu instantiates them at others.
+//
+// gvq_flash_bwd_hm_f32 is the head-major backward for float32 tensors (the
+// JAX op runs float32 too): the same pre-pass and two-kernel split in plain
+// SIMT float32 (fmaf on CUDA cores, no TF32), held to the plain version
+// within 1e-4.  At (1, 12, 8192, 64) its seven products are 7.2e11 FLOP
+// (5.2e11 for the five the function needs): CUDA-core bound, 7.7 ms at the
+// float32 peak of 67 TFLOP/s; operands come from shared memory, which bounds
+// this first version well below that.
+#include "flash_bwd.cuh"
+#include "flash_f32.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
-
-template <int D, int T>
-struct BwdLayout {
-  static constexpr int kLdS = T + 4;  // f32 pitch of the score tiles
-  static constexpr int kLdP = T + 8;  // bf16 pitch of the p / ds tiles
-  static constexpr int kLdT = D + 8;  // bf16 pitch of the q, k, v, do tiles
-  static constexpr int kLdA = D + 4;  // f32 pitch of the output staging tile
-  static constexpr size_t kTile = (size_t)T * kLdT * sizeof(bf16);
-  static constexpr size_t kA = 0;                 // first input tile
-  static constexpr size_t kB = kA + kTile;        // second
-  static constexpr size_t kC = kB + kTile;        // third
-  static constexpr size_t kD = kC + kTile;        // fourth
-  static constexpr size_t kS = kD + kTile;        // s, f32
-  static constexpr size_t kDP = kS + (size_t)T * kLdS * sizeof(float);   // do v^T, f32
-  static constexpr size_t kP = kDP + (size_t)T * kLdS * sizeof(float);   // bf16(p)
-  static constexpr size_t kDS = kP + (size_t)T * kLdP * sizeof(bf16);    // bf16(ds)
-  static constexpr size_t kAcc = kDS + (size_t)T * kLdP * sizeof(bf16);  // output staging
-  static constexpr size_t kRow = kAcc + (size_t)T * kLdA * sizeof(float);  // z, di
-  static constexpr size_t kBytes = kRow + 2 * T * sizeof(float);
-  // blocks an SM can hold by shared memory (at most 2 are asked for): at
-  // D = 64 two fit, and __launch_bounds__ then keeps registers to 128 a
-  // thread so that two do
-  static constexpr int kMinBlocks = 2 * kBytes <= 232448 ? 2 : 1;
-};
-
-// Where a tensor lies: element (b, h, row, d) sits at
-// b * Strides::b + h * Strides::h + row * Strides::row + d.
-struct Strides {
-  long long b, h, row;
-};
-
-struct BwdArgs {
-  const bf16* q;       // (B, H, Lq, D) as sq says
-  const bf16* k;       // (B, H, Lk, D) as skv says, and v
-  const bf16* v;
-  const bf16* dout;    // as sdo says, and o
-  const float* z;      // (B, H, Lq)
-  const float* di;     // (B, H, Lq)
-  bf16* dq;            // as sdq says
-  bf16* dk;            // as sdkv says, and dv
-  bf16* dv;
-  Strides sq, skv, sdo, sdq, sdkv;
-  int Lq, Lk, H;
-  float scale;
-};
-
-// the first `rows` rows of a T-row tile from src (row stride `stride`); the
-// rest are zeros.  kTail: a tile may be partial (a launch of full tiles
-// compiles the row and column checks out, here and below)
-template <int D, int T, int THREADS, bool kTail>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride,
-                                          int rows) {
-  constexpr int LDT = BwdLayout<D, T>::kLdT;
-  constexpr int CPR = D / 8;
-  for (int e = threadIdx.x; e < T * CPR; e += THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) =
-        !kTail || r < rows ? *reinterpret_cast<const uint4*>(src + r * stride + c)
-                           : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// out1 = A1 B1^T and out2 = A2 B2^T (T x T, f32, pitch kLdS) with A, B (T x D)
-// bf16 tiles.  A warp's task is CPT (at most 2) adjacent fragments of one
-// fragment row of one product: the A fragment of each k step is loaded once
-// for both, and their MMA chains are independent.  With 8 warps and 64-row
-// tiles each warp takes two tasks; with 16 warps and 32-row tiles there are
-// 8 one-fragment tasks and the other 8 warps wait.
-template <int D, int T, int WARPS>
-__device__ __forceinline__ void tiles_abt(const bf16* a1, const bf16* b1, float* out1,
-                                          const bf16* a2, const bf16* b2, float* out2) {
-  using Lay = BwdLayout<D, T>;
-  constexpr int LDT = Lay::kLdT;
-  constexpr int RF = T / 16;
-  constexpr int SHARE = 2 * RF * RF / WARPS;
-  constexpr int CPT = SHARE < 1 ? 1 : (SHARE > 2 ? 2 : SHARE);  // fragments of a task
-  constexpr int GROUPS = RF / CPT;
-  constexpr int TASKS = 2 * RF * GROUPS;
-  for (int task = threadIdx.x >> 5; task < TASKS; task += WARPS) {
-    const bool second = task >= RF * GROUPS;
-    const int fr = (task / GROUPS) % RF, fc0 = (task % GROUPS) * CPT;
-    const bf16* a = (second ? a2 : a1) + fr * 16 * LDT;
-    const bf16* b = (second ? b2 : b1) + fc0 * 16 * LDT;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) wmma::fill_fragment(acc[c], 0.0f);
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + kk, LDT);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, b + c * 16 * LDT + kk, LDT);
-        wmma::mma_sync(acc[c], fa, fb, acc[c]);
-      }
-    }
-    float* out = (second ? out2 : out1) + fr * 16 * Lay::kLdS + fc0 * 16;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      wmma::store_matrix_sync(out + c * 16, acc[c], Lay::kLdS, wmma::mem_row_major);
-  }
-}
-
-// p = exp(s * scale - z), ds = p (dp - di) scale, both rounded to bf16; a
-// q row past `rows` or a key column past `cols` (a partial tile) gets p = 0
-// and ds = 0, so it adds nothing to dq, dk or dv
-template <int T, int THREADS, bool kTail>
-__device__ __forceinline__ void probs_and_ds(const float* S, const float* dP, const float* z,
-                                             const float* di, float scale, int rows, int cols,
-                                             bf16* P, bf16* dS) {
-  constexpr int LDS = T + 4, LDP = T + 8;
-  for (int e = threadIdx.x; e < T * T; e += THREADS) {
-    const int r = e / T, c = e % T;
-    const bool in = !kTail || (r < rows && c < cols);
-    const float p = in ? expf(S[r * LDS + c] * scale - z[r]) : 0.0f;
-    const float ds = in ? p * (dP[r * LDS + c] - di[r]) * scale : 0.0f;
-    if (P != nullptr) P[r * LDP + c] = __float2bfloat16(p);
-    dS[r * LDP + c] = __float2bfloat16(ds);
-  }
-}
-
-// write NF accumulator fragments (rows fr, columns cb..cb+NF-1 of a T x D
-// tile) through the f32 staging tile to the first `rows` rows of dst (T x D
-// bf16, row stride `stride`)
-template <int D, int T, int THREADS, int NF, bool kTail>
-__device__ __forceinline__ void write_out(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[NF], float* stage, int fr, int cb,
-    bf16* dst, long long stride, int rows) {
-  constexpr int LDA = BwdLayout<D, T>::kLdA;
-  constexpr int CPR = D / 8;
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-    wmma::store_matrix_sync(stage + fr * 16 * LDA + (cb + f) * 16, acc[f], LDA,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * CPR; e += THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    if (kTail && r >= rows) continue;
-    uint4 packed;
-    uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-    for (int i = 0; i < 8; i += 2) {
-      __nv_bfloat162 v2 = __floats2bfloat162_rn(stage[r * LDA + c + i], stage[r * LDA + c + i + 1]);
-      pk[i >> 1] = *reinterpret_cast<uint32_t*>(&v2);
-    }
-    *reinterpret_cast<uint4*>(dst + r * stride + c) = packed;
-  }
-  __syncthreads();
-}
-
-// di[b, h, l] = sum_d do[b, h, l, d] * o[b, h, l, d] (o and do as s says),
-// one thread a row; neighbouring threads take the index of the smaller
-// stride (the head in the token-major layouts, the row in the head-major one)
-__global__ void flash_bwd_di_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                    float* __restrict__ di, Strides s, int B, int L, int H,
-                                    int D) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * L * H) return;
-  int b, h, l;
-  if (s.h < s.row) {
-    h = (int)(idx % H);
-    l = (int)((idx / H) % L);
-    b = (int)(idx / ((size_t)H * L));
-  } else {
-    l = (int)(idx % L);
-    h = (int)((idx / L) % H);
-    b = (int)(idx / ((size_t)H * L));
-  }
-  const long long off = b * s.b + h * s.h + l * s.row;
-  float acc = 0.0f;
-  for (int d = 0; d < D; d += 8) {
-    alignas(16) bf16 oe[8];
-    alignas(16) bf16 de[8];
-    *reinterpret_cast<uint4*>(oe) = *reinterpret_cast<const uint4*>(o + off + d);
-    *reinterpret_cast<uint4*>(de) = *reinterpret_cast<const uint4*>(dout + off + d);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc += __bfloat162float(oe[i]) * __bfloat162float(de[i]);
-  }
-  di[((size_t)b * H + h) * L + l] = acc;
-}
-
-// The accumulator fragments a warp owns in a T x D output: row fragment
-// warp % RF, NF consecutive column fragments from (warp / RF) * NF
-template <int D, int T, int WARPS>
-struct OutFrags {
-  static constexpr int RF = T / 16;
-  static constexpr int NF = RF * (D / 16) / WARPS;
-  static_assert(NF * WARPS == RF * (D / 16), "the output fragments must split evenly");
-};
-
-// dk and dv of one T-row K/V tile of one (b, h): stream the q tiles
-template <int D, int T, int WARPS, bool kTail>
-__global__ void __launch_bounds__(WARPS * 32, (BwdLayout<D, T>::kMinBlocks))
-flash_bwd_dkdv_kernel(BwdArgs g) {
-  constexpr int THREADS = WARPS * 32;
-  using Lay = BwdLayout<D, T>;
-  constexpr int LDT = Lay::kLdT;
-  constexpr int RF = OutFrags<D, T, WARPS>::RF;
-  constexpr int NF = OutFrags<D, T, WARPS>::NF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + Lay::kA);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + Lay::kB);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::kC);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + Lay::kD);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::kS);
-  float* dPs = reinterpret_cast<float*>(smem + Lay::kDP);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + Lay::kP);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::kDS);
-  float* stage = reinterpret_cast<float*>(smem + Lay::kAcc);
-  float* zs = reinterpret_cast<float*>(smem + Lay::kRow);
-  float* dis = zs + T;
-
-  const int warp = threadIdx.x >> 5;
-  const int Lq = g.Lq, Lk = g.Lk, H = g.H;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int k0 = blockIdx.x * T;
-  const int krows = min(T, Lk - k0);  // a partial last K/V tile
-  const bf16* qb = g.q + b * g.sq.b + h * g.sq.h;
-  const bf16* dob = g.dout + b * g.sdo.b + h * g.sdo.h;
-  const float* zb = g.z + (size_t)blockIdx.y * Lq;
-  const float* dib = g.di + (size_t)blockIdx.y * Lq;
-  const long long kv_off = b * g.skv.b + h * g.skv.h + k0 * g.skv.row;
-
-  load_tile<D, T, THREADS, kTail>(Ks, g.k + kv_off, g.skv.row, krows);
-  load_tile<D, T, THREADS, kTail>(Vs, g.v + kv_off, g.skv.row, krows);
-
-  const int fr = warp % RF, cb = (warp / RF) * NF;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[NF], dv[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::fill_fragment(dk[f], 0.0f);
-    wmma::fill_fragment(dv[f], 0.0f);
-  }
-
-  for (int q0 = 0; q0 < Lq; q0 += T) {
-    const int qrows = min(T, Lq - q0);
-    load_tile<D, T, THREADS, kTail>(Qs, qb + q0 * g.sq.row, g.sq.row, qrows);
-    load_tile<D, T, THREADS, kTail>(dOs, dob + q0 * g.sdo.row, g.sdo.row, qrows);
-    if (threadIdx.x < T) {
-      const bool in = !kTail || (int)threadIdx.x < qrows;
-      zs[threadIdx.x] = in ? zb[q0 + threadIdx.x] : 0.0f;
-      dis[threadIdx.x] = in ? dib[q0 + threadIdx.x] : 0.0f;
-    }
-    __syncthreads();
-    tiles_abt<D, T, WARPS>(Qs, Ks, Ss, dOs, Vs, dPs);  // s and do v^T (q x kv), unscaled
-    __syncthreads();
-    probs_and_ds<T, THREADS, kTail>(Ss, dPs, zs, dis, g.scale, qrows, T, Ps, dSs);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < T; kk += 16) {  // over the q rows of the tile
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pt, dst;
-      wmma::load_matrix_sync(pt, Ps + kk * Lay::kLdP + fr * 16, Lay::kLdP);    // p^T (kv x q)
-      wmma::load_matrix_sync(dst, dSs + kk * Lay::kLdP + fr * 16, Lay::kLdP);  // ds^T
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fdo, fq;
-        wmma::load_matrix_sync(fdo, dOs + kk * LDT + (cb + f) * 16, LDT);
-        wmma::load_matrix_sync(fq, Qs + kk * LDT + (cb + f) * 16, LDT);
-        wmma::mma_sync(dv[f], pt, fdo, dv[f]);
-        wmma::mma_sync(dk[f], dst, fq, dk[f]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // the rows of dk and dv past Lk are not written
-  const long long out_off = b * g.sdkv.b + h * g.sdkv.h + k0 * g.sdkv.row;
-  write_out<D, T, THREADS, NF, kTail>(dk, stage, fr, cb, g.dk + out_off, g.sdkv.row, krows);
-  write_out<D, T, THREADS, NF, kTail>(dv, stage, fr, cb, g.dv + out_off, g.sdkv.row, krows);
-}
-
-// dq of one T-row q tile of one (b, h): stream the K/V tiles
-template <int D, int T, int WARPS, bool kTail>
-__global__ void __launch_bounds__(WARPS * 32, (BwdLayout<D, T>::kMinBlocks))
-flash_bwd_dq_kernel(BwdArgs g) {
-  constexpr int THREADS = WARPS * 32;
-  using Lay = BwdLayout<D, T>;
-  constexpr int LDT = Lay::kLdT;
-  constexpr int RF = OutFrags<D, T, WARPS>::RF;
-  constexpr int NF = OutFrags<D, T, WARPS>::NF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::kA);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + Lay::kB);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + Lay::kC);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + Lay::kD);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::kS);
-  float* dPs = reinterpret_cast<float*>(smem + Lay::kDP);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::kDS);
-  float* stage = reinterpret_cast<float*>(smem + Lay::kAcc);
-  float* zs = reinterpret_cast<float*>(smem + Lay::kRow);
-  float* dis = zs + T;
-
-  const int warp = threadIdx.x >> 5;
-  const int Lq = g.Lq, Lk = g.Lk, H = g.H;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * T;
-  const int qrows = min(T, Lq - q0);  // a partial last q tile
-  const bf16* kb = g.k + b * g.skv.b + h * g.skv.h;
-  const bf16* vb = g.v + b * g.skv.b + h * g.skv.h;
-
-  load_tile<D, T, THREADS, kTail>(Qs, g.q + b * g.sq.b + h * g.sq.h + q0 * g.sq.row, g.sq.row,
-                                  qrows);
-  load_tile<D, T, THREADS, kTail>(dOs, g.dout + b * g.sdo.b + h * g.sdo.h + q0 * g.sdo.row,
-                                  g.sdo.row, qrows);
-  if (threadIdx.x < T) {
-    const bool in = !kTail || (int)threadIdx.x < qrows;
-    zs[threadIdx.x] = in ? g.z[(size_t)blockIdx.y * Lq + q0 + threadIdx.x] : 0.0f;
-    dis[threadIdx.x] = in ? g.di[(size_t)blockIdx.y * Lq + q0 + threadIdx.x] : 0.0f;
-  }
-
-  const int fr = warp % RF, cb = (warp / RF) * NF;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(dq[f], 0.0f);
-
-  for (int k0 = 0; k0 < Lk; k0 += T) {
-    const int krows = min(T, Lk - k0);
-    load_tile<D, T, THREADS, kTail>(Ks, kb + k0 * g.skv.row, g.skv.row, krows);
-    load_tile<D, T, THREADS, kTail>(Vs, vb + k0 * g.skv.row, g.skv.row, krows);
-    __syncthreads();
-    tiles_abt<D, T, WARPS>(Qs, Ks, Ss, dOs, Vs, dPs);
-    __syncthreads();
-    // a key column past Lk gets p = 0
-    probs_and_ds<T, THREADS, kTail>(Ss, dPs, zs, dis, g.scale, qrows, krows, nullptr, dSs);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < T; kk += 16) {  // over the kv rows of the tile
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fds;
-      wmma::load_matrix_sync(fds, dSs + fr * 16 * Lay::kLdP + kk, Lay::kLdP);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fk;
-        wmma::load_matrix_sync(fk, Ks + kk * LDT + (cb + f) * 16, LDT);
-        wmma::mma_sync(dq[f], fds, fk, dq[f]);
-      }
-    }
-    __syncthreads();
-  }
-  write_out<D, T, THREADS, NF, kTail>(dq, stage, fr, cb,
-                               g.dq + b * g.sdq.b + h * g.sdq.h + q0 * g.sdq.row, g.sdq.row,
-                               qrows);
-}
-
-template <int D, int T, int WARPS, bool kTail>
-int launch_bwd(const BwdArgs& g, const bf16* o, float* di, int B, cudaStream_t stream) {
-  const size_t smem = BwdLayout<D, T>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, T, WARPS, kTail>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, T, WARPS, kTail>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)B * g.Lq * g.H;
-  flash_bwd_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(o, g.dout, di, g.sdo, B,
-                                                                          g.Lq, g.H, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<D, T, WARPS, kTail>
-      <<<dim3((g.Lk + T - 1) / T, B * g.H), WARPS * 32, smem, stream>>>(g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D, T, WARPS, kTail>
-      <<<dim3((g.Lq + T - 1) / T, B * g.H), WARPS * 32, smem, stream>>>(g);
-  return (int)cudaGetLastError();
-}
-
 template <int D, int T, int WARPS>
 int launch_bwd(const BwdArgs& g, const bf16* o, float* di, int B, cudaStream_t stream) {
-  return g.Lq % T != 0 || g.Lk % T != 0 ? launch_bwd<D, T, WARPS, true>(g, o, di, B, stream)
-                                        : launch_bwd<D, T, WARPS, false>(g, o, di, B, stream);
+  return g.Lq % T != 0 || g.Lk % T != 0
+             ? launch_flash_bwd<D, T, WARPS, true>(g, o, di, B, stream)
+             : launch_flash_bwd<D, T, WARPS, false>(g, o, di, B, stream);
 }
 
 int bwd_entry(const BwdArgs& g, const void* o, void* di, int B, int D, void* stream) {
@@ -450,6 +91,216 @@ int bwd_entry(const BwdArgs& g, const void* o, void* di, int B, int D, void* str
     case 512: return launch_bwd<512, 32, 16>(g, op, dip, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The float32 head-major backward: a di pre-pass, then dk/dv over K/V tiles
+// streaming the q tiles, then dq over q tiles streaming K/V, as the bf16
+// pair does, in plain SIMT float32.  T = 32 tile rows (16 at D = 512, so
+// that a thread's dk and dv shares stay at 32 + 32 registers).  Shared
+// memory (floats, pitch D + 1): four T-row tiles 4 * T * (D + 1), the p and
+// ds tiles 2 * T * (T + 1), z and di 2 * T: at D = 512 (T = 16) 133,632
+// bytes, at D = 256 (T = 32) 140,288.
+struct F32BwdArgs {
+  const float* q;   // (B, H, Lq, D), and o, do, dq
+  const float* k;   // (B, H, Lk, D), and v, dk, dv
+  const float* v;
+  const float* dout;
+  const float* z;   // (B, H, Lq)
+  const float* di;  // (B, H, Lq)
+  float* dq;
+  float* dk;
+  float* dv;
+  int Lq, Lk;
+  float scale;
+};
+
+template <int D>
+struct F32BwdTile {
+  static constexpr int T = D == 512 ? 16 : 32;
+  static constexpr size_t kBytes =
+      (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * sizeof(float);
+};
+
+// di[row] = sum_d o[row, d] * do[row, d], one thread a row
+__global__ void flash_bwd_di_f32_kernel(const float* __restrict__ o,
+                                        const float* __restrict__ dout, float* __restrict__ di,
+                                        size_t rows, int D) {
+  const size_t r = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  float acc = 0.0f;
+  for (int d = 0; d < D; ++d) acc = fmaf(o[r * D + d], dout[r * D + d], acc);
+  di[r] = acc;
+}
+
+// p = exp(s scale - z) and ds = p (dp - di) scale of the thread's products
+// (rows ty * N + i, columns tx + 16 j), 0 past `rows` or `cols`, into P and dS
+template <int T>
+__device__ __forceinline__ void f32_probs(const float (&s)[T / 16][T / 16],
+                                          const float (&dp)[T / 16][T / 16], const float* zs,
+                                          const float* dis, float scale, int rows, int cols,
+                                          float* P, float* dS) {
+  constexpr int N = T / 16, LDS = T + 1;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int r = ty * N + i, c = tx + 16 * j;
+      const bool in = r < rows && c < cols;
+      const float p = in ? expf(s[i][j] * scale - zs[r]) : 0.0f;
+      if (P != nullptr) P[r * LDS + c] = p;
+      dS[r * LDS + c] = in ? p * (dp[i][j] - dis[r]) * scale : 0.0f;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(F32BwdArgs g) {
+  constexpr int T = F32BwdTile<D>::T, LD = D + 1, LDS = T + 1, N = T / 16;
+  using Own = F32Own<D, T>;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;
+  float* Vs = Ks + T * LD;
+  float* Qs = Vs + T * LD;
+  float* dOs = Qs + T * LD;
+  float* Ps = dOs + T * LD;
+  float* dSs = Ps + T * LDS;
+  float* zs = dSs + T * LDS;
+  float* dis = zs + T;
+
+  const int Lq = g.Lq, Lk = g.Lk;
+  const size_t bh = blockIdx.y;
+  const int k0 = blockIdx.x * T;
+  const int krows = min(T, Lk - k0);
+  const int cg = threadIdx.x % Own::CG, rg = threadIdx.x / Own::CG;
+  load_f32_rows<D, T>(Ks, g.k + (bh * Lk + k0) * D, D, krows);
+  load_f32_rows<D, T>(Vs, g.v + (bh * Lk + k0) * D, D, krows);
+  float dk[Own::RO][Own::CO], dv[Own::RO][Own::CO];
+#pragma unroll
+  for (int i = 0; i < Own::RO; ++i)
+#pragma unroll
+    for (int j = 0; j < Own::CO; ++j) dk[i][j] = dv[i][j] = 0.0f;
+
+  for (int q0 = 0; q0 < Lq; q0 += T) {
+    const int qrows = min(T, Lq - q0);
+    __syncthreads();  // the last tile's products are done with Qs, dOs, Ps, dSs
+    load_f32_rows<D, T>(Qs, g.q + (bh * Lq + q0) * D, D, qrows);
+    load_f32_rows<D, T>(dOs, g.dout + (bh * Lq + q0) * D, D, qrows);
+    if (threadIdx.x < T) {
+      const bool in = (int)threadIdx.x < qrows;
+      zs[threadIdx.x] = in ? g.z[bh * Lq + q0 + threadIdx.x] : 0.0f;
+      dis[threadIdx.x] = in ? g.di[bh * Lq + q0 + threadIdx.x] : 0.0f;
+    }
+    __syncthreads();
+    float s[N][N], dp[N][N];
+    f32_abt<D, T>(Qs, Ks, s);   // q x kv
+    f32_abt<D, T>(dOs, Vs, dp);
+    f32_probs<T>(s, dp, zs, dis, g.scale, qrows, krows, Ps, dSs);
+    __syncthreads();
+    // dv[j, c] += sum_r p[r, j] do[r, c]; dk[j, c] += sum_r ds[r, j] q[r, c]
+#pragma unroll 2
+    for (int r = 0; r < T; ++r) {
+      float fdo[Own::CO], fq[Own::CO];
+#pragma unroll
+      for (int j = 0; j < Own::CO; ++j) {
+        fdo[j] = dOs[r * LD + cg + j * Own::CG];
+        fq[j] = Qs[r * LD + cg + j * Own::CG];
+      }
+#pragma unroll
+      for (int i = 0; i < Own::RO; ++i) {
+        const float p = Ps[r * LDS + rg * Own::RO + i];
+        const float ds = dSs[r * LDS + rg * Own::RO + i];
+#pragma unroll
+        for (int j = 0; j < Own::CO; ++j) {
+          dv[i][j] = fmaf(p, fdo[j], dv[i][j]);
+          dk[i][j] = fmaf(ds, fq[j], dk[i][j]);
+        }
+      }
+    }
+  }
+  store_f32_own<D, T>(g.dk + (bh * Lk + k0) * D, dk, krows);
+  store_f32_own<D, T>(g.dv + (bh * Lk + k0) * D, dv, krows);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(F32BwdArgs g) {
+  constexpr int T = F32BwdTile<D>::T, LD = D + 1, LDS = T + 1, N = T / 16;
+  using Own = F32Own<D, T>;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* dOs = Qs + T * LD;
+  float* Ks = dOs + T * LD;
+  float* Vs = Ks + T * LD;
+  float* dSs = Vs + T * LD + T * LDS;  // the p tile's place stays unused
+  float* zs = dSs + T * LDS;
+  float* dis = zs + T;
+
+  const int Lq = g.Lq, Lk = g.Lk;
+  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.x * T;
+  const int qrows = min(T, Lq - q0);
+  const int cg = threadIdx.x % Own::CG, rg = threadIdx.x / Own::CG;
+  load_f32_rows<D, T>(Qs, g.q + (bh * Lq + q0) * D, D, qrows);
+  load_f32_rows<D, T>(dOs, g.dout + (bh * Lq + q0) * D, D, qrows);
+  if (threadIdx.x < T) {
+    const bool in = (int)threadIdx.x < qrows;
+    zs[threadIdx.x] = in ? g.z[bh * Lq + q0 + threadIdx.x] : 0.0f;
+    dis[threadIdx.x] = in ? g.di[bh * Lq + q0 + threadIdx.x] : 0.0f;
+  }
+  float dq[Own::RO][Own::CO];
+#pragma unroll
+  for (int i = 0; i < Own::RO; ++i)
+#pragma unroll
+    for (int j = 0; j < Own::CO; ++j) dq[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < Lk; k0 += T) {
+    const int krows = min(T, Lk - k0);
+    __syncthreads();  // the last tile's products are done with Ks and dSs
+    load_f32_rows<D, T>(Ks, g.k + (bh * Lk + k0) * D, D, krows);
+    load_f32_rows<D, T>(Vs, g.v + (bh * Lk + k0) * D, D, krows);
+    __syncthreads();
+    float s[N][N], dp[N][N];
+    f32_abt<D, T>(Qs, Ks, s);
+    f32_abt<D, T>(dOs, Vs, dp);
+    f32_probs<T>(s, dp, zs, dis, g.scale, qrows, krows, nullptr, dSs);
+    __syncthreads();
+    // dq[r, c] += sum_j ds[r, j] k[j, c]
+#pragma unroll 2
+    for (int j2 = 0; j2 < T; ++j2) {
+      float fk[Own::CO];
+#pragma unroll
+      for (int j = 0; j < Own::CO; ++j) fk[j] = Ks[j2 * LD + cg + j * Own::CG];
+#pragma unroll
+      for (int i = 0; i < Own::RO; ++i) {
+        const float ds = dSs[(rg * Own::RO + i) * LDS + j2];
+#pragma unroll
+        for (int j = 0; j < Own::CO; ++j) dq[i][j] = fmaf(ds, fk[j], dq[i][j]);
+      }
+    }
+  }
+  store_f32_own<D, T>(g.dq + (bh * Lq + q0) * D, dq, qrows);
+}
+
+template <int D>
+int launch_bwd_f32(const F32BwdArgs& g, const float* o, float* di, int B, int H,
+                   cudaStream_t stream) {
+  constexpr int T = F32BwdTile<D>::T;
+  const size_t smem = F32BwdTile<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const size_t rows = (size_t)B * H * g.Lq;
+  flash_bwd_di_f32_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(o, g.dout, di,
+                                                                              rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_f32_kernel<D><<<dim3((g.Lk + T - 1) / T, B * H), kF32Threads, smem, stream>>>(g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_f32_kernel<D><<<dim3((g.Lq + T - 1) / T, B * H), kF32Threads, smem, stream>>>(g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -507,4 +358,30 @@ extern "C" int gvq_flash_bwd_hm(const void* q, const void* k, const void* v, con
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                   sq, skv, sq, sq, skv, Lq, Lk, H, scale};
   return bwd_entry(g, o, di, B, D, stream);
+}
+
+// The float32 head-major entry (the same op as gvq_flash_bwd_hm, for
+// float32 tensors): q, o, do, dq (B, H, Lq, D) and k, v, dk, dv (B, H, Lk, D)
+// float32; z (B, H, Lq) float32 from gvq_flash_fwd_hm_f32; di (B, H, Lq)
+// float32 scratch.  All contiguous; any Lq, Lk >= 1; D 64, 128, 256 or 512.
+extern "C" int gvq_flash_bwd_hm_f32(const void* q, const void* k, const void* v, const void* o,
+                                    const void* z, const void* dout, void* di, void* dq,
+                                    void* dk, void* dv, int B, int H, int Lq, int Lk, int D,
+                                    float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  const F32BwdArgs g{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<const float*>(dout),
+                     static_cast<const float*>(z), static_cast<const float*>(di),
+                     static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                     Lq, Lk, scale};
+  const float* op = static_cast<const float*>(o);
+  float* dip = static_cast<float*>(di);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_bwd_f32<64>(g, op, dip, B, H, s);
+    case 128: return launch_bwd_f32<128>(g, op, dip, B, H, s);
+    case 256: return launch_bwd_f32<256>(g, op, dip, B, H, s);
+    case 512: return launch_bwd_f32<512>(g, op, dip, B, H, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -47,237 +47,26 @@
 // column past Lk loads zeros and scores -inf before the row max.  At
 // (B=1, H=12, L=8192, D=64) a launch is 2.1e11 FLOP over 50 MB: tensor-core
 // bound (0.21 ms at the bf16 peak).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+//
+// The bf16 body is csrc/flash_fwd.cuh; these entries instantiate it at 32 q
+// rows, 64-row K/V tiles, 8 warps, one head a block and the kBase softmax.
+// The labs of csrc/flash_lab_fwd.cu instantiate it at other settings.
+//
+// gvq_flash_fwd_hm_f32 is the head-major op for float32 tensors (the JAX op
+// runs float32 too): a plain SIMT kernel, fmaf products on CUDA cores in
+// float32 (no TF32), held to the plain version within 1e-4.  At (1, 12,
+// 8192, 64) a launch is 2.1e11 FLOP against 101 MB: CUDA-core bound (3.1 ms
+// at the float32 peak of 67 TFLOP/s); operands come from shared memory,
+// which bounds this first version well below that.
+#include "flash_f32.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kFq = 32;        // query rows per block
-constexpr int kFkv = 64;       // key / value rows per tile
-constexpr int kFThreads = 256;
-constexpr int kLdS = kFkv + 4; // f32 pitch of the score tile
-constexpr int kLdP = kFkv + 8; // bf16 pitch of the probability tile
-
-template <int D>
-struct FlashLayout {
-  static constexpr int kLdQ = D + 8;  // bf16 pitch of the Q and K/V tiles
-  static constexpr int kLdO = D + 4;  // f32 pitch of the accumulator
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kKV = kQ + (size_t)kFq * kLdQ * sizeof(bf16);
-  static constexpr size_t kO = kKV + (size_t)kFkv * kLdQ * sizeof(bf16);
-  static constexpr size_t kS = kO + (size_t)kFq * kLdO * sizeof(float);
-  static constexpr size_t kP = kS + (size_t)kFq * kLdS * sizeof(float);
-  static constexpr size_t kStats = kP + (size_t)kFq * kLdP * sizeof(bf16);
-  static constexpr size_t kBytes = kStats + 3 * kFq * sizeof(float);
-};
-
-// Where one of q, k, v, o lies: element (b, h, row, d) sits at
-// b * Strides::b + h * Strides::h + row * Strides::row + d.
-struct Strides {
-  long long b, h, row;
-};
-
-struct FwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
-  float* z;         // (B, H, Lq) float32, or null for the inference form
-  Strides sq, skv, so;
-  int Lq, Lk, H;
-  float scale;
-};
-
-// kTail: the last q tile or K/V tile may be partial (Lq % 32 or Lk % 64);
-// a launch of full tiles compiles the row and column checks out
-template <int D, bool kTail>
-__global__ void __launch_bounds__(kFThreads) flash_fwd_kernel(FwdArgs g) {
-  using namespace nvcuda;
-  using Lay = FlashLayout<D>;
-  constexpr int LDQ = Lay::kLdQ;
-  constexpr int LDO = Lay::kLdO;
-  constexpr int CPR = D / 8;          // 16-byte chunks per row
-  constexpr int OCOLS = D / 16 / 4;   // accumulator column fragments per warp
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::kQ);
-  bf16* KVs = reinterpret_cast<bf16*>(smem + Lay::kKV);
-  float* Os = reinterpret_cast<float*>(smem + Lay::kO);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::kS);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + Lay::kP);
-  float* row_m = reinterpret_cast<float*>(smem + Lay::kStats);
-  float* row_l = row_m + kFq;
-  float* row_a = row_l + kFq;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int Lq = g.Lq, Lk = g.Lk;
-  const int b = blockIdx.y / g.H;
-  const int h = blockIdx.y % g.H;
-  const int q0 = blockIdx.x * kFq;
-  const bf16* qb = g.q + b * g.sq.b + h * g.sq.h;
-  const bf16* kb = g.k + b * g.skv.b + h * g.skv.h;
-  const bf16* vb = g.v + b * g.skv.b + h * g.skv.h;
-  bf16* ob = g.o + b * g.so.b + h * g.so.h;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // a q row past Lq loads zeros and is never stored
-  for (int e = tid; e < kFq * CPR; e += kFThreads) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    *reinterpret_cast<uint4*>(Qs + r * LDQ + c) =
-        !kTail || q0 + r < Lq ? *reinterpret_cast<const uint4*>(qb + (q0 + r) * g.sq.row + c)
-                              : zero;
-  }
-  for (int e = tid; e < kFq * D; e += kFThreads) Os[(e / D) * LDO + e % D] = 0.0f;
-  if (tid < kFq) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.0f;
-  }
-  __syncthreads();
-
-  for (int k0 = 0; k0 < Lk; k0 += kFkv) {
-    // a key row past Lk loads zeros (its score is masked below)
-    for (int e = tid; e < kFkv * CPR; e += kFThreads) {
-      const int r = e / CPR, c = (e % CPR) * 8;
-      *reinterpret_cast<uint4*>(KVs + r * LDQ + c) =
-          !kTail || k0 + r < Lk ? *reinterpret_cast<const uint4*>(kb + (k0 + r) * g.skv.row + c)
-                                : zero;
-    }
-    __syncthreads();
-
-    {  // S = Q K^T: warp w owns the 16 x 16 score block (w / 4, w % 4)
-      const int fr = warp >> 2, fc = warp & 3;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-      wmma::fill_fragment(sacc, 0.0f);
-#pragma unroll 4
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + fr * 16 * LDQ + kk, LDQ);
-        wmma::load_matrix_sync(fb, KVs + fc * 16 * LDQ + kk, LDQ);
-        wmma::mma_sync(sacc, fa, fb, sacc);
-      }
-      wmma::store_matrix_sync(Ss + fr * 16 * kLdS + fc * 16, sacc, kLdS, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // V takes the K buffer (zero rows past Lk: p is 0 there, and 0 * v must
-    // not meet stale data); the online-softmax update runs on S meanwhile
-    for (int e = tid; e < kFkv * CPR; e += kFThreads) {
-      const int r = e / CPR, c = (e % CPR) * 8;
-      *reinterpret_cast<uint4*>(KVs + r * LDQ + c) =
-          !kTail || k0 + r < Lk ? *reinterpret_cast<const uint4*>(vb + (k0 + r) * g.skv.row + c)
-                                : zero;
-    }
-    {  // 8 threads per row, 8 scores each; a key column past Lk scores -inf
-       // before the row max, so it adds exactly 0 to the row sum (every tile
-       // holds at least one column below Lk, so the max stays finite)
-      const int r = tid >> 3, part = tid & 7;
-      float sv[8];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int col = part * 8 + i;
-        sv[i] = !kTail || k0 + col < Lk ? Ss[r * kLdS + col] * g.scale : -INFINITY;
-        mx = fmaxf(mx, sv[i]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = expf(sv[i] - m_new);
-        sum += p;
-        Ps[r * kLdP + part * 8 + i] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    if (k0 > 0) {
-      for (int e = tid; e < kFq * D; e += kFThreads) {
-        const int r = e / D;
-        Os[r * LDO + e % D] *= row_a[r];
-      }
-      __syncthreads();
-    }
-
-    {  // O += P V: warp w owns rows (w & 1) and OCOLS column blocks
-      const int fr = warp & 1;
-      const int cb = (warp >> 1) * OCOLS;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[OCOLS];
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c)
-        wmma::load_matrix_sync(oacc[c], Os + fr * 16 * LDO + (cb + c) * 16, LDO,
-                               wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kFkv; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::load_matrix_sync(pa, Ps + fr * 16 * kLdP + kk, kLdP);
-#pragma unroll
-        for (int c = 0; c < OCOLS; ++c) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, KVs + kk * LDQ + (cb + c) * 16, LDQ);
-          wmma::mma_sync(oacc[c], pa, vf, oacc[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c)
-        wmma::store_matrix_sync(Os + fr * 16 * LDO + (cb + c) * 16, oacc[c], LDO,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < kFq * CPR; e += kFThreads) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    if (kTail && q0 + r >= Lq) continue;
-    const float inv = 1.0f / row_l[r];
-    uint4 packed;
-    uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-    for (int i = 0; i < 8; i += 2) {
-      __nv_bfloat162 r2 = __floats2bfloat162_rn(Os[r * LDO + c + i] * inv,
-                                               Os[r * LDO + c + i + 1] * inv);
-      pk[i >> 1] = *reinterpret_cast<uint32_t*>(&r2);
-    }
-    *reinterpret_cast<uint4*>(ob + (q0 + r) * g.so.row + c) = packed;
-  }
-  if (g.z != nullptr && tid < kFq && (!kTail || q0 + tid < Lq))
-    g.z[(size_t)blockIdx.y * Lq + q0 + tid] = row_m[tid] + logf(row_l[tid]);
-}
-
-template <int D, bool kTail>
-int launch_flash(const FwdArgs& g, int B, cudaStream_t stream) {
-  const size_t smem = FlashLayout<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, kTail>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.Lq + kFq - 1) / kFq, B * g.H);
-  flash_fwd_kernel<D, kTail><<<grid, kFThreads, smem, stream>>>(g);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 int launch_flash(const FwdArgs& g, int B, cudaStream_t stream) {
-  return g.Lq % kFq != 0 || g.Lk % kFkv != 0 ? launch_flash<D, true>(g, B, stream)
-                                              : launch_flash<D, false>(g, B, stream);
+  return g.Lq % 32 != 0 || g.Lk % kFkv != 0 ? launch_flash_fwd<D, true>(g, B, stream)
+                                             : launch_flash_fwd<D, false>(g, B, stream);
 }
 
 int flash_entry(const FwdArgs& g, int B, int D, void* stream) {
@@ -301,6 +90,152 @@ int token_major_entry(const bf16* q, const bf16* k, const bf16* v, bf16* o, floa
   const FwdArgs g{q, k, v, o, z, {L * is, D, is}, {L * is, D, is}, {L * os, D, os},
                   L, L, H, scale};
   return flash_entry(g, B, D, stream);
+}
+
+// The float32 head-major forward: per (b, h) and 32-row q tile, an online
+// softmax over 32-key tiles.  Shared memory (floats, pitch D + 1): the Q
+// tile and one K-or-V tile, 2 * 32 * (D + 1); the score tile 32 * 33; the
+// row max, sum and rescale 3 * 32: at D = 512, 135,936 bytes.  A thread
+// computes 2 x 2 scores and keeps its F32Own<D, 32> share of the output in
+// registers (8 to 64 floats).
+struct F32FwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* z;  // (B, H, Lq), or null
+  int Lq, Lk;
+  float scale;
+};
+
+constexpr int kF32Fq = 32;  // q rows a block and keys a tile
+
+template <int D>
+constexpr size_t f32_fwd_smem() {
+  return (2 * kF32Fq * (D + 1) + kF32Fq * (kF32Fq + 1) + 3 * kF32Fq) * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(F32FwdArgs g) {
+  constexpr int T = kF32Fq, LD = D + 1, LDS = T + 1, N = T / 16;
+  using Own = F32Own<D, T>;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* KVs = Qs + T * LD;
+  float* Ss = KVs + T * LD;
+  float* row_m = Ss + T * LDS;
+  float* row_l = row_m + T;
+  float* row_a = row_l + T;
+
+  const int tid = threadIdx.x;
+  const int Lq = g.Lq, Lk = g.Lk;
+  const int q0 = blockIdx.x * T;
+  const size_t bh = blockIdx.y;
+  const float* kb = g.k + bh * Lk * D;
+  const float* vb = g.v + bh * Lk * D;
+  const int cg = tid % Own::CG, rg = tid / Own::CG;
+  const int ty = tid >> 4, tx = tid & 15;
+
+  load_f32_rows<D, T>(Qs, g.q + (bh * Lq + q0) * D, D, Lq - q0);
+  if (tid < T) {
+    row_m[tid] = -INFINITY;
+    row_l[tid] = 0.0f;
+  }
+  float acc[Own::RO][Own::CO];
+#pragma unroll
+  for (int i = 0; i < Own::RO; ++i)
+#pragma unroll
+    for (int j = 0; j < Own::CO; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < Lk; k0 += T) {
+    __syncthreads();  // the last tile's P V is done with KVs and Ss
+    load_f32_rows<D, T>(KVs, kb + (size_t)k0 * D, D, Lk - k0);
+    __syncthreads();
+    float s[N][N];
+    f32_abt<D, T>(Qs, KVs, s);
+    // a key past Lk scores -inf before the row max, so it adds exactly 0
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int c = tx + 16 * j;
+        Ss[(ty * N + i) * LDS + c] = k0 + c < Lk ? s[i][j] * g.scale : -INFINITY;
+      }
+    __syncthreads();
+    load_f32_rows<D, T>(KVs, vb + (size_t)k0 * D, D, Lk - k0);
+    {  // 8 threads a row, 4 scores each
+      const int r = tid >> 3, part = tid & 7;
+      float sv[4];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sv[i] = Ss[r * LDS + part * 4 + i];
+        mx = fmaxf(mx, sv[i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = expf(sv[i] - m_new);
+        sum += p;
+        Ss[r * LDS + part * 4 + i] = p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      if (part == 0) {
+        const float alpha = expf(m_old - m_new);  // 0 on the first tile
+        row_a[r] = alpha;
+        row_l[r] = row_l[r] * alpha + sum;
+        row_m[r] = m_new;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < Own::RO; ++i) {
+      const int r = rg * Own::RO + i;
+      const float alpha = row_a[r];
+#pragma unroll
+      for (int j = 0; j < Own::CO; ++j) acc[i][j] *= alpha;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < T; ++kk) {
+      float vv[Own::CO];
+#pragma unroll
+      for (int j = 0; j < Own::CO; ++j) vv[j] = KVs[kk * LD + cg + j * Own::CG];
+#pragma unroll
+      for (int i = 0; i < Own::RO; ++i) {
+        const float p = Ss[(rg * Own::RO + i) * LDS + kk];
+#pragma unroll
+        for (int j = 0; j < Own::CO; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < Own::RO; ++i) {
+    const float inv = 1.0f / row_l[rg * Own::RO + i];
+#pragma unroll
+    for (int j = 0; j < Own::CO; ++j) acc[i][j] *= inv;
+  }
+  store_f32_own<D, T>(g.o + (bh * Lq + q0) * D, acc, Lq - q0);
+  if (g.z != nullptr && tid < T && q0 + tid < Lq)
+    g.z[bh * Lq + q0 + tid] = row_m[tid] + logf(row_l[tid]);
+}
+
+template <int D>
+int launch_flash_f32(const F32FwdArgs& g, int B, int H, cudaStream_t stream) {
+  const size_t smem = f32_fwd_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((g.Lq + kF32Fq - 1) / kF32Fq, B * H);
+  flash_fwd_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -360,6 +295,27 @@ extern "C" int gvq_flash_fwd_hm(const void* q, const void* k, const void* v, voi
                   static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(z),
                   {H * hq, hq, d}, {H * hk, hk, d}, {H * hq, hq, d}, Lq, Lk, H, scale};
   return flash_entry(g, B, D, stream);
+}
+
+// The float32 head-major entry (the same op as gvq_flash_fwd_hm, for
+// float32 tensors): q, o (B, H, Lq, D) and k, v (B, H, Lk, D) float32,
+// contiguous, any Lq, Lk >= 1, D 64, 128, 256 or 512; z (B, H, Lq) float32
+// where not null.
+extern "C" int gvq_flash_fwd_hm_f32(const void* q, const void* k, const void* v, void* o,
+                                    void* z, int B, int H, int Lq, int Lk, int D, float scale,
+                                    void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  const F32FwdArgs g{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o),
+                     static_cast<float*>(z), Lq, Lk, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_flash_f32<64>(g, B, H, s);
+    case 128: return launch_flash_f32<128>(g, B, H, s);
+    case 256: return launch_flash_f32<256>(g, B, H, s);
+    case 512: return launch_flash_f32<512>(g, B, H, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Message for an error code returned by any gvq_* entry point.

@@ -1,0 +1,15 @@
+"""The flash labs on the card: microbenchmarks of the flash kernel bodies.
+
+Each lab mirrors a JAX lab of ``scripts/`` (which run on a TPU) and runs on
+a CUDA card only:
+
+* ``exp_flash_variants``: softmax policies and K/V stage depth of the
+  forward (``scripts/exp_flash_variants.py``);
+* ``exp_flash_fwd_tilings``: the shipped forward at explicit tilings
+  (``scripts/exp_flash_fwd_tilings.py``);
+* ``exp_flash_bwd_variants``: the shipped backward at explicit tilings, and
+  its no-softmax control (``scripts/exp_flash_bwd_variants.py``).
+
+Run one as ``python -m vqvae_from_gaussian_vae_tpu_torch.labs.<lab> [combo
+...]``.  Importing this package imports nothing but torch and numpy.
+"""

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,6 +55,11 @@ _SIGNATURES = {
     "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gvq_flash_bwd_hm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_hm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_bwd_hm_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_lab_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "gvq_flash_lab_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                          _I, _P],
 }
 
 
@@ -146,6 +152,26 @@ def library() -> ctypes.CDLL:
     lib.gvq_error_string.argtypes = [ctypes.c_int]
     lib.gvq_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_usage(log_text: str) -> dict:
+    """Registers and spill bytes of each kernel from ptxas's ``-v`` report in
+    ``nvcc.log``: {mangled name: {"registers", "spill_stores", "spill_loads"}}."""
+    usage, current = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+        if m:
+            current = usage.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return usage
 
 
 def check(err: int, name: str) -> None:

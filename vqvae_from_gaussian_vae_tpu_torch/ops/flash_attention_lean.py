@@ -23,20 +23,22 @@ raises ``ValueError`` where the JAX op raises: a block larger than its
 dimension, a block that does not divide its sequence length (``block_q`` of
 the forward excepted: its last q block may be partial), and a backward
 without the backward blocks.  The block sizes are checked for that contract
-only: they do not set the Hopper kernels' tiling (32 q rows against 64-row
-K/V tiles forward; 64-row tiles backward at D = 64 and 128, 32-row tiles at
-D = 256 and 512).  So where the JAX op fails inside its TPU kernel bodies
+only: they do not set the Hopper kernels' tiling (bf16: 32 q rows against
+64-row K/V tiles forward; 64-row tiles backward at D = 64 and 128, 32-row
+tiles at D = 256 and 512; float32: 32-row tiles, 16-row backward tiles at
+D = 512).  So where the JAX op fails inside its TPU kernel bodies
 rather than in a check (a k block that is not a multiple of the 128 lanes:
 TypeError or NotImplementedError while tracing), the port computes.
 
 ``flash_attention`` is a ``torch.autograd.Function`` when a gradient is
-wanted.  The CUDA kernels (``csrc/flash_fwd.cu`` entry ``gvq_flash_fwd_hm``,
-``csrc/flash_bwd.cu`` entry ``gvq_flash_bwd_hm``) run for CUDA tensors:
-bf16, contiguous, D in ``SUPPORTED_HEAD_DIMS`` (the token-major kernels'
-head dims), any Lq, Lk >= 1.  A float32 CUDA tensor raises (the JAX op also
-runs float32; no float32 kernel is written yet).  The plain versions below
-run for CPU tensors, in any float dtype, and are what the kernels are held
-to on the card.
+wanted.  The CUDA kernels run for CUDA tensors, bf16 or float32 as the JAX
+op does, contiguous, D in ``SUPPORTED_HEAD_DIMS`` (the token-major kernels'
+head dims), any Lq, Lk >= 1, chosen by dtype: bf16 ``csrc/flash_fwd.cu``
+entry ``gvq_flash_fwd_hm`` and ``csrc/flash_bwd.cu`` entry
+``gvq_flash_bwd_hm`` (tensor cores); float32 ``gvq_flash_fwd_hm_f32`` and
+``gvq_flash_bwd_hm_f32`` (SIMT float32 on CUDA cores, no TF32).  Any other
+dtype or head dim raises.  The plain versions below run for CPU tensors, in
+any float dtype, and are what the kernels are held to on the card.
 """
 
 from __future__ import annotations
@@ -174,24 +176,26 @@ def flash_attention_bwd_plain(q, k, v, o, z, do, sm_scale: float):
     return dq.to(io), dk.to(io), dv.to(io)
 
 
+# the kernels' C entry points (forward, backward) by dtype
+_ENTRIES = {torch.bfloat16: ("gvq_flash_fwd_hm", "gvq_flash_bwd_hm"),
+            torch.float32: ("gvq_flash_fwd_hm_f32", "gvq_flash_bwd_hm_f32")}
+
+
 def _check_cuda(name: str, *tensors) -> None:
     """Raise on what the head-major kernels do not take."""
     q = tensors[0]
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name} takes CUDA tensors on one device")
-    if q.dtype == torch.float32:
-        raise ValueError(f"{name} takes bf16 only: no float32 kernel is written yet "
-                         "(the JAX op also runs float32; the plain version is not taken "
-                         "on the card)")
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise ValueError(f"{name} takes bf16, got {[t.dtype for t in tensors]}")
+    if q.dtype not in _ENTRIES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"{name} takes bf16 or float32 tensors of one dtype, got "
+                         f"{[t.dtype for t in tensors]}")
     if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: D={q.shape[-1]} unsupported (D in {SUPPORTED_HEAD_DIMS})")
 
 
 def flash_attention_fwd_cuda(q, k, v, sm_scale: float, save_residuals: bool = False):
-    """Launch the forward kernel on bf16 CUDA tensors: o, or (o, z) with
-    ``save_residuals`` (the training form)."""
+    """Launch the forward kernel on bf16 or float32 CUDA tensors: o, or (o,
+    z) with ``save_residuals`` (the training form)."""
     _build.refuse_grad("head-major flash kernel (outside its autograd Function)", q, k, v)
     _check_shapes(q, k, v)
     _check_cuda("head-major flash kernel", q, k, v)
@@ -200,12 +204,13 @@ def flash_attention_fwd_cuda(q, k, v, sm_scale: float, save_residuals: bool = Fa
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     z = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if save_residuals else None
-    lib = _build.library()
+    entry = _ENTRIES[q.dtype][0]
     with torch.cuda.device(q.device):
-        err = lib.gvq_flash_fwd_hm(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                   None if z is None else z.data_ptr(), b, h, lq, lk, d,
-                                   float(sm_scale), _build.stream_of(q))
-    _build.check(err, "gvq_flash_fwd_hm")
+        err = getattr(_build.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if z is None else z.data_ptr(), b, h, lq, lk, d, float(sm_scale),
+            _build.stream_of(q))
+    _build.check(err, entry)
     flash_attention_fwd_cuda.launches += 1
     return (o, z) if save_residuals else o
 
@@ -214,9 +219,9 @@ flash_attention_fwd_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float):
-    """Launch the backward kernels (di pre-pass, dk/dv, dq): (dq, dk, dv)
-    bf16, from contiguous bf16 q, o, do (B, H, Lq, D), k, v (B, H, Lk, D)
-    and z (B, H, Lq) float32."""
+    """Launch the backward kernels (di pre-pass, dk/dv, dq): (dq, dk, dv) in
+    q's dtype (bf16 or float32), from contiguous q, o, do (B, H, Lq, D), k,
+    v (B, H, Lk, D) of that dtype and z (B, H, Lq) float32."""
     _build.refuse_grad("head-major flash backward kernel", q, k, v, o, z, do)
     _check_shapes(q, k, v)
     _check_cuda("head-major flash backward kernel", q, k, v, o, do)
@@ -233,13 +238,13 @@ def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    lib = _build.library()
+    entry = _ENTRIES[q.dtype][1]
     with torch.cuda.device(q.device):
-        err = lib.gvq_flash_bwd_hm(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                   z.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                                   dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
-                                   float(sm_scale), _build.stream_of(q))
-    _build.check(err, "gvq_flash_bwd_hm")
+        err = getattr(_build.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), z.data_ptr(), do.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
+            float(sm_scale), _build.stream_of(q))
+    _build.check(err, entry)
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
