@@ -33,6 +33,11 @@ then drives each path through the entry points a user calls, at bs=16,
     every default combo at (16, 1024, 12, 64) bf16 through the labs' own
     ``run``, each checked output held to the einsum reference and to its
     plain version (``matonly`` is timed only);
+  * the LayerNorm-prologue matmul lab (``labs/exp_ln_matmul.py``): every
+    default combo (the LN kernel + cuBLAS pair, the LN kernel + the hand
+    matmul, the fused kernel at row blocks 128 to 1024) at (16384, 768) @
+    (768, 2304 and 3072) bf16 through the lab's own ``run``, each output
+    held to the JAX lab's reference and to its plain version;
   * the kernel gates, read as the JAX package reads them: an sd3unet encode
     -> dequant at 200x200 (its 25x25 AttnBlocks take the einsum path), a
     2-layer bsqvit with ``GVQ_DISABLE_FUSED_KERNELS=1`` (no LayerNorm or
@@ -1090,7 +1095,7 @@ def launch_counters():
     from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train, downsample_conv
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention, fused_gn_conv, gn_swish_bwd
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean, flash_lab
-    from vqvae_from_gaussian_vae_tpu_torch.ops import gq_cuda, layer_norm, upsample_conv
+    from vqvae_from_gaussian_vae_tpu_torch.ops import gq_cuda, layer_norm, ln_matmul, upsample_conv
 
     return {"gq_argmax": gq_cuda.gq_argmax_cuda,
             "downsample_conv3x3_gn": downsample_conv.downsample_conv3x3_gn_cuda,
@@ -1117,7 +1122,9 @@ def launch_counters():
             "flash_variant": flash_lab.flash_variant_cuda,
             "flash_fwd_tiling": flash_lab.flash_fwd_tiling_cuda,
             "flash_bwd_tiling": flash_lab.flash_bwd_tiling_cuda,
-            "flash_bwd_control": flash_lab.flash_bwd_control_cuda}
+            "flash_bwd_control": flash_lab.flash_bwd_control_cuda,
+            "ln_matmul": ln_matmul.ln_matmul_cuda,
+            "matmul_bias": ln_matmul.matmul_bias_cuda}
 
 
 def counted(counters, fn):
@@ -1700,6 +1707,96 @@ def run_flash_labs(gen):
     return lines, summary
 
 
+def run_ln_matmul_lab(gen):
+    """The LN-prologue matmul lab (B18): every default combo of
+    ``labs/exp_ln_matmul.py`` (the JAX lab's seven and the port's
+    fused:128:2304) at its full shape, (16384, 768) @ (768, N), N = 2304 and
+    3072, through the lab's own ``run``, with the launches counted; each
+    checked output held to the JAX lab's reference and to its plain version
+    within 1e-2 of max |reference|.  Then each kernel alone at the port's
+    row block (128) and N = 2304 for the kernels line, beside its plain
+    version and the library pair.  Returns (one line per combo, the kernels
+    line's entries)."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.labs import exp_ln_matmul as lab
+    from vqvae_from_gaussian_vae_tpu_torch.ops import ln_matmul as LM
+    from vqvae_from_gaussian_vae_tpu_torch.ops.layer_norm import layer_norm_cuda
+
+    del gen  # the lab draws its own inputs, as the JAX lab does
+    inputs = {n: lab.lab_inputs(n) for n in sorted({n for _, _, n in lab.DEFAULT_COMBOS})}
+    refs = {n: LM.ln_matmul_plain(*args, lab.EPS) for n, args in inputs.items()}
+
+    def drive():
+        return [lab.run(v, bm, n, inputs[n], refs[n]) for v, bm, n in lab.DEFAULT_COMBOS]
+
+    results, counts = counted(launch_counters(), drive)
+    calls = lab.LAYERS * LAB_CHAINS + 1  # per combo: 12 sites a chain, then the checked site
+    per_variant = {v: sum(c[0] == v for c in lab.DEFAULT_COMBOS) for v in lab.VARIANTS}
+    launches = require_launches("ln_matmul_lab", counts, {
+        "ln_matmul": per_variant["fused"] * calls, "matmul_bias": per_variant["pmm"] * calls,
+        "layer_norm_fwd": (per_variant["xla"] + per_variant["pmm"]) * calls})
+
+    plain = {(v, n): lab.plain_site(v, *inputs[n]) for v, _, n in lab.DEFAULT_COMBOS}
+    xla_us = {n: 1e3 * time_ms(lambda s=lab.make_site("xla", 0, *args[1:]), x=args[0]: s(x))
+              for n, args in inputs.items()}
+    lines, errs = [], {"fused": [], "pmm": []}
+    for r in results:
+        out = r.pop("out")
+        variant, _, n = r["combo"].split(":")
+        bar = lab.REL_BAR * r["ref_max"]
+        r["plain_err"] = float((out.float() - plain[(variant, int(n))].float()).abs().max())
+        require(r["max_err"] <= bar, f"ln_matmul lab {r['combo']}: max_err {r['max_err']} > {bar}")
+        require(r["plain_err"] <= bar,
+                f"ln_matmul lab {r['combo']}: {r['plain_err']} from its plain version > {bar}")
+        errs.get(variant, []).append(r["plain_err"])
+        lines.append({"phase": "ln_matmul_lab", **r, "xla_pair_us": xla_us[int(n)]})
+        del out
+
+    # each kernel alone at the port's row block, N = 2304, and its yardsticks
+    n = lab.PORT_COMBO[2]
+    x, g, b, w, wb = inputs[n]
+    y = layer_norm_cuda(x, g, b, lab.EPS)
+    o = torch.empty((x.shape[0], n), dtype=torch.bfloat16, device=x.device)
+    bm = lab.PORT_COMBO[1]
+    times = {
+        "ln_matmul": time_ms(lambda: LM.ln_matmul_cuda(x, g, b, w, wb, bm)),
+        "matmul_bias": time_ms(lambda: LM.matmul_bias_cuda(y, w, wb, bm)),
+        "ln_matmul_plain": time_ms(lambda: LM.ln_matmul_plain(x, g, b, w, wb), iters=3,
+                                   warmup=1),
+        "matmul_bias_plain": time_ms(lambda: LM.matmul_bias_plain(y, w, wb), iters=3, warmup=1),
+        "ln_matmul_library": xla_us[n] / 1e3,
+        "matmul_bias_library": time_ms(lambda: torch.add(torch.matmul(y, w), wb, out=o))}
+    mm = torch.matmul(y, w)
+    # the xla pair's pieces, and a copy of the product's bytes beside its bias add
+    parts = {"layer_norm": time_ms(lambda: layer_norm_cuda(x, g, b, lab.EPS)),
+             "matmul": time_ms(lambda: torch.matmul(y, w)),
+             "bias_add": time_ms(lambda: torch.add(mm, wb, out=o)),
+             "copy": time_ms(lambda: o.copy_(mm)),
+             "feedback": time_ms(lambda: torch.add(x, mm[:, :x.shape[1]], alpha=1e-6))}
+    lines.append({"phase": "ln_matmul_lab", "n": n, "xla_pair_parts_ms": parts})
+
+    def entry(name, variant, replaces, library):
+        bound, by = lab.C.bound_ms(*lab.flops_bytes(variant, n))
+        return {"name": name, "route": "cuda",
+                "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/ln_matmul.cu",
+                "replaces": replaces, "launches": launches[name], "path": "ln_matmul_lab",
+                "max_abs_err": max(errs[variant]), "ms": times[name],
+                "plain_ms": times[f"{name}_plain"], "bound_ms": bound, "bound_by": by,
+                "library_ms": times[f"{name}_library"],
+                "per": f"one launch at bm={bm}, (16384, 768) @ (768, {n}); max_abs_err over "
+                       f"the lab's {variant} combos against their plain versions; library: "
+                       + library}
+
+    summary = [
+        entry("ln_matmul", "fused", "scripts/exp_ln_matmul.py:64",
+              "the xla pair (the LN kernel, torch.matmul, one bias add)"),
+        entry("matmul_bias", "pmm", "scripts/exp_ln_matmul.py:81",
+              "torch.matmul and one bias add")]
+    del inputs, refs, plain, x, g, b, w, wb, y, o, mm
+    torch.cuda.empty_cache()
+    return lines, summary
+
+
 # the gates' checks: the sd3unet at 200x200 (downsample inputs 200, 100, 50:
 # the fused op where h % 4 == 0; upsample inputs 25, 50, 100; AttnBlocks at
 # 25x25 = 625 tokens, so no flash); the reduced-depth sd3unet ae step (one
@@ -1922,6 +2019,9 @@ def main(argv=None) -> int:
     lab_lines, lab_summary = run_flash_labs(gen)
     for line in lab_lines:
         emit(line)
+    ln_lines, ln_summary = run_ln_matmul_lab(gen)
+    for line in ln_lines:
+        emit(line)
     for gate in (run_gate_unet_odd, run_gate_vit_disabled, run_gate_conv_bwd):
         emit(gate(gen))
 
@@ -1948,7 +2048,7 @@ def main(argv=None) -> int:
                         "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
                         "library_ms": total("library_ms"),
                         "per": "one main-path step (sum over its launches)"})
-    emit({"kernels": summary + lab_summary})
+    emit({"kernels": summary + lab_summary + ln_summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

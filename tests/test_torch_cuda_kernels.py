@@ -19,6 +19,7 @@ from vqvae_from_gaussian_vae_tpu_torch.ops import flash_lab as fx
 from vqvae_from_gaussian_vae_tpu_torch.ops import fused_gn_conv as fgc
 from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
 from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
+from vqvae_from_gaussian_vae_tpu_torch.ops import ln_matmul as lmm
 from vqvae_from_gaussian_vae_tpu_torch.ops import upsample_conv as up
 from vqvae_from_gaussian_vae_tpu_torch.ops.gq_cuda import gq_argmax_cuda
 from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import (
@@ -855,3 +856,73 @@ def test_flash_lab_kernels_refuse_uncompiled_combos(gen):
     with pytest.raises(ValueError, match="compiled ones are"):
         fx.flash_variant_cuda(q, k, v, "chunk", 2, 0.125, 12)
     assert fx.flash_fwd_tiling_cuda.launches == before
+
+
+# the LN-prologue matmul lab's kernels (ops/ln_matmul.py) against their plain
+# versions: the lab's shapes and row blocks, and ragged ones (R off the
+# 128-row sub-tile, N off the 128-column tile, C below 768)
+LN_MM_SHAPES = [(16384, 768, 2304, 128), (16384, 768, 3072, 512), (16384, 768, 2304, 1024),
+                (1000, 768, 200, 256), (300, 256, 136, 128)]
+
+
+def _ln_mm_inputs(gen, r, c, n):
+    x = torch.randn((r, c), generator=gen, device="cuda").to(torch.bfloat16)
+    g, b = (torch.randn(c, generator=gen, device="cuda") for _ in range(2))
+    w = (torch.randn((c, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    wb = torch.randn(n, generator=gen, device="cuda") * 0.01
+    return x, g, b, w, wb
+
+
+@pytest.mark.parametrize("r,c,n,bm", LN_MM_SHAPES)
+def test_ln_matmul_kernels_match_plain(gen, r, c, n, bm):
+    x, g, b, w, wb = _ln_mm_inputs(gen, r, c, n)
+    before = lmm.ln_matmul_cuda.launches
+    got = lmm.ln_matmul_cuda(x, g, b, w, wb, bm)
+    assert lmm.ln_matmul_cuda.launches == before + 1 and got.shape == (r, n)
+    want = lmm.ln_matmul_plain(x, g, b, w, wb)
+    assert _rel_max(got, want) <= BF16_RTOL
+
+
+@pytest.mark.parametrize("r,c,n,bm", LN_MM_SHAPES)
+def test_matmul_bias_kernels_match_plain(gen, r, c, n, bm):
+    x, _, _, w, wb = _ln_mm_inputs(gen, r, c, n)
+    before = lmm.matmul_bias_cuda.launches
+    got = lmm.matmul_bias_cuda(x, w, wb, bm)
+    assert lmm.matmul_bias_cuda.launches == before + 1 and got.shape == (r, n)
+    assert _rel_max(got, lmm.matmul_bias_plain(x, w, wb)) <= BF16_RTOL
+
+
+def test_ln_matmul_kernels_refuse_uncompiled_tilings_and_shapes(gen):
+    x, g, b, w, wb = _ln_mm_inputs(gen, 256, 768, 256)
+    before = (lmm.ln_matmul_cuda.launches, lmm.matmul_bias_cuda.launches)
+    with pytest.raises(ValueError, match="not compiled"):
+        lmm.ln_matmul_cuda(x, g, b, w, wb, 64)
+    with pytest.raises(ValueError, match="not compiled"):
+        lmm.matmul_bias_cuda(x, w, wb, 192)
+    x2, g2, b2, w2, wb2 = _ln_mm_inputs(gen, 256, 800, 256)  # C past the resident rows
+    with pytest.raises(ValueError, match="unsupported"):
+        lmm.ln_matmul_cuda(x2, g2, b2, w2, wb2, 128)
+    with pytest.raises(ValueError, match="unsupported"):
+        lmm.matmul_bias_cuda(x, w[:, :12].contiguous(), wb[:12].contiguous(), 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        lmm.matmul_bias_cuda(x, w[:, :128], wb[:128].contiguous(), 128)
+    assert (lmm.ln_matmul_cuda.launches, lmm.matmul_bias_cuda.launches) == before
+
+
+def test_shipped_kernels_keep_their_registers(gen):
+    """ptxas gives every kernel of the recorded table the registers it had
+    (``tests/torch_kernel_registers.json``, written by ``python -m
+    vqvae_from_gaussian_vae_tpu_torch.ops._build`` before the LN-prologue
+    matmul kernels were added): a new source must not move the register
+    choice, and with it the occupancy, of a shipped kernel."""
+    import json
+    import os
+
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+
+    _build.library()
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        got = _build.kernel_registers(f.read())
+    with open(os.path.join(os.path.dirname(__file__), "torch_kernel_registers.json")) as f:
+        want = json.load(f)
+    assert {k: got.get(k) for k in want} == want

@@ -250,6 +250,7 @@ def test_labs_import_no_jax():
             "import vqvae_from_gaussian_vae_tpu_torch.labs.exp_flash_variants\n"
             "import vqvae_from_gaussian_vae_tpu_torch.labs.exp_flash_fwd_tilings\n"
             "import vqvae_from_gaussian_vae_tpu_torch.labs.exp_flash_bwd_variants\n"
+            "import vqvae_from_gaussian_vae_tpu_torch.labs.exp_ln_matmul\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vqvae_from_gaussian_vae_tpu')]\n"
             "print(bad)\n"

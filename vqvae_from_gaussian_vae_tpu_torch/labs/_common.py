@@ -1,5 +1,5 @@
-"""What the three flash labs share: the shape, the inputs, the references
-and the report of each combination."""
+"""What the labs share: the flash labs' shape, inputs and references, the
+bound, the card check and the report of each combination."""
 
 from __future__ import annotations
 
@@ -45,8 +45,8 @@ def sdpa_shape(t, heads: int = H):
 
 def require_card() -> None:
     if not torch.cuda.is_available():
-        raise RuntimeError("the flash labs run on a CUDA card; on the CPU use the plain "
-                           "versions of ops/flash_lab.py")
+        raise RuntimeError("the labs run on a CUDA card; on the CPU use the plain versions "
+                           "of ops/flash_lab.py and ops/ln_matmul.py")
 
 
 def lab_inputs(n: int, seed: int = 0, b: int = B, l: int = L, h: int = H, device="cuda"):

@@ -60,6 +60,8 @@ _SIGNATURES = {
     "gvq_flash_lab_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "gvq_flash_lab_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                           _I, _P],
+    "gvq_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_matmul_bias": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -174,6 +176,20 @@ def ptxas_usage(log_text: str) -> dict:
     return usage
 
 
+# an anonymous namespace's mangled name carries two hashes of its source
+# file ("..._GLOBAL__N__<hash>_<len>_<file>_cu_<hash>"), which move with the
+# file's path; the file name alone names it across checkouts
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_[0-9a-f]{8}")
+
+
+def kernel_registers(log_text: str) -> dict:
+    """{kernel: registers} from ``nvcc.log``, each kernel named as in
+    ``ptxas_usage`` with its anonymous namespace written ``<file.cu>``: the
+    same kernel has the same name in every checkout."""
+    return {_ANON.sub(r"<\1.cu>", name): entry["registers"]
+            for name, entry in ptxas_usage(log_text).items() if "registers" in entry}
+
+
 def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""
@@ -204,3 +220,13 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+if __name__ == "__main__":  # on a machine with nvcc: build, print the register table as JSON
+    import json
+    import sys
+
+    build()
+    with open(os.path.join(build_dir(), "nvcc.log")) as f:
+        json.dump(kernel_registers(f.read()), sys.stdout, indent=0, sort_keys=True)
+    print()
