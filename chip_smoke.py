@@ -54,6 +54,7 @@ no result line.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -140,6 +141,49 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
     """(least time in ms, which of the two bounds it)."""
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def sass_hgmma() -> dict:
+    """{kernel: count of HGMMA instructions} in the built library's SASS
+    (``cuobjdump -sass``, one "Function : <name>" section per kernel)."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", os.path.join(_build.build_dir(), _build.LIB_NAME)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300)
+    require(out.returncode == 0, f"cuobjdump failed: {out.stdout[-2000:]}")
+    counts, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            current = line.split("Function : ", 1)[1].strip()
+            counts[current] = 0
+        elif current is not None and "HGMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def wgrad_kernel_facts(source: str, o: int) -> dict:
+    """The weight-gradient body's kernel (``csrc/conv_wgrad.cuh``) that
+    `source` launches for O output channels: its design and output-channel
+    tile, ptxas's registers and spill bytes (stores + loads) from the
+    build's ``nvcc.log``, and the count of HGMMA (wgmma) instructions in its
+    SASS (``cuobjdump``), which must not be 0."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import wgrad_tile_o
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        usage = _build.ptxas_usage(f.read())
+    tag, tile_o = "_" + source.replace(".", "_") + "_", wgrad_tile_o(o)
+    names = [n for n in usage
+             if tag in n and "conv_wgrad_kernel" in n and f"ELi{tile_o}EE" in n]
+    require(len(names) == 1, f"{len(names)} conv_wgrad_kernel entries of {source} in nvcc.log")
+    u = usage[names[0]]
+    hgmma = sass_hgmma().get(names[0], 0)
+    require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+    return {"registers": u["registers"],
+            "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
+            "design": "wgmma", "tile_o": tile_o, "sass_hgmma": hgmma}
 
 
 def nvidia_smi_line() -> str:
@@ -474,6 +518,8 @@ def check_resample_bwd(gen, kind: str):
         cases = [(BATCH, 32, 32, 512), (BATCH, 64, 64, 512), (BATCH, 128, 128, 256)]
         dgrad_k, dgrad_p = up.upsample_dgrad_cuda, up.upsample_dgrad_plain
         wgrad_k, wgrad_p = up.upsample_wgrad_cuda, up.upsample_wgrad_plain
+    src, jax_file = (("downsample_bwd.cu", "downsample_conv.py") if kind == "down"
+                     else ("upsample_bwd.cu", "upsample_conv.py"))
     dshapes, wshapes = [], []
     for shape in cases:
         b, h, w, c = shape
@@ -520,16 +566,16 @@ def check_resample_bwd(gen, kind: str):
                  [True, False, False], d_bytes, {"max_abs_err": err, "err_over_tol": ratio}),
                 (wshapes, lambda: wgrad_k(x, g), lambda: wgrad_p(x, g),
                  [False, True, False], w_bytes,
-                 {"max_abs_err": w_err, "rel_err_of_max": w_rel, "bit_reproducible": True})):
+                 {"max_abs_err": w_err, "rel_err_of_max": w_rel, "bit_reproducible": True,
+                  **wgrad_kernel_facts(src, c)})):
             bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
-            out.append({"shape": label, "kernel_ms": time_ms(kern),
+            ms = time_ms(kern)
+            out.append({"shape": label, "kernel_ms": ms, "tflops": flops / ms / 1e9,
                         "plain_ms": time_ms(plain, iters=3, warmup=1),
                         "library_ms": time_ms(library(lib_mask)), "library_dx_dw_ms": both_ms,
                         "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes, **e})
         del x, g, x_in, dx_k, dw_k
         torch.cuda.empty_cache()
-    src, jax_file = (("downsample_bwd.cu", "downsample_conv.py") if kind == "down"
-                     else ("upsample_bwd.cu", "upsample_conv.py"))
     op = "downsample" if kind == "down" else "upsample"
     lines = {"down": (496, 576), "up": (641, 732)}[kind]
     common = {"route": "cuda", "source": f"vqvae_from_gaussian_vae_tpu_torch/csrc/{src}",
@@ -831,13 +877,15 @@ def check_conv3x3_wgrad(gen):
         flops = 2.0 * BATCH * h * h * 9 * c * o
         nbytes = 2 * (x.numel() + g.numel()) + 4 * dw_k.numel()
         bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+        ms = time_ms(lambda: c3.conv3x3_wgrad_cuda(x, g))
         shapes.append({"shape": f"x ({BATCH},{h},{h},{c}), g O {o} bf16", "per_step": n,
-                       "kernel_ms": time_ms(lambda: c3.conv3x3_wgrad_cuda(x, g)),
+                       "kernel_ms": ms, "tflops": flops / ms / 1e9,
                        "plain_ms": time_ms(lambda: c3.conv3x3_wgrad_plain(x, g), iters=3,
                                            warmup=1),
                        "library_ms": time_ms(library), "bound_ms": bnd, "bound_by": by,
                        "flops": flops, "bytes": nbytes, "max_abs_err": err,
-                       "rel_err_of_max": rel, "bit_reproducible": True})
+                       "rel_err_of_max": rel, "bit_reproducible": True,
+                       **wgrad_kernel_facts("conv3x3_wgrad.cu", o)})
         del x, g, dw_k
         torch.cuda.empty_cache()
     return {"name": "conv3x3_wgrad", "route": "cuda",

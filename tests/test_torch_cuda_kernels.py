@@ -415,6 +415,9 @@ def _bwd_case(gen, shape, o, up_op):
     ((1, 2, 2, 256), 512),    # one output pixel: a single band
     ((3, 18, 34, 256), 128),  # 153 output pixels: two M tiles, the second ragged
     ((2, 32, 32, 32), 512),
+    ((1, 2, 30, 136), 96),    # one cotangent row; wgrad C, O not multiples of 64
+    ((2, 18, 42, 72), 160),   # wgrad tiles of 2 x 32 ragged in H and W
+    ((2, 64, 64, 512), 512),  # the smallest main-path shape at bs 2
 ])
 def test_downsample_bwd_kernels_match_plain(gen, shape, o):
     x, w, g = _bwd_case(gen, shape, o, False)
@@ -434,6 +437,9 @@ def test_downsample_bwd_kernels_match_plain(gen, shape, o):
     ((1, 1, 1, 256), 512),    # one low-resolution pixel: every halo masked
     ((1, 12, 20, 256), 128),  # two M tiles, two N tiles in dgrad
     ((2, 16, 16, 32), 512),
+    ((1, 1, 9, 136), 96),     # one low-resolution row; wgrad C, O not multiples of 64
+    ((2, 9, 21, 72), 160),    # wgrad tiles of 2 x 32 ragged in H and W
+    ((2, 32, 32, 512), 512),  # the smallest main-path shape at bs 2
 ])
 def test_upsample_bwd_kernels_match_plain(gen, shape, o):
     x, w, g = _bwd_case(gen, shape, o, True)
@@ -592,6 +598,9 @@ def test_fused_gn_conv_kernel_refuses_grad_and_unsupported_widths(gen):
     ((1, 20, 12, 136), 72),   # C > 128 and O < 128: masked tiles on both edges
     ((2, 33, 17, 8), 8),
     ((16, 32, 32, 512), 512),
+    ((1, 1, 7, 72), 136),     # one pixel row
+    ((2, 9, 21, 136), 72),    # tiles of 2 x 32 ragged in H and W
+    ((2, 32, 32, 512), 512),  # the smallest main-path shape at bs 2
 ])
 def test_conv3x3_wgrad_kernel_matches_plain(gen, shape, o):
     x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)

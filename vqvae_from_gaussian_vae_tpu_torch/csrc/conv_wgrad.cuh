@@ -1,12 +1,16 @@
-// Weight-gradient core shared by the resample backward kernels
+// Weight-gradient body shared by the resample backward kernels
 // (downsample_bwd.cu, upsample_bwd.cu) and the resblock conv's
-// (conv3x3_wgrad.cu).
+// (conv3x3_wgrad.cu), designed for Hopper (sm_90a).
 //
-// All three weight gradients are the same reduction: for each tap t,
+// Replaces the TPU kernels
+//   vqvae_from_gaussian_vae_tpu/ops/conv3x3_train.py   _conv3x3_wgrad   (kWgSame)
+//   vqvae_from_gaussian_vae_tpu/ops/downsample_conv.py _downsample_wgrad (kWgDown)
+//   vqvae_from_gaussian_vae_tpu/ops/upsample_conv.py   _upsample_wgrad   (kWgUp)
+// All three are one reduction: for each tap t,
 //
 //   dW[t] (C x O) = sum over pixels p of X_t[p, :]^T . G[p, :]
 //
-// where p runs over one pixel grid per sample (B * Mh * Mw rows in all), G
+// where p runs over one pixel grid per sample (B * Mh * Mw pixels in all), G
 // is the cotangent at p's output position and X_t the forward input at p's
 // tap-shifted position (zero outside the image):
 //
@@ -18,161 +22,348 @@
 //       j + dj + bb - 1], G[p] = g[b, 2i + di, 2j + dj] (the phase-kernel
 //       gradient dk22; the wrapper maps it back to dw).
 //   same (kWgSame): 9 taps (r, s) of the stride-1 "same" conv; p = (b, i,
-//       j) over the (H, W) grid; X_t[p] = x[b, i + r - 1, j + s - 1] (zero
-//       outside the image), G[p] = g[b, i, j].  C and O need not be equal:
-//       the (C, O) tiles are masked at both edges.
+//       j) over the (H, W) grid; X_t[p] = x[b, i + r - 1, j + s - 1],
+//       G[p] = g[b, i, j].
 //
-// A GEMM with M = C, N = O and a long K (up to 1,048,576 pixels at bs=16:
-// the resblock conv at 256x256).
-// Blocks take a 128 x 128 (C, O) tile of one tap and one fixed chunk of the
-// pixels ("split"), accumulate on bf16 tensor cores (nvcuda::wmma, float32
-// accumulators) and write their float32 partial to (splits, taps, C, O); a
-// second kernel sums the splits of each element in ascending order.  No
-// float atomics: the result repeats bit for bit.  Each K step loads 32
-// pixels x 128 channels of X_t and of G into shared memory, with the next
-// step's loads issued into registers before the current step's MMAs, as
-// the forward body does (conv_igemm.cuh).
+// What bounds it on an H100: a GEMM with M = C, N = O and K = pixels (16,384
+// to 1,048,576 at bs=16), 2 * taps * C * O FLOP per pixel: 7.7e10 to
+// 6.2e11 FLOP per launch at the main path's shapes against 34 to 806 MB of
+// x and g, so the tensor cores bound every shape (the old wmma body ran at
+// 75-88 TFLOP/s, 8% of the 989 bf16 peak).
+//
+// The design, against what held the wmma body back:
+// - wgmma.  A block owns a 128 (C) x BN (O) tile of one tap; two consumer
+//   warpgroups each accumulate 64 x BN in registers with wgmma.m64nBNk16
+//   (bf16 in, float32 accumulators).  Both operands sit in shared memory
+//   pixel-major with channels contiguous, so A = X_t^T is M-major and
+//   B = G is N-major: both descriptors take the transpose bit.
+// - TMA into a ring.  One producer thread keeps a ring of stages (64
+//   pixels x 128 channels of X_t and x BN of G) in flight with
+//   cp.async.bulk.tensor and mbarriers; the consumers release a stage once
+//   the wgmma group that read it has retired.  The copies write the
+//   128-byte swizzle that the descriptors read (each 64-channel slice is
+//   one 128-byte row per pixel, 1024-byte aligned).
+// - No address math per element.  A K step is one spatial tile of one
+//   sample (tile_w x 64/tile_w pixels); the tensor maps are 4-D (channel,
+//   column, row, sample), so a tile never crosses a sample, and TMA's zero
+//   fill out of bounds is the "same" conv's border, the downsample's (0,1)
+//   pad and the ragged edge of the tiles.  The stride-2 reads (x for
+//   kWgDown, g for kWgUp) are the maps' element strides.
+// - Occupancy by design, 288 threads (8 consumer warps, 1 producer warp):
+//   BN = 128 takes 90 registers and 3 x 32 KB of ring, so two blocks share
+//   an SM and one's prologue and epilogue hide behind the other's MMAs;
+//   BN = 256 (O a multiple of 256) takes 154 registers and 4 x 48 KB, one
+//   block an SM, and reads a quarter fewer operand bytes per FLOP: faster
+//   at every main-path shape that takes it (PERF.md).
+// - Taps: one tap per block; the nine (or sixteen) tap blocks of one split
+//   are adjacent in the grid, so they read the same x and g rows through L2
+//   at about the same time.
+//
+// Fixed order, no float atomics: each block writes its float32 partial to
+// (splits, taps, C, O), the split a fixed run of spatial tiles; a second
+// kernel sums the splits of each element in ascending order, so two runs
+// give the same bits.  The launch planner (ops/downsample_conv.py
+// wgrad_plan) picks the split count from the shape alone.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 
 #include "conv_igemm.cuh"
 
 namespace gvq {
 namespace {
 
-constexpr int kWgLD = kConvBN + 8;  // smem pitch (bf16) of both K-major tiles
-constexpr size_t kWgSmemAB = 2 * (size_t)kConvBK * kWgLD * sizeof(bf16);
-constexpr size_t kWgSmem = kWgSmemAB > kConvSmemC ? kWgSmemAB : kConvSmemC;
-
 enum WgradMode { kWgDown = 0, kWgUp = 1, kWgSame = 2 };
 
 __host__ __device__ constexpr int wgrad_taps(int mode) { return mode == kWgUp ? 16 : 9; }
 
+constexpr int kWgBM = 128;                    // input channels of a block's tile
+constexpr int kWgBK = 64;                     // pixels per stage: one spatial tile
+constexpr int kWgHalf = kWgBK * 64 * 2;       // one TMA box: 64 pixels x 64 channels, 8 KB
+constexpr int kWgThreads = 288;               // two consumer warpgroups + one producer warp
+
+// A block's output-channel tile BN: 256 where O is a multiple of 256 (one
+// block an SM, four 48 KB stages), else 128 (two blocks an SM, three 32 KB
+// stages); ops/downsample_conv.py wgrad_tile_o is the same rule.
+__host__ __device__ constexpr int wgrad_stages(int bn) { return bn == 256 ? 4 : 3; }
+__host__ __device__ constexpr int wgrad_stage_bytes(int bn) { return (2 + bn / 64) * kWgHalf; }
+__host__ __device__ constexpr size_t wgrad_smem(int bn) {  // + barriers + alignment slack
+  return (size_t)wgrad_stages(bn) * wgrad_stage_bytes(bn) + 2 * wgrad_stages(bn) * 8 + 1024;
+}
+inline int wgrad_tile_o(int o) { return o % 256 == 0 ? 256 : 128; }
+
 struct WgradArgs {
-  const bf16* x;   // forward input (B, H, W, C)
-  const bf16* g;   // cotangent (B, Hg, Wg, O)
-  float* partial;  // (splits, taps, C, O)
-  int B, H, W, C, O;
-  int Hg, Wg;
-  int Mh, Mw;      // pixel grid of one sample the reduction runs over
-  int chunk;       // pixels per split, a multiple of kConvBK
+  float* partial;        // (splits, taps, C, O)
+  int C, O;
+  int tile_h, tile_w;    // a K step: tile_h x tile_w pixels of one sample's grid
+  int tiles_w;           // tiles across the grid's width
+  int tiles_per_sample;
+  int steps;             // K steps over the batch
+  int chunk;             // K steps per split
 };
 
-template <int MODE>
-__global__ void __launch_bounds__(kConvThreads)
-conv_wgrad_kernel(WgradArgs g) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);   // BK pixels x 128 input channels
-  bf16* Bs = As + kConvBK * kWgLD;            // BK pixels x 128 output channels
-  float* Cs = reinterpret_cast<float*>(smem); // 128 x LDC, reused after the K loop
+// The spatial tile of a K step on an (mh, mw) pixel grid: tile_w in {64,
+// 32, 16, 8} and tile_h = 64 / tile_w, the widest that covers the grid with
+// the fewest pixels (ops/downsample_conv.py wgrad_tile is the same rule).
+inline void wgrad_tile(int mh, int mw, int* tile_h, int* tile_w) {
+  long long best = -1;
+  for (int tw = 64; tw >= 8; tw /= 2) {
+    const int th = kWgBK / tw;
+    const long long cover =
+        (long long)((mh + th - 1) / th) * th * (long long)((mw + tw - 1) / tw) * tw;
+    if (best < 0 || cover < best) {
+      best = cover;
+      *tile_h = th;
+      *tile_w = tw;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t wg_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WG_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra WG_DONE;\n"
+      "bra WG_WAIT;\n"
+      "WG_DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-D tensor map (coordinates innermost first, signed: out of
+// bounds reads as zero) into shared memory, completing on an mbarrier
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled, MN-major operand:
+// LBO = the byte stride between 64-element blocks along M (or N), SBO = the
+// byte stride between 8-row groups along K
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+template <int R>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, float32) += A (64 x 16) . B (16 x N), both bf16 and MN-major
+// in shared memory (transpose bits set)
+template <int N>
+__device__ __forceinline__ void wgmma_tt(float (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_tt<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tt<256>(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int MODE, int BN>
+__global__ void __launch_bounds__(kWgThreads, BN == 256 ? 1 : 2)
+conv_wgrad_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                  const __grid_constant__ CUtensorMap tmap_g, WgradArgs a) {
+  constexpr int STAGES = wgrad_stages(BN);
+  constexpr int STAGE = wgrad_stage_bytes(BN);
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t ring = (wg_smem_addr(wg_smem) + 1023u) & ~1023u;  // the swizzle's 1024-byte atom
+  const uint32_t full_bar = ring + STAGES * STAGE;                 // 8 bytes per stage
+  const uint32_t empty_bar = full_bar + STAGES * 8;
 
   constexpr int TAPS = wgrad_taps(MODE);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int warp_m = warp >> 1;  // 0..3: 32 input channels
-  const int warp_n = warp & 1;   // 0..1: 64 output channels
-  const int n_ct = (g.C + kConvBM - 1) / kConvBM;
-  const int c0 = (blockIdx.x % n_ct) * kConvBM;
-  const int o0 = (blockIdx.x / n_ct) * kConvBN;
+  const int n_ct = (a.C + kWgBM - 1) / kWgBM;
+  const int c0 = (blockIdx.x % n_ct) * kWgBM;
+  const int o0 = (blockIdx.x / n_ct) * BN;
   const int t = blockIdx.y;
   const int split = blockIdx.z;
+  const int q0 = split * a.chunk;
+  const int nsteps = max(0, min(a.chunk, a.steps - q0));
 
-  // tap geometry: x at (xm * i + xr, xm * j + xc), g at (gm * i + gr, gm * j + gc)
-  int xm, xr, xc, gm, gr, gc;
-  if (MODE == kWgUp) {
-    const int di = t >> 3, dj = (t >> 2) & 1;
-    xm = 1, xr = di + ((t >> 1) & 1) - 1, xc = dj + (t & 1) - 1;
-    gm = 2, gr = di, gc = dj;
-  } else if (MODE == kWgSame) {
-    xm = 1, xr = t / 3 - 1, xc = t % 3 - 1;
-    gm = 1, gr = 0, gc = 0;
-  } else {
-    xm = 2, xr = t / 3, xc = t % 3;
-    gm = 1, gr = 0, gc = 0;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);   // the producer's arrive; the copies' bytes
+      mbar_init(empty_bar + 8 * s, 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const long long per_sample = (long long)g.Mh * g.Mw;
-  const long long p_total = per_sample * g.B;
-  const long long p0 = (long long)split * g.chunk;
-  const long long p1 = p0 + g.chunk < p_total ? p0 + g.chunk : p_total;
-  const int ksteps = p1 > p0 ? (int)((p1 - p0 + kConvBK - 1) / kConvBK) : 0;
-
-  // each thread loads 2 chunks of 8 channels of X_t and of G per K step:
-  // pixel row id >> 4 (0..31), channels (id & 15) * 8
-  uint4 ra[2], rb[2];
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-  auto load_tile = [&](int ks) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int id = tid + i * kConvThreads;
-      const int col = (id & 15) * 8;
-      const long long p = p0 + (long long)ks * kConvBK + (id >> 4);
-      ra[i] = zero4;
-      rb[i] = zero4;
-      if (p < p1) {
-        const int b = (int)(p / per_sample);
-        const int rem = (int)(p % per_sample);
-        const int i0 = rem / g.Mw, j0 = rem % g.Mw;
-        const int r = xm * i0 + xr, s = xm * j0 + xc;
-        if (c0 + col < g.C && r >= 0 && r < g.H && s >= 0 && s < g.W)
-          ra[i] = *reinterpret_cast<const uint4*>(
-              g.x + (((size_t)b * g.H + r) * g.W + s) * g.C + c0 + col);
-        if (o0 + col < g.O)
-          rb[i] = *reinterpret_cast<const uint4*>(
-              g.g + (((size_t)b * g.Hg + gm * i0 + gr) * g.Wg + gm * j0 + gc) * g.O + o0 + col);
-      }
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  if (ksteps > 0) load_tile(0);
-  for (int ks = 0; ks < ksteps; ++ks) {
-    __syncthreads();  // the previous step's MMAs are done with As / Bs
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int id = tid + i * kConvThreads;
-      *reinterpret_cast<uint4*>(As + (id >> 4) * kWgLD + (id & 15) * 8) = ra[i];
-      *reinterpret_cast<uint4*>(Bs + (id >> 4) * kWgLD + (id & 15) * 8) = rb[i];
-    }
-    __syncthreads();
-    if (ks + 1 < ksteps) load_tile(ks + 1);
-#pragma unroll
-    for (int kk = 0; kk < kConvBK; kk += 16) {
-      // A = X_t^T: element (c, p) sits at As[p * LD + c], a column-major tile
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + kk * kWgLD + warp_m * 32 + i * 16, kWgLD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * kWgLD + warp_n * 64 + j * 16, kWgLD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  __syncthreads();  // Cs aliases As / Bs
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Cs + (warp_m * 32 + i * 16) * kConvLDC + warp_n * 64 + j * 16,
-                              acc[i][j], kConvLDC, wmma::mem_row_major);
   __syncthreads();
 
-  float* dst = g.partial + ((size_t)split * TAPS + t) * g.C * g.O;
-  for (int id = tid; id < kConvBM * (kConvBN / 4); id += kConvThreads) {
-    const int m = id / (kConvBN / 4);
-    const int n = (id % (kConvBN / 4)) * 4;
-    if (c0 + m < g.C && o0 + n < g.O)
-      *reinterpret_cast<float4*>(dst + (size_t)(c0 + m) * g.O + o0 + n) =
-          *reinterpret_cast<const float4*>(Cs + m * kConvLDC + n);
+  if (warp == 8) {  // producer: one thread issues every copy
+    if ((tid & 31) != 0) return;
+    // tap geometry: x at (xm * i + xr, xm * j + xc), g at (gm * i + gr,
+    // gm * j + gc), in elements of the maps (the stride-2 maps step by 2)
+    int xm, xr, xc, gm, gr, gc;
+    if (MODE == kWgUp) {
+      const int di = t >> 3, dj = (t >> 2) & 1;
+      xm = 1, xr = di + ((t >> 1) & 1) - 1, xc = dj + (t & 1) - 1;
+      gm = 2, gr = di, gc = dj;
+    } else if (MODE == kWgSame) {
+      xm = 1, xr = t / 3 - 1, xc = t % 3 - 1;
+      gm = 1, gr = 0, gc = 0;
+    } else {
+      xm = 2, xr = t / 3, xc = t % 3;
+      gm = 1, gr = 0, gc = 0;
+    }
+    for (int ks = 0; ks < nsteps; ++ks) {
+      const int s = ks % STAGES;
+      mbar_wait(empty_bar + 8 * s, ((ks / STAGES) & 1) ^ 1);  // a fresh stage passes
+      mbar_arrive_expect_tx(full_bar + 8 * s, STAGE);
+      const int q = q0 + ks;
+      const int b = q / a.tiles_per_sample;
+      const int rem = q - b * a.tiles_per_sample;
+      const int i0 = (rem / a.tiles_w) * a.tile_h;
+      const int j0 = (rem % a.tiles_w) * a.tile_w;
+      const uint32_t dst = ring + s * STAGE;
+      const uint32_t bar = full_bar + 8 * s;
+      const int xi = xm * i0 + xr, xj = xm * j0 + xc;
+      const int gi = gm * i0 + gr, gj = gm * j0 + gc;
+      tma_load_4d(dst, &tmap_x, bar, c0, xj, xi, b);
+      tma_load_4d(dst + kWgHalf, &tmap_x, bar, c0 + 64, xj, xi, b);
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h)
+        tma_load_4d(dst + (2 + h) * kWgHalf, &tmap_g, bar, o0 + 64 * h, gj, gi, b);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns input channels c0 + 64 wg .. + 63
+  const int wg = warp >> 2;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int ks = 0; ks < nsteps; ++ks) {
+    const int s = ks % STAGES;
+    mbar_wait(full_bar + 8 * s, (ks / STAGES) & 1);
+    const uint32_t st = ring + s * STAGE;
+    wg_fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      // 16 pixels = 16 rows of 128 bytes; A: one 64-channel half, B: every one
+      const uint64_t da = wg_desc(st + wg * kWgHalf + kk * 2048, kWgHalf, 1024);
+      const uint64_t db = wg_desc(st + 2 * kWgHalf + kk * 2048, kWgHalf, 1024);
+      wgmma_tt<BN>(acc, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the previous step's group
+    wg_fence_acc(acc);
+    if (ks > 0 && (tid & 127) == 0) mbar_arrive(empty_bar + 8 * ((ks - 1) % STAGES));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wg_fence_acc(acc);
+
+  // accumulator fragment: warp w of the warpgroup holds rows 16 w .. +15;
+  // acc[4 j + e]: row (lane / 4) + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2
+  const int lane = tid & 31;
+  const int row = c0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  float* dst = a.partial + ((size_t)split * TAPS + t) * a.C * a.O;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = o0 + 8 * j + 2 * (lane & 3);
+    if (col < a.O) {
+      if (row < a.C)
+        *reinterpret_cast<float2*>(dst + (size_t)row * a.O + col) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (row + 8 < a.C)
+        *reinterpret_cast<float2*>(dst + (size_t)(row + 8) * a.O + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
@@ -186,24 +377,97 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partial, float* __
   out[idx] = acc;
 }
 
-// partial: (splits, taps, C, O) float32 scratch; out: (taps, C, O) float32
-template <int MODE>
-inline int launch_wgrad(const WgradArgs& g, int splits, float* out, cudaStream_t stream) {
-  constexpr int TAPS = wgrad_taps(MODE);
-  if (g.C % 8 != 0 || g.O % 8 != 0 || g.C <= 0 || g.O <= 0 || splits <= 0 ||
-      g.chunk <= 0 || g.chunk % kConvBK != 0 ||
-      (long long)splits * g.chunk < (long long)g.B * g.Mh * g.Mw)
-    return (int)cudaErrorInvalidValue;
-  const int n_tiles = ((g.C + kConvBM - 1) / kConvBM) * ((g.O + kConvBN - 1) / kConvBN);
-  cudaError_t err = cudaFuncSetAttribute(conv_wgrad_kernel<MODE>,
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*,
+                                         const cuuint32_t*, const cuuint32_t*,
+                                         CUtensorMapInterleave, CUtensorMapSwizzle,
+                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup (no -lcuda)
+inline TensorMapEncodeTiled tensor_map_encoder() {
+  static const TensorMapEncodeTiled fn = []() -> TensorMapEncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D bf16 map over an NHWC tensor (dims: channels, columns, rows,
+// samples) whose box is 64 channels x the spatial tile, reading every
+// `step`-th row and column, written with the 128-byte swizzle
+inline bool encode_nhwc_map(CUtensorMap* map, const bf16* base, int n, int h, int w, int c,
+                            int tile_h, int tile_w, int step) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
+                                 (cuuint64_t)h * w * c * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)(tile_w * step), (cuuint32_t)(tile_h * step), 1};
+  const cuuint32_t elem[4] = {1, (cuuint32_t)step, (cuuint32_t)step, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MODE, int BN>
+inline cudaError_t launch_wgrad_body(const CUtensorMap& tmap_x, const CUtensorMap& tmap_g,
+                                     const WgradArgs& a, int splits, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv_wgrad_kernel<MODE, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kWgSmem);
+                                         (int)wgrad_smem(BN));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv_wgrad_kernel<MODE, BN>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = ((a.C + kWgBM - 1) / kWgBM) * ((a.O + BN - 1) / BN);
+  conv_wgrad_kernel<MODE, BN><<<dim3(n_tiles, wgrad_taps(MODE), splits), kWgThreads,
+                                wgrad_smem(BN), stream>>>(tmap_x, tmap_g, a);
+  return cudaGetLastError();
+}
+
+// x (B, H, W, C) and g (B, Hg, Wg, O) bf16; the reduction runs over B x
+// (Mh, Mw) pixels in `splits` runs of `chunk` spatial tiles; partial
+// (splits, taps, C, O) float32 scratch; out (taps, C, O) float32
+template <int MODE>
+inline int launch_wgrad(const bf16* x, const bf16* g, float* partial, float* out, int B, int H,
+                        int W, int C, int O, int Hg, int Wg, int Mh, int Mw, int splits,
+                        int chunk, cudaStream_t stream) {
+  constexpr int TAPS = wgrad_taps(MODE);
+  WgradArgs a{};
+  a.partial = partial;
+  a.C = C;
+  a.O = O;
+  wgrad_tile(Mh, Mw, &a.tile_h, &a.tile_w);
+  a.tiles_w = (Mw + a.tile_w - 1) / a.tile_w;
+  a.tiles_per_sample = ((Mh + a.tile_h - 1) / a.tile_h) * a.tiles_w;
+  const long long steps = (long long)B * a.tiles_per_sample;
+  a.chunk = chunk;
+  if (C % 8 != 0 || O % 8 != 0 || C <= 0 || O <= 0 || splits <= 0 || splits > 65535 ||
+      chunk <= 0 || steps > 0x7fffffff || (long long)splits * chunk < steps ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  a.steps = (int)steps;
+  CUtensorMap tmap_x, tmap_g;
+  if (!encode_nhwc_map(&tmap_x, x, B, H, W, C, a.tile_h, a.tile_w, MODE == kWgDown ? 2 : 1) ||
+      !encode_nhwc_map(&tmap_g, g, B, Hg, Wg, O, a.tile_h, a.tile_w, MODE == kWgUp ? 2 : 1))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = wgrad_tile_o(O) == 256
+                        ? launch_wgrad_body<MODE, 256>(tmap_x, tmap_g, a, splits, stream)
+                        : launch_wgrad_body<MODE, 128>(tmap_x, tmap_g, a, splits, stream);
   if (err != cudaSuccess) return (int)err;
-  conv_wgrad_kernel<MODE><<<dim3(n_tiles, TAPS, splits), kConvThreads, kWgSmem, stream>>>(g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)TAPS * g.C * g.O;
-  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(g.partial, out, splits, n);
+  const size_t n = (size_t)TAPS * C * O;
+  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, splits, n);
   return (int)cudaGetLastError();
 }
 

@@ -16,9 +16,11 @@
 // accumulators, no zero-stuffed or padded copy of g.
 //
 // wgrad: dw (9, C, O) float32, the strided input views x[2i+r, 2j+s]
-// against g over all B * H/2 * W/2 pixels (conv_wgrad.cuh): per-block
-// float32 partials over fixed pixel chunks and an ordered second pass, no
-// atomics, so two runs give the same bits.
+// against g over all B * H/2 * W/2 pixels (conv_wgrad.cuh, mode kWgDown:
+// wgmma fed by TMA copies whose tensor map on x steps by 2 in rows and
+// columns; the (0,1) pad is the copies' zero fill): float32 partials over
+// fixed runs of spatial tiles and an ordered second pass, no atomics, so
+// two runs give the same bits.
 //
 // What bounds them on an H100: each is 7.7e10 FLOP per launch at the three
 // encoder shapes (bs=16), against 67 to 337 MB of traffic (dgrad: g in, dx
@@ -51,25 +53,14 @@ extern "C" int gvq_downsample_dgrad(const void* g, const void* wt, void* dx, int
 // x (B, H, W, C) bf16 (the forward's input, x + add summed and rounded
 // where the forward had one); g (B, H/2, W/2, O) bf16; partial (splits, 9,
 // C, O) float32 scratch; dw (9, C, O) float32.  H, W even; C and O
-// multiples of 8; splits * chunk must cover B * H/2 * W/2 pixels.
+// multiples of 8; x and g 16-byte aligned; splits * chunk must cover the
+// spatial tiles of B * H/2 * W/2 pixels (conv_wgrad.cuh wgrad_tile).
 extern "C" int gvq_downsample_wgrad(const void* x, const void* g, void* partial, void* dw, int B,
                                     int H, int W, int C, int O, int splits, int chunk,
                                     void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || H % 2 != 0 || W % 2 != 0) return (int)cudaErrorInvalidValue;
-  gvq::WgradArgs a{};
-  a.x = static_cast<const gvq::bf16*>(x);
-  a.g = static_cast<const gvq::bf16*>(g);
-  a.partial = static_cast<float*>(partial);
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.O = O;
-  a.Hg = H / 2;
-  a.Wg = W / 2;
-  a.Mh = H / 2;
-  a.Mw = W / 2;
-  a.chunk = chunk;
-  return gvq::launch_wgrad<gvq::kWgDown>(a, splits, static_cast<float*>(dw),
-                                  static_cast<cudaStream_t>(stream));
+  return gvq::launch_wgrad<gvq::kWgDown>(
+      static_cast<const gvq::bf16*>(x), static_cast<const gvq::bf16*>(g),
+      static_cast<float*>(partial), static_cast<float*>(dw), B, H, W, C, O, H / 2, W / 2, H / 2,
+      W / 2, splits, chunk, static_cast<cudaStream_t>(stream));
 }

@@ -21,8 +21,9 @@
 //
 // wgrad: dk22 (16, C, O) float32 = the x tiles of the forward against the
 // cotangent phases over all B * H * W low-resolution pixels
-// (conv_wgrad.cuh): fixed-order float32 partials and a second pass, no
-// atomics, bit-reproducible.
+// (conv_wgrad.cuh, mode kWgUp: wgmma fed by TMA copies whose tensor map on
+// g steps by 2 in rows and columns, one phase per tap): fixed-order
+// float32 partials and a second pass, no atomics, bit-reproducible.
 //
 // What bounds them on an H100: 1.4e11, 5.5e11 and 5.5e11 FLOP per launch
 // at the decoder shapes (bs=16) against at most ~0.7 GB of traffic: the
@@ -54,25 +55,14 @@ extern "C" int gvq_upsample_dgrad(const void* g, const void* k22t, void* dx, int
 // x (B, H, W, C) bf16 (x + add summed and rounded where the forward had
 // one); g (B, 2H, 2W, O) bf16; partial (splits, 16, C, O) float32 scratch;
 // dk22 (16, C, O) float32 in (di, dj, a, b) order.  C and O multiples of 8;
-// splits * chunk must cover B * H * W pixels.
+// x and g 16-byte aligned; splits * chunk must cover the spatial tiles of
+// B * H * W pixels (conv_wgrad.cuh wgrad_tile).
 extern "C" int gvq_upsample_wgrad(const void* x, const void* g, void* partial, void* dk22, int B,
                                   int H, int W, int C, int O, int splits, int chunk,
                                   void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  gvq::WgradArgs a{};
-  a.x = static_cast<const gvq::bf16*>(x);
-  a.g = static_cast<const gvq::bf16*>(g);
-  a.partial = static_cast<float*>(partial);
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.O = O;
-  a.Hg = 2 * H;
-  a.Wg = 2 * W;
-  a.Mh = H;
-  a.Mw = W;
-  a.chunk = chunk;
-  return gvq::launch_wgrad<gvq::kWgUp>(a, splits, static_cast<float*>(dk22),
-                                 static_cast<cudaStream_t>(stream));
+  return gvq::launch_wgrad<gvq::kWgUp>(
+      static_cast<const gvq::bf16*>(x), static_cast<const gvq::bf16*>(g),
+      static_cast<float*>(partial), static_cast<float*>(dk22), B, H, W, C, O, 2 * H, 2 * W, H, W,
+      splits, chunk, static_cast<cudaStream_t>(stream));
 }

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
-from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import check_bf16_cuda, wgrad_splits
+from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import check_bf16_cuda, wgrad_plan
 
 
 def _nchw(t):
@@ -52,13 +52,14 @@ def conv3x3_wgrad_cuda(x, g):
     if tuple(g.shape) != (b, h, wd, o) or c % 8 or o % 8:
         raise ValueError(f"conv3x3 wgrad kernel: g {tuple(g.shape)} for x {tuple(x.shape)} "
                          "(C % 8 == 0, O % 8 == 0)")
-    splits, chunk = wgrad_splits(b * h * wd, 9, c, o)
-    partial = torch.empty((splits, 9, c, o), dtype=torch.float32, device=x.device)
+    plan = wgrad_plan(9, b, h, wd, c, o)
+    partial = torch.empty((plan.splits, 9, c, o), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.gvq_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                                    b, h, wd, c, o, splits, chunk, _build.stream_of(x))
+                                    b, h, wd, c, o, plan.splits, plan.chunk,
+                                    _build.stream_of(x))
     _build.check(err, "gvq_conv3x3_wgrad")
     conv3x3_wgrad_cuda.launches += 1
     return dw

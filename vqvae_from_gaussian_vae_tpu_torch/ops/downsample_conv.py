@@ -31,7 +31,9 @@ kernels are held to on the card.  When a gradient is wanted,
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -72,15 +74,80 @@ def conv_adjoint(conv, x, w, g):
     return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
 
 
-def wgrad_splits(pixels: int, taps: int, c: int, o: int, chunk_align: int = 32):
-    """(splits, chunk) of a weight-gradient launch: the pixels are cut into
-    fixed chunks (a multiple of 32) so that about four waves of blocks fill
-    the card's 132 SMs; a function of the shape only, so a result repeats."""
-    tiles = taps * -(-c // 128) * -(-o // 128)
-    want = max(1, min(-(-4 * 132 // tiles), -(-pixels // 512)))
-    chunk = -(-pixels // want)
-    chunk = -(-chunk // chunk_align) * chunk_align
-    return -(-pixels // chunk), chunk
+# the weight-gradient body's launch (csrc/conv_wgrad.cuh): a block takes a
+# 128 x tile_o (C, O) tile of one tap and a run of K steps, each one spatial
+# tile of 64 pixels
+WGRAD_TILE_C = 128
+WGRAD_STEP_PIXELS = 64
+SMS = 132
+
+
+class WgradPlan(NamedTuple):
+    splits: int         # fixed runs of K steps, summed in ascending order
+    chunk: int          # K steps per split (the last may have fewer)
+    tile_h: int         # a K step: tile_h x tile_w pixels of one sample's grid
+    tile_w: int
+    steps: int          # K steps over the batch
+    tile_o: int         # output channels of a block's tile
+    smem: int           # dynamic shared memory of a block, bytes
+    blocks_per_sm: int  # blocks the plan's shared memory lets an SM hold
+
+
+def wgrad_tile_o(o: int) -> int:
+    """A block's output-channel tile: 256 where O is a multiple of 256 (one
+    block an SM, four 48 KB stages), else 128 (two blocks an SM, three 32 KB
+    stages); ``conv_wgrad.cuh`` ``wgrad_tile_o`` is the same rule."""
+    return 256 if o % 256 == 0 else 128
+
+
+def wgrad_smem(tile_o: int) -> int:
+    """Bytes of dynamic shared memory a block asks for (``wgrad_smem``):
+    the ring, its full and empty barriers, and 1 KB of alignment slack."""
+    stages = 4 if tile_o == 256 else 3
+    return stages * (2 + tile_o // 64) * WGRAD_STEP_PIXELS * 64 * 2 + 2 * stages * 8 + 1024
+
+
+def wgrad_tile(mh: int, mw: int):
+    """(tile_h, tile_w) of a K step on an (mh, mw) pixel grid: tile_w in
+    (64, 32, 16, 8), tile_h = 64 / tile_w, the widest that covers the grid
+    with the fewest pixels (``conv_wgrad.cuh`` ``wgrad_tile`` is the same
+    rule; the copies zero-fill the overhang)."""
+    best = None
+    for tw in (64, 32, 16, 8):
+        th = WGRAD_STEP_PIXELS // tw
+        cover = -(-mh // th) * th * -(-mw // tw) * tw
+        if best is None or cover < best[0]:
+            best = (cover, th, tw)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(taps: int, b: int, mh: int, mw: int, c: int, o: int) -> WgradPlan:
+    """The launch of a weight gradient over b samples of an (mh, mw) pixel
+    grid: the spatial tile, the output-channel tile, and the split count
+    that fills the card's block slots best, by an estimate in K-step times
+    (a step of a 128-wide tile with two blocks on its SM, or of a 256-wide
+    one alone, takes about the same): the waves of blocks times (steps per
+    split + 3 for a block's prologue and epilogue), plus the float32
+    partials' round trip through memory at about 0.15 of a step per split
+    and 128 x 128 of the tile (fitted to a sweep of split counts on an H100
+    at the main path's shapes).  A function of the shape only (cached), so
+    a result repeats bit for bit."""
+    th, tw = wgrad_tile(mh, mw)
+    steps = b * -(-mh // th) * -(-mw // tw)
+    tile_o = wgrad_tile_o(o)
+    smem = wgrad_smem(tile_o)
+    per_sm = 1 if tile_o == 256 else 2
+    tiles = taps * -(-c // WGRAD_TILE_C) * -(-o // tile_o)
+    best = None
+    for want in range(1, min(steps, 256) + 1):
+        chunk = -(-steps // want)
+        splits = -(-steps // chunk)  # no empty split
+        cost = (-(-tiles * splits // (per_sm * SMS)) * (chunk + 3)
+                + 0.15 * tile_o / 128 * splits * tiles)
+        if best is None or cost < best[0]:
+            best = (cost, splits, chunk)
+    return WgradPlan(best[1], best[2], th, tw, steps, tile_o, smem, per_sm)
 
 
 def downsample_conv3x3_gn_plain(x, w, bias, add=None):
@@ -215,14 +282,14 @@ def downsample_wgrad_cuda(x, g):
     if tuple(g.shape) != (b, h // 2, wd // 2, o) or h % 2 or wd % 2 or c % 8 or o % 8:
         raise ValueError(f"downsample wgrad kernel: g {tuple(g.shape)} for x {tuple(x.shape)} "
                          "(H, W even; C % 8 == 0, O % 8 == 0)")
-    splits, chunk = wgrad_splits(b * (h // 2) * (wd // 2), 9, c, o)
-    partial = torch.empty((splits, 9, c, o), dtype=torch.float32, device=x.device)
+    plan = wgrad_plan(9, b, h // 2, wd // 2, c, o)
+    partial = torch.empty((plan.splits, 9, c, o), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.gvq_downsample_wgrad(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                                       dw.data_ptr(), b, h, wd, c, o, splits, chunk,
-                                       _build.stream_of(x))
+                                       dw.data_ptr(), b, h, wd, c, o, plan.splits,
+                                       plan.chunk, _build.stream_of(x))
     _build.check(err, "gvq_downsample_wgrad")
     downsample_wgrad_cuda.launches += 1
     return dw

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import (
-    channel_stats, check_bf16_cuda, conv_adjoint, resample_bwd_operands, wgrad_splits)
+    channel_stats, check_bf16_cuda, conv_adjoint, resample_bwd_operands, wgrad_plan)
 
 _GROUPS = {0: ((0,), (1, 2)), 1: ((0, 1), (2,))}  # phase d -> tap rows of group a
 
@@ -230,14 +230,14 @@ def upsample_wgrad_cuda(x, g):
     if tuple(g.shape) != (b, 2 * h, 2 * wd, o) or c % 8 or o % 8:
         raise ValueError(f"upsample wgrad kernel: g {tuple(g.shape)} for x {tuple(x.shape)} "
                          "(C % 8 == 0, O % 8 == 0)")
-    splits, chunk = wgrad_splits(b * h * wd, 16, c, o)
-    partial = torch.empty((splits, 16, c, o), dtype=torch.float32, device=x.device)
+    plan = wgrad_plan(16, b, h, wd, c, o)
+    partial = torch.empty((plan.splits, 16, c, o), dtype=torch.float32, device=x.device)
     dk22 = torch.empty((2, 2, 2, 2, c, o), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.gvq_upsample_wgrad(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                                     dk22.data_ptr(), b, h, wd, c, o, splits, chunk,
-                                     _build.stream_of(x))
+                                     dk22.data_ptr(), b, h, wd, c, o, plan.splits,
+                                     plan.chunk, _build.stream_of(x))
     _build.check(err, "gvq_upsample_wgrad")
     upsample_wgrad_cuda.launches += 1
     return dk22
