@@ -186,6 +186,33 @@ def wgrad_kernel_facts(source: str, o: int) -> dict:
             "design": "wgmma", "tile_o": tile_o, "sass_hgmma": hgmma}
 
 
+def flash_fwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
+    """The bf16 flash forward kernel the entries launch at head dim d and
+    lengths lq, lk: its design ("wgmma": ``csrc/flash_fwd_sm90.cuh``, D = 64
+    and 128; "wmma": ``csrc/flash_fwd.cuh``), ptxas's registers and spill
+    bytes (stores + loads) from ``nvcc.log``, and the count of HGMMA (wgmma)
+    instructions in its SASS, which must not be 0 for the wgmma body."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_fwd_plan
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        usage = _build.ptxas_usage(f.read())
+    plan = flash_fwd_plan("head_major", 1, 1, lq, lk, d)
+    if plan.body == "wgmma":
+        tag = f"flash_fwd_sm90_kernelILi{d}ELb{int(plan.key_mask)}E"
+    else:
+        tag = f"flash_fwd_kernelILi{d}ELb{int(lq % 32 != 0 or lk % 64 != 0)}ELi32E"
+    names = [n for n in usage if "_flash_fwd_cu_" in n and tag in n]
+    require(len(names) == 1, f"{len(names)} {tag} entries of flash_fwd.cu in nvcc.log")
+    u = usage[names[0]]
+    hgmma = sass_hgmma().get(names[0], 0)
+    require(plan.body == "wmma" or hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+    return {"registers": u["registers"],
+            "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
+            "design": plan.body, "q_rows": plan.q_rows, "k_rows": plan.k_rows,
+            "sass_hgmma": hgmma}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -395,15 +422,16 @@ def check_flash_qkv(gen):
     flops = 4.0 * b * heads * l * l * d
     nbytes = 2 * (qkv.numel() + o_k.numel())
     bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    kernel_ms = time_ms(lambda: fa.flash_attention_qkv_cuda(qkv, scale, heads))
     shape = {"shape": f"qkv ({b},{l},3x{heads}x{d}) bf16",
-             "kernel_ms": time_ms(lambda: fa.flash_attention_qkv_cuda(qkv, scale, heads)),
+             "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
              "plain_ms": time_ms(lambda: fa.flash_attention_qkv_plain(qkv, scale, heads),
                                  iters=3, warmup=1),
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-             "max_abs_err": err}
+             "max_abs_err": err, **flash_fwd_kernel_facts(d, l, l)}
     return {"name": "flash_attention_qkv_fwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90.cuh",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:401",
             "tolerance": f"bf16 atol {FLASH_ATOL}", "per_step": 24, "path": "bsqvit",
             "shapes": [shape]}
@@ -435,16 +463,18 @@ def check_flash_qkv_res(gen):
     flops = 4.0 * b * heads * l * l * d
     nbytes = 2 * (qkv.numel() + o_k.numel()) + 4 * z_k.numel()
     bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    kernel_ms = time_ms(lambda: fa.flash_attention_qkv_res_cuda(qkv, scale, heads))
     shape = {"shape": f"qkv ({b},{l},3x{heads}x{d}) bf16 -> o, z (B,H,L) f32",
-             "kernel_ms": time_ms(lambda: fa.flash_attention_qkv_res_cuda(qkv, scale, heads)),
+             "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
              "inference_form_ms": time_ms(lambda: fa.flash_attention_qkv_cuda(qkv, scale, heads)),
              "plain_ms": time_ms(lambda: fa.flash_attention_qkv_res_plain(qkv, scale, heads),
                                  iters=3, warmup=1),
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-             "max_abs_err": max(err, z_err), "o_max_abs_err": err, "z_max_abs_err": z_err}
+             "max_abs_err": max(err, z_err), "o_max_abs_err": err, "z_max_abs_err": z_err,
+             **flash_fwd_kernel_facts(d, l, l)}
     return {"name": "flash_attention_qkv_res_fwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90.cuh",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:409",
             "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}", "per_step": 24,
             "path": "bsqvit_train_ae", "shapes": [shape]}
@@ -1034,29 +1064,38 @@ def check_flash_lean(gen):
             o = F.scaled_dot_product_attention(*ref, scale=scale)
             return torch.autograd.grad(o, ref, do)
 
+        def library_forward():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
         eq, ek = b * h * lq * d, b * h * lk * d
         flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d
         bytes_f = 2 * (2 * eq + 2 * ek) + 4 * b * h * lq         # q, k, v in; o, z out
         bytes_b = 2 * (3 * eq + 2 * ek) + 4 * b * h * lq + 2 * (eq + 2 * ek)
         bnd, by = bound_ms(flops_f + flops_b, bytes_f + bytes_b, PEAK_BF16)
         long = (b, h, lq, lk, d) == FLASH_LEAN_FLOW
+        kernel_ms = time_ms(call)
+        forward_ms = time_ms(lambda: fl.flash_attention_fwd_cuda(q, k, v, scale,
+                                                                  save_residuals=True))
         shapes.append({
             "shape": f"q ({b},{h},{lq},{d}), k, v ({b},{h},{lk},{d}) bf16: forward with z, "
                      "then dq, dk, dv",
             "main_path": long, "per_step": 1,
-            "kernel_ms": time_ms(call),
-            "forward_ms": time_ms(lambda: fl.flash_attention_fwd_cuda(
-                q, k, v, scale, save_residuals=True)),
+            "kernel_ms": kernel_ms, "tflops": (flops_f + flops_b) / kernel_ms / 1e9,
+            "forward_ms": forward_ms, "forward_tflops": flops_f / forward_ms / 1e9,
+            "forward_bound_ms": bound_ms(flops_f, bytes_f, PEAK_BF16)[0],
             "plain_ms": time_ms(plain, iters=3 if long else 10, warmup=1),
             "library_ms": time_ms(library), "library": "SDPA forward + backward (autograd)",
+            "library_forward_ms": time_ms(library_forward),
             "bound_ms": bnd, "bound_by": by,
             "flops": flops_f + flops_b, "bytes": bytes_f + bytes_b,
             "max_abs_err": err, "o_max_abs_err": o_err, "z_max_abs_err": z_err,
-            "rel_err_dq_dk_dv": rels, "bit_reproducible": True})
+            "rel_err_dq_dk_dv": rels, "bit_reproducible": True,
+            **flash_fwd_kernel_facts(d, lq, lk)})
         del q, k, v, do, leaves, ref
         torch.cuda.empty_cache()
     return {"name": "flash_attention_lean", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu, "
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90.cuh, "
                       "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_attention.py:118",
             "counters": ["flash_attention_lean_fwd", "flash_attention_lean_bwd"],
@@ -1107,6 +1146,10 @@ def check_flash_lean_f32(gen):
         def library():
             o = F.scaled_dot_product_attention(*ref, scale=scale)
             return torch.autograd.grad(o, ref, do)
+
+        def library_forward():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
         eq, ek = b * h * lq * d, b * h * lk * d
         flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d

@@ -205,7 +205,7 @@ def test_layer_norm_kernels_refuse_strided_rows(gen):
         ln.layer_norm_cuda(x, w, b)
 
 
-@pytest.mark.parametrize("l", [64, 1024])
+@pytest.mark.parametrize("l", [64, 192, 1024])
 @pytest.mark.parametrize("h,d", [(12, 64), (4, 128)])
 def test_packed_flash_kernel_matches_plain(gen, l, h, d):
     qkv = torch.randn((2, l, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -309,7 +309,7 @@ def _rel_max(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-@pytest.mark.parametrize("l", [64, 1024])
+@pytest.mark.parametrize("l", [64, 192, 1024])
 @pytest.mark.parametrize("h,d", [(12, 64), (2, 128)])
 def test_packed_flash_training_forward_matches_plain(gen, l, h, d):
     qkv = torch.randn((2, l, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -680,9 +680,11 @@ def test_gn_swish_autograd_runs_the_bwd_kernel(gen):
 
 
 # the head-major op (ops/flash_attention_lean.py): the smoke's four shapes,
-# then a single query row and a single key
+# then a single query row and a single key, then the same and a ragged
+# 200 x 328 on the wgmma forward at D = 64
 HEAD_MAJOR = [(2, 4, 512, 512, 64), (8, 12, 1024, 1024, 64), (1, 12, 8192, 8192, 64),
-              (2, 2, 200, 328, 256), (2, 2, 1, 300, 128), (2, 2, 77, 1, 512)]
+              (2, 2, 200, 328, 256), (2, 2, 1, 300, 128), (2, 2, 77, 1, 512),
+              (2, 2, 1, 300, 64), (2, 2, 77, 1, 64), (2, 2, 200, 328, 64)]
 
 
 def _head_major(gen, b, h, lq, lk, d):
@@ -719,6 +721,63 @@ def test_head_major_kernels_match_plain(gen, b, h, lq, lk, d):
     del want
     again = fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("layout", ["packed", "token_major", "head_major"])
+def test_flash_training_and_inference_forms_give_equal_o(gen, layout, d):
+    """The forward with z and the one without are one kernel: o is
+    bit-equal, on either body (D = 64, 128: wgmma; 256: wmma), ragged
+    lengths included."""
+    h, scale = 2, d ** -0.5
+    if layout == "packed":
+        qkv = torch.randn((2, 192, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        o, _ = fa.flash_attention_qkv_res_cuda(qkv, scale, h)
+        assert torch.equal(o, fa.flash_attention_qkv_cuda(qkv, scale, h))
+    elif layout == "token_major":
+        q, k, v = (torch.randn((2, 192, h * d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        o, _ = fa.flash_attention_res_cuda(q, k, v, scale, h)
+        assert torch.equal(o, fa.flash_attention_cuda(q, k, v, scale, h))
+    else:
+        q, k, v, _ = _head_major(gen, 2, h, 200, 328, d)
+        o, _ = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+        assert torch.equal(o, fl.flash_attention_fwd_cuda(q, k, v, scale))
+
+
+def _misaligned(shape, gen):
+    """A contiguous bf16 CUDA tensor whose data starts 2 bytes past a
+    16-byte boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.randn((n + 1,), generator=gen, device="cuda").to(torch.bfloat16)
+    t = buf[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 2
+    return t
+
+
+def test_flash_forward_kernels_refuse_misaligned_views(gen):
+    """TMA and 16-byte loads need 16-byte aligned bases: a misaligned view
+    raises ValueError in every forward wrapper, before any launch."""
+    counters = (fa.flash_attention_qkv_cuda, fa.flash_attention_qkv_res_cuda,
+                fa.flash_attention_cuda, fa.flash_attention_res_cuda, fl.flash_attention_fwd_cuda)
+    before = [f.launches for f in counters]
+    qkv = _misaligned((1, 128, 3 * 128), gen)
+    for fn in (fa.flash_attention_qkv_cuda, fa.flash_attention_qkv_res_cuda):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(qkv, 0.125, 2)
+    good = torch.zeros((1, 128, 128), dtype=torch.bfloat16, device="cuda")
+    bad = _misaligned((1, 128, 128), gen)
+    for args in ((bad, good, good), (good, good, bad)):
+        for fn in (fa.flash_attention_cuda, fa.flash_attention_res_cuda):
+            with pytest.raises(ValueError, match="aligned"):
+                fn(*args, 0.125, 2)
+    hm_bad = _misaligned((1, 2, 128, 64), gen)
+    hm_good = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        fl.flash_attention_fwd_cuda(hm_good, hm_bad, hm_good, 0.125)
+    assert [f.launches for f in counters] == before
 
 
 def test_head_major_autograd_runs_the_kernels(gen):

@@ -1,7 +1,11 @@
 // The bf16 flash-attention forward body for Hopper (sm_90a), shared by the
-// shipped entries (csrc/flash_fwd.cu) and the forward labs
-// (csrc/flash_lab_fwd.cu).  csrc/flash_fwd.cu's header says what it replaces
-// and what bounds it; this file holds the body and its template knobs.
+// shipped entries (csrc/flash_fwd.cu) at D = 256 and 512 and the forward
+// labs (csrc/flash_lab_fwd.cu).  At D = 64 and 128 the shipped entries
+// (gvq_flash_fwd, gvq_flash_fwd_res, gvq_flash_fwd_qkv,
+// gvq_flash_fwd_qkv_res, gvq_flash_fwd_hm) no longer use it: they run the
+// wgmma body of csrc/flash_fwd_sm90.cuh.  csrc/flash_fwd.cu's header says
+// what it replaces and what bounds it; this file holds the body and its
+// template knobs.
 //
 // Per (b, h) and q tile of BQ rows: an online softmax over 64-row K/V tiles,
 // scores in fp32 from bf16 tensor-core products (nvcuda::wmma), p rounded to

@@ -30,20 +30,22 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry point -> argument types; every entry point returns a cudaError_t
+# C entry point -> argument types; every entry point returns a cudaError_t.
+# The bf16 flash forward entries take their launch plan (an int64 array,
+# ops/flash_attention.py FlashFwdPlan.as_array) just before the stream
 _SIGNATURES = {
     "gvq_gq_argmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_downsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_upsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gvq_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "gvq_flash_fwd_qkv": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "gvq_flash_fwd_qkv": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "gvq_layer_norm_add_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "gvq_flash_fwd_qkv_res": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_qkv_res": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_layer_norm_add_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "gvq_flash_fwd_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_downsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_downsample_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -53,7 +55,7 @@ _SIGNATURES = {
     "gvq_fused_gn_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd_hm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gvq_flash_fwd_hm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gvq_flash_bwd_hm_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

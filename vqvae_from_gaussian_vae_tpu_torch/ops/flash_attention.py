@@ -42,6 +42,9 @@ The values agree within the bf16 attention bar either way.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import os
 
 import torch
@@ -49,6 +52,148 @@ import torch
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256, 512)  # the kernels' head dims, forward and backward
+
+# the wgmma body's tiling (csrc/flash_fwd_sm90.cuh F9Layout): 128-key K and
+# V tiles in a 3-stage ring; a block is one producer warpgroup and
+# FWD_WARPGROUPS[D] consumer warpgroups of 64 q rows each
+FWD_K_ROWS, FWD_STAGES = 128, 3
+FWD_WARPGROUPS = {64: 3, 128: 2}
+WGMMA_HEAD_DIMS = tuple(FWD_WARPGROUPS)  # the forward's wgmma body; other D take the wmma one
+SWIZZLE_COLS = 64  # bf16 columns of one 128-byte swizzle row: a box's inner width
+LAYOUTS = ("head_major", "token_major", "packed")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMapPlan:
+    """One 4-D TMA map: ``offset`` elements from the tensor's base, ``dims``
+    innermost first, ``strides`` the byte strides of dims 1..3, ``box`` the
+    elements one copy reads along each dim."""
+
+    offset: int
+    dims: tuple
+    strides: tuple
+    box: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashFwdPlan:
+    """The launch of a bf16 flash forward, as ``flash_fwd_plan`` makes it
+    and the C entries read it (``as_array``; ``csrc/flash_fwd_sm90.cuh``
+    ``FwdPlan``).
+
+    ``body`` is ``"wgmma"`` (``csrc/flash_fwd_sm90.cuh``) or ``"wmma"``
+    (``csrc/flash_fwd.cuh``); a block owns ``q_rows`` q rows of one (b, h)
+    and walks ``k_rows``-key tiles; ``grid`` is (q tiles, B * H);
+    ``key_mask``: the last key tile is partial, and its keys past Lk score
+    -inf.  For the wgmma body, ``maps`` are q's, k's and v's tensor maps,
+    whose coordinates are (column, row, h, b) where ``row_dim`` is 1
+    (head-major) and (column, h, row, b) where it is 2; ``out_strides``
+    are o's (b, h, row) strides in elements."""
+
+    body: str
+    q_rows: int
+    k_rows: int
+    stages: int
+    grid: tuple
+    threads: int
+    smem: int
+    key_mask: bool
+    row_dim: int
+    maps: tuple
+    out_strides: tuple
+
+    def coords(self, chunk: int, row: int, b: int, h: int) -> tuple:
+        """The box origin the producer asks for: columns 64 * chunk.., rows
+        row.. of (b, h)."""
+        if self.row_dim == 1:
+            return (SWIZZLE_COLS * chunk, row, h, b)
+        return (SWIZZLE_COLS * chunk, h, row, b)
+
+    def as_array(self):
+        """The plan as the C entries take it: 49 int64 in ``FwdPlan``'s order."""
+        vals = [1 if self.body == "wgmma" else 0, self.q_rows, self.k_rows, self.stages,
+                *self.grid, self.threads, self.smem, int(self.key_mask), self.row_dim]
+        maps = self.maps or (TensorMapPlan(0, (0,) * 4, (0,) * 3, (0,) * 4),) * 3
+        for m in maps:
+            vals += [m.offset, *m.dims, *m.strides, *m.box]
+        vals += list(self.out_strides)
+        assert len(vals) == 49
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def wmma_fwd_smem(d: int) -> int:
+    """Shared memory of ``csrc/flash_fwd.cuh``'s shipped instantiation
+    (``FlashLayout<D, 32, kBase, 1>::kBytes``)."""
+    q = 32 * (d + 8) * 2
+    kv = 64 * (d + 8) * 2
+    o = 32 * (d + 4) * 4
+    s = 32 * 68 * 4
+    p = 32 * 72 * 2
+    return q + kv + o + s + p + 3 * 32 * 4
+
+
+def wgmma_fwd_smem(d: int) -> int:
+    """Shared memory of ``csrc/flash_fwd_sm90.cuh`` (``F9Layout<D>::kSmem``):
+    the Q tile, the ring's K and V tiles, the mbarriers and 1024 bytes of
+    alignment slack."""
+    rows = 64 * FWD_WARPGROUPS[d]
+    return (rows + 2 * FWD_STAGES * FWD_K_ROWS) * d * 2 + (1 + 3 * FWD_STAGES) * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def flash_fwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
+                   in_stride: int = 0) -> FlashFwdPlan:
+    """The launch of a bf16 flash forward, a function of the shape alone.
+
+    ``layout``: ``"head_major"`` (q (B, H, Lq, D), k and v (B, H, Lk, D),
+    contiguous), ``"token_major"`` (q, k, v (B, L, H*D), contiguous) or
+    ``"packed"`` (q | k | v read in place from a contiguous (B, L, 3C)
+    projection).  ``in_stride`` is the token stride of the inputs (H*D or
+    3C; the token-major layouts only, where lq == lk == L).  At D = 64 and
+    128 the wgmma body (192 q rows a block at D = 64, 128 at D = 128,
+    against 128-key tiles): 4-D maps, (D, L, H, B) head-major and (D, H,
+    L, B) token-major with the token stride, so that a box never leaves its
+    (b, h) and TMA's zero fill is the ragged edge.  At D = 256 and 512 the wmma
+    body, 32 q rows against 64-key tiles, with no maps."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"flash_fwd_plan: layout {layout!r} not in {LAYOUTS}")
+    if min(b, h, lq, lk) <= 0 or d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_fwd_plan: B={b}, H={h}, Lq={lq}, Lk={lk}, D={d} unsupported")
+    c = h * d
+    if layout == "head_major":
+        out_strides = (h * lq * d, lq * d, d)
+    else:
+        if lq != lk or in_stride < c:
+            raise ValueError(f"flash_fwd_plan: {layout} wants Lq == Lk and a token stride "
+                             f">= H*D, got Lq={lq}, Lk={lk}, in_stride={in_stride}")
+        out_strides = (lq * c, d, c)
+    if d not in WGMMA_HEAD_DIMS:
+        return FlashFwdPlan("wmma", 32, 64, 1, (-(-lq // 32), b * h), 256, wmma_fwd_smem(d),
+                            lk % 64 != 0, 0, (), out_strides)
+    q_rows = 64 * FWD_WARPGROUPS[d]
+    if layout == "head_major":
+        row_dim = 1
+        maps = tuple(TensorMapPlan(0, (d, n, h, b), (2 * d, 2 * n * d, 2 * h * n * d),
+                                   (SWIZZLE_COLS, rows, 1, 1))
+                     for n, rows in ((lq, q_rows), (lk, FWD_K_ROWS), (lk, FWD_K_ROWS)))
+    else:
+        row_dim = 2
+        offsets = (0, c, 2 * c) if layout == "packed" else (0, 0, 0)
+        maps = tuple(TensorMapPlan(off, (d, h, lq, b), (2 * d, 2 * in_stride, 2 * lq * in_stride),
+                                   (SWIZZLE_COLS, 1, rows, 1))
+                     for off, rows in zip(offsets, (q_rows, FWD_K_ROWS, FWD_K_ROWS)))
+    return FlashFwdPlan("wgmma", q_rows, FWD_K_ROWS, FWD_STAGES, (-(-lq // q_rows), b * h),
+                        128 * (FWD_WARPGROUPS[d] + 1), wgmma_fwd_smem(d), lk % FWD_K_ROWS != 0,
+                        row_dim, maps, out_strides)
+
+
+def check_aligned(name: str, *tensors) -> None:
+    """Raise unless every tensor's data starts on 16 bytes: TMA and the
+    16-byte loads of the flash forward bodies read nothing else."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a tensor's data at {t.data_ptr():#x} is not 16-byte "
+                             "aligned")
 
 
 def flash_supported(l: int, num_heads: int, head_dim: int) -> bool:
@@ -145,11 +290,14 @@ def flash_attention_cuda(q, k, v, sm_scale: float, num_heads: int):
     _build.refuse_grad("flash kernel (unpacked)", q, k, v)
     b, l, _, d = _check_unpacked("flash kernel", q, k, v, num_heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_aligned("flash kernel", q, k, v)
     o = torch.empty_like(q)
+    plan = flash_fwd_plan("token_major", b, num_heads, l, l, d, num_heads * d)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.gvq_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                b, l, num_heads, d, float(sm_scale), _build.stream_of(q))
+                                b, l, num_heads, d, float(sm_scale), plan.as_array(),
+                                _build.stream_of(q))
     _build.check(err, "gvq_flash_fwd")
     flash_attention_cuda.launches += 1
     return o
@@ -164,13 +312,15 @@ def flash_attention_res_cuda(q, k, v, sm_scale: float, num_heads: int):
                        q, k, v)
     b, l, _, d = _check_unpacked("flash kernel (training form)", q, k, v, num_heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_aligned("flash kernel (training form)", q, k, v)
     o = torch.empty_like(q)
     z = torch.empty((b, num_heads, l), dtype=torch.float32, device=q.device)
+    plan = flash_fwd_plan("token_major", b, num_heads, l, l, d, num_heads * d)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.gvq_flash_fwd_res(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                     z.data_ptr(), b, l, num_heads, d, float(sm_scale),
-                                    _build.stream_of(q))
+                                    plan.as_array(), _build.stream_of(q))
     _build.check(err, "gvq_flash_fwd_res")
     flash_attention_res_cuda.launches += 1
     return o, z
@@ -192,6 +342,7 @@ def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float, num_heads: int)
             raise ValueError(f"flash backward kernel: {name} must be a contiguous {shape} "
                              f"{dtype} tensor on {q.device}, got {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}")
+    check_aligned("flash backward kernel", q, k, v, o, z, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     di = torch.empty((b, num_heads, l), dtype=torch.float32, device=q.device)
     lib = _build.library()
@@ -262,6 +413,7 @@ def _check_packed(name: str, qkv, num_heads: int):
                          f"(L % 64 == 0, D in {SUPPORTED_HEAD_DIMS})")
     if not qkv.is_contiguous():
         raise ValueError(f"{name} reads q, k, v in place: qkv must be contiguous")
+    check_aligned(name, qkv)
     return b, l, c, d
 
 
@@ -272,10 +424,11 @@ def flash_attention_qkv_cuda(qkv, sm_scale: float, num_heads: int):
     _build.refuse_grad("packed flash kernel (inference form)", qkv)
     b, l, c, d = _check_packed("packed flash kernel", qkv, num_heads)
     o = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
+    plan = flash_fwd_plan("packed", b, num_heads, l, l, d, 3 * c)
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         err = lib.gvq_flash_fwd_qkv(qkv.data_ptr(), o.data_ptr(), b, l, num_heads, d,
-                                    float(sm_scale), _build.stream_of(qkv))
+                                    float(sm_scale), plan.as_array(), _build.stream_of(qkv))
     _build.check(err, "gvq_flash_fwd_qkv")
     flash_attention_qkv_cuda.launches += 1
     return o
@@ -297,10 +450,12 @@ def flash_attention_qkv_res_cuda(qkv, sm_scale: float, num_heads: int):
     b, l, c, d = _check_packed("packed flash kernel (training form)", qkv, num_heads)
     o = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
     z = torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
+    plan = flash_fwd_plan("packed", b, num_heads, l, l, d, 3 * c)
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         err = lib.gvq_flash_fwd_qkv_res(qkv.data_ptr(), o.data_ptr(), z.data_ptr(), b, l,
-                                        num_heads, d, float(sm_scale), _build.stream_of(qkv))
+                                        num_heads, d, float(sm_scale), plan.as_array(),
+                                        _build.stream_of(qkv))
     _build.check(err, "gvq_flash_fwd_qkv_res")
     flash_attention_qkv_res_cuda.launches += 1
     return o, z

@@ -23,18 +23,20 @@ raises ``ValueError`` where the JAX op raises: a block larger than its
 dimension, a block that does not divide its sequence length (``block_q`` of
 the forward excepted: its last q block may be partial), and a backward
 without the backward blocks.  The block sizes are checked for that contract
-only: they do not set the Hopper kernels' tiling (bf16: 32 q rows against
-64-row K/V tiles forward; 64-row tiles backward at D = 64 and 128, 32-row
-tiles at D = 256 and 512; float32: 32-row tiles, 16-row backward tiles at
-D = 512).  So where the JAX op fails inside its TPU kernel bodies
+only: they do not set the Hopper kernels' tiling (bf16 forward: 192 q rows
+at D = 64 and 128 at D = 128 against 128-key tiles, 32 q rows against
+64-key tiles at D = 256 and 512; bf16 backward: 64-row tiles at D = 64
+and 128, 32-row tiles at D = 256 and 512; float32: 32-row tiles, 16-row
+backward tiles at D = 512).  So where the JAX op fails inside its TPU kernel bodies
 rather than in a check (a k block that is not a multiple of the 128 lanes:
 TypeError or NotImplementedError while tracing), the port computes.
 
 ``flash_attention`` is a ``torch.autograd.Function`` when a gradient is
 wanted.  The CUDA kernels run for CUDA tensors, bf16 or float32 as the JAX
 op does, contiguous, D in ``SUPPORTED_HEAD_DIMS`` (the token-major kernels'
-head dims), any Lq, Lk >= 1, chosen by dtype: bf16 ``csrc/flash_fwd.cu``
-entry ``gvq_flash_fwd_hm`` and ``csrc/flash_bwd.cu`` entry
+head dims), 16-byte aligned, any Lq, Lk >= 1, chosen by dtype: bf16
+``csrc/flash_fwd.cu`` entry ``gvq_flash_fwd_hm`` (its launch from
+``ops/flash_attention.py:flash_fwd_plan``) and ``csrc/flash_bwd.cu`` entry
 ``gvq_flash_bwd_hm`` (tensor cores); float32 ``gvq_flash_fwd_hm_f32`` and
 ``gvq_flash_bwd_hm_f32`` (SIMT float32 on CUDA cores, no TF32).  Any other
 dtype or head dim raises.  The plain versions below run for CPU tensors, in
@@ -49,7 +51,8 @@ from typing import Optional
 import torch
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
-from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
+from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import (
+    SUPPORTED_HEAD_DIMS, check_aligned, flash_fwd_plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,13 +205,17 @@ def flash_attention_fwd_cuda(q, k, v, sm_scale: float, save_residuals: bool = Fa
     b, h, lq, d = q.shape
     lk = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_aligned("head-major flash kernel", q, k, v)
     o = torch.empty_like(q)
     z = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if save_residuals else None
     entry = _ENTRIES[q.dtype][0]
+    # the bf16 entry takes the launch plan (its tensor maps); float32 has none
+    plan = (flash_fwd_plan("head_major", b, h, lq, lk, d).as_array(),) \
+        if q.dtype == torch.bfloat16 else ()
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if z is None else z.data_ptr(), b, h, lq, lk, d, float(sm_scale),
+            None if z is None else z.data_ptr(), b, h, lq, lk, d, float(sm_scale), *plan,
             _build.stream_of(q))
     _build.check(err, entry)
     flash_attention_fwd_cuda.launches += 1
@@ -236,6 +243,7 @@ def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float):
             raise ValueError(f"head-major flash backward kernel: {name} must be a contiguous "
                              f"{tuple(shape)} {dtype} tensor on {q.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    check_aligned("head-major flash backward kernel", q, k, v, o, z, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     entry = _ENTRIES[q.dtype][1]
