@@ -213,6 +213,40 @@ def flash_fwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
             "sass_hgmma": hgmma}
 
 
+def flash_bwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
+    """The bf16 flash backward's two kernels that the entries launch at head
+    dim d and lengths lq, lk: the body ("wgmma": ``csrc/flash_bwd_sm90.cuh``,
+    D = 64 and 128; "wmma": ``csrc/flash_bwd.cuh``), and for the dK/dV and
+    the dQ kernel ptxas's registers and spill bytes (stores + loads) from
+    ``nvcc.log`` and the count of HGMMA (wgmma) instructions in its SASS,
+    which must not be 0 for the wgmma body."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_bwd_plan
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        usage = _build.ptxas_usage(f.read())
+    plan = flash_bwd_plan("head_major", 1, 1, lq, lk, d)
+    if plan.body == "wgmma":
+        tags = {"dkdv": f"flash_bwd_dkdv_sm90_kernelILi{d}ELb{int(plan.q_mask)}E",
+                "dq": f"flash_bwd_dq_sm90_kernelILi{d}ELb{int(plan.key_mask)}E"}
+    else:
+        tail = int(plan.q_mask or plan.key_mask)
+        tile = f"ILi{d}ELi{plan.kv_rows}ELi{plan.threads // 32}ELb{tail}ELi1ELb0E"
+        tags = {"dkdv": "flash_bwd_dkdv_kernel" + tile, "dq": "flash_bwd_dq_kernel" + tile}
+    kernels = {}
+    for kernel, tag in tags.items():
+        names = [n for n in usage if "_flash_bwd_cu_" in n and tag in n]
+        require(len(names) == 1, f"{len(names)} {tag} entries of flash_bwd.cu in nvcc.log")
+        u = usage[names[0]]
+        hgmma = sass_hgmma().get(names[0], 0)
+        require(plan.body == "wmma" or hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+        kernels[kernel] = {"registers": u["registers"],
+                           "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
+                           "sass_hgmma": hgmma}
+    return {"design": plan.body, "kv_rows": plan.kv_rows, "kv_q_rows": plan.kv_q_rows,
+            "q_rows": plan.q_rows, "q_k_rows": plan.q_k_rows, "kernels": kernels}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -512,16 +546,17 @@ def check_flash_qkv_bwd(gen):
     flops = 5 * 2.0 * b * heads * l * l * d
     nbytes = 2 * (2 * qkv.numel() + o.numel() + do.numel()) + 4 * z.numel()
     bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    kernel_ms = time_ms(lambda: fa.flash_attention_qkv_bwd_cuda(qkv, o, z, do, scale, heads))
     shape = {"shape": f"qkv ({b},{l},3x{heads}x{d}), o, do bf16, z f32 -> dqkv bf16",
-             "kernel_ms": time_ms(lambda: fa.flash_attention_qkv_bwd_cuda(
-                 qkv, o, z, do, scale, heads)),
+             "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
              "plain_ms": time_ms(lambda: fa.flash_attention_qkv_bwd_plain(
                  qkv, o, z, do, scale, heads), iters=2, warmup=1),
              "library_ms": time_ms(library), "library": "SDPA backward (autograd), head-major",
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-             "max_abs_err": err, "rel_err_dq_dk_dv": errs, "bit_reproducible": True}
+             "max_abs_err": err, "rel_err_dq_dk_dv": errs, "bit_reproducible": True,
+             **flash_bwd_kernel_facts(d, l, l)}
     return {"name": "flash_attention_qkv_bwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_sm90.cuh",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:444",
             "tolerance": f"max error / max |grad| <= {FLASH_BWD_REL} per dq, dk, dv; "
                          "bit-equal across runs",
@@ -1068,6 +1103,14 @@ def check_flash_lean(gen):
             with torch.no_grad():
                 return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
+        # the backward alone: the kernels on the forward's o and z, and
+        # SDPA's backward on an output made beforehand
+        o_k, z_k = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+        o_ref = F.scaled_dot_product_attention(*ref, scale=scale)
+
+        def library_backward():
+            return torch.autograd.grad(o_ref, ref, do, retain_graph=True)
+
         eq, ek = b * h * lq * d, b * h * lk * d
         flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d
         bytes_f = 2 * (2 * eq + 2 * ek) + 4 * b * h * lq         # q, k, v in; o, z out
@@ -1077,6 +1120,7 @@ def check_flash_lean(gen):
         kernel_ms = time_ms(call)
         forward_ms = time_ms(lambda: fl.flash_attention_fwd_cuda(q, k, v, scale,
                                                                   save_residuals=True))
+        backward_ms = time_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, o_k, z_k, do, scale))
         shapes.append({
             "shape": f"q ({b},{h},{lq},{d}), k, v ({b},{h},{lk},{d}) bf16: forward with z, "
                      "then dq, dk, dv",
@@ -1087,16 +1131,20 @@ def check_flash_lean(gen):
             "plain_ms": time_ms(plain, iters=3 if long else 10, warmup=1),
             "library_ms": time_ms(library), "library": "SDPA forward + backward (autograd)",
             "library_forward_ms": time_ms(library_forward),
+            "backward_ms": backward_ms, "backward_tflops": flops_b / backward_ms / 1e9,
+            "backward_bound_ms": bound_ms(flops_b, bytes_b, PEAK_BF16)[0],
+            "library_backward_ms": time_ms(library_backward),
+            "backward": flash_bwd_kernel_facts(d, lq, lk),
             "bound_ms": bnd, "bound_by": by,
             "flops": flops_f + flops_b, "bytes": bytes_f + bytes_b,
             "max_abs_err": err, "o_max_abs_err": o_err, "z_max_abs_err": z_err,
             "rel_err_dq_dk_dv": rels, "bit_reproducible": True,
             **flash_fwd_kernel_facts(d, lq, lk)})
-        del q, k, v, do, leaves, ref
+        del q, k, v, do, leaves, ref, o_k, z_k, o_ref
         torch.cuda.empty_cache()
     return {"name": "flash_attention_lean", "route": "cuda",
             "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90.cuh, "
-                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_sm90.cuh",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_attention.py:118",
             "counters": ["flash_attention_lean_fwd", "flash_attention_lean_bwd"],
             "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}; max error / max |grad| "
@@ -1150,6 +1198,14 @@ def check_flash_lean_f32(gen):
         def library_forward():
             with torch.no_grad():
                 return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+        # the backward alone: the kernels on the forward's o and z, and
+        # SDPA's backward on an output made beforehand
+        o_k, z_k = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+        o_ref = F.scaled_dot_product_attention(*ref, scale=scale)
+
+        def library_backward():
+            return torch.autograd.grad(o_ref, ref, do, retain_graph=True)
 
         eq, ek = b * h * lq * d, b * h * lk * d
         flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d

@@ -324,7 +324,7 @@ def test_packed_flash_training_forward_matches_plain(gen, l, h, d):
     assert float((o.float() - o_p.float()).abs().max()) <= FLASH_ATOL
 
 
-@pytest.mark.parametrize("l", [64, 1024])
+@pytest.mark.parametrize("l", [64, 192, 1024])
 @pytest.mark.parametrize("b,h,d", [(2, 12, 64), (1, 2, 128)])
 def test_packed_flash_bwd_kernel_matches_plain(gen, l, b, h, d):
     qkv = torch.randn((b, l, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -699,6 +699,9 @@ def _head_major(gen, b, h, lq, lk, d):
 def test_head_major_kernels_match_plain(gen, b, h, lq, lk, d):
     q, k, v, do = _head_major(gen, b, h, lq, lk, d)
     scale = d ** -0.5
+    # D = 64 and 128 run the wgmma backward body, D = 256 and 512 the wmma one
+    assert fa.flash_bwd_plan("head_major", b, h, lq, lk, d).body == \
+        ("wgmma" if d in (64, 128) else "wmma")
     before = (fl.flash_attention_fwd_cuda.launches, fl.flash_attention_bwd_cuda.launches)
     o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
     o_p, z_p = fl.flash_attention_res_plain(q, k, v, scale)
@@ -778,6 +781,84 @@ def test_flash_forward_kernels_refuse_misaligned_views(gen):
     with pytest.raises(ValueError, match="aligned"):
         fl.flash_attention_fwd_cuda(hm_good, hm_bad, hm_good, 0.125)
     assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 3, 333, 457, 64), (2, 2, 77, 200, 128)])
+def test_head_major_bwd_kernel_is_bit_reproducible(gen, b, h, lq, lk, d):
+    """The wgmma backward at ragged lengths (a partial last q tile in the
+    dK/dV kernel, a partial last key tile in the dQ kernel, a warpgroup past
+    the length): two runs give equal bits, and the result is the plain
+    version's within the bar."""
+    q, k, v, do = _head_major(gen, b, h, lq, lk, d)
+    scale = d ** -0.5
+    o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+    first = fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)
+    for _ in range(2):
+        assert all(torch.equal(x, y) for x, y in
+                   zip(first, fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)))
+    for g, w in zip(first, fl.flash_attention_bwd_plain(q, k, v, o, z, do, scale)):
+        assert _rel_max(g, w) <= FLASH_BWD_REL
+
+
+def _odd_layout(shape, kind, gen, dtype=torch.bfloat16):
+    """A CUDA tensor of `shape` that no kernel reads as it lies: a view 2
+    bytes past a 16-byte boundary ("misaligned", bf16 only) or the transpose
+    of a tensor with its last two dims swapped ("transposed")."""
+    if kind == "misaligned":
+        return _misaligned(shape, gen)
+    swapped = (*shape[:-2], shape[-1], shape[-2])
+    t = torch.randn(swapped, generator=gen, device="cuda").to(dtype).transpose(-1, -2)
+    assert not t.is_contiguous()
+    return t
+
+
+def _fresh(t):
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 0
+    return out
+
+
+@pytest.mark.parametrize("kind", ["misaligned", "transposed"])
+@pytest.mark.parametrize("op", ["head_major", "head_major_grad", "sdpa_token_major",
+                                "flash_attention_qkv", "layer_norm", "layer_norm_add"])
+def test_public_ops_take_any_operand_layout(gen, op, kind):
+    """Each public op on an operand the kernels cannot read as it lies (data
+    off 16 bytes, or not contiguous) gives the same bits as on a fresh copy,
+    and its kernel runs (its launch counter moves by one a call)."""
+    w = torch.rand(256, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(256, generator=gen, device="cuda")
+    blocks = fl.BlockSizes.get_default(1, 2, 128, 128, 64)
+    if op in ("head_major", "head_major_grad"):
+        args = [_odd_layout((1, 2, 128, 64), kind, gen) for _ in range(4)]  # q, k, v, do
+        counters = [fl.flash_attention_fwd_cuda] + \
+            ([fl.flash_attention_bwd_cuda] if op == "head_major_grad" else [])
+
+        def run(q, k, v, do):
+            if op == "head_major":
+                return [fl.flash_attention(q, k, v, 0.125, blocks)]
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fl.flash_attention(*leaves, 0.125, blocks)
+            o.backward(do)
+            return [o.detach()] + [t.grad for t in leaves]
+    elif op == "sdpa_token_major":
+        args = [_odd_layout((1, 128, 2, 64), kind, gen) for _ in range(3)]
+        counters, run = [fa.flash_attention_cuda], lambda q, k, v: [fa.sdpa_token_major(q, k, v)]
+    elif op == "flash_attention_qkv":
+        args = [_odd_layout((1, 128, 3 * 128), kind, gen)]
+        counters, run = [fa.flash_attention_qkv_cuda], \
+            lambda qkv: [fa.flash_attention_qkv(qkv, 0.125, 2)]
+    elif op == "layer_norm":
+        args = [_odd_layout((40, 256), kind, gen)]
+        counters, run = [ln.layer_norm_cuda], lambda x: [ln.layer_norm(x, w, bias)]
+    else:
+        args = [_odd_layout((40, 256), kind, gen) for _ in range(2)]
+        counters = [ln.layer_norm_add_cuda]
+        run = lambda x, d: list(ln.layer_norm_add(x, d, w, bias))  # noqa: E731
+    before = [f.launches for f in counters]
+    got = run(*args)
+    assert [f.launches for f in counters] == [n + 1 for n in before]
+    want = run(*map(_fresh, args))
+    assert all(torch.equal(g, t) for g, t in zip(got, want))
 
 
 def test_head_major_autograd_runs_the_kernels(gen):

@@ -33,9 +33,7 @@
 // and accumulates dk and dv in tensor-core fragments, and one over
 // (q tile, b, h) that streams K/V and accumulates dq.  Each recomputes s and
 // do v^T, so the pair runs seven products instead of five.  di comes from a
-// small pre-pass.  Products run on bf16 tensor cores through nvcuda::wmma
-// with float32 accumulators; the elementwise steps read the float32 score
-// tiles from shared memory.
+// small pre-pass.
 //
 // The head-major entry gvq_flash_bwd_hm replaces the backward of
 // vqvae_from_gaussian_vae_tpu/ops/flash_attention.py (_bwd: the upstream
@@ -45,20 +43,25 @@
 // loads zero rows, and its rows and columns past Lq or Lk get p = 0 and
 // ds = 0; the rows of dk, dv past Lk and of dq past Lq are not written.
 //
-// Tiling: D = 64 and 128 take 64-row tiles and 8 warps.  At D = 512 four
-// D-wide bf16 tiles (K, V, Q, dO) of 64 rows and the float32 output staging
-// tile would need ~450 KB, so D = 512 takes 32-row tiles (~209 KB of shared
-// memory) and 16 warps: each warp then holds 4 + 4 accumulator fragments of
-// dk and dv (64 registers) instead of 16, under the 128 registers a thread
-// of a 512-thread block may use.  The score tiles (32 x 32) are 8 fragments,
-// computed by 8 warps while the others wait (tiles_abt).  D = 256 takes
-// 32-row tiles too (~113 KB, two blocks an SM) and 8 warps: 4 + 4 fragments a
-// warp again, under the 128 registers that two 256-thread blocks leave each
-// thread.
-//
-// The bf16 bodies are csrc/flash_bwd.cuh; these entries instantiate them at
-// those tilings, one streamed tile pair in flight, with the softmax
-// recompute.  The lab of csrc/flash_lab_bwd.cu instantiates them at others.
+// Which body runs, by head dim: D = 64 and 128 take the wgmma body of
+// csrc/flash_bwd_sm90.cuh (TMA rings, scores, P and dS in registers, 128
+// keys or q rows a block; it says what it does about the wmma body's
+// costs).  D = 256 and 512 take the wmma body of csrc/flash_bwd.cuh: at
+// D = 512 four D-wide bf16 tiles (K, V, Q, dO) of 64 rows and the float32
+// output staging tile would need ~450 KB, so it takes 32-row tiles (~209 KB
+// of shared memory) and 16 warps: each warp then holds 4 + 4 accumulator
+// fragments of dk and dv (64 registers) instead of 16, under the 128
+// registers a thread of a 512-thread block may use.  The score tiles (32 x
+// 32) are 8 fragments, computed by 8 warps while the others wait
+// (tiles_abt).  D = 256 takes 32-row tiles too (~113 KB, two blocks an SM)
+// and 8 warps: 4 + 4 fragments a warp again, under the 128 registers that
+// two 256-thread blocks leave each thread.  Those instantiations run one
+// streamed tile pair in flight, with the softmax recompute; the lab of
+// csrc/flash_lab_bwd.cu instantiates that body at other settings.  Every
+// bf16 entry takes the launch plan of ops/flash_attention.py
+// flash_bwd_plan (an int64 array, BwdPlan): it names the body and, for the
+// wgmma body, the tensor maps of q, k, v and do, which the entry holds to
+// its shapes before it encodes them.
 //
 // gvq_flash_bwd_hm_f32 is the head-major backward for float32 tensors (the
 // JAX op runs float32 too): the same pre-pass and two-kernel split in plain
@@ -68,27 +71,49 @@
 // float32 peak of 67 TFLOP/s; operands come from shared memory, which bounds
 // this first version well below that.
 #include "flash_bwd.cuh"
+#include "flash_bwd_sm90.cuh"
 #include "flash_f32.cuh"
 
 namespace {
 
 template <int D, int T, int WARPS>
-int launch_bwd(const BwdArgs& g, const bf16* o, float* di, int B, cudaStream_t stream) {
-  return g.Lq % T != 0 || g.Lk % T != 0
-             ? launch_flash_bwd<D, T, WARPS, true>(g, o, di, B, stream)
-             : launch_flash_bwd<D, T, WARPS, false>(g, o, di, B, stream);
+int launch_bwd(const BwdArgs& g, const BwdPlan& p, const bf16* o, float* di, int B,
+               cudaStream_t stream) {
+  const bool tail = g.Lq % T != 0 || g.Lk % T != 0;
+  const long long smem = (long long)BwdLayout<D, T>::kBytes, bh = (long long)B * g.H;
+  if (p.body != 0 || p.kv_rows != T || p.kv_q_rows != T || p.q_rows != T || p.q_k_rows != T ||
+      p.stages != 1 || p.threads != 32 * WARPS || p.kv_smem != smem || p.q_smem != smem ||
+      p.kv_grid_x != (g.Lk + T - 1) / T || p.q_grid_x != (g.Lq + T - 1) / T ||
+      p.kv_grid_y != bh || p.q_grid_y != bh || p.q_mask != (g.Lq % T != 0) ||
+      p.key_mask != (g.Lk % T != 0))
+    return (int)cudaErrorInvalidValue;
+  return tail ? launch_flash_bwd<D, T, WARPS, true>(g, o, di, B, stream)
+              : launch_flash_bwd<D, T, WARPS, false>(g, o, di, B, stream);
 }
 
-int bwd_entry(const BwdArgs& g, const void* o, void* di, int B, int D, void* stream) {
-  if (B <= 0 || g.H <= 0 || g.Lq <= 0 || g.Lk <= 0) return (int)cudaErrorInvalidValue;
+// Route a backward by its plan: D = 64 and 128 to the wgmma body over the
+// plan's maps of bases[] (q, k, v, do), whose coordinates put the row at
+// row_dim (1 head-major, 2 token-major); D = 256 and 512 to the wmma body
+// over g's strides (the plan's tiling held to that body's).
+int bwd_entry(const BwdArgs& g, const bf16* const (&bases)[4], int row_dim, const void* o,
+              void* di, int B, int D, const long long* plan, void* stream) {
+  if (B <= 0 || g.H <= 0 || g.Lq <= 0 || g.Lk <= 0 || plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  BwdPlan p;
+  memcpy(&p, plan, sizeof p);
   const bf16* op = static_cast<const bf16*>(o);
   float* dip = static_cast<float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64 || D == 128) {
+    const B9Args a{g.dq,        g.dk,       g.dv,        g.z,         dip,
+                   g.sdq.b,     g.sdq.h,    g.sdq.row,   g.sdkv.b,    g.sdkv.h,
+                   g.sdkv.row,  g.Lq,       g.Lk,        g.H,         row_dim,
+                   g.scale};
+    return launch_flash_bwd_sm90(p, bases, a, op, g.sdo, B, D, s);
+  }
   switch (D) {
-    case 64: return launch_bwd<64, 64, 8>(g, op, dip, B, s);
-    case 128: return launch_bwd<128, 64, 8>(g, op, dip, B, s);
-    case 256: return launch_bwd<256, 32, 8>(g, op, dip, B, s);
-    case 512: return launch_bwd<512, 32, 16>(g, op, dip, B, s);
+    case 256: return launch_bwd<256, 32, 8>(g, p, op, dip, B, s);
+    case 512: return launch_bwd<512, 32, 16>(g, p, op, dip, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -307,11 +332,12 @@ int launch_bwd_f32(const F32BwdArgs& g, const float* o, float* di, int B, int H,
 
 // qkv (B, L, 3C) bf16: q | k | v along channels, C = H * D; o and do (B, L,
 // C) bf16; z (B, H, L) float32 from gvq_flash_fwd_qkv_res; di (B, H, L)
-// float32 scratch; dqkv (B, L, 3C) bf16 gets dq | dk | dv.  All contiguous.
-// L a multiple of 64, D 64, 128, 256 or 512.
+// float32 scratch; dqkv (B, L, 3C) bf16 gets dq | dk | dv.  All contiguous,
+// 16-byte aligned.  L a multiple of 64, D 64, 128, 256 or 512.  plan: the
+// launch plan (BwdPlan, kBwdPlanLen int64).
 extern "C" int gvq_flash_bwd_qkv(const void* qkv, const void* o, const void* z, const void* dout,
                                  void* di, void* dqkv, int B, int L, int H, int D, float scale,
-                                 void* stream) {
+                                 const long long* plan, void* stream) {
   if (L % 64 != 0) return (int)cudaErrorInvalidValue;
   const bf16* in = static_cast<const bf16*>(qkv);
   bf16* out = static_cast<bf16*>(dqkv);
@@ -321,15 +347,17 @@ extern "C" int gvq_flash_bwd_qkv(const void* qkv, const void* o, const void* z, 
                   static_cast<const float*>(z), static_cast<const float*>(di),
                   out, out + c, out + 2 * c, packed, packed, plain, packed, packed, L, L, H,
                   scale};
-  return bwd_entry(g, o, di, B, D, stream);
+  const bf16* const bases[4] = {in, in, in, g.dout};
+  return bwd_entry(g, bases, 2, o, di, B, D, plan, stream);
 }
 
 // The unpacked entry: q, k, v, o, do, dq, dk, dv (B, L, H*D) bf16; z (B, H,
 // L) float32 from gvq_flash_fwd_res; di (B, H, L) float32 scratch.  All
-// contiguous; the same shape rules.
+// contiguous; the same shape rules and plan.
 extern "C" int gvq_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                              const void* z, const void* dout, void* di, void* dq, void* dk,
-                             void* dv, int B, int L, int H, int D, float scale, void* stream) {
+                             void* dv, int B, int L, int H, int D, float scale,
+                             const long long* plan, void* stream) {
   if (L % 64 != 0) return (int)cudaErrorInvalidValue;
   const long long c = (long long)H * D;
   const Strides tm{L * c, D, c};
@@ -338,18 +366,20 @@ extern "C" int gvq_flash_bwd(const void* q, const void* k, const void* v, const 
                   static_cast<const float*>(z), static_cast<const float*>(di),
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                   tm, tm, tm, tm, tm, L, L, H, scale};
-  return bwd_entry(g, o, di, B, D, stream);
+  const bf16* const bases[4] = {g.q, g.k, g.v, g.dout};
+  return bwd_entry(g, bases, 2, o, di, B, D, plan, stream);
 }
 
 // The head-major entry (replaces vqvae_from_gaussian_vae_tpu/ops/flash_attention.py
 // _bwd: the upstream Pallas _flash_attention_bwd_dkv and the lean dq pass
 // _bwd_dq_lean): q, o, do, dq (B, H, Lq, D) and k, v, dk, dv (B, H, Lk, D)
 // bf16; z (B, H, Lq) float32 from gvq_flash_fwd_hm; di (B, H, Lq) float32
-// scratch.  All contiguous; any Lq, Lk >= 1; D 64, 128, 256 or 512.
+// scratch.  All contiguous, 16-byte aligned; any Lq, Lk >= 1; D 64, 128, 256
+// or 512; the plan as above.
 extern "C" int gvq_flash_bwd_hm(const void* q, const void* k, const void* v, const void* o,
                                 const void* z, const void* dout, void* di, void* dq, void* dk,
                                 void* dv, int B, int H, int Lq, int Lk, int D, float scale,
-                                void* stream) {
+                                const long long* plan, void* stream) {
   const long long hq = (long long)Lq * D, hk = (long long)Lk * D;
   const Strides sq{H * hq, hq, D}, skv{H * hk, hk, D};
   const BwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -357,7 +387,8 @@ extern "C" int gvq_flash_bwd_hm(const void* q, const void* k, const void* v, con
                   static_cast<const float*>(z), static_cast<const float*>(di),
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                   sq, skv, sq, sq, skv, Lq, Lk, H, scale};
-  return bwd_entry(g, o, di, B, D, stream);
+  const bf16* const bases[4] = {g.q, g.k, g.v, g.dout};
+  return bwd_entry(g, bases, 1, o, di, B, D, plan, stream);
 }
 
 // The float32 head-major entry (the same op as gvq_flash_bwd_hm, for

@@ -1,12 +1,13 @@
 // The bf16 flash-attention backward bodies for Hopper (sm_90a), shared by
-// the shipped entries (csrc/flash_bwd.cu, whose header says what they
-// replace, what bounds them and how they are tiled) and the backward lab
-// (csrc/flash_lab_bwd.cu).
+// the shipped entries at D = 256 and 512 (csrc/flash_bwd.cu, whose header
+// says what they replace, what bounds them and how they are tiled) and the
+// backward lab (csrc/flash_lab_bwd.cu).  The entries at D = 64 and 128
+// (gvq_flash_bwd_qkv, gvq_flash_bwd, gvq_flash_bwd_hm) left these bodies for
+// the wgmma body of csrc/flash_bwd_sm90.cuh.
 //
-// Template knobs (the shipped entries: (T, WARPS) = (64, 8), (64, 8),
-// (32, 8), (32, 16) at D = 64, 128, 256, 512; PIPE 1; CONTROL false; each a
-// compile-time constant, so at that setting the bodies are the ones the
-// shipped entries always ran):
+// Template knobs (the shipped entries: (T, WARPS) = (32, 8), (32, 16) at
+// D = 256, 512; PIPE 1; CONTROL false; each a compile-time constant, so at
+// that setting the bodies are the ones the shipped entries always ran):
 //   T        tile rows, of q and of k/v
 //   WARPS    warps per block
 //   PIPE     streamed tile pairs in flight: 1 (plain copies, then the

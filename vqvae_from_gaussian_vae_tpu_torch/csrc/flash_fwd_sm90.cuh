@@ -69,16 +69,20 @@
 
 namespace {
 
+using gvq::encode_plan_map;
 using gvq::mbar_arrive;
 using gvq::mbar_arrive_expect_tx;
 using gvq::mbar_init;
 using gvq::mbar_wait;
-using gvq::tensor_map_encoder;
-using gvq::TensorMapEncodeTiled;
+using gvq::pack_bf16x2;
+using gvq::PlanMap;
 using gvq::tma_load_4d;
 using gvq::wg_desc;
 using gvq::wg_fence_acc;
+using gvq::wg_fence_frag;
 using gvq::wg_smem_addr;
+using gvq::wgmma_rs;
+using gvq::wgmma_ss;
 
 constexpr int kF9Keys = 128;  // keys a K or V tile
 constexpr int kF9Stages = 3;  // K/V tiles in flight
@@ -120,95 +124,6 @@ struct F9Args {
   float scale;
 };
 
-// S (64 x 128, float32) = (acc ? S : 0) + A (64 x 16) . B^T (16 x 128): A and B bf16,
-// K-major in shared memory (no transpose bits)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// O (64 x 64, float32) += A (64 x 16, bf16 fragment in registers) . B (16 x 64):
-// B bf16 and MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O (64 x 128, float32) += A (64 x 16, bf16 fragment in registers) . B (16 x 128):
-// B bf16 and MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t f9_pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void f9_fence_frag(uint32_t (&p)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(p[i][j])::"memory");
-}
-
 // S = Q K^T for one warpgroup's 64 rows and a 128-key tile: D / 16 k-steps,
 // each 16 columns = 32 bytes inside a chunk's 128-byte rows
 template <int D>
@@ -216,7 +131,7 @@ __device__ __forceinline__ void f9_qk(float (&s)[64], uint32_t qa, uint32_t ka) 
   using Lay = F9Layout<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n128(s, wg_desc(qa + (kk >> 2) * Lay::kChunkQ + (kk & 3) * 32, 16, 1024),
+    wgmma_ss<128>(s, wg_desc(qa + (kk >> 2) * Lay::kChunkQ + (kk & 3) * 32, 16, 1024),
                   wg_desc(ka + (kk >> 2) * Lay::kChunkKV + (kk & 3) * 32, 16, 1024), kk > 0);
 }
 
@@ -227,11 +142,7 @@ __device__ __forceinline__ void f9_pv(float (&o)[D / 2], const uint32_t (&p)[8][
   using Lay = F9Layout<D>;
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    const uint64_t db = wg_desc(va + kk * 2048, Lay::kChunkKV, 1024);
-    if constexpr (D == 64)
-      wgmma_rs_n64(o, p[kk], db);
-    else
-      wgmma_rs_n128(o, p[kk], db);
+    wgmma_rs<D>(o, p[kk], wg_desc(va + kk * 2048, Lay::kChunkKV, 1024));
   }
 }
 
@@ -297,7 +208,7 @@ __device__ __forceinline__ void f9_round_p(const float (&s)[64], uint32_t (&p)[8
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) p[kk][r] = f9_pack(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // A consumer warpgroup's whole life: warpgroup wg (threadIdx.x / 128) owns
@@ -343,7 +254,7 @@ __device__ __forceinline__ void f9_consume(const F9Args& a, uint32_t base, int n
     mbar_wait(k_full + 8 * st, (t / S) & 1);
     mbar_wait(v_full + 8 * pst, ((t - 1) / S) & 1);
     wg_fence_acc(o);
-    f9_fence_frag(p);
+    wg_fence_frag(p);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     f9_qk<D>(s, qa, ring + st * Lay::kStage);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -357,7 +268,7 @@ __device__ __forceinline__ void f9_consume(const F9Args& a, uint32_t base, int n
             : f9_softmax<false>(s, m0, m1, l0, l1, a.scale, kF9Keys);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");  // P V of tile t - 1
     wg_fence_acc(o);
-    f9_fence_frag(p);
+    wg_fence_frag(p);
     if ((tid & 127) == 0) mbar_arrive(empty + 8 * pst);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -372,7 +283,7 @@ __device__ __forceinline__ void f9_consume(const F9Args& a, uint32_t base, int n
     const int last = (n_tiles - 1) % S;
     mbar_wait(v_full + 8 * last, ((n_tiles - 1) / S) & 1);
     wg_fence_acc(o);
-    f9_fence_frag(p);
+    wg_fence_frag(p);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     f9_pv<D>(o, p, ring + last * Lay::kStage + Lay::kKV);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -396,10 +307,10 @@ __device__ __forceinline__ void f9_consume(const F9Args& a, uint32_t base, int n
   for (int j = 0; j < D / 8; ++j) {
     if (in0)
       *reinterpret_cast<uint32_t*>(ob + r0 * a.so_row + 8 * j) =
-          f9_pack(o[4 * j] * i0, o[4 * j + 1] * i0);
+          pack_bf16x2(o[4 * j] * i0, o[4 * j + 1] * i0);
     if (in1)
       *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * a.so_row + 8 * j) =
-          f9_pack(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+          pack_bf16x2(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
   }
   if (a.z != nullptr && (lane & 3) == 0) {
     float* zb = a.z + (size_t)bh * a.Lq;
@@ -480,12 +391,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
 
 // The launch plan of ops/flash_attention.py flash_fwd_plan, as the int64
 // array the wrappers pass (FlashFwdPlan.as_array): kPlanLen numbers in this
-// order.  A map's dims are innermost first; its strides are the byte
-// strides of dims 1..3; its offset is in elements from the tensor's base.
-struct PlanMap {
-  long long offset, dims[4], strides[3], box[4];
-};
-
+// order (PlanMap: csrc/sm90.cuh).
 struct FwdPlan {
   long long body;  // 1: this body; 0: csrc/flash_fwd.cuh
   long long q_rows, k_rows, stages, grid_x, grid_y, threads, smem, key_mask, row_dim;
@@ -495,31 +401,6 @@ struct FwdPlan {
 
 constexpr int kPlanLen = 49;
 static_assert(sizeof(FwdPlan) == kPlanLen * sizeof(long long), "the plan's layout");
-
-// a 4-D bf16 map of the plan over base + offset, written with the
-// 128-byte swizzle, zero fill out of bounds
-inline bool encode_plan_map(CUtensorMap* map, const bf16* base, const PlanMap& m) {
-  const TensorMapEncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const bf16* p = base + m.offset;
-  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4];
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 4; ++i) {
-    if (m.dims[i] <= 0 || m.box[i] <= 0 || m.box[i] > 256) return false;
-    dims[i] = (cuuint64_t)m.dims[i];
-    box[i] = (cuuint32_t)m.box[i];
-  }
-  for (int i = 0; i < 3; ++i) {
-    if (m.strides[i] <= 0 || m.strides[i] % 16 != 0) return false;
-    strides[i] = (cuuint64_t)m.strides[i];
-  }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(p), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D, bool kMask>
 int launch_f9(const CUtensorMap (&maps)[3], const F9Args& a, dim3 grid, cudaStream_t stream) {

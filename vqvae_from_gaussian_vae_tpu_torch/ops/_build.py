@@ -31,8 +31,9 @@ NVCC_FLAGS = [
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every entry point returns a cudaError_t.
-# The bf16 flash forward entries take their launch plan (an int64 array,
-# ops/flash_attention.py FlashFwdPlan.as_array) just before the stream
+# The bf16 flash forward and backward entries take their launch plan (an
+# int64 array, ops/flash_attention.py FlashFwdPlan.as_array or
+# FlashBwdPlan.as_array) just before the stream
 _SIGNATURES = {
     "gvq_gq_argmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_downsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -42,11 +43,11 @@ _SIGNATURES = {
     "gvq_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "gvq_layer_norm_add_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "gvq_flash_fwd_qkv_res": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
-    "gvq_flash_bwd_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_bwd_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_layer_norm_add_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_flash_fwd_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
-    "gvq_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_downsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_downsample_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_upsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -56,7 +57,8 @@ _SIGNATURES = {
     "gvq_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
-    "gvq_flash_bwd_hm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_bwd_hm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+                         _P],
     "gvq_flash_fwd_hm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gvq_flash_bwd_hm_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gvq_flash_lab_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
@@ -215,6 +217,18 @@ def refuse_grad(name: str, *tensors) -> None:
         raise RuntimeError(f"{name}: no backward kernel is wired to this call, so its output "
                            "would be cut off from autograd; call it under torch.no_grad() or "
                            "on tensors that do not require grad")
+
+
+def kernel_operand(t):
+    """``t`` itself where a kernel can read it as it lies (contiguous, data
+    on 16 bytes, as TMA and 16-byte loads need), else one fresh contiguous
+    copy of it (a new allocation is aligned; a strided tensor is copied
+    once)."""
+    import torch
+
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
 
 
 def stream_of(t) -> int:

@@ -18,7 +18,10 @@ tensor.
 ``torch.autograd.Function``s when a gradient is wanted (the training
 forward, then the backward kernel); a direct launch of a kernel wrapper
 raises when a gradient is wanted rather than return a tensor cut off from
-autograd.  The CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``)
+autograd.  The public ops take any layout: an operand the kernels cannot
+read as it is (not contiguous, or data off 16 bytes) is copied once into a
+fresh buffer (``_build.kernel_operand``); the ``*_cuda`` wrappers raise on
+it.  The CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``)
 run for CUDA tensors; the plain versions below run for CPU tensors and are
 what the kernels are held to on the card.
 
@@ -61,6 +64,16 @@ FWD_WARPGROUPS = {64: 3, 128: 2}
 WGMMA_HEAD_DIMS = tuple(FWD_WARPGROUPS)  # the forward's wgmma body; other D take the wmma one
 SWIZZLE_COLS = 64  # bf16 columns of one 128-byte swizzle row: a box's inner width
 LAYOUTS = ("head_major", "token_major", "packed")
+# the backward's wgmma body (csrc/flash_bwd_sm90.cuh, the same head dims): a
+# block is two consumer warpgroups of 64 rows (128 keys in the dK/dV kernel,
+# 128 q rows in the dQ kernel) and a producer warpgroup; 3-stage rings of
+# streamed tiles, BWD_Q_TILE[D] q rows (dK/dV) and BWD_K_TILE[D] keys (dQ)
+BWD_ROWS, BWD_STAGES, BWD_THREADS = 128, 3, 384
+BWD_Q_TILE = {64: 64, 128: 32}
+BWD_K_TILE = {64: 128, 128: 64}
+# the wmma body (csrc/flash_bwd.cuh) at D = 256 and 512: 32-row tiles, 8 or 16 warps
+BWD_WMMA_ROWS = 32
+BWD_WMMA_WARPS = {256: 8, 512: 16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,20 +118,81 @@ class FlashFwdPlan:
     def coords(self, chunk: int, row: int, b: int, h: int) -> tuple:
         """The box origin the producer asks for: columns 64 * chunk.., rows
         row.. of (b, h)."""
-        if self.row_dim == 1:
-            return (SWIZZLE_COLS * chunk, row, h, b)
-        return (SWIZZLE_COLS * chunk, h, row, b)
+        return _coords(self.row_dim, chunk, row, b, h)
 
     def as_array(self):
         """The plan as the C entries take it: 49 int64 in ``FwdPlan``'s order."""
         vals = [1 if self.body == "wgmma" else 0, self.q_rows, self.k_rows, self.stages,
                 *self.grid, self.threads, self.smem, int(self.key_mask), self.row_dim]
-        maps = self.maps or (TensorMapPlan(0, (0,) * 4, (0,) * 3, (0,) * 4),) * 3
-        for m in maps:
-            vals += [m.offset, *m.dims, *m.strides, *m.box]
-        vals += list(self.out_strides)
-        assert len(vals) == 49
-        return (ctypes.c_longlong * len(vals))(*vals)
+        return _int64s(vals, self.maps, 3, list(self.out_strides), 49)
+
+
+def _coords(row_dim: int, chunk: int, row: int, b: int, h: int) -> tuple:
+    if row_dim == 1:
+        return (SWIZZLE_COLS * chunk, row, h, b)
+    return (SWIZZLE_COLS * chunk, h, row, b)
+
+
+def _int64s(head: list, maps: tuple, n_maps: int, tail: list, length: int):
+    """head, then each map's offset, dims, strides and box (zeros where the
+    body takes no maps), then tail, as a C int64 array of `length`."""
+    vals = list(head)
+    for m in maps or (TensorMapPlan(0, (0,) * 4, (0,) * 3, (0,) * 4),) * n_maps:
+        vals += [m.offset, *m.dims, *m.strides, *m.box]
+    vals += tail
+    assert len(vals) == length
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """The launch of a bf16 flash backward, as ``flash_bwd_plan`` makes it
+    and the C entries read it (``as_array``; ``csrc/flash_bwd_sm90.cuh``
+    ``BwdPlan``).
+
+    ``body`` is ``"wgmma"`` (``csrc/flash_bwd_sm90.cuh``) or ``"wmma"``
+    (``csrc/flash_bwd.cuh``).  The dK/dV kernel's block owns ``kv_rows``
+    keys of one (b, h) and walks ``kv_q_rows``-row q tiles over ``kv_grid``
+    (key tiles, B * H); the dQ kernel's block owns ``q_rows`` q rows and
+    walks ``q_k_rows``-key tiles over ``q_grid`` (q tiles, B * H); both take
+    ``threads`` threads and ``kv_smem`` / ``q_smem`` bytes of shared memory.
+    ``q_mask``: the last q tile of the dK/dV kernel is partial (its rows
+    past Lq get p = ds = 0); ``key_mask``: the last key tile of the dQ
+    kernel is.  For the wgmma body, ``maps`` are q's, k's, v's and do's
+    tensor maps (coordinates as ``FlashFwdPlan``'s, by ``row_dim``); a
+    map's box holds ``kv_q_rows`` rows for q and do and ``q_k_rows`` for k
+    and v.  ``dq_strides`` and ``dkv_strides`` are the outputs' (b, h, row)
+    strides in elements."""
+
+    body: str
+    kv_rows: int
+    kv_q_rows: int
+    q_rows: int
+    q_k_rows: int
+    stages: int
+    kv_grid: tuple
+    q_grid: tuple
+    threads: int
+    kv_smem: int
+    q_smem: int
+    q_mask: bool
+    key_mask: bool
+    row_dim: int
+    maps: tuple
+    dq_strides: tuple
+    dkv_strides: tuple
+
+    def coords(self, chunk: int, row: int, b: int, h: int) -> tuple:
+        """The box origin the producer asks for: columns 64 * chunk.., rows
+        row.. of (b, h)."""
+        return _coords(self.row_dim, chunk, row, b, h)
+
+    def as_array(self):
+        """The plan as the C entries take it: 70 int64 in ``BwdPlan``'s order."""
+        vals = [1 if self.body == "wgmma" else 0, self.kv_rows, self.kv_q_rows, self.q_rows,
+                self.q_k_rows, self.stages, *self.kv_grid, *self.q_grid, self.threads,
+                self.kv_smem, self.q_smem, int(self.q_mask), int(self.key_mask), self.row_dim]
+        return _int64s(vals, self.maps, 4, [*self.dq_strides, *self.dkv_strides], 70)
 
 
 def wmma_fwd_smem(d: int) -> int:
@@ -140,6 +214,52 @@ def wgmma_fwd_smem(d: int) -> int:
     return (rows + 2 * FWD_STAGES * FWD_K_ROWS) * d * 2 + (1 + 3 * FWD_STAGES) * 8 + 1024
 
 
+def wgmma_bwd_smem(d: int) -> tuple:
+    """Shared memory of ``csrc/flash_bwd_sm90.cuh``'s two kernels
+    (``B9KvLayout<D>::kSmem``, ``B9QLayout<D>::kSmem``): the block's two
+    128-row tiles, the ring's stages (two streamed tiles each; the dK/dV
+    kernel's also z and di in float32), the mbarriers and 1024 bytes of
+    alignment slack."""
+    nq, nk = BWD_Q_TILE[d], BWD_K_TILE[d]
+    kv = ((2 * BWD_ROWS + 2 * BWD_STAGES * nq) * d * 2 + BWD_STAGES * 2 * nq * 4
+          + (1 + 3 * BWD_STAGES) * 8 + 1024)
+    q = (2 * BWD_ROWS + 2 * BWD_STAGES * nk) * d * 2 + (1 + 2 * BWD_STAGES) * 8 + 1024
+    return kv, q
+
+
+def wmma_bwd_smem(d: int) -> int:
+    """Shared memory of ``csrc/flash_bwd.cuh``'s shipped instantiation
+    (``BwdLayout<D, 32>::kBytes``)."""
+    t = BWD_WMMA_ROWS
+    return (4 * t * (d + 8) * 2 + 2 * t * (t + 4) * 4 + 2 * t * (t + 8) * 2 + t * (d + 4) * 4
+            + 2 * t * 4)
+
+
+def _check_plan_shape(name: str, layout: str, b: int, h: int, lq: int, lk: int, d: int,
+                      in_stride: int) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"{name}: layout {layout!r} not in {LAYOUTS}")
+    if min(b, h, lq, lk) <= 0 or d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: B={b}, H={h}, Lq={lq}, Lk={lk}, D={d} unsupported")
+    if layout != "head_major" and (lq != lk or in_stride < h * d):
+        raise ValueError(f"{name}: {layout} wants Lq == Lk and a token stride "
+                         f">= H*D, got Lq={lq}, Lk={lk}, in_stride={in_stride}")
+
+
+def _maps(layout: str, b: int, h: int, d: int, tensors: tuple) -> tuple:
+    """(row_dim, 4-D maps): one per (length, box rows, element offset, token
+    stride) of `tensors`; head-major maps read (D, L, H, B), token-major
+    ones (D, H, L, B) at the given token stride, so that a box never leaves
+    its (b, h)."""
+    if layout == "head_major":
+        return 1, tuple(TensorMapPlan(0, (d, n, h, b), (2 * d, 2 * n * d, 2 * h * n * d),
+                                      (SWIZZLE_COLS, rows, 1, 1))
+                        for n, rows, _, _ in tensors)
+    return 2, tuple(TensorMapPlan(off, (d, h, n, b), (2 * d, 2 * st, 2 * n * st),
+                                  (SWIZZLE_COLS, 1, rows, 1))
+                    for n, rows, off, st in tensors)
+
+
 @functools.lru_cache(maxsize=None)
 def flash_fwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
                    in_stride: int = 0) -> FlashFwdPlan:
@@ -155,36 +275,59 @@ def flash_fwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
     L, B) token-major with the token stride, so that a box never leaves its
     (b, h) and TMA's zero fill is the ragged edge.  At D = 256 and 512 the wmma
     body, 32 q rows against 64-key tiles, with no maps."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"flash_fwd_plan: layout {layout!r} not in {LAYOUTS}")
-    if min(b, h, lq, lk) <= 0 or d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_fwd_plan: B={b}, H={h}, Lq={lq}, Lk={lk}, D={d} unsupported")
+    _check_plan_shape("flash_fwd_plan", layout, b, h, lq, lk, d, in_stride)
     c = h * d
-    if layout == "head_major":
-        out_strides = (h * lq * d, lq * d, d)
-    else:
-        if lq != lk or in_stride < c:
-            raise ValueError(f"flash_fwd_plan: {layout} wants Lq == Lk and a token stride "
-                             f">= H*D, got Lq={lq}, Lk={lk}, in_stride={in_stride}")
-        out_strides = (lq * c, d, c)
+    out_strides = (h * lq * d, lq * d, d) if layout == "head_major" else (lq * c, d, c)
     if d not in WGMMA_HEAD_DIMS:
         return FlashFwdPlan("wmma", 32, 64, 1, (-(-lq // 32), b * h), 256, wmma_fwd_smem(d),
                             lk % 64 != 0, 0, (), out_strides)
     q_rows = 64 * FWD_WARPGROUPS[d]
-    if layout == "head_major":
-        row_dim = 1
-        maps = tuple(TensorMapPlan(0, (d, n, h, b), (2 * d, 2 * n * d, 2 * h * n * d),
-                                   (SWIZZLE_COLS, rows, 1, 1))
-                     for n, rows in ((lq, q_rows), (lk, FWD_K_ROWS), (lk, FWD_K_ROWS)))
-    else:
-        row_dim = 2
-        offsets = (0, c, 2 * c) if layout == "packed" else (0, 0, 0)
-        maps = tuple(TensorMapPlan(off, (d, h, lq, b), (2 * d, 2 * in_stride, 2 * lq * in_stride),
-                                   (SWIZZLE_COLS, 1, rows, 1))
-                     for off, rows in zip(offsets, (q_rows, FWD_K_ROWS, FWD_K_ROWS)))
+    offsets = (0, c, 2 * c) if layout == "packed" else (0, 0, 0)
+    row_dim, maps = _maps(layout, b, h, d,
+                          ((lq, q_rows, offsets[0], in_stride),
+                           (lk, FWD_K_ROWS, offsets[1], in_stride),
+                           (lk, FWD_K_ROWS, offsets[2], in_stride)))
     return FlashFwdPlan("wgmma", q_rows, FWD_K_ROWS, FWD_STAGES, (-(-lq // q_rows), b * h),
                         128 * (FWD_WARPGROUPS[d] + 1), wgmma_fwd_smem(d), lk % FWD_K_ROWS != 0,
                         row_dim, maps, out_strides)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
+                   in_stride: int = 0) -> FlashBwdPlan:
+    """The launch of a bf16 flash backward, a function of the shape alone.
+
+    ``layout`` and ``in_stride`` as ``flash_fwd_plan``'s; do is (B, H, Lq,
+    D) head-major and (B, L, H*D) contiguous otherwise.  At D = 64 and 128
+    the wgmma body: the dK/dV kernel over 128-key blocks streaming
+    ``BWD_Q_TILE[D]``-row q tiles, the dQ kernel over 128-row q blocks
+    streaming ``BWD_K_TILE[D]``-key tiles, and 4-D maps of q, k, v and do
+    whose boxes hold the streamed tile's rows (the 128-row tiles are two or
+    four boxes).  The packed outputs dq | dk | dv go into one (B, L, 3C)
+    tensor at the input's strides.  At D = 256 and 512 the wmma body,
+    32-row tiles both ways, with no maps."""
+    _check_plan_shape("flash_bwd_plan", layout, b, h, lq, lk, d, in_stride)
+    c = h * d
+    if layout == "head_major":
+        dq_strides, dkv_strides = (h * lq * d, lq * d, d), (h * lk * d, lk * d, d)
+    else:
+        out = 3 * c if layout == "packed" else c
+        dq_strides = dkv_strides = (lq * out, d, out)
+    if d not in WGMMA_HEAD_DIMS:
+        t, smem = BWD_WMMA_ROWS, wmma_bwd_smem(d)
+        return FlashBwdPlan("wmma", t, t, t, t, 1, (-(-lk // t), b * h), (-(-lq // t), b * h),
+                            32 * BWD_WMMA_WARPS[d], smem, smem, lq % t != 0, lk % t != 0, 0, (),
+                            dq_strides, dkv_strides)
+    nq, nk = BWD_Q_TILE[d], BWD_K_TILE[d]
+    offsets = (0, c, 2 * c) if layout == "packed" else (0, 0, 0)
+    row_dim, maps = _maps(layout, b, h, d,
+                          ((lq, nq, offsets[0], in_stride), (lk, nk, offsets[1], in_stride),
+                           (lk, nk, offsets[2], in_stride), (lq, nq, 0, c)))
+    kv_smem, q_smem = wgmma_bwd_smem(d)
+    return FlashBwdPlan("wgmma", BWD_ROWS, nq, BWD_ROWS, nk, BWD_STAGES,
+                        (-(-lk // BWD_ROWS), b * h), (-(-lq // BWD_ROWS), b * h), BWD_THREADS,
+                        kv_smem, q_smem, lq % nq != 0, lk % nk != 0, row_dim, maps, dq_strides,
+                        dkv_strides)
 
 
 def check_aligned(name: str, *tensors) -> None:
@@ -345,12 +488,13 @@ def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float, num_heads: int)
     check_aligned("flash backward kernel", q, k, v, o, z, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     di = torch.empty((b, num_heads, l), dtype=torch.float32, device=q.device)
+    plan = flash_bwd_plan("token_major", b, num_heads, l, l, d, num_heads * d)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.gvq_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                 z.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(),
                                 dk.data_ptr(), dv.data_ptr(), b, l, num_heads, d,
-                                float(sm_scale), _build.stream_of(q))
+                                float(sm_scale), plan.as_array(), _build.stream_of(q))
     _build.check(err, "gvq_flash_bwd")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
@@ -365,7 +509,7 @@ class _FlashFn(torch.autograd.Function):
         if q.device.type == "cpu":
             o, z = flash_attention_res_plain(q, k, v, sm_scale, num_heads)
         else:
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            q, k, v = (_build.kernel_operand(t) for t in (q, k, v))
             o, z = flash_attention_res_cuda(q, k, v, sm_scale, num_heads)
         ctx.save_for_backward(q, k, v, o, z)
         ctx.sm_scale, ctx.num_heads = sm_scale, num_heads
@@ -374,7 +518,7 @@ class _FlashFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, z = ctx.saved_tensors
-        do = do.contiguous()
+        do = _build.kernel_operand(do)
         bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
         return (*bwd(q, k, v, o, z, do, ctx.sm_scale, ctx.num_heads), None, None)
 
@@ -387,7 +531,8 @@ def flash_attention(q, k, v, sm_scale: float, num_heads: int):
         return _FlashFn.apply(q, k, v, sm_scale, num_heads)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale, num_heads)
-    return flash_attention_cuda(q, k, v, sm_scale, num_heads)
+    return flash_attention_cuda(*(_build.kernel_operand(t) for t in (q, k, v)), sm_scale,
+                                num_heads)
 
 
 def flash_attention_qkv_plain(qkv, sm_scale: float, num_heads: int):
@@ -483,13 +628,15 @@ def flash_attention_qkv_bwd_cuda(qkv, o, z, do, sm_scale: float, num_heads: int)
             raise ValueError(f"packed flash backward kernel: {name} must be a contiguous "
                              f"{shape} {dtype} tensor on {qkv.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    check_aligned("packed flash backward kernel", o, z, do)
     dqkv = torch.empty_like(qkv)
     di = torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
+    plan = flash_bwd_plan("packed", b, num_heads, l, l, d, 3 * c)
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         err = lib.gvq_flash_bwd_qkv(qkv.data_ptr(), o.data_ptr(), z.data_ptr(), do.data_ptr(),
                                     di.data_ptr(), dqkv.data_ptr(), b, l, num_heads, d,
-                                    float(sm_scale), _build.stream_of(qkv))
+                                    float(sm_scale), plan.as_array(), _build.stream_of(qkv))
     _build.check(err, "gvq_flash_bwd_qkv")
     flash_attention_qkv_bwd_cuda.launches += 1
     return dqkv
@@ -504,6 +651,7 @@ class _FlashQKVFn(torch.autograd.Function):
         if qkv.device.type == "cpu":
             o, z = flash_attention_qkv_res_plain(qkv, sm_scale, num_heads)
         else:
+            qkv = _build.kernel_operand(qkv)
             o, z = flash_attention_qkv_res_cuda(qkv, sm_scale, num_heads)
         ctx.save_for_backward(qkv, o, z)
         ctx.sm_scale, ctx.num_heads = sm_scale, num_heads
@@ -512,7 +660,7 @@ class _FlashQKVFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qkv, o, z = ctx.saved_tensors
-        do = do.contiguous()
+        do = _build.kernel_operand(do)
         bwd = flash_attention_qkv_bwd_plain if qkv.device.type == "cpu" \
             else flash_attention_qkv_bwd_cuda
         return bwd(qkv, o, z, do, ctx.sm_scale, ctx.num_heads), None, None
@@ -527,7 +675,7 @@ def flash_attention_qkv(qkv, sm_scale: float, num_heads: int):
         return _FlashQKVFn.apply(qkv, sm_scale, num_heads)
     if qkv.device.type == "cpu":
         return flash_attention_qkv_plain(qkv, sm_scale, num_heads)
-    return flash_attention_qkv_cuda(qkv, sm_scale, num_heads)
+    return flash_attention_qkv_cuda(_build.kernel_operand(qkv), sm_scale, num_heads)
 
 
 def sdpa_token_major(q, k, v, sm_scale: float = None):

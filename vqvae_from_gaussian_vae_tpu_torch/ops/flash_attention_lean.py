@@ -25,7 +25,8 @@ the forward excepted: its last q block may be partial), and a backward
 without the backward blocks.  The block sizes are checked for that contract
 only: they do not set the Hopper kernels' tiling (bf16 forward: 192 q rows
 at D = 64 and 128 at D = 128 against 128-key tiles, 32 q rows against
-64-key tiles at D = 256 and 512; bf16 backward: 64-row tiles at D = 64
+64-key tiles at D = 256 and 512; bf16 backward: 128-key and 128-q-row
+blocks against 64- or 32-row q tiles and 128- or 64-key tiles at D = 64
 and 128, 32-row tiles at D = 256 and 512; float32: 32-row tiles, 16-row
 backward tiles at D = 512).  So where the JAX op fails inside its TPU kernel bodies
 rather than in a check (a k block that is not a multiple of the 128 lanes:
@@ -33,12 +34,15 @@ TypeError or NotImplementedError while tracing), the port computes.
 
 ``flash_attention`` is a ``torch.autograd.Function`` when a gradient is
 wanted.  The CUDA kernels run for CUDA tensors, bf16 or float32 as the JAX
-op does, contiguous, D in ``SUPPORTED_HEAD_DIMS`` (the token-major kernels'
-head dims), 16-byte aligned, any Lq, Lk >= 1, chosen by dtype: bf16
-``csrc/flash_fwd.cu`` entry ``gvq_flash_fwd_hm`` (its launch from
-``ops/flash_attention.py:flash_fwd_plan``) and ``csrc/flash_bwd.cu`` entry
-``gvq_flash_bwd_hm`` (tensor cores); float32 ``gvq_flash_fwd_hm_f32`` and
-``gvq_flash_bwd_hm_f32`` (SIMT float32 on CUDA cores, no TF32).  Any other
+op does, D in ``SUPPORTED_HEAD_DIMS`` (the token-major kernels' head dims),
+any Lq, Lk >= 1; ``flash_attention`` copies an operand that is not
+contiguous or whose data lies off 16 bytes into a fresh buffer first
+(``_build.kernel_operand``), where the ``*_cuda`` wrappers raise on data
+off 16 bytes.  The kernels are chosen by dtype: bf16 ``csrc/flash_fwd.cu``
+entry ``gvq_flash_fwd_hm`` and ``csrc/flash_bwd.cu`` entry
+``gvq_flash_bwd_hm`` (tensor cores; their launches from
+``ops/flash_attention.py``'s ``flash_fwd_plan`` and ``flash_bwd_plan``);
+float32 ``gvq_flash_fwd_hm_f32`` and ``gvq_flash_bwd_hm_f32`` (SIMT float32 on CUDA cores, no TF32).  Any other
 dtype or head dim raises.  The plain versions below run for CPU tensors, in
 any float dtype, and are what the kernels are held to on the card.
 """
@@ -52,7 +56,7 @@ import torch
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import (
-    SUPPORTED_HEAD_DIMS, check_aligned, flash_fwd_plan)
+    SUPPORTED_HEAD_DIMS, check_aligned, flash_bwd_plan, flash_fwd_plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,11 +251,13 @@ def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     entry = _ENTRIES[q.dtype][1]
+    plan = (flash_bwd_plan("head_major", b, h, lq, lk, d).as_array(),) \
+        if q.dtype == torch.bfloat16 else ()
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), z.data_ptr(), do.data_ptr(),
             di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
-            float(sm_scale), _build.stream_of(q))
+            float(sm_scale), *plan, _build.stream_of(q))
     _build.check(err, entry)
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
@@ -266,7 +272,7 @@ class _FlashLeanFn(torch.autograd.Function):
         if q.device.type == "cpu":
             o, z = flash_attention_res_plain(q, k, v, sm_scale)
         else:
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            q, k, v = (_build.kernel_operand(t) for t in (q, k, v))
             o, z = flash_attention_fwd_cuda(q, k, v, sm_scale, save_residuals=True)
         ctx.save_for_backward(q, k, v, o, z)
         ctx.sm_scale, ctx.block_sizes = sm_scale, block_sizes
@@ -276,7 +282,7 @@ class _FlashLeanFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, z = ctx.saved_tensors
         _check_backward_blocks(q, k, ctx.block_sizes)
-        do = do.contiguous()
+        do = _build.kernel_operand(do)
         bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
         return (*bwd(q, k, v, o, z, do, ctx.sm_scale), None, None)
 
@@ -293,4 +299,4 @@ def flash_attention(q, k, v, sm_scale: float, block_sizes: BlockSizes):
         return _FlashLeanFn.apply(q, k, v, sm_scale, block_sizes)
     if q.device.type == "cpu":
         return flash_attention_res_plain(q, k, v, sm_scale)[0]
-    return flash_attention_fwd_cuda(q, k, v, sm_scale)
+    return flash_attention_fwd_cuda(*(_build.kernel_operand(t) for t in (q, k, v)), sm_scale)

@@ -20,7 +20,9 @@ variant's backward adds the cotangent of ``s`` to dx and returns dx for both
 
 The CUDA kernels (``csrc/layer_norm.cu``) run for CUDA tensors; the plain
 versions below run for CPU tensors and are what the kernels are held to on
-the card.
+the card.  The public ops take any layout: an operand that is strided or
+whose data lies off 16 bytes is copied once into a fresh buffer
+(``_build.kernel_operand``), where the ``*_cuda`` wrappers raise on it.
 """
 
 from __future__ import annotations
@@ -195,9 +197,17 @@ def _on_cpu(x) -> bool:
     return x.device.type == "cpu"
 
 
+def _operands(*tensors) -> tuple:
+    """Each tensor as the kernels read it: itself, or one fresh contiguous
+    copy where it is strided or its data lies off 16 bytes."""
+    return tuple(_build.kernel_operand(t) for t in tensors)
+
+
 class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
+        if not _on_cpu(x):
+            x, weight, bias = _operands(x, weight, bias)
         ctx.save_for_backward(x, weight)
         ctx.eps = eps
         if _on_cpu(x):
@@ -207,7 +217,7 @@ class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        dy = dy.contiguous()
+        dy = _build.kernel_operand(dy)
         if _on_cpu(x):
             dx, dw, db = layer_norm_bwd_plain(x, weight, dy, ctx.eps)
         else:
@@ -222,7 +232,7 @@ class _LayerNormAddFn(torch.autograd.Function):
         if _on_cpu(x):
             s, y = layer_norm_add_plain(x, delta, weight, bias, eps)
         else:
-            s, y = layer_norm_add_cuda(x, delta, weight, bias, eps)
+            s, y = layer_norm_add_cuda(*_operands(x, delta, weight, bias), eps)
         ctx.save_for_backward(s, weight)
         ctx.eps = eps
         return s, y
@@ -230,7 +240,7 @@ class _LayerNormAddFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ds_in, dy):
         s, weight = ctx.saved_tensors
-        dy, ds_in = dy.contiguous(), ds_in.contiguous()
+        dy, ds_in = _operands(dy, ds_in)
         if _on_cpu(s):
             dx, dw, db = layer_norm_bwd_plain(s, weight, dy, ctx.eps, ds_in=ds_in)
         else:
@@ -246,7 +256,7 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
         return _LayerNormFn.apply(x, weight, bias, eps)
     if _on_cpu(x):
         return layer_norm_plain(x, weight, bias, eps)
-    return layer_norm_cuda(x, weight, bias, eps)
+    return layer_norm_cuda(*_operands(x, weight, bias), eps)
 
 
 def layer_norm_add(x, delta, weight, bias, eps: float = 1e-5):
@@ -256,4 +266,4 @@ def layer_norm_add(x, delta, weight, bias, eps: float = 1e-5):
         return _LayerNormAddFn.apply(x, delta, weight, bias, eps)
     if _on_cpu(x):
         return layer_norm_add_plain(x, delta, weight, bias, eps)
-    return layer_norm_add_cuda(x, delta, weight, bias, eps)
+    return layer_norm_add_cuda(*_operands(x, delta, weight, bias), eps)
