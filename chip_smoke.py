@@ -186,6 +186,34 @@ def wgrad_kernel_facts(source: str, o: int) -> dict:
             "design": "wgmma", "tile_o": tile_o, "sass_hgmma": hgmma}
 
 
+def igemm_kernel_facts(mode: str, b: int, h: int, w: int, c: int, o: int) -> dict:
+    """The Hopper implicit-GEMM body's kernel (``csrc/conv_igemm_sm90.cuh``)
+    that the downsample forward ("fwd", "fwd_add") or dgrad ("dgrad")
+    launches on x (b, h, w, c) and O output channels: its plan's spatial
+    and channel tiles, ptxas's registers and spill bytes (stores + loads)
+    from the build's ``nvcc.log``, and the count of HGMMA (wgmma)
+    instructions in its SASS (``cuobjdump``), which must not be 0."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import igemm_plan
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        usage = _build.ptxas_usage(f.read())
+    plan = igemm_plan(mode, b, h, w, c, o)
+    source = "_downsample_bwd_cu_" if mode == "dgrad" else "_downsample_conv_cu_"
+    ax = "4AAdd" if mode == "fwd_add" else "9AIdentity"
+    tag = f"conv_igemm_sm90_kernelILi{int(mode == 'dgrad')}ELi{plan.tile_n}ENS0_{ax}E"
+    names = [n for n in usage if source in n and tag in n]
+    require(len(names) == 1, f"{len(names)} {tag} entries of {source} in nvcc.log")
+    u = usage[names[0]]
+    hgmma = sass_hgmma().get(names[0], 0)
+    require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+    spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
+    require(spills == 0, f"{names[0]}: {spills} bytes of spills")
+    return {"registers": u["registers"], "spills": spills, "design": "wgmma",
+            "tile": f"{plan.tile_h}x{plan.tile_w}", "tile_n": plan.tile_n,
+            "stages": plan.stages, "blocks_per_sm": plan.blocks_per_sm, "sass_hgmma": hgmma}
+
+
 def flash_fwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
     """The bf16 flash forward kernel the entries launch at head dim d and
     lengths lq, lk: its design ("wgmma": ``csrc/flash_fwd_sm90.cuh``, D = 64
@@ -300,7 +328,11 @@ def check_gq(gen):
     shape = {"shape": f"A ({rows},{2 * group}) f32 x B ({2 * group},{n}) f32",
              "kernel_ms": time_ms(lambda: gq_argmax_cuda(a, b)),
              "plain_ms": time_ms(lambda: argmax_blocked(a, b)),
-             "library_ms": None, "bound_ms": bnd, "bound_by": by,
+             # two named calls, float32 with TF32 off: the (rows, n) score
+             # matrix (4.3 GB at the main path's shape) goes through memory
+             "library_ms": time_ms(lambda: torch.argmax(a @ b, dim=1)),
+             "library_bytes": nbytes + 2 * rows * n * 4 + rows * 8,
+             "bound_ms": bnd, "bound_by": by,
              "flops": flops, "bytes": nbytes, "mismatches": mismatches,
              "max_abs_err": gap}
     return {"name": "gq_argmax", "route": "cuda",
@@ -361,6 +393,7 @@ def check_resample(gen, kind: str):
         b, h, w, c = shape
         x, a, wt, bias = _conv_inputs(gen, shape, add)
         y_k, s_k = kernel(x, wt, bias, a)
+        y_k2, s_k2 = kernel(x, wt, bias, a)
         y_p, _ = plain(x, wt, bias, a)
         torch.cuda.synchronize()
         err, ratio = _bf16_err(y_k, y_p)
@@ -368,6 +401,13 @@ def check_resample(gen, kind: str):
                               f"atol {BF16_ATOL} + rtol {BF16_RTOL}")
         s_err = _stats_err(y_k, s_k)
         require(s_err <= STATS_RTOL, f"{kind} {shape}: stats error {s_err}")
+        facts = {}
+        if kind == "down":  # the Hopper body: y and the statistics repeat bit for bit
+            require(torch.equal(y_k, y_k2) and torch.equal(s_k, s_k2),
+                    f"{kind} {shape}: two runs differ")
+            facts = {"bit_reproducible": True,
+                     **igemm_kernel_facts("fwd_add" if add else "fwd", b, h, w, c, c)}
+        del y_k2, s_k2
         w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC buffer: channels_last
         if kind == "down":
@@ -383,13 +423,14 @@ def check_resample(gen, kind: str):
             out_elems, w_elems = b * 4 * h * w * c, 9 * c * c
         nbytes = 2 * ((2 if add else 1) * x.numel() + w_elems + c + out_elems) + 4 * b * 2 * c
         bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+        ms = time_ms(lambda: kernel(x, wt, bias, a))
         shapes.append({
             "shape": f"x {tuple(shape)} bf16" + (" + add" if add else ""),
-            "kernel_ms": time_ms(lambda: kernel(x, wt, bias, a)),
+            "kernel_ms": ms, "tflops": flops / ms / 1e9,
             "plain_ms": time_ms(lambda: plain(x, wt, bias, a), iters=3, warmup=1),
             "library_ms": lib, "bound_ms": bnd, "bound_by": by, "flops": flops,
             "bytes": nbytes, "max_abs_err": err, "err_over_tol": ratio,
-            "stats_rel_err": s_err})
+            "stats_rel_err": s_err, **facts})
         del x, a, y_k, y_p, s_k
         torch.cuda.empty_cache()
     if kind == "down":
@@ -592,12 +633,17 @@ def check_resample_bwd(gen, kind: str):
         gshape = (b, h // 2, w // 2, c) if kind == "down" else (b, 2 * h, 2 * w, c)
         g = torch.randn(gshape, generator=gen, device="cuda").to(torch.bfloat16)
         wop = wt if kind == "down" else up.phase_kernels(wt)  # dgrad's weight operand
-        dx_k, dx_p = dgrad_k(g, wop), dgrad_p(g, wop)
+        dx_k, dx_k2, dx_p = dgrad_k(g, wop), dgrad_k(g, wop), dgrad_p(g, wop)
         dw_k, dw_k2, dw_p = wgrad_k(x, g), wgrad_k(x, g), wgrad_p(x, g)
         torch.cuda.synchronize()
         err, ratio = _bf16_err(dx_k, dx_p)
         require(ratio <= 1.0, f"{kind} dgrad {shape}: kernel vs plain error {err} beyond "
                               f"atol {BF16_ATOL} + rtol {BF16_RTOL}")
+        d_facts = {}
+        if kind == "down":  # the Hopper body: dx repeats bit for bit
+            require(torch.equal(dx_k, dx_k2), f"{kind} dgrad {shape}: two runs differ")
+            d_facts = {"bit_reproducible": True, **igemm_kernel_facts("dgrad", b, h, w, c, c)}
+        del dx_k2
         require(torch.equal(dw_k, dw_k2), f"{kind} wgrad {shape}: two runs differ")
         w_err = float((dw_k - dw_p).abs().max())
         w_rel = w_err / float(dw_p.abs().max())
@@ -628,7 +674,8 @@ def check_resample_bwd(gen, kind: str):
         label = f"x {tuple(shape)}, g {tuple(gshape)} bf16"
         for out, kern, plain, lib_mask, nbytes, e in (
                 (dshapes, lambda: dgrad_k(g, wop), lambda: dgrad_p(g, wop),
-                 [True, False, False], d_bytes, {"max_abs_err": err, "err_over_tol": ratio}),
+                 [True, False, False], d_bytes,
+                 {"max_abs_err": err, "err_over_tol": ratio, **d_facts}),
                 (wshapes, lambda: wgrad_k(x, g), lambda: wgrad_p(x, g),
                  [False, True, False], w_bytes,
                  {"max_abs_err": w_err, "rel_err_of_max": w_rel, "bit_reproducible": True,

@@ -97,6 +97,8 @@ def _check_conv(got, want):
     ((2, 8, 12, 32), 128, False),    # 24 output pixels: one ragged M tile
     ((3, 18, 34, 64), 128, True),    # 153 output pixels: two tiles, the second ragged
     ((1, 32, 32, 32), 256, True),    # two output-channel tiles
+    ((2, 16, 20, 64), 256, False),   # no add at the 256-channel tile
+    ((2, 64, 64, 512), 512, True),   # the smallest main-path shape at bs 2
 ])
 def test_downsample_kernel_matches_plain(gen, shape, o, with_add):
     x, add, w, bias = _conv_case(gen, shape, o, with_add)
@@ -104,6 +106,23 @@ def test_downsample_kernel_matches_plain(gen, shape, o, with_add):
     got = down.downsample_conv3x3_gn(x, w, bias, add)
     assert down.downsample_conv3x3_gn_cuda.launches == before + 1
     _check_conv(got, down.downsample_conv3x3_gn_plain(x, w, bias, add))
+
+
+@pytest.mark.parametrize("shape,o,with_add", [
+    ((3, 18, 34, 64), 128, True),    # two blocks an SM, ragged tiles
+    ((2, 64, 64, 512), 512, True),   # one block an SM, the smallest main-path shape at bs 2
+    ((2, 16, 20, 64), 256, False),
+])
+def test_downsample_kernels_are_bit_reproducible(gen, shape, o, with_add):
+    """y, the statistics and dx repeat bit for bit: fixed summation orders,
+    no float atomics."""
+    x, add, w, bias = _conv_case(gen, shape, o, with_add)
+    y, stats = down.downsample_conv3x3_gn_cuda(x, w, bias, add)
+    y2, stats2 = down.downsample_conv3x3_gn_cuda(x, w, bias, add)
+    assert torch.equal(y, y2) and torch.equal(stats, stats2)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    dx = down.downsample_dgrad_cuda(g, w)
+    assert torch.equal(dx, down.downsample_dgrad_cuda(g, w))
 
 
 @pytest.mark.parametrize("shape,o,with_add", [

@@ -1,25 +1,18 @@
-// Implicit-GEMM 3x3 convolution core shared by the resample kernels, forward
-// (downsample_conv.cu, upsample_conv.cu) and input gradient
-// (downsample_bwd.cu, upsample_bwd.cu), and by the fused GroupNorm + swish +
-// conv (fused_gn_conv.cu).
+// Implicit-GEMM 3x3 convolution core of the upsample kernels, forward
+// (upsample_conv.cu) and input gradient (upsample_bwd.cu), and of the fused
+// GroupNorm + swish + conv (fused_gn_conv.cu).  The downsample's forward and
+// input gradient run the Hopper body, conv_igemm_sm90.cuh.
 //
-// All five ops are a sum of small-tap convolutions over an NHWC bf16 input,
+// All three ops are a sum of small-tap convolutions over an NHWC bf16 input,
 // so one kernel body serves them, picked by MODE:
 //
 //   M = output pixels of one sample (of one phase, where the op has phases),
 //   N = output channels, K = taps x input channels.
 //
-//   kDownFwd: 9 taps; output pixel (mh, mw) reads input (2*mh + a,
-//       2*mw + b), a, b in 0..2; row H / column W are the (0,1) zero pad.
 //   kUpFwd: 4 taps per phase (di, dj); output pixel (2*mh+di, 2*mw+dj)
 //       reads input (mh + di + a - 1, mw + dj + b - 1), a, b in 0..1, with
 //       zero halos outside the image; the weights are the phase kernels
 //       k22[di, dj, a, b] computed once by the wrapper.
-//   kDownDgrad: the adjoint of kDownFwd, input = the cotangent g
-//       (B, H/2, W/2, O).  Parity phase (pm, pn) of dx takes the taps
-//       r = pm, pm+2 (<= 2) and s = pn, pn+2: dx[2*mh+pm, 2*mw+pn] =
-//       sum g[mh - (r-pm)/2, mw - (s-pn)/2] . w[r, s]^T (9 taps over the 4
-//       phases: 4, 2, 2, 1); negative g rows and columns are zero.
 //   kUpDgrad: the adjoint of kUpFwd (the 4x4 stride-2 adjoint as 16
 //       low-resolution taps), input = g (B, 2H, 2W, O): dx[mh, mw] = sum
 //       over (di, dj, a, b) of g[2*(mh-dr)+di, 2*(mw-dc)+dj] . k22^T, with
@@ -35,9 +28,9 @@
 //       ADD, the residual `add` (B, H, W, O), and rounds once; no stats.
 //
 // The weights are laid out (taps, K channels, N channels); the gradient
-// modes take w^T (HWOI) and k22^T.  They have no bias and no statistics,
-// and N (the forward's input channels) may be any multiple of 8: the last
-// channel tile is masked.
+// mode takes k22^T.  It has no bias and no statistics, and N (the
+// forward's input channels) may be any multiple of 8: the last channel tile
+// is masked.
 //
 // Work per block: a 128-pixel x 128-channel output tile of one sample,
 // 8 warps in a 4 x 2 grid, each warp 32 x 64 on bf16 tensor cores through
@@ -59,7 +52,7 @@
 #include <mma.h>
 #include <stdint.h>
 
-// Everything below has internal linkage: both resample sources include this
+// Everything below has internal linkage: several sources include this
 // header and are linked into one library.
 namespace gvq {
 namespace {
@@ -79,20 +72,22 @@ constexpr size_t kConvSmemAB =
 constexpr size_t kConvSmemC = (size_t)kConvBM * kConvLDC * sizeof(float);
 constexpr size_t kConvSmem = kConvSmemAB > kConvSmemC ? kConvSmemAB : kConvSmemC;
 
-enum ConvMode { kDownFwd = 0, kUpFwd = 1, kDownDgrad = 2, kUpDgrad = 3, kSameGn = 4 };
+// the values of the modes the Hopper body took over (0, 2) stay unused, so
+// the kernels' mangled names do not move
+enum ConvMode { kUpFwd = 1, kUpDgrad = 3, kSameGn = 4 };
 
 __host__ __device__ constexpr bool conv_is_fwd(int mode) {
-  return mode == kDownFwd || mode == kUpFwd;
+  return mode == kUpFwd;
 }
 
 __host__ __device__ constexpr int conv_phases(int mode) {
-  return mode == kUpFwd || mode == kDownDgrad ? 4 : 1;
+  return mode == kUpFwd ? 4 : 1;
 }
 
 struct ConvArgs {
   const bf16* x;      // input (B, H, W, C): x, or the cotangent g for the gradient modes
   const bf16* add;    // (B, H, W, C) or null (forward modes); kSameGn: the residual (B, H, W, O)
-  const bf16* w;      // (taps, C, O): HWIO, k22, HWOI (w^T) or k22^T
+  const bf16* w;      // (taps, C, O): HWIO, k22 or k22^T
   const float* bias;  // (O,) bf16-rounded values held as f32 (forward modes); f32 (kSameGn)
   const float* scale; // (B, C) GroupNorm affine (kSameGn only)
   const float* shift; // (B, C)
@@ -175,12 +170,7 @@ conv_igemm_kernel(ConvArgs g) {
   const int di = phase >> 1, dj = phase & 1;
   const int n0 = nt * kConvBN;
   const int m_total = g.Mh * g.Mw;
-  // kDownDgrad: phase (di, dj) = (pm, pn) takes 2 row taps for pm = 0 (r = 0, 2), else 1
-  const int dg_cols = dj == 0 ? 2 : 1;
-  const int taps = MODE == kDownFwd || GN ? 9
-                 : MODE == kUpFwd ? 4
-                 : MODE == kUpDgrad ? 16
-                 : (di == 0 ? 2 : 1) * dg_cols;
+  const int taps = GN ? 9 : MODE == kUpFwd ? 4 : 16;
   const int kc_steps = g.C / kConvBK;
   const int ksteps = taps * kc_steps;
 
@@ -205,15 +195,10 @@ conv_igemm_kernel(ConvArgs g) {
     const int c0 = (ks % kc_steps) * kConvBK;
     // input pixel (r, s) = (rm * mh + dr, rm * mw + dc), and the weight tap
     int rm = 1, dr = 0, dc = 0, wtap = t;
-    if (MODE == kDownFwd) {
-      rm = 2, dr = t / 3, dc = t % 3;
-    } else if (GN) {
+    if (GN) {
       dr = t / 3 - 1, dc = t % 3 - 1;
     } else if (MODE == kUpFwd) {
       dr = di + (t >> 1) - 1, dc = dj + (t & 1) - 1, wtap = phase * 4 + t;
-    } else if (MODE == kDownDgrad) {
-      const int tr = t / dg_cols, tc = t % dg_cols;  // r = di + 2 tr, s = dj + 2 tc
-      dr = -tr, dc = -tc, wtap = (di + 2 * tr) * 3 + dj + 2 * tc;
     } else {  // kUpDgrad: t = (tdi, tdj, a, b); g row 2 (mh - (tdi + a - 1)) + tdi
       const int tdi = t >> 3, tdj = (t >> 2) & 1;
       rm = 2, dr = tdi - 2 * (tdi + ((t >> 1) & 1) - 1), dc = tdj - 2 * (tdj + (t & 1) - 1);

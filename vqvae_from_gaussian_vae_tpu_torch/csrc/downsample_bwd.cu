@@ -7,13 +7,15 @@
 // The wrapper folds the statistics cotangent into g (float32, then bf16) and
 // sums dbias before these run, as the JAX backward does.
 //
-// dgrad: dx (B, H, W, C) from g (B, H/2, W/2, O) and w^T, the 4 parity
+// dgrad: dx (B, H, W, C) from g (B, H/2, W/2, O) and w, the 4 parity
 // phases of shifted g . w[r, s]^T (9 taps over the phases: 4, 2, 2, 1),
 // interleaved into dx; negative g rows and columns (the top row of band 0
 // in the TPU kernel) are zero.  It runs the forward's implicit-GEMM body
-// (conv_igemm.cuh, mode kDownDgrad): M = low-resolution pixels of one
-// phase, N = C, K = the phase's taps x O, bf16 tensor cores with float32
-// accumulators, no zero-stuffed or padded copy of g.
+// (conv_igemm_sm90.cuh, mode kIgDownDgrad): M = low-resolution pixels of
+// one phase, N = C, K = the phase's taps x O, wgmma fed by TMA copies of g
+// (negative coordinates zero-filled) and of w as it lies (HWIO: dgrad's B
+// is K-major), float32 accumulators, no zero-stuffed or padded copy of g;
+// the longest phase's blocks first.
 //
 // wgrad: dw (9, C, O) float32, the strided input views x[2i+r, 2j+s]
 // against g over all B * H/2 * W/2 pixels (conv_wgrad.cuh, mode kWgDown:
@@ -26,28 +28,42 @@
 // encoder shapes (bs=16), against 67 to 337 MB of traffic (dgrad: g in, dx
 // out; wgrad: x and g in), so the tensor cores bound the 64x64x512 level
 // and the bytes the 256x256x128 one.
+#include "conv_igemm_sm90.cuh"
 #include "conv_wgrad.cuh"
 
-// g (B, Ho, Wo, O) bf16; wt (3, 3, O, C) bf16 (w^T per tap); dx (B, 2 Ho,
-// 2 Wo, C) bf16.  All contiguous; O a multiple of 32, C of 8.
-extern "C" int gvq_downsample_dgrad(const void* g, const void* wt, void* dx, int B, int Ho,
+namespace gvq {
+namespace {
+
+// dgrad: g (B, Ho, Wo, O), w HWIO (3, 3, C, O); dx (B, 2 Ho, 2 Wo, C).  O a
+// multiple of 32, C of 8, every pointer on 16 bytes.
+inline int launch_downsample_dgrad(const bf16* g, const bf16* w, bf16* dx, int B, int Ho, int Wo,
+                                   int O, int C, cudaStream_t stream) {
+  IgemmArgs a{};
+  long long blocks = 0;
+  if (O % 32 != 0 || C % 8 != 0 || !igemm_args(&a, B, Ho, Wo, C, O, 4, &blocks))
+    return (int)cudaErrorInvalidValue;
+  a.out = dx;
+  const int bn = igemm_tile_n(C);
+  CUtensorMap tg, tw;
+  if (!ig_nhwc_map(&tg, g, B, Ho, Wo, O, a.tile_h, a.tile_w, 1) ||
+      !ig_weight_map(&tw, w, C, O, bn))
+    return (int)cudaErrorInvalidValue;
+  return (int)(bn == 256
+                   ? launch_igemm_sm90<kIgDownDgrad, 256, AIdentity>(tg, tg, tw, a, blocks, stream)
+                   : launch_igemm_sm90<kIgDownDgrad, 128, AIdentity>(tg, tg, tw, a, blocks, stream));
+}
+
+}  // namespace
+}  // namespace gvq
+
+// g (B, Ho, Wo, O) bf16; w HWIO (3, 3, C, O) bf16; dx (B, 2 Ho, 2 Wo, C)
+// bf16.  All contiguous and on 16 bytes; O a multiple of 32, C of 8.
+extern "C" int gvq_downsample_dgrad(const void* g, const void* w, void* dx, int B, int Ho,
                                     int Wo, int O, int C, void* stream) {
-  if (B <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaErrorInvalidValue;
-  gvq::ConvArgs a{};
-  a.x = static_cast<const gvq::bf16*>(g);
-  a.w = static_cast<const gvq::bf16*>(wt);
-  a.y = static_cast<gvq::bf16*>(dx);
-  a.B = B;
-  a.H = Ho;
-  a.W = Wo;
-  a.C = O;
-  a.O = C;
-  a.Mh = Ho;
-  a.Mw = Wo;
-  a.n_mt = (Ho * Wo + gvq::kConvBM - 1) / gvq::kConvBM;
-  a.out_h = 2 * Ho;
-  a.out_w = 2 * Wo;
-  return gvq::launch_dgrad<gvq::kDownDgrad>(a, static_cast<cudaStream_t>(stream));
+  return gvq::launch_downsample_dgrad(static_cast<const gvq::bf16*>(g),
+                                      static_cast<const gvq::bf16*>(w),
+                                      static_cast<gvq::bf16*>(dx), B, Ho, Wo, O, C,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // x (B, H, W, C) bf16 (the forward's input, x + add summed and rounded

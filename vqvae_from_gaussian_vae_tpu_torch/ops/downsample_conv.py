@@ -23,9 +23,11 @@ any Pallas kernel too).
 
 Layout at this surface is the JAX package's: x and add (B, H, W, C), weight
 HWIO (3, 3, C, O), output (B, H/2, W/2, O).  The CUDA kernels
-(``csrc/downsample_conv.cu``, ``csrc/downsample_bwd.cu``) run for CUDA
-tensors; the plain versions below run for CPU tensors and are what the
-kernels are held to on the card.  When a gradient is wanted,
+(``csrc/downsample_conv.cu``, ``csrc/downsample_bwd.cu``; the forward and
+dgrad on the Hopper implicit-GEMM body ``csrc/conv_igemm_sm90.cuh``, whose
+launch ``igemm_plan`` mirrors) run for CUDA tensors; the plain versions
+below run for CPU tensors and are what the kernels are held to on the
+card.  When a gradient is wanted,
 ``downsample_conv3x3_gn`` is a ``torch.autograd.Function``.
 """
 
@@ -150,6 +152,89 @@ def wgrad_plan(taps: int, b: int, mh: int, mw: int, c: int, o: int) -> WgradPlan
     return WgradPlan(best[1], best[2], th, tw, steps, tile_o, smem, per_sm)
 
 
+# the implicit-GEMM body's launch (csrc/conv_igemm_sm90.cuh): a block takes
+# a 128-pixel spatial tile of one sample's (one phase's) grid and a tile_n
+# wide slice of the output channels, over K steps of 64 channels of one tap
+IGEMM_PIXELS = 128
+IGEMM_MODES = ("fwd", "fwd_add", "dgrad")
+
+
+class IgemmPlan(NamedTuple):
+    tile_h: int         # a block's M tile: tile_h x tile_w pixels of one grid
+    tile_w: int
+    tiles: int          # spatial tiles a sample (and phase): the forward's partial count
+    tile_n: int         # output channels of a block's tile
+    n_tiles: int
+    phases: int         # 1 (forward); 4 (dgrad's parity phases, the longest first)
+    stages: int         # the ring's stages
+    smem: int           # dynamic shared memory of a block, bytes
+    blocks_per_sm: int  # blocks the plan's shared memory and registers let an SM hold
+    grid: int           # blocks of the launch
+
+
+def igemm_tile(mh: int, mw: int):
+    """(tile_h, tile_w) of a block on an (mh, mw) pixel grid: tile_w in
+    (128, 64, 32, 16, 8), tile_h = 128 / tile_w, the widest that covers the
+    grid with the fewest pixels (``conv_igemm_sm90.cuh`` ``igemm_tile`` is
+    the same rule; the copies zero-fill the overhang)."""
+    best = None
+    for tw in (128, 64, 32, 16, 8):
+        th = IGEMM_PIXELS // tw
+        cover = -(-mh // th) * th * -(-mw // tw) * tw
+        if best is None or cover < best[0]:
+            best = (cover, th, tw)
+    return best[1], best[2]
+
+
+def igemm_tile_n(n: int) -> int:
+    """A block's output-channel tile: 256 where N is a multiple of 256, else
+    128; ``igemm_tile_n`` in the header is the same rule."""
+    return 256 if n % 256 == 0 else 128
+
+
+def igemm_blocks_per_sm(extra: int, tile_n: int) -> int:
+    """Blocks an SM (``ig_blocks_per_sm``): two at tile_n 128 without the
+    add (96 registers a thread), else one (the add's register-A products
+    need more registers)."""
+    return 2 if tile_n == 128 and extra == 0 else 1
+
+
+def igemm_stages(extra: int, tile_n: int) -> int:
+    """Ring stages (``ig_stages``): a stage is the A tile (16 KB), `extra`
+    tiles beside it (the add) and tile_n x 64 weights; three where two
+    blocks share an SM or a stage is 64 KB, else four."""
+    return 3 if igemm_blocks_per_sm(extra, tile_n) == 2 or (extra and tile_n == 256) else 4
+
+
+def igemm_smem(extra: int, tile_n: int) -> int:
+    """Bytes of dynamic shared memory a block asks for (``ig_smem``): the
+    ring, its full and empty barriers, and 1 KB of alignment slack."""
+    stages = igemm_stages(extra, tile_n)
+    return stages * ((1 + extra) * IGEMM_PIXELS * 128 + tile_n * 128) + 2 * stages * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def igemm_plan(mode: str, b: int, h: int, w: int, c: int, o: int) -> IgemmPlan:
+    """The launch of the downsample's forward ("fwd", "fwd_add": with the
+    fused add) or dgrad ("dgrad") on x (b, h, w, c) and O output channels:
+    M is the (h/2, w/2) grid of one sample (and phase), N = o for the
+    forward and c for dgrad; a K step is 64 channels of one tap (of c for
+    the forward, of o for dgrad).  A function of the shape only (cached)."""
+    if mode not in IGEMM_MODES:
+        raise ValueError(f"igemm_plan: mode {mode!r} is not one of {IGEMM_MODES}")
+    mh, mw = h // 2, w // 2
+    th, tw = igemm_tile(mh, mw)
+    tiles = -(-mh // th) * -(-mw // tw)
+    fwd = mode != "dgrad"
+    tile_n = igemm_tile_n(o if fwd else c)
+    n_tiles = -(-(o if fwd else c) // tile_n)
+    extra = 1 if mode == "fwd_add" else 0
+    phases = 1 if fwd else 4
+    return IgemmPlan(th, tw, tiles, tile_n, n_tiles, phases,
+                     igemm_stages(extra, tile_n), igemm_smem(extra, tile_n),
+                     igemm_blocks_per_sm(extra, tile_n), phases * b * tiles * n_tiles)
+
+
 def downsample_conv3x3_gn_plain(x, w, bias, add=None):
     """Plain version: the same function in PyTorch ops, float32 math on
     operands rounded to x's dtype, output rounded to x's dtype."""
@@ -178,14 +263,13 @@ def downsample_conv3x3_gn_cuda(x, w, bias, add=None):
         raise ValueError("downsample kernel: add must match x")
     if w.device != x.device or bias.device != x.device:
         raise ValueError("downsample kernel: weight and bias must lie on x's device")
-    x = x.contiguous()
-    add = None if add is None else add.contiguous()
-    w = w.to(torch.bfloat16).contiguous()
-    bias_f = bias.to(torch.bfloat16).float().contiguous()
-    ho, wo = h // 2, wd // 2
-    n_mt = -(-(ho * wo) // 128)
-    y = torch.empty((b, ho, wo, o), dtype=x.dtype, device=x.device)
-    partial = torch.empty((b, n_mt, 2, o), dtype=torch.float32, device=x.device)
+    x = _build.kernel_operand(x)
+    add = None if add is None else _build.kernel_operand(add)
+    w = _build.kernel_operand(w.to(torch.bfloat16))
+    bias_f = _build.kernel_operand(bias.to(torch.bfloat16).float())
+    plan = igemm_plan("fwd" if add is None else "fwd_add", b, h, wd, c, o)
+    y = torch.empty((b, h // 2, wd // 2, o), dtype=x.dtype, device=x.device)
+    partial = torch.empty((b, plan.tiles, 2, o), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2, o), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
@@ -257,11 +341,12 @@ def downsample_dgrad_cuda(g, w):
     if tuple(w.shape) != (3, 3, c, o) or w.device != g.device or o % 32 or c % 8:
         raise ValueError(f"downsample dgrad kernel: w {tuple(w.shape)} for g {tuple(g.shape)} "
                          "(O % 32 == 0, C % 8 == 0)")
-    wt = w.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()  # w[r, s]^T, (3, 3, O, C)
+    g = _build.kernel_operand(g)
+    w = _build.kernel_operand(w.to(torch.bfloat16))  # HWIO as it lies: dgrad's B is K-major
     dx = torch.empty((b, 2 * ho, 2 * wo, c), dtype=g.dtype, device=g.device)
     lib = _build.library()
     with torch.cuda.device(g.device):
-        err = lib.gvq_downsample_dgrad(g.data_ptr(), wt.data_ptr(), dx.data_ptr(), b, ho, wo, o,
+        err = lib.gvq_downsample_dgrad(g.data_ptr(), w.data_ptr(), dx.data_ptr(), b, ho, wo, o,
                                        c, _build.stream_of(g))
     _build.check(err, "gvq_downsample_dgrad")
     downsample_dgrad_cuda.launches += 1
