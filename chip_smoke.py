@@ -188,20 +188,23 @@ def wgrad_kernel_facts(source: str, o: int) -> dict:
 
 def igemm_kernel_facts(mode: str, b: int, h: int, w: int, c: int, o: int) -> dict:
     """The Hopper implicit-GEMM body's kernel (``csrc/conv_igemm_sm90.cuh``)
-    that the downsample forward ("fwd", "fwd_add") or dgrad ("dgrad")
-    launches on x (b, h, w, c) and O output channels: its plan's spatial
-    and channel tiles, ptxas's registers and spill bytes (stores + loads)
-    from the build's ``nvcc.log``, and the count of HGMMA (wgmma)
-    instructions in its SASS (``cuobjdump``), which must not be 0."""
+    that the downsample forward ("fwd", "fwd_add") or dgrad ("dgrad"), or
+    the upsample dgrad ("up_dgrad") launches on x (b, h, w, c) and O output
+    channels: its plan's spatial and channel tiles, ptxas's registers and
+    spill bytes (stores + loads) from the build's ``nvcc.log``, which must
+    be 0, and the count of HGMMA (wgmma) instructions in its SASS
+    (``cuobjdump``), which must not be 0."""
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
     from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import igemm_plan
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         usage = _build.ptxas_usage(f.read())
     plan = igemm_plan(mode, b, h, w, c, o)
-    source = "_downsample_bwd_cu_" if mode == "dgrad" else "_downsample_conv_cu_"
+    source = {"dgrad": "_downsample_bwd_cu_", "up_dgrad": "_upsample_bwd_cu_"}.get(
+        mode, "_downsample_conv_cu_")
     ax = "4AAdd" if mode == "fwd_add" else "9AIdentity"
-    tag = f"conv_igemm_sm90_kernelILi{int(mode == 'dgrad')}ELi{plan.tile_n}ENS0_{ax}E"
+    number = {"dgrad": 1, "up_dgrad": 2}.get(mode, 0)  # the header's IgemmMode
+    tag = f"conv_igemm_sm90_kernelILi{number}ELi{plan.tile_n}ENS0_{ax}E"
     names = [n for n in usage if source in n and tag in n]
     require(len(names) == 1, f"{len(names)} {tag} entries of {source} in nvcc.log")
     u = usage[names[0]]
@@ -217,27 +220,27 @@ def igemm_kernel_facts(mode: str, b: int, h: int, w: int, c: int, o: int) -> dic
 def flash_fwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
     """The bf16 flash forward kernel the entries launch at head dim d and
     lengths lq, lk: its design ("wgmma": ``csrc/flash_fwd_sm90.cuh``, D = 64
-    and 128; "wmma": ``csrc/flash_fwd.cuh``), ptxas's registers and spill
-    bytes (stores + loads) from ``nvcc.log``, and the count of HGMMA (wgmma)
-    instructions in its SASS, which must not be 0 for the wgmma body."""
+    and 128; "wgmma_wide": ``csrc/flash_fwd_sm90_wide.cuh``, D = 256 and
+    512), its tiles, ptxas's registers and spill bytes (stores + loads)
+    from ``nvcc.log``, which must be 0, and the count of HGMMA (wgmma)
+    instructions in its SASS, which must not be 0."""
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
     from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_fwd_plan
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         usage = _build.ptxas_usage(f.read())
     plan = flash_fwd_plan("head_major", 1, 1, lq, lk, d)
-    if plan.body == "wgmma":
-        tag = f"flash_fwd_sm90_kernelILi{d}ELb{int(plan.key_mask)}E"
-    else:
-        tag = f"flash_fwd_kernelILi{d}ELb{int(lq % 32 != 0 or lk % 64 != 0)}ELi32E"
+    kernel = "flash_fwd_wide_kernel" if plan.body == "wgmma_wide" else "flash_fwd_sm90_kernel"
+    tag = f"{kernel}ILi{d}ELb{int(plan.key_mask)}E"
     names = [n for n in usage if "_flash_fwd_cu_" in n and tag in n]
     require(len(names) == 1, f"{len(names)} {tag} entries of flash_fwd.cu in nvcc.log")
     u = usage[names[0]]
     hgmma = sass_hgmma().get(names[0], 0)
-    require(plan.body == "wmma" or hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
-    return {"registers": u["registers"],
-            "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
-            "design": plan.body, "q_rows": plan.q_rows, "k_rows": plan.k_rows,
+    require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+    spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
+    require(spills == 0, f"{names[0]}: {spills} bytes of spills")
+    return {"registers": u["registers"], "spills": spills, "design": plan.body,
+            "q_rows": plan.q_rows, "k_rows": plan.k_rows, "stages": plan.stages,
             "sass_hgmma": hgmma}
 
 
@@ -464,14 +467,15 @@ def check_flash(gen):
     flops = 4.0 * b * heads * l * l * d
     nbytes = 4 * q.numel() * 2
     bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    kernel_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, scale, heads))
     shape = {"shape": f"q,k,v ({b},{l},{heads}x{d}) bf16",
-             "kernel_ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, scale, heads)),
+             "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
              "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale, heads)),
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-             "max_abs_err": err}
+             "max_abs_err": err, **flash_fwd_kernel_facts(d, l, l)}
     return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90_wide.cuh",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:319",
             "tolerance": f"bf16 atol {FLASH_ATOL}", "per_step": 5, "path": "sd3unet",
             "shapes": [shape]}
@@ -639,10 +643,10 @@ def check_resample_bwd(gen, kind: str):
         err, ratio = _bf16_err(dx_k, dx_p)
         require(ratio <= 1.0, f"{kind} dgrad {shape}: kernel vs plain error {err} beyond "
                               f"atol {BF16_ATOL} + rtol {BF16_RTOL}")
-        d_facts = {}
-        if kind == "down":  # the Hopper body: dx repeats bit for bit
-            require(torch.equal(dx_k, dx_k2), f"{kind} dgrad {shape}: two runs differ")
-            d_facts = {"bit_reproducible": True, **igemm_kernel_facts("dgrad", b, h, w, c, c)}
+        # the Hopper body: dx repeats bit for bit
+        require(torch.equal(dx_k, dx_k2), f"{kind} dgrad {shape}: two runs differ")
+        d_facts = {"bit_reproducible": True,
+                   **igemm_kernel_facts("dgrad" if kind == "down" else "up_dgrad", b, h, w, c, c)}
         del dx_k2
         require(torch.equal(dw_k, dw_k2), f"{kind} wgrad {shape}: two runs differ")
         w_err = float((dw_k - dw_p).abs().max())
@@ -694,7 +698,8 @@ def check_resample_bwd(gen, kind: str):
               "per_step": 3, "path": "sd3unet_train_ae"}
     return [{"name": f"{op}_dgrad", **common,
              "replaces": f"vqvae_from_gaussian_vae_tpu/ops/{jax_file}:{lines[0]}",
-             "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}", "shapes": dshapes},
+             "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}; bit-equal across runs",
+             "shapes": dshapes},
             {"name": f"{op}_wgrad", **common,
              "replaces": f"vqvae_from_gaussian_vae_tpu/ops/{jax_file}:{lines[1]}",
              "tolerance": f"max error / max |dw| <= {WGRAD_REL}; bit-equal across runs",
@@ -725,15 +730,17 @@ def check_flash_res(gen):
     flops = 4.0 * b * heads * l * l * d
     nbytes = 4 * q.numel() * 2 + 4 * z_k.numel()
     bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    kernel_ms = time_ms(lambda: fa.flash_attention_res_cuda(q, k, v, scale, heads))
     shape = {"shape": f"q,k,v ({b},{l},{heads}x{d}) bf16 -> o, z (B,H,L) f32",
-             "kernel_ms": time_ms(lambda: fa.flash_attention_res_cuda(q, k, v, scale, heads)),
+             "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
              "inference_form_ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, scale, heads)),
              "plain_ms": time_ms(lambda: fa.flash_attention_res_plain(q, k, v, scale, heads)),
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-             "max_abs_err": max(err, z_err), "o_max_abs_err": err, "z_max_abs_err": z_err}
+             "max_abs_err": max(err, z_err), "o_max_abs_err": err, "z_max_abs_err": z_err,
+             **flash_fwd_kernel_facts(d, l, l)}
     return {"name": "flash_attention_res_fwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90_wide.cuh",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:387",
             "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}", "per_step": 5,
             "path": "sd3unet_train_ae", "shapes": [shape]}

@@ -1,24 +1,28 @@
 """The flash forward's launch planner (``ops/flash_attention.py``
-``flash_fwd_plan``) and the order of the wgmma body's arithmetic
-(``csrc/flash_fwd_sm90.cuh``), on the CPU.
+``flash_fwd_plan``) and the order of the wgmma bodies' arithmetic
+(``csrc/flash_fwd_sm90.cuh`` at D = 64 and 128,
+``csrc/flash_fwd_sm90_wide.cuh`` at D = 256 and 512), on the CPU.
 
-The body reads q, k and v through 4-D TMA maps, 192 q rows (D = 64) or
-128 (D = 128) against 128-key tiles, and runs an online softmax over the
-key tiles.  Here:
+Both bodies read q, k and v through 4-D TMA maps and run an online softmax
+over the key tiles: 192 q rows (D = 64) or 128 (D = 128) against 128-key
+tiles, or, in the wide body, 64 q rows against 64-key tiles, the output's
+columns split over two consumer warpgroups that each form the whole score
+tile.  Here:
 
 - at the main-path shapes and at ragged ones, for each layout (head-major,
-  token-major, packed at token stride 3C), a numpy emulation of TMA's box
-  reads over the plan's maps (zero fill out of bounds) gives back exactly
-  each (b, h)'s q, k and v, with zeros past L and nothing from a
-  neighbouring head or sample (every element of the inputs carries its own
-  id);
+  token-major, packed at token stride 3C) and head dim, a numpy emulation
+  of TMA's box reads over the plan's maps (zero fill out of bounds) gives
+  back exactly each (b, h)'s q, k and v, with zeros past L and nothing from
+  a neighbouring head or sample (every element of the inputs carries its
+  own id);
 - the same shape gives the same plan, and every plan fits the shared
-  memory it states;
-- a plain emulation of the kernel's order (the plan's q tiles, 128-key
+  memory it states, under a block's 232,448 bytes;
+- a plain emulation of the kernels' order (the plan's q tiles and key
   tiles, the online rescale, bf16 p, float32 sums, the -inf mask of the
-  last key tile) matches the port's plain versions within 2e-2 (o) and 1e-3 (z),
-  the card's bars, and the JAX package's packed ``_fwd_impl`` (interpret
-  mode) and head-major op (TPU interpret mode).
+  last key tile; in the wide body each half of o from its own half of V)
+  matches the port's plain versions within 2e-2 (o) and 1e-3 (z), the
+  card's bars, and the JAX package's packed and unpacked ``_fwd_impl``
+  (interpret mode) and head-major op (TPU interpret mode).
 """
 
 import jax.numpy as jnp
@@ -28,7 +32,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from vqvae_from_gaussian_vae_tpu.ops import flash_attention as jfl
-from vqvae_from_gaussian_vae_tpu.ops.flash_blc import _fwd_hpb, _fwd_res_call_packed
+from vqvae_from_gaussian_vae_tpu.ops.flash_blc import (
+    _fwd_call, _fwd_hpb, _fwd_res_call, _fwd_res_call_packed)
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
 
@@ -49,8 +54,15 @@ RAGGED = ([("head_major", b, h, lq, lk, 64) for b, h, lq, lk in
              ("token_major", 2, 1, 64, 64, 128)]
           + [("packed", 1, 1, 64, 64, 64), ("packed", 2, 12, 192, 192, 64),
              ("packed", 2, 4, 64, 64, 128), ("packed", 1, 2, 328, 328, 64)])
-WMMA = [("token_major", 16, 1, 1024, 1024, 512), ("head_major", 2, 2, 200, 328, 256),
+# the wide body (D = 256, 512): the UNet AttnBlock's shape, the head-major
+# op's D = 256 shape, a packed one
+WIDE = [("token_major", 16, 1, 1024, 1024, 512), ("head_major", 2, 2, 200, 328, 256),
         ("packed", 2, 1, 64, 64, 256)]
+# the wide body's box reads, at shapes small enough for id arrays
+WIDE_BOXES = [("head_major", 2, 2, 200, 328, 256), ("head_major", 1, 1, 1, 77, 512),
+              ("head_major", 1, 2, 130, 64, 512), ("token_major", 2, 1, 256, 256, 512),
+              ("token_major", 1, 2, 128, 128, 256), ("packed", 2, 1, 64, 64, 256),
+              ("packed", 1, 2, 192, 192, 512)]
 
 
 def _plan(layout, b, h, lq, lk, d):
@@ -115,10 +127,11 @@ def _tiles(flat, plan, which, b, h, length, d):
     return np.concatenate(out, axis=2)
 
 
-@pytest.mark.parametrize("layout,b,h,lq,lk,d", MAIN + RAGGED)
+@pytest.mark.parametrize("layout,b,h,lq,lk,d", MAIN + RAGGED + WIDE_BOXES)
 def test_plan_boxes_read_each_head_exactly(layout, b, h, lq, lk, d):
     plan = _plan(layout, b, h, lq, lk, d)
-    assert plan.body == "wgmma" and plan.grid == (-(-lq // plan.q_rows), b * h)
+    assert plan.body == ("wgmma_wide" if d in fa.WIDE_HEAD_DIMS else "wgmma")
+    assert plan.grid == (-(-lq // plan.q_rows), b * h)
     assert plan.row_dim == (1 if layout == "head_major" else 2)
     flat, views = _ids(layout, b, h, lq, lk, d)
     for which, (name, length) in enumerate((("q", lq), ("k", lk), ("v", lk))):
@@ -128,7 +141,7 @@ def test_plan_boxes_read_each_head_exactly(layout, b, h, lq, lk, d):
         assert np.array_equal(got, want), name
 
 
-@pytest.mark.parametrize("layout,b,h,lq,lk,d", MAIN + RAGGED + WMMA)
+@pytest.mark.parametrize("layout,b,h,lq,lk,d", MAIN + RAGGED + WIDE)
 def test_plans_repeat_and_fit(layout, b, h, lq, lk, d):
     plan = _plan(layout, b, h, lq, lk, d)
     stride = {"head_major": 0, "token_major": h * d, "packed": 3 * h * d}[layout]
@@ -142,13 +155,17 @@ def test_plans_repeat_and_fit(layout, b, h, lq, lk, d):
         assert (plan.q_rows, plan.k_rows, plan.stages, plan.threads) == \
             (64 * wgs, 128, 3, 128 * (wgs + 1))
         assert plan.smem == ((64 * wgs + 2 * 3 * 128) * d * 2 + 80 + 1024)
-        for m in plan.maps:  # TMA: 16-byte strides and bases, boxes of <= 256, 128 bytes wide
-            assert all(s % 16 == 0 for s in m.strides) and (2 * m.offset) % 16 == 0
-            assert max(m.box) <= 256 and m.box[0] * 2 == 128
-    else:
-        assert plan.body == "wmma" and plan.maps == () and plan.smem == fa.wmma_fwd_smem(d)
+    else:  # the wide body: 64 q rows, 64-key K and V tiles, 2 stages at D = 256, 1 at 512
+        stages = {256: 2, 512: 1}[d]
+        assert plan.body == "wgmma_wide"
+        assert (plan.q_rows, plan.k_rows, plan.stages, plan.threads) == (64, 64, stages, 384)
+        assert plan.smem == (64 + 2 * stages * 64) * d * 2 + (1 + 4 * stages) * 8 + 1024
+    for m in plan.maps:  # TMA: 16-byte strides and bases, boxes of <= 256, 128 bytes wide
+        assert all(s % 16 == 0 for s in m.strides) and (2 * m.offset) % 16 == 0
+        assert max(m.box) <= 256 and m.box[0] * 2 == 128
     arr = list(plan.as_array())
-    assert len(arr) == 49 and arr[0] == (plan.body == "wgmma") and arr[4:6] == list(plan.grid)
+    assert len(arr) == 49 and arr[0] == {"wgmma": 1, "wgmma_wide": 2}[plan.body]
+    assert arr[4:6] == list(plan.grid)
 
 
 def test_plan_refuses_what_no_body_takes():
@@ -160,13 +177,15 @@ def test_plan_refuses_what_no_body_takes():
 
 
 def emulate_fwd(q, k, v, scale, plan):
-    """The wgmma body's order on (B, H, Lq, D) q and (B, H, Lk, D) k, v:
+    """The wgmma bodies' order on (B, H, Lq, D) q and (B, H, Lk, D) k, v:
     q rows in tiles of plan.q_rows and keys in tiles of plan.k_rows, both
-    zero-filled past their length; per key tile, scores in float32, the
-    keys past Lk of the last tile at -inf, the running max, the rescale
-    exp(m_old - m_new), p = exp(s - m) rounded to v's dtype for the P.V
-    product (float32 sums), the row sum over the float32 p; 1/sum once at
-    the end.  Returns (o in v's dtype, z float32)."""
+    zero-filled past their length; per key tile, scores in float32 over
+    the whole D (in the wide body each of the two warpgroups forms them
+    alike), the keys past Lk of the last tile at -inf, the running max, the
+    rescale exp(m_old - m_new), p = exp(s - m) rounded to v's dtype for the
+    P.V product (float32 sums; in the wide body each half of o from its
+    own half of V), the row sum over the float32 p; 1/sum once at the end.
+    Returns (o in v's dtype, z float32)."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     rq, rk = plan.q_rows, plan.k_rows
@@ -187,7 +206,10 @@ def emulate_fwd(q, k, v, scale, plan):
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l_ = l_ * alpha + p.sum(dim=-1)
-            o = o * alpha[..., None] + p.to(v.dtype).float() @ vp[:, :, t * rk:(t + 1) * rk]
+            vt = vp[:, :, t * rk:(t + 1) * rk]
+            halves = vt.chunk(2, dim=-1) if plan.body == "wgmma_wide" else (vt,)
+            o = o * alpha[..., None] + torch.cat([p.to(v.dtype).float() @ vh for vh in halves],
+                                                 dim=-1)
             m = m_new
         os_.append((o * (1.0 / l_)[..., None]).to(v.dtype))
         zs.append(m + torch.log(l_))
@@ -204,7 +226,9 @@ def _close(o, z, o_p, z_p):
 
 
 @pytest.mark.parametrize("b,h,lq,lk,d", [(2, 2, 200, 328, 64), (1, 2, 1, 300, 128),
-                                         (1, 2, 77, 1, 64), (1, 3, 256, 256, 64)])
+                                         (1, 2, 77, 1, 64), (1, 3, 256, 256, 64),
+                                         (2, 2, 200, 328, 256), (1, 1, 130, 77, 512),
+                                         (1, 2, 64, 1, 512)])
 def test_emulation_matches_the_head_major_plain_version(b, h, lq, lk, d):
     rng = np.random.default_rng(lq + lk)
     q, k, v = _bf16(rng, b, h, lq, d), _bf16(rng, b, h, lk, d), _bf16(rng, b, h, lk, d)
@@ -215,7 +239,10 @@ def test_emulation_matches_the_head_major_plain_version(b, h, lq, lk, d):
 @pytest.mark.parametrize("layout,b,l,h,d", [("packed", 1, 1024, 12, 64), ("packed", 2, 192, 4, 64),
                                             ("packed", 2, 64, 2, 128),
                                             ("token_major", 1, 64, 2, 64),
-                                            ("token_major", 2, 192, 1, 128)])
+                                            ("token_major", 2, 192, 1, 128),
+                                            ("token_major", 2, 1024, 1, 512),
+                                            ("token_major", 1, 192, 2, 256),
+                                            ("packed", 1, 128, 2, 256)])
 def test_emulation_matches_the_token_major_plain_versions(layout, b, l, h, d):
     rng = np.random.default_rng(l + h)
     c = h * d
@@ -257,6 +284,45 @@ def test_emulation_matches_the_jax_head_major_op():
     largest value (p stays float32 for float32 operands)."""
     b, h, lq, lk, d = 1, 2, 200, 384, 64
     rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
+    blocks = jfl.BlockSizes(block_q=128, block_k_major=128, block_k=128, block_b=1)
+    with pltpu.force_tpu_interpret_mode():
+        o_j = np.asarray(jfl.flash_attention(*map(jnp.asarray, (q, k, v)), d ** -0.5, blocks))
+    o, _ = emulate_fwd(*map(torch.from_numpy, (q, k, v)), d ** -0.5,
+                       _plan("head_major", b, h, lq, lk, d))
+    assert float(np.abs(o.numpy() - o_j).max() / np.abs(o_j).max()) <= F32_REL
+
+
+@pytest.mark.parametrize("b,l,h,d", [(2, 128, 2, 256), (1, 256, 1, 512)])
+def test_wide_emulation_matches_the_jax_unpacked_kernels(b, l, h, d):
+    """The unpacked forward of the JAX package in both forms, ``_fwd_impl``
+    through ``_fwd_call`` (o) and ``_fwd_res_call`` (o, z), its Pallas
+    kernel in interpret mode, at D = 256 and 512 bf16: o within 2e-2 and z
+    within 1e-3 of the wide body's emulation, and the two JAX forms' o
+    equal, as the kernel's two forms are."""
+    rng = np.random.default_rng(l + d)
+    q, k, v = (rng.standard_normal((b, l, h * d)).astype(np.float32) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    jo = _fwd_call(jq, jk, jv, d ** -0.5, h, True)
+    jo_res, jz = _fwd_res_call(jq, jk, jv, d ** -0.5, h, True)
+    assert np.array_equal(np.asarray(jo, np.float32), np.asarray(jo_res, np.float32))
+    hpb = _fwd_hpb(l, h, d, 2)  # z lanes: head within its group, 128 lanes a group
+    lanes = [(hh // hpb) * 128 + hh % hpb for hh in range(h)]
+    jz = torch.from_numpy(np.asarray(jz, np.float32)[..., lanes].transpose(0, 2, 1).copy())
+    tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16).reshape(b, l, h, d).transpose(1, 2)
+                  for t in (q, k, v))
+    o, z = emulate_fwd(tq, tk, tv, d ** -0.5, _plan("token_major", b, h, l, l, d))
+    _close(o.transpose(1, 2).reshape(b, l, h * d), z,
+           torch.from_numpy(np.asarray(jo_res, np.float32)), jz)
+
+
+def test_wide_emulation_matches_the_jax_head_major_op():
+    """The JAX head-major op in float32 at D = 256 (TPU interpret mode) with
+    ragged q tiles (200 rows: three 64-row tiles and 8 rows), as the D = 64
+    test above: o within 1e-5 of its largest value."""
+    b, h, lq, lk, d = 1, 1, 200, 384, 256
+    rng = np.random.default_rng(7)
     q, k, v = (rng.standard_normal(s).astype(np.float32)
                for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
     blocks = jfl.BlockSizes(block_q=128, block_k_major=128, block_k=128, block_b=1)

@@ -2,22 +2,30 @@
 ``igemm_plan``) and the order of its arithmetic, on the CPU.
 
 The body (``csrc/conv_igemm_sm90.cuh``) gives each block a 128-pixel
-spatial tile of one sample's grid (of one parity phase for dgrad) and an N
-tile, and walks K steps of 64 channels of one tap, each a TMA box whose
-zero fill covers the pad, negative coordinates and the ragged edges.  Here:
+spatial tile of one sample's grid (of one parity phase for the downsample's
+dgrad) and an N tile, and walks K steps of 64 channels of one tap, each a
+TMA box whose zero fill covers the pad, negative coordinates, the
+upsample's masked halo and the ragged edges.  Here:
 
-- at every main-path shape of the downsample forward and dgrad and at
-  ragged ones, the blocks cover every output pixel (every dx pixel across
-  the four phases, whose taps number 4 + 2 + 2 + 1 = 9) and every output
-  channel exactly once, the same shape gives the same plan, a block's
-  shared memory fits the SM's 228 KB with the blocks an SM the plan
-  states, and the grid fills the card;
+- at every main-path shape of the downsample forward and dgrad and of the
+  upsample dgrad, and at ragged ones, the blocks cover every output pixel
+  (every dx pixel across the four phases, whose taps number 4 + 2 + 2 + 1
+  = 9) and every output channel exactly once, the same shape gives the
+  same plan, a block's shared memory fits the SM's 228 KB with the blocks
+  an SM the plan states, and the grid fills the card;
+- a numpy emulation of the upsample dgrad's TMA box reads (the map on the
+  cotangent g stepping by 2 in rows and columns, the map on k22 as it
+  lies), where every element carries its own id, gives each of the 16 taps
+  exactly the g pixels and k22 entries the formula names, and zeros at the
+  masked halo and past O and C;
 - a plain emulation of the body's order (the plan's tiles, 64-channel K
   steps per tap read as zero-filled boxes, ``x + add`` summed in float32
   and rounded once before the products, float32 sums, bf16 rounding, the
-  per-block column statistics in ascending rows and tiles) equals the
-  port's plain versions and the JAX package's Pallas kernels run in
-  interpret mode, at ragged shapes and at a main-path-shaped case at bs 2.
+  per-block column statistics in ascending rows and tiles; for the
+  upsample dgrad, the 16 taps' boxes in order, 64-channel K steps, float32
+  sums and one bf16 rounding) equals the port's plain versions and the JAX
+  package's Pallas kernels run in interpret mode, at ragged shapes and at
+  a main-path-shaped case at bs 2.
 """
 
 import jax.numpy as jnp
@@ -26,7 +34,9 @@ import pytest
 import torch
 
 from vqvae_from_gaussian_vae_tpu.ops import downsample_conv as jdown
+from vqvae_from_gaussian_vae_tpu.ops import upsample_conv as jup
 from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down
+from vqvae_from_gaussian_vae_tpu_torch.ops import upsample_conv as up
 
 # y, dx: float32 sums of exact bf16 products in another order, then one
 # bf16 rounding: at most one bf16 ulp apart (the card tests' bar)
@@ -39,9 +49,11 @@ SM_SHARED = 233472      # bytes of shared memory on one H100 SM (228 KB)
 BLOCK_RESERVED = 1024   # bytes the hardware keeps per resident block
 BLOCK_SMEM_MAX = 232448  # a block's dynamic shared memory limit
 
-# (mode, B, H, W, C, O): x (B, H, W, C), w (3, 3, C, O)
+# (mode, B, H, W, C, O): x (B, H, W, C), w (3, 3, C, O); for "up_dgrad" x
+# is the upsample's input (dx's shape) and g (B, 2H, 2W, O)
 MAIN = ([("fwd_add", 16, h, h, c, c) for h, c in [(256, 128), (128, 256), (64, 512)]]
-        + [("dgrad", 16, h, h, c, c) for h, c in [(256, 128), (128, 256), (64, 512)]])
+        + [("dgrad", 16, h, h, c, c) for h, c in [(256, 128), (128, 256), (64, 512)]]
+        + [("up_dgrad", 16, h, h, c, c) for h, c in [(32, 512), (64, 512), (128, 256)]])
 RAGGED = [
     ("fwd", 2, 8, 12, 32, 128),       # 24 output pixels: one ragged tile
     ("fwd_add", 3, 18, 34, 64, 128),  # tiles ragged in both directions
@@ -54,6 +66,15 @@ RAGGED = [
     ("dgrad", 1, 2, 30, 136, 96),     # one row; K = 96 and N = 136 ragged
     ("dgrad", 2, 18, 42, 72, 160),
     ("dgrad", 2, 64, 64, 512, 512),
+    # the card tests' upsample shapes: a ragged tile, one pixel (every halo
+    # masked), two N tiles, O = 96 and C = 136, ragged both ways
+    ("up_dgrad", 2, 5, 7, 32, 128),
+    ("up_dgrad", 1, 1, 1, 256, 512),
+    ("up_dgrad", 1, 12, 20, 256, 128),
+    ("up_dgrad", 2, 16, 16, 32, 512),
+    ("up_dgrad", 1, 1, 9, 136, 96),
+    ("up_dgrad", 2, 9, 21, 72, 160),
+    ("up_dgrad", 2, 32, 32, 512, 512),
 ]
 
 
@@ -71,14 +92,14 @@ def _blocks(plan, b):
 @pytest.mark.parametrize("mode,b,h,w,c,o", MAIN + RAGGED)
 def test_plan_covers_every_output_once(mode, b, h, w, c, o):
     plan = down.igemm_plan(mode, b, h, w, c, o)
-    mh, mw = h // 2, w // 2
+    mh, mw = (h, w) if mode == "up_dgrad" else (h // 2, w // 2)
     assert plan.tile_h * plan.tile_w == down.IGEMM_PIXELS
     tiles_w = -(-mw // plan.tile_w)
     assert plan.tiles == -(-mh // plan.tile_h) * tiles_w
     # the tiles cover the grid and overhang it by less than a tile
     assert 0 <= -(-mh // plan.tile_h) * plan.tile_h - mh < plan.tile_h
     assert 0 <= tiles_w * plan.tile_w - mw < plan.tile_w
-    n = o if mode != "dgrad" else c
+    n = c if "dgrad" in mode else o
     assert plan.n_tiles * plan.tile_n >= n > (plan.n_tiles - 1) * plan.tile_n
     phase, bb, mt, nt = _blocks(plan, b)
     assert phase.max() == plan.phases - 1
@@ -90,7 +111,7 @@ def test_plan_covers_every_output_once(mode, b, h, w, c, o):
     pm, pn = (phase // 2)[:, None], (phase % 2)[:, None]
     if mode == "dgrad":  # the phase's pixel of dx
         rows, cols = 2 * rows + pm, 2 * cols + pn
-    seen = np.zeros((b, h if mode == "dgrad" else mh, w if mode == "dgrad" else mw,
+    seen = np.zeros((b, 2 * mh if mode == "dgrad" else mh, 2 * mw if mode == "dgrad" else mw,
                      plan.n_tiles), dtype=np.int64)
     np.add.at(seen, (np.broadcast_to(bb[:, None], rows.shape)[keep], rows[keep], cols[keep],
                      np.broadcast_to(nt[:, None], rows.shape)[keep]), 1)
@@ -118,7 +139,7 @@ def test_plans_repeat_fit_and_fill_the_card():
     for mode, b, h, w, c, o in MAIN + RAGGED:
         plan = down.igemm_plan(mode, b, h, w, c, o)
         assert plan == down.igemm_plan(mode, b, h, w, c, o)
-        n = o if mode != "dgrad" else c
+        n = c if "dgrad" in mode else o
         assert plan.tile_n == (256 if n % 256 == 0 else 128)
         assert plan.blocks_per_sm == (2 if plan.tile_n == 128 and mode != "fwd_add" else 1)
         assert 3 <= plan.stages <= 4
@@ -322,4 +343,158 @@ def test_emulated_dgrad_matches_pallas(dgrad_runs, case, block):
     g, w, dx, _ = dgrad_runs[case]
     want = jdown._downsample_dgrad(_hwbc(g), jnp.swapaxes(jnp.asarray(w.float().numpy()), -1, -2)
                                    .astype(jnp.bfloat16), w.shape[2], block, True)
+    _close_bf16(dx, _bhwc(want))
+
+
+# --------------------------------------------------------------------------
+# the upsample dgrad (mode kIgUpDgrad): 16 low-resolution taps over the
+# cotangent g through a map that steps by 2, k22 read as it lies
+
+
+def _tma_box(flat, dims, strides, box, elem, origin):
+    """One TMA box read in tiled mode: along dim k the elements at
+    origin[k] + elem[k] * i for i < box[k] / elem[k], zero where a
+    coordinate falls outside [0, dims[k]); ``strides`` are the byte strides
+    of dims 1..3 of a bf16 tensor.  An origin entry may be an array (the
+    reads broadcast over it); returns (..., n3, n2, n1, n0)."""
+    estrides = (1,) + tuple(s // 2 for s in strides)
+    lin, inb = 0, True
+    for k in range(4):
+        n = -(-box[k] // elem[k])
+        shape = [1, 1, 1, 1]
+        shape[3 - k] = n
+        coord = np.asarray(origin[k])[..., None, None, None, None] + \
+            elem[k] * np.arange(n).reshape(shape)
+        inb = inb & (coord >= 0) & (coord < dims[k])
+        lin = lin + coord * estrides[k]
+    return np.where(inb, flat[np.where(inb, lin, 0)], 0)
+
+
+def _up_taps():
+    """(t, di, dj, a, b) of the 16 taps in the kernel's order, t = 8 di +
+    4 dj + 2 a + b."""
+    return [(t, t >> 3, (t >> 2) & 1, (t >> 1) & 1, t & 1) for t in range(16)]
+
+
+def _up_maps(plan, b, h, w, c, o):
+    """The two maps ``csrc/upsample_bwd.cu`` encodes (``ig_nhwc_map`` on g
+    with step 2, ``ig_weight_map`` on k22 as (O, C, 4, 4)): (dims, byte
+    strides, box, element strides) each."""
+    g = ((o, 2 * w, 2 * h, b), (2 * o, 2 * 2 * w * o, 2 * 2 * h * 2 * w * o),
+         (64, 2 * plan.tile_w, 2 * plan.tile_h, 1), (1, 2, 2, 1))
+    k22 = ((o, c, 4, 4), (2 * o, 2 * c * o, 2 * 4 * c * o), (64, plan.tile_n, 1, 1), (1, 1, 1, 1))
+    return g, k22
+
+
+def _up_origins(plan, b, h, w):
+    """(sample, h0, w0) of every (sample, spatial tile), shaped (B, tiles)."""
+    tiles_w = -(-w // plan.tile_w)
+    mt = np.arange(plan.tiles)
+    h0 = np.broadcast_to(mt // tiles_w * plan.tile_h, (b, plan.tiles))
+    w0 = np.broadcast_to(mt % tiles_w * plan.tile_w, (b, plan.tiles))
+    return np.broadcast_to(np.arange(b)[:, None], (b, plan.tiles)), h0, w0
+
+
+def _up_box_a(gflat, plan, gmap, b, h, w, t, k0):
+    """The A box of tap t and K step k0 for every (sample, tile): (B,
+    tiles, 128 pixels, 64 channels) in the kernel's pixel order, read at
+    the origin (k0, 2 w0 + 2 - dj - 2 b, 2 h0 + 2 - di - 2 a, sample)."""
+    _, di, dj, a, bb = _up_taps()[t]
+    smp, h0, w0 = _up_origins(plan, b, h, w)
+    box = _tma_box(gflat, *gmap, (k0, 2 * w0 + 2 - dj - 2 * bb, 2 * h0 + 2 - di - 2 * a, smp))
+    return box.reshape(b, plan.tiles, 128, 64)  # (sample, row, column, channel) of one tile
+
+
+def _up_box_b(kflat, kmap, t, k0, n0):
+    """The B box of tap t, K step k0 and N tile n0: (tile_n c rows, 64 o),
+    read at the origin (k0, n0, 2 a + b, 2 di + dj)."""
+    _, di, dj, a, bb = _up_taps()[t]
+    return _tma_box(kflat, *kmap, (k0, n0, 2 * a + bb, 2 * di + dj))[0, 0]
+
+
+UP_ID_CASES = [(2, 5, 7, 32, 128), (1, 1, 1, 256, 512), (1, 12, 20, 256, 128),
+               (1, 1, 9, 136, 96), (2, 9, 21, 72, 160), (1, 32, 32, 512, 512)]
+
+
+@pytest.mark.parametrize("b,h,w,c,o", UP_ID_CASES)
+def test_up_dgrad_boxes_read_what_the_formula_names(b, h, w, c, o):
+    """Every element of g and k22 carries its own id + 1 (0 is only ever the
+    zero fill).  For every tap, K step, sample and tile, an on-grid pixel
+    (i, j) of the A box holds g[2 (i - dr) + di, 2 (j - dc) + dj] where
+    i - dr and j - dc lie in the image and zero where they do not (the
+    masked halo) or past O; the B box holds k22[di, dj, a, b][n0 + row, k0
+    + col], zero past C and O."""
+    plan = down.igemm_plan("up_dgrad", b, h, w, c, o)
+    gmap, kmap = _up_maps(plan, b, h, w, c, o)
+    gflat = np.arange(1, b * 2 * h * 2 * w * o + 1, dtype=np.int64)
+    g = np.pad(gflat.reshape(b, 2 * h, 2 * w, o), ((0, 0), (2, 2), (2, 2), (0, 64)))
+    kflat = np.arange(1, 16 * c * o + 1, dtype=np.int64)
+    k22 = np.pad(kflat.reshape(16, c, o), ((0, 0), (0, plan.tile_n), (0, 64)))
+    smp, h0, w0 = _up_origins(plan, b, h, w)
+    p = np.arange(128)
+    i = h0[..., None] + p // plan.tile_w        # (B, tiles, 128)
+    j = w0[..., None] + p % plan.tile_w
+    on_grid = (i < h) & (j < w)
+    for t, di, dj, a, bb in _up_taps():
+        dr, dc = di + a - 1, dj + bb - 1
+        inside = (i - dr >= 0) & (i - dr < h) & (j - dc >= 0) & (j - dc < w)
+        # g padded by 2 rows and columns: the masked terms index the zeros
+        rows = np.where(inside, 2 * (i - dr) + di, -2) + 2
+        cols = np.where(inside, 2 * (j - dc) + dj, -2) + 2
+        for k0 in range(0, o, 64):
+            got = _up_box_a(gflat, plan, gmap, b, h, w, t, k0)
+            want = g[smp[..., None], rows, cols][..., k0:k0 + 64]
+            assert np.array_equal(got[on_grid], want[on_grid]), (t, k0)
+            for n0 in range(0, c, plan.tile_n):
+                assert np.array_equal(_up_box_b(kflat, kmap, t, k0, n0),
+                                      k22[t, n0:n0 + plan.tile_n, k0:k0 + 64]), (t, k0, n0)
+
+
+def _emulate_up_dgrad(g, k22):
+    """The body's order for the upsample dgrad: per sample and spatial
+    tile, the 16 taps in order and, in each, the 64-channel K steps of O:
+    the A box of g times the B box of k22 (as k22[t][:, k0 .. k0 + 63]^T)
+    summed in float32; then one bf16 rounding, dx at its own pixels."""
+    b, h2, w2, o = g.shape
+    h, w, c = h2 // 2, w2 // 2, k22.shape[-2]
+    plan = down.igemm_plan("up_dgrad", b, h, w, c, o)
+    gmap, _ = _up_maps(plan, b, h, w, c, o)
+    gflat = g.float().numpy().reshape(-1)
+    kp = torch.nn.functional.pad(k22.reshape(16, c, o).float(), (0, -o % 64))
+    acc = torch.zeros((b, plan.tiles, 128, c))
+    for t in range(16):
+        for k0 in range(0, o, 64):
+            box = torch.from_numpy(_up_box_a(gflat, plan, gmap, b, h, w, t, k0).astype(np.float32))
+            acc = acc + box @ kp[t, :, k0:k0 + 64].t()
+    return _untile(acc.to(torch.bfloat16), plan, h, w)
+
+
+UP_CASES = [((2, 5, 7, 32), 128), ((1, 1, 1, 256), 512), ((1, 1, 9, 136), 96),
+            ((2, 9, 21, 72), 160), ((2, 32, 32, 512), 512)]  # the last: main-path
+
+
+@pytest.fixture(scope="module")
+def up_dgrad_runs():
+    runs = {}
+    for i, (shape, o) in enumerate(UP_CASES):
+        b, h, w, c = shape
+        g = _bf16((b, 2 * h, 2 * w, o), 300 + i)
+        k22 = up.phase_kernels(_bf16((3, 3, c, o), 400 + i, (9 * o) ** -0.5))
+        runs[i] = (g, k22, _emulate_up_dgrad(g, k22), up.upsample_dgrad_plain(g, k22))
+    return runs
+
+
+@pytest.mark.parametrize("case", range(len(UP_CASES)))
+def test_emulated_up_dgrad_matches_plain(up_dgrad_runs, case):
+    _, _, dx, dx_plain = up_dgrad_runs[case]
+    assert dx.shape == dx_plain.shape
+    _close_bf16(dx, dx_plain)
+
+
+@pytest.mark.parametrize("case,block", [(0, 5), (2, 1), (4, 8)])
+def test_emulated_up_dgrad_matches_pallas(up_dgrad_runs, case, block):
+    """The JAX kernel in row bands of `block` dx rows, on the same k22."""
+    g, k22, dx, _ = up_dgrad_runs[case]
+    want = jup._upsample_dgrad(_hwbc(g), jnp.swapaxes(jnp.asarray(k22.float().numpy()), -1, -2)
+                               .astype(jnp.bfloat16), k22.shape[-2], block, True)
     _close_bf16(dx, _bhwc(want))

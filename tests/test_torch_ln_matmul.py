@@ -214,9 +214,10 @@ def test_kernel_registers_name_a_kernel_alike_in_every_checkout():
     assert a == b == {"_ZN<ln_matmul.cu>16ln_matmul_kernelILb1EEEvNS_8LnMmArgsE": 167}
     # the card test's table: every shipped kernel but this lab's, by its stable name
     # (the weight-gradient body in two tile widths for each of its three sources;
-    # the wgmma flash backward's di pre-pass at D = 64 and 128; the downsample's
-    # implicit-GEMM body, four forward and two dgrad kernels)
+    # the wgmma flash backward's di pre-pass at D = 64 and 128; the implicit-GEMM
+    # body, four downsample forward, two downsample dgrad and two upsample dgrad
+    # kernels; the wide flash forward body at D = 256 and 512)
     with open(os.path.join(ROOT, "tests", "torch_kernel_registers.json")) as f:
         table = json.load(f)
-    assert len(table) == 173 and not any("ln_matmul" in k for k in table)
+    assert len(table) == 174 and not any("ln_matmul" in k for k in table)
     assert all(k.count("<") == 1 and k.count(".cu>") == 1 for k in table)

@@ -1,10 +1,10 @@
-// Implicit-GEMM 3x3 convolution core of the upsample kernels, forward
-// (upsample_conv.cu) and input gradient (upsample_bwd.cu), and of the fused
-// GroupNorm + swish + conv (fused_gn_conv.cu).  The downsample's forward and
-// input gradient run the Hopper body, conv_igemm_sm90.cuh.
+// Implicit-GEMM 3x3 convolution core (wmma) of the upsample's forward
+// (upsample_conv.cu) and of the fused GroupNorm + swish + conv
+// (fused_gn_conv.cu).  The downsample's forward and input gradient and the
+// upsample's input gradient run the Hopper body, conv_igemm_sm90.cuh.
 //
-// All three ops are a sum of small-tap convolutions over an NHWC bf16 input,
-// so one kernel body serves them, picked by MODE:
+// Both ops are a sum of small-tap convolutions over an NHWC bf16 input, so
+// one kernel body serves them, picked by MODE:
 //
 //   M = output pixels of one sample (of one phase, where the op has phases),
 //   N = output channels, K = taps x input channels.
@@ -13,10 +13,6 @@
 //       reads input (mh + di + a - 1, mw + dj + b - 1), a, b in 0..1, with
 //       zero halos outside the image; the weights are the phase kernels
 //       k22[di, dj, a, b] computed once by the wrapper.
-//   kUpDgrad: the adjoint of kUpFwd (the 4x4 stride-2 adjoint as 16
-//       low-resolution taps), input = g (B, 2H, 2W, O): dx[mh, mw] = sum
-//       over (di, dj, a, b) of g[2*(mh-dr)+di, 2*(mw-dc)+dj] . k22^T, with
-//       dr = di+a-1, dc = dj+b-1, zero where mh-dr or mw-dc leaves the image.
 //   kSameGn: the stride-1 "same" 3x3 conv, 9 taps: output pixel (mh, mw)
 //       reads input (mh + a - 1, mw + b - 1), a, b in 0..2.  A prologue
 //       takes each loaded bf16 A chunk to float32, applies the per-(sample,
@@ -27,10 +23,7 @@
 //       the load filled in.  The epilogue adds the float32 bias and, with
 //       ADD, the residual `add` (B, H, W, O), and rounds once; no stats.
 //
-// The weights are laid out (taps, K channels, N channels); the gradient
-// mode takes k22^T.  It has no bias and no statistics, and N (the
-// forward's input channels) may be any multiple of 8: the last channel tile
-// is masked.
+// The weights are laid out (taps, K channels, N channels).
 //
 // Work per block: a 128-pixel x 128-channel output tile of one sample,
 // 8 warps in a 4 x 2 grid, each warp 32 x 64 on bf16 tensor cores through
@@ -72,9 +65,9 @@ constexpr size_t kConvSmemAB =
 constexpr size_t kConvSmemC = (size_t)kConvBM * kConvLDC * sizeof(float);
 constexpr size_t kConvSmem = kConvSmemAB > kConvSmemC ? kConvSmemAB : kConvSmemC;
 
-// the values of the modes the Hopper body took over (0, 2) stay unused, so
-// the kernels' mangled names do not move
-enum ConvMode { kUpFwd = 1, kUpDgrad = 3, kSameGn = 4 };
+// the values of the modes the Hopper body took over (0, 2, 3) stay unused,
+// so the kernels' mangled names do not move
+enum ConvMode { kUpFwd = 1, kSameGn = 4 };
 
 __host__ __device__ constexpr bool conv_is_fwd(int mode) {
   return mode == kUpFwd;
@@ -85,9 +78,9 @@ __host__ __device__ constexpr int conv_phases(int mode) {
 }
 
 struct ConvArgs {
-  const bf16* x;      // input (B, H, W, C): x, or the cotangent g for the gradient modes
+  const bf16* x;      // input (B, H, W, C)
   const bf16* add;    // (B, H, W, C) or null (forward modes); kSameGn: the residual (B, H, W, O)
-  const bf16* w;      // (taps, C, O): HWIO, k22 or k22^T
+  const bf16* w;      // (taps, C, O): HWIO or k22
   const float* bias;  // (O,) bf16-rounded values held as f32 (forward modes); f32 (kSameGn)
   const float* scale; // (B, C) GroupNorm affine (kSameGn only)
   const float* shift; // (B, C)
@@ -170,7 +163,7 @@ conv_igemm_kernel(ConvArgs g) {
   const int di = phase >> 1, dj = phase & 1;
   const int n0 = nt * kConvBN;
   const int m_total = g.Mh * g.Mw;
-  const int taps = GN ? 9 : MODE == kUpFwd ? 4 : 16;
+  const int taps = GN ? 9 : 4;
   const int kc_steps = g.C / kConvBK;
   const int ksteps = taps * kc_steps;
 
@@ -193,22 +186,19 @@ conv_igemm_kernel(ConvArgs g) {
   auto load_tile = [&](int ks) {
     const int t = ks / kc_steps;
     const int c0 = (ks % kc_steps) * kConvBK;
-    // input pixel (r, s) = (rm * mh + dr, rm * mw + dc), and the weight tap
-    int rm = 1, dr = 0, dc = 0, wtap = t;
+    // input pixel (r, s) = (mh + dr, mw + dc), and the weight tap
+    int dr, dc, wtap = t;
     if (GN) {
       dr = t / 3 - 1, dc = t % 3 - 1;
-    } else if (MODE == kUpFwd) {
+    } else {  // kUpFwd
       dr = di + (t >> 1) - 1, dc = dj + (t & 1) - 1, wtap = phase * 4 + t;
-    } else {  // kUpDgrad: t = (tdi, tdj, a, b); g row 2 (mh - (tdi + a - 1)) + tdi
-      const int tdi = t >> 3, tdj = (t >> 2) & 1;
-      rm = 2, dr = tdi - 2 * (tdi + ((t >> 1) & 1) - 1), dc = tdj - 2 * (tdj + (t & 1) - 1);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int id = tid + i * kConvThreads;
       const int cpart = id & 3;
-      const int r = rm * a_mh[i] + dr;
-      const int s = rm * a_mw[i] + dc;
+      const int r = a_mh[i] + dr;
+      const int s = a_mw[i] + dc;
       const bool ok = a_ok[i] && r >= 0 && r < g.H && s >= 0 && s < g.W;
       a_in[i] = ok;
       if (ok) {
@@ -298,7 +288,6 @@ conv_igemm_kernel(ConvArgs g) {
       const int ow = INTERLEAVE ? 2 * mw + dj : mw;
       uint4 packed;
       uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
       const size_t out_off = (((size_t)b * g.out_h + oh) * g.out_w + ow) * g.O + n0 + cc;
       float res[8];
       if (ADD_OUT) {
@@ -391,15 +380,6 @@ inline int launch_conv(const ConvArgs& g, float* stats, cudaStream_t stream) {
   conv_stats_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
       g.partial, stats, g.B, conv_phases(MODE) * g.n_mt, g.O);
   return (int)cudaGetLastError();
-}
-
-// the gradient modes: one launch, no statistics
-template <int MODE>
-inline int launch_dgrad(const ConvArgs& g, cudaStream_t stream) {
-  static_assert(!conv_is_fwd(MODE), "launch_dgrad runs the gradient modes");
-  if (g.C % kConvBK != 0 || g.O % 8 != 0 || g.O <= 0 || g.n_mt <= 0 || g.add != nullptr)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_igemm<MODE, false>(g, stream);
 }
 
 }  // namespace

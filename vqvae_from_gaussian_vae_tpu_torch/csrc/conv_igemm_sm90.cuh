@@ -1,11 +1,14 @@
 // Implicit-GEMM 3x3 convolution body designed for Hopper (sm_90a), for the
 // stride-2 downsample's forward (downsample_conv.cu) and input gradient
-// (downsample_bwd.cu).  The upsample (kUpFwd, kUpDgrad) and the fused
+// (downsample_bwd.cu), and the nearest-x2 upsample's input gradient
+// (upsample_bwd.cu).  The upsample's forward (kUpFwd) and the fused
 // GroupNorm + swish conv (kSameGn) stay on the wmma body, conv_igemm.cuh.
 //
 // Replaces the TPU kernels of vqvae_from_gaussian_vae_tpu/ops/downsample_conv.py
 //   kIgDownFwd   <- _downsample_conv  -> pl.pallas_call (body _kernel)
 //   kIgDownDgrad <- _downsample_dgrad -> pl.pallas_call (body _dgrad_kernel)
+// and of vqvae_from_gaussian_vae_tpu/ops/upsample_conv.py
+//   kIgUpDgrad   <- _upsample_dgrad   -> pl.pallas_call (body _dgrad_kernel_hwbc)
 //
 //   M = output pixels of one sample (of one parity phase for dgrad), N =
 //   output channels, K = taps x input channels:
@@ -20,13 +23,21 @@
 //       s = pn + 2 tc <= 2 (4, 2, 2, 1 taps): dx[2i + pm, 2j + pn] =
 //       sum g[i - tr, j - tc] . w[r, s]^T; negative g rows and columns are
 //       zero.
+//   kIgUpDgrad: the adjoint of nearest x2 + 3x3 conv as 16 low-resolution
+//       taps (di, dj, a, b), t = 8 di + 4 dj + 2 a + b; input = the
+//       cotangent g (B, 2H, 2W, O), weights k22 (16, C, O) as they lie:
+//       dx[i, j] = sum g[2 (i - dr) + di, 2 (j - dc) + dj] . k22[t]^T with
+//       dr = di + a - 1, dc = dj + b - 1; a term whose i - dr or j - dc
+//       leaves the image is zero.
 //
 // What bounds it on an H100: every main-path launch is 7.73e10 FLOP
 // (0.078 ms at the bf16 peak) against 89 to 604 MB (the forward at 256^2
 // reads x and add, 2 x 268 MB: 0.180 ms of bytes).  The wmma body ran at
 // 91-116 TFLOP/s: one shared buffer filled by register prefetch behind two
 // block barriers a 32-channel step, address math for every element, and a
-// 66 KB float32 C tile in shared memory.
+// 66 KB float32 C tile in shared memory.  The upsample's dgrad is 1.37e11
+// (32^2) and 5.50e11 FLOP (64^2, 128^2) against 92 to 673 MB: the tensor
+// cores (0.14 and 0.56 ms); the wmma body ran it at 130 TFLOP/s.
 //
 // The design, as conv_wgrad.cuh's:
 // - TMA, no address math per element.  A block's M tile is a tile_h x
@@ -36,11 +47,15 @@
 //   sample), a 128-byte swizzled row per pixel.  The forward's maps on x
 //   and add step by 2 in rows and columns (element strides), origin
 //   (c0, 2 w0 + s, 2 h0 + r, b); dgrad's map on g steps by 1, origin
-//   (o0, w0 - tc, h0 - tr, b).  The zero fill of out-of-bounds and negative
-//   coordinates is the pad, the phases' missing rows and the ragged edges.
-// - The weights by TMA from HWIO as they lie, a 4-D map (O, C, s, r): the
-//   forward's B[k = c][n = o] is N-major (the transpose bit: an MN-major
-//   descriptor), dgrad's B[k = o][n = c] is K-major; no transposed copy.
+//   (o0, w0 - tc, h0 - tr, b); the upsample dgrad's map on g steps by 2,
+//   origin (o0, 2 w0 + 2 - dj - 2 b, 2 h0 + 2 - di - 2 a, b).  The zero
+//   fill of out-of-bounds and negative coordinates is the pad, the phases'
+//   missing rows, the upsample's masked halo and the ragged edges: no
+//   padded or zero-stuffed copy of any operand is made.
+// - The weights by TMA as they lie, a 4-D map (O, C, s, r): HWIO (3, 3)
+//   taps, k22 (4, 4): s = 2 a + b, r = 2 di + dj.  The forward's
+//   B[k = c][n = o] is N-major (the transpose bit: an MN-major descriptor),
+//   both dgrads' B[k = o][n = c] is K-major; no transposed copy.
 // - wgmma m64n128k16 (bf16, float32 accumulators; BN = 256 is two of them
 //   a k16 step).  Two consumer warpgroups own 64 rows each; one producer
 //   thread keeps a ring of stages in flight on full / empty mbarriers.
@@ -49,11 +64,11 @@
 //   sums each pair in float32, rounds once to bf16 and issues the register
 //   form (RS).  A GroupNorm + swish transform is the same hook.
 // - Epilogue from registers: (+ bias,) rounding to bf16, staged through the
-//   ring as a swizzled bf16 tile, stored with 16-byte stores (dgrad at its
-//   phase's interleaved pixels); the forward's statistics are a column pass
-//   over the staged tile (64 or 128 rows a thread, ascending) and a fixed
-//   two-part sum.  No float atomics: y, the statistics and dx repeat bit for
-//   bit.
+//   ring as a swizzled bf16 tile, stored with 16-byte stores (the
+//   downsample dgrad at its phase's interleaved pixels); the forward's
+//   statistics are a column pass over the staged tile (64 or 128 rows a
+//   thread, ascending) and a fixed two-part sum.  No split-K and no float atomics: y, the statistics and
+//   dx repeat bit for bit.
 // - Occupancy: 288 threads.  BN = 128 (N not a multiple of 256) without
 //   the add fits two blocks an SM, so one block's prologue and epilogue
 //   hide behind the other's products; the add's BN = 128 runs one block an
@@ -71,7 +86,7 @@
 namespace gvq {
 namespace {
 
-enum IgemmMode { kIgDownFwd = 0, kIgDownDgrad = 1 };
+enum IgemmMode { kIgDownFwd = 0, kIgDownDgrad = 1, kIgUpDgrad = 2 };
 
 constexpr int kIgBM = 128;             // output pixels a block: one spatial tile
 constexpr int kIgBK = 64;              // channels a K step
@@ -120,9 +135,10 @@ inline void igemm_tile(int mh, int mw, int* tile_h, int* tile_w) {
 
 struct IgemmArgs {
   const float* bias;  // (N,) bf16-rounded values as float32 (forward); null for dgrad
-  bf16* out;          // forward: y (B, Mh, Mw, N); dgrad: dx (B, 2 Mh, 2 Mw, N)
+  bf16* out;          // forward: y (B, Mh, Mw, N); dgrad: dx (B, 2 Mh, 2 Mw, N);
+                      // up dgrad: dx (B, Mh, Mw, N)
   float* partial;     // forward: (B, tiles, 2, N) per-block statistics
-  int B, Mh, Mw;      // the M grid of one sample (and phase)
+  int B, Mh, Mw;      // the M grid of one sample (and phase); up dgrad: dx's (H, W)
   int N, K;           // output channels; channels of a tap
   int tile_h, tile_w, tiles_w, tiles;  // spatial tile; tiles across the grid; tiles a sample
   int n_tiles;        // N tiles of BN
@@ -202,6 +218,7 @@ conv_igemm_sm90_kernel(const __grid_constant__ CUtensorMap tmap_a,
                        const __grid_constant__ CUtensorMap tmap_add,
                        const __grid_constant__ CUtensorMap tmap_w, IgemmArgs a) {
   constexpr bool FWD = MODE == kIgDownFwd;
+  constexpr bool UP = MODE == kIgUpDgrad;
   constexpr int STAGES = ig_stages(AX::kExtra, BN);
   constexpr int STAGE = ig_stage_bytes(AX::kExtra, BN);
   constexpr int B_OFF = (1 + AX::kExtra) * kIgTile;  // the weight tile of a stage
@@ -229,8 +246,8 @@ conv_igemm_sm90_kernel(const __grid_constant__ CUtensorMap tmap_a,
   const int pm = phase >> 1, pn = phase & 1;
   const int h0 = (mt / a.tiles_w) * a.tile_h, w0 = (mt % a.tiles_w) * a.tile_w;
   const int n0 = nt * BN;
-  const int taps_s = FWD ? 3 : (pn == 0 ? 2 : 1);  // column taps
-  const int taps = (FWD ? 3 : (pm == 0 ? 2 : 1)) * taps_s;
+  const int taps_s = FWD ? 3 : UP ? 4 : (pn == 0 ? 2 : 1);  // column taps
+  const int taps = (FWD ? 3 : UP ? 4 : (pm == 0 ? 2 : 1)) * taps_s;
   const int kc = (a.K + kIgBK - 1) / kIgBK;  // K steps a tap
   const int nsteps = taps * kc;
 
@@ -260,6 +277,10 @@ conv_igemm_sm90_kernel(const __grid_constant__ CUtensorMap tmap_a,
 #pragma unroll
         for (int h = 0; h < BN / 64; ++h)  // B[k = c][n = o]: 64 c rows of 64 o a box
           tma_load_4d(dst + B_OFF + h * 8192, &tmap_w, bar, n0 + 64 * h, k0, tc, tr);
+      } else if (UP) {  // tap t = (di, dj, a, b); the map on g steps by 2
+        const int di = t >> 3, dj = (t >> 2) & 1, ta = (t >> 1) & 1, tb = t & 1;
+        tma_load_4d(dst, &tmap_a, bar, k0, 2 * w0 + 2 - dj - 2 * tb, 2 * h0 + 2 - di - 2 * ta, b);
+        tma_load_4d(dst + B_OFF, &tmap_w, bar, k0, n0, 2 * ta + tb, 2 * di + dj);  // BN c rows
       } else {  // tap (r, s) = (pm + 2 tr, pn + 2 tc) reads g[i - tr, j - tc]
         tma_load_4d(dst, &tmap_a, bar, k0, w0 - tc, h0 - tr, b);
         tma_load_4d(dst + B_OFF, &tmap_w, bar, k0, n0, pn + 2 * tc, pm + 2 * tr);  // BN c rows
@@ -372,7 +393,8 @@ conv_igemm_sm90_kernel(const __grid_constant__ CUtensorMap tmap_a,
   }
   ig_consumers_sync();
 
-  // 16-byte stores: y rows of the tile, or dx at the phase's pixels
+  // 16-byte stores: y or the upsample's dx rows of the tile, or the
+  // downsample's dx at the phase's pixels
   constexpr int CHUNKS = BN / 8;
   for (int id = tid; id < kIgBM * CHUNKS; id += 32 * kIgConsumerWarps) {
     const int row = id / CHUNKS, ch = id - row * CHUNKS;
@@ -380,7 +402,8 @@ conv_igemm_sm90_kernel(const __grid_constant__ CUtensorMap tmap_a,
     const int mh = h0 + ti, mw = w0 + tj, n = n0 + 8 * ch;
     if (mh < a.Mh && mw < a.Mw && n < a.N) {
       const uint4 v = *reinterpret_cast<const uint4*>(ring_p + row * PITCH + ((ch ^ (row & 7)) << 4));
-      const size_t off = FWD ? (((size_t)b * a.Mh + mh) * a.Mw + mw) * a.N + n
+      const size_t off = MODE != kIgDownDgrad
+                             ? (((size_t)b * a.Mh + mh) * a.Mw + mw) * a.N + n
                              : (((size_t)b * 2 * a.Mh + 2 * mh + pm) * (2 * a.Mw) + 2 * mw + pn) *
                                        a.N + n;
       *reinterpret_cast<uint4*>(a.out + off) = v;
@@ -441,11 +464,12 @@ inline bool ig_nhwc_map(CUtensorMap* map, const bf16* base, int n, int h, int w,
   return ig_encode(map, base, dims, strides, box, elem);
 }
 
-// HWIO (3, 3, C, O) as (o, c, s, r); a box of 64 o x `rows` c of one tap
-inline bool ig_weight_map(CUtensorMap* map, const bf16* w, int c, int o, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)o, (cuuint64_t)c, 3, 3};
+// (taps, taps, C, O) weights (HWIO: 3 x 3; k22 (2, 2, 2, 2, C, O): 4 x 4)
+// as (o, c, s, r); a box of 64 o x `rows` c of one tap
+inline bool ig_weight_map(CUtensorMap* map, const bf16* w, int c, int o, int rows, int taps) {
+  const cuuint64_t dims[4] = {(cuuint64_t)o, (cuuint64_t)c, (cuuint64_t)taps, (cuuint64_t)taps};
   const cuuint64_t strides[3] = {(cuuint64_t)o * 2, (cuuint64_t)c * o * 2,
-                                 (cuuint64_t)3 * c * o * 2};
+                                 (cuuint64_t)taps * c * o * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return ig_encode(map, w, dims, strides, box, elem);

@@ -46,7 +46,7 @@ inline int launch_downsample_dgrad(const bf16* g, const bf16* w, bf16* dx, int B
   const int bn = igemm_tile_n(C);
   CUtensorMap tg, tw;
   if (!ig_nhwc_map(&tg, g, B, Ho, Wo, O, a.tile_h, a.tile_w, 1) ||
-      !ig_weight_map(&tw, w, C, O, bn))
+      !ig_weight_map(&tw, w, C, O, bn, 3))
     return (int)cudaErrorInvalidValue;
   return (int)(bn == 256
                    ? launch_igemm_sm90<kIgDownDgrad, 256, AIdentity>(tg, tg, tw, a, blocks, stream)

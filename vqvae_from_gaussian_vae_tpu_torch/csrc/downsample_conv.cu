@@ -40,7 +40,7 @@ inline int launch_downsample_fwd(const bf16* x, const bf16* add, const bf16* w, 
   CUtensorMap tx, tadd, tw;
   if (!ig_nhwc_map(&tx, x, B, H, W, C, a.tile_h, a.tile_w, 2) ||
       !ig_nhwc_map(&tadd, add != nullptr ? add : x, B, H, W, C, a.tile_h, a.tile_w, 2) ||
-      !ig_weight_map(&tw, w, C, O, 64))
+      !ig_weight_map(&tw, w, C, O, 64, 3))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (add != nullptr)

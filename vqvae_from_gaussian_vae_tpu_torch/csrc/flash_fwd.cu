@@ -15,14 +15,7 @@
 // H=1, D=512) one launch is 3.4e10 FLOP over 4 x 16.8 MB, so it is
 // tensor-core bound.  The TPU kernel keeps a head's whole K and V on chip;
 // at D=512 that is 1 MB each, far beyond 227 KB of shared memory, so both
-// bodies run an online softmax over K/V tiles.  In the wmma body (D = 256,
-// 512) the fp32 output accumulator of a q tile is D floats per row, so the
-// q tile is 32 rows against 64-row K/V tiles:
-// Q tile (32 x D bf16), one K-or-V tile (64 x D bf16, K and V take turns),
-// the fp32 accumulator (32 x D), scores and probabilities all fit in
-// ~176 KB of shared memory at D=512.  Products run on bf16 tensor cores
-// through nvcuda::wmma; the accumulator lives in shared memory so the
-// per-row rescale of the online softmax is a plain elementwise pass.
+// bodies run an online softmax over K/V tiles.
 //
 // The packed entry (gvq_flash_fwd_qkv, for the ViT's attention) reads q, k
 // and v in place from the (B, L, 3C) QKV projection output: the input token
@@ -42,25 +35,24 @@
 // The head-major entry (gvq_flash_fwd_hm, replacing the forward of
 // vqvae_from_gaussian_vae_tpu/ops/flash_attention.py, the upstream Pallas
 // _flash_attention_impl) runs the same bodies on (B, H, L, D) tensors with
-// q's length Lq apart from k's and v's Lk: the wgmma body reads either
-// layout through its tensor maps, the wmma body through each tensor's
-// batch, head and row strides.  Any Lq, Lk >= 1 is taken: a q row past Lq
+// q's length Lq apart from k's and v's Lk: the bodies read either layout
+// through their tensor maps.  Any Lq, Lk >= 1 is taken: a q row past Lq
 // loads zeros and is not stored; a key column past Lk loads zeros and
-// scores -inf before the row max.  At
-// (B=1, H=12, L=8192, D=64) a launch is 2.1e11 FLOP over 50 MB: tensor-core
-// bound (0.21 ms at the bf16 peak).
+// scores -inf before the row max.  At (B=1, H=12, L=8192, D=64) a launch
+// is 2.1e11 FLOP over 50 MB: tensor-core bound (0.21 ms at the bf16 peak).
 //
 // Which body runs, by head dim: D = 64 and 128 take the wgmma body of
 // csrc/flash_fwd_sm90.cuh (TMA ring, scores and output in registers, 192
-// q rows at D = 64 and 128 at D = 128 against 128-key tiles; it says what
-// it does about the wmma body's costs); D = 256 and 512 take the wmma body of
-// csrc/flash_fwd.cuh at 32 q rows, 64-row K/V tiles, 8 warps, one head a
-// block and the kBase softmax (the labs of csrc/flash_lab_fwd.cu
-// instantiate that body at other settings).  Every bf16 entry takes the
+// q rows at D = 64 and 128 at D = 128 against 128-key tiles); D = 256 and
+// 512 take the wgmma body of csrc/flash_fwd_sm90_wide.cuh (64 q rows
+// against 64-key tiles, the output's columns split over two consumer
+// warpgroups).  Each says what it does about the costs of the wmma body
+// these entries ran before (csrc/flash_fwd.cuh, which the labs of
+// csrc/flash_lab_fwd.cu still instantiate).  Every bf16 entry takes the
 // launch plan of ops/flash_attention.py flash_fwd_plan (an int64 array,
-// FwdPlan): it names the body and, for the wgmma body, the tensor maps'
-// dims, byte strides, boxes and element offsets, which the entry holds to
-// its shapes before it encodes them.
+// FwdPlan): it names the body and the tensor maps' dims, byte strides,
+// boxes and element offsets, which the entry holds to its shapes before it
+// encodes them.
 //
 // gvq_flash_fwd_hm_f32 is the head-major op for float32 tensors (the JAX op
 // runs float32 too): a plain SIMT kernel, fmaf products on CUDA cores in
@@ -69,51 +61,31 @@
 // at the float32 peak of 67 TFLOP/s); operands come from shared memory,
 // which bounds this first version well below that.
 #include "flash_f32.cuh"
-#include "flash_fwd.cuh"
 #include "flash_fwd_sm90.cuh"
+#include "flash_fwd_sm90_wide.cuh"
 
 namespace {
 
-template <int D>
-int launch_flash(const FwdArgs& g, int B, cudaStream_t stream) {
-  return g.Lq % 32 != 0 || g.Lk % kFkv != 0 ? launch_flash_fwd<D, true>(g, B, stream)
-                                             : launch_flash_fwd<D, false>(g, B, stream);
-}
-
-// Route a launch by its plan: D = 64 and 128 to the wgmma body over the
-// plan's maps of bases[] (q, k, v), D = 256 and 512 to the wmma body over
-// g's strides (the plan's tiling held to that body's).
-int flash_entry(const FwdArgs& g, const bf16* const (&bases)[3], int B, int D,
-                const long long* plan, void* stream) {
-  if (B <= 0 || g.H <= 0 || g.Lq <= 0 || g.Lk <= 0 || plan == nullptr)
+// Route a launch by its plan over the plan's maps of bases[] (q, k, v, or
+// the packed projection three times): D = 64 and 128 to
+// flash_fwd_sm90.cuh, D = 256 and 512 to flash_fwd_sm90_wide.cuh.
+int flash_entry(const bf16* const (&bases)[3], bf16* o, float* z, int B, int H, int Lq, int Lk,
+                int D, float scale, const long long* plan, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || plan == nullptr)
     return (int)cudaErrorInvalidValue;
   FwdPlan p;
   memcpy(&p, plan, sizeof p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 || D == 128)
-    return launch_flash_fwd_sm90(p, bases, g.o, g.z, B, g.H, g.Lq, g.Lk, D, g.scale, s);
-  if (p.body != 0 || p.q_rows != 32 || p.k_rows != kFkv || p.grid_x != (g.Lq + 31) / 32 ||
-      p.grid_y != (long long)B * g.H)
-    return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 256: return launch_flash<256>(g, B, s);
-    case 512: return launch_flash<512>(g, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D == 64 || D == 128) return launch_flash_fwd_sm90(p, bases, o, z, B, H, Lq, Lk, D, scale, s);
+  if (D == 256 || D == 512) return launch_flash_fwd_wide(p, bases, o, z, B, H, Lq, Lk, D, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The token-major entries: q, k, v at token stride in_stride (head h at
-// channel h * D), o (B, L, H*D); L a multiple of 64.
-// bases[] are what the plan's maps read from: q, k, v, or the packed
-// projection three times.
-int token_major_entry(const bf16* q, const bf16* k, const bf16* v, const bf16* const (&bases)[3],
-                      bf16* o, float* z, int B, int L, int H, int D, int in_stride, float scale,
-                      const long long* plan, void* stream) {
-  if (L % kFkv != 0) return (int)cudaErrorInvalidValue;
-  const long long is = in_stride, os = (long long)H * D;
-  const FwdArgs g{q, k, v, o, z, {L * is, D, is}, {L * is, D, is}, {L * os, D, os},
-                  L, L, H, scale};
-  return flash_entry(g, bases, B, D, plan, stream);
+// The token-major entries: o (B, L, H*D); L a multiple of 64.
+int token_major_entry(const bf16* const (&bases)[3], bf16* o, float* z, int B, int L, int H,
+                      int D, float scale, const long long* plan, void* stream) {
+  if (L % 64 != 0) return (int)cudaErrorInvalidValue;
+  return flash_entry(bases, o, z, B, H, L, L, D, scale, plan, stream);
 }
 
 // The float32 head-major forward: per (b, h) and 32-row q tile, an online
@@ -270,11 +242,10 @@ int launch_flash_f32(const F32FwdArgs& g, int B, int H, cudaStream_t stream) {
 extern "C" int gvq_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                              int L, int H, int D, float scale, const long long* plan,
                              void* stream) {
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
-  const bf16* const bases[3] = {qb, kb, vb};
-  return token_major_entry(qb, kb, vb, bases, static_cast<bf16*>(o), nullptr, B, L, H, D, H * D,
-                           scale, plan, stream);
+  const bf16* const bases[3] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v)};
+  return token_major_entry(bases, static_cast<bf16*>(o), nullptr, B, L, H, D, scale, plan,
+                           stream);
 }
 
 // The training form of the unpacked entry: also writes z (B, H, L) float32,
@@ -283,11 +254,10 @@ extern "C" int gvq_flash_fwd_res(const void* q, const void* k, const void* v, vo
                                  int B, int L, int H, int D, float scale, const long long* plan,
                                  void* stream) {
   if (z == nullptr) return (int)cudaErrorInvalidValue;
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
-  const bf16* const bases[3] = {qb, kb, vb};
-  return token_major_entry(qb, kb, vb, bases, static_cast<bf16*>(o), static_cast<float*>(z), B,
-                           L, H, D, H * D, scale, plan, stream);
+  const bf16* const bases[3] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v)};
+  return token_major_entry(bases, static_cast<bf16*>(o), static_cast<float*>(z), B, L, H, D,
+                           scale, plan, stream);
 }
 
 // The packed entry (replaces flash_blc.py _fwd_call_packed): q, k and v are
@@ -297,10 +267,9 @@ extern "C" int gvq_flash_fwd_res(const void* q, const void* k, const void* v, vo
 extern "C" int gvq_flash_fwd_qkv(const void* qkv, void* o, int B, int L, int H, int D,
                                  float scale, const long long* plan, void* stream) {
   const bf16* p = static_cast<const bf16*>(qkv);
-  const size_t c = (size_t)H * D;
   const bf16* const bases[3] = {p, p, p};
-  return token_major_entry(p, p + c, p + 2 * c, bases, static_cast<bf16*>(o), nullptr, B, L, H,
-                           D, 3 * H * D, scale, plan, stream);
+  return token_major_entry(bases, static_cast<bf16*>(o), nullptr, B, L, H, D, scale, plan,
+                           stream);
 }
 
 // The training form of the packed entry: also writes z (B, H, L) float32,
@@ -308,11 +277,10 @@ extern "C" int gvq_flash_fwd_qkv(const void* qkv, void* o, int B, int L, int H, 
 extern "C" int gvq_flash_fwd_qkv_res(const void* qkv, void* o, void* z, int B, int L, int H,
                                      int D, float scale, const long long* plan, void* stream) {
   const bf16* p = static_cast<const bf16*>(qkv);
-  const size_t c = (size_t)H * D;
   if (z == nullptr) return (int)cudaErrorInvalidValue;
   const bf16* const bases[3] = {p, p, p};
-  return token_major_entry(p, p + c, p + 2 * c, bases, static_cast<bf16*>(o),
-                           static_cast<float*>(z), B, L, H, D, 3 * H * D, scale, plan, stream);
+  return token_major_entry(bases, static_cast<bf16*>(o), static_cast<float*>(z), B, L, H, D,
+                           scale, plan, stream);
 }
 
 // The head-major entry (replaces vqvae_from_gaussian_vae_tpu/ops/flash_attention.py
@@ -324,12 +292,10 @@ extern "C" int gvq_flash_fwd_qkv_res(const void* qkv, void* o, void* z, int B, i
 extern "C" int gvq_flash_fwd_hm(const void* q, const void* k, const void* v, void* o, void* z,
                                 int B, int H, int Lq, int Lk, int D, float scale,
                                 const long long* plan, void* stream) {
-  const long long d = D, hq = (long long)Lq * D, hk = (long long)Lk * D;
-  const FwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(z),
-                  {H * hq, hq, d}, {H * hk, hk, d}, {H * hq, hq, d}, Lq, Lk, H, scale};
-  const bf16* const bases[3] = {g.q, g.k, g.v};
-  return flash_entry(g, bases, B, D, plan, stream);
+  const bf16* const bases[3] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v)};
+  return flash_entry(bases, static_cast<bf16*>(o), static_cast<float*>(z), B, H, Lq, Lk, D, scale,
+                     plan, stream);
 }
 
 // The float32 head-major entry (the same op as gvq_flash_fwd_hm, for

@@ -1,20 +1,19 @@
-// The bf16 flash-attention forward body for Hopper (sm_90a), shared by the
-// shipped entries (csrc/flash_fwd.cu) at D = 256 and 512 and the forward
-// labs (csrc/flash_lab_fwd.cu).  At D = 64 and 128 the shipped entries
-// (gvq_flash_fwd, gvq_flash_fwd_res, gvq_flash_fwd_qkv,
-// gvq_flash_fwd_qkv_res, gvq_flash_fwd_hm) no longer use it: they run the
-// wgmma body of csrc/flash_fwd_sm90.cuh.  csrc/flash_fwd.cu's header says
-// what it replaces and what bounds it; this file holds the body and its
-// template knobs.
+// The wmma bf16 flash-attention forward body, instantiated only by the
+// forward labs B15 and B16 (csrc/flash_lab_fwd.cu).  The shipped entries of
+// csrc/flash_fwd.cu (gvq_flash_fwd, gvq_flash_fwd_res, gvq_flash_fwd_qkv,
+// gvq_flash_fwd_qkv_res, gvq_flash_fwd_hm) run the wgmma bodies of
+// csrc/flash_fwd_sm90.cuh (D = 64, 128) and csrc/flash_fwd_sm90_wide.cuh
+// (D = 256, 512); csrc/flash_fwd.cu's header says what they replace and
+// what bounds them.  This file holds the body and its template knobs.
 //
 // Per (b, h) and q tile of BQ rows: an online softmax over 64-row K/V tiles,
 // scores in fp32 from bf16 tensor-core products (nvcuda::wmma), p rounded to
 // bf16 before the P.V product (fp32 accumulation in shared memory), the row
 // sum over the fp32 p, the 1/sum normaliser applied once at the end.
 //
-// Template knobs (the shipped entries: BQ 32, WARPS 8, HPB 1, kBase, STAGES
-// 1; each knob is a compile-time constant, so at that setting the body is
-// the one the shipped entries always ran):
+// Template knobs (the labs' base setting: BQ 32, WARPS 8, HPB 1, kBase,
+// STAGES 1, the tiling the shipped entries ran before the wgmma bodies;
+// each knob is a compile-time constant):
 //   BQ      q rows per block (a multiple of 16)
 //   WARPS   warps per block
 //   HPB     heads per block: a block runs HPB heads of one q tile in turn

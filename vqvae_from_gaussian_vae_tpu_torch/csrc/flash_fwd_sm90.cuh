@@ -2,7 +2,8 @@
 // head dims 64 and 128: every shipped bf16 forward entry of
 // csrc/flash_fwd.cu at those D (gvq_flash_fwd, gvq_flash_fwd_res,
 // gvq_flash_fwd_qkv, gvq_flash_fwd_qkv_res, gvq_flash_fwd_hm).  D = 256 and
-// 512 stay on csrc/flash_fwd.cuh, and so do the labs.
+// 512 run csrc/flash_fwd_sm90_wide.cuh, which shares this file's softmax
+// and plan; the labs run csrc/flash_fwd.cuh.
 //
 // Replaces the TPU kernels vqvae_from_gaussian_vae_tpu/ops/flash_blc.py
 // _fwd_impl (packed and unpacked, with and without z; body _fwd_kernel)
@@ -146,9 +147,10 @@ __device__ __forceinline__ void f9_pv(float (&o)[D / 2], const uint32_t (&p)[8][
   }
 }
 
-// One key tile's online-softmax step on this thread's scores: accumulator
-// element s[4 j + e] is row (lane / 4) + 8 (e / 2) of the warp's 16, key
-// 8 j + 2 (lane % 4) + e % 2 of the tile.  Scale, mask the keys at or past
+// One key tile's online-softmax step on this thread's scores (NS of them:
+// a tile of 2 NS keys; also the wide body's, csrc/flash_fwd_sm90_wide.cuh):
+// accumulator element s[4 j + e] is row (lane / 4) + 8 (e / 2) of the
+// warp's 16, key 8 j + 2 (lane % 4) + e % 2 of the tile.  Scale, mask the keys at or past
 // `valid` (kLast: the last tile of a ragged Lk; a zero-filled key would
 // score 0, not -inf), fold the tile's row maxima into m0 / m1 (two quad
 // shuffles each), p = exp(s - m) in place, add p to this thread's share
@@ -156,15 +158,15 @@ __device__ __forceinline__ void f9_pv(float (&o)[D / 2], const uint32_t (&p)[8][
 // (0 on the first tile, where m_old is -inf).  The maxima and sums run in
 // eight independent chains a thread (key blocks j even and odd, e), not
 // one chain a row, so that their latencies overlap.
-template <bool kLast>
-__device__ __forceinline__ float2 f9_softmax(float (&s)[64], float& m0, float& m1, float& l0,
+template <bool kLast, int NS>
+__device__ __forceinline__ float2 f9_softmax(float (&s)[NS], float& m0, float& m1, float& l0,
                                              float& l1, float scale, int valid) {
   const int c0 = 2 * (threadIdx.x & 3);
   float xs[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) xs[i] = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = s[4 * j + e] * scale;
@@ -186,7 +188,7 @@ __device__ __forceinline__ float2 f9_softmax(float (&s)[64], float& m0, float& m
 #pragma unroll
   for (int i = 0; i < 8; ++i) ts[i] = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = expf(s[4 * j + e] - (e < 2 ? n0 : n1));
@@ -204,9 +206,10 @@ __device__ __forceinline__ float2 f9_softmax(float (&s)[64], float& m0, float& m
 // fragment is s[8 kk .. 8 kk + 7] in pairs (rows r and r + 8, keys
 // 16 kk + 2 (lane % 4) + {0, 1} and + 8), the m16n8k16 A layout that
 // wgmma takes from registers for bf16
-__device__ __forceinline__ void f9_round_p(const float (&s)[64], uint32_t (&p)[8][4]) {
+template <int NS>
+__device__ __forceinline__ void f9_round_p(const float (&s)[NS], uint32_t (&p)[NS / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < NS / 8; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
@@ -393,7 +396,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
 // array the wrappers pass (FlashFwdPlan.as_array): kPlanLen numbers in this
 // order (PlanMap: csrc/sm90.cuh).
 struct FwdPlan {
-  long long body;  // 1: this body; 0: csrc/flash_fwd.cuh
+  long long body;  // 1: this body; 2: csrc/flash_fwd_sm90_wide.cuh
   long long q_rows, k_rows, stages, grid_x, grid_y, threads, smem, key_mask, row_dim;
   PlanMap map[3];  // q, k, v
   long long o_strides[3];  // b, h, row, elements
@@ -413,34 +416,47 @@ int launch_f9(const CUtensorMap (&maps)[3], const F9Args& a, dim3 grid, cudaStre
   return (int)cudaGetLastError();
 }
 
-// Hold the plan to what this body is compiled for and to the shapes the
-// entry was given, encode its three maps over bases[] (q, k, v; the packed
-// entries pass the (B, L, 3C) base three times) and launch.
-inline int launch_flash_fwd_sm90(const FwdPlan& p, const bf16* const (&bases)[3], bf16* o,
-                                 float* z, int B, int H, int Lq, int Lk, int D, float scale,
-                                 cudaStream_t stream) {
+// Hold the plan to the body that reads it (`body` and its tiles, stages,
+// threads and shared memory) and to the shapes the entry was given, encode
+// its three maps over bases[] (q, k, v; the packed entries pass the
+// (B, L, 3C) base three times) and fill the kernel's arguments; false
+// where anything disagrees.  The wide body (flash_fwd_sm90_wide.cuh) takes
+// the same plan.
+inline bool fwd_plan_args(const FwdPlan& p, long long body, int q_rows, int k_rows, int stages,
+                          int threads, size_t smem, const bf16* const (&bases)[3], bf16* o,
+                          float* z, int B, int H, int Lq, int Lk, int D, float scale,
+                          CUtensorMap (&maps)[3], F9Args* a) {
   const long long bh = (long long)B * H;
-  const int rows = D == 64 ? F9Layout<64>::kRows : F9Layout<128>::kRows;
-  bool ok = p.body == 1 && (D == 64 || D == 128) && p.q_rows == rows &&
-            p.k_rows == kF9Keys && p.stages == kF9Stages &&
-            p.threads == (D == 64 ? F9Layout<64>::kThreads : F9Layout<128>::kThreads) &&
-            p.smem == (long long)(D == 64 ? F9Layout<64>::kSmem : F9Layout<128>::kSmem) &&
-            p.grid_x == (Lq + rows - 1) / rows && p.grid_y == bh && bh <= 65535 &&
-            p.key_mask == (Lk % kF9Keys != 0) && (p.row_dim == 1 || p.row_dim == 2) &&
+  bool ok = p.body == body && p.q_rows == q_rows && p.k_rows == k_rows && p.stages == stages &&
+            p.threads == threads && p.smem == (long long)smem &&
+            p.grid_x == (Lq + q_rows - 1) / q_rows && p.grid_y == bh && bh <= 65535 &&
+            p.key_mask == (Lk % k_rows != 0) && (p.row_dim == 1 || p.row_dim == 2) &&
             p.o_strides[0] > 0 && p.o_strides[1] > 0 && p.o_strides[2] >= D;
   const int hd = p.row_dim == 1 ? 2 : 1;  // the head's dim in the map
   for (int i = 0; ok && i < 3; ++i) {
     const PlanMap& m = p.map[i];
     ok = m.dims[0] == D && m.dims[p.row_dim] == (i == 0 ? Lq : Lk) && m.dims[hd] == H &&
-         m.dims[3] == B && m.box[0] == 64 && m.box[p.row_dim] == (i == 0 ? rows : kF9Keys) &&
-         m.box[hd] == 1 && m.box[3] == 1;
+         m.dims[3] == B && m.box[0] == 64 && m.box[p.row_dim] == (i == 0 ? q_rows : k_rows) &&
+         m.box[hd] == 1 && m.box[3] == 1 && encode_plan_map(&maps[i], bases[i], m);
   }
-  if (!ok) return (int)cudaErrorInvalidValue;
+  *a = F9Args{o, z, p.o_strides[0], p.o_strides[1], p.o_strides[2], Lq, Lk, H, (int)p.row_dim,
+              scale};
+  return ok;
+}
+
+inline int launch_flash_fwd_sm90(const FwdPlan& p, const bf16* const (&bases)[3], bf16* o,
+                                 float* z, int B, int H, int Lq, int Lk, int D, float scale,
+                                 cudaStream_t stream) {
   CUtensorMap maps[3];
-  for (int i = 0; i < 3; ++i)
-    if (!encode_plan_map(&maps[i], bases[i], p.map[i])) return (int)cudaErrorInvalidValue;
-  const F9Args a{o, z, p.o_strides[0], p.o_strides[1], p.o_strides[2], Lq, Lk, H,
-                 (int)p.row_dim, scale};
+  F9Args a;
+  if ((D != 64 && D != 128) ||
+      !(D == 64 ? fwd_plan_args(p, 1, F9Layout<64>::kRows, kF9Keys, kF9Stages,
+                                F9Layout<64>::kThreads, F9Layout<64>::kSmem, bases, o, z, B, H,
+                                Lq, Lk, D, scale, maps, &a)
+                : fwd_plan_args(p, 1, F9Layout<128>::kRows, kF9Keys, kF9Stages,
+                                F9Layout<128>::kThreads, F9Layout<128>::kSmem, bases, o, z, B,
+                                H, Lq, Lk, D, scale, maps, &a)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)p.grid_x, (unsigned)p.grid_y);
   if (D == 64)
     return p.key_mask ? launch_f9<64, true>(maps, a, grid, stream)

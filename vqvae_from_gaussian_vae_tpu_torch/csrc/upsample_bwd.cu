@@ -15,9 +15,13 @@
 // dgrad: dx (B, H, W, C) = sum over (di, dj, a, b) of the shifted
 // cotangent phase g[2(i-dr)+di, 2(j-dc)+dj] . k22[di, dj, a, b]^T
 // (dr = di+a-1, dc = dj+b-1; zero where i-dr or j-dc leaves the image: the
-// two masked rows at each end of the TPU kernel's band).  The forward's
-// implicit-GEMM body (conv_igemm.cuh, mode kUpDgrad): M = low-resolution
-// pixels, N = C, K = 16 taps x O.
+// two masked rows at each end of the TPU kernel's band).  The Hopper
+// implicit-GEMM body (conv_igemm_sm90.cuh, mode kIgUpDgrad): M =
+// low-resolution pixels in 128-pixel spatial tiles, N = C, K = 16 taps x
+// O in 64-channel steps; wgmma fed by TMA boxes of g through a map that
+// steps by 2 in rows and columns (the halo is the copies' zero fill) and of
+// k22 as it lies (K-major B), float32 accumulators, no split-K and no
+// atomics: dx repeats bit for bit.
 //
 // wgrad: dk22 (16, C, O) float32 = the x tiles of the forward against the
 // cotangent phases over all B * H * W low-resolution pixels
@@ -27,29 +31,44 @@
 //
 // What bounds them on an H100: 1.4e11, 5.5e11 and 5.5e11 FLOP per launch
 // at the decoder shapes (bs=16) against at most ~0.7 GB of traffic: the
-// tensor cores.
+// tensor cores (0.14, 0.56 and 0.56 ms at the bf16 peak).
+#include "conv_igemm_sm90.cuh"
 #include "conv_wgrad.cuh"
 
-// g (B, 2H, 2W, O) bf16; k22t (16, O, C) bf16 (k22[di, dj, a, b]^T);
-// dx (B, H, W, C) bf16.  All contiguous; O a multiple of 32, C of 8.
-extern "C" int gvq_upsample_dgrad(const void* g, const void* k22t, void* dx, int B, int H, int W,
+namespace gvq {
+namespace {
+
+// dgrad: g (B, 2H, 2W, O), k22 (16, C, O); dx (B, H, W, C).  O a multiple
+// of 32, C of 8, every pointer on 16 bytes.
+inline int launch_upsample_dgrad(const bf16* g, const bf16* k22, bf16* dx, int B, int H, int W,
+                                 int O, int C, cudaStream_t stream) {
+  IgemmArgs a{};
+  long long blocks = 0;
+  if (O % 32 != 0 || C % 8 != 0 || !igemm_args(&a, B, H, W, C, O, 1, &blocks))
+    return (int)cudaErrorInvalidValue;
+  a.out = dx;
+  const int bn = igemm_tile_n(C);
+  CUtensorMap tg, tw;
+  if (!ig_nhwc_map(&tg, g, B, 2 * H, 2 * W, O, a.tile_h, a.tile_w, 2) ||
+      !ig_weight_map(&tw, k22, C, O, bn, 4))
+    return (int)cudaErrorInvalidValue;
+  return (int)(bn == 256
+                   ? launch_igemm_sm90<kIgUpDgrad, 256, AIdentity>(tg, tg, tw, a, blocks, stream)
+                   : launch_igemm_sm90<kIgUpDgrad, 128, AIdentity>(tg, tg, tw, a, blocks, stream));
+}
+
+}  // namespace
+}  // namespace gvq
+
+// g (B, 2H, 2W, O) bf16; k22 (2, 2, 2, 2, C, O) bf16 in (di, dj, a, b)
+// order; dx (B, H, W, C) bf16.  All contiguous and on 16 bytes; O a
+// multiple of 32, C of 8.
+extern "C" int gvq_upsample_dgrad(const void* g, const void* k22, void* dx, int B, int H, int W,
                                   int O, int C, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  gvq::ConvArgs a{};
-  a.x = static_cast<const gvq::bf16*>(g);
-  a.w = static_cast<const gvq::bf16*>(k22t);
-  a.y = static_cast<gvq::bf16*>(dx);
-  a.B = B;
-  a.H = 2 * H;
-  a.W = 2 * W;
-  a.C = O;
-  a.O = C;
-  a.Mh = H;
-  a.Mw = W;
-  a.n_mt = (H * W + gvq::kConvBM - 1) / gvq::kConvBM;
-  a.out_h = H;
-  a.out_w = W;
-  return gvq::launch_dgrad<gvq::kUpDgrad>(a, static_cast<cudaStream_t>(stream));
+  return gvq::launch_upsample_dgrad(static_cast<const gvq::bf16*>(g),
+                                    static_cast<const gvq::bf16*>(k22),
+                                    static_cast<gvq::bf16*>(dx), B, H, W, O, C,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // x (B, H, W, C) bf16 (x + add summed and rounded where the forward had

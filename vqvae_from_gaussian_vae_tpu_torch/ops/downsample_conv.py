@@ -154,9 +154,11 @@ def wgrad_plan(taps: int, b: int, mh: int, mw: int, c: int, o: int) -> WgradPlan
 
 # the implicit-GEMM body's launch (csrc/conv_igemm_sm90.cuh): a block takes
 # a 128-pixel spatial tile of one sample's (one phase's) grid and a tile_n
-# wide slice of the output channels, over K steps of 64 channels of one tap
+# wide slice of the output channels, over K steps of 64 channels of one tap;
+# the modes: the downsample's forward (with the fused add) and dgrad, and
+# the upsample's dgrad
 IGEMM_PIXELS = 128
-IGEMM_MODES = ("fwd", "fwd_add", "dgrad")
+IGEMM_MODES = ("fwd", "fwd_add", "dgrad", "up_dgrad")
 
 
 class IgemmPlan(NamedTuple):
@@ -165,7 +167,7 @@ class IgemmPlan(NamedTuple):
     tiles: int          # spatial tiles a sample (and phase): the forward's partial count
     tile_n: int         # output channels of a block's tile
     n_tiles: int
-    phases: int         # 1 (forward); 4 (dgrad's parity phases, the longest first)
+    phases: int         # 1 (forward, up_dgrad); 4 (dgrad's parity phases, the longest first)
     stages: int         # the ring's stages
     smem: int           # dynamic shared memory of a block, bytes
     blocks_per_sm: int  # blocks the plan's shared memory and registers let an SM hold
@@ -219,17 +221,20 @@ def igemm_plan(mode: str, b: int, h: int, w: int, c: int, o: int) -> IgemmPlan:
     fused add) or dgrad ("dgrad") on x (b, h, w, c) and O output channels:
     M is the (h/2, w/2) grid of one sample (and phase), N = o for the
     forward and c for dgrad; a K step is 64 channels of one tap (of c for
-    the forward, of o for dgrad).  A function of the shape only (cached)."""
+    the forward, of o for dgrad).  The upsample's dgrad ("up_dgrad") on x
+    (b, h, w, c), the cotangent (b, 2h, 2w, o): M is the (h, w) grid of one
+    sample, N = c, K = 16 taps of o.  A function of the shape only
+    (cached)."""
     if mode not in IGEMM_MODES:
         raise ValueError(f"igemm_plan: mode {mode!r} is not one of {IGEMM_MODES}")
-    mh, mw = h // 2, w // 2
+    mh, mw = (h, w) if mode == "up_dgrad" else (h // 2, w // 2)
     th, tw = igemm_tile(mh, mw)
     tiles = -(-mh // th) * -(-mw // tw)
-    fwd = mode != "dgrad"
+    fwd = mode in ("fwd", "fwd_add")
     tile_n = igemm_tile_n(o if fwd else c)
     n_tiles = -(-(o if fwd else c) // tile_n)
     extra = 1 if mode == "fwd_add" else 0
-    phases = 1 if fwd else 4
+    phases = 4 if mode == "dgrad" else 1
     return IgemmPlan(th, tw, tiles, tile_n, n_tiles, phases,
                      igemm_stages(extra, tile_n), igemm_smem(extra, tile_n),
                      igemm_blocks_per_sm(extra, tile_n), phases * b * tiles * n_tiles)

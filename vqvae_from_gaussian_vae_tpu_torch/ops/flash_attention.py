@@ -61,7 +61,15 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256, 512)  # the kernels' head dims, forward and
 # FWD_WARPGROUPS[D] consumer warpgroups of 64 q rows each
 FWD_K_ROWS, FWD_STAGES = 128, 3
 FWD_WARPGROUPS = {64: 3, 128: 2}
-WGMMA_HEAD_DIMS = tuple(FWD_WARPGROUPS)  # the forward's wgmma body; other D take the wmma one
+WGMMA_HEAD_DIMS = tuple(FWD_WARPGROUPS)  # that body's head dims (and the backward's wgmma body's)
+# the wide wgmma body (csrc/flash_fwd_sm90_wide.cuh FwLayout) at D = 256 and
+# 512: a block owns 64 q rows of one (b, h) against 64-key K and V tiles
+# (WIDE_STAGES[D] stages of each); two consumer warpgroups each hold half
+# of D of the output, and a producer warpgroup
+WIDE_ROWS, WIDE_K_ROWS, WIDE_THREADS = 64, 64, 384
+WIDE_STAGES = {256: 2, 512: 1}
+WIDE_HEAD_DIMS = tuple(WIDE_STAGES)
+FWD_BODIES = ("wgmma", "wgmma_wide")  # FlashFwdPlan.body, as FwdPlan::body 1 and 2
 SWIZZLE_COLS = 64  # bf16 columns of one 128-byte swizzle row: a box's inner width
 LAYOUTS = ("head_major", "token_major", "packed")
 # the backward's wgmma body (csrc/flash_bwd_sm90.cuh, the same head dims): a
@@ -94,12 +102,13 @@ class FlashFwdPlan:
     and the C entries read it (``as_array``; ``csrc/flash_fwd_sm90.cuh``
     ``FwdPlan``).
 
-    ``body`` is ``"wgmma"`` (``csrc/flash_fwd_sm90.cuh``) or ``"wmma"``
-    (``csrc/flash_fwd.cuh``); a block owns ``q_rows`` q rows of one (b, h)
-    and walks ``k_rows``-key tiles; ``grid`` is (q tiles, B * H);
-    ``key_mask``: the last key tile is partial, and its keys past Lk score
-    -inf.  For the wgmma body, ``maps`` are q's, k's and v's tensor maps,
-    whose coordinates are (column, row, h, b) where ``row_dim`` is 1
+    ``body`` is ``"wgmma"`` (``csrc/flash_fwd_sm90.cuh``, D = 64 and 128)
+    or ``"wgmma_wide"`` (``csrc/flash_fwd_sm90_wide.cuh``, D = 256 and
+    512); a block owns ``q_rows`` q rows of one (b, h) and walks
+    ``k_rows``-key tiles in a ring of ``stages``; ``grid`` is (q tiles,
+    B * H); ``key_mask``: the last key tile is partial, and its keys past
+    Lk score -inf.  ``maps`` are q's, k's and v's tensor maps, whose
+    coordinates are (column, row, h, b) where ``row_dim`` is 1
     (head-major) and (column, h, row, b) where it is 2; ``out_strides``
     are o's (b, h, row) strides in elements."""
 
@@ -122,7 +131,7 @@ class FlashFwdPlan:
 
     def as_array(self):
         """The plan as the C entries take it: 49 int64 in ``FwdPlan``'s order."""
-        vals = [1 if self.body == "wgmma" else 0, self.q_rows, self.k_rows, self.stages,
+        vals = [1 + FWD_BODIES.index(self.body), self.q_rows, self.k_rows, self.stages,
                 *self.grid, self.threads, self.smem, int(self.key_mask), self.row_dim]
         return _int64s(vals, self.maps, 3, list(self.out_strides), 49)
 
@@ -195,23 +204,21 @@ class FlashBwdPlan:
         return _int64s(vals, self.maps, 4, [*self.dq_strides, *self.dkv_strides], 70)
 
 
-def wmma_fwd_smem(d: int) -> int:
-    """Shared memory of ``csrc/flash_fwd.cuh``'s shipped instantiation
-    (``FlashLayout<D, 32, kBase, 1>::kBytes``)."""
-    q = 32 * (d + 8) * 2
-    kv = 64 * (d + 8) * 2
-    o = 32 * (d + 4) * 4
-    s = 32 * 68 * 4
-    p = 32 * 72 * 2
-    return q + kv + o + s + p + 3 * 32 * 4
-
-
 def wgmma_fwd_smem(d: int) -> int:
     """Shared memory of ``csrc/flash_fwd_sm90.cuh`` (``F9Layout<D>::kSmem``):
     the Q tile, the ring's K and V tiles, the mbarriers and 1024 bytes of
     alignment slack."""
     rows = 64 * FWD_WARPGROUPS[d]
     return (rows + 2 * FWD_STAGES * FWD_K_ROWS) * d * 2 + (1 + 3 * FWD_STAGES) * 8 + 1024
+
+
+def wide_fwd_smem(d: int) -> int:
+    """Shared memory of ``csrc/flash_fwd_sm90_wide.cuh``
+    (``FwLayout<D>::kSmem``): the Q tile, the K and V stages, the mbarriers
+    (Q full; K full, V full, K empty, V empty a stage) and 1024 bytes of
+    alignment slack."""
+    stages = WIDE_STAGES[d]
+    return (WIDE_ROWS + 2 * stages * WIDE_K_ROWS) * d * 2 + (1 + 4 * stages) * 8 + 1024
 
 
 def wgmma_bwd_smem(d: int) -> tuple:
@@ -271,25 +278,27 @@ def flash_fwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
     projection).  ``in_stride`` is the token stride of the inputs (H*D or
     3C; the token-major layouts only, where lq == lk == L).  At D = 64 and
     128 the wgmma body (192 q rows a block at D = 64, 128 at D = 128,
-    against 128-key tiles): 4-D maps, (D, L, H, B) head-major and (D, H,
-    L, B) token-major with the token stride, so that a box never leaves its
-    (b, h) and TMA's zero fill is the ragged edge.  At D = 256 and 512 the wmma
-    body, 32 q rows against 64-key tiles, with no maps."""
+    against 128-key tiles in 3 stages); at D = 256 and 512 the wide wgmma
+    body (64 q rows against 64-key tiles, ``WIDE_STAGES[D]`` stages).  Both
+    read 4-D maps, (D, L, H, B) head-major and (D, H, L, B) token-major
+    with the token stride, so that a box never leaves its (b, h) and TMA's
+    zero fill is the ragged edge."""
     _check_plan_shape("flash_fwd_plan", layout, b, h, lq, lk, d, in_stride)
     c = h * d
     out_strides = (h * lq * d, lq * d, d) if layout == "head_major" else (lq * c, d, c)
-    if d not in WGMMA_HEAD_DIMS:
-        return FlashFwdPlan("wmma", 32, 64, 1, (-(-lq // 32), b * h), 256, wmma_fwd_smem(d),
-                            lk % 64 != 0, 0, (), out_strides)
-    q_rows = 64 * FWD_WARPGROUPS[d]
+    if d in WIDE_HEAD_DIMS:
+        body, q_rows, k_rows, stages = "wgmma_wide", WIDE_ROWS, WIDE_K_ROWS, WIDE_STAGES[d]
+        threads, smem = WIDE_THREADS, wide_fwd_smem(d)
+    else:
+        body, q_rows, k_rows, stages = "wgmma", 64 * FWD_WARPGROUPS[d], FWD_K_ROWS, FWD_STAGES
+        threads, smem = 128 * (FWD_WARPGROUPS[d] + 1), wgmma_fwd_smem(d)
     offsets = (0, c, 2 * c) if layout == "packed" else (0, 0, 0)
     row_dim, maps = _maps(layout, b, h, d,
                           ((lq, q_rows, offsets[0], in_stride),
-                           (lk, FWD_K_ROWS, offsets[1], in_stride),
-                           (lk, FWD_K_ROWS, offsets[2], in_stride)))
-    return FlashFwdPlan("wgmma", q_rows, FWD_K_ROWS, FWD_STAGES, (-(-lq // q_rows), b * h),
-                        128 * (FWD_WARPGROUPS[d] + 1), wgmma_fwd_smem(d), lk % FWD_K_ROWS != 0,
-                        row_dim, maps, out_strides)
+                           (lk, k_rows, offsets[1], in_stride),
+                           (lk, k_rows, offsets[2], in_stride)))
+    return FlashFwdPlan(body, q_rows, k_rows, stages, (-(-lq // q_rows), b * h), threads, smem,
+                        lk % k_rows != 0, row_dim, maps, out_strides)
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,7 +28,9 @@ outside any Pallas kernel too).
 
 Layout at this surface is the JAX package's: x (B, H, W, C), weight HWIO
 (3, 3, C, O), output (B, 2H, 2W, O).  The CUDA kernels
-(``csrc/upsample_conv.cu``, ``csrc/upsample_bwd.cu``) run for CUDA tensors;
+(``csrc/upsample_conv.cu``, ``csrc/upsample_bwd.cu``; dgrad on the Hopper
+implicit-GEMM body ``csrc/conv_igemm_sm90.cuh``, whose launch
+``downsample_conv.igemm_plan("up_dgrad", ...)`` mirrors) run for CUDA tensors;
 the plain versions below run for CPU tensors and are what the kernels are
 held to on the card.  When a gradient is wanted,
 ``upsample_nearest_conv3x3_gn`` is a ``torch.autograd.Function``.
@@ -196,7 +198,9 @@ def upsample_bwd_conv(x, w, g):
 
 def upsample_dgrad_cuda(g, k22):
     """Launch the dgrad kernel: g (B, 2H, 2W, O) contiguous bf16 CUDA, k22
-    (2, 2, 2, 2, C, O), O a multiple of 32, C of 8 -> dx (B, H, W, C) bf16."""
+    (2, 2, 2, 2, C, O), O a multiple of 32, C of 8 -> dx (B, H, W, C) bf16.
+    The kernel reads k22 as it lies (cast to bf16 where it is not);
+    ``igemm_plan("up_dgrad", ...)`` mirrors its launch."""
     _build.refuse_grad("upsample dgrad kernel", g, k22)  # no double backward
     b, h2, w2, o = g.shape
     c = k22.shape[-2]
@@ -205,11 +209,12 @@ def upsample_dgrad_cuda(g, k22):
             or o % 32 or c % 8:
         raise ValueError(f"upsample dgrad kernel: k22 {tuple(k22.shape)} for g {tuple(g.shape)} "
                          "(even 2H, 2W; O % 32 == 0, C % 8 == 0)")
-    k22t = k22.to(torch.bfloat16).transpose(-1, -2).contiguous()  # (16, O, C)
+    g = _build.kernel_operand(g)
+    k22 = _build.kernel_operand(k22.to(torch.bfloat16))  # as it lies: dgrad's B is K-major
     dx = torch.empty((b, h2 // 2, w2 // 2, c), dtype=g.dtype, device=g.device)
     lib = _build.library()
     with torch.cuda.device(g.device):
-        err = lib.gvq_upsample_dgrad(g.data_ptr(), k22t.data_ptr(), dx.data_ptr(), b, h2 // 2,
+        err = lib.gvq_upsample_dgrad(g.data_ptr(), k22.data_ptr(), dx.data_ptr(), b, h2 // 2,
                                      w2 // 2, o, c, _build.stream_of(g))
     _build.check(err, "gvq_upsample_dgrad")
     upsample_dgrad_cuda.launches += 1
