@@ -27,7 +27,8 @@ then drives each path through the entry points a user calls, at bs=16,
     one of the kernel variables is already set;
   * the head-major flash attention (``ops/flash_attention_lean.py``), an
     op no model calls: one training call (forward with residuals, then the
-    backward) at B=1, H=12, L=8192, D=64, in bf16 and in float32;
+    backward) at B=1, H=12, L=8192, D=64, in bf16 and in float32 (split
+    TF32 on the tensor cores);
   * the flash labs (``labs/``: softmax policies and stage depth of the
     forward, its tilings, the backward's tilings and no-softmax control),
     every default combo at (16, 1024, 12, 64) bf16 through the labs' own
@@ -67,6 +68,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # sheet); a card set to a lower power limit runs below them.
 PEAK_BF16 = 989e12      # tensor cores, FLOP/s
 PEAK_FP32 = 67e12       # CUDA cores, FLOP/s
+PEAK_TF32 = 495e12      # tensor cores, TF32, FLOP/s
 PEAK_HBM = 3.35e12      # bytes/s
 
 BATCH = 16
@@ -276,6 +278,78 @@ def flash_bwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
                            "sass_hgmma": hgmma}
     return {"design": plan.body, "kv_rows": plan.kv_rows, "kv_q_rows": plan.kv_q_rows,
             "q_rows": plan.q_rows, "q_k_rows": plan.q_k_rows, "kernels": kernels}
+
+
+def flash_f32_kernel_facts(b: int, h: int, lq: int, lk: int, d: int) -> dict:
+    """The float32 head-major op's kernels at (b, h, lq, lk, d), by
+    ``flash_f32_plan``: the body ("split_tf32": ``csrc/flash_fwd_f32_sm90.cuh``
+    and ``csrc/flash_bwd_f32_sm90.cuh``, D = 64 and 128; "simt": the CUDA-core
+    kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``), each
+    kernel's tiles, ptxas's registers and spill bytes (stores + loads) from
+    ``nvcc.log``, and the count of HGMMA (wgmma) instructions in its SASS,
+    which must not be 0 for the split-TF32 body; and the pre-pass's scratch
+    (forward and backward) in MiB."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_f32_plan
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        usage = _build.ptxas_usage(f.read())
+    plan = flash_f32_plan(b, h, lq, lk, d)
+    if plan.body == "split_tf32":
+        tags = {kernel: (source, f"{name}ILi{d}ELi{t.rows // 64}ELi{t.tile}ELi{t.stages}"
+                                 f"ELb{int(t.mask)}E", t)
+                for kernel, source, name, t in (
+                    ("fwd", "_flash_fwd_cu_", "flash_fwd_f32_sm90_kernel", plan.fwd),
+                    ("dkdv", "_flash_bwd_cu_", "flash_bwd_dkdv_f32_sm90_kernel", plan.dkdv),
+                    ("dq", "_flash_bwd_cu_", "flash_bwd_dq_f32_sm90_kernel", plan.dq))}
+    else:
+        tags = {kernel: (source, f"{name}ILi{d}E", None) for kernel, source, name in (
+            ("fwd", "_flash_fwd_cu_", "flash_fwd_f32_kernel"),
+            ("dkdv", "_flash_bwd_cu_", "flash_bwd_dkdv_f32_kernel"),
+            ("dq", "_flash_bwd_cu_", "flash_bwd_dq_f32_kernel"))}
+    kernels = {}
+    for kernel, (source, tag, t) in tags.items():
+        names = [n for n in usage if source in n and tag in n]
+        require(len(names) == 1, f"{len(names)} {tag} entries in nvcc.log")
+        u = usage[names[0]]
+        hgmma = sass_hgmma().get(names[0], 0)
+        require(plan.body == "simt" or hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+        kernels[kernel] = {"registers": u["registers"],
+                           "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
+                           "sass_hgmma": hgmma}
+        if t is not None:
+            kernels[kernel].update(rows=t.rows, tile=t.tile, stages=t.stages, smem=t.smem)
+    return {"design": plan.body, "kernels": kernels,
+            "scratch_mib": 4 * (plan.fwd_scratch + plan.bwd_scratch) / 2**20}
+
+
+def f32_build_facts() -> dict:
+    """Every split-TF32 float32 flash kernel the build made, and its
+    pre-pass: ptxas's registers and spill bytes and the HGMMA count of its
+    SASS, named as ``tests/torch_kernel_registers.json`` names kernels."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        usage = _build.ptxas_usage(f.read())
+    return {_build._ANON.sub(r"<\1.cu>", n): {
+        "registers": u["registers"], "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
+        "sass_hgmma": sass_hgmma().get(n, 0)}
+        for n, u in sorted(usage.items()) if "f32_sm90_kernel" in n or "tf_prep_kernel" in n}
+
+
+def device_kernels(fn) -> list:
+    """Names of the CUDA kernels that one call of fn runs (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.key for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0})
 
 
 def nvidia_smi_line() -> str:
@@ -1207,16 +1281,21 @@ def check_flash_lean(gen):
 
 
 def check_flash_lean_f32(gen):
-    """The head-major op in float32 (its SIMT float32 kernels): one training
-    call through the public ``flash_attention`` with a gradient, held to the
-    plain versions within ``FLASH_F32_REL`` of their largest value, TF32
-    off, at each of ``FLASH_LEAN_SHAPES``; times of the call against the
-    plain versions' and SDPA's (float32, forward and backward by autograd)."""
+    """The head-major op in float32 (split-TF32 tensor-core kernels at D = 64
+    and 128, SIMT at 256 and 512): one training call through the public
+    ``flash_attention`` with a gradient, held to the plain versions within
+    ``FLASH_F32_REL`` of their largest value, TF32 off, at each of
+    ``FLASH_LEAN_SHAPES``, the backward bit-equal across runs; times of the
+    call, its forward and its backward against the plain versions' and
+    SDPA's (float32: forward, backward by autograd, and both), and the
+    kernels SDPA runs in float32 (torch.profiler, once).  Two bounds: the
+    CUDA cores' (the function's seven products at the float32 peak) and
+    split TF32's (three tensor-core passes of them at the TF32 peak)."""
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
 
-    shapes = []
+    shapes, library_kernels = [], None
     for b, h, lq, lk, d in FLASH_LEAN_SHAPES:
         q, k, v, do = _lean_inputs(gen, b, h, lq, lk, d, "float32")
         scale, blocks = d ** -0.5, lean_blocks(lq, lk)
@@ -1230,14 +1309,19 @@ def check_flash_lean_f32(gen):
         _, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
         o_p, z_p = fl.flash_attention_res_plain(q, k, v, scale)
         want = fl.flash_attention_bwd_plain(q, k, v, o_p, z_p, do, scale)
+        again = fl.flash_attention_bwd_cuda(q, k, v, got[0], z, do, scale)
+        again2 = fl.flash_attention_bwd_cuda(q, k, v, got[0], z, do, scale)
         torch.cuda.synchronize()
         rels = [_rel(got[0], o_p), _rel(z, z_p)] + [_rel(g, w) for g, w in zip(got[1:], want)]
         for name, rel in zip(("o", "z", "dq", "dk", "dv"), rels):
             require(got[0].dtype == torch.float32 and rel <= FLASH_F32_REL,
                     f"float32 head-major flash {(b, h, lq, lk, d)}: {name} error {rel} of its "
                     "largest value")
+        require(all(torch.equal(x, y) for x, y in zip(again, again2)) and
+                all(torch.equal(x, y) for x, y in zip(again, got[1:])),
+                "float32 head-major flash backward: two runs differ")
         err = max(float((g - w).abs().max()) for g, w in zip(got, [o_p, *want]))
-        del got, want, o_p, z_p
+        del got, want, o_p, z_p, again, again2
 
         def plain():
             o, zz = fl.flash_attention_res_plain(q, k, v, scale)
@@ -1261,34 +1345,56 @@ def check_flash_lean_f32(gen):
         def library_backward():
             return torch.autograd.grad(o_ref, ref, do, retain_graph=True)
 
+        if library_kernels is None:  # which kernels SDPA runs in float32, TF32 off
+            library_kernels = {"forward": device_kernels(library_forward),
+                               "backward": device_kernels(library_backward)}
         eq, ek = b * h * lq * d, b * h * lk * d
         flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d
         bytes_f = 4 * (2 * eq + 2 * ek) + 4 * b * h * lq         # q, k, v in; o, z out
         bytes_b = 4 * (3 * eq + 2 * ek) + 4 * b * h * lq + 4 * (eq + 2 * ek)
-        bnd, by = bound_ms(flops_f + flops_b, bytes_f + bytes_b, PEAK_FP32)
+        # the CUDA cores' bound (the SIMT body's) and split TF32's (three
+        # passes of the same products at the TF32 peak: the tensor-core body's)
+        simt, simt_by = bound_ms(flops_f + flops_b, bytes_f + bytes_b, PEAK_FP32)
+        split, split_by = bound_ms(3 * (flops_f + flops_b), bytes_f + bytes_b, PEAK_TF32)
+        facts = flash_f32_kernel_facts(b, h, lq, lk, d)
+        bnd, by = (split, split_by) if facts["design"] == "split_tf32" else (simt, simt_by)
         long = (b, h, lq, lk, d) == FLASH_LEAN_FLOW
+        n = 3 if long else 10
+        kernel_ms = time_ms(call, iters=n, warmup=1)
+        forward_ms = time_ms(lambda: fl.flash_attention_fwd_cuda(
+            q, k, v, scale, save_residuals=True), iters=n, warmup=1)
+        backward_ms = time_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, o_k, z_k, do, scale),
+                              iters=n, warmup=1)
         shapes.append({
             "shape": f"q ({b},{h},{lq},{d}), k, v ({b},{h},{lk},{d}) float32: forward with z, "
                      "then dq, dk, dv",
             "main_path": long, "per_step": 1,
-            "kernel_ms": time_ms(call, iters=3 if long else 10, warmup=1),
-            "forward_ms": time_ms(lambda: fl.flash_attention_fwd_cuda(
-                q, k, v, scale, save_residuals=True), iters=3 if long else 10, warmup=1),
-            "plain_ms": time_ms(plain, iters=3 if long else 10, warmup=1),
+            "kernel_ms": kernel_ms, "tflops": (flops_f + flops_b) / kernel_ms / 1e9,
+            "forward_ms": forward_ms, "forward_tflops": flops_f / forward_ms / 1e9,
+            "backward_ms": backward_ms, "backward_tflops": flops_b / backward_ms / 1e9,
+            "plain_ms": time_ms(plain, iters=n, warmup=1),
             "library_ms": time_ms(library), "library": "SDPA forward + backward (autograd), "
                                                        "float32",
+            "library_forward_ms": time_ms(library_forward),
+            "library_backward_ms": time_ms(library_backward),
             "bound_ms": bnd, "bound_by": by,
+            "cuda_core_bound_ms": simt, "split_tf32_bound_ms": split,
+            # the port's products: two forward, seven backward (two recomputed)
+            "split_tf32_bound_port_ms": 1e3 * 3 * 9 * 2.0 * b * h * lq * lk * d / PEAK_TF32,
             "flops": flops_f + flops_b, "bytes": bytes_f + bytes_b,
-            "max_abs_err": err, "rel_err_o_z_dq_dk_dv": rels})
-        del q, k, v, do, leaves, ref
+            "max_abs_err": err, "rel_err_o_z_dq_dk_dv": rels, "bit_reproducible": True,
+            **facts})
+        del q, k, v, do, leaves, ref, o_k, z_k, o_ref
         torch.cuda.empty_cache()
     return {"name": "flash_attention_lean_f32", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd.cu, "
-                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_f32_sm90.cuh, "
+                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_f32_sm90.cuh "
+                      "(D = 64, 128); csrc/flash_fwd.cu, csrc/flash_bwd.cu SIMT (D = 256, 512)",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_attention.py:118",
             "counters": ["flash_attention_lean_fwd", "flash_attention_lean_bwd"],
             "tolerance": f"o, z, dq, dk, dv: max error / max |value| <= {FLASH_F32_REL} "
-                         "(float32, TF32 off)",
+                         "(float32, TF32 off); the backward bit-equal across runs",
+            "library_kernels": library_kernels,
             "per_step": 1, "path": "flash_head_major_f32", "shapes": shapes}
 
 
@@ -2182,7 +2288,7 @@ def main(argv=None) -> int:
         with open(log_path) as f:
             ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": _build.build_dir(),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flash_f32_split_tf32": f32_build_facts()})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = []

@@ -898,10 +898,21 @@ def test_head_major_autograd_runs_the_kernels(gen):
         assert _rel_max(got.grad, want.grad) <= FLASH_BWD_REL
 
 
-@pytest.mark.parametrize("b,h,lq,lk,d", HEAD_MAJOR[:4])
+# the float32 op: the smoke's four shapes, then ragged ones on the
+# split-TF32 bodies at D = 64 and 128 (partial q and key tiles in every
+# kernel, a single query row, Lq != Lk both ways)
+HEAD_MAJOR_F32 = HEAD_MAJOR[:4] + [(2, 2, 200, 328, 64), (1, 3, 333, 457, 64),
+                                   (2, 2, 77, 200, 128), (2, 2, 1, 300, 128),
+                                   (1, 2, 300, 77, 64)]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", HEAD_MAJOR_F32)
 def test_head_major_float32_kernels_match_plain(gen, b, h, lq, lk, d):
-    """The float32 kernels (SIMT, no TF32) at the smoke's four shapes: o, z
-    and dq, dk, dv within 1e-4 of the plain versions' largest value."""
+    """The float32 kernels (split TF32 on the tensor cores at D = 64 and
+    128, SIMT at 256): o, z and dq, dk, dv within 1e-4 of the plain
+    versions' largest value, the backward bit-equal across runs."""
+    assert fa.flash_f32_plan(b, h, lq, lk, d).body == \
+        ("split_tf32" if d in (64, 128) else "simt")
     q, k, v, do = (t.float() for t in _head_major(gen, b, h, lq, lk, d))
     scale = d ** -0.5
     o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
@@ -914,6 +925,29 @@ def test_head_major_float32_kernels_match_plain(gen, b, h, lq, lk, d):
     del want
     assert all(torch.equal(x, y) for x, y in
                zip(got, fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)))
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 3, 333, 457, 64), (2, 2, 77, 200, 128)])
+def test_head_major_float32_bwd_kernel_is_bit_reproducible(gen, b, h, lq, lk, d):
+    """The split-TF32 backward at ragged lengths (partial last q tiles in
+    the dK/dV kernel and key tiles in the dQ kernel, a warpgroup past the
+    length): three runs give equal bits, whatever the TF32 flags say (the
+    kernels read none of them), and the forward's bits do not move with
+    them either."""
+    q, k, v, do = (t.float() for t in _head_major(gen, b, h, lq, lk, d))
+    scale = d ** -0.5
+    o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+    first = fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        o2, z2 = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
+        runs = [fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    runs.append(fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale))
+    assert torch.equal(o, o2) and torch.equal(z, z2)
+    for again in runs:
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 def test_head_major_kernels_take_float32(gen):

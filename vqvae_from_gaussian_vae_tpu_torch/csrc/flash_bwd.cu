@@ -64,13 +64,17 @@
 // its shapes before it encodes them.
 //
 // gvq_flash_bwd_hm_f32 is the head-major backward for float32 tensors (the
-// JAX op runs float32 too): the same pre-pass and two-kernel split in plain
-// SIMT float32 (fmaf on CUDA cores, no TF32), held to the plain version
-// within 1e-4.  At (1, 12, 8192, 64) its seven products are 7.2e11 FLOP
-// (5.2e11 for the five the function needs): CUDA-core bound, 7.7 ms at the
-// float32 peak of 67 TFLOP/s; operands come from shared memory, which bounds
-// this first version well below that.
+// JAX op runs float32 too), held to the plain version within 1e-4 of its
+// largest value.  At D = 64 and 128 it runs the split-TF32 wgmma bodies of
+// csrc/flash_bwd_f32_sm90.cuh (a pre-pass that writes the operands' TF32
+// pairs and di, then dK/dV and dQ kernels, each product three TF32 passes
+// on the tensor cores, float32-accurate whatever
+// torch.backends.cuda.matmul.allow_tf32 says); at D = 256 and 512 the same
+// pre-pass and two-kernel split in plain SIMT float32 (fmaf on CUDA cores,
+// operands from shared memory).  Both take the launch plan of
+// ops/flash_attention.py flash_f32_plan (F32Plan), which names the body.
 #include "flash_bwd.cuh"
+#include "flash_bwd_f32_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
 #include "flash_f32.cuh"
 
@@ -118,7 +122,8 @@ int bwd_entry(const BwdArgs& g, const bf16* const (&bases)[4], int row_dim, cons
   }
 }
 
-// The float32 head-major backward: a di pre-pass, then dk/dv over K/V tiles
+// The float32 head-major backward's SIMT body (D = 256 and 512): a di
+// pre-pass, then dk/dv over K/V tiles
 // streaming the q tiles, then dq over q tiles streaming K/V, as the bf16
 // pair does, in plain SIMT float32.  T = 32 tile rows (16 at D = 512, so
 // that a thread's dk and dv shares stay at 32 + 32 registers).  Shared
@@ -394,25 +399,46 @@ extern "C" int gvq_flash_bwd_hm(const void* q, const void* k, const void* v, con
 // The float32 head-major entry (the same op as gvq_flash_bwd_hm, for
 // float32 tensors): q, o, do, dq (B, H, Lq, D) and k, v, dk, dv (B, H, Lk, D)
 // float32; z (B, H, Lq) float32 from gvq_flash_fwd_hm_f32; di (B, H, Lq)
-// float32 scratch.  All contiguous; any Lq, Lk >= 1; D 64, 128, 256 or 512.
+// float32 scratch.  All contiguous, 16-byte aligned; any Lq, Lk >= 1; D 64,
+// 128, 256 or 512.  plan: the launch plan (F32Plan, kF32PlanLen int64),
+// whose body must be the one of this D: split TF32 (D = 64, 128; scratch
+// then holds the plan's bwd_scratch floats for the pre-pass) or SIMT
+// (D = 256, 512; scratch unused).
 extern "C" int gvq_flash_bwd_hm_f32(const void* q, const void* k, const void* v, const void* o,
                                     const void* z, const void* dout, void* di, void* dq,
-                                    void* dk, void* dv, int B, int H, int Lq, int Lk, int D,
-                                    float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
-  const F32BwdArgs g{static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<const float*>(dout),
-                     static_cast<const float*>(z), static_cast<const float*>(di),
+                                    void* dk, void* dv, void* scratch, int B, int H, int Lq,
+                                    int Lk, int D, float scale, const long long* plan,
+                                    void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  F32Plan p;
+  memcpy(&p, plan, sizeof p);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* of = static_cast<const float*>(o);
+  const float* dof = static_cast<const float*>(dout);
+  float* dip = static_cast<float*>(di);
+  float* sf = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64 || D == 128) {
+    const TfBwdArgs a{static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                      static_cast<const float*>(z), dip, Lq, Lk, scale};
+    // tiles (dK/dV: warpgroups, q rows a tile, stages; dQ: warpgroups, keys
+    // a tile, stages) as flash_f32_plan's
+    return D == 64
+               ? launch_flash_bwd_f32_sm90<64, 2, 16, 3, 1, 32, 3>(p, qf, kf, vf, of, dof, sf, a,
+                                                                   B, H, s)
+               : launch_flash_bwd_f32_sm90<128, 1, 8, 3, 1, 16, 2>(p, qf, kf, vf, of, dof, sf, a,
+                                                                   B, H, s);
+  }
+  if (p.body != 0) return (int)cudaErrorInvalidValue;
+  const F32BwdArgs g{qf, kf, vf, dof, static_cast<const float*>(z), dip,
                      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
                      Lq, Lk, scale};
-  const float* op = static_cast<const float*>(o);
-  float* dip = static_cast<float*>(di);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_bwd_f32<64>(g, op, dip, B, H, s);
-    case 128: return launch_bwd_f32<128>(g, op, dip, B, H, s);
-    case 256: return launch_bwd_f32<256>(g, op, dip, B, H, s);
-    case 512: return launch_bwd_f32<512>(g, op, dip, B, H, s);
+    case 256: return launch_bwd_f32<256>(g, of, dip, B, H, s);
+    case 512: return launch_bwd_f32<512>(g, of, dip, B, H, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

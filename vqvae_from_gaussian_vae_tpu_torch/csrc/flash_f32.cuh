@@ -1,8 +1,10 @@
-// Pieces shared by the float32 head-major flash kernels (csrc/flash_fwd.cu
-// gvq_flash_fwd_hm_f32, csrc/flash_bwd.cu gvq_flash_bwd_hm_f32): plain SIMT
-// code on CUDA cores, fmaf products in float32 (no TF32, no tensor cores),
-// 256 threads a block, float32 tiles in shared memory at pitch D + 1 (so
-// that 16 neighbouring rows fall in 16 banks).
+// Pieces shared by the SIMT bodies of the float32 head-major flash kernels
+// (csrc/flash_fwd.cu gvq_flash_fwd_hm_f32, csrc/flash_bwd.cu
+// gvq_flash_bwd_hm_f32) at head dims 256 and 512: plain code on CUDA cores,
+// fmaf products in float32, 256 threads a block, float32 tiles in shared
+// memory at pitch D + 1 (so that 16 neighbouring rows fall in 16 banks).
+// D = 64 and 128 run the split-TF32 tensor-core bodies instead
+// (csrc/flash_f32_sm90.cuh); both are float32-accurate.
 #pragma once
 
 #include <cuda_runtime.h>

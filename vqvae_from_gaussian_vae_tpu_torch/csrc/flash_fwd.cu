@@ -55,12 +55,17 @@
 // encodes them.
 //
 // gvq_flash_fwd_hm_f32 is the head-major op for float32 tensors (the JAX op
-// runs float32 too): a plain SIMT kernel, fmaf products on CUDA cores in
-// float32 (no TF32), held to the plain version within 1e-4.  At (1, 12,
-// 8192, 64) a launch is 2.1e11 FLOP against 101 MB: CUDA-core bound (3.1 ms
-// at the float32 peak of 67 TFLOP/s); operands come from shared memory,
-// which bounds this first version well below that.
+// runs float32 too), held to the plain version within 1e-4 of its largest
+// value.  At D = 64 and 128 it runs the split-TF32 wgmma body of
+// csrc/flash_fwd_f32_sm90.cuh (each product three TF32 passes on the tensor
+// cores, float32-accurate whatever torch.backends.cuda.matmul.allow_tf32
+// says, after a pre-pass that writes the operands' TF32 pairs); at D = 256
+// and 512 a plain SIMT kernel, fmaf products on CUDA cores in float32,
+// whose operands come from shared memory, one 4-byte load per FMA.  Both
+// take the launch plan of ops/flash_attention.py flash_f32_plan (F32Plan),
+// which names the body.
 #include "flash_f32.cuh"
+#include "flash_fwd_f32_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 #include "flash_fwd_sm90_wide.cuh"
 
@@ -88,8 +93,8 @@ int token_major_entry(const bf16* const (&bases)[3], bf16* o, float* z, int B, i
   return flash_entry(bases, o, z, B, H, L, L, D, scale, plan, stream);
 }
 
-// The float32 head-major forward: per (b, h) and 32-row q tile, an online
-// softmax over 32-key tiles.  Shared memory (floats, pitch D + 1): the Q
+// The float32 head-major forward's SIMT body (D = 256 and 512): per (b, h)
+// and 32-row q tile, an online softmax over 32-key tiles.  Shared memory (floats, pitch D + 1): the Q
 // tile and one K-or-V tile, 2 * 32 * (D + 1); the score tile 32 * 33; the
 // row max, sum and rescale 3 * 32: at D = 512, 135,936 bytes.  A thread
 // computes 2 x 2 scores and keeps its F32Own<D, 32> share of the output in
@@ -300,19 +305,35 @@ extern "C" int gvq_flash_fwd_hm(const void* q, const void* k, const void* v, voi
 
 // The float32 head-major entry (the same op as gvq_flash_fwd_hm, for
 // float32 tensors): q, o (B, H, Lq, D) and k, v (B, H, Lk, D) float32,
-// contiguous, any Lq, Lk >= 1, D 64, 128, 256 or 512; z (B, H, Lq) float32
-// where not null.
+// contiguous, 16-byte aligned, any Lq, Lk >= 1, D 64, 128, 256 or 512; z
+// (B, H, Lq) float32 where not null.  plan: the launch plan (F32Plan,
+// kF32PlanLen int64), whose body must be the one of this D: split TF32
+// (D = 64, 128; scratch then holds the plan's fwd_scratch floats for the
+// pre-pass) or SIMT (D = 256, 512; scratch unused).
 extern "C" int gvq_flash_fwd_hm_f32(const void* q, const void* k, const void* v, void* o,
-                                    void* z, int B, int H, int Lq, int Lk, int D, float scale,
-                                    void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
-  const F32FwdArgs g{static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<float*>(o),
-                     static_cast<float*>(z), Lq, Lk, scale};
+                                    void* z, void* scratch, int B, int H, int Lq, int Lk, int D,
+                                    float scale, const long long* plan, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  F32Plan p;
+  memcpy(&p, plan, sizeof p);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  float* zf = static_cast<float*>(z);
+  float* sf = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // tiles (consumer warpgroups, keys a tile, stages) as flash_f32_plan's
+  if (D == 64)
+    return launch_flash_fwd_f32_sm90<64, 2, 32, 3>(p, qf, kf, vf, of, zf, sf, B, H, Lq, Lk, scale,
+                                                   s);
+  if (D == 128)
+    return launch_flash_fwd_f32_sm90<128, 2, 16, 3>(p, qf, kf, vf, of, zf, sf, B, H, Lq, Lk,
+                                                    scale, s);
+  if (p.body != 0) return (int)cudaErrorInvalidValue;
+  const F32FwdArgs g{qf, kf, vf, of, zf, Lq, Lk, scale};
   switch (D) {
-    case 64: return launch_flash_f32<64>(g, B, H, s);
-    case 128: return launch_flash_f32<128>(g, B, H, s);
     case 256: return launch_flash_f32<256>(g, B, H, s);
     case 512: return launch_flash_f32<512>(g, B, H, s);
     default: return (int)cudaErrorInvalidValue;

@@ -31,9 +31,10 @@ NVCC_FLAGS = [
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every entry point returns a cudaError_t.
-# The bf16 flash forward and backward entries take their launch plan (an
-# int64 array, ops/flash_attention.py FlashFwdPlan.as_array or
-# FlashBwdPlan.as_array) just before the stream
+# The flash forward and backward entries take their launch plan (an int64
+# array, ops/flash_attention.py FlashFwdPlan.as_array, FlashBwdPlan.as_array
+# or, for the float32 head-major entries, FlashF32Plan.as_array, which
+# follows their scratch pointer) just before the stream
 _SIGNATURES = {
     "gvq_gq_argmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_downsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -59,8 +60,9 @@ _SIGNATURES = {
     "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd_hm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
                          _P],
-    "gvq_flash_fwd_hm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "gvq_flash_bwd_hm_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gvq_flash_fwd_hm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+    "gvq_flash_bwd_hm_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _P, _P],
     "gvq_flash_lab_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "gvq_flash_lab_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                           _I, _P],

@@ -49,6 +49,7 @@ import ctypes
 import dataclasses
 import functools
 import os
+from typing import Optional
 
 import torch
 
@@ -82,6 +83,26 @@ BWD_K_TILE = {64: 128, 128: 64}
 # the wmma body (csrc/flash_bwd.cuh) at D = 256 and 512: 32-row tiles, 8 or 16 warps
 BWD_WMMA_ROWS = 32
 BWD_WMMA_WARPS = {256: 8, 512: 16}
+# the float32 head-major op's split-TF32 bodies at D = 64 and 128
+# (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh; D = 256 and 512
+# run the SIMT kernels): per kernel and head dim, (consumer warpgroups of 64
+# rows a block, streamed rows a tile, stages).  The forward's block owns q
+# rows and streams keys, the dK/dV kernel's owns keys and streams q rows,
+# the dQ kernel's owns q rows and streams keys.  Every operand is two
+# float32 planes (TF32 hi and lo) in shared memory, so the tiles are small;
+# these are the fastest of the tilings tried on an H100 (PERF.md §6)
+F32_FWD_TILES = {64: (2, 32, 3), 128: (2, 16, 3)}
+F32_DKDV_TILES = {64: (2, 16, 3), 128: (1, 8, 3)}
+F32_DQ_TILES = {64: (1, 32, 3), 128: (1, 16, 2)}
+F32_HEAD_DIMS = tuple(F32_FWD_TILES)
+_F32_TILES = {"fwd": F32_FWD_TILES, "dkdv": F32_DKDV_TILES, "dq": F32_DQ_TILES}
+F32_BODIES = ("simt", "split_tf32")  # FlashF32Plan.body, as F32Plan::body 0 and 1
+F32_SWIZZLE_COLS = 32  # float32 columns of one 128-byte swizzle row
+# the plan's maps, in F32Plan::map's order: "rows" planes (a tensor as it
+# lies) and "cols" planes (transposed, rows permuted in 8s: *_qt, *_kt,
+# *_vt, *_dot)
+F32_MAPS = ("fwd_q", "fwd_k", "fwd_vt", "dkdv_q", "dkdv_k", "dkdv_v", "dkdv_do", "dkdv_qt",
+            "dkdv_dot", "dq_q", "dq_k", "dq_v", "dq_do", "dq_kt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,6 +358,132 @@ def flash_bwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
                         (-(-lk // BWD_ROWS), b * h), (-(-lq // BWD_ROWS), b * h), BWD_THREADS,
                         kv_smem, q_smem, lq % nq != 0, lk % nk != 0, row_dim, maps, dq_strides,
                         dkv_strides)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32KernelTiles:
+    """One kernel of ``FlashF32Plan``: a block owns ``rows`` rows of one (b,
+    h) (``rows // 64`` consumer warpgroups) and walks ``tile``-row tiles of
+    the other side in a ring of ``stages``; ``threads``, ``smem`` bytes of
+    shared memory, ``grid`` (blocks along the owned rows, B * H);
+    ``mask``: the last streamed tile is partial."""
+
+    rows: int
+    tile: int
+    stages: int
+    threads: int
+    smem: int
+    grid: tuple
+    mask: bool
+
+    def as_list(self) -> list:
+        return [self.rows, self.tile, self.stages, self.threads, self.smem, *self.grid,
+                int(self.mask)]
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashF32Plan:
+    """The launch of the float32 head-major op, forward and backward, as
+    ``flash_f32_plan`` makes it and the C entries read it (``as_array``;
+    ``csrc/flash_f32_sm90.cuh`` ``F32Plan``).
+
+    ``body`` is ``"split_tf32"`` (D = 64 and 128: each product three TF32
+    ``wgmma`` passes, after a pre-pass that writes each operand's (hi, lo)
+    planes into a scratch buffer of ``fwd_scratch`` or ``bwd_scratch``
+    floats) or ``"simt"`` (D = 256 and 512: the CUDA-core kernels, no
+    tiles, maps or scratch).  ``fwd``, ``dkdv`` and ``dq`` are the three
+    kernels' tiles; ``lq_pitch`` and ``lk_pitch`` the lengths rounded up to
+    8, the row length of a "cols" plane.  ``maps`` holds each
+    ``F32_MAPS`` name's ``TensorMapPlan`` over the scratch (offset in
+    floats, dims (cols, rows, 2, B*H), byte strides, box (inner columns,
+    rows, 1, 1)); the dK/dV and dQ kernels read the same "rows" planes
+    with their own boxes."""
+
+    body: str
+    fwd: Optional[F32KernelTiles]
+    dkdv: Optional[F32KernelTiles]
+    dq: Optional[F32KernelTiles]
+    lq_pitch: int
+    lk_pitch: int
+    fwd_scratch: int
+    bwd_scratch: int
+    maps: dict
+
+    def as_array(self):
+        """The plan as the C entries take it: 197 int64 in ``F32Plan``'s order."""
+        tiles = [t.as_list() if t is not None else [0] * 8 for t in (self.fwd, self.dkdv, self.dq)]
+        vals = [F32_BODIES.index(self.body), *tiles[0], *tiles[1], *tiles[2], self.lq_pitch,
+                self.lk_pitch, self.fwd_scratch, self.bwd_scratch]
+        maps = tuple(self.maps[n] for n in F32_MAPS) if self.maps else ()
+        return _int64s(vals, maps, len(F32_MAPS), [], 197)
+
+
+def f32_smem(kernel: str, d: int) -> int:
+    """Shared memory of a split-TF32 kernel (``TfFwdLayout``, ``TfKvLayout``,
+    ``TfQLayout``): the fixed tiles (Q; K and V; Q and dO), the ring's
+    stages, z and di of each stage (dK/dV), the mbarriers and 1024 bytes of
+    alignment slack; every operand two float32 planes."""
+    wg, tile, stages = _F32_TILES[kernel][d]
+    rows = 64 * wg
+    if kernel == "fwd":  # Q; K and V^T
+        return 8 * rows * d + stages * 16 * tile * d + (1 + 3 * stages) * 8 + 1024
+    if kernel == "dkdv":  # K, V; q, do, q^T, do^T and z, di
+        return (16 * rows * d + stages * (32 * tile * d + 8 * tile) + (1 + 3 * stages) * 8
+                + 1024)
+    return 16 * rows * d + stages * 24 * tile * d + (1 + 2 * stages) * 8 + 1024  # Q, dO; k, v, k^T
+
+
+def _f32_plane(offset: int, bh: int, rows: int, cols: int, box_cols: int,
+               box_rows: int) -> TensorMapPlan:
+    """The map of (bh, 2, rows, cols) float32 planes at `offset` floats."""
+    return TensorMapPlan(offset, (cols, rows, 2, bh), (4 * cols, 4 * rows * cols,
+                                                        8 * rows * cols),
+                         (box_cols, box_rows, 1, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def flash_f32_plan(b: int, h: int, lq: int, lk: int, d: int) -> FlashF32Plan:
+    """The launch of a float32 head-major training call (the forward with z
+    and the backward), a function of the shape alone: q (B, H, Lq, D), k
+    and v (B, H, Lk, D), contiguous.
+
+    At D = 64 and 128 the split-TF32 bodies, tiles ``F32_FWD_TILES``,
+    ``F32_DKDV_TILES``, ``F32_DQ_TILES``; the forward's scratch holds q and
+    k as "rows" planes and v^T as a "cols" plane, the backward's q, k, v,
+    do as "rows" planes and q^T, k^T, do^T as "cols" planes.  At D = 256
+    and 512 the SIMT kernels, which take no tiles from the plan."""
+    if min(b, h, lq, lk) <= 0 or d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_f32_plan: B={b}, H={h}, Lq={lq}, Lk={lk}, D={d} unsupported")
+    lqp, lkp = -(-lq // 8) * 8, -(-lk // 8) * 8
+    if d not in F32_HEAD_DIMS:
+        return FlashF32Plan("simt", None, None, None, lqp, lkp, 0, 0, {})
+    bh = b * h
+
+    def tiles(kernel, owned, streamed):
+        wg, tile, stages = _F32_TILES[kernel][d]
+        return F32KernelTiles(64 * wg, tile, stages, 128 * (wg + 1), f32_smem(kernel, d),
+                              (-(-owned // (64 * wg)), bh), streamed % tile != 0)
+
+    fwd, dkdv, dq = tiles("fwd", lq, lk), tiles("dkdv", lk, lq), tiles("dq", lq, lk)
+    cols = lambda tile: min(tile, F32_SWIZZLE_COLS)  # noqa: E731  a "cols" box's inner width
+    maps, at = {}, 0
+    # the forward's scratch
+    for name, n, box in (("fwd_q", lq, fwd.rows), ("fwd_k", lk, fwd.tile)):
+        maps[name] = _f32_plane(at, bh, n, d, F32_SWIZZLE_COLS, box)
+        at += 2 * bh * n * d
+    maps["fwd_vt"] = _f32_plane(at, bh, d, lkp, cols(fwd.tile), d)
+    fwd_scratch, at = at + 2 * bh * d * lkp, 0
+    # the backward's: each "rows" plane read by both kernels with their boxes
+    for name, n, kv_box, q_box in (("q", lq, dkdv.tile, dq.rows), ("k", lk, dkdv.rows, dq.tile),
+                                   ("v", lk, dkdv.rows, dq.tile), ("do", lq, dkdv.tile, dq.rows)):
+        maps["dkdv_" + name] = _f32_plane(at, bh, n, d, F32_SWIZZLE_COLS, kv_box)
+        maps["dq_" + name] = _f32_plane(at, bh, n, d, F32_SWIZZLE_COLS, q_box)
+        at += 2 * bh * n * d
+    for name, pitch, box in (("dkdv_qt", lqp, cols(dkdv.tile)), ("dq_kt", lkp, cols(dq.tile)),
+                             ("dkdv_dot", lqp, cols(dkdv.tile))):
+        maps[name] = _f32_plane(at, bh, d, pitch, box, d)
+        at += 2 * bh * d * pitch
+    return FlashF32Plan("split_tf32", fwd, dkdv, dq, lqp, lkp, fwd_scratch, at, maps)
 
 
 def check_aligned(name: str, *tensors) -> None:

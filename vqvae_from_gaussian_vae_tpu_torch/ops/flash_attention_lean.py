@@ -27,8 +27,9 @@ only: they do not set the Hopper kernels' tiling (bf16 forward: 192 q rows
 at D = 64 and 128 at D = 128 against 128-key tiles, 32 q rows against
 64-key tiles at D = 256 and 512; bf16 backward: 128-key and 128-q-row
 blocks against 64- or 32-row q tiles and 128- or 64-key tiles at D = 64
-and 128, 32-row tiles at D = 256 and 512; float32: 32-row tiles, 16-row
-backward tiles at D = 512).  So where the JAX op fails inside its TPU kernel bodies
+and 128, 32-row tiles at D = 256 and 512; float32: ``flash_f32_plan``'s
+tiles at D = 64 and 128, 32-row tiles at D = 256 and 512, 16-row backward
+tiles at D = 512).  So where the JAX op fails inside its TPU kernel bodies
 rather than in a check (a k block that is not a multiple of the 128 lanes:
 TypeError or NotImplementedError while tracing), the port computes.
 
@@ -42,8 +43,13 @@ off 16 bytes.  The kernels are chosen by dtype: bf16 ``csrc/flash_fwd.cu``
 entry ``gvq_flash_fwd_hm`` and ``csrc/flash_bwd.cu`` entry
 ``gvq_flash_bwd_hm`` (tensor cores; their launches from
 ``ops/flash_attention.py``'s ``flash_fwd_plan`` and ``flash_bwd_plan``);
-float32 ``gvq_flash_fwd_hm_f32`` and ``gvq_flash_bwd_hm_f32`` (SIMT float32 on CUDA cores, no TF32).  Any other
-dtype or head dim raises.  The plain versions below run for CPU tensors, in
+float32 ``gvq_flash_fwd_hm_f32`` and ``gvq_flash_bwd_hm_f32``, launched
+from ``flash_f32_plan``: at D = 64 and 128 split TF32 on the tensor cores
+(each product three TF32 ``wgmma`` passes over (hi, lo) pairs that a
+pre-pass writes into a scratch buffer, float32-accurate, so
+``torch.backends.cuda.matmul.allow_tf32`` is not read: on or off, the
+result is the same), at D = 256 and 512 SIMT float32 on CUDA cores.  Any
+other dtype or head dim raises.  The plain versions below run for CPU tensors, in
 any float dtype, and are what the kernels are held to on the card.
 """
 
@@ -56,7 +62,7 @@ import torch
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import (
-    SUPPORTED_HEAD_DIMS, check_aligned, flash_bwd_plan, flash_fwd_plan)
+    SUPPORTED_HEAD_DIMS, check_aligned, flash_bwd_plan, flash_f32_plan, flash_fwd_plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +194,16 @@ _ENTRIES = {torch.bfloat16: ("gvq_flash_fwd_hm", "gvq_flash_bwd_hm"),
             torch.float32: ("gvq_flash_fwd_hm_f32", "gvq_flash_bwd_hm_f32")}
 
 
+def _scratch(floats: int, device):
+    """A fresh float32 buffer of `floats` for the split-TF32 pre-pass (None
+    for 0: the SIMT bodies take none).  Freed after the launch, it goes
+    back to the caching allocator, which hands it out again only to work
+    queued after the kernels on the same stream."""
+    if floats == 0:
+        return None
+    return torch.empty((floats,), dtype=torch.float32, device=device)
+
+
 def _check_cuda(name: str, *tensors) -> None:
     """Raise on what the head-major kernels do not take."""
     q = tensors[0]
@@ -213,14 +229,17 @@ def flash_attention_fwd_cuda(q, k, v, sm_scale: float, save_residuals: bool = Fa
     o = torch.empty_like(q)
     z = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if save_residuals else None
     entry = _ENTRIES[q.dtype][0]
-    # the bf16 entry takes the launch plan (its tensor maps); float32 has none
-    plan = (flash_fwd_plan("head_major", b, h, lq, lk, d).as_array(),) \
-        if q.dtype == torch.bfloat16 else ()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if z is None else z.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        plan = flash_fwd_plan("head_major", b, h, lq, lk, d).as_array()
+    else:  # the float32 entry also takes the pre-pass's scratch
+        f32 = flash_f32_plan(b, h, lq, lk, d)
+        plan, scratch = f32.as_array(), _scratch(f32.fwd_scratch, q.device)
+        ptrs.append(None if scratch is None else scratch.data_ptr())
     with torch.cuda.device(q.device):
-        err = getattr(_build.library(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if z is None else z.data_ptr(), b, h, lq, lk, d, float(sm_scale), *plan,
-            _build.stream_of(q))
+        err = getattr(_build.library(), entry)(*ptrs, b, h, lq, lk, d, float(sm_scale), plan,
+                                               _build.stream_of(q))
     _build.check(err, entry)
     flash_attention_fwd_cuda.launches += 1
     return (o, z) if save_residuals else o
@@ -251,13 +270,17 @@ def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     entry = _ENTRIES[q.dtype][1]
-    plan = (flash_bwd_plan("head_major", b, h, lq, lk, d).as_array(),) \
-        if q.dtype == torch.bfloat16 else ()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), z.data_ptr(), do.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        plan = flash_bwd_plan("head_major", b, h, lq, lk, d).as_array()
+    else:  # the float32 entry also takes the pre-pass's scratch
+        f32 = flash_f32_plan(b, h, lq, lk, d)
+        plan, scratch = f32.as_array(), _scratch(f32.bwd_scratch, q.device)
+        ptrs.append(None if scratch is None else scratch.data_ptr())
     with torch.cuda.device(q.device):
-        err = getattr(_build.library(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), z.data_ptr(), do.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
-            float(sm_scale), *plan, _build.stream_of(q))
+        err = getattr(_build.library(), entry)(*ptrs, b, h, lq, lk, d, float(sm_scale), plan,
+                                               _build.stream_of(q))
     _build.check(err, entry)
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
