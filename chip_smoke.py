@@ -190,22 +190,25 @@ def wgrad_kernel_facts(source: str, o: int) -> dict:
 
 def igemm_kernel_facts(mode: str, b: int, h: int, w: int, c: int, o: int) -> dict:
     """The Hopper implicit-GEMM body's kernel (``csrc/conv_igemm_sm90.cuh``)
-    that the downsample forward ("fwd", "fwd_add") or dgrad ("dgrad"), or
-    the upsample dgrad ("up_dgrad") launches on x (b, h, w, c) and O output
-    channels: its plan's spatial and channel tiles, ptxas's registers and
-    spill bytes (stores + loads) from the build's ``nvcc.log``, which must
-    be 0, and the count of HGMMA (wgmma) instructions in its SASS
-    (``cuobjdump``), which must not be 0."""
+    that the downsample forward ("fwd", "fwd_add") or dgrad ("dgrad"), the
+    upsample forward ("up_fwd", "up_fwd_add") or dgrad ("up_dgrad"), or the
+    bf16 fused GroupNorm + swish conv ("same_gn") launches on x (b, h, w, c)
+    and O output channels: its plan's spatial and channel tiles, ptxas's
+    registers and spill bytes (stores + loads) from the build's
+    ``nvcc.log``, which must be 0, and the count of HGMMA (wgmma)
+    instructions in its SASS (``cuobjdump``), which must not be 0."""
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
     from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import igemm_plan
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         usage = _build.ptxas_usage(f.read())
     plan = igemm_plan(mode, b, h, w, c, o)
-    source = {"dgrad": "_downsample_bwd_cu_", "up_dgrad": "_upsample_bwd_cu_"}.get(
-        mode, "_downsample_conv_cu_")
-    ax = "4AAdd" if mode == "fwd_add" else "9AIdentity"
-    number = {"dgrad": 1, "up_dgrad": 2}.get(mode, 0)  # the header's IgemmMode
+    source = {"dgrad": "_downsample_bwd_cu_", "up_dgrad": "_upsample_bwd_cu_",
+              "up_fwd": "_upsample_conv_cu_", "up_fwd_add": "_upsample_conv_cu_",
+              "same_gn": "_fused_gn_conv_cu_"}.get(mode, "_downsample_conv_cu_")
+    ax = {"fwd_add": "4AAdd", "up_fwd_add": "4AAdd", "same_gn": "3AGn"}.get(mode, "9AIdentity")
+    number = {"dgrad": 1, "up_dgrad": 2, "up_fwd": 3, "up_fwd_add": 3,
+              "same_gn": 4}.get(mode, 0)  # the header's IgemmMode
     tag = f"conv_igemm_sm90_kernelILi{number}ELi{plan.tile_n}ENS0_{ax}E"
     names = [n for n in usage if source in n and tag in n]
     require(len(names) == 1, f"{len(names)} {tag} entries of {source} in nvcc.log")
@@ -478,12 +481,11 @@ def check_resample(gen, kind: str):
                               f"atol {BF16_ATOL} + rtol {BF16_RTOL}")
         s_err = _stats_err(y_k, s_k)
         require(s_err <= STATS_RTOL, f"{kind} {shape}: stats error {s_err}")
-        facts = {}
-        if kind == "down":  # the Hopper body: y and the statistics repeat bit for bit
-            require(torch.equal(y_k, y_k2) and torch.equal(s_k, s_k2),
-                    f"{kind} {shape}: two runs differ")
-            facts = {"bit_reproducible": True,
-                     **igemm_kernel_facts("fwd_add" if add else "fwd", b, h, w, c, c)}
+        # the Hopper body: y and the statistics repeat bit for bit
+        require(torch.equal(y_k, y_k2) and torch.equal(s_k, s_k2),
+                f"{kind} {shape}: two runs differ")
+        mode = ("fwd" if kind == "down" else "up_fwd") + ("_add" if add else "")
+        facts = {"bit_reproducible": True, **igemm_kernel_facts(mode, b, h, w, c, c)}
         del y_k2, s_k2
         w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC buffer: channels_last
@@ -989,7 +991,11 @@ def check_layer_norm(gen, add: bool):
 def check_fused_gn_conv(gen):
     """The fused GroupNorm + swish + conv at every resblock conv shape of
     the sd3unet inference step (bf16), with a residual, and in float32 at a
-    small shape.  Library: F.group_norm, F.silu, then cuDNN's conv, in the
+    small shape.  Each row times the wrapper (``gn_affine``'s plain torch,
+    then the kernel), the kernel alone on the affine made beforehand, and
+    ``gn_affine`` alone; the bf16 kernel's output repeats bit for bit, and
+    its facts (plan tiles, registers, no spills, HGMMA) are the Hopper
+    body's.  Library: F.group_norm, F.silu, then cuDNN's conv, in the
     compute dtype (three calls)."""
     import torch
     import torch.nn.functional as F
@@ -1008,12 +1014,18 @@ def check_fused_gn_conv(gen):
         args = (x, gamma, beta, w, bias, res)
         y_k = fgc.fused_gn_swish_conv_cuda(*args)
         y_p = fgc.fused_gn_swish_conv_plain(*args)
+        scale, shift = fgc.gn_affine(x, gamma, beta)
+        y_a = fgc.fused_gn_swish_conv_affine_cuda(x, scale, shift, w, bias, res)
         torch.cuda.synchronize()
         tol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (FUSED_F32_TOL, FUSED_F32_TOL)
         err, ratio = _within(y_k, y_p, *tol)
         require(ratio <= 1.0, f"fused GN conv {(b, h, h, c, o)} {dtype}: error {err} beyond "
                               f"atol {tol[0]} + rtol {tol[1]}")
-        del y_p
+        facts = {}
+        if dtype == torch.bfloat16:  # the Hopper body: y repeats bit for bit
+            require(torch.equal(y_k, y_a), f"fused GN conv {(b, h, h, c, o)}: two runs differ")
+            facts = {"bit_reproducible": True, **igemm_kernel_facts("same_gn", b, h, h, c, o)}
+        del y_p, y_a
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC buffer: channels_last
         w_cl = w.to(dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         g_d, b_d, bias_d = gamma.to(dtype), beta.to(dtype), bias.to(dtype)
@@ -1023,22 +1035,28 @@ def check_fused_gn_conv(gen):
         flops = 2.0 * b * h * h * 9 * c * o
         nbytes = e * (x.numel() + y_k.numel() * (2 if residual else 1) + w.numel()) + 4 * (2 * c + o)
         bnd, by = bound_ms(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        kernel_alone = time_ms(
+            lambda: fgc.fused_gn_swish_conv_affine_cuda(x, scale, shift, w, bias, res))
         shapes.append({"shape": f"x ({b},{h},{h},{c}) -> O {o} {str(dtype).split('.')[-1]}"
                                 + (" + residual" if residual else ""),
                        "main_path": n > 0, "per_step": n,
                        "kernel_ms": time_ms(lambda: fgc.fused_gn_swish_conv_cuda(*args)),
+                       "kernel_alone_ms": kernel_alone, "tflops_alone": flops / kernel_alone / 1e9,
+                       "gn_affine_ms": time_ms(lambda: fgc.gn_affine(x, gamma, beta)),
                        "plain_ms": time_ms(lambda: fgc.fused_gn_swish_conv_plain(*args),
                                            iters=3, warmup=1),
                        "library_ms": time_ms(library), "bound_ms": bnd, "bound_by": by,
                        "flops": flops, "bytes": nbytes, "max_abs_err": err,
-                       "err_over_tol": ratio})
-        del x, res, y_k, args
+                       "err_over_tol": ratio, **facts})
+        del x, res, y_k, args, scale, shift
         torch.cuda.empty_cache()
     return {"name": "fused_gn_swish_conv", "route": "cuda",
             "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/fused_gn_conv.cu",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/fused_gn_conv.py:141",
             "tolerance": f"bf16 atol {BF16_ATOL} + rtol {BF16_RTOL}; float32 atol "
                          f"{FUSED_F32_TOL} + rtol {FUSED_F32_TOL}",
+            "kernel_alone_ms_per_step": sum(s["per_step"] * s["kernel_alone_ms"] for s in shapes),
+            "gn_affine_ms_per_step": sum(s["per_step"] * s["gn_affine_ms"] for s in shapes),
             "per_step": 48, "path": "sd3unet_fused_gn_conv", "shapes": shapes}
 
 

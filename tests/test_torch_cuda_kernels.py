@@ -129,6 +129,9 @@ def test_downsample_kernels_are_bit_reproducible(gen, shape, o, with_add):
     ((2, 5, 7, 32), 128, False),     # 35 pixels per phase: one ragged tile
     ((1, 12, 20, 64), 256, True),    # two output-channel tiles, two M tiles
     ((2, 16, 16, 32), 128, True),
+    ((1, 1, 1, 32), 128, True),      # one pixel: every tap but one off the image
+    ((2, 9, 21, 96), 384, False),    # ragged both ways, three N tiles of 128
+    ((2, 32, 32, 512), 512, False),  # the smallest main-path shape at bs 2
 ])
 def test_upsample_kernel_matches_plain(gen, shape, o, with_add):
     x, add, w, bias = _conv_case(gen, shape, o, with_add)
@@ -136,6 +139,20 @@ def test_upsample_kernel_matches_plain(gen, shape, o, with_add):
     got = up.upsample_nearest_conv3x3_gn(x, w, bias, add)
     assert up.upsample_nearest_conv3x3_gn_cuda.launches == before + 1
     _check_conv(got, up.upsample_nearest_conv3x3_gn_plain(x, w, bias, add))
+
+
+def test_upsample_and_fused_gn_kernels_are_bit_reproducible(gen):
+    """The upsample forward's y and statistics and the fused GN conv's y
+    repeat bit for bit (the Hopper body: fixed summation orders, no float
+    atomics), with and without the add or the residual."""
+    for shape, o, with_add in [((2, 9, 21, 96), 384, True), ((2, 32, 32, 512), 512, False)]:
+        x, add, w, bias = _conv_case(gen, shape, o, with_add)
+        y, stats = up.upsample_nearest_conv3x3_gn_cuda(x, w, bias, add)
+        y2, stats2 = up.upsample_nearest_conv3x3_gn_cuda(x, w, bias, add)
+        assert torch.equal(y, y2) and torch.equal(stats, stats2)
+    for shape, o, residual in [((2, 9, 21, 32), 136, True), ((2, 32, 32, 512), 512, False)]:
+        args = _gn_conv_case(gen, shape, o, torch.bfloat16, residual)
+        assert torch.equal(fgc.fused_gn_swish_conv_cuda(*args), fgc.fused_gn_swish_conv_cuda(*args))
 
 
 @pytest.mark.parametrize("b,l,h,d", [(2, 128, 4, 64), (1, 192, 2, 128), (2, 64, 1, 256),
@@ -590,6 +607,9 @@ def _gn_conv_case(gen, shape, o, dtype, residual):
     ((1, 32, 32, 128), 64, torch.bfloat16, True),    # O < 128: a masked N tile
     ((2, 8, 40, 96), 136, torch.bfloat16, True),     # ragged M and N tiles
     ((1, 1, 1, 32), 8, torch.bfloat16, False),       # one pixel: every neighbour is padding
+    ((2, 9, 21, 32), 256, torch.bfloat16, True),     # ragged both ways, C = 32, N tile 256
+    ((1, 20, 12, 32), 72, torch.bfloat16, False),    # C = 32, O not a multiple of 128
+    ((2, 32, 32, 512), 512, torch.bfloat16, True),   # the smallest main-path shape at bs 2
     ((2, 12, 20, 64), 32, torch.float32, False),
     ((1, 9, 7, 32), 12, torch.float32, True),
 ])

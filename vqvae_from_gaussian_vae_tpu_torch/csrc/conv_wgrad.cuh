@@ -66,7 +66,7 @@
 // wgrad_plan) picks the split count from the shape alone.
 #pragma once
 
-#include "conv_igemm.cuh"
+#include "conv_common.cuh"  // bf16
 #include "sm90.cuh"
 
 namespace gvq {

@@ -8,25 +8,29 @@
 // adds the float32 bias and an optional residual (B, H, W, O), and rounds
 // once to x's dtype.
 //
-// bf16 (gvq_fused_gn_conv): the implicit-GEMM body the resamples share
-// (conv_igemm.cuh, mode kSameGn) with a prologue that normalises, applies
-// swish and rounds each loaded A chunk to bf16 in registers before it goes
-// to shared memory, so the normalised activation never goes through device
-// memory.  The conv's zero padding is applied after the transform: a tap
-// outside the image writes zeros, not swish(shift).
+// bf16 (gvq_fused_gn_conv): the Hopper implicit-GEMM body
+// (conv_igemm_sm90.cuh, mode kIgSameGn).  As the TPU kernel transforms a
+// band of rows once and runs its taps over it, a block transforms its 8 x
+// 16 tile's halo box of (8 + 2) x (16 + 2) pixels once per 64-channel K
+// step, in shared memory (TMA brings the box with zero fill; the transform
+// writes 0 off the image and past C, so the padding applies after it), and
+// the nine taps read shifted windows of it into register A fragments for
+// wgmma, the weights streaming through a TMA ring as HWIO lies; bias and
+// residual are added to the float32 accumulators and rounded once.  The
+// normalised activation never goes through device memory.
 //
 // float32 (gvq_fused_gn_conv_f32): a plain SIMT kernel (CUDA-core FMAs, no
 // TF32) on a 64-pixel x 64-channel output tile per block, each thread a
-// 4 x 4 block of outputs, the same prologue on each staged A element.  It
+// 4 x 4 block of outputs, the same transform on each staged A element.  It
 // serves the float32 engine, held to the plain version within 1e-4; it is
 // not on the bf16 path and is not tuned.
 //
 // What bounds it on an H100: 2 * 9 * C * O FLOP per output pixel, 7.7e10
 // to 6.2e11 FLOP per launch at the sd3unet shapes (bs=16), against 34 to
-// 537 MB of traffic (x in, y out), so the tensor cores bound every shape;
-// the prologue's expf per staged element (9 taps x O/128 output tiles per
-// input element) is extra CUDA-core work this first version does not hide.
-#include "conv_igemm.cuh"
+// 806 MB of traffic (x in, y out, the residual), so the tensor cores bound
+// every shape; beside them, two MUFU operations (exp, reciprocal) for each
+// transformed element, 1.4 transforms an input element for each N tile.
+#include "conv_igemm_sm90.cuh"
 
 namespace gvq {
 namespace {
@@ -110,13 +114,29 @@ fused_gn_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// kSameGn: one launch, no statistics; C a multiple of 32, O of 8
-inline int launch_gn_conv(const ConvArgs& g, cudaStream_t stream) {
-  if (g.C % kConvBK != 0 || g.O % 8 != 0 || g.O <= 0 || g.n_mt <= 0 || g.scale == nullptr ||
-      g.shift == nullptr || g.bias == nullptr)
+// bf16: x (B, H, W, C), scale, shift (B, C) float32, w (3, 3, C, O), bias
+// (O,) float32, res (B, H, W, O) or null, y (B, H, W, O); C a multiple of
+// 32, O of 8, every pointer on 16 bytes.
+inline int launch_gn_conv(const bf16* x, const float* scale, const float* shift, const bf16* w,
+                          const float* bias, const bf16* res, bf16* y, int B, int H, int W, int C,
+                          int O, cudaStream_t stream) {
+  IgemmArgs a{};
+  long long blocks = 0;
+  if (C % 32 != 0 || O % 8 != 0 || scale == nullptr || shift == nullptr || bias == nullptr ||
+      !igemm_args(&a, B, H, W, O, C, 1, &blocks, kIgGnTileH, kIgGnTileW))
     return (int)cudaErrorInvalidValue;
-  return g.add != nullptr ? (int)launch_igemm<kSameGn, true>(g, stream)
-                          : (int)launch_igemm<kSameGn, false>(g, stream);
+  a.bias = bias;
+  a.out = y;
+  a.scale = scale;
+  a.shift = shift;
+  a.res = res;
+  CUtensorMap tx, tw;
+  if (!ig_nhwc_map(&tx, x, B, H, W, C, kIgGnTileH + 2, kIgGnTileW + 2, 1) ||
+      !ig_weight_map(&tw, w, C, O, 64, 3))
+    return (int)cudaErrorInvalidValue;
+  return (int)(igemm_tile_n(O) == 256
+                   ? launch_igemm_sm90<kIgSameGn, 256, AGn>(tx, tx, tw, a, blocks, stream)
+                   : launch_igemm_sm90<kIgSameGn, 128, AGn>(tx, tx, tw, a, blocks, stream));
 }
 
 }  // namespace
@@ -124,30 +144,14 @@ inline int launch_gn_conv(const ConvArgs& g, cudaStream_t stream) {
 
 // x (B, H, W, C) bf16; scale, shift (B, C) float32; w (3, 3, C, O) bf16;
 // bias (O,) float32; res (B, H, W, O) bf16 or null; y (B, H, W, O) bf16.
-// All contiguous; C a multiple of 32, O of 8.
+// All contiguous and on 16 bytes; C a multiple of 32, O of 8.
 extern "C" int gvq_fused_gn_conv(const void* x, const float* scale, const float* shift,
                                  const void* w, const float* bias, const void* res, void* y,
                                  int B, int H, int W, int C, int O, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  gvq::ConvArgs g{};
-  g.x = static_cast<const gvq::bf16*>(x);
-  g.add = static_cast<const gvq::bf16*>(res);
-  g.w = static_cast<const gvq::bf16*>(w);
-  g.bias = bias;
-  g.scale = scale;
-  g.shift = shift;
-  g.y = static_cast<gvq::bf16*>(y);
-  g.B = B;
-  g.H = H;
-  g.W = W;
-  g.C = C;
-  g.O = O;
-  g.Mh = H;
-  g.Mw = W;
-  g.n_mt = (H * W + gvq::kConvBM - 1) / gvq::kConvBM;
-  g.out_h = H;
-  g.out_w = W;
-  return gvq::launch_gn_conv(g, static_cast<cudaStream_t>(stream));
+  return gvq::launch_gn_conv(static_cast<const gvq::bf16*>(x), scale, shift,
+                             static_cast<const gvq::bf16*>(w), bias,
+                             static_cast<const gvq::bf16*>(res), static_cast<gvq::bf16*>(y), B, H,
+                             W, C, O, static_cast<cudaStream_t>(stream));
 }
 
 // The same in float32: x (B, H, W, C), w (3, 3, C, O), res (B, H, W, O) or

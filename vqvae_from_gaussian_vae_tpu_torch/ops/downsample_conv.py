@@ -155,23 +155,30 @@ def wgrad_plan(taps: int, b: int, mh: int, mw: int, c: int, o: int) -> WgradPlan
 # the implicit-GEMM body's launch (csrc/conv_igemm_sm90.cuh): a block takes
 # a 128-pixel spatial tile of one sample's (one phase's) grid and a tile_n
 # wide slice of the output channels, over K steps of 64 channels of one tap;
-# the modes: the downsample's forward (with the fused add) and dgrad, and
-# the upsample's dgrad
+# the modes: the downsample's forward (with the fused add) and dgrad, the
+# upsample's forward (with the fused add) and dgrad, and the fused
+# GroupNorm + swish conv ("same_gn": an 8 x 16 tile whose (8 + 2) x (16 + 2)
+# halo box is transformed once per K step in one of three halo buffers)
 IGEMM_PIXELS = 128
-IGEMM_MODES = ("fwd", "fwd_add", "dgrad", "up_dgrad")
+IGEMM_MODES = ("fwd", "fwd_add", "dgrad", "up_dgrad", "up_fwd", "up_fwd_add", "same_gn")
+IGEMM_GN_TILE = (8, 16)
+IGEMM_HALO_STAGES = 3
+IGEMM_HALO_BYTES = -(-(IGEMM_GN_TILE[0] + 2) * (IGEMM_GN_TILE[1] + 2) * 128 // 1024) * 1024
 
 
 class IgemmPlan(NamedTuple):
     tile_h: int         # a block's M tile: tile_h x tile_w pixels of one grid
     tile_w: int
-    tiles: int          # spatial tiles a sample (and phase): the forward's partial count
+    tiles: int          # spatial tiles a sample (and phase)
     tile_n: int         # output channels of a block's tile
     n_tiles: int
-    phases: int         # 1 (forward, up_dgrad); 4 (dgrad's parity phases, the longest first)
+    phases: int         # 1; 4 (dgrad's parity phases, the longest first; the
+                        # upsample forward's, next to the N tile)
     stages: int         # the ring's stages
     smem: int           # dynamic shared memory of a block, bytes
     blocks_per_sm: int  # blocks the plan's shared memory and registers let an SM hold
     grid: int           # blocks of the launch
+    partials: int       # per-sample statistics partials of the resample forwards (phases x tiles)
 
 
 def igemm_tile(mh: int, mw: int):
@@ -194,25 +201,29 @@ def igemm_tile_n(n: int) -> int:
     return 256 if n % 256 == 0 else 128
 
 
-def igemm_blocks_per_sm(extra: int, tile_n: int) -> int:
-    """Blocks an SM (``ig_blocks_per_sm``): two at tile_n 128 without the
-    add (96 registers a thread), else one (the add's register-A products
-    need more registers)."""
-    return 2 if tile_n == 128 and extra == 0 else 1
+def igemm_blocks_per_sm(extra: int, tile_n: int, halo: bool = False) -> int:
+    """Blocks an SM (``ig_blocks_per_sm``): two at tile_n 128 with A read
+    from shared memory (96 registers a thread), else one (the add's and the
+    halo's register-A products need more registers)."""
+    return 2 if tile_n == 128 and extra == 0 and not halo else 1
 
 
-def igemm_stages(extra: int, tile_n: int) -> int:
+def igemm_stages(extra: int, tile_n: int, halo: bool = False) -> int:
     """Ring stages (``ig_stages``): a stage is the A tile (16 KB), `extra`
-    tiles beside it (the add) and tile_n x 64 weights; three where two
-    blocks share an SM or a stage is 64 KB, else four."""
-    return 3 if igemm_blocks_per_sm(extra, tile_n) == 2 or (extra and tile_n == 256) else 4
+    tiles beside it (the add) and tile_n x 64 weights (the weights alone
+    beside the halo buffers); three where two blocks share an SM or a stage
+    is 64 KB, else four."""
+    return 3 if igemm_blocks_per_sm(extra, tile_n, halo) == 2 or (extra and tile_n == 256) else 4
 
 
-def igemm_smem(extra: int, tile_n: int) -> int:
+def igemm_smem(extra: int, tile_n: int, halo: bool = False) -> int:
     """Bytes of dynamic shared memory a block asks for (``ig_smem``): the
-    ring, its full and empty barriers, and 1 KB of alignment slack."""
-    stages = igemm_stages(extra, tile_n)
-    return stages * ((1 + extra) * IGEMM_PIXELS * 128 + tile_n * 128) + 2 * stages * 8 + 1024
+    ring and its full and empty barriers, the halo buffers and theirs, and
+    1 KB of alignment slack."""
+    stages = igemm_stages(extra, tile_n, halo)
+    stage = (0 if halo else (1 + extra) * IGEMM_PIXELS * 128) + tile_n * 128
+    halo_bytes = IGEMM_HALO_STAGES * (IGEMM_HALO_BYTES + 16) if halo else 0
+    return stages * stage + halo_bytes + 2 * stages * 8 + 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,23 +232,30 @@ def igemm_plan(mode: str, b: int, h: int, w: int, c: int, o: int) -> IgemmPlan:
     fused add) or dgrad ("dgrad") on x (b, h, w, c) and O output channels:
     M is the (h/2, w/2) grid of one sample (and phase), N = o for the
     forward and c for dgrad; a K step is 64 channels of one tap (of c for
-    the forward, of o for dgrad).  The upsample's dgrad ("up_dgrad") on x
-    (b, h, w, c), the cotangent (b, 2h, 2w, o): M is the (h, w) grid of one
-    sample, N = c, K = 16 taps of o.  A function of the shape only
-    (cached)."""
+    the forward, of o for dgrad).  The upsample's forward ("up_fwd",
+    "up_fwd_add") on x (b, h, w, c): M is the (h, w) grid of one sample and
+    phase, N = o, K = 4 taps of c, statistics partials over (phase, tile).
+    The upsample's dgrad ("up_dgrad") on x (b, h, w, c), the cotangent (b,
+    2h, 2w, o): M is the (h, w) grid of one sample, N = c, K = 16 taps of o.
+    The fused GroupNorm + swish conv ("same_gn") on x (b, h, w, c): M is
+    the (h, w) grid in 8 x 16 tiles, N = o, K = 9 taps of c.  A function of
+    the shape only (cached)."""
     if mode not in IGEMM_MODES:
         raise ValueError(f"igemm_plan: mode {mode!r} is not one of {IGEMM_MODES}")
-    mh, mw = (h, w) if mode == "up_dgrad" else (h // 2, w // 2)
-    th, tw = igemm_tile(mh, mw)
+    mh, mw = (h // 2, w // 2) if mode in ("fwd", "fwd_add", "dgrad") else (h, w)
+    halo = mode == "same_gn"
+    th, tw = IGEMM_GN_TILE if halo else igemm_tile(mh, mw)
     tiles = -(-mh // th) * -(-mw // tw)
-    fwd = mode in ("fwd", "fwd_add")
-    tile_n = igemm_tile_n(o if fwd else c)
-    n_tiles = -(-(o if fwd else c) // tile_n)
-    extra = 1 if mode == "fwd_add" else 0
-    phases = 4 if mode == "dgrad" else 1
+    n = c if mode in ("dgrad", "up_dgrad") else o
+    tile_n = igemm_tile_n(n)
+    n_tiles = -(-n // tile_n)
+    extra = 1 if mode in ("fwd_add", "up_fwd_add") else 0
+    phases = 4 if mode in ("dgrad", "up_fwd", "up_fwd_add") else 1
+    partials = phases * tiles if mode in ("fwd", "fwd_add", "up_fwd", "up_fwd_add") else 0
     return IgemmPlan(th, tw, tiles, tile_n, n_tiles, phases,
-                     igemm_stages(extra, tile_n), igemm_smem(extra, tile_n),
-                     igemm_blocks_per_sm(extra, tile_n), phases * b * tiles * n_tiles)
+                     igemm_stages(extra, tile_n, halo), igemm_smem(extra, tile_n, halo),
+                     igemm_blocks_per_sm(extra, tile_n, halo), phases * b * tiles * n_tiles,
+                     partials)
 
 
 def downsample_conv3x3_gn_plain(x, w, bias, add=None):
@@ -274,7 +292,7 @@ def downsample_conv3x3_gn_cuda(x, w, bias, add=None):
     bias_f = _build.kernel_operand(bias.to(torch.bfloat16).float())
     plan = igemm_plan("fwd" if add is None else "fwd_add", b, h, wd, c, o)
     y = torch.empty((b, h // 2, wd // 2, o), dtype=x.dtype, device=x.device)
-    partial = torch.empty((b, plan.tiles, 2, o), dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, plan.partials, 2, o), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2, o), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):

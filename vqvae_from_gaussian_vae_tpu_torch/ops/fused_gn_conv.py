@@ -11,8 +11,10 @@ float32 bias and the optional residual, and rounds once.
 
 Layout at this surface is the JAX package's: x (B, H, W, C), weight HWIO
 (3, 3, C, O), residual and output (B, H, W, O).  The CUDA kernel
-(``csrc/fused_gn_conv.cu``: bf16 on tensor cores, float32 on CUDA cores)
-runs for CUDA tensors; the plain version below runs for CPU tensors and is
+(``csrc/fused_gn_conv.cu``: bf16 on the Hopper implicit-GEMM body
+``csrc/conv_igemm_sm90.cuh``, mode ``kIgSameGn``, whose launch
+``downsample_conv.igemm_plan("same_gn", ...)`` mirrors; float32 on CUDA
+cores) runs for CUDA tensors; the plain version below runs for CPU tensors and is
 what the kernel is held to on the card.  Like the JAX op it has no backward:
 the kernel refuses inputs that want a gradient.
 """
@@ -84,11 +86,21 @@ def fused_gn_swish_conv_cuda(x, gamma, beta, w, bias, residual=None, num_groups:
     if any(t.device != x.device for t in (gamma, beta, w, bias, residual) if t is not None):
         raise ValueError("fused GroupNorm + swish + conv kernel: every tensor must lie on x's "
                          "device")
-    x = x.contiguous()
     scale, shift = gn_affine(x, gamma, beta, num_groups, eps)
-    wk = w.to(x.dtype).contiguous()
-    bias_f = bias.float().contiguous()
-    res = None if residual is None else residual.contiguous()
+    return fused_gn_swish_conv_affine_cuda(x, scale, shift, w, bias, residual)
+
+
+def fused_gn_swish_conv_affine_cuda(x, scale, shift, w, bias, residual=None):
+    """The kernel alone, on the GroupNorm affine made beforehand (scale,
+    shift: float32 (B, C), ``gn_affine``): for inputs that
+    ``fused_gn_swish_conv_cuda`` takes; a launch counts on it."""
+    b, h, wd, c = x.shape
+    o = w.shape[-1]
+    x = _build.kernel_operand(x)
+    scale, shift = _build.kernel_operand(scale.float()), _build.kernel_operand(shift.float())
+    wk = _build.kernel_operand(w.to(x.dtype))
+    bias_f = _build.kernel_operand(bias.float())
+    res = None if residual is None else _build.kernel_operand(residual)
     y = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
     name = _ENTRIES[x.dtype]
     lib = _build.library()

@@ -28,9 +28,10 @@ outside any Pallas kernel too).
 
 Layout at this surface is the JAX package's: x (B, H, W, C), weight HWIO
 (3, 3, C, O), output (B, 2H, 2W, O).  The CUDA kernels
-(``csrc/upsample_conv.cu``, ``csrc/upsample_bwd.cu``; dgrad on the Hopper
-implicit-GEMM body ``csrc/conv_igemm_sm90.cuh``, whose launch
-``downsample_conv.igemm_plan("up_dgrad", ...)`` mirrors) run for CUDA tensors;
+(``csrc/upsample_conv.cu``, ``csrc/upsample_bwd.cu``; the forward and dgrad
+on the Hopper implicit-GEMM body ``csrc/conv_igemm_sm90.cuh``, whose launch
+``downsample_conv.igemm_plan("up_fwd" / "up_fwd_add" / "up_dgrad", ...)``
+mirrors) run for CUDA tensors;
 the plain versions below run for CPU tensors and are what the kernels are
 held to on the card.  When a gradient is wanted,
 ``upsample_nearest_conv3x3_gn`` is a ``torch.autograd.Function``.
@@ -38,6 +39,7 @@ held to on the card.  When a gradient is wanted,
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -45,30 +47,36 @@ import torch.nn.functional as F
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import (
-    channel_stats, check_bf16_cuda, conv_adjoint, resample_bwd_operands, wgrad_plan)
+    channel_stats, check_bf16_cuda, conv_adjoint, igemm_plan, resample_bwd_operands, wgrad_plan)
 
 _GROUPS = {0: ((0,), (1, 2)), 1: ((0, 1), (2,))}  # phase d -> tap rows of group a
+# the taps r * 3 + s that k22[di, dj, a, b] sums, in (di, dj, a, b) order and
+# each in the order of its sum (rows, then columns); 9 pads to four terms
+_PHASE_TERMS = [[3 * r + s for r in _GROUPS[di][a] for s in _GROUPS[dj][bb]] + [9] * (
+    4 - len(_GROUPS[di][a]) * len(_GROUPS[dj][bb]))
+    for di in (0, 1) for dj in (0, 1) for a in (0, 1) for bb in (0, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_terms(device) -> torch.Tensor:
+    """``_PHASE_TERMS`` flattened, on `device` once (no copy to the card a call)."""
+    return torch.tensor(_PHASE_TERMS, device=device).flatten()
 
 
 def phase_kernels(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, C, O) HWIO -> (2, 2, 2, 2, C, O) phase kernels k22[di, dj, a, b],
     the sums of the duplicated-pixel tap groups.
 
-    The sums are taken in float32 and rounded to w's dtype once.  (The JAX
-    package sums the bf16 weight in bf16; the two agree to bf16 rounding.)
+    The sums are taken in float32, term after term, and rounded to w's
+    dtype once, all 16 at a time (a handful of launches on the card).
+    (The JAX package sums the bf16 weight in bf16; the two agree to bf16
+    rounding.)
     """
-    wf = w.float()
-    k22 = torch.empty((2, 2, 2, 2) + tuple(w.shape[2:]), dtype=torch.float32, device=w.device)
-    for di in (0, 1):
-        for dj in (0, 1):
-            for a in (0, 1):
-                for bb in (0, 1):
-                    acc = torch.zeros_like(wf[0, 0])
-                    for r in _GROUPS[di][a]:
-                        for s in _GROUPS[dj][bb]:
-                            acc = acc + wf[r, s]
-                    k22[di, dj, a, bb] = acc
-    return k22.to(w.dtype)
+    wf = w.float().reshape((9,) + tuple(w.shape[2:]))
+    wz = torch.cat([wf, torch.zeros_like(wf[:1])])  # tap 9: the zero a short sum pads with
+    t = wz.index_select(0, _phase_terms(w.device)).unflatten(0, (16, 4))
+    k22 = ((t[:, 0] + t[:, 1]) + t[:, 2]) + t[:, 3]
+    return k22.reshape((2, 2, 2, 2) + tuple(w.shape[2:])).to(w.dtype)
 
 
 def phase_kernels_vjp(dk22: torch.Tensor) -> torch.Tensor:
@@ -108,7 +116,8 @@ def upsample_nearest_conv3x3_gn_plain(x, w, bias, add=None):
 
 def upsample_nearest_conv3x3_gn_cuda(x, w, bias, add=None):
     """Launch the kernel: bf16 CUDA tensors, C a multiple of 32, O a multiple
-    of 128.  k22 is computed here, once per call, not per block."""
+    of 128.  k22 is computed here, once per call, not per block;
+    ``igemm_plan("up_fwd" or "up_fwd_add", ...)`` mirrors the launch."""
     _build.refuse_grad("upsample kernel", x, w, bias, add)
     b, h, wd, c = x.shape
     o = w.shape[-1]
@@ -122,13 +131,13 @@ def upsample_nearest_conv3x3_gn_cuda(x, w, bias, add=None):
         raise ValueError("upsample kernel: add must match x")
     if w.device != x.device or bias.device != x.device:
         raise ValueError("upsample kernel: weight and bias must lie on x's device")
-    x = x.contiguous()
-    add = None if add is None else add.contiguous()
-    k22 = phase_kernels(w.to(torch.bfloat16)).contiguous()
-    bias_f = bias.to(torch.bfloat16).float().contiguous()
-    n_mt = -(-(h * wd) // 128)
+    x = _build.kernel_operand(x)
+    add = None if add is None else _build.kernel_operand(add)
+    k22 = _build.kernel_operand(phase_kernels(w.to(torch.bfloat16)))
+    bias_f = _build.kernel_operand(bias.to(torch.bfloat16).float())
+    plan = igemm_plan("up_fwd" if add is None else "up_fwd_add", b, h, wd, c, o)
     y = torch.empty((b, 2 * h, 2 * wd, o), dtype=x.dtype, device=x.device)
-    partial = torch.empty((b, 4 * n_mt, 2, o), dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, plan.partials, 2, o), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2, o), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
