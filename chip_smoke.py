@@ -101,10 +101,11 @@ PATH_SWITCH_REL_L2 = 2e-2  # one bf16 engine, kernels on against kernels off: bf
 KERNEL_ENV = ("GVQ_DISABLE_FUSED_KERNELS", "GVQ_FUSED_TRAIN", "GVQ_CONV_WGRAD", "GVQ_GN_BWD",
               "GVQ_DOWNSAMPLE_BWD", "GVQ_UPSAMPLE_BWD")
 # the head-major op's shapes (B, H, Lq, Lk, D): the JAX test's, the JAX op's
-# motivating bsqvit training shape, a long L (the op flow's), and a ragged
-# Lq != Lk at D = 256
+# motivating bsqvit training shape, a long L (the op flow's), a ragged
+# Lq != Lk at D = 256, and one shape at D = 256 and at 512 that fills the
+# card (the wide backward's blocks: 128 and 64 dK/dV, 128 and 64 dQ)
 FLASH_LEAN_SHAPES = [(2, 4, 512, 512, 64), (8, 12, 1024, 1024, 64), (1, 12, 8192, 8192, 64),
-                     (2, 2, 200, 328, 256)]
+                     (2, 2, 200, 328, 256), (4, 2, 1024, 1024, 256), (2, 1, 1024, 1024, 512)]
 FLASH_LEAN_FLOW = FLASH_LEAN_SHAPES[2]
 
 # sd3unet_gq_0.25's resblock 3x3 convs (H = W, C -> O) and how many run at
@@ -252,35 +253,34 @@ def flash_fwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
 def flash_bwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
     """The bf16 flash backward's two kernels that the entries launch at head
     dim d and lengths lq, lk: the body ("wgmma": ``csrc/flash_bwd_sm90.cuh``,
-    D = 64 and 128; "wmma": ``csrc/flash_bwd.cuh``), and for the dK/dV and
-    the dQ kernel ptxas's registers and spill bytes (stores + loads) from
-    ``nvcc.log`` and the count of HGMMA (wgmma) instructions in its SASS,
-    which must not be 0 for the wgmma body."""
+    D = 64 and 128; "wgmma_wide": ``csrc/flash_bwd_sm90_wide.cuh``, D = 256
+    and 512, whose blocks of a cluster split D `splits` ways), and for the
+    dK/dV and the dQ kernel its symbol, ptxas's registers and spill bytes
+    (stores + loads) from ``nvcc.log``, which must be 0, and the count of
+    HGMMA (wgmma) instructions in its SASS, which must not be 0."""
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
     from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_bwd_plan
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         usage = _build.ptxas_usage(f.read())
     plan = flash_bwd_plan("head_major", 1, 1, lq, lk, d)
-    if plan.body == "wgmma":
-        tags = {"dkdv": f"flash_bwd_dkdv_sm90_kernelILi{d}ELb{int(plan.q_mask)}E",
-                "dq": f"flash_bwd_dq_sm90_kernelILi{d}ELb{int(plan.key_mask)}E"}
-    else:
-        tail = int(plan.q_mask or plan.key_mask)
-        tile = f"ILi{d}ELi{plan.kv_rows}ELi{plan.threads // 32}ELb{tail}ELi1ELb0E"
-        tags = {"dkdv": "flash_bwd_dkdv_kernel" + tile, "dq": "flash_bwd_dq_kernel" + tile}
+    body = {"wgmma": "sm90", "wgmma_wide": "wide"}[plan.body]
+    tags = {"dkdv": f"flash_bwd_dkdv_{body}_kernelILi{d}ELb{int(plan.q_mask)}E",
+            "dq": f"flash_bwd_dq_{body}_kernelILi{d}ELb{int(plan.key_mask)}E"}
     kernels = {}
     for kernel, tag in tags.items():
         names = [n for n in usage if "_flash_bwd_cu_" in n and tag in n]
         require(len(names) == 1, f"{len(names)} {tag} entries of flash_bwd.cu in nvcc.log")
         u = usage[names[0]]
         hgmma = sass_hgmma().get(names[0], 0)
-        require(plan.body == "wmma" or hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
-        kernels[kernel] = {"registers": u["registers"],
-                           "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
+        spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
+        require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+        require(spills == 0, f"{names[0]}: {spills} bytes of spills")
+        kernels[kernel] = {"symbol": names[0], "registers": u["registers"], "spills": spills,
                            "sass_hgmma": hgmma}
     return {"design": plan.body, "kv_rows": plan.kv_rows, "kv_q_rows": plan.kv_q_rows,
-            "q_rows": plan.q_rows, "q_k_rows": plan.q_k_rows, "kernels": kernels}
+            "q_rows": plan.q_rows, "q_k_rows": plan.q_k_rows, "splits": plan.splits,
+            "kernels": kernels}
 
 
 def flash_f32_kernel_facts(b: int, h: int, lq: int, lk: int, d: int) -> dict:
@@ -823,7 +823,10 @@ def check_flash_res(gen):
 
 
 def check_flash_bwd(gen):
-    """The unpacked D=512 backward at the UNet AttnBlock's shape."""
+    """The unpacked D=512 backward at the UNet AttnBlock's shape (the wide
+    wgmma body, two blocks a cluster): dq, dk, dv against the plain version,
+    bit-equal across two runs; its kernels' symbols, registers, spills and
+    HGMMA counts."""
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
@@ -853,16 +856,17 @@ def check_flash_bwd(gen):
     flops = 5 * 2.0 * b * heads * l * l * d
     nbytes = 2 * 8 * q.numel() + 4 * z.numel()  # q, k, v, o, do in; dq, dk, dv out
     bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+    kernel_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, z, do, scale, heads))
     shape = {"shape": f"q,k,v,o,do ({b},{l},{heads}x{d}) bf16, z f32 -> dq,dk,dv bf16",
-             "kernel_ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
-                 q, k, v, o, z, do, scale, heads)),
+             "kernel_ms": kernel_ms, "tflops": flops / kernel_ms / 1e9,
              "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
                  q, k, v, o, z, do, scale, heads), iters=3, warmup=1),
              "library_ms": time_ms(library), "library": "SDPA backward (autograd), head-major",
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-             "max_abs_err": err, "rel_err_dq_dk_dv": errs, "bit_reproducible": True}
+             "max_abs_err": err, "rel_err_dq_dk_dv": errs, "bit_reproducible": True,
+             **flash_bwd_kernel_facts(d, l, l)}
     return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd.cu",
+            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_sm90_wide.cuh",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:439",
             "tolerance": f"max error / max |grad| <= {FLASH_BWD_REL} per dq, dk, dv; "
                          "bit-equal across runs",
@@ -1290,7 +1294,8 @@ def check_flash_lean(gen):
         torch.cuda.empty_cache()
     return {"name": "flash_attention_lean", "route": "cuda",
             "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90.cuh, "
-                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_sm90.cuh",
+                      "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_sm90.cuh (D = 64, 128); "
+                      "csrc/flash_fwd_sm90_wide.cuh, csrc/flash_bwd_sm90_wide.cuh (D = 256, 512)",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_attention.py:118",
             "counters": ["flash_attention_lean_fwd", "flash_attention_lean_bwd"],
             "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}; max error / max |grad| "

@@ -214,13 +214,15 @@ def test_kernel_registers_name_a_kernel_alike_in_every_checkout():
     assert a == b == {"_ZN<ln_matmul.cu>16ln_matmul_kernelILb1EEEvNS_8LnMmArgsE": 167}
     # the card test's table: every shipped kernel but this lab's, by its stable name
     # (the weight-gradient body in two tile widths for each of its three sources;
-    # the wgmma flash backward's di pre-pass at D = 64 and 128; the implicit-GEMM
-    # body, four downsample forward, two downsample dgrad, two upsample dgrad,
-    # four upsample forward and two fused GroupNorm conv kernels; the wide flash
-    # forward body at D = 256 and 512; the float32 head-major op's split-TF32
-    # forward, dK/dV and dQ kernels at D = 64 and 128 and their pre-pass, in
-    # place of the SIMT kernels at those D)
+    # the wgmma flash backward's di pre-pass at D = 64, 128, 256 and 512; the
+    # implicit-GEMM body, four downsample forward, two downsample dgrad, two
+    # upsample dgrad, four upsample forward and two fused GroupNorm conv kernels;
+    # the wide flash forward body at D = 256 and 512; the float32 head-major op's
+    # split-TF32 forward, dK/dV and dQ kernels at D = 64 and 128 and their
+    # pre-pass, in place of the SIMT kernels at those D; the wide flash backward
+    # body's dK/dV and dQ kernels at D = 256 and 512, in place of the wmma
+    # body's eight and its di pre-pass)
     with open(os.path.join(ROOT, "tests", "torch_kernel_registers.json")) as f:
         table = json.load(f)
-    assert len(table) == 184 and not any("ln_matmul" in k for k in table)
+    assert len(table) == 185 and not any("ln_matmul" in k for k in table)
     assert all(k.count("<") == 1 and k.count(".cu>") == 1 for k in table)

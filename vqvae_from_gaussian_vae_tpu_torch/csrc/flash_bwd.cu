@@ -30,38 +30,30 @@
 // shared memory and no order across blocks, so both sides are tiled and
 // the work is split in two kernels with no float atomics (the gradients
 // are bit-reproducible): one over (K/V tile, b, h) that streams the q tiles
-// and accumulates dk and dv in tensor-core fragments, and one over
-// (q tile, b, h) that streams K/V and accumulates dq.  Each recomputes s and
-// do v^T, so the pair runs seven products instead of five.  di comes from a
+// and accumulates dk and dv, and one over (q tile, b, h) that streams K/V
+// and accumulates dq.  Each recomputes s and do v^T.  di comes from a
 // small pre-pass.
 //
 // The head-major entry gvq_flash_bwd_hm replaces the backward of
 // vqvae_from_gaussian_vae_tpu/ops/flash_attention.py (_bwd: the upstream
 // Pallas _flash_attention_bwd_dkv, then the lean dq pass _bwd_dq_lean) on
-// (B, H, L, D) tensors, with q's length Lq apart from k's Lk.  Every tensor's
-// batch, head and row strides are kernel arguments.  A partial last tile
-// loads zero rows, and its rows and columns past Lq or Lk get p = 0 and
-// ds = 0; the rows of dk, dv past Lk and of dq past Lq are not written.
+// (B, H, L, D) tensors, with q's length Lq apart from k's Lk.  A partial
+// last tile loads zero rows, and its rows and columns past Lq or Lk get
+// p = 0 and ds = 0; the rows of dk, dv past Lk and of dq past Lq are not
+// written.
 //
-// Which body runs, by head dim: D = 64 and 128 take the wgmma body of
-// csrc/flash_bwd_sm90.cuh (TMA rings, scores, P and dS in registers, 128
-// keys or q rows a block; it says what it does about the wmma body's
-// costs).  D = 256 and 512 take the wmma body of csrc/flash_bwd.cuh: at
-// D = 512 four D-wide bf16 tiles (K, V, Q, dO) of 64 rows and the float32
-// output staging tile would need ~450 KB, so it takes 32-row tiles (~209 KB
-// of shared memory) and 16 warps: each warp then holds 4 + 4 accumulator
-// fragments of dk and dv (64 registers) instead of 16, under the 128
-// registers a thread of a 512-thread block may use.  The score tiles (32 x
-// 32) are 8 fragments, computed by 8 warps while the others wait
-// (tiles_abt).  D = 256 takes 32-row tiles too (~113 KB, two blocks an SM)
-// and 8 warps: 4 + 4 fragments a warp again, under the 128 registers that
-// two 256-thread blocks leave each thread.  Those instantiations run one
-// streamed tile pair in flight, with the softmax recompute; the lab of
-// csrc/flash_lab_bwd.cu instantiates that body at other settings.  Every
-// bf16 entry takes the launch plan of ops/flash_attention.py
-// flash_bwd_plan (an int64 array, BwdPlan): it names the body and, for the
-// wgmma body, the tensor maps of q, k, v and do, which the entry holds to
-// its shapes before it encodes them.
+// Which body runs, by head dim: every bf16 entry takes the launch plan of
+// ops/flash_attention.py flash_bwd_plan (an int64 array, BwdPlan), which
+// names the body and holds the tensor maps of q, k, v and do; the entry
+// holds it to its shapes before it encodes them.  D = 64 and 128 take the
+// wgmma body of csrc/flash_bwd_sm90.cuh (128 keys or q rows a block, two
+// warpgroups of 64 rows, the whole head dim in each); D = 256 and 512 the
+// wide wgmma body of csrc/flash_bwd_sm90_wide.cuh (64 keys or q rows a
+// block, the head dim's columns split over two warpgroups and, for dK/dV
+// at D = 512, over two blocks).  Both are TMA rings, scores, P and dS in
+// registers; each header says what it does about its costs.  The wmma body
+// of csrc/flash_bwd.cuh serves the backward lab (csrc/flash_lab_bwd.cu)
+// alone.
 //
 // gvq_flash_bwd_hm_f32 is the head-major backward for float32 tensors (the
 // JAX op runs float32 too), held to the plain version within 1e-4 of its
@@ -73,53 +65,28 @@
 // pre-pass and two-kernel split in plain SIMT float32 (fmaf on CUDA cores,
 // operands from shared memory).  Both take the launch plan of
 // ops/flash_attention.py flash_f32_plan (F32Plan), which names the body.
-#include "flash_bwd.cuh"
 #include "flash_bwd_f32_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
+#include "flash_bwd_sm90_wide.cuh"
 #include "flash_f32.cuh"
 
 namespace {
 
-template <int D, int T, int WARPS>
-int launch_bwd(const BwdArgs& g, const BwdPlan& p, const bf16* o, float* di, int B,
-               cudaStream_t stream) {
-  const bool tail = g.Lq % T != 0 || g.Lk % T != 0;
-  const long long smem = (long long)BwdLayout<D, T>::kBytes, bh = (long long)B * g.H;
-  if (p.body != 0 || p.kv_rows != T || p.kv_q_rows != T || p.q_rows != T || p.q_k_rows != T ||
-      p.stages != 1 || p.threads != 32 * WARPS || p.kv_smem != smem || p.q_smem != smem ||
-      p.kv_grid_x != (g.Lk + T - 1) / T || p.q_grid_x != (g.Lq + T - 1) / T ||
-      p.kv_grid_y != bh || p.q_grid_y != bh || p.q_mask != (g.Lq % T != 0) ||
-      p.key_mask != (g.Lk % T != 0))
-    return (int)cudaErrorInvalidValue;
-  return tail ? launch_flash_bwd<D, T, WARPS, true>(g, o, di, B, stream)
-              : launch_flash_bwd<D, T, WARPS, false>(g, o, di, B, stream);
-}
-
-// Route a backward by its plan: D = 64 and 128 to the wgmma body over the
-// plan's maps of bases[] (q, k, v, do), whose coordinates put the row at
-// row_dim (1 head-major, 2 token-major); D = 256 and 512 to the wmma body
-// over g's strides (the plan's tiling held to that body's).
-int bwd_entry(const BwdArgs& g, const bf16* const (&bases)[4], int row_dim, const void* o,
-              void* di, int B, int D, const long long* plan, void* stream) {
-  if (B <= 0 || g.H <= 0 || g.Lq <= 0 || g.Lk <= 0 || plan == nullptr)
+// Route a backward by its plan over the maps of bases[] (q, k, v, do),
+// whose coordinates put the row at a.row_dim (1 head-major, 2
+// token-major): D = 64 and 128 to the wgmma body, D = 256 and 512 to the
+// wide one; o and do (as sdo says) feed the di pre-pass.
+int bwd_entry(const B9Args& a, const bf16* const (&bases)[4], const void* o, Strides sdo, int B,
+              int D, const long long* plan, void* stream) {
+  if (B <= 0 || a.H <= 0 || a.Lq <= 0 || a.Lk <= 0 || plan == nullptr)
     return (int)cudaErrorInvalidValue;
   BwdPlan p;
   memcpy(&p, plan, sizeof p);
   const bf16* op = static_cast<const bf16*>(o);
-  float* dip = static_cast<float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 || D == 128) {
-    const B9Args a{g.dq,        g.dk,       g.dv,        g.z,         dip,
-                   g.sdq.b,     g.sdq.h,    g.sdq.row,   g.sdkv.b,    g.sdkv.h,
-                   g.sdkv.row,  g.Lq,       g.Lk,        g.H,         row_dim,
-                   g.scale};
-    return launch_flash_bwd_sm90(p, bases, a, op, g.sdo, B, D, s);
-  }
-  switch (D) {
-    case 256: return launch_bwd<256, 32, 8>(g, p, op, dip, B, s);
-    case 512: return launch_bwd<512, 32, 16>(g, p, op, dip, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D == 64 || D == 128) return launch_flash_bwd_sm90(p, bases, a, op, sdo, B, D, s);
+  if (D == 256 || D == 512) return launch_flash_bwd_wide(p, bases, a, op, sdo, B, D, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The float32 head-major backward's SIMT body (D = 256 and 512): a di
@@ -347,13 +314,10 @@ extern "C" int gvq_flash_bwd_qkv(const void* qkv, const void* o, const void* z, 
   const bf16* in = static_cast<const bf16*>(qkv);
   bf16* out = static_cast<bf16*>(dqkv);
   const long long c = (long long)H * D, c3 = 3 * c;
-  const Strides packed{L * c3, D, c3}, plain{L * c, D, c};
-  const BwdArgs g{in, in + c, in + 2 * c, static_cast<const bf16*>(dout),
-                  static_cast<const float*>(z), static_cast<const float*>(di),
-                  out, out + c, out + 2 * c, packed, packed, plain, packed, packed, L, L, H,
-                  scale};
-  const bf16* const bases[4] = {in, in, in, g.dout};
-  return bwd_entry(g, bases, 2, o, di, B, D, plan, stream);
+  const B9Args a{out, out + c, out + 2 * c, static_cast<const float*>(z),
+                 static_cast<float*>(di), L * c3, D, c3, L * c3, D, c3, L, L, H, 2, scale};
+  const bf16* const bases[4] = {in, in, in, static_cast<const bf16*>(dout)};
+  return bwd_entry(a, bases, o, Strides{L * c, D, c}, B, D, plan, stream);
 }
 
 // The unpacked entry: q, k, v, o, do, dq, dk, dv (B, L, H*D) bf16; z (B, H,
@@ -365,14 +329,12 @@ extern "C" int gvq_flash_bwd(const void* q, const void* k, const void* v, const 
                              const long long* plan, void* stream) {
   if (L % 64 != 0) return (int)cudaErrorInvalidValue;
   const long long c = (long long)H * D;
-  const Strides tm{L * c, D, c};
-  const BwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                  static_cast<const float*>(z), static_cast<const float*>(di),
-                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                  tm, tm, tm, tm, tm, L, L, H, scale};
-  const bf16* const bases[4] = {g.q, g.k, g.v, g.dout};
-  return bwd_entry(g, bases, 2, o, di, B, D, plan, stream);
+  const B9Args a{static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                 static_cast<const float*>(z), static_cast<float*>(di), L * c, D, c, L * c, D, c,
+                 L, L, H, 2, scale};
+  const bf16* const bases[4] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v), static_cast<const bf16*>(dout)};
+  return bwd_entry(a, bases, o, Strides{L * c, D, c}, B, D, plan, stream);
 }
 
 // The head-major entry (replaces vqvae_from_gaussian_vae_tpu/ops/flash_attention.py
@@ -386,14 +348,12 @@ extern "C" int gvq_flash_bwd_hm(const void* q, const void* k, const void* v, con
                                 void* dv, int B, int H, int Lq, int Lk, int D, float scale,
                                 const long long* plan, void* stream) {
   const long long hq = (long long)Lq * D, hk = (long long)Lk * D;
-  const Strides sq{H * hq, hq, D}, skv{H * hk, hk, D};
-  const BwdArgs g{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                  static_cast<const float*>(z), static_cast<const float*>(di),
-                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                  sq, skv, sq, sq, skv, Lq, Lk, H, scale};
-  const bf16* const bases[4] = {g.q, g.k, g.v, g.dout};
-  return bwd_entry(g, bases, 1, o, di, B, D, plan, stream);
+  const B9Args a{static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                 static_cast<const float*>(z), static_cast<float*>(di), H * hq, hq, D,
+                 H * hk, hk, D, Lq, Lk, H, 1, scale};
+  const bf16* const bases[4] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v), static_cast<const bf16*>(dout)};
+  return bwd_entry(a, bases, o, Strides{H * hq, hq, D}, B, D, plan, stream);
 }
 
 // The float32 head-major entry (the same op as gvq_flash_bwd_hm, for

@@ -1,13 +1,13 @@
-// The bf16 flash-attention backward bodies for Hopper (sm_90a), shared by
-// the shipped entries at D = 256 and 512 (csrc/flash_bwd.cu, whose header
-// says what they replace, what bounds them and how they are tiled) and the
-// backward lab (csrc/flash_lab_bwd.cu).  The entries at D = 64 and 128
-// (gvq_flash_bwd_qkv, gvq_flash_bwd, gvq_flash_bwd_hm) left these bodies for
-// the wgmma body of csrc/flash_bwd_sm90.cuh.
+// The wmma bf16 flash-attention backward bodies (the pre-Hopper
+// mma.sync-era fragments), instantiated by the backward lab alone
+// (csrc/flash_lab_bwd.cu, B17), which prices their knobs.  No shipped entry
+// runs them: the bf16 entries of csrc/flash_bwd.cu (gvq_flash_bwd_qkv,
+// gvq_flash_bwd, gvq_flash_bwd_hm) take the wgmma body of
+// csrc/flash_bwd_sm90.cuh at D = 64 and 128 and the wide wgmma body of
+// csrc/flash_bwd_sm90_wide.cuh at D = 256 and 512.
 //
-// Template knobs (the shipped entries: (T, WARPS) = (32, 8), (32, 16) at
-// D = 256, 512; PIPE 1; CONTROL false; each a compile-time constant, so at
-// that setting the bodies are the ones the shipped entries always ran):
+// Template knobs (each a compile-time constant; the lab's combinations are
+// listed in ops/flash_lab.py):
 //   T        tile rows, of q and of k/v
 //   WARPS    warps per block
 //   PIPE     streamed tile pairs in flight: 1 (plain copies, then the

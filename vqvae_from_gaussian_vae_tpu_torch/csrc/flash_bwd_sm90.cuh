@@ -1,7 +1,9 @@
 // The bf16 flash-attention backward body designed for Hopper (sm_90a), for
 // head dims 64 and 128: every bf16 backward entry of csrc/flash_bwd.cu at
 // those D (gvq_flash_bwd_qkv, gvq_flash_bwd, gvq_flash_bwd_hm).  D = 256 and
-// 512 stay on csrc/flash_bwd.cuh, and so does the backward lab.
+// 512 run csrc/flash_bwd_sm90_wide.cuh, which shares this body's di
+// pre-pass, launch plan, argument struct and elementwise steps; the backward
+// lab runs the wmma body of csrc/flash_bwd.cuh.
 //
 // Replaces the TPU kernels vqvae_from_gaussian_vae_tpu/ops/flash_blc.py
 // _bwd_impl (packed and unpacked; body _bwd_kernel) and the backward of
@@ -100,6 +102,7 @@ using gvq::tma_load_4d;
 using gvq::wg_desc;
 using gvq::wg_fence_acc;
 using gvq::wg_fence_frag;
+using gvq::wg_opaque;
 using gvq::wg_smem_addr;
 using gvq::wgmma_rs;
 using gvq::wgmma_ss;
@@ -610,16 +613,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
 }
 
 // di[b, h, l] = sum_d do[b, h, l, d] * o[b, h, l, d] (o and do as s says) in
-// float32: D / 8 lanes a row, 16 bytes each, summed across the lanes by
-// shuffles; neighbouring rows take the index of the smaller stride (the
-// head in the token-major layouts, the row in the head-major one), so a
-// warp reads 512 contiguous bytes of each
+// float32: min(D / 8, 32) lanes a row, 16 bytes each (two at D = 512),
+// summed across the lanes by shuffles; neighbouring rows take the index of
+// the smaller stride (the head in the token-major layouts, the row in the
+// head-major one), so a warp reads contiguous memory of each
 template <int D>
 __global__ void __launch_bounds__(256) b9_di_kernel(const bf16* __restrict__ o,
                                                     const bf16* __restrict__ dout,
                                                     float* __restrict__ di, Strides s, int B,
                                                     int L, int H) {
-  constexpr int kLanes = D / 8;
+  constexpr int kLanes = D / 8 < 32 ? D / 8 : 32;
+  constexpr int kVecs = D / 8 / kLanes;  // 16-byte vectors a lane
   const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t idx = t / kLanes;
   const int part = (int)(t % kLanes);
@@ -635,52 +639,118 @@ __global__ void __launch_bounds__(256) b9_di_kernel(const bf16* __restrict__ o,
       h = (int)((idx / L) % H);
     }
     b = (int)(idx / ((size_t)H * L));
-    const long long off = b * s.b + h * s.h + l * s.row + 8 * part;
-    alignas(16) bf16 oe[8];
-    alignas(16) bf16 de[8];
-    *reinterpret_cast<uint4*>(oe) = *reinterpret_cast<const uint4*>(o + off);
-    *reinterpret_cast<uint4*>(de) = *reinterpret_cast<const uint4*>(dout + off);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc += __bfloat162float(oe[i]) * __bfloat162float(de[i]);
+    for (int v = 0; v < kVecs; ++v) {
+      const long long off = b * s.b + h * s.h + l * s.row + 8 * (part + kLanes * v);
+      alignas(16) bf16 oe[8];
+      alignas(16) bf16 de[8];
+      *reinterpret_cast<uint4*>(oe) = *reinterpret_cast<const uint4*>(o + off);
+      *reinterpret_cast<uint4*>(de) = *reinterpret_cast<const uint4*>(dout + off);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc += __bfloat162float(oe[i]) * __bfloat162float(de[i]);
+    }
   }
 #pragma unroll
   for (int m = kLanes / 2; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (in && part == 0) di[((size_t)b * H + h) * L + l] = acc;
 }
 
+// the di pre-pass over B * L * H rows of head dim D (64, 128, 256 or 512)
+inline int launch_b9_di(const bf16* o, const bf16* dout, float* di, Strides s, int B, int L,
+                        int H, int D, cudaStream_t stream) {
+  const size_t threads = (size_t)B * L * H * (D / 8 < 32 ? D / 8 : 32);
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
+  switch (D) {
+    case 64: b9_di_kernel<64><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
+    case 128: b9_di_kernel<128><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
+    case 256: b9_di_kernel<256><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
+    case 512: b9_di_kernel<512><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 // The launch plan of ops/flash_attention.py flash_bwd_plan, as the int64
 // array the wrappers pass (FlashBwdPlan.as_array): kBwdPlanLen numbers in
 // this order (PlanMap: csrc/sm90.cuh).
 struct BwdPlan {
-  long long body;  // 1: this body; 0: csrc/flash_bwd.cuh
+  long long body;  // 1: this body (D = 64, 128); 2: csrc/flash_bwd_sm90_wide.cuh (D = 256, 512)
   long long kv_rows, kv_q_rows, q_rows, q_k_rows, stages;
   long long kv_grid_x, kv_grid_y, q_grid_x, q_grid_y, threads, kv_smem, q_smem;
   long long q_mask, key_mask, row_dim;
   PlanMap map[4];  // q, k, v, do
   long long dq_strides[3], dkv_strides[3];  // b, h, row, elements
+  long long splits;  // blocks along D, a cluster: both kernels' grid z
 };
 
-constexpr int kBwdPlanLen = 70;
+constexpr int kBwdPlanLen = 71;
 static_assert(sizeof(BwdPlan) == kBwdPlanLen * sizeof(long long), "the plan's layout");
+
+// Hold the plan to the body it names (its tiles, stages, shared memory,
+// blocks along D) and to the shapes the entry was given, then encode
+// its four maps over bases[] (q, k, v, do; the packed entry passes the (B,
+// L, 3C) base three times).  q and do are Lq rows in nq-row boxes, k and v
+// Lk rows in nk-row boxes; a block owns `rows` keys (dK/dV) or q rows (dQ).
+inline bool bwd_plan_maps(const BwdPlan& p, const bf16* const (&bases)[4], const B9Args& a, int B,
+                          int D, int body, int rows, int nq, int nk, int stages, long long kv_smem,
+                          long long q_smem, int splits, CUtensorMap (&maps)[4]) {
+  const long long bh = (long long)B * a.H;
+  bool ok = p.body == body && p.kv_rows == rows && p.kv_q_rows == nq && p.q_rows == rows &&
+            p.q_k_rows == nk && p.stages == stages && p.threads == kB9Threads &&
+            p.kv_smem == kv_smem && p.q_smem == q_smem && p.splits == splits &&
+            p.kv_grid_x == (a.Lk + rows - 1) / rows && p.q_grid_x == (a.Lq + rows - 1) / rows &&
+            p.kv_grid_y == bh && p.q_grid_y == bh && bh <= 65535 &&
+            p.q_mask == (a.Lq % nq != 0) && p.key_mask == (a.Lk % nk != 0) &&
+            p.row_dim == a.row_dim && (p.row_dim == 1 || p.row_dim == 2) &&
+            p.dq_strides[0] == a.sq_b && p.dq_strides[1] == a.sq_h &&
+            p.dq_strides[2] == a.sq_row && p.dkv_strides[0] == a.skv_b &&
+            p.dkv_strides[1] == a.skv_h && p.dkv_strides[2] == a.skv_row;
+  const int hd = p.row_dim == 1 ? 2 : 1;  // the head's dim in the map
+  for (int i = 0; ok && i < 4; ++i) {
+    const PlanMap& m = p.map[i];
+    const bool is_q = i == 0 || i == 3;  // q and do: Lq rows, q-tile boxes
+    ok = m.dims[0] == D && m.dims[p.row_dim] == (is_q ? a.Lq : a.Lk) && m.dims[hd] == a.H &&
+         m.dims[3] == B && m.box[0] == 64 && m.box[p.row_dim] == (is_q ? nq : nk) &&
+         m.box[hd] == 1 && m.box[3] == 1;
+  }
+  for (int i = 0; ok && i < 4; ++i) ok = encode_plan_map(&maps[i], bases[i], p.map[i]);
+  return ok;
+}
+
+// one kernel of a backward body's pair (either body: the four maps and
+// B9Args) over `grid`, its blocks grouped `cluster` to a cluster along the
+// grid's z where that is above 1
+template <typename Kernel>
+int b9_launch(Kernel kernel, dim3 grid, size_t smem, unsigned cluster, const CUtensorMap (&m)[4],
+              const B9Args& a, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kB9Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = cluster;
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 template <int D, bool kQMask, bool kKeyMask>
 int launch_b9(const CUtensorMap (&m)[4], const B9Args& a, dim3 kv_grid, dim3 q_grid,
               cudaStream_t stream) {
-  const size_t kv_smem = B9KvLayout<D>::kSmem, q_smem = B9QLayout<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_sm90_kernel<D, kQMask>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kv_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<D, kKeyMask>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_sm90_kernel<D, kQMask>
-      <<<kv_grid, kB9Threads, kv_smem, stream>>>(m[0], m[1], m[2], m[3], a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_sm90_kernel<D, kKeyMask>
-      <<<q_grid, kB9Threads, q_smem, stream>>>(m[0], m[1], m[2], m[3], a);
-  return (int)cudaGetLastError();
+  const int err = b9_launch(flash_bwd_dkdv_sm90_kernel<D, kQMask>, kv_grid,
+                            B9KvLayout<D>::kSmem, 1, m, a, stream);
+  if (err != 0) return err;
+  return b9_launch(flash_bwd_dq_sm90_kernel<D, kKeyMask>, q_grid, B9QLayout<D>::kSmem, 1, m, a,
+                   stream);
 }
 
 template <int D>
@@ -695,48 +765,20 @@ int launch_b9_masks(const CUtensorMap (&m)[4], const B9Args& a, const BwdPlan& p
                     : launch_b9<D, false, false>(m, a, kv_grid, q_grid, stream);
 }
 
-// Hold the plan to what this body is compiled for and to the shapes the
-// entry was given, encode its four maps over bases[] (q, k, v, do; the
-// packed entry passes the (B, L, 3C) base three times), then launch the di
-// pre-pass (o and do as sdo says; di into a.di), the dK/dV kernel and the
-// dQ kernel.
+// Hold the plan to this body and the entry's shapes (bwd_plan_maps), then
+// launch the di pre-pass (o and do as sdo says; di into a.di), the dK/dV
+// kernel and the dQ kernel.
 inline int launch_flash_bwd_sm90(const BwdPlan& p, const bf16* const (&bases)[4], const B9Args& a,
                                  const bf16* o, Strides sdo, int B, int D, cudaStream_t stream) {
-  const long long bh = (long long)B * a.H;
   const int nq = b9_q_tile(D), nk = b9_k_tile(D);
   const long long kv_smem = D == 64 ? B9KvLayout<64>::kSmem : B9KvLayout<128>::kSmem;
   const long long q_smem = D == 64 ? B9QLayout<64>::kSmem : B9QLayout<128>::kSmem;
-  bool ok = p.body == 1 && (D == 64 || D == 128) && p.kv_rows == kB9Rows &&
-            p.kv_q_rows == nq && p.q_rows == kB9Rows && p.q_k_rows == nk &&
-            p.stages == kB9Stages && p.threads == kB9Threads && p.kv_smem == kv_smem &&
-            p.q_smem == q_smem && p.kv_grid_x == (a.Lk + kB9Rows - 1) / kB9Rows &&
-            p.q_grid_x == (a.Lq + kB9Rows - 1) / kB9Rows && p.kv_grid_y == bh &&
-            p.q_grid_y == bh && bh <= 65535 && p.q_mask == (a.Lq % nq != 0) &&
-            p.key_mask == (a.Lk % nk != 0) && p.row_dim == a.row_dim &&
-            (p.row_dim == 1 || p.row_dim == 2) && p.dq_strides[0] == a.sq_b &&
-            p.dq_strides[1] == a.sq_h && p.dq_strides[2] == a.sq_row &&
-            p.dkv_strides[0] == a.skv_b && p.dkv_strides[1] == a.skv_h &&
-            p.dkv_strides[2] == a.skv_row;
-  const int hd = p.row_dim == 1 ? 2 : 1;  // the head's dim in the map
-  for (int i = 0; ok && i < 4; ++i) {
-    const PlanMap& m = p.map[i];
-    const bool is_q = i == 0 || i == 3;  // q and do: Lq rows, q-tile boxes
-    ok = m.dims[0] == D && m.dims[p.row_dim] == (is_q ? a.Lq : a.Lk) && m.dims[hd] == a.H &&
-         m.dims[3] == B && m.box[0] == 64 && m.box[p.row_dim] == (is_q ? nq : nk) &&
-         m.box[hd] == 1 && m.box[3] == 1;
-  }
-  if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  for (int i = 0; i < 4; ++i)
-    if (!encode_plan_map(&maps[i], bases[i], p.map[i])) return (int)cudaErrorInvalidValue;
-  const size_t threads = (size_t)B * a.Lq * a.H * (D / 8);
-  const unsigned blocks = (unsigned)((threads + 255) / 256);
-  if (D == 64)
-    b9_di_kernel<64><<<blocks, 256, 0, stream>>>(o, bases[3], a.di, sdo, B, a.Lq, a.H);
-  else
-    b9_di_kernel<128><<<blocks, 256, 0, stream>>>(o, bases[3], a.di, sdo, B, a.Lq, a.H);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if ((D != 64 && D != 128) || !bwd_plan_maps(p, bases, a, B, D, 1, kB9Rows, nq, nk, kB9Stages,
+                                               kv_smem, q_smem, 1, maps))
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_b9_di(o, bases[3], a.di, sdo, B, a.Lq, a.H, D, stream);
+  if (err != 0) return err;
   return D == 64 ? launch_b9_masks<64>(maps, a, p, stream)
                  : launch_b9_masks<128>(maps, a, p, stream);
 }

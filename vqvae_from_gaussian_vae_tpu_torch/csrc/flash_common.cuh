@@ -1,6 +1,6 @@
-// Pieces shared by the bf16 flash bodies (csrc/flash_fwd.cuh,
-// csrc/flash_bwd.cuh): the element type, the stride triple and the cp.async
-// copies.
+// Pieces shared by the bf16 flash bodies (the labs' wmma bodies
+// csrc/flash_fwd.cuh and csrc/flash_bwd.cuh, and the wgmma bodies): the
+// element type, the stride triple and the cp.async copies.
 #pragma once
 
 #include <cuda_bf16.h>

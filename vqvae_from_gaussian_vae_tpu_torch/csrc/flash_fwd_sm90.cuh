@@ -81,6 +81,7 @@ using gvq::tma_load_4d;
 using gvq::wg_desc;
 using gvq::wg_fence_acc;
 using gvq::wg_fence_frag;
+using gvq::wg_opaque;
 using gvq::wg_smem_addr;
 using gvq::wgmma_rs;
 using gvq::wgmma_ss;

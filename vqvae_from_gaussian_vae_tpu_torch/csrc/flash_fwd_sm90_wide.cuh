@@ -44,7 +44,7 @@
 //    240 registers a thread (an SM sub-partition holds a warp of each
 //    warpgroup): a consumer's O, S and P take 176 at D = 512.  The score
 //    product's descriptors are formed afresh for each tile from one opaque
-//    base (fw_opaque): held across tiles, D / 8 of them at 64 bits each
+//    base (wg_opaque): held across tiles, D / 8 of them at 64 bits each
 //    would not fit.
 // 4. Per key tile a warpgroup issues tile t's Q K^T and tile t-1's P V back
 //    to back, and runs tile t's softmax while the P V product runs, as in
@@ -86,20 +86,13 @@ struct FwLayout {
   static constexpr size_t kSmem = kBars + (1 + 4 * kStages) * 8 + 1024;  // + alignment slack
 };
 
-// a value the compiler cannot see through, so that what is derived from it
-// is computed where it is used and not hoisted out of the key loop
-__device__ __forceinline__ uint64_t fw_opaque(uint64_t v) {
-  asm volatile("" : "+l"(v));
-  return v;
-}
-
 // S = Q K^T for the block's 64 rows and a 64-key tile: D / 16 k-steps, each
 // 16 columns = 32 bytes inside a chunk's 128-byte rows (a descriptor's
 // address field counts 16-byte units)
 template <int D>
 __device__ __forceinline__ void fw_qk(float (&s)[32], uint32_t qa, uint32_t ka) {
   using Lay = FwLayout<D>;
-  const uint64_t da = fw_opaque(wg_desc(qa, 16, 1024)), db = fw_opaque(wg_desc(ka, 16, 1024));
+  const uint64_t da = wg_opaque(wg_desc(qa, 16, 1024)), db = wg_opaque(wg_desc(ka, 16, 1024));
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss<64>(s, da + ((kk >> 2) * Lay::kChunkQ + (kk & 3) * 32) / 16,

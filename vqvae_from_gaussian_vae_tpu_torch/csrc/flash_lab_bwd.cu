@@ -1,9 +1,10 @@
-// The backward flash lab on Hopper (sm_90a): the bf16 backward bodies of
-// csrc/flash_bwd.cuh at settings the shipped entries do not use.
+// The backward flash lab on Hopper (sm_90a): the wmma bf16 backward bodies
+// of csrc/flash_bwd.cuh, which no shipped entry runs (those take the wgmma
+// bodies of csrc/flash_bwd_sm90.cuh and csrc/flash_bwd_sm90_wide.cuh).
 //
 // Replaces scripts/exp_flash_bwd_variants.py:49 _control_kernel and :103
 // run (pallas_call at :131), a microbenchmark that no model calls: the
-// shipped backward at explicit tilings, here (tile rows T, warps, pipe
+// backward at explicit tilings, here (tile rows T, warps, pipe
 // depth), the pipe depth being the streamed q tiles (in dk/dv) or K/V tiles
 // (in dq) in flight; and a no-softmax control, here the CONTROL flag of the
 // same two kernels (no exp, no z read, no di pre-pass, no ds elementwise:

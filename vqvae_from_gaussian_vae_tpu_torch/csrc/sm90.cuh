@@ -1,15 +1,21 @@
 // Hopper (sm_90a) primitives shared by the bodies built on TMA copies and
 // wgmma: the conv bodies (csrc/conv_wgrad.cuh, csrc/conv_igemm_sm90.cuh)
 // and the flash forward and backward bodies (csrc/flash_fwd_sm90.cuh,
-// csrc/flash_fwd_sm90_wide.cuh, csrc/flash_bwd_sm90.cuh).
+// csrc/flash_fwd_sm90_wide.cuh, csrc/flash_bwd_sm90.cuh,
+// csrc/flash_bwd_sm90_wide.cuh).
 //
 // - mbarriers: init, arrive, arrive with an expected byte count, and a
 //   wait on the phase of a given parity;
+// - a thread block cluster's pieces: the block's rank, another block's
+//   address of a shared-memory location, a 16-byte store there that
+//   completes on that block's mbarrier, and the cluster-wide barrier;
 // - a 4-D TMA box copy into shared memory that completes on an mbarrier;
-// - the wgmma shared-memory descriptor of a 128-byte-swizzled operand, and
-//   a compiler fence over an accumulator (or fragment) array;
+// - the wgmma shared-memory descriptor of a 128-byte-swizzled operand, a
+//   value the compiler cannot see through (so that descriptors are formed
+//   where they are used), and a compiler fence over an accumulator (or
+//   fragment) array;
 // - the bf16 wgmma products of the flash bodies: both operands K-major in
-//   shared memory (N = 32, 64, 128), or A from registers and B MN-major
+//   shared memory (N = 16, 32, 64, 128), or A from registers and B MN-major
 //   (N = 64, 128, 256);
 // - cuTensorMapEncodeTiled, looked up through the runtime so that nothing
 //   links against libcuda, and the 4-D bf16 map of a flash launch plan.
@@ -55,6 +61,41 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of shared-memory address `addr` in block
+// `rank` of this block's cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another block's shared memory, completing there on that
+// block's mbarrier as a TMA copy does (both cluster_map addresses): the
+// receiver arms the barrier with the bytes it expects and waits on it
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float a, float b, float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// every thread of every block of the cluster, with release / acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
 // one box of a 4-D tensor map (coordinates innermost first, signed: out of
 // bounds reads as zero) into shared memory, completing on an mbarrier
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -75,6 +116,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// a value the compiler cannot see through, so that what is derived from it
+// is computed where it is used and not hoisted out of a loop (D / 8
+// descriptors of 64 bits, held across tiles, would not fit in registers)
+__device__ __forceinline__ uint64_t wg_opaque(uint64_t v) {
+  asm volatile("" : "+l"(v));
+  return v;
 }
 
 template <int R>
@@ -102,6 +151,21 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // bf16, K-major in shared memory (no transpose bits)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {

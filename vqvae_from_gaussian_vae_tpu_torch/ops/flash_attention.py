@@ -80,9 +80,14 @@ LAYOUTS = ("head_major", "token_major", "packed")
 BWD_ROWS, BWD_STAGES, BWD_THREADS = 128, 3, 384
 BWD_Q_TILE = {64: 64, 128: 32}
 BWD_K_TILE = {64: 128, 128: 64}
-# the wmma body (csrc/flash_bwd.cuh) at D = 256 and 512: 32-row tiles, 8 or 16 warps
-BWD_WMMA_ROWS = 32
-BWD_WMMA_WARPS = {256: 8, 512: 16}
+# the wide backward body (csrc/flash_bwd_sm90_wide.cuh BwLayout) at D = 256
+# and 512: a block owns WIDE_BWD_ROWS keys (dK/dV) or q rows (dQ) and
+# WIDE_BWD_COLS of the head dim's columns, D / WIDE_BWD_COLS blocks (a
+# cluster at D = 512) a whole row; its two consumer warpgroups split the
+# columns, and both kernels stream WIDE_BWD_TILE-row tiles in
+# WIDE_BWD_STAGES stages (kBwRows, kBwShare, kBwTile, kBwStages)
+WIDE_BWD_ROWS, WIDE_BWD_COLS, WIDE_BWD_TILE, WIDE_BWD_STAGES = 64, 256, 32, 3
+BWD_BODIES = ("wgmma", "wgmma_wide")  # FlashBwdPlan.body, as BwdPlan::body 1 and 2
 # the float32 head-major op's split-TF32 bodies at D = 64 and 128
 # (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh; D = 256 and 512
 # run the SIMT kernels): per kernel and head dim, (consumer warpgroups of 64
@@ -180,19 +185,21 @@ class FlashBwdPlan:
     and the C entries read it (``as_array``; ``csrc/flash_bwd_sm90.cuh``
     ``BwdPlan``).
 
-    ``body`` is ``"wgmma"`` (``csrc/flash_bwd_sm90.cuh``) or ``"wmma"``
-    (``csrc/flash_bwd.cuh``).  The dK/dV kernel's block owns ``kv_rows``
-    keys of one (b, h) and walks ``kv_q_rows``-row q tiles over ``kv_grid``
-    (key tiles, B * H); the dQ kernel's block owns ``q_rows`` q rows and
-    walks ``q_k_rows``-key tiles over ``q_grid`` (q tiles, B * H); both take
-    ``threads`` threads and ``kv_smem`` / ``q_smem`` bytes of shared memory.
-    ``q_mask``: the last q tile of the dK/dV kernel is partial (its rows
-    past Lq get p = ds = 0); ``key_mask``: the last key tile of the dQ
-    kernel is.  For the wgmma body, ``maps`` are q's, k's, v's and do's
-    tensor maps (coordinates as ``FlashFwdPlan``'s, by ``row_dim``); a
-    map's box holds ``kv_q_rows`` rows for q and do and ``q_k_rows`` for k
-    and v.  ``dq_strides`` and ``dkv_strides`` are the outputs' (b, h, row)
-    strides in elements."""
+    ``body`` is ``"wgmma"`` (``csrc/flash_bwd_sm90.cuh``, D = 64 and 128)
+    or ``"wgmma_wide"`` (``csrc/flash_bwd_sm90_wide.cuh``, D = 256 and
+    512).  The dK/dV kernel's block owns ``kv_rows`` keys of one (b, h)
+    and walks ``kv_q_rows``-row q tiles over ``kv_grid`` (key tiles, B *
+    H); the dQ kernel's block owns ``q_rows`` q rows and walks
+    ``q_k_rows``-key tiles over ``q_grid`` (q tiles, B * H); in both, D /
+    ``splits`` of the head dim's columns, ``splits`` blocks (a cluster)
+    along the grid's z; both take ``threads`` threads and
+    ``kv_smem`` / ``q_smem`` bytes of shared memory.  ``q_mask``: the last
+    q tile of the dK/dV kernel is partial (its rows past Lq get p = ds =
+    0); ``key_mask``: the last key tile of the dQ kernel is.  ``maps`` are
+    q's, k's, v's and do's tensor maps (coordinates as ``FlashFwdPlan``'s,
+    by ``row_dim``); a map's box holds ``kv_q_rows`` rows for q and do and
+    ``q_k_rows`` for k and v.  ``dq_strides`` and ``dkv_strides`` are the
+    outputs' (b, h, row) strides in elements."""
 
     body: str
     kv_rows: int
@@ -211,6 +218,7 @@ class FlashBwdPlan:
     maps: tuple
     dq_strides: tuple
     dkv_strides: tuple
+    splits: int
 
     def coords(self, chunk: int, row: int, b: int, h: int) -> tuple:
         """The box origin the producer asks for: columns 64 * chunk.., rows
@@ -218,11 +226,12 @@ class FlashBwdPlan:
         return _coords(self.row_dim, chunk, row, b, h)
 
     def as_array(self):
-        """The plan as the C entries take it: 70 int64 in ``BwdPlan``'s order."""
-        vals = [1 if self.body == "wgmma" else 0, self.kv_rows, self.kv_q_rows, self.q_rows,
+        """The plan as the C entries take it: 71 int64 in ``BwdPlan``'s order."""
+        vals = [1 + BWD_BODIES.index(self.body), self.kv_rows, self.kv_q_rows, self.q_rows,
                 self.q_k_rows, self.stages, *self.kv_grid, *self.q_grid, self.threads,
                 self.kv_smem, self.q_smem, int(self.q_mask), int(self.key_mask), self.row_dim]
-        return _int64s(vals, self.maps, 4, [*self.dq_strides, *self.dkv_strides], 70)
+        return _int64s(vals, self.maps, 4,
+                       [*self.dq_strides, *self.dkv_strides, self.splits], 71)
 
 
 def wgmma_fwd_smem(d: int) -> int:
@@ -255,12 +264,19 @@ def wgmma_bwd_smem(d: int) -> tuple:
     return kv, q
 
 
-def wmma_bwd_smem(d: int) -> int:
-    """Shared memory of ``csrc/flash_bwd.cuh``'s shipped instantiation
-    (``BwdLayout<D, 32>::kBytes``)."""
-    t = BWD_WMMA_ROWS
-    return (4 * t * (d + 8) * 2 + 2 * t * (t + 4) * 4 + 2 * t * (t + 8) * 2 + t * (d + 4) * 4
-            + 2 * t * 4)
+def wide_bwd_smem(d: int) -> tuple:
+    """Shared memory of ``csrc/flash_bwd_sm90_wide.cuh``'s two kernels
+    (``BwLayout<D, true>::kSmem``, ``BwLayout<D, false>::kSmem``): the
+    block's two resident 64-row tiles and the ring's stages (two streamed
+    tiles each), all of the block's 256 columns; the exchange tile of the
+    two warpgroups' float32 partial scores; at D = 512 the two cluster
+    tiles of the other block's; the dK/dV kernel's z and di of each stage; the
+    mbarriers (three for each stage in the dK/dV kernel, two in the dQ
+    kernel, and three more) and 1024 bytes of alignment slack."""
+    nt, stages = WIDE_BWD_TILE, WIDE_BWD_STAGES
+    common = ((2 * WIDE_BWD_ROWS + 2 * stages * nt) * WIDE_BWD_COLS * 2 + 2 * nt * 128 * 4
+              + (2 * nt * 128 * 4 if d > WIDE_BWD_COLS else 0) + 3 * 8 + 1024)
+    return common + stages * 2 * nt * 4 + 3 * stages * 8, common + 2 * stages * 8
 
 
 def _check_plan_shape(name: str, layout: str, b: int, h: int, lq: int, lk: int, d: int,
@@ -333,9 +349,13 @@ def flash_bwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
     ``BWD_Q_TILE[D]``-row q tiles, the dQ kernel over 128-row q blocks
     streaming ``BWD_K_TILE[D]``-key tiles, and 4-D maps of q, k, v and do
     whose boxes hold the streamed tile's rows (the 128-row tiles are two or
-    four boxes).  The packed outputs dq | dk | dv go into one (B, L, 3C)
-    tensor at the input's strides.  At D = 256 and 512 the wmma body,
-    32-row tiles both ways, with no maps."""
+    four boxes).  At D = 256 and 512 the wide wgmma body: the dK/dV kernel
+    over 64-key blocks, the dQ kernel over 64-row q blocks, each block 256
+    of the head dim's columns (D / 256 blocks along the grid's z), both
+    streaming ``WIDE_BWD_TILE``-row tiles through the same four maps, whose
+    boxes hold that many rows (the 64-row tiles are two boxes).  The
+    packed outputs dq | dk | dv go into one (B, L, 3C) tensor at the
+    input's strides."""
     _check_plan_shape("flash_bwd_plan", layout, b, h, lq, lk, d, in_stride)
     c = h * d
     if layout == "head_major":
@@ -343,21 +363,21 @@ def flash_bwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
     else:
         out = 3 * c if layout == "packed" else c
         dq_strides = dkv_strides = (lq * out, d, out)
-    if d not in WGMMA_HEAD_DIMS:
-        t, smem = BWD_WMMA_ROWS, wmma_bwd_smem(d)
-        return FlashBwdPlan("wmma", t, t, t, t, 1, (-(-lk // t), b * h), (-(-lq // t), b * h),
-                            32 * BWD_WMMA_WARPS[d], smem, smem, lq % t != 0, lk % t != 0, 0, (),
-                            dq_strides, dkv_strides)
-    nq, nk = BWD_Q_TILE[d], BWD_K_TILE[d]
+    if d in WGMMA_HEAD_DIMS:
+        body, rows, nq, nk, stages, splits = ("wgmma", BWD_ROWS, BWD_Q_TILE[d], BWD_K_TILE[d],
+                                              BWD_STAGES, 1)
+        kv_smem, q_smem = wgmma_bwd_smem(d)
+    else:
+        body, rows, nq, nk, stages, splits = ("wgmma_wide", WIDE_BWD_ROWS, WIDE_BWD_TILE,
+                                              WIDE_BWD_TILE, WIDE_BWD_STAGES, d // WIDE_BWD_COLS)
+        kv_smem, q_smem = wide_bwd_smem(d)
     offsets = (0, c, 2 * c) if layout == "packed" else (0, 0, 0)
     row_dim, maps = _maps(layout, b, h, d,
                           ((lq, nq, offsets[0], in_stride), (lk, nk, offsets[1], in_stride),
                            (lk, nk, offsets[2], in_stride), (lq, nq, 0, c)))
-    kv_smem, q_smem = wgmma_bwd_smem(d)
-    return FlashBwdPlan("wgmma", BWD_ROWS, nq, BWD_ROWS, nk, BWD_STAGES,
-                        (-(-lk // BWD_ROWS), b * h), (-(-lq // BWD_ROWS), b * h), BWD_THREADS,
-                        kv_smem, q_smem, lq % nq != 0, lk % nk != 0, row_dim, maps, dq_strides,
-                        dkv_strides)
+    return FlashBwdPlan(body, rows, nq, rows, nk, stages, (-(-lk // rows), b * h),
+                        (-(-lq // rows), b * h), BWD_THREADS, kv_smem, q_smem, lq % nq != 0,
+                        lk % nk != 0, row_dim, maps, dq_strides, dkv_strides, splits)
 
 
 @dataclasses.dataclass(frozen=True)

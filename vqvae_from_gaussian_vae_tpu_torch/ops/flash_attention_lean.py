@@ -27,7 +27,8 @@ only: they do not set the Hopper kernels' tiling (bf16 forward: 192 q rows
 at D = 64 and 128 at D = 128 against 128-key tiles, 32 q rows against
 64-key tiles at D = 256 and 512; bf16 backward: 128-key and 128-q-row
 blocks against 64- or 32-row q tiles and 128- or 64-key tiles at D = 64
-and 128, 32-row tiles at D = 256 and 512; float32: ``flash_f32_plan``'s
+and 128, 64-key and 64-q-row blocks of 256 columns against 32-row tiles at
+D = 256 and 512; float32: ``flash_f32_plan``'s
 tiles at D = 64 and 128, 32-row tiles at D = 256 and 512, 16-row backward
 tiles at D = 512).  So where the JAX op fails inside its TPU kernel bodies
 rather than in a check (a k block that is not a multiple of the 128 lanes:
