@@ -29,11 +29,12 @@ then drives each path through the entry points a user calls, at bs=16,
     op no model calls: one training call (forward with residuals, then the
     backward) at B=1, H=12, L=8192, D=64, in bf16 and in float32 (split
     TF32 on the tensor cores);
-  * the flash labs (``labs/``: softmax policies and stage depth of the
-    forward, its tilings, the backward's tilings and no-softmax control),
-    every default combo at (16, 1024, 12, 64) bf16 through the labs' own
-    ``run``, each checked output held to the einsum reference and to its
-    plain version (``matonly`` is timed only);
+  * the flash labs (``labs/``: softmax policies and depth of the forward,
+    its tilings, the backward's tilings and no-softmax control, each on the
+    shipped ``wgmma`` body at its knobs), every default combo at (16, 1024,
+    12, 64) bf16 through the labs' own ``run``, each checked output held to
+    the einsum reference and to its plain version (``matonly`` is timed
+    only);
   * the LayerNorm-prologue matmul lab (``labs/exp_ln_matmul.py``): every
     default combo (the LN kernel + cuBLAS pair, the LN kernel + the hand
     matmul, the fused kernel at row blocks 128 to 1024) at (16384, 768) @
@@ -995,7 +996,8 @@ def check_layer_norm(gen, add: bool):
 def check_fused_gn_conv(gen):
     """The fused GroupNorm + swish + conv at every resblock conv shape of
     the sd3unet inference step (bf16), with a residual, and in float32 at a
-    small shape.  Each row times the wrapper (``gn_affine``'s plain torch,
+    small shape and at the float32 engine's 32x32 512-channel conv (TF32
+    off, as everywhere in the smoke).  Each row times the wrapper (``gn_affine``'s plain torch,
     then the kernel), the kernel alone on the affine made beforehand, and
     ``gn_affine`` alone; the bf16 kernel's output repeats bit for bit, and
     its facts (plan tiles, registers, no spills, HGMMA) are the Hopper
@@ -1006,7 +1008,10 @@ def check_fused_gn_conv(gen):
     from vqvae_from_gaussian_vae_tpu_torch.ops import fused_gn_conv as fgc
 
     cases = [(BATCH, h, c, o, n, torch.bfloat16, False) for h, c, o, n in UNET_CONVS]
-    cases += [(BATCH, 128, 512, 256, 0, torch.bfloat16, True), (2, 32, 64, 64, 0, torch.float32, False)]
+    # float32: a small shape, and the 32x32 512-channel resblock conv of the
+    # float32 engine the smoke holds the bf16 flows to (bs=2)
+    cases += [(BATCH, 128, 512, 256, 0, torch.bfloat16, True),
+              (2, 32, 64, 64, 0, torch.float32, False), (2, 32, 512, 512, 0, torch.float32, False)]
     shapes = []
     for b, h, c, o, n, dtype, residual in cases:
         x = (2 * torch.randn((b, h, h, c), generator=gen, device="cuda") + 0.3).to(dtype)
@@ -1976,11 +1981,20 @@ def run_flash_labs(gen):
                         warmup=1)}
     sdpa = {"fwd": LC.sdpa_fwd_ms(q, k, v), "bwd": LC.sdpa_bwd_ms(q2, k2, v2, do)}
 
+    def hgmma(kernel, args):
+        return next((n for name, n in sass_hgmma().items()
+                     if FL._template_args(name, kernel) == list(args)), 0)
+
     lines, best = [], {}
     for r in results:
         out = r.pop("out", None)
         line = {"phase": "flash_lab", **r}
         if "skipped" not in r:
+            kernels = (FL.BWD_KERNELS if r["lab"] == "exp_flash_bwd_variants"
+                       else (FL.FWD_KERNEL,))
+            line["sass_hgmma"] = {k: hgmma(k, r["kernel_args"]) for k in kernels}
+            require(all(line["sass_hgmma"].values()),
+                    f"flash lab {r['combo']}: no HGMMA in {line['sass_hgmma']}")
             bwd = r["lab"] == "exp_flash_bwd_variants"
             control = r["combo"].endswith(":control")
             if r["lab"] == "exp_flash_variants":
@@ -2008,7 +2022,8 @@ def run_flash_labs(gen):
         del out
         lines.append(line)
     for reason in lb.jax_default_reasons():
-        lines.append({"phase": "flash_lab", "lab": "exp_flash_bwd_variants", "skipped": reason})
+        lines.append({"phase": "flash_lab", "lab": "exp_flash_bwd_variants",
+                      "jax_default": reason})
 
     def entry(name, key, combo, source, replaces, counter, plain_key, sdpa_key):
         row = next(x for x in best[key] if x["combo"] == combo)
@@ -2025,11 +2040,11 @@ def run_flash_labs(gen):
     summary = [
         entry("flash_variant", "exp_flash_variants", "base:1", "flash_lab_fwd.cu",
               "scripts/exp_flash_variants.py:54", "flash_variant", "fwd", "fwd"),
-        entry("flash_fwd_tiling", "exp_flash_fwd_tilings", "12:256:16", "flash_lab_fwd.cu",
+        entry("flash_fwd_tiling", "exp_flash_fwd_tilings", "1:192:128", "flash_lab_fwd.cu",
               "scripts/exp_flash_fwd_tilings.py:32", "flash_fwd_tiling", "fwd", "fwd"),
-        entry("flash_bwd_tiling", "exp_flash_bwd_variants", "64:8:1", "flash_lab_bwd.cu",
+        entry("flash_bwd_tiling", "exp_flash_bwd_variants", "128:64:3", "flash_lab_bwd.cu",
               "scripts/exp_flash_bwd_variants.py:103", "flash_bwd_tiling", "bwd", "bwd"),
-        entry("flash_bwd_control", "exp_flash_bwd_variants:control", "64:8:1:control",
+        entry("flash_bwd_control", "exp_flash_bwd_variants:control", "128:64:3:control",
               "flash_lab_bwd.cu", "scripts/exp_flash_bwd_variants.py:49", "flash_bwd_control",
               "ctrl", "bwd")]
     del q, k, v, ref, state, q2, k2, v2, do, o, z, grads, plain_fwd, plain_bwd, plain_ctrl

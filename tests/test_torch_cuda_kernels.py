@@ -1048,48 +1048,59 @@ def test_flash_bwd_kernels_take_d256(gen):
 
 
 # the flash labs' kernels (ops/flash_lab.py) against their plain versions,
-# at a small lab shape (B=2, L=256, H=12, D=64)
-LAB_SHAPE = (2, 256, 12 * 64)
+# at a small lab shape (B=2, L=256, H=12, D=64: L = 256 leaves the 192-row
+# tilings a ragged last block) and at a ragged L = 200 (TMA's zero fill
+# past L, the last key tile masked)
+LAB_LENGTHS = (256, 200)
 
 
-def _lab_inputs(gen, n):
-    return [torch.randn(LAB_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+def _lab_inputs(gen, n, l=256):
+    return [torch.randn((2, l, 12 * 64), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(n)]
 
 
+@pytest.mark.parametrize("l", LAB_LENGTHS)
 @pytest.mark.parametrize("variant,depth", fx.VARIANT_COMBOS)
-def test_flash_variant_kernels_match_plain(gen, variant, depth):
-    q, k, v = _lab_inputs(gen, 3)
+def test_flash_variant_kernels_match_plain(gen, variant, depth, l):
+    q, k, v = _lab_inputs(gen, 3, l)
     before = fx.flash_variant_cuda.launches
     got = fx.flash_variant_cuda(q, k, v, variant, depth, 0.125, 12)
     assert fx.flash_variant_cuda.launches == before + 1 and got.shape == q.shape
     if variant != "matonly":  # no softmax: a row sum of raw scores, ill-conditioned
         want = fx.flash_variant_plain(q, k, v, variant, 0.125, 12)
         assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL
+    else:
+        assert bool(torch.isfinite(got.float()).all())
 
 
-@pytest.mark.parametrize("hpb,rows,warps", fx.FWD_TILINGS)
-def test_flash_fwd_tiling_kernels_match_plain(gen, hpb, rows, warps):
-    q, k, v = _lab_inputs(gen, 3)
-    got = fx.flash_fwd_tiling_cuda(q, k, v, hpb, rows, warps, 0.125, 12)
+@pytest.mark.parametrize("l", LAB_LENGTHS)
+@pytest.mark.parametrize("hpb,rows,keys", fx.FWD_TILINGS)
+def test_flash_fwd_tiling_kernels_match_plain(gen, hpb, rows, keys, l):
+    q, k, v = _lab_inputs(gen, 3, l)
+    got = fx.flash_fwd_tiling_cuda(q, k, v, hpb, rows, keys, 0.125, 12)
     want = fx.flash_variant_plain(q, k, v, "base", 0.125, 12)
     assert float((got.float() - want.float()).abs().max()) <= FLASH_ATOL
 
 
-@pytest.mark.parametrize("rows,warps,pipe", fx.BWD_TILINGS)
-def test_flash_bwd_tiling_kernels_match_plain(gen, rows, warps, pipe):
-    q, k, v, do = _lab_inputs(gen, 4)
-    o, z = fa.flash_attention_res_cuda(q, k, v, 0.125, 12)
-    got = fx.flash_bwd_tiling_cuda(q, k, v, o, z, do, rows, warps, pipe, 0.125, 12)
+@pytest.mark.parametrize("l", LAB_LENGTHS)
+@pytest.mark.parametrize("rows,tile,stages", fx.BWD_TILINGS)
+def test_flash_bwd_tiling_kernels_match_plain(gen, rows, tile, stages, l):
+    q, k, v, do = _lab_inputs(gen, 4, l)
+    o, z = fa.flash_attention_res_plain(q, k, v, 0.125, 12)
+    o, z = o.contiguous(), z.contiguous()
+    got = fx.flash_bwd_tiling_cuda(q, k, v, o, z, do, rows, tile, stages, 0.125, 12)
     want = fa.flash_attention_bwd_plain(q, k, v, o, z, do, 0.125, 12)
     for g, w in zip(got, want):
         assert _rel_max(g, w) <= FLASH_BWD_REL
+    again = fx.flash_bwd_tiling_cuda(q, k, v, o, z, do, rows, tile, stages, 0.125, 12)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
 
 
-@pytest.mark.parametrize("rows,warps,pipe", fx.BWD_CONTROLS)
-def test_flash_bwd_control_kernels_match_plain(gen, rows, warps, pipe):
-    q, k, v, do = _lab_inputs(gen, 4)
-    got = fx.flash_bwd_control_cuda(q, k, v, do, rows, warps, pipe, 12)
+@pytest.mark.parametrize("l", LAB_LENGTHS)
+@pytest.mark.parametrize("rows,tile,stages", fx.BWD_CONTROLS)
+def test_flash_bwd_control_kernels_match_plain(gen, rows, tile, stages, l):
+    q, k, v, do = _lab_inputs(gen, 4, l)
+    got = fx.flash_bwd_control_cuda(q, k, v, do, rows, tile, stages, 12)
     want = fx.flash_bwd_control_plain(q, k, v, do, 12)
     for g, w in zip(got, want):
         assert _rel_max(g, w) <= FLASH_BWD_REL
@@ -1099,7 +1110,7 @@ def test_flash_lab_kernels_refuse_uncompiled_combos(gen):
     q, k, v = _lab_inputs(gen, 3)
     before = fx.flash_fwd_tiling_cuda.launches
     with pytest.raises(ValueError, match="compiled ones are"):
-        fx.flash_fwd_tiling_cuda(q, k, v, 4, 128, 8, 0.125, 12)
+        fx.flash_fwd_tiling_cuda(q, k, v, 4, 128, 128, 0.125, 12)
     with pytest.raises(ValueError, match="compiled ones are"):
         fx.flash_variant_cuda(q, k, v, "chunk", 2, 0.125, 12)
     assert fx.flash_fwd_tiling_cuda.launches == before

@@ -175,56 +175,65 @@ def test_bwd_control_plain_matches_the_jax_lab(inputs):
 def test_command_lines_parse_the_jax_syntax():
     assert lab_variants.parse_combos(["base:1", "matonly:1", "sbf16:1", "base:2"]) == \
         [("base", 1), ("matonly", 1), ("sbf16", 1), ("base", 2)]
-    # hpb:block_q (warps by default) and hpb:rows:warps; 512 rows cannot fit and
+    # hpb:block_q (keys by default) and hpb:rows:keys; 512 rows cannot fit and
     # stay listed, for run() to report why
-    assert lab_tilings.parse_combos(["12:256", "1:32:8", "4:512"]) == \
-        [(12, 256, 16), (1, 32, 8), (4, 512, 16)]
-    assert lab_bwd.parse_combos(["64:8:2", "32:4:1", "64:8:1:control"]) == \
-        [(64, 8, 2, False), (32, 4, 1, False), (64, 8, 1, True)]
+    assert lab_tilings.parse_combos(["12:256", "1:192:128", "4:512"]) == \
+        [(12, 256, 64), (1, 192, 128), (4, 512, 64)]
+    assert lab_bwd.parse_combos(["128:64:2", "128:32:4", "128:64:3:control"]) == \
+        [(128, 64, 2, False), (128, 32, 4, False), (128, 64, 3, True)]
     # every default combo is compiled
     assert lab_variants.parse_combos([f"{v}:{p}" for v, p in lab_variants.DEFAULT_COMBOS])
-    for rows, warps, pipe, control in lab_bwd.DEFAULT_COMBOS:
-        FL.check_bwd_tiling(rows, warps, pipe, control)
+    for rows, tile, stages, control in lab_bwd.DEFAULT_COMBOS:
+        FL.check_bwd_tiling(rows, tile, stages, control)
+    for t in lab_tilings.default_combos():
+        if lab_tilings.no_counterpart(*t) is None:
+            FL.check_fwd_tiling(*t)
 
 
 @pytest.mark.parametrize("lab,arg", [(lab_variants, "base:3"), (lab_variants, "softmax:1"),
-                                     (lab_tilings, "4:128"), (lab_tilings, "3:256:16"),
-                                     (lab_bwd, "32:8:2"), (lab_bwd, "32:8:1:control")])
+                                     (lab_tilings, "4:128"), (lab_tilings, "3:256:64"),
+                                     (lab_bwd, "128:32:2"), (lab_bwd, "128:32:3:control")])
 def test_command_lines_refuse_uncompiled_combos_by_name(lab, arg):
     with pytest.raises(ValueError, match="compiled ones are"):
         lab.parse_combos([arg])
 
 
 def test_jax_defaults_have_a_counterpart_or_a_reason():
-    """B16's 512-row tilings and every B17 JAX default are reported with the
-    shared memory they would need; the compiled tilings fit."""
+    """B16's 512-row tilings are reported with the threads they would need
+    (eight consumer warpgroups and the producer's); every B17 JAX default
+    has a counterpart on the shipped backward body or a reason in its
+    terms; the compiled combinations fit."""
     for hpb, rows in lab_tilings.JAX_DEFAULTS:
-        warps = lab_tilings.default_warps(rows)
-        r = lab_tilings.run(hpb, rows, warps) if rows > 256 else None
+        keys = lab_tilings.default_keys(rows)
         if rows > 256:
-            assert str(FL.fwd_smem_bytes(rows)) in r["skipped"]
+            r = lab_tilings.run(hpb, rows, keys)
+            assert "1152 threads" in r["skipped"]
         else:
-            FL.check_fwd_tiling(hpb, rows, warps)
-    assert FL.fwd_smem_bytes(256) == 225_280 and FL.fwd_smem_bytes(512) == 441_344
+            FL.check_fwd_tiling(hpb, rows, keys)
     lines = lab_bwd.jax_default_reasons()
-    assert len(lines) == len(lab_bwd.JAX_DEFAULTS) and all("no counterpart" in s for s in lines)
-    for hpb, rows, warps in FL.FWD_TILINGS:
-        assert FL.fwd_smem_bytes(rows) <= FL.SMEM_LIMIT and 12 % hpb == 0  # the labs' H
+    assert len(lines) == len(lab_bwd.JAX_DEFAULTS)
+    assert all(("counterpart 128:64:" in s) == (" bq=128 " in s) for s in lines)
+    assert all("no counterpart" in s for s in lines if " bq=128 " not in s)
+    for hpb, rows, keys in FL.FWD_TILINGS:
+        assert FL.fwd_smem_bytes(hpb, rows, keys) <= FL.SMEM_LIMIT and 12 % hpb == 0
     for policy, depth in FL.VARIANT_COMBOS:
-        assert FL.fwd_smem_bytes(32, policy, depth) <= FL.SMEM_LIMIT
-    for rows, warps, pipe in FL.BWD_TILINGS + FL.BWD_CONTROLS:
-        assert FL.bwd_smem_bytes(rows, pipe) <= FL.SMEM_LIMIT
+        assert FL.fwd_smem_bytes(*FL.variant_tiling(policy, depth), policy) <= FL.SMEM_LIMIT
+    for rows, tile, stages in FL.BWD_TILINGS + FL.BWD_CONTROLS:
+        assert max(FL.bwd_smem_bytes(tile, stages)) <= FL.SMEM_LIMIT
 
 
 def test_ptxas_report_is_matched_to_a_combination():
-    name = "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb0ELi256ELi16ELi12ELi0ELi1EEEvNS_7FwdArgsE"
-    bwd = ("_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelILi64ELi64ELi8ELb0ELi2ELb1EEEvNS_7BwdArgsE")
-    usage = {name: {"registers": 128}, bwd: {"registers": 96}}
-    assert FL.ptxas_of(usage, "flash_fwd_kernel",
-                       FL.fwd_kernel_args("base", 1, 12, 256, 16)) == {"registers": 128}
-    assert FL.ptxas_of(usage, "flash_fwd_kernel", FL.fwd_kernel_args("base", 1, 1, 32, 8)) == {}
-    assert FL.ptxas_of(usage, "flash_bwd_dkdv_kernel",
-                       FL.bwd_kernel_args(64, 8, 2, True)) == {"registers": 96}
+    fwd = ("_ZN12_GLOBAL__N_120flash_lab_fwd_kernelILb0ELi4ELi64ELi12ELi0ELi1EEEv14CUtensorMap_st"
+           "S1_S1_NS_6F9ArgsE")
+    bwd = ("_ZN12_GLOBAL__N_121flash_lab_dkdv_kernelILb0ELi64ELi3ELb1EEEv14CUtensorMap_stS1_S1_"
+           "S1_NS_6B9ArgsE")
+    usage = {fwd: {"registers": 96}, bwd: {"registers": 168}}
+    assert FL.ptxas_of(usage, FL.FWD_KERNEL,
+                       FL.fwd_kernel_args("base", 1, 12, 256, 64)) == {"registers": 96}
+    assert FL.ptxas_of(usage, FL.FWD_KERNEL, FL.fwd_kernel_args("base", 1, 1, 192, 128)) == {}
+    assert FL.ptxas_of(usage, FL.BWD_KERNELS[0],
+                       FL.bwd_kernel_args(64, 3, True)) == {"registers": 168}
+    assert FL.ptxas_of(usage, FL.BWD_KERNELS[1], FL.bwd_kernel_args(64, 3, True)) == {}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_the_labs_need_a_card(inputs):
@@ -233,11 +242,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_the_labs_need_a_card(inputs):
     with pytest.raises(ValueError):
         FL.flash_variant_cuda(tq, tk, tv, "base", 1, SCALE, H)
     with pytest.raises(ValueError):
-        FL.flash_fwd_tiling_cuda(tq, tk, tv, 1, 32, 8, SCALE, H)
+        FL.flash_fwd_tiling_cuda(tq, tk, tv, 1, 192, 128, SCALE, H)
     with pytest.raises(ValueError):
-        FL.flash_bwd_tiling_cuda(tq, tk, tv, tq, z, tdo, 64, 8, 1, SCALE, H)
+        FL.flash_bwd_tiling_cuda(tq, tk, tv, tq, z, tdo, 128, 64, 3, SCALE, H)
     with pytest.raises(ValueError):
-        FL.flash_bwd_control_cuda(tq, tk, tv, tdo, 64, 8, 1, H)
+        FL.flash_bwd_control_cuda(tq, tk, tv, tdo, 128, 64, 3, H)
     assert (FL.flash_variant_cuda.launches, FL.flash_fwd_tiling_cuda.launches,
             FL.flash_bwd_tiling_cuda.launches, FL.flash_bwd_control_cuda.launches) == (0, 0, 0, 0)
     if not torch.cuda.is_available():

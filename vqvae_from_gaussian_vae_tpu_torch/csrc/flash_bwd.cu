@@ -51,9 +51,8 @@
 // wide wgmma body of csrc/flash_bwd_sm90_wide.cuh (64 keys or q rows a
 // block, the head dim's columns split over two warpgroups and, for dK/dV
 // at D = 512, over two blocks).  Both are TMA rings, scores, P and dS in
-// registers; each header says what it does about its costs.  The wmma body
-// of csrc/flash_bwd.cuh serves the backward lab (csrc/flash_lab_bwd.cu)
-// alone.
+// registers; each header says what it does about its costs.  The backward
+// lab (csrc/flash_lab_bwd.cu) instantiates flash_bwd_sm90.cuh at its knobs.
 //
 // gvq_flash_bwd_hm_f32 is the head-major backward for float32 tensors (the
 // JAX op runs float32 too), held to the plain version within 1e-4 of its
@@ -71,6 +70,50 @@
 #include "flash_f32.cuh"
 
 namespace {
+
+// The shipped launches of flash_bwd_sm90.cuh's kernels (here, so that the
+// lab's sources, which include the body, compile none of them)
+template <int D, bool kQMask, bool kKeyMask>
+int launch_b9(const CUtensorMap (&m)[4], const B9Args& a, dim3 kv_grid, dim3 q_grid,
+              cudaStream_t stream) {
+  const int err = b9_launch(flash_bwd_dkdv_sm90_kernel<D, kQMask>, kv_grid,
+                            B9KvLayout<D>::kSmem, 1, m, a, stream);
+  if (err != 0) return err;
+  return b9_launch(flash_bwd_dq_sm90_kernel<D, kKeyMask>, q_grid, B9QLayout<D>::kSmem, 1, m, a,
+                   stream);
+}
+
+template <int D>
+int launch_b9_masks(const CUtensorMap (&m)[4], const B9Args& a, const BwdPlan& p,
+                    cudaStream_t stream) {
+  const dim3 kv_grid((unsigned)p.kv_grid_x, (unsigned)p.kv_grid_y);
+  const dim3 q_grid((unsigned)p.q_grid_x, (unsigned)p.q_grid_y);
+  if (p.q_mask)
+    return p.key_mask ? launch_b9<D, true, true>(m, a, kv_grid, q_grid, stream)
+                      : launch_b9<D, true, false>(m, a, kv_grid, q_grid, stream);
+  return p.key_mask ? launch_b9<D, false, true>(m, a, kv_grid, q_grid, stream)
+                    : launch_b9<D, false, false>(m, a, kv_grid, q_grid, stream);
+}
+
+// Hold the plan to this body and the entry's shapes (bwd_plan_maps), then
+// launch the di pre-pass (o and do as sdo says; di into a.di), the dK/dV
+// kernel and the dQ kernel.
+inline int launch_flash_bwd_sm90(const BwdPlan& p, const bf16* const (&bases)[4], const B9Args& a,
+                                 const bf16* o, Strides sdo, int B, int D, cudaStream_t stream) {
+  const int nq = b9_q_tile(D), nk = b9_k_tile(D);
+  const long long kv_smem = D == 64 ? B9KvLayout<64>::kSmem : B9KvLayout<128>::kSmem;
+  const long long q_smem = D == 64 ? B9QLayout<64>::kSmem : B9QLayout<128>::kSmem;
+  CUtensorMap maps[4];
+  if ((D != 64 && D != 128) || !bwd_plan_maps(p, bases, a, B, D, 1, kB9Rows, nq, nk, kB9Stages,
+                                               kv_smem, q_smem, 1, maps))
+    return (int)cudaErrorInvalidValue;
+  const int err = D == 64 ? launch_b9_di<64>(o, bases[3], a.di, sdo, B, a.Lq, a.H, stream)
+                          : launch_b9_di<128>(o, bases[3], a.di, sdo, B, a.Lq, a.H, stream);
+  if (err != 0) return err;
+  return D == 64 ? launch_b9_masks<64>(maps, a, p, stream)
+                 : launch_b9_masks<128>(maps, a, p, stream);
+}
+
 
 // Route a backward by its plan over the maps of bases[] (q, k, v, do),
 // whose coordinates put the row at a.row_dim (1 head-major, 2

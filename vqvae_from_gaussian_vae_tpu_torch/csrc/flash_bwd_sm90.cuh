@@ -2,8 +2,10 @@
 // head dims 64 and 128: every bf16 backward entry of csrc/flash_bwd.cu at
 // those D (gvq_flash_bwd_qkv, gvq_flash_bwd, gvq_flash_bwd_hm).  D = 256 and
 // 512 run csrc/flash_bwd_sm90_wide.cuh, which shares this body's di
-// pre-pass, launch plan, argument struct and elementwise steps; the backward
-// lab runs the wmma body of csrc/flash_bwd.cuh.
+// pre-pass, launch plan, argument struct and elementwise steps.  The
+// backward lab (csrc/flash_lab_bwd.cu, B17) instantiates this body at other
+// knobs (B9Knobs: streamed tile rows, stages, the no-softmax control); the
+// shipped entries run B9Ship<D>.
 //
 // Replaces the TPU kernels vqvae_from_gaussian_vae_tpu/ops/flash_blc.py
 // _bwd_impl (packed and unpacked; body _bwd_kernel) and the backward of
@@ -23,7 +25,7 @@
 // 101 MB.  Each score costs two expf (one in each kernel below) and a dozen
 // other instructions.
 //
-// The design, against what held the wmma body (csrc/flash_bwd.cuh) back:
+// The design, against what held the port's first (wmma) body back:
 // 1. Scores, P and dS never touch shared memory.  Every product is wgmma
 //    with its accumulator in registers; p and ds are computed on the
 //    accumulator registers and rounded to bf16 in the accumulator's own
@@ -113,18 +115,34 @@ constexpr int kB9Threads = 384;  // two consumer warpgroups and the producer war
 constexpr int kB9ProducerRegs = 40, kB9ConsumerRegs = 232;
 
 // q rows a streamed tile of the dK/dV kernel (the box rows of q and dO), and
-// keys a streamed tile of the dQ kernel (the box rows of k and v)
+// keys a streamed tile of the dQ kernel (the box rows of k and v): twice
+// the q tile's rows
 __host__ __device__ constexpr int b9_q_tile(int d) { return d == 64 ? 64 : 32; }
-__host__ __device__ constexpr int b9_k_tile(int d) { return d == 64 ? 128 : 64; }
+__host__ __device__ constexpr int b9_k_tile(int d) { return 2 * b9_q_tile(d); }
+
+// The body's knobs: NQ q rows a streamed tile of the dK/dV kernel (the dQ
+// kernel streams 2 NQ keys a tile), STAGES streamed tiles in flight, and
+// CONTROL, the lab's no-softmax control (p = bf16(s), ds = bf16(dp),
+// unscaled; no z, no di).  The shipped entries run B9Ship<D>; the backward
+// lab (csrc/flash_lab_bwd.cu) the others.
+template <int NQ, int STAGES = kB9Stages, bool CONTROL = false>
+struct B9Knobs {
+  static constexpr int kNQ = NQ, kNK = 2 * NQ, kStages = STAGES;
+  static constexpr bool kControl = CONTROL;
+};
+
+template <int D>
+using B9Ship = B9Knobs<b9_q_tile(D)>;
 
 // Shared memory of the dK/dV kernel, from a 1024-byte-aligned base: the K
 // tile, the V tile (128 rows each), the ring's stages (a q tile and a dO
 // tile each), z and di of each stage (float32), then the mbarriers (K/V
 // full; per stage tile full, z/di full, empty).  A tile of `rows` x D is
 // D / 64 chunks of rows x 128 bytes, as the 128-byte swizzle lays them.
-template <int D>
+template <int D, class K = B9Ship<D>>
 struct B9KvLayout {
-  static constexpr int kQRows = b9_q_tile(D);
+  static constexpr int kStages = K::kStages;
+  static constexpr int kQRows = K::kNQ;
   static constexpr int kChunks = D / 64;
   static constexpr uint32_t kChunkKV = kB9Rows * 128;
   static constexpr uint32_t kChunkQ = kQRows * 128;
@@ -132,17 +150,18 @@ struct B9KvLayout {
   static constexpr uint32_t kQ = kChunks * kChunkQ;
   static constexpr uint32_t kStage = 2 * kQ;
   static constexpr uint32_t kRing = 2 * kKV;
-  static constexpr uint32_t kZd = kRing + kB9Stages * kStage;  // stage s: z, then di, kQRows each
-  static constexpr uint32_t kBars = kZd + kB9Stages * 2 * kQRows * 4;
-  static constexpr size_t kSmem = kBars + (1 + 3 * kB9Stages) * 8 + 1024;  // + alignment slack
+  static constexpr uint32_t kZd = kRing + kStages * kStage;  // stage s: z, then di, kQRows each
+  static constexpr uint32_t kBars = kZd + kStages * 2 * kQRows * 4;
+  static constexpr size_t kSmem = kBars + (1 + 3 * kStages) * 8 + 1024;  // + alignment slack
 };
 
 // Shared memory of the dQ kernel: the Q tile and the dO tile (128 rows
 // each), the ring's stages (a K tile and a V tile each), the mbarriers (Q/dO
 // full; per stage full, empty).
-template <int D>
+template <int D, class K = B9Ship<D>>
 struct B9QLayout {
-  static constexpr int kKRows = b9_k_tile(D);
+  static constexpr int kStages = K::kStages;
+  static constexpr int kKRows = K::kNK;
   static constexpr int kChunks = D / 64;
   static constexpr uint32_t kChunkQ = kB9Rows * 128;
   static constexpr uint32_t kChunkK = kKRows * 128;
@@ -150,8 +169,8 @@ struct B9QLayout {
   static constexpr uint32_t kK = kChunks * kChunkK;
   static constexpr uint32_t kStage = 2 * kK;
   static constexpr uint32_t kRing = 2 * kQ;
-  static constexpr uint32_t kBars = kRing + kB9Stages * kStage;
-  static constexpr size_t kSmem = kBars + (1 + 2 * kB9Stages) * 8 + 1024;
+  static constexpr uint32_t kBars = kRing + kStages * kStage;
+  static constexpr size_t kSmem = kBars + (1 + 2 * kStages) * 8 + 1024;
 };
 
 struct B9Args {
@@ -226,18 +245,25 @@ __device__ __forceinline__ void b9_round(const float (&s)[N / 2], uint32_t (&f)[
 // warp's 16 and q column 8 j + 2 (lane % 4) + e % 2 of the tile, whose z
 // and di (by column) are in shared memory.  s becomes p, dp becomes ds; kLast:
 // the columns at or past `valid` (q rows past Lq) get p = ds = 0.
-template <int N, bool kLast>
+// kControl (the lab's control): p = s and ds = dp, unscaled, reading no z
+// and no di.
+template <int N, bool kLast, bool kControl = false>
 __device__ __forceinline__ void b9_kv_probs(float (&s)[N / 2], float (&dp)[N / 2], const float* zs,
                                             const float* dis, float scale, int valid) {
   const int c0 = 2 * (threadIdx.x & 3);
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const float2 zz = *reinterpret_cast<const float2*>(zs + 8 * j + c0);
-    const float2 dd = *reinterpret_cast<const float2*>(dis + 8 * j + c0);
+    float2 zz = make_float2(0.0f, 0.0f), dd = zz;
+    if constexpr (!kControl) {
+      zz = *reinterpret_cast<const float2*>(zs + 8 * j + c0);
+      dd = *reinterpret_cast<const float2*>(dis + 8 * j + c0);
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = expf(s[4 * j + e] * scale - ((e & 1) ? zz.y : zz.x));
-      const float ds = p * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x)) * scale;
+      const float p =
+          kControl ? s[4 * j + e] : expf(s[4 * j + e] * scale - ((e & 1) ? zz.y : zz.x));
+      const float ds =
+          kControl ? dp[4 * j + e] : p * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x)) * scale;
       const bool out = kLast && 8 * j + c0 + (e & 1) >= valid;
       s[4 * j + e] = out ? 0.0f : p;
       dp[4 * j + e] = out ? 0.0f : ds;
@@ -247,8 +273,8 @@ __device__ __forceinline__ void b9_kv_probs(float (&s)[N / 2], float (&dp)[N / 2
 
 // ds of one key tile on this thread's scores (rows r and r + 8, whose z and
 // di the thread holds; key column 8 j + 2 (lane % 4) + e % 2), into s;
-// kLast: the keys at or past `valid` get ds = 0
-template <int N, bool kLast>
+// kLast: the keys at or past `valid` get ds = 0; kControl: ds = dp
+template <int N, bool kLast, bool kControl = false>
 __device__ __forceinline__ void b9_q_ds(float (&s)[N / 2], const float (&dp)[N / 2], float z0,
                                         float z1, float di0, float di1, float scale, int valid) {
   const int c0 = 2 * (threadIdx.x & 3);
@@ -256,8 +282,8 @@ __device__ __forceinline__ void b9_q_ds(float (&s)[N / 2], const float (&dp)[N /
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = expf(s[4 * j + e] * scale - (e < 2 ? z0 : z1));
-      const float ds = p * (dp[4 * j + e] - (e < 2 ? di0 : di1)) * scale;
+      const float p = kControl ? 0.0f : expf(s[4 * j + e] * scale - (e < 2 ? z0 : z1));
+      const float ds = kControl ? dp[4 * j + e] : p * (dp[4 * j + e] - (e < 2 ? di0 : di1)) * scale;
       s[4 * j + e] = kLast && 8 * j + c0 + (e & 1) >= valid ? 0.0f : ds;
     }
 }
@@ -302,12 +328,13 @@ __device__ __forceinline__ void b9_turn_pass(bool pp, int wg, bool last) {
 // then dV += P_{t-1}^T dO_{t-1} and dK += dS_{t-1}^T Q_{t-1}; computes tile
 // t's p and ds while the latter run; then releases tile t-1's stage (each
 // warp, after its reads of z and di) and rounds p and ds.
-template <int D, bool kMask>
+template <int D, bool kMask, class K = B9Ship<D>>
 __device__ __forceinline__ void b9_kv_consume(const B9Args& a, uint32_t base,
                                               const unsigned char* basep, int n_tiles, int k0,
                                               int bh, bool pp) {
-  using Lay = B9KvLayout<D>;
-  constexpr int S = kB9Stages, NQ = Lay::kQRows;
+  using Lay = B9KvLayout<D, K>;
+  constexpr int S = K::kStages, NQ = Lay::kQRows;
+  constexpr bool C = K::kControl;
   const uint32_t ring = base + Lay::kRing;
   const uint32_t kv_bar = base + Lay::kBars;
   const uint32_t full = kv_bar + 8, zd_full = full + 8 * S, empty = zd_full + 8 * S;
@@ -334,9 +361,9 @@ __device__ __forceinline__ void b9_kv_consume(const B9Args& a, uint32_t base,
   wg_fence_acc(s);
   wg_fence_acc(dp);
   if (kMask && n_tiles == 1)
-    b9_kv_probs<NQ, true>(s, dp, zd, zd + NQ, a.scale, a.Lq);
+    b9_kv_probs<NQ, true, C>(s, dp, zd, zd + NQ, a.scale, a.Lq);
   else
-    b9_kv_probs<NQ, false>(s, dp, zd, zd + NQ, a.scale, NQ);
+    b9_kv_probs<NQ, false, C>(s, dp, zd, zd + NQ, a.scale, NQ);
   b9_round<NQ>(s, pf);
   b9_round<NQ>(dp, dsf);
 
@@ -363,9 +390,9 @@ __device__ __forceinline__ void b9_kv_consume(const B9Args& a, uint32_t base,
     wg_fence_acc(dp);
     const float* zs = zd + st * 2 * NQ;
     if (kMask && t == n_tiles - 1)
-      b9_kv_probs<NQ, true>(s, dp, zs, zs + NQ, a.scale, a.Lq - t * NQ);
+      b9_kv_probs<NQ, true, C>(s, dp, zs, zs + NQ, a.scale, a.Lq - t * NQ);
     else
-      b9_kv_probs<NQ, false>(s, dp, zs, zs + NQ, a.scale, NQ);
+      b9_kv_probs<NQ, false, C>(s, dp, zs, zs + NQ, a.scale, NQ);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");  // dV, dK of tile t - 1
     wg_fence_acc(dk);
     wg_fence_acc(dv);
@@ -398,14 +425,16 @@ __device__ __forceinline__ void b9_kv_consume(const B9Args& a, uint32_t base,
   b9_store<D>(dv, a.dv + off, a.skv_row, k0 + wg * 64, a.Lk);
 }
 
-template <int D, bool kMask>
-__global__ void __launch_bounds__(kB9Threads, 1)
-flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
-                           const __grid_constant__ CUtensorMap tmap_k,
-                           const __grid_constant__ CUtensorMap tmap_v,
-                           const __grid_constant__ CUtensorMap tmap_do, B9Args a) {
-  using Lay = B9KvLayout<D>;
-  constexpr int S = kB9Stages, NQ = Lay::kQRows;
+// A dK/dV block: keys blockIdx.x * 128.. of (b, h) = blockIdx.y.  The
+// producer warp's thread 0 copies K and V once and each q tile and dO tile
+// through the ring; its 32 lanes store each tile's z and di (none in the
+// control).
+template <int D, bool kMask, class K = B9Ship<D>>
+__device__ __forceinline__ void b9_kv_block(const CUtensorMap* tmap_q, const CUtensorMap* tmap_k,
+                                            const CUtensorMap* tmap_v,
+                                            const CUtensorMap* tmap_do, const B9Args& a) {
+  using Lay = B9KvLayout<D, K>;
+  constexpr int S = K::kStages, NQ = Lay::kQRows;
   extern __shared__ unsigned char b9_smem[];
   const uint32_t raw = wg_smem_addr(b9_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atom
@@ -440,12 +469,11 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
       const int b = bh / a.H, h = bh - b * a.H;
       if (lane == 0) {
         mbar_arrive_expect_tx(kv_bar, 2 * Lay::kKV);
-        b9_load_tile<D>(base, &tmap_k, kv_bar, a.row_dim, kB9Rows, b9_k_tile(D), k0, b, h);
-        b9_load_tile<D>(base + Lay::kKV, &tmap_v, kv_bar, a.row_dim, kB9Rows, b9_k_tile(D), k0,
-                        b, h);
+        b9_load_tile<D>(base, tmap_k, kv_bar, a.row_dim, kB9Rows, K::kNK, k0, b, h);
+        b9_load_tile<D>(base + Lay::kKV, tmap_v, kv_bar, a.row_dim, kB9Rows, K::kNK, k0, b, h);
       }
-      const float* zb = a.z + (size_t)bh * a.Lq;
-      const float* dib = a.di + (size_t)bh * a.Lq;
+      const float* zb = K::kControl ? nullptr : a.z + (size_t)bh * a.Lq;
+      const float* dib = K::kControl ? nullptr : a.di + (size_t)bh * a.Lq;
       float* zd = reinterpret_cast<float*>(basep + Lay::kZd);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % S;
@@ -453,15 +481,17 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
         if (lane == 0) {
           const uint32_t qd = ring + s * Lay::kStage;
           mbar_arrive_expect_tx(full + 8 * s, Lay::kStage);
-          b9_load_tile<D>(qd, &tmap_q, full + 8 * s, a.row_dim, NQ, NQ, t * NQ, b, h);
-          b9_load_tile<D>(qd + Lay::kQ, &tmap_do, full + 8 * s, a.row_dim, NQ, NQ, t * NQ, b, h);
+          b9_load_tile<D>(qd, tmap_q, full + 8 * s, a.row_dim, NQ, NQ, t * NQ, b, h);
+          b9_load_tile<D>(qd + Lay::kQ, tmap_do, full + 8 * s, a.row_dim, NQ, NQ, t * NQ, b, h);
         }
-        float* zs = zd + s * 2 * NQ;
-        for (int i = lane; i < NQ; i += 32) {
-          const int row = t * NQ + i;
-          const bool in = row < a.Lq;
-          zs[i] = in ? zb[row] : 0.0f;
-          zs[NQ + i] = in ? dib[row] : 0.0f;
+        if constexpr (!K::kControl) {
+          float* zs = zd + s * 2 * NQ;
+          for (int i = lane; i < NQ; i += 32) {
+            const int row = t * NQ + i;
+            const bool in = row < a.Lq;
+            zs[i] = in ? zb[row] : 0.0f;
+            zs[NQ + i] = in ? dib[row] : 0.0f;
+          }
         }
         mbar_arrive(zd_full + 8 * s);
       }
@@ -469,19 +499,29 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kB9ConsumerRegs));
     if (warp / 4 < active)
-      b9_kv_consume<D, kMask>(a, base, basep, n_tiles, k0, bh, active == 2);
+      b9_kv_consume<D, kMask, K>(a, base, basep, n_tiles, k0, bh, active == 2);
   }
+}
+
+template <int D, bool kMask>
+__global__ void __launch_bounds__(kB9Threads, 1)
+flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                           const __grid_constant__ CUtensorMap tmap_k,
+                           const __grid_constant__ CUtensorMap tmap_v,
+                           const __grid_constant__ CUtensorMap tmap_do, B9Args a) {
+  b9_kv_block<D, kMask>(&tmap_q, &tmap_k, &tmap_v, &tmap_do, a);
 }
 
 // A dQ consumer warpgroup: warpgroup wg owns q rows q0 + 64 wg .. + 63 of
 // (b, h) = bh.  Per key tile t it starts S = Q K_t^T and dP = dO V_t^T, then
 // dQ += dS_{t-1} K_{t-1}; computes tile t's ds while the latter runs; then
 // releases tile t-1's stage and rounds ds.
-template <int D, bool kMask>
+template <int D, bool kMask, class K = B9Ship<D>>
 __device__ __forceinline__ void b9_q_consume(const B9Args& a, uint32_t base, int n_tiles, int q0,
                                              int bh, bool pp) {
-  using Lay = B9QLayout<D>;
-  constexpr int S = kB9Stages, NK = Lay::kKRows;
+  using Lay = B9QLayout<D, K>;
+  constexpr int S = K::kStages, NK = Lay::kKRows;
+  constexpr bool C = K::kControl;
   const uint32_t ring = base + Lay::kRing;
   const uint32_t q_bar = base + Lay::kBars;
   const uint32_t full = q_bar + 8, empty = full + 8 * S;
@@ -489,10 +529,15 @@ __device__ __forceinline__ void b9_q_consume(const B9Args& a, uint32_t base, int
   const uint32_t qa = base + wg * 64 * 128, doa = qa + Lay::kQ;
   // z and di of this thread's rows r0 and r0 + 8 (0 past Lq: computed, not stored)
   const int r0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
-  const float* zb = a.z + (size_t)bh * a.Lq;
-  const float* dib = a.di + (size_t)bh * a.Lq;
-  const float z0 = r0 < a.Lq ? zb[r0] : 0.0f, z1 = r0 + 8 < a.Lq ? zb[r0 + 8] : 0.0f;
-  const float di0 = r0 < a.Lq ? dib[r0] : 0.0f, di1 = r0 + 8 < a.Lq ? dib[r0 + 8] : 0.0f;
+  float z0 = 0.0f, z1 = 0.0f, di0 = 0.0f, di1 = 0.0f;
+  if constexpr (!C) {
+    const float* zb = a.z + (size_t)bh * a.Lq;
+    const float* dib = a.di + (size_t)bh * a.Lq;
+    z0 = r0 < a.Lq ? zb[r0] : 0.0f;
+    z1 = r0 + 8 < a.Lq ? zb[r0 + 8] : 0.0f;
+    di0 = r0 < a.Lq ? dib[r0] : 0.0f;
+    di1 = r0 + 8 < a.Lq ? dib[r0 + 8] : 0.0f;
+  }
   float dq[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
@@ -512,9 +557,9 @@ __device__ __forceinline__ void b9_q_consume(const B9Args& a, uint32_t base, int
   wg_fence_acc(s);
   wg_fence_acc(dp);
   if (kMask && n_tiles == 1)
-    b9_q_ds<NK, true>(s, dp, z0, z1, di0, di1, a.scale, a.Lk);
+    b9_q_ds<NK, true, C>(s, dp, z0, z1, di0, di1, a.scale, a.Lk);
   else
-    b9_q_ds<NK, false>(s, dp, z0, z1, di0, di1, a.scale, NK);
+    b9_q_ds<NK, false, C>(s, dp, z0, z1, di0, di1, a.scale, NK);
   b9_round<NK>(s, dsf);
 
   for (int t = 1; t < n_tiles; ++t) {
@@ -535,9 +580,9 @@ __device__ __forceinline__ void b9_q_consume(const B9Args& a, uint32_t base, int
     wg_fence_acc(s);
     wg_fence_acc(dp);
     if (kMask && t == n_tiles - 1)
-      b9_q_ds<NK, true>(s, dp, z0, z1, di0, di1, a.scale, a.Lk - t * NK);
+      b9_q_ds<NK, true, C>(s, dp, z0, z1, di0, di1, a.scale, a.Lk - t * NK);
     else
-      b9_q_ds<NK, false>(s, dp, z0, z1, di0, di1, a.scale, NK);
+      b9_q_ds<NK, false, C>(s, dp, z0, z1, di0, di1, a.scale, NK);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");  // dQ of tile t - 1
     wg_fence_acc(dq);
     wg_fence_frag(dsf);
@@ -559,14 +604,15 @@ __device__ __forceinline__ void b9_q_consume(const B9Args& a, uint32_t base, int
   b9_store<D>(dq, a.dq + b * a.sq_b + h * a.sq_h, a.sq_row, q0 + wg * 64, a.Lq);
 }
 
-template <int D, bool kMask>
-__global__ void __launch_bounds__(kB9Threads, 1)
-flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
-                         const __grid_constant__ CUtensorMap tmap_k,
-                         const __grid_constant__ CUtensorMap tmap_v,
-                         const __grid_constant__ CUtensorMap tmap_do, B9Args a) {
-  using Lay = B9QLayout<D>;
-  constexpr int S = kB9Stages, NK = Lay::kKRows;
+// A dQ block: q rows blockIdx.x * 128.. of (b, h) = blockIdx.y.  The
+// producer thread copies Q and dO once and each K tile and V tile through
+// the ring.
+template <int D, bool kMask, class K = B9Ship<D>>
+__device__ __forceinline__ void b9_q_block(const CUtensorMap* tmap_q, const CUtensorMap* tmap_k,
+                                           const CUtensorMap* tmap_v, const CUtensorMap* tmap_do,
+                                           const B9Args& a) {
+  using Lay = B9QLayout<D, K>;
+  constexpr int S = K::kStages, NK = Lay::kKRows;
   extern __shared__ unsigned char b9_smem[];
   const uint32_t base = (wg_smem_addr(b9_smem) + 1023u) & ~1023u;
   const uint32_t ring = base + Lay::kRing;
@@ -593,23 +639,31 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
     if (tid == 256) {  // the producer thread
       const int b = bh / a.H, h = bh - b * a.H;
       mbar_arrive_expect_tx(q_bar, 2 * Lay::kQ);
-      b9_load_tile<D>(base, &tmap_q, q_bar, a.row_dim, kB9Rows, b9_q_tile(D), q0, b, h);
-      b9_load_tile<D>(base + Lay::kQ, &tmap_do, q_bar, a.row_dim, kB9Rows, b9_q_tile(D), q0, b,
-                      h);
+      b9_load_tile<D>(base, tmap_q, q_bar, a.row_dim, kB9Rows, K::kNQ, q0, b, h);
+      b9_load_tile<D>(base + Lay::kQ, tmap_do, q_bar, a.row_dim, kB9Rows, K::kNQ, q0, b, h);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % S;
         mbar_wait(empty + 8 * s, ((t / S) & 1) ^ 1);
         const uint32_t kd = ring + s * Lay::kStage;
         mbar_arrive_expect_tx(full + 8 * s, Lay::kStage);
-        b9_load_tile<D>(kd, &tmap_k, full + 8 * s, a.row_dim, NK, NK, t * NK, b, h);
-        b9_load_tile<D>(kd + Lay::kK, &tmap_v, full + 8 * s, a.row_dim, NK, NK, t * NK, b, h);
+        b9_load_tile<D>(kd, tmap_k, full + 8 * s, a.row_dim, NK, NK, t * NK, b, h);
+        b9_load_tile<D>(kd + Lay::kK, tmap_v, full + 8 * s, a.row_dim, NK, NK, t * NK, b, h);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kB9ConsumerRegs));
     if (warp / 4 < active)
-      b9_q_consume<D, kMask>(a, base, n_tiles, q0, bh, active == 2);
+      b9_q_consume<D, kMask, K>(a, base, n_tiles, q0, bh, active == 2);
   }
+}
+
+template <int D, bool kMask>
+__global__ void __launch_bounds__(kB9Threads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                         const __grid_constant__ CUtensorMap tmap_k,
+                         const __grid_constant__ CUtensorMap tmap_v,
+                         const __grid_constant__ CUtensorMap tmap_do, B9Args a) {
+  b9_q_block<D, kMask>(&tmap_q, &tmap_k, &tmap_v, &tmap_do, a);
 }
 
 // di[b, h, l] = sum_d do[b, h, l, d] * o[b, h, l, d] (o and do as s says) in
@@ -656,17 +710,12 @@ __global__ void __launch_bounds__(256) b9_di_kernel(const bf16* __restrict__ o,
 }
 
 // the di pre-pass over B * L * H rows of head dim D (64, 128, 256 or 512)
-inline int launch_b9_di(const bf16* o, const bf16* dout, float* di, Strides s, int B, int L,
-                        int H, int D, cudaStream_t stream) {
+template <int D>
+int launch_b9_di(const bf16* o, const bf16* dout, float* di, Strides s, int B, int L, int H,
+                 cudaStream_t stream) {
   const size_t threads = (size_t)B * L * H * (D / 8 < 32 ? D / 8 : 32);
   const unsigned blocks = (unsigned)((threads + 255) / 256);
-  switch (D) {
-    case 64: b9_di_kernel<64><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
-    case 128: b9_di_kernel<128><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
-    case 256: b9_di_kernel<256><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
-    case 512: b9_di_kernel<512><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  b9_di_kernel<D><<<blocks, 256, 0, stream>>>(o, dout, di, s, B, L, H);
   return (int)cudaGetLastError();
 }
 
@@ -741,46 +790,6 @@ int b9_launch(Kernel kernel, dim3 grid, size_t smem, unsigned cluster, const CUt
   err = cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-template <int D, bool kQMask, bool kKeyMask>
-int launch_b9(const CUtensorMap (&m)[4], const B9Args& a, dim3 kv_grid, dim3 q_grid,
-              cudaStream_t stream) {
-  const int err = b9_launch(flash_bwd_dkdv_sm90_kernel<D, kQMask>, kv_grid,
-                            B9KvLayout<D>::kSmem, 1, m, a, stream);
-  if (err != 0) return err;
-  return b9_launch(flash_bwd_dq_sm90_kernel<D, kKeyMask>, q_grid, B9QLayout<D>::kSmem, 1, m, a,
-                   stream);
-}
-
-template <int D>
-int launch_b9_masks(const CUtensorMap (&m)[4], const B9Args& a, const BwdPlan& p,
-                    cudaStream_t stream) {
-  const dim3 kv_grid((unsigned)p.kv_grid_x, (unsigned)p.kv_grid_y);
-  const dim3 q_grid((unsigned)p.q_grid_x, (unsigned)p.q_grid_y);
-  if (p.q_mask)
-    return p.key_mask ? launch_b9<D, true, true>(m, a, kv_grid, q_grid, stream)
-                      : launch_b9<D, true, false>(m, a, kv_grid, q_grid, stream);
-  return p.key_mask ? launch_b9<D, false, true>(m, a, kv_grid, q_grid, stream)
-                    : launch_b9<D, false, false>(m, a, kv_grid, q_grid, stream);
-}
-
-// Hold the plan to this body and the entry's shapes (bwd_plan_maps), then
-// launch the di pre-pass (o and do as sdo says; di into a.di), the dK/dV
-// kernel and the dQ kernel.
-inline int launch_flash_bwd_sm90(const BwdPlan& p, const bf16* const (&bases)[4], const B9Args& a,
-                                 const bf16* o, Strides sdo, int B, int D, cudaStream_t stream) {
-  const int nq = b9_q_tile(D), nk = b9_k_tile(D);
-  const long long kv_smem = D == 64 ? B9KvLayout<64>::kSmem : B9KvLayout<128>::kSmem;
-  const long long q_smem = D == 64 ? B9QLayout<64>::kSmem : B9QLayout<128>::kSmem;
-  CUtensorMap maps[4];
-  if ((D != 64 && D != 128) || !bwd_plan_maps(p, bases, a, B, D, 1, kB9Rows, nq, nk, kB9Stages,
-                                               kv_smem, q_smem, 1, maps))
-    return (int)cudaErrorInvalidValue;
-  const int err = launch_b9_di(o, bases[3], a.di, sdo, B, a.Lq, a.H, D, stream);
-  if (err != 0) return err;
-  return D == 64 ? launch_b9_masks<64>(maps, a, p, stream)
-                 : launch_b9_masks<128>(maps, a, p, stream);
 }
 
 }  // namespace

@@ -611,7 +611,8 @@ inline int launch_flash_bwd_wide(const BwdPlan& p, const bf16* const (&bases)[4]
       !bwd_plan_maps(p, bases, a, B, D, 2, kBwRows, kBwTile, kBwTile, kBwStages, kv_smem, q_smem,
                      D / kBwShare, maps))
     return (int)cudaErrorInvalidValue;
-  const int err = launch_b9_di(o, bases[3], a.di, sdo, B, a.Lq, a.H, D, stream);
+  const int err = D == 512 ? launch_b9_di<512>(o, bases[3], a.di, sdo, B, a.Lq, a.H, stream)
+                           : launch_b9_di<256>(o, bases[3], a.di, sdo, B, a.Lq, a.H, stream);
   if (err != 0) return err;
   return D == 512 ? launch_bw_masks<512>(maps, a, p, stream)
                   : launch_bw_masks<256>(maps, a, p, stream);

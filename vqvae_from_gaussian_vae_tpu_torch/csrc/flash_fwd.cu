@@ -47,8 +47,8 @@
 // 512 take the wgmma body of csrc/flash_fwd_sm90_wide.cuh (64 q rows
 // against 64-key tiles, the output's columns split over two consumer
 // warpgroups).  Each says what it does about the costs of the wmma body
-// these entries ran before (csrc/flash_fwd.cuh, which the labs of
-// csrc/flash_lab_fwd.cu still instantiate).  Every bf16 entry takes the
+// these entries ran before (deleted; the labs of csrc/flash_lab_fwd.cu
+// instantiate flash_fwd_sm90.cuh at their knobs).  Every bf16 entry takes the
 // launch plan of ops/flash_attention.py flash_fwd_plan (an int64 array,
 // FwdPlan): it names the body and the tensor maps' dims, byte strides,
 // boxes and element offsets, which the entry holds to its shapes before it
@@ -70,6 +70,40 @@
 #include "flash_fwd_sm90_wide.cuh"
 
 namespace {
+
+// The shipped launches of flash_fwd_sm90.cuh's kernel (here, so that the
+// lab's sources, which include the body, compile none of them)
+template <int D, bool kMask>
+int launch_f9(const CUtensorMap (&maps)[3], const F9Args& a, dim3 grid, cudaStream_t stream) {
+  const size_t smem = F9Layout<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, kMask>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_sm90_kernel<D, kMask><<<grid, F9Layout<D>::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], a);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_flash_fwd_sm90(const FwdPlan& p, const bf16* const (&bases)[3], bf16* o,
+                                 float* z, int B, int H, int Lq, int Lk, int D, float scale,
+                                 cudaStream_t stream) {
+  CUtensorMap maps[3];
+  F9Args a;
+  if ((D != 64 && D != 128) ||
+      !(D == 64 ? fwd_plan_args(p, 1, F9Layout<64>::kRows, kF9Keys, kF9Stages,
+                                F9Layout<64>::kThreads, F9Layout<64>::kSmem, bases, o, z, B, H,
+                                Lq, Lk, D, scale, maps, &a)
+                : fwd_plan_args(p, 1, F9Layout<128>::kRows, kF9Keys, kF9Stages,
+                                F9Layout<128>::kThreads, F9Layout<128>::kSmem, bases, o, z, B,
+                                H, Lq, Lk, D, scale, maps, &a)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)p.grid_x, (unsigned)p.grid_y);
+  if (D == 64)
+    return p.key_mask ? launch_f9<64, true>(maps, a, grid, stream)
+                      : launch_f9<64, false>(maps, a, grid, stream);
+  return p.key_mask ? launch_f9<128, true>(maps, a, grid, stream)
+                    : launch_f9<128, false>(maps, a, grid, stream);
+}
 
 // Route a launch by its plan over the plan's maps of bases[] (q, k, v, or
 // the packed projection three times): D = 64 and 128 to

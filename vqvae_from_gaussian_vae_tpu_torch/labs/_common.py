@@ -106,6 +106,16 @@ def ptxas_usage() -> dict:
         return _build.ptxas_usage(f.read())
 
 
+def kernel_facts(report: dict) -> str:
+    """The blocks, registers and spill bytes of a lab report, for its line."""
+    def one(u):
+        spills = u.get("spill_stores", 0) + u.get("spill_loads", 0) if u else "?"
+        return f"{u.get('registers', '?')} regs, {spills} B spills"
+    px = report.get("ptxas") or {}
+    regs = ("; ".join(f"{k} {one(u)}" for k, u in px.items()) if "dkdv" in px else one(px))
+    return f"blocks {report.get('blocks')}  {regs}"
+
+
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 

@@ -5,36 +5,35 @@ The port of ``scripts/exp_flash_variants.py`` (its kernel ``make_kernel``):
 
     python -m vqvae_from_gaussian_vae_tpu_torch.labs.exp_flash_variants base:1 matonly:1 ...
 
-A combo is ``policy:depth``.  Policies, each a template value of the
-forward body (``csrc/flash_fwd.cuh``), at the shipped tiling (32 q rows,
-64-key tiles, 8 warps, one head a block):
+A combo is ``policy:depth``.  Each policy is a value of the shipped
+forward body's POLICY knob (``csrc/flash_fwd_sm90.cuh``, ``F9Knobs``), run
+at the shipped D = 64 tiling (one head a block, 192 q rows in three
+consumer warpgroups, 128-key tiles in a 3-stage TMA ring):
 
-  base      the shipped online softmax: per-row max, then exp
-  nomax     p = exp(min(s, 30) - 30): no max pass, no rescale
-  exp2      exp2f((s - m) log2 e), log2 e folded into the scale
-  tilemax   one max per (q tile x key tile), a scalar rescale
+  base      the shipped online softmax (``f9_softmax``): per-row running
+            max, then the accurate ``expf``
+  nomax     p = expf(min(s, 30) - 30): no max pass, no rescale of O
+  exp2      exp2f(s' - m'), the scores scaled by scale log2 e
+  tilemax   one running max per consumer warpgroup's 64 rows and key tile
+            (the warps' maxima meet in shared memory behind a named
+            barrier), a scalar rescale
   matonly   p = bf16(s): no softmax; the control (its rows divide by a row
             sum of raw scores, so its output is timed, not checked)
-  chunk     nomax's function on the two 32-key halves of each tile, each
-            half's score product and exp on its own half of the warps
-  sbf16     the score tile rounded to bf16, then (s - m) in bf16
+  chunk     nomax's function on each 128-key tile's two 64-key halves: the
+            first half's P V runs while the second half's exp does
+  sbf16     the float32 accumulator's scores rounded to bf16 before the max
+            and exp, (s - m) rounded to bf16 (wgmma has no bf16
+            accumulator, so this prices the rounding, not fewer bytes)
 
 What they mean on Hopper.  On the TPU ``sbf16`` was illegal (Mosaic needs
 a 32-bit matmul accumulator) and ``chunk`` crashed the worker; here both
-run.  ``sbf16`` prices halving the bytes the softmax pass reads from
-shared memory (bf16 scores instead of the float32 ``Ss`` tile of
-``FlashLayout``); wmma stores float accumulators only, so each warp rounds
-its fragment into the bf16 tile after storing it.  ``chunk``'s TPU point
-(interleaving MXU and VPU work inside a head) has no direct counterpart,
-since the port already walks L in 64-key tiles: this is its function,
-with each warp half's exp free to run beside the other half's tensor-core
-work, timed as it is.
-
-Depth: on the TPU the head-pipeline depth bought MXU/VPU overlap across
-heads.  On Hopper the overlap to buy is load latency against tensor-core
-work, so depth is the K/V stage depth: 1, one K-or-V buffer as the shipped
-kernel runs; 2, ``cp.async`` copies of the next K or V tile into a second
-buffer while the current tile's product runs.
+run.  The TPU's pipeline depth bought MXU/VPU overlap across heads; here
+depth is the score tiles in flight: 1, the shipped order (tile t's Q K^T
+issued beside tile t-1's P V, tile t's softmax while P V runs); 2, tile
+t+1's Q K^T issued as well before tile t's softmax, in a second register
+set.  Two 64-float score tiles do not fit three consumer warpgroups' 160
+registers a thread, so depth 2 runs at two warpgroups (128 q rows, 232
+registers), and the tilings lab's (1, 128, 128) row is its depth-1 twin.
 
 Each line reports microseconds per layer (CUDA events over 12 chained
 layers, q fed forward, best of 3 trials of 10 after a warm-up), the bound
@@ -88,12 +87,15 @@ def run(variant: str, depth: int, inputs=None, reference=None, layers: int = LAY
     out = FL.flash_variant_cuda(q, k, v, variant, depth, C.SCALE, C.H)
     bound, by = C.bound_ms(*C.fwd_flops_bytes())
     usage = C.ptxas_usage()
+    plan = FL.lab_fwd_plan(C.B, C.H, C.L, *FL.variant_tiling(variant, depth), variant)
+    args = FL.fwd_kernel_args(variant, depth, *FL.variant_tiling(variant, depth))
     return {"lab": "exp_flash_variants", "combo": f"{variant}:{depth}", "us_per_layer": us,
             "bound_us": 1e3 * bound, "bound_by": by, "max_err": C.max_abs(out, ref),
-            "checked": variant != "matonly",
+            "checked": variant != "matonly", "blocks": plan.grid[0] * plan.grid[1],
+            "smem_bytes": plan.smem,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "ptxas": FL.ptxas_of(usage, "flash_fwd_kernel",
-                                 FL.fwd_kernel_args(variant, depth, *FL.VARIANT_TILING)),
+            "tiling": list(FL.variant_tiling(variant, depth)), "kernel_args": args,
+            "ptxas": FL.ptxas_of(usage, FL.FWD_KERNEL, args),
             "out": out}
 
 
@@ -108,7 +110,7 @@ def main(argv=None) -> int:
         r = run(variant, depth, (q, k, v), ref)
         print(f"{variant:8s} p{depth}: {r['us_per_layer']:8.1f} us/layer  "
               f"max_err {r['max_err']:.3e}  bound {r['bound_us']:.1f} us  "
-              f"SDPA {sdpa_us:.1f} us", flush=True)
+              f"SDPA {sdpa_us:.1f} us  {C.kernel_facts(r)}", flush=True)
     return 0
 
 

@@ -31,10 +31,11 @@ NVCC_FLAGS = [
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every entry point returns a cudaError_t.
-# The flash forward and backward entries take their launch plan (an int64
-# array, ops/flash_attention.py FlashFwdPlan.as_array, FlashBwdPlan.as_array
-# or, for the float32 head-major entries, FlashF32Plan.as_array, which
-# follows their scratch pointer) just before the stream
+# The flash forward and backward entries (the labs' too) take their launch
+# plan (an int64 array, ops/flash_attention.py FlashFwdPlan.as_array,
+# FlashBwdPlan.as_array or, for the float32 head-major entries,
+# FlashF32Plan.as_array, which follows their scratch pointer) just before
+# the stream
 _SIGNATURES = {
     "gvq_gq_argmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_downsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -63,9 +64,9 @@ _SIGNATURES = {
     "gvq_flash_fwd_hm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd_hm_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _P, _P],
-    "gvq_flash_lab_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "gvq_flash_lab_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P],
     "gvq_flash_lab_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                          _I, _P],
+                          _I, _P, _P],
     "gvq_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_matmul_bias": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -196,6 +197,40 @@ def kernel_registers(log_text: str) -> dict:
             for name, entry in ptxas_usage(log_text).items() if "registers" in entry}
 
 
+# one instruction of a cuobjdump -sass listing: its address, the
+# instruction, its encoding's first half (the second half is a line alone)
+_SASS_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*(?:/\* 0x[0-9a-f]+ \*/)?$")
+
+
+def parse_sass(listing: str) -> dict:
+    """{kernel: its instructions} from ``cuobjdump -sass`` output, each
+    kernel named as in ``kernel_registers`` and each instruction without its
+    address and encoding, so that two builds compare kernel by kernel.  Only
+    instruction lines count: the header of the cubin that follows a
+    source's last kernel is not that kernel's."""
+    kernels, current = {}, None
+    for line in listing.splitlines():
+        if "Function : " in line:
+            name = _ANON.sub(r"<\1.cu>", line.split("Function : ", 1)[1].strip())
+            current = kernels.setdefault(name, [])
+        elif current is not None and (m := _SASS_INSTRUCTION.match(line)):
+            current.append(m.group(1))
+    return kernels
+
+
+def sass_diff(lib_path: str, other_path: str) -> dict:
+    """The kernels two builds of the library share, and those among them
+    whose SASS differs (``cuobjdump -sass``, ``parse_sass``)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    mine, other = (parse_sass(subprocess.run([cuobjdump, "-sass", path], stdout=subprocess.PIPE,
+                                             text=True, check=True).stdout)
+                   for path in (lib_path, other_path))
+    common = sorted(set(mine) & set(other))
+    return {"common": len(common), "differ": [k for k in common if mine[k] != other[k]],
+            "only_here": sorted(set(mine) - set(other)),
+            "only_there": sorted(set(other) - set(mine))}
+
+
 def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""
@@ -240,11 +275,17 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-if __name__ == "__main__":  # on a machine with nvcc: build, print the register table as JSON
+if __name__ == "__main__":
+    # on a machine with nvcc: build, print the register table as JSON; with
+    # --sass-diff OTHER_LIB, the kernels whose SASS differs from another
+    # build's library (another checkout's _build/<hash>/libgvq_kernels.so)
     import json
     import sys
 
-    build()
-    with open(os.path.join(build_dir(), "nvcc.log")) as f:
-        json.dump(kernel_registers(f.read()), sys.stdout, indent=0, sort_keys=True)
+    lib = build()
+    if sys.argv[1:2] == ["--sass-diff"]:
+        json.dump(sass_diff(lib, sys.argv[2]), sys.stdout, indent=0)
+    else:
+        with open(os.path.join(build_dir(), "nvcc.log")) as f:
+            json.dump(kernel_registers(f.read()), sys.stdout, indent=0, sort_keys=True)
     print()
