@@ -286,51 +286,48 @@ def flash_bwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
 
 def flash_f32_kernel_facts(b: int, h: int, lq: int, lk: int, d: int) -> dict:
     """The float32 head-major op's kernels at (b, h, lq, lk, d), by
-    ``flash_f32_plan``: the body ("split_tf32": ``csrc/flash_fwd_f32_sm90.cuh``
-    and ``csrc/flash_bwd_f32_sm90.cuh``, D = 64 and 128; "simt": the CUDA-core
-    kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``), each
-    kernel's tiles, ptxas's registers and spill bytes (stores + loads) from
-    ``nvcc.log``, and the count of HGMMA (wgmma) instructions in its SASS,
-    which must not be 0 for the split-TF32 body; and the pre-pass's scratch
-    (forward and backward) in MiB."""
+    ``flash_f32_plan``: the body
+    ("split_tf32": ``csrc/flash_fwd_f32_sm90.cuh`` and
+    ``csrc/flash_bwd_f32_sm90.cuh``, D = 64 and 128; "split_tf32_wide":
+    ``csrc/flash_fwd_f32_sm90_wide.cuh`` and ``csrc/flash_bwd_f32_sm90_wide.cuh``,
+    D = 256 and 512), each kernel's tiles, column share and cluster,
+    ptxas's registers and spill bytes (stores + loads) from ``nvcc.log``,
+    and the count of HGMMA (wgmma) instructions in its SASS, which must not
+    be 0; and the pre-pass's scratch (forward and backward) in MiB."""
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
     from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_f32_plan
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         usage = _build.ptxas_usage(f.read())
     plan = flash_f32_plan(b, h, lq, lk, d)
-    if plan.body == "split_tf32":
-        tags = {kernel: (source, f"{name}ILi{d}ELi{t.rows // 64}ELi{t.tile}ELi{t.stages}"
-                                 f"ELb{int(t.mask)}E", t)
-                for kernel, source, name, t in (
-                    ("fwd", "_flash_fwd_cu_", "flash_fwd_f32_sm90_kernel", plan.fwd),
-                    ("dkdv", "_flash_bwd_cu_", "flash_bwd_dkdv_f32_sm90_kernel", plan.dkdv),
-                    ("dq", "_flash_bwd_cu_", "flash_bwd_dq_f32_sm90_kernel", plan.dq))}
-    else:
-        tags = {kernel: (source, f"{name}ILi{d}E", None) for kernel, source, name in (
-            ("fwd", "_flash_fwd_cu_", "flash_fwd_f32_kernel"),
-            ("dkdv", "_flash_bwd_cu_", "flash_bwd_dkdv_f32_kernel"),
-            ("dq", "_flash_bwd_cu_", "flash_bwd_dq_f32_kernel"))}
+    wide = plan.body == "split_tf32_wide"
     kernels = {}
-    for kernel, (source, tag, t) in tags.items():
+    for kernel, source, t in (("fwd", "_flash_fwd_cu_", plan.fwd),
+                              ("dkdv", "_flash_bwd_cu_", plan.dkdv),
+                              ("dq", "_flash_bwd_cu_", plan.dq)):
+        name = {"fwd": "flash_fwd_f32", "dkdv": "flash_bwd_dkdv_f32",
+                "dq": "flash_bwd_dq_f32"}[kernel] + ("_wide_kernel" if wide else "_sm90_kernel")
+        split = t.share if wide else t.rows // 64
+        tag = f"{name}ILi{d}ELi{split}ELi{t.tile}ELi{t.stages}ELb{int(t.mask)}E"
         names = [n for n in usage if source in n and tag in n]
         require(len(names) == 1, f"{len(names)} {tag} entries in nvcc.log")
         u = usage[names[0]]
         hgmma = sass_hgmma().get(names[0], 0)
-        require(plan.body == "simt" or hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
+        require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
         kernels[kernel] = {"registers": u["registers"],
                            "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
-                           "sass_hgmma": hgmma}
-        if t is not None:
-            kernels[kernel].update(rows=t.rows, tile=t.tile, stages=t.stages, smem=t.smem)
+                           "sass_hgmma": hgmma, "rows": t.rows, "tile": t.tile,
+                           "stages": t.stages, "smem": t.smem, "share": t.share,
+                           "cluster": t.cluster}
     return {"design": plan.body, "kernels": kernels,
             "scratch_mib": 4 * (plan.fwd_scratch + plan.bwd_scratch) / 2**20}
 
 
 def f32_build_facts() -> dict:
-    """Every split-TF32 float32 flash kernel the build made, and its
-    pre-pass: ptxas's registers and spill bytes and the HGMMA count of its
-    SASS, named as ``tests/torch_kernel_registers.json`` names kernels."""
+    """Every split-TF32 float32 flash kernel the build made (both bodies,
+    each with and without the key mask) and its pre-pass: ptxas's registers and spill
+    bytes and the HGMMA count of its SASS, named as
+    ``tests/torch_kernel_registers.json`` names kernels."""
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
@@ -338,11 +335,14 @@ def f32_build_facts() -> dict:
     return {_build._ANON.sub(r"<\1.cu>", n): {
         "registers": u["registers"], "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
         "sass_hgmma": sass_hgmma().get(n, 0)}
-        for n, u in sorted(usage.items()) if "f32_sm90_kernel" in n or "tf_prep_kernel" in n}
+        for n, u in sorted(usage.items())
+        if "f32_sm90_kernel" in n or "f32_wide_kernel" in n or "tf_prep_kernel" in n}
 
 
-def device_kernels(fn) -> list:
-    """Names of the CUDA kernels that one call of fn runs (torch.profiler)."""
+def device_kernel_ms(fn, iters: int = 1) -> dict:
+    """{CUDA kernel: {"ms": mean device ms a launch, "launches": launches
+    recorded}} for each kernel that fn runs, from torch.profiler over
+    `iters` calls after one warm-up call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -350,10 +350,17 @@ def device_kernels(fn) -> list:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-    return sorted({ev.key for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0})
+    return {ev.key: {"ms": ev.self_device_time_total / 1e3 / ev.count, "launches": ev.count}
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+
+
+def device_kernels(fn) -> list:
+    """Names of the CUDA kernels that one call of fn runs (torch.profiler)."""
+    return sorted(device_kernel_ms(fn))
 
 
 def nvidia_smi_line() -> str:
@@ -1309,16 +1316,19 @@ def check_flash_lean(gen):
 
 
 def check_flash_lean_f32(gen):
-    """The head-major op in float32 (split-TF32 tensor-core kernels at D = 64
-    and 128, SIMT at 256 and 512): one training call through the public
-    ``flash_attention`` with a gradient, held to the plain versions within
-    ``FLASH_F32_REL`` of their largest value, TF32 off, at each of
-    ``FLASH_LEAN_SHAPES``, the backward bit-equal across runs; times of the
-    call, its forward and its backward against the plain versions' and
-    SDPA's (float32: forward, backward by autograd, and both), and the
-    kernels SDPA runs in float32 (torch.profiler, once).  Two bounds: the
-    CUDA cores' (the function's seven products at the float32 peak) and
-    split TF32's (three tensor-core passes of them at the TF32 peak)."""
+    """The head-major op in float32 (split-TF32 tensor-core kernels; at
+    D = 256 and 512 a block a share of D's columns): one training call
+    through the public ``flash_attention`` with a gradient, held to the
+    plain versions within ``FLASH_F32_REL`` of their largest value, TF32
+    off, at each of ``FLASH_LEAN_SHAPES``, the backward bit-equal across
+    runs; times of the call, its forward and its backward against the plain
+    versions' and SDPA's (float32: forward, backward by autograd, and both),
+    and the kernels SDPA runs in float32 (torch.profiler, once); at the
+    full-size D = 256 and 512 shapes each kernel of the call timed alone.
+    Two bounds: the CUDA cores' (the
+    function's seven products at the float32 peak) and split TF32's (three
+    tensor-core passes of them at the TF32 peak), the latter also for the
+    forward and the backward alone."""
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
@@ -1349,6 +1359,7 @@ def check_flash_lean_f32(gen):
                 all(torch.equal(x, y) for x, y in zip(again, got[1:])),
                 "float32 head-major flash backward: two runs differ")
         err = max(float((g - w).abs().max()) for g, w in zip(got, [o_p, *want]))
+        full_wide = d >= 256 and lq >= 1024
         del got, want, o_p, z_p, again, again2
 
         def plain():
@@ -1380,12 +1391,12 @@ def check_flash_lean_f32(gen):
         flops_f, flops_b = 4.0 * b * h * lq * lk * d, 5 * 2.0 * b * h * lq * lk * d
         bytes_f = 4 * (2 * eq + 2 * ek) + 4 * b * h * lq         # q, k, v in; o, z out
         bytes_b = 4 * (3 * eq + 2 * ek) + 4 * b * h * lq + 4 * (eq + 2 * ek)
-        # the CUDA cores' bound (the SIMT body's) and split TF32's (three
-        # passes of the same products at the TF32 peak: the tensor-core body's)
-        simt, simt_by = bound_ms(flops_f + flops_b, bytes_f + bytes_b, PEAK_FP32)
-        split, split_by = bound_ms(3 * (flops_f + flops_b), bytes_f + bytes_b, PEAK_TF32)
+        # the CUDA cores' bound (float32 outside the tensor cores) and split
+        # TF32's (three passes of the same products at the TF32 peak: the
+        # bodies'); each part's split-TF32 bound alone
+        cores, _ = bound_ms(flops_f + flops_b, bytes_f + bytes_b, PEAK_FP32)
+        bnd, by = bound_ms(3 * (flops_f + flops_b), bytes_f + bytes_b, PEAK_TF32)
         facts = flash_f32_kernel_facts(b, h, lq, lk, d)
-        bnd, by = (split, split_by) if facts["design"] == "split_tf32" else (simt, simt_by)
         long = (b, h, lq, lk, d) == FLASH_LEAN_FLOW
         n = 3 if long else 10
         kernel_ms = time_ms(call, iters=n, warmup=1)
@@ -1406,18 +1417,23 @@ def check_flash_lean_f32(gen):
             "library_forward_ms": time_ms(library_forward),
             "library_backward_ms": time_ms(library_backward),
             "bound_ms": bnd, "bound_by": by,
-            "cuda_core_bound_ms": simt, "split_tf32_bound_ms": split,
+            "cuda_core_bound_ms": cores, "split_tf32_bound_ms": bnd,
+            "forward_bound_ms": bound_ms(3 * flops_f, bytes_f, PEAK_TF32)[0],
+            "backward_bound_ms": bound_ms(3 * flops_b, bytes_b, PEAK_TF32)[0],
             # the port's products: two forward, seven backward (two recomputed)
             "split_tf32_bound_port_ms": 1e3 * 3 * 9 * 2.0 * b * h * lq * lk * d / PEAK_TF32,
             "flops": flops_f + flops_b, "bytes": bytes_f + bytes_b,
             "max_abs_err": err, "rel_err_o_z_dq_dk_dv": rels, "bit_reproducible": True,
-            **facts})
+            # each kernel of the call alone (pre-pass, forward, dK/dV, dQ)
+            **facts, **({"kernel_device_ms": device_kernel_ms(call, iters=3)}
+                        if full_wide else {})})
         del q, k, v, do, leaves, ref, o_k, z_k, o_ref
         torch.cuda.empty_cache()
     return {"name": "flash_attention_lean_f32", "route": "cuda",
             "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_f32_sm90.cuh, "
                       "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_f32_sm90.cuh "
-                      "(D = 64, 128); csrc/flash_fwd.cu, csrc/flash_bwd.cu SIMT (D = 256, 512)",
+                      "(D = 64, 128); csrc/flash_fwd_f32_sm90_wide.cuh, "
+                      "csrc/flash_bwd_f32_sm90_wide.cuh (D = 256, 512)",
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_attention.py:118",
             "counters": ["flash_attention_lean_fwd", "flash_attention_lean_bwd"],
             "tolerance": f"o, z, dq, dk, dv: max error / max |value| <= {FLASH_F32_REL} "

@@ -936,22 +936,25 @@ def test_head_major_autograd_runs_the_kernels(gen):
 
 # the float32 op: the smoke's first four shapes, then ragged ones on the
 # split-TF32 bodies at D = 64 and 128 (partial q and key tiles in every
-# kernel, a single query row, Lq != Lk both ways), then the SIMT body at
-# D = 512: a single key, and partial q and key tiles longer than its 16-row
-# tile
+# kernel, a single query row, Lq != Lk both ways), then on their wide form
+# at D = 256 and 512 (two- and four-block clusters): partial q and key
+# tiles with Lq < Lk and Lq > Lk, a single key, a single query row
 HEAD_MAJOR_F32 = HEAD_MAJOR[:4] + [(2, 2, 200, 328, 64), (1, 3, 333, 457, 64),
                                    (2, 2, 77, 200, 128), (2, 2, 1, 300, 128),
-                                   (1, 2, 300, 77, 64), (2, 2, 77, 1, 512),
-                                   (1, 2, 45, 100, 512)]
+                                   (1, 2, 300, 77, 64), (2, 2, 77, 200, 256),
+                                   (1, 2, 300, 1, 256), (2, 1, 1, 300, 512),
+                                   (2, 2, 77, 1, 512), (1, 2, 45, 100, 512),
+                                   (1, 2, 300, 77, 512)]
 
 
 @pytest.mark.parametrize("b,h,lq,lk,d", HEAD_MAJOR_F32)
 def test_head_major_float32_kernels_match_plain(gen, b, h, lq, lk, d):
-    """The float32 kernels (split TF32 on the tensor cores at D = 64 and
-    128, SIMT at 256 and 512): o, z and dq, dk, dv within 1e-4 of the plain
-    versions' largest value, the backward bit-equal across runs."""
+    """The float32 kernels (split TF32 on the tensor cores; at D = 256 and
+    512 a block a share of D's columns, a cluster the row tile): o, z and
+    dq, dk, dv within 1e-4 of the plain versions' largest value, the
+    backward bit-equal across runs."""
     assert fa.flash_f32_plan(b, h, lq, lk, d).body == \
-        ("split_tf32" if d in (64, 128) else "simt")
+        ("split_tf32" if d in (64, 128) else "split_tf32_wide")
     q, k, v, do = (t.float() for t in _head_major(gen, b, h, lq, lk, d))
     scale = d ** -0.5
     o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
@@ -972,13 +975,14 @@ def test_head_major_float32_kernels_match_plain(gen, b, h, lq, lk, d):
                zip(got, fl.flash_attention_bwd_cuda(q, k, v, o, z, do, scale)))
 
 
-@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 3, 333, 457, 64), (2, 2, 77, 200, 128)])
+@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 3, 333, 457, 64), (2, 2, 77, 200, 128),
+                                         (2, 2, 77, 200, 256), (1, 2, 45, 100, 512)])
 def test_head_major_float32_bwd_kernel_is_bit_reproducible(gen, b, h, lq, lk, d):
     """The split-TF32 backward at ragged lengths (partial last q tiles in
     the dK/dV kernel and key tiles in the dQ kernel, a warpgroup past the
-    length): three runs give equal bits, whatever the TF32 flags say (the
-    kernels read none of them), and the forward's bits do not move with
-    them either."""
+    length; at D = 256 and 512 partial scores summed over a cluster): three
+    runs give equal bits, whatever the TF32 flags say (the kernels read
+    none of them), and the forward's bits do not move with them either."""
     q, k, v, do = (t.float() for t in _head_major(gen, b, h, lq, lk, d))
     scale = d ** -0.5
     o, z = fl.flash_attention_fwd_cuda(q, k, v, scale, save_residuals=True)
@@ -1013,6 +1017,36 @@ def test_head_major_kernels_take_float32(gen):
     (p @ ref[2]).backward(do)
     for got, want in zip(leaves, ref):
         assert _rel_max(got.grad, want.grad) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_major_backward_runs_first_on_autograds_thread(gen, dtype):
+    """In a fresh process the training call's backward (float32: the
+    split-TF32 bodies; bf16: the wgmma body) is the first CUDA work on
+    autograd's backward thread, whose CUDA context no runtime call has
+    bound yet: it runs, as every TMA entry's map encoder binds the
+    thread's context (ROADMAP queue C, C4)."""
+    import os
+    import subprocess
+    import sys
+
+    code = "\n".join([
+        "import torch",
+        "from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl",
+        f"q, k, v = (torch.randn((1, 2, n, 128), device='cuda', dtype=torch.{dtype},",
+        "                       requires_grad=True) for n in (200, 328, 328))",
+        "blocks = fl.BlockSizes(block_q=128, block_k_major=328, block_k=328, block_b=1,",
+        "    block_q_major_dkv=200, block_k_major_dkv=328, block_k_dkv=328, block_q_dkv=200,",
+        "    block_k_major_dq=328, block_k_dq=328, block_q_dq=200)",
+        "o = fl.flash_attention(q, k, v, 128 ** -0.5, blocks)",
+        "o.backward(torch.randn_like(o))",
+        "torch.cuda.synchronize()",
+        "assert fl.flash_attention_bwd_cuda.launches == 1",
+        "assert all(bool(t.grad.isfinite().all()) for t in (q, k, v))"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
 
 
 def test_head_major_kernels_refuse_other_head_dims_and_dtypes(gen):

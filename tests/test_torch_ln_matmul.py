@@ -223,8 +223,10 @@ def test_kernel_registers_name_a_kernel_alike_in_every_checkout():
     # body's dK/dV and dQ kernels at D = 256 and 512, in place of the wmma
     # body's eight and its di pre-pass; the flash labs' 28 forward and 20
     # backward kernels and the di pre-pass at D = 64 on the wgmma bodies, in
-    # place of the wmma bodies' 23)
+    # place of the wmma bodies' 23; the float32 op's wide split-TF32 forward,
+    # dK/dV and dQ kernels at D = 256 and 512, with and without the key
+    # mask, 12 in place of the SIMT bodies' 7)
     with open(os.path.join(ROOT, "tests", "torch_kernel_registers.json")) as f:
         table = json.load(f)
-    assert len(table) == 211 and not any("ln_matmul" in k for k in table)
+    assert len(table) == 216 and not any("ln_matmul" in k for k in table)
     assert all(k.count("<") == 1 and k.count(".cu>") == 1 for k in table)

@@ -56,18 +56,19 @@
 //
 // gvq_flash_bwd_hm_f32 is the head-major backward for float32 tensors (the
 // JAX op runs float32 too), held to the plain version within 1e-4 of its
-// largest value.  At D = 64 and 128 it runs the split-TF32 wgmma bodies of
-// csrc/flash_bwd_f32_sm90.cuh (a pre-pass that writes the operands' TF32
-// pairs and di, then dK/dV and dQ kernels, each product three TF32 passes
-// on the tensor cores, float32-accurate whatever
-// torch.backends.cuda.matmul.allow_tf32 says); at D = 256 and 512 the same
-// pre-pass and two-kernel split in plain SIMT float32 (fmaf on CUDA cores,
-// operands from shared memory).  Both take the launch plan of
-// ops/flash_attention.py flash_f32_plan (F32Plan), which names the body.
+// largest value: a pre-pass that writes the operands' TF32 pairs and di,
+// then dK/dV and dQ kernels, each product three TF32 wgmma passes on the
+// tensor cores, float32-accurate whatever
+// torch.backends.cuda.matmul.allow_tf32 says, by the bodies of
+// csrc/flash_bwd_f32_sm90.cuh at D = 64 and 128 and their wide form
+// csrc/flash_bwd_f32_sm90_wide.cuh at D = 256 and 512 (a block owns a share
+// of D's columns, a cluster of blocks the whole row tile).  Both take the
+// launch plan of ops/flash_attention.py flash_f32_plan (F32Plan), which
+// names the body and its tilings.
 #include "flash_bwd_f32_sm90.cuh"
+#include "flash_bwd_f32_sm90_wide.cuh"
 #include "flash_bwd_sm90.cuh"
 #include "flash_bwd_sm90_wide.cuh"
-#include "flash_f32.cuh"
 
 namespace {
 
@@ -132,215 +133,15 @@ int bwd_entry(const B9Args& a, const bf16* const (&bases)[4], const void* o, Str
   return (int)cudaErrorInvalidValue;
 }
 
-// The float32 head-major backward's SIMT body (D = 256 and 512): a di
-// pre-pass, then dk/dv over K/V tiles
-// streaming the q tiles, then dq over q tiles streaming K/V, as the bf16
-// pair does, in plain SIMT float32.  T = 32 tile rows (16 at D = 512, so
-// that a thread's dk and dv shares stay at 32 + 32 registers).  Shared
-// memory (floats, pitch D + 1): four T-row tiles 4 * T * (D + 1), the p and
-// ds tiles 2 * T * (T + 1), z and di 2 * T: at D = 512 (T = 16) 133,632
-// bytes, at D = 256 (T = 32) 140,288.
-struct F32BwdArgs {
-  const float* q;   // (B, H, Lq, D), and o, do, dq
-  const float* k;   // (B, H, Lk, D), and v, dk, dv
-  const float* v;
-  const float* dout;
-  const float* z;   // (B, H, Lq)
-  const float* di;  // (B, H, Lq)
-  float* dq;
-  float* dk;
-  float* dv;
-  int Lq, Lk;
-  float scale;
-};
-
+// the wide body at D = 256 or 512, at its tilings (TwTiles)
 template <int D>
-struct F32BwdTile {
-  static constexpr int T = D == 512 ? 16 : 32;
-  static constexpr size_t kBytes =
-      (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * sizeof(float);
-};
-
-// di[row] = sum_d o[row, d] * do[row, d], one thread a row
-__global__ void flash_bwd_di_f32_kernel(const float* __restrict__ o,
-                                        const float* __restrict__ dout, float* __restrict__ di,
-                                        size_t rows, int D) {
-  const size_t r = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  float acc = 0.0f;
-  for (int d = 0; d < D; ++d) acc = fmaf(o[r * D + d], dout[r * D + d], acc);
-  di[r] = acc;
-}
-
-// p = exp(s scale - z) and ds = p (dp - di) scale of the thread's products
-// (rows ty * N + i, columns tx + 16 j), 0 past `rows` or `cols`, into P and dS
-template <int T>
-__device__ __forceinline__ void f32_probs(const float (&s)[T / 16][T / 16],
-                                          const float (&dp)[T / 16][T / 16], const float* zs,
-                                          const float* dis, float scale, int rows, int cols,
-                                          float* P, float* dS) {
-  constexpr int N = T / 16, LDS = T + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int r = ty * N + i, c = tx + 16 * j;
-      const bool in = r < rows && c < cols;
-      const float p = in ? expf(s[i][j] * scale - zs[r]) : 0.0f;
-      if (P != nullptr) P[r * LDS + c] = p;
-      dS[r * LDS + c] = in ? p * (dp[i][j] - dis[r]) * scale : 0.0f;
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(F32BwdArgs g) {
-  constexpr int T = F32BwdTile<D>::T, LD = D + 1, LDS = T + 1, N = T / 16;
-  using Own = F32Own<D, T>;
-  extern __shared__ __align__(16) float fsm[];
-  float* Ks = fsm;
-  float* Vs = Ks + T * LD;
-  float* Qs = Vs + T * LD;
-  float* dOs = Qs + T * LD;
-  float* Ps = dOs + T * LD;
-  float* dSs = Ps + T * LDS;
-  float* zs = dSs + T * LDS;
-  float* dis = zs + T;
-
-  const int Lq = g.Lq, Lk = g.Lk;
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * T;
-  const int krows = min(T, Lk - k0);
-  const int cg = threadIdx.x % Own::CG, rg = threadIdx.x / Own::CG;
-  load_f32_rows<D, T>(Ks, g.k + (bh * Lk + k0) * D, D, krows);
-  load_f32_rows<D, T>(Vs, g.v + (bh * Lk + k0) * D, D, krows);
-  float dk[Own::RO][Own::CO], dv[Own::RO][Own::CO];
-#pragma unroll
-  for (int i = 0; i < Own::RO; ++i)
-#pragma unroll
-    for (int j = 0; j < Own::CO; ++j) dk[i][j] = dv[i][j] = 0.0f;
-
-  for (int q0 = 0; q0 < Lq; q0 += T) {
-    const int qrows = min(T, Lq - q0);
-    __syncthreads();  // the last tile's products are done with Qs, dOs, Ps, dSs
-    load_f32_rows<D, T>(Qs, g.q + (bh * Lq + q0) * D, D, qrows);
-    load_f32_rows<D, T>(dOs, g.dout + (bh * Lq + q0) * D, D, qrows);
-    if (threadIdx.x < T) {
-      const bool in = (int)threadIdx.x < qrows;
-      zs[threadIdx.x] = in ? g.z[bh * Lq + q0 + threadIdx.x] : 0.0f;
-      dis[threadIdx.x] = in ? g.di[bh * Lq + q0 + threadIdx.x] : 0.0f;
-    }
-    __syncthreads();
-    float s[N][N], dp[N][N];
-    f32_abt<D, T>(Qs, Ks, s);   // q x kv
-    f32_abt<D, T>(dOs, Vs, dp);
-    f32_probs<T>(s, dp, zs, dis, g.scale, qrows, krows, Ps, dSs);
-    __syncthreads();
-    // dv[j, c] += sum_r p[r, j] do[r, c]; dk[j, c] += sum_r ds[r, j] q[r, c]
-#pragma unroll 2
-    for (int r = 0; r < T; ++r) {
-      float fdo[Own::CO], fq[Own::CO];
-#pragma unroll
-      for (int j = 0; j < Own::CO; ++j) {
-        fdo[j] = dOs[r * LD + cg + j * Own::CG];
-        fq[j] = Qs[r * LD + cg + j * Own::CG];
-      }
-#pragma unroll
-      for (int i = 0; i < Own::RO; ++i) {
-        const float p = Ps[r * LDS + rg * Own::RO + i];
-        const float ds = dSs[r * LDS + rg * Own::RO + i];
-#pragma unroll
-        for (int j = 0; j < Own::CO; ++j) {
-          dv[i][j] = fmaf(p, fdo[j], dv[i][j]);
-          dk[i][j] = fmaf(ds, fq[j], dk[i][j]);
-        }
-      }
-    }
-  }
-  store_f32_own<D, T>(g.dk + (bh * Lk + k0) * D, dk, krows);
-  store_f32_own<D, T>(g.dv + (bh * Lk + k0) * D, dv, krows);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(F32BwdArgs g) {
-  constexpr int T = F32BwdTile<D>::T, LD = D + 1, LDS = T + 1, N = T / 16;
-  using Own = F32Own<D, T>;
-  extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;
-  float* dOs = Qs + T * LD;
-  float* Ks = dOs + T * LD;
-  float* Vs = Ks + T * LD;
-  float* dSs = Vs + T * LD + T * LDS;  // the p tile's place stays unused
-  float* zs = dSs + T * LDS;
-  float* dis = zs + T;
-
-  const int Lq = g.Lq, Lk = g.Lk;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * T;
-  const int qrows = min(T, Lq - q0);
-  const int cg = threadIdx.x % Own::CG, rg = threadIdx.x / Own::CG;
-  load_f32_rows<D, T>(Qs, g.q + (bh * Lq + q0) * D, D, qrows);
-  load_f32_rows<D, T>(dOs, g.dout + (bh * Lq + q0) * D, D, qrows);
-  if (threadIdx.x < T) {
-    const bool in = (int)threadIdx.x < qrows;
-    zs[threadIdx.x] = in ? g.z[bh * Lq + q0 + threadIdx.x] : 0.0f;
-    dis[threadIdx.x] = in ? g.di[bh * Lq + q0 + threadIdx.x] : 0.0f;
-  }
-  float dq[Own::RO][Own::CO];
-#pragma unroll
-  for (int i = 0; i < Own::RO; ++i)
-#pragma unroll
-    for (int j = 0; j < Own::CO; ++j) dq[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < Lk; k0 += T) {
-    const int krows = min(T, Lk - k0);
-    __syncthreads();  // the last tile's products are done with Ks and dSs
-    load_f32_rows<D, T>(Ks, g.k + (bh * Lk + k0) * D, D, krows);
-    load_f32_rows<D, T>(Vs, g.v + (bh * Lk + k0) * D, D, krows);
-    __syncthreads();
-    float s[N][N], dp[N][N];
-    f32_abt<D, T>(Qs, Ks, s);
-    f32_abt<D, T>(dOs, Vs, dp);
-    f32_probs<T>(s, dp, zs, dis, g.scale, qrows, krows, nullptr, dSs);
-    __syncthreads();
-    // dq[r, c] += sum_j ds[r, j] k[j, c]
-#pragma unroll 2
-    for (int j2 = 0; j2 < T; ++j2) {
-      float fk[Own::CO];
-#pragma unroll
-      for (int j = 0; j < Own::CO; ++j) fk[j] = Ks[j2 * LD + cg + j * Own::CG];
-#pragma unroll
-      for (int i = 0; i < Own::RO; ++i) {
-        const float ds = dSs[(rg * Own::RO + i) * LDS + j2];
-#pragma unroll
-        for (int j = 0; j < Own::CO; ++j) dq[i][j] = fmaf(ds, fk[j], dq[i][j]);
-      }
-    }
-  }
-  store_f32_own<D, T>(g.dq + (bh * Lq + q0) * D, dq, qrows);
-}
-
-template <int D>
-int launch_bwd_f32(const F32BwdArgs& g, const float* o, float* di, int B, int H,
-                   cudaStream_t stream) {
-  constexpr int T = F32BwdTile<D>::T;
-  const size_t smem = F32BwdTile<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)B * H * g.Lq;
-  flash_bwd_di_f32_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(o, g.dout, di,
-                                                                              rows, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_f32_kernel<D><<<dim3((g.Lk + T - 1) / T, B * H), kF32Threads, smem, stream>>>(g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_f32_kernel<D><<<dim3((g.Lq + T - 1) / T, B * H), kF32Threads, smem, stream>>>(g);
-  return (int)cudaGetLastError();
+int launch_f32_bwd_wide(const F32Plan& p, const float* q, const float* k, const float* v,
+                        const float* o, const float* dout, float* scratch, const TfBwdArgs& a,
+                        int B, int H, cudaStream_t s) {
+  using T = TwTiles<D>;
+  return launch_flash_bwd_f32_wide<D, T::kDkdv[0], T::kDkdv[1], T::kDkdv[2], T::kDq[0],
+                                   T::kDq[1], T::kDq[2]>(p, q, k, v, o, dout, scratch, a, B, H,
+                                                         s);
 }
 
 }  // namespace
@@ -402,11 +203,10 @@ extern "C" int gvq_flash_bwd_hm(const void* q, const void* k, const void* v, con
 // The float32 head-major entry (the same op as gvq_flash_bwd_hm, for
 // float32 tensors): q, o, do, dq (B, H, Lq, D) and k, v, dk, dv (B, H, Lk, D)
 // float32; z (B, H, Lq) float32 from gvq_flash_fwd_hm_f32; di (B, H, Lq)
-// float32 scratch.  All contiguous, 16-byte aligned; any Lq, Lk >= 1; D 64,
-// 128, 256 or 512.  plan: the launch plan (F32Plan, kF32PlanLen int64),
-// whose body must be the one of this D: split TF32 (D = 64, 128; scratch
-// then holds the plan's bwd_scratch floats for the pre-pass) or SIMT
-// (D = 256, 512; scratch unused).
+// float32 scratch; scratch the plan's bwd_scratch floats for the pre-pass.
+// All contiguous, 16-byte aligned; any Lq, Lk >= 1; D 64, 128, 256 or 512.
+// plan: the launch plan (F32Plan, kF32PlanLen int64), whose body and
+// tiles must be this D's.
 extern "C" int gvq_flash_bwd_hm_f32(const void* q, const void* k, const void* v, const void* o,
                                     const void* z, const void* dout, void* di, void* dq,
                                     void* dk, void* dv, void* scratch, int B, int H, int Lq,
@@ -421,27 +221,19 @@ extern "C" int gvq_flash_bwd_hm_f32(const void* q, const void* k, const void* v,
   const float* vf = static_cast<const float*>(v);
   const float* of = static_cast<const float*>(o);
   const float* dof = static_cast<const float*>(dout);
-  float* dip = static_cast<float*>(di);
   float* sf = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 || D == 128) {
-    const TfBwdArgs a{static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
-                      static_cast<const float*>(z), dip, Lq, Lk, scale};
-    // tiles (dK/dV: warpgroups, q rows a tile, stages; dQ: warpgroups, keys
-    // a tile, stages) as flash_f32_plan's
-    return D == 64
-               ? launch_flash_bwd_f32_sm90<64, 2, 16, 3, 1, 32, 3>(p, qf, kf, vf, of, dof, sf, a,
-                                                                   B, H, s)
-               : launch_flash_bwd_f32_sm90<128, 1, 8, 3, 1, 16, 2>(p, qf, kf, vf, of, dof, sf, a,
-                                                                   B, H, s);
-  }
-  if (p.body != 0) return (int)cudaErrorInvalidValue;
-  const F32BwdArgs g{qf, kf, vf, dof, static_cast<const float*>(z), dip,
-                     static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
-                     Lq, Lk, scale};
-  switch (D) {
-    case 256: return launch_bwd_f32<256>(g, of, dip, B, H, s);
-    case 512: return launch_bwd_f32<512>(g, of, dip, B, H, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const TfBwdArgs a{static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                    static_cast<const float*>(z), static_cast<float*>(di), Lq, Lk, scale};
+  // tiles (dK/dV: warpgroups, q rows a tile, stages; dQ: warpgroups, keys
+  // a tile, stages) as flash_f32_plan's
+  if (D == 64)
+    return launch_flash_bwd_f32_sm90<64, 2, 16, 3, 1, 32, 3>(p, qf, kf, vf, of, dof, sf, a, B, H,
+                                                             s);
+  if (D == 128)
+    return launch_flash_bwd_f32_sm90<128, 1, 8, 3, 1, 16, 2>(p, qf, kf, vf, of, dof, sf, a, B, H,
+                                                             s);
+  if (D == 256) return launch_f32_bwd_wide<256>(p, qf, kf, vf, of, dof, sf, a, B, H, s);
+  if (D == 512) return launch_f32_bwd_wide<512>(p, qf, kf, vf, of, dof, sf, a, B, H, s);
+  return (int)cudaErrorInvalidValue;
 }

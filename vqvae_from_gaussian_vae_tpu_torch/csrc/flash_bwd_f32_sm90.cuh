@@ -1,7 +1,7 @@
 // The float32 head-major flash-attention backward designed for Hopper
 // (sm_90a) as split TF32 on the tensor cores, for head dims 64 and 128:
-// csrc/flash_bwd.cu gvq_flash_bwd_hm_f32 at those D (256 and 512 keep the
-// SIMT kernels of flash_bwd.cu).
+// csrc/flash_bwd.cu gvq_flash_bwd_hm_f32 at those D (256 and 512 run their
+// wide form, csrc/flash_bwd_f32_sm90_wide.cuh).
 //
 // Replaces the TPU kernels behind the backward of
 // vqvae_from_gaussian_vae_tpu/ops/flash_attention.py (_bwd: the upstream
@@ -479,14 +479,14 @@ int launch_flash_bwd_f32_sm90(const F32Plan& p, const float* q, const float* k, 
   using QLay = TfQLayout<D, QWG, NK, QST>;
   const long long bh = (long long)B * H;
   const int Lq = a.Lq, Lk = a.Lk;
-  const long long kv[8] = {64 * KWG, NQ, KST, KvLay::kThreads, (long long)KvLay::kSmem,
-                           (Lk + 64 * KWG - 1) / (64 * KWG), bh, Lq % NQ != 0};
-  const long long qq[8] = {64 * QWG, NK, QST, QLay::kThreads, (long long)QLay::kSmem,
-                           (Lq + 64 * QWG - 1) / (64 * QWG), bh, Lk % NK != 0};
+  const long long kv[10] = {64 * KWG, NQ, KST, KvLay::kThreads, (long long)KvLay::kSmem,
+                            (Lk + 64 * KWG - 1) / (64 * KWG), bh, Lq % NQ != 0, D, 1};
+  const long long qq[10] = {64 * QWG, NK, QST, QLay::kThreads, (long long)QLay::kSmem,
+                            (Lq + 64 * QWG - 1) / (64 * QWG), bh, Lk % NK != 0, D, 1};
   const int lqp = (Lq + 7) / 8 * 8, lkp = (Lk + 7) / 8 * 8;
-  bool ok = p.body == 1 && scratch != nullptr && bh <= 65535 && p.lq_pitch == lqp &&
+  bool ok = p.body == 0 && scratch != nullptr && bh <= 65535 && p.lq_pitch == lqp &&
             p.lk_pitch == lkp;
-  for (int i = 0; ok && i < 8; ++i) ok = p.dkdv[i] == kv[i] && p.dq[i] == qq[i];
+  for (int i = 0; ok && i < 10; ++i) ok = p.dkdv[i] == kv[i] && p.dq[i] == qq[i];
   // each kernel's maps, its own boxes over the same planes: the dK/dV
   // kernel's q, k, v, do ("rows") and q^T, do^T ("cols"), the dQ kernel's
   // q, k, v, do and k^T

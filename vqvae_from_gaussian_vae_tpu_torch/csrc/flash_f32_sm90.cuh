@@ -1,7 +1,9 @@
 // Pieces shared by the float32 head-major flash bodies designed for Hopper
 // (sm_90a) as split TF32 on the tensor cores: the forward
 // (csrc/flash_fwd_f32_sm90.cuh) and the backward (csrc/flash_bwd_f32_sm90.cuh)
-// of gvq_flash_fwd_hm_f32 and gvq_flash_bwd_hm_f32 at head dims 64 and 128.
+// of gvq_flash_fwd_hm_f32 and gvq_flash_bwd_hm_f32 at head dims 64 and 128,
+// and their wide form at 256 and 512 (csrc/flash_fwd_f32_sm90_wide.cuh,
+// csrc/flash_bwd_f32_sm90_wide.cuh).
 //
 // Split TF32.  A float32 operand a becomes a pair of TF32 values, hi =
 // cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi), and a product is three
@@ -337,6 +339,132 @@ __device__ __forceinline__ void tf_store(const float (&o)[D / 2], float* dst, in
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide bodies' pieces (D = 256 and 512: csrc/flash_fwd_f32_sm90_wide.cuh,
+// csrc/flash_bwd_f32_sm90_wide.cuh).  A block owns C of D's columns, and the
+// N = D / C blocks of one row tile form a cluster: each forms its partial
+// scores over its columns, and tw_exchange sums them over the cluster.
+
+// The exchange region of a block: two buffers (even and odd tiles), each
+// one slot for every other block of the cluster, a slot the R floats of
+// each of the 128 consumer threads as R / 4 float4 (float4 i of thread tw
+// at (128 i + tw) 16 bytes).  A sender's slot in a receiver's buffer is
+// its rank, less one past the receiver's own.
+template <int R, int N>
+struct TwExchange {
+  static_assert(R % 4 == 0 && N >= 2 && N <= 8, "float4s a thread; 2 to 8 blocks a cluster");
+  static constexpr uint32_t kSlot = R * 4 * 128;
+  static constexpr uint32_t kBuf = (N - 1) * kSlot;
+  static constexpr uint32_t kBytes = 2 * kBuf;
+};
+
+// Tile t's partial products x (R floats of this thread, over this block's
+// columns) summed over the cluster's N blocks, in rank order, into x: every
+// block of the cluster ends with the same bits.  This thread's floats go
+// by st.async into its slot of buffer t % 2 of every other block, where
+// they complete on that block's mbarrier of the buffer as a TMA copy does;
+// thread 0 arms this block's with the bytes it expects, and every thread
+// waits for it, then adds the N parts.  Two buffers and no release step:
+// a block writes tile t + 2 into a buffer only after it has received every
+// block's tile t + 1, which each thread sends after its reads of tile t.
+// xa / xp: this block's exchange region (shared address, pointer); bars:
+// its two mbarriers (one arrive each phase, and the bytes).
+template <int R, int N>
+__device__ __forceinline__ void tw_exchange(float (&x)[R], uint32_t xa, const unsigned char* xp,
+                                            uint32_t bars, uint32_t rank, int t) {
+  using X = TwExchange<R, N>;
+  const int tw = threadIdx.x & 127, buf = t & 1;
+  const uint32_t full = bars + 8 * buf;
+  if (tw == 0) mbar_arrive_expect_tx(full, X::kBuf);
+#pragma unroll
+  for (uint32_t p = 0; p < (uint32_t)N; ++p) {
+    if (p == rank) continue;
+    const uint32_t slot = rank < p ? rank : rank - 1;
+    const uint32_t dst = gvq::cluster_map(xa + buf * X::kBuf + slot * X::kSlot + tw * 16, p);
+    const uint32_t bar = gvq::cluster_map(full, p);
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i)
+      gvq::st_async_f4(dst + i * 2048, x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3], bar);
+  }
+  mbar_wait(full, (t >> 1) & 1);
+  const float4* in = reinterpret_cast<const float4*>(xp + buf * X::kBuf) + tw;
+  float sum[R];
+#pragma unroll
+  for (uint32_t r = 0; r < (uint32_t)N; ++r) {
+    float part[R];
+    if (r == rank) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) part[i] = x[i];
+    } else {
+      const float4* f = in + (r < rank ? r : r - 1) * (X::kSlot / 16);
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i) {
+        const float4 u = f[128 * i];
+        part[4 * i] = u.x;
+        part[4 * i + 1] = u.y;
+        part[4 * i + 2] = u.z;
+        part[4 * i + 3] = u.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) sum[i] = r == 0 ? part[i] : sum[i] + part[i];
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) x[i] = sum[i];
+}
+
+// this thread's share of a 64-row accumulator of C columns (rows from
+// row0) stored as float32 into dst (its first column; row stride ld), rows
+// at or past `rows` not stored; `mul0` and `mul1` scale rows r and r + 8
+template <int C>
+__device__ __forceinline__ void tw_store(const float (&o)[C / 2], float* dst, int ld, int row0,
+                                         int rows, float mul0 = 1.0f, float mul1 = 1.0f) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r0 = row0 + warp * 16 + (lane >> 2);
+  float* p = dst + 2 * (lane & 3);
+  const bool in0 = r0 < rows, in1 = r0 + 8 < rows;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    if (in0)
+      *reinterpret_cast<float2*>(p + (size_t)r0 * ld + 8 * j) =
+          make_float2(o[4 * j] * mul0, o[4 * j + 1] * mul0);
+    if (in1)
+      *reinterpret_cast<float2*>(p + (size_t)(r0 + 8) * ld + 8 * j) =
+          make_float2(o[4 * j + 2] * mul1, o[4 * j + 3] * mul1);
+  }
+}
+
+// the start of a wide block: thread 0 has initialised its mbarriers; every
+// block of the cluster waits for every other's before a remote write
+__device__ __forceinline__ void tw_start() {
+  if (threadIdx.x == 0) asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  gvq::cluster_sync();
+}
+
+// a wide kernel's launch: `cluster` blocks along the grid's z a cluster
+template <class... Params, class... Args>
+int tw_launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, unsigned cluster,
+              cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = cluster;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // The pre-pass: up to kTfJobs jobs in one launch of 256-thread blocks, a
 // job's blocks after the previous job's.
 //   kTfRows: src (bh, rows, cols) -> dst (bh, 2, rows, cols), 4 floats a thread;
@@ -431,26 +559,44 @@ inline int tf_job_blocks(int kind, long long bh, int rows, int cols, int pitch) 
 // The launch plan of ops/flash_attention.py flash_f32_plan, as the int64
 // array the wrappers pass (FlashF32Plan.as_array): kF32PlanLen numbers in
 // this order.  A kernel's tiles are {rows a block, streamed rows a tile,
-// stages, threads, shared memory, grid x, grid y, mask}: the forward's
-// {q rows, keys, .., key mask}, the dK/dV kernel's {keys, q rows, .., q
-// mask}, the dQ kernel's {q rows, keys, .., key mask}.  Maps (PlanMap:
-// csrc/sm90.cuh; offsets in floats into the call's scratch), each with its
-// kernel's box: the forward's q, k ("rows") and v ("cols"); the dK/dV
-// kernel's q, k, v, do ("rows"), q, do ("cols"); the dQ kernel's q, k, v,
-// do ("rows", the same planes as the dK/dV kernel's) and k ("cols").
+// stages, threads, shared memory, grid x, grid y, mask, column share,
+// cluster}: the forward's {q rows, keys, .., key mask, ..}, the dK/dV
+// kernel's {keys, q rows, .., q mask, ..}, the dQ kernel's {q rows, keys,
+// .., key mask, ..}; a block owns `share` of D's columns, and the D / share
+// blocks of a row tile form a cluster along the grid's z (share D and
+// cluster 1 at D = 64 and 128).  Maps (PlanMap: csrc/sm90.cuh; offsets in
+// floats into the call's scratch), each with its kernel's box: the
+// forward's q, k ("rows") and v ("cols"); the dK/dV kernel's q, k, v, do
+// ("rows"), q, do ("cols"); the dQ kernel's q, k, v, do ("rows", the same
+// planes as the dK/dV kernel's) and k ("cols").  A "rows" box is 32
+// columns wide, a block's share that many boxes from its first column; a
+// "cols" box holds the share's rows of the plane.
 struct F32Plan {
-  long long body;  // 1: split TF32 (these bodies); 0: SIMT (csrc/flash_f32.cuh)
-  long long fwd[8], dkdv[8], dq[8];
+  long long body;  // 0: split TF32 at D = 64, 128; 1: its wide form at D = 256, 512
+  long long fwd[10], dkdv[10], dq[10];
   long long lq_pitch, lk_pitch, fwd_scratch, bwd_scratch;  // floats
   PlanMap map[14];
 };
 
-constexpr int kF32PlanLen = 197;
+constexpr int kF32PlanLen = 203;
 static_assert(sizeof(F32Plan) == kF32PlanLen * sizeof(long long), "the plan's layout");
 enum {
   kMapFq = 0, kMapFk, kMapFvt,                         // forward
   kMapKq, kMapKk, kMapKv, kMapKdo, kMapKqt, kMapKdot,  // dK/dV
   kMapQq, kMapQk, kMapQv, kMapQdo, kMapQkt             // dQ
+};
+
+// the wide body's tiling of each kernel at D = 256 and 512 (column share,
+// streamed rows a tile, stages), as ops/flash_attention.py F32_WIDE_TILES
+template <int D>
+struct TwTiles;
+template <>
+struct TwTiles<256> {
+  static constexpr int kFwd[3] = {128, 32, 2}, kDkdv[3] = {64, 16, 3}, kDq[3] = {128, 8, 3};
+};
+template <>
+struct TwTiles<512> {
+  static constexpr int kFwd[3] = {128, 16, 3}, kDkdv[3] = {128, 8, 2}, kDq[3] = {128, 8, 3};
 };
 
 // Encode a plan map over scratch (float32, the 128-, 64- or 32-byte swizzle

@@ -56,16 +56,16 @@
 //
 // gvq_flash_fwd_hm_f32 is the head-major op for float32 tensors (the JAX op
 // runs float32 too), held to the plain version within 1e-4 of its largest
-// value.  At D = 64 and 128 it runs the split-TF32 wgmma body of
-// csrc/flash_fwd_f32_sm90.cuh (each product three TF32 passes on the tensor
-// cores, float32-accurate whatever torch.backends.cuda.matmul.allow_tf32
-// says, after a pre-pass that writes the operands' TF32 pairs); at D = 256
-// and 512 a plain SIMT kernel, fmaf products on CUDA cores in float32,
-// whose operands come from shared memory, one 4-byte load per FMA.  Both
-// take the launch plan of ops/flash_attention.py flash_f32_plan (F32Plan),
-// which names the body.
-#include "flash_f32.cuh"
+// value: split TF32 on the tensor cores (each product three TF32 wgmma
+// passes, float32-accurate whatever torch.backends.cuda.matmul.allow_tf32
+// says, after a pre-pass that writes the operands' TF32 pairs), by the body
+// of csrc/flash_fwd_f32_sm90.cuh at D = 64 and 128 and its wide form
+// csrc/flash_fwd_f32_sm90_wide.cuh at D = 256 and 512 (a block owns a share
+// of D's columns, a cluster of blocks the whole row tile).  Both take the
+// launch plan of ops/flash_attention.py flash_f32_plan (F32Plan), which
+// names the body and its tiling.
 #include "flash_fwd_f32_sm90.cuh"
+#include "flash_fwd_f32_sm90_wide.cuh"
 #include "flash_fwd_sm90.cuh"
 #include "flash_fwd_sm90_wide.cuh"
 
@@ -127,150 +127,14 @@ int token_major_entry(const bf16* const (&bases)[3], bf16* o, float* z, int B, i
   return flash_entry(bases, o, z, B, H, L, L, D, scale, plan, stream);
 }
 
-// The float32 head-major forward's SIMT body (D = 256 and 512): per (b, h)
-// and 32-row q tile, an online softmax over 32-key tiles.  Shared memory (floats, pitch D + 1): the Q
-// tile and one K-or-V tile, 2 * 32 * (D + 1); the score tile 32 * 33; the
-// row max, sum and rescale 3 * 32: at D = 512, 135,936 bytes.  A thread
-// computes 2 x 2 scores and keeps its F32Own<D, 32> share of the output in
-// registers (8 to 64 floats).
-struct F32FwdArgs {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
-  float* z;  // (B, H, Lq), or null
-  int Lq, Lk;
-  float scale;
-};
-
-constexpr int kF32Fq = 32;  // q rows a block and keys a tile
-
+// the wide body at D = 256 or 512, at its tiling (TwTiles)
 template <int D>
-constexpr size_t f32_fwd_smem() {
-  return (2 * kF32Fq * (D + 1) + kF32Fq * (kF32Fq + 1) + 3 * kF32Fq) * sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(F32FwdArgs g) {
-  constexpr int T = kF32Fq, LD = D + 1, LDS = T + 1, N = T / 16;
-  using Own = F32Own<D, T>;
-  extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;
-  float* KVs = Qs + T * LD;
-  float* Ss = KVs + T * LD;
-  float* row_m = Ss + T * LDS;
-  float* row_l = row_m + T;
-  float* row_a = row_l + T;
-
-  const int tid = threadIdx.x;
-  const int Lq = g.Lq, Lk = g.Lk;
-  const int q0 = blockIdx.x * T;
-  const size_t bh = blockIdx.y;
-  const float* kb = g.k + bh * Lk * D;
-  const float* vb = g.v + bh * Lk * D;
-  const int cg = tid % Own::CG, rg = tid / Own::CG;
-  const int ty = tid >> 4, tx = tid & 15;
-
-  load_f32_rows<D, T>(Qs, g.q + (bh * Lq + q0) * D, D, Lq - q0);
-  if (tid < T) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.0f;
-  }
-  float acc[Own::RO][Own::CO];
-#pragma unroll
-  for (int i = 0; i < Own::RO; ++i)
-#pragma unroll
-    for (int j = 0; j < Own::CO; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < Lk; k0 += T) {
-    __syncthreads();  // the last tile's P V is done with KVs and Ss
-    load_f32_rows<D, T>(KVs, kb + (size_t)k0 * D, D, Lk - k0);
-    __syncthreads();
-    float s[N][N];
-    f32_abt<D, T>(Qs, KVs, s);
-    // a key past Lk scores -inf before the row max, so it adds exactly 0
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const int c = tx + 16 * j;
-        Ss[(ty * N + i) * LDS + c] = k0 + c < Lk ? s[i][j] * g.scale : -INFINITY;
-      }
-    __syncthreads();
-    load_f32_rows<D, T>(KVs, vb + (size_t)k0 * D, D, Lk - k0);
-    {  // 8 threads a row, 4 scores each
-      const int r = tid >> 3, part = tid & 7;
-      float sv[4];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sv[i] = Ss[r * LDS + part * 4 + i];
-        mx = fmaxf(mx, sv[i]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(sv[i] - m_new);
-        sum += p;
-        Ss[r * LDS + part * 4 + i] = p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < Own::RO; ++i) {
-      const int r = rg * Own::RO + i;
-      const float alpha = row_a[r];
-#pragma unroll
-      for (int j = 0; j < Own::CO; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < T; ++kk) {
-      float vv[Own::CO];
-#pragma unroll
-      for (int j = 0; j < Own::CO; ++j) vv[j] = KVs[kk * LD + cg + j * Own::CG];
-#pragma unroll
-      for (int i = 0; i < Own::RO; ++i) {
-        const float p = Ss[(rg * Own::RO + i) * LDS + kk];
-#pragma unroll
-        for (int j = 0; j < Own::CO; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < Own::RO; ++i) {
-    const float inv = 1.0f / row_l[rg * Own::RO + i];
-#pragma unroll
-    for (int j = 0; j < Own::CO; ++j) acc[i][j] *= inv;
-  }
-  store_f32_own<D, T>(g.o + (bh * Lq + q0) * D, acc, Lq - q0);
-  if (g.z != nullptr && tid < T && q0 + tid < Lq)
-    g.z[bh * Lq + q0 + tid] = row_m[tid] + logf(row_l[tid]);
-}
-
-template <int D>
-int launch_flash_f32(const F32FwdArgs& g, int B, int H, cudaStream_t stream) {
-  const size_t smem = f32_fwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.Lq + kF32Fq - 1) / kF32Fq, B * H);
-  flash_fwd_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(g);
-  return (int)cudaGetLastError();
+int launch_f32_fwd_wide(const F32Plan& p, const float* q, const float* k, const float* v,
+                        float* o, float* z, float* scratch, int B, int H, int Lq, int Lk,
+                        float scale, cudaStream_t s) {
+  using T = TwTiles<D>;
+  return launch_flash_fwd_f32_wide<D, T::kFwd[0], T::kFwd[1], T::kFwd[2]>(
+      p, q, k, v, o, z, scratch, B, H, Lq, Lk, scale, s);
 }
 
 }  // namespace
@@ -340,10 +204,9 @@ extern "C" int gvq_flash_fwd_hm(const void* q, const void* k, const void* v, voi
 // The float32 head-major entry (the same op as gvq_flash_fwd_hm, for
 // float32 tensors): q, o (B, H, Lq, D) and k, v (B, H, Lk, D) float32,
 // contiguous, 16-byte aligned, any Lq, Lk >= 1, D 64, 128, 256 or 512; z
-// (B, H, Lq) float32 where not null.  plan: the launch plan (F32Plan,
-// kF32PlanLen int64), whose body must be the one of this D: split TF32
-// (D = 64, 128; scratch then holds the plan's fwd_scratch floats for the
-// pre-pass) or SIMT (D = 256, 512; scratch unused).
+// (B, H, Lq) float32 where not null; scratch the plan's fwd_scratch floats
+// for the pre-pass.  plan: the launch plan (F32Plan, kF32PlanLen int64),
+// whose body and tiles must be this D's.
 extern "C" int gvq_flash_fwd_hm_f32(const void* q, const void* k, const void* v, void* o,
                                     void* z, void* scratch, int B, int H, int Lq, int Lk, int D,
                                     float scale, const long long* plan, void* stream) {
@@ -365,13 +228,11 @@ extern "C" int gvq_flash_fwd_hm_f32(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_flash_fwd_f32_sm90<128, 2, 16, 3>(p, qf, kf, vf, of, zf, sf, B, H, Lq, Lk,
                                                     scale, s);
-  if (p.body != 0) return (int)cudaErrorInvalidValue;
-  const F32FwdArgs g{qf, kf, vf, of, zf, Lq, Lk, scale};
-  switch (D) {
-    case 256: return launch_flash_f32<256>(g, B, H, s);
-    case 512: return launch_flash_f32<512>(g, B, H, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D == 256)
+    return launch_f32_fwd_wide<256>(p, qf, kf, vf, of, zf, sf, B, H, Lq, Lk, scale, s);
+  if (D == 512)
+    return launch_f32_fwd_wide<512>(p, qf, kf, vf, of, zf, sf, B, H, Lq, Lk, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Message for an error code returned by any gvq_* entry point.

@@ -1,7 +1,7 @@
 // The float32 head-major flash-attention forward designed for Hopper
 // (sm_90a) as split TF32 on the tensor cores, for head dims 64 and 128:
-// csrc/flash_fwd.cu gvq_flash_fwd_hm_f32 at those D (256 and 512 keep the
-// SIMT kernel of flash_fwd.cu).
+// csrc/flash_fwd.cu gvq_flash_fwd_hm_f32 at those D (256 and 512 run its
+// wide form, csrc/flash_fwd_f32_sm90_wide.cuh).
 //
 // Replaces the TPU kernel behind the forward of
 // vqvae_from_gaussian_vae_tpu/ops/flash_attention.py (flash_attention and
@@ -17,7 +17,7 @@
 // passes: 1.25 ms at 495 TFLOP/s, against 101 MB of q, k, v, o (0.03 ms)
 // and the pre-pass's 50 MB read and 151 MB written.
 //
-// The design, against the SIMT kernel's one shared-memory load per FMA:
+// The design, against a CUDA-core kernel's one shared-memory load per FMA:
 // 1. The pre-pass (tf_prep_kernel, one launch) writes q and k as "rows"
 //    planes and v as a "cols" plane (V^T, keys permuted in 8s): every
 //    wgmma operand then arrives by TMA in the layout its product reads.
@@ -258,10 +258,10 @@ int launch_flash_fwd_f32_sm90(const F32Plan& p, const float* q, const float* k, 
                               float scale, cudaStream_t stream) {
   using Lay = TfFwdLayout<D, WG, NK, ST>;
   const long long bh = (long long)B * H;
-  const long long f[8] = {64 * WG, NK, ST, Lay::kThreads, (long long)Lay::kSmem,
-                          (Lq + 64 * WG - 1) / (64 * WG), bh, Lk % NK != 0};
-  bool ok = p.body == 1 && scratch != nullptr && bh <= 65535 && p.lk_pitch == (Lk + 7) / 8 * 8;
-  for (int i = 0; ok && i < 8; ++i) ok = p.fwd[i] == f[i];
+  const long long f[10] = {64 * WG, NK, ST, Lay::kThreads, (long long)Lay::kSmem,
+                           (Lq + 64 * WG - 1) / (64 * WG), bh, Lk % NK != 0, D, 1};
+  bool ok = p.body == 0 && scratch != nullptr && bh <= 65535 && p.lk_pitch == (Lk + 7) / 8 * 8;
+  for (int i = 0; ok && i < 10; ++i) ok = p.fwd[i] == f[i];
   CUtensorMap maps[3];
   ok = ok &&
        tf_encode(&maps[0], scratch, p.fwd_scratch, p.map[kMapFq], bh, Lq, D, 32, 64 * WG) &&

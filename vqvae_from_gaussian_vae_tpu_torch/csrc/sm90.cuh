@@ -331,8 +331,14 @@ typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuui
                                          CUtensorMapInterleave, CUtensorMapSwizzle,
                                          CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled through the runtime's entry-point lookup (no -lcuda)
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup (no
+// -lcuda).  The encoder needs the calling thread's CUDA context, which a
+// thread that has made no runtime call yet does not hold (autograd's
+// backward thread, when a backward is a process's first CUDA work on it):
+// a runtime call binds it, once a thread.
 inline TensorMapEncodeTiled tensor_map_encoder() {
+  static thread_local const bool bound = cudaFree(nullptr) == cudaSuccess;
+  if (!bound) return nullptr;
   static const TensorMapEncodeTiled fn = []() -> TensorMapEncodeTiled {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;

@@ -49,7 +49,6 @@ import ctypes
 import dataclasses
 import functools
 import os
-from typing import Optional
 
 import torch
 
@@ -88,20 +87,31 @@ BWD_K_TILE = {64: 128, 128: 64}
 # WIDE_BWD_STAGES stages (kBwRows, kBwShare, kBwTile, kBwStages)
 WIDE_BWD_ROWS, WIDE_BWD_COLS, WIDE_BWD_TILE, WIDE_BWD_STAGES = 64, 256, 32, 3
 BWD_BODIES = ("wgmma", "wgmma_wide")  # FlashBwdPlan.body, as BwdPlan::body 1 and 2
-# the float32 head-major op's split-TF32 bodies at D = 64 and 128
-# (csrc/flash_fwd_f32_sm90.cuh, csrc/flash_bwd_f32_sm90.cuh; D = 256 and 512
-# run the SIMT kernels): per kernel and head dim, (consumer warpgroups of 64
-# rows a block, streamed rows a tile, stages).  The forward's block owns q
-# rows and streams keys, the dK/dV kernel's owns keys and streams q rows,
-# the dQ kernel's owns q rows and streams keys.  Every operand is two
-# float32 planes (TF32 hi and lo) in shared memory, so the tiles are small;
-# these are the fastest of the tilings tried on an H100 (PERF.md §6)
+# the float32 head-major op's split-TF32 bodies (csrc/flash_fwd_f32_sm90.cuh,
+# csrc/flash_bwd_f32_sm90.cuh at D = 64 and 128): per kernel and head dim,
+# (consumer warpgroups of 64 rows a block, streamed rows a tile, stages).
+# The forward's block owns q rows and streams keys, the dK/dV kernel's owns
+# keys and streams q rows, the dQ kernel's owns q rows and streams keys.
+# Every operand is two float32 planes (TF32 hi and lo) in shared memory, so
+# the tiles are small; these are the fastest of the tilings tried on an
+# H100 (PERF.md §6)
 F32_FWD_TILES = {64: (2, 32, 3), 128: (2, 16, 3)}
 F32_DKDV_TILES = {64: (2, 16, 3), 128: (1, 8, 3)}
 F32_DQ_TILES = {64: (1, 32, 3), 128: (1, 16, 2)}
 F32_HEAD_DIMS = tuple(F32_FWD_TILES)
 _F32_TILES = {"fwd": F32_FWD_TILES, "dkdv": F32_DKDV_TILES, "dq": F32_DQ_TILES}
-F32_BODIES = ("simt", "split_tf32")  # FlashF32Plan.body, as F32Plan::body 0 and 1
+# their wide form at D = 256 and 512 (csrc/flash_fwd_f32_sm90_wide.cuh,
+# csrc/flash_bwd_f32_sm90_wide.cuh): a block is one consumer warpgroup of 64
+# rows and a producer warpgroup and owns `share` of D's columns, the D /
+# share blocks of a row tile a cluster along the grid's z.  Per kernel and
+# head dim, (share, streamed rows a tile, stages), as csrc/flash_f32_sm90.cuh
+# TwTiles: the fastest of the tilings tried on an H100 (PERF.md §6)
+F32_WIDE_TILES = {"fwd": {256: (128, 32, 2), 512: (128, 16, 3)},
+                  "dkdv": {256: (64, 16, 3), 512: (128, 8, 2)},
+                  "dq": {256: (128, 8, 3), 512: (128, 8, 3)}}
+F32_WIDE_HEAD_DIMS = (256, 512)
+F32_KERNELS = ("fwd", "dkdv", "dq")
+F32_BODIES = ("split_tf32", "split_tf32_wide")  # FlashF32Plan.body, as F32Plan::body 0 and 1
 F32_SWIZZLE_COLS = 32  # float32 columns of one 128-byte swizzle row
 # the plan's maps, in F32Plan::map's order: "rows" planes (a tensor as it
 # lies) and "cols" planes (transposed, rows permuted in 8s: *_qt, *_kt,
@@ -383,10 +393,11 @@ def flash_bwd_plan(layout: str, b: int, h: int, lq: int, lk: int, d: int,
 @dataclasses.dataclass(frozen=True)
 class F32KernelTiles:
     """One kernel of ``FlashF32Plan``: a block owns ``rows`` rows of one (b,
-    h) (``rows // 64`` consumer warpgroups) and walks ``tile``-row tiles of
-    the other side in a ring of ``stages``; ``threads``, ``smem`` bytes of
-    shared memory, ``grid`` (blocks along the owned rows, B * H);
-    ``mask``: the last streamed tile is partial."""
+    h) (``rows // 64`` consumer warpgroups) and ``share`` of D's columns,
+    and walks ``tile``-row tiles of the other side in a ring of ``stages``;
+    ``threads``, ``smem`` bytes of shared memory, ``grid`` (blocks along
+    the owned rows, B * H), ``cluster`` = D // share blocks along the
+    grid's z, a cluster; ``mask``: the last streamed tile is partial."""
 
     rows: int
     tile: int
@@ -395,10 +406,12 @@ class F32KernelTiles:
     smem: int
     grid: tuple
     mask: bool
+    share: int
+    cluster: int
 
     def as_list(self) -> list:
         return [self.rows, self.tile, self.stages, self.threads, self.smem, *self.grid,
-                int(self.mask)]
+                int(self.mask), self.share, self.cluster]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,22 +420,24 @@ class FlashF32Plan:
     ``flash_f32_plan`` makes it and the C entries read it (``as_array``;
     ``csrc/flash_f32_sm90.cuh`` ``F32Plan``).
 
-    ``body`` is ``"split_tf32"`` (D = 64 and 128: each product three TF32
-    ``wgmma`` passes, after a pre-pass that writes each operand's (hi, lo)
-    planes into a scratch buffer of ``fwd_scratch`` or ``bwd_scratch``
-    floats) or ``"simt"`` (D = 256 and 512: the CUDA-core kernels, no
-    tiles, maps or scratch).  ``fwd``, ``dkdv`` and ``dq`` are the three
+    ``body`` is ``"split_tf32"`` (D = 64 and 128) or ``"split_tf32_wide"``
+    (D = 256 and 512, a block a share of D's columns): each product three
+    TF32 ``wgmma`` passes, after a pre-pass that writes each operand's
+    (hi, lo) planes into a scratch buffer of ``fwd_scratch`` or
+    ``bwd_scratch`` floats.  ``fwd``, ``dkdv`` and ``dq`` are the three
     kernels' tiles; ``lq_pitch`` and ``lk_pitch`` the lengths rounded up to
-    8, the row length of a "cols" plane.  ``maps`` holds each
-    ``F32_MAPS`` name's ``TensorMapPlan`` over the scratch (offset in
-    floats, dims (cols, rows, 2, B*H), byte strides, box (inner columns,
-    rows, 1, 1)); the dK/dV and dQ kernels read the same "rows" planes
-    with their own boxes."""
+    8, the row length of a "cols" plane.  ``maps`` holds each ``F32_MAPS``
+    name's ``TensorMapPlan`` over the scratch (offset in floats, dims
+    (cols, rows, 2, B*H), byte strides, box (inner columns, rows, 1, 1));
+    the dK/dV and dQ kernels read the same "rows" planes with their own
+    boxes.  A "rows" box is 32 columns wide (a block's share is share / 32
+    boxes, from its first column), a "cols" box holds the share's rows: one
+    map serves every share."""
 
     body: str
-    fwd: Optional[F32KernelTiles]
-    dkdv: Optional[F32KernelTiles]
-    dq: Optional[F32KernelTiles]
+    fwd: F32KernelTiles
+    dkdv: F32KernelTiles
+    dq: F32KernelTiles
     lq_pitch: int
     lk_pitch: int
     fwd_scratch: int
@@ -430,27 +445,45 @@ class FlashF32Plan:
     maps: dict
 
     def as_array(self):
-        """The plan as the C entries take it: 197 int64 in ``F32Plan``'s order."""
-        tiles = [t.as_list() if t is not None else [0] * 8 for t in (self.fwd, self.dkdv, self.dq)]
-        vals = [F32_BODIES.index(self.body), *tiles[0], *tiles[1], *tiles[2], self.lq_pitch,
-                self.lk_pitch, self.fwd_scratch, self.bwd_scratch]
-        maps = tuple(self.maps[n] for n in F32_MAPS) if self.maps else ()
-        return _int64s(vals, maps, len(F32_MAPS), [], 197)
+        """The plan as the C entries take it: 203 int64 in ``F32Plan``'s order."""
+        vals = [F32_BODIES.index(self.body), *self.fwd.as_list(), *self.dkdv.as_list(),
+                *self.dq.as_list(), self.lq_pitch, self.lk_pitch, self.fwd_scratch,
+                self.bwd_scratch]
+        return _int64s(vals, tuple(self.maps[n] for n in F32_MAPS), len(F32_MAPS), [], 203)
+
+
+def f32_tiling(kernel: str, d: int) -> tuple:
+    """(warpgroups, streamed rows a tile, stages, share) of a kernel's
+    tiling at head dim d."""
+    if d in F32_HEAD_DIMS:
+        return (*_F32_TILES[kernel][d], d)
+    share, tile, stages = F32_WIDE_TILES[kernel][d]
+    return 1, tile, stages, share
 
 
 def f32_smem(kernel: str, d: int) -> int:
-    """Shared memory of a split-TF32 kernel (``TfFwdLayout``, ``TfKvLayout``,
-    ``TfQLayout``): the fixed tiles (Q; K and V; Q and dO), the ring's
-    stages, z and di of each stage (dK/dV), the mbarriers and 1024 bytes of
-    alignment slack; every operand two float32 planes."""
-    wg, tile, stages = _F32_TILES[kernel][d]
-    rows = 64 * wg
-    if kernel == "fwd":  # Q; K and V^T
-        return 8 * rows * d + stages * 16 * tile * d + (1 + 3 * stages) * 8 + 1024
-    if kernel == "dkdv":  # K, V; q, do, q^T, do^T and z, di
-        return (16 * rows * d + stages * (32 * tile * d + 8 * tile) + (1 + 3 * stages) * 8
-                + 1024)
-    return 16 * rows * d + stages * 24 * tile * d + (1 + 2 * stages) * 8 + 1024  # Q, dO; k, v, k^T
+    """Shared memory of a split-TF32 kernel at head dim d: ``TfFwdLayout``,
+    ``TfKvLayout``, ``TfQLayout`` and at D = 256 and 512 ``TwFwdLayout``,
+    ``TwKvLayout``, ``TwQLayout``.  The owned tiles (Q; K and V; Q and dO,
+    the block's share of columns), the ring's stages, z and di of each stage
+    (dK/dV), at D = 256 and 512 the exchange of the partial scores with the
+    cluster's other blocks (two buffers of a slot per other block, 128
+    threads' floats each), the mbarriers and 1024 bytes of alignment slack;
+    every operand two float32 planes."""
+    wg, tile, stages, share = f32_tiling(kernel, d)
+    rows, wide = 64 * wg, d in F32_WIDE_HEAD_DIMS
+    others = d // share - 1
+    if kernel == "fwd":  # Q; K and V^T; S
+        body = 8 * rows * share + stages * 16 * tile * share
+        floats, bars = tile // 2, 1 + 3 * stages
+    elif kernel == "dkdv":  # K, V; q, do, q^T, do^T and z, di; S^T and dP^T
+        body = 16 * rows * share + stages * (32 * tile * share + 8 * tile)
+        floats, bars = tile, 1 + 3 * stages
+    else:  # Q, dO; k, v, k^T; S and dP
+        body = 16 * rows * share + stages * 24 * tile * share
+        floats, bars = tile, 1 + 2 * stages
+    exchange = 2 * others * floats * 4 * 128 if wide else 0
+    return body + exchange + (bars + 2 * wide) * 8 + 1024
 
 
 def _f32_plane(offset: int, bh: int, rows: int, cols: int, box_cols: int,
@@ -468,21 +501,20 @@ def flash_f32_plan(b: int, h: int, lq: int, lk: int, d: int) -> FlashF32Plan:
     and v (B, H, Lk, D), contiguous.
 
     At D = 64 and 128 the split-TF32 bodies, tiles ``F32_FWD_TILES``,
-    ``F32_DKDV_TILES``, ``F32_DQ_TILES``; the forward's scratch holds q and
-    k as "rows" planes and v^T as a "cols" plane, the backward's q, k, v,
-    do as "rows" planes and q^T, k^T, do^T as "cols" planes.  At D = 256
-    and 512 the SIMT kernels, which take no tiles from the plan."""
+    ``F32_DKDV_TILES``, ``F32_DQ_TILES``; at D = 256 and 512 their wide
+    form, tiles ``F32_WIDE_TILES``.  The forward's scratch holds q and k as "rows" planes
+    and v^T as a "cols" plane, the backward's q, k, v, do as "rows" planes
+    and q^T, k^T, do^T as "cols" planes."""
     if min(b, h, lq, lk) <= 0 or d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_f32_plan: B={b}, H={h}, Lq={lq}, Lk={lk}, D={d} unsupported")
     lqp, lkp = -(-lq // 8) * 8, -(-lk // 8) * 8
-    if d not in F32_HEAD_DIMS:
-        return FlashF32Plan("simt", None, None, None, lqp, lkp, 0, 0, {})
     bh = b * h
 
     def tiles(kernel, owned, streamed):
-        wg, tile, stages = _F32_TILES[kernel][d]
+        wg, tile, stages, share = f32_tiling(kernel, d)
         return F32KernelTiles(64 * wg, tile, stages, 128 * (wg + 1), f32_smem(kernel, d),
-                              (-(-owned // (64 * wg)), bh), streamed % tile != 0)
+                              (-(-owned // (64 * wg)), bh), streamed % tile != 0, share,
+                              d // share)
 
     fwd, dkdv, dq = tiles("fwd", lq, lk), tiles("dkdv", lk, lq), tiles("dq", lq, lk)
     cols = lambda tile: min(tile, F32_SWIZZLE_COLS)  # noqa: E731  a "cols" box's inner width
@@ -491,7 +523,7 @@ def flash_f32_plan(b: int, h: int, lq: int, lk: int, d: int) -> FlashF32Plan:
     for name, n, box in (("fwd_q", lq, fwd.rows), ("fwd_k", lk, fwd.tile)):
         maps[name] = _f32_plane(at, bh, n, d, F32_SWIZZLE_COLS, box)
         at += 2 * bh * n * d
-    maps["fwd_vt"] = _f32_plane(at, bh, d, lkp, cols(fwd.tile), d)
+    maps["fwd_vt"] = _f32_plane(at, bh, d, lkp, cols(fwd.tile), fwd.share)
     fwd_scratch, at = at + 2 * bh * d * lkp, 0
     # the backward's: each "rows" plane read by both kernels with their boxes
     for name, n, kv_box, q_box in (("q", lq, dkdv.tile, dq.rows), ("k", lk, dkdv.rows, dq.tile),
@@ -499,11 +531,12 @@ def flash_f32_plan(b: int, h: int, lq: int, lk: int, d: int) -> FlashF32Plan:
         maps["dkdv_" + name] = _f32_plane(at, bh, n, d, F32_SWIZZLE_COLS, kv_box)
         maps["dq_" + name] = _f32_plane(at, bh, n, d, F32_SWIZZLE_COLS, q_box)
         at += 2 * bh * n * d
-    for name, pitch, box in (("dkdv_qt", lqp, cols(dkdv.tile)), ("dq_kt", lkp, cols(dq.tile)),
-                             ("dkdv_dot", lqp, cols(dkdv.tile))):
-        maps[name] = _f32_plane(at, bh, d, pitch, box, d)
+    for name, pitch, kernel in (("dkdv_qt", lqp, dkdv), ("dq_kt", lkp, dq),
+                                ("dkdv_dot", lqp, dkdv)):
+        maps[name] = _f32_plane(at, bh, d, pitch, cols(kernel.tile), kernel.share)
         at += 2 * bh * d * pitch
-    return FlashF32Plan("split_tf32", fwd, dkdv, dq, lqp, lkp, fwd_scratch, at, maps)
+    body = "split_tf32_wide" if d in F32_WIDE_HEAD_DIMS else "split_tf32"
+    return FlashF32Plan(body, fwd, dkdv, dq, lqp, lkp, fwd_scratch, at, maps)
 
 
 def check_aligned(name: str, *tensors) -> None:

@@ -29,8 +29,8 @@ at D = 64 and 128 at D = 128 against 128-key tiles, 32 q rows against
 blocks against 64- or 32-row q tiles and 128- or 64-key tiles at D = 64
 and 128, 64-key and 64-q-row blocks of 256 columns against 32-row tiles at
 D = 256 and 512; float32: ``flash_f32_plan``'s
-tiles at D = 64 and 128, 32-row tiles at D = 256 and 512, 16-row backward
-tiles at D = 512).  So where the JAX op fails inside its TPU kernel bodies
+tiles, at D = 256 and 512 64 rows of a share of D's columns a block against
+8- to 16-row tiles).  So where the JAX op fails inside its TPU kernel bodies
 rather than in a check (a k block that is not a multiple of the 128 lanes:
 TypeError or NotImplementedError while tracing), the port computes.
 
@@ -45,12 +45,12 @@ entry ``gvq_flash_fwd_hm`` and ``csrc/flash_bwd.cu`` entry
 ``gvq_flash_bwd_hm`` (tensor cores; their launches from
 ``ops/flash_attention.py``'s ``flash_fwd_plan`` and ``flash_bwd_plan``);
 float32 ``gvq_flash_fwd_hm_f32`` and ``gvq_flash_bwd_hm_f32``, launched
-from ``flash_f32_plan``: at D = 64 and 128 split TF32 on the tensor cores
-(each product three TF32 ``wgmma`` passes over (hi, lo) pairs that a
-pre-pass writes into a scratch buffer, float32-accurate, so
+from ``flash_f32_plan``: split TF32 on the tensor cores (each product
+three TF32 ``wgmma`` passes over (hi, lo) pairs that a pre-pass writes into
+a scratch buffer, float32-accurate, so
 ``torch.backends.cuda.matmul.allow_tf32`` is not read: on or off, the
-result is the same), at D = 256 and 512 SIMT float32 on CUDA cores.  Any
-other dtype or head dim raises.  The plain versions below run for CPU tensors, in
+result is the same), at D = 256 and 512 with a block a share of D's columns
+and a cluster of blocks a row tile.  Any other dtype or head dim raises.  The plain versions below run for CPU tensors, in
 any float dtype, and are what the kernels are held to on the card.
 """
 
@@ -196,12 +196,10 @@ _ENTRIES = {torch.bfloat16: ("gvq_flash_fwd_hm", "gvq_flash_bwd_hm"),
 
 
 def _scratch(floats: int, device):
-    """A fresh float32 buffer of `floats` for the split-TF32 pre-pass (None
-    for 0: the SIMT bodies take none).  Freed after the launch, it goes
-    back to the caching allocator, which hands it out again only to work
-    queued after the kernels on the same stream."""
-    if floats == 0:
-        return None
+    """A fresh float32 buffer of `floats` for the split-TF32 pre-pass.
+    Freed after the launch, it goes back to the caching allocator, which
+    hands it out again only to work queued after the kernels on the same
+    stream."""
     return torch.empty((floats,), dtype=torch.float32, device=device)
 
 
@@ -237,7 +235,7 @@ def flash_attention_fwd_cuda(q, k, v, sm_scale: float, save_residuals: bool = Fa
     else:  # the float32 entry also takes the pre-pass's scratch
         f32 = flash_f32_plan(b, h, lq, lk, d)
         plan, scratch = f32.as_array(), _scratch(f32.fwd_scratch, q.device)
-        ptrs.append(None if scratch is None else scratch.data_ptr())
+        ptrs.append(scratch.data_ptr())
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), entry)(*ptrs, b, h, lq, lk, d, float(sm_scale), plan,
                                                _build.stream_of(q))
@@ -278,7 +276,7 @@ def flash_attention_bwd_cuda(q, k, v, o, z, do, sm_scale: float):
     else:  # the float32 entry also takes the pre-pass's scratch
         f32 = flash_f32_plan(b, h, lq, lk, d)
         plan, scratch = f32.as_array(), _scratch(f32.bwd_scratch, q.device)
-        ptrs.append(None if scratch is None else scratch.data_ptr())
+        ptrs.append(scratch.data_ptr())
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), entry)(*ptrs, b, h, lq, lk, d, float(sm_scale), plan,
                                                _build.stream_of(q))
