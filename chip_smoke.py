@@ -167,27 +167,37 @@ def sass_hgmma() -> dict:
     return counts
 
 
-def wgrad_kernel_facts(source: str, o: int) -> dict:
-    """The weight-gradient body's kernel (``csrc/conv_wgrad.cuh``) that
-    `source` launches for O output channels: its design and output-channel
-    tile, ptxas's registers and spill bytes (stores + loads) from the
-    build's ``nvcc.log``, and the count of HGMMA (wgmma) instructions in its
-    SASS (``cuobjdump``), which must not be 0."""
+def named_kernel_facts(source: str, *tags: str, spill_free: bool = False) -> dict:
+    """The one kernel of `source` (a ``csrc`` file name) whose mangled name
+    holds every one of `tags`: its symbol, ptxas's registers and spill bytes
+    (stores + loads) from the build's ``nvcc.log`` (which must be 0 where
+    `spill_free`) and the count of HGMMA (wgmma) instructions in its SASS
+    (``cuobjdump``), which must not be 0."""
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
-    from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import wgrad_tile_o
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         usage = _build.ptxas_usage(f.read())
-    tag, tile_o = "_" + source.replace(".", "_") + "_", wgrad_tile_o(o)
-    names = [n for n in usage
-             if tag in n and "conv_wgrad_kernel" in n and f"ELi{tile_o}EE" in n]
-    require(len(names) == 1, f"{len(names)} conv_wgrad_kernel entries of {source} in nvcc.log")
+    src = "_" + source.replace(".", "_") + "_"
+    names = [n for n in usage if src in n and all(t in n for t in tags)]
+    require(len(names) == 1, f"{len(names)} {' '.join(tags)} entries of {source} in nvcc.log")
     u = usage[names[0]]
     hgmma = sass_hgmma().get(names[0], 0)
     require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
-    return {"registers": u["registers"],
-            "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
-            "design": "wgmma", "tile_o": tile_o, "sass_hgmma": hgmma}
+    spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
+    require(not spill_free or spills == 0, f"{names[0]}: {spills} bytes of spills")
+    return {"symbol": names[0], "registers": u["registers"], "spills": spills,
+            "sass_hgmma": hgmma}
+
+
+def wgrad_kernel_facts(source: str, o: int) -> dict:
+    """The weight-gradient body's kernel (``csrc/conv_wgrad.cuh``) that
+    `source` launches for O output channels: its design and output-channel
+    tile, and its registers, spills and HGMMA count (named_kernel_facts)."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import wgrad_tile_o
+
+    tile_o = wgrad_tile_o(o)
+    return {**named_kernel_facts(source, "conv_wgrad_kernel", f"ELi{tile_o}EE"),
+            "design": "wgmma", "tile_o": tile_o}
 
 
 def igemm_kernel_facts(mode: str, b: int, h: int, w: int, c: int, o: int) -> dict:
@@ -195,60 +205,37 @@ def igemm_kernel_facts(mode: str, b: int, h: int, w: int, c: int, o: int) -> dic
     that the downsample forward ("fwd", "fwd_add") or dgrad ("dgrad"), the
     upsample forward ("up_fwd", "up_fwd_add") or dgrad ("up_dgrad"), or the
     bf16 fused GroupNorm + swish conv ("same_gn") launches on x (b, h, w, c)
-    and O output channels: its plan's spatial and channel tiles, ptxas's
-    registers and spill bytes (stores + loads) from the build's
-    ``nvcc.log``, which must be 0, and the count of HGMMA (wgmma)
-    instructions in its SASS (``cuobjdump``), which must not be 0."""
-    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    and O output channels: its plan's spatial and channel tiles, and its
+    registers, no spills and HGMMA count (named_kernel_facts)."""
     from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import igemm_plan
 
-    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
-        usage = _build.ptxas_usage(f.read())
     plan = igemm_plan(mode, b, h, w, c, o)
-    source = {"dgrad": "_downsample_bwd_cu_", "up_dgrad": "_upsample_bwd_cu_",
-              "up_fwd": "_upsample_conv_cu_", "up_fwd_add": "_upsample_conv_cu_",
-              "same_gn": "_fused_gn_conv_cu_"}.get(mode, "_downsample_conv_cu_")
+    source = {"dgrad": "downsample_bwd.cu", "up_dgrad": "upsample_bwd.cu",
+              "up_fwd": "upsample_conv.cu", "up_fwd_add": "upsample_conv.cu",
+              "same_gn": "fused_gn_conv.cu"}.get(mode, "downsample_conv.cu")
     ax = {"fwd_add": "4AAdd", "up_fwd_add": "4AAdd", "same_gn": "3AGn"}.get(mode, "9AIdentity")
     number = {"dgrad": 1, "up_dgrad": 2, "up_fwd": 3, "up_fwd_add": 3,
               "same_gn": 4}.get(mode, 0)  # the header's IgemmMode
     tag = f"conv_igemm_sm90_kernelILi{number}ELi{plan.tile_n}ENS0_{ax}E"
-    names = [n for n in usage if source in n and tag in n]
-    require(len(names) == 1, f"{len(names)} {tag} entries of {source} in nvcc.log")
-    u = usage[names[0]]
-    hgmma = sass_hgmma().get(names[0], 0)
-    require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
-    spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
-    require(spills == 0, f"{names[0]}: {spills} bytes of spills")
-    return {"registers": u["registers"], "spills": spills, "design": "wgmma",
+    return {**named_kernel_facts(source, tag, spill_free=True), "design": "wgmma",
             "tile": f"{plan.tile_h}x{plan.tile_w}", "tile_n": plan.tile_n,
-            "stages": plan.stages, "blocks_per_sm": plan.blocks_per_sm, "sass_hgmma": hgmma}
+            "stages": plan.stages, "blocks_per_sm": plan.blocks_per_sm}
 
 
 def flash_fwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
     """The bf16 flash forward kernel the entries launch at head dim d and
     lengths lq, lk: its design ("wgmma": ``csrc/flash_fwd_sm90.cuh``, D = 64
     and 128; "wgmma_wide": ``csrc/flash_fwd_sm90_wide.cuh``, D = 256 and
-    512), its tiles, ptxas's registers and spill bytes (stores + loads)
-    from ``nvcc.log``, which must be 0, and the count of HGMMA (wgmma)
-    instructions in its SASS, which must not be 0."""
-    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    512), its tiles, and its registers, no spills and HGMMA count
+    (named_kernel_facts)."""
     from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_fwd_plan
 
-    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
-        usage = _build.ptxas_usage(f.read())
     plan = flash_fwd_plan("head_major", 1, 1, lq, lk, d)
     kernel = "flash_fwd_wide_kernel" if plan.body == "wgmma_wide" else "flash_fwd_sm90_kernel"
     tag = f"{kernel}ILi{d}ELb{int(plan.key_mask)}E"
-    names = [n for n in usage if "_flash_fwd_cu_" in n and tag in n]
-    require(len(names) == 1, f"{len(names)} {tag} entries of flash_fwd.cu in nvcc.log")
-    u = usage[names[0]]
-    hgmma = sass_hgmma().get(names[0], 0)
-    require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
-    spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
-    require(spills == 0, f"{names[0]}: {spills} bytes of spills")
-    return {"registers": u["registers"], "spills": spills, "design": plan.body,
-            "q_rows": plan.q_rows, "k_rows": plan.k_rows, "stages": plan.stages,
-            "sass_hgmma": hgmma}
+    return {**named_kernel_facts("flash_fwd.cu", tag, spill_free=True),
+            "design": plan.body, "q_rows": plan.q_rows, "k_rows": plan.k_rows,
+            "stages": plan.stages}
 
 
 def flash_bwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
@@ -256,32 +243,18 @@ def flash_bwd_kernel_facts(d: int, lq: int, lk: int) -> dict:
     dim d and lengths lq, lk: the body ("wgmma": ``csrc/flash_bwd_sm90.cuh``,
     D = 64 and 128; "wgmma_wide": ``csrc/flash_bwd_sm90_wide.cuh``, D = 256
     and 512, whose blocks of a cluster split D `splits` ways), and for the
-    dK/dV and the dQ kernel its symbol, ptxas's registers and spill bytes
-    (stores + loads) from ``nvcc.log``, which must be 0, and the count of
-    HGMMA (wgmma) instructions in its SASS, which must not be 0."""
-    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    dK/dV and the dQ kernel its symbol, registers, no spills and HGMMA count
+    (named_kernel_facts)."""
     from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_bwd_plan
 
-    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
-        usage = _build.ptxas_usage(f.read())
     plan = flash_bwd_plan("head_major", 1, 1, lq, lk, d)
     body = {"wgmma": "sm90", "wgmma_wide": "wide"}[plan.body]
     tags = {"dkdv": f"flash_bwd_dkdv_{body}_kernelILi{d}ELb{int(plan.q_mask)}E",
             "dq": f"flash_bwd_dq_{body}_kernelILi{d}ELb{int(plan.key_mask)}E"}
-    kernels = {}
-    for kernel, tag in tags.items():
-        names = [n for n in usage if "_flash_bwd_cu_" in n and tag in n]
-        require(len(names) == 1, f"{len(names)} {tag} entries of flash_bwd.cu in nvcc.log")
-        u = usage[names[0]]
-        hgmma = sass_hgmma().get(names[0], 0)
-        spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
-        require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
-        require(spills == 0, f"{names[0]}: {spills} bytes of spills")
-        kernels[kernel] = {"symbol": names[0], "registers": u["registers"], "spills": spills,
-                           "sass_hgmma": hgmma}
     return {"design": plan.body, "kv_rows": plan.kv_rows, "kv_q_rows": plan.kv_q_rows,
             "q_rows": plan.q_rows, "q_k_rows": plan.q_k_rows, "splits": plan.splits,
-            "kernels": kernels}
+            "kernels": {k: named_kernel_facts("flash_bwd.cu", tag, spill_free=True)
+                        for k, tag in tags.items()}}
 
 
 def flash_f32_kernel_facts(b: int, h: int, lq: int, lk: int, d: int) -> dict:
@@ -290,33 +263,22 @@ def flash_f32_kernel_facts(b: int, h: int, lq: int, lk: int, d: int) -> dict:
     ("split_tf32": ``csrc/flash_fwd_f32_sm90.cuh`` and
     ``csrc/flash_bwd_f32_sm90.cuh``, D = 64 and 128; "split_tf32_wide":
     ``csrc/flash_fwd_f32_sm90_wide.cuh`` and ``csrc/flash_bwd_f32_sm90_wide.cuh``,
-    D = 256 and 512), each kernel's tiles, column share and cluster,
-    ptxas's registers and spill bytes (stores + loads) from ``nvcc.log``,
-    and the count of HGMMA (wgmma) instructions in its SASS, which must not
-    be 0; and the pre-pass's scratch (forward and backward) in MiB."""
-    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+    D = 256 and 512), each kernel's tiles, column share and cluster, and its
+    registers, spills and HGMMA count (named_kernel_facts); and the
+    pre-pass's scratch (forward and backward) in MiB."""
     from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import flash_f32_plan
 
-    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
-        usage = _build.ptxas_usage(f.read())
     plan = flash_f32_plan(b, h, lq, lk, d)
     wide = plan.body == "split_tf32_wide"
     kernels = {}
-    for kernel, source, t in (("fwd", "_flash_fwd_cu_", plan.fwd),
-                              ("dkdv", "_flash_bwd_cu_", plan.dkdv),
-                              ("dq", "_flash_bwd_cu_", plan.dq)):
+    for kernel, source, t in (("fwd", "flash_fwd.cu", plan.fwd),
+                              ("dkdv", "flash_bwd.cu", plan.dkdv),
+                              ("dq", "flash_bwd.cu", plan.dq)):
         name = {"fwd": "flash_fwd_f32", "dkdv": "flash_bwd_dkdv_f32",
                 "dq": "flash_bwd_dq_f32"}[kernel] + ("_wide_kernel" if wide else "_sm90_kernel")
         split = t.share if wide else t.rows // 64
         tag = f"{name}ILi{d}ELi{split}ELi{t.tile}ELi{t.stages}ELb{int(t.mask)}E"
-        names = [n for n in usage if source in n and tag in n]
-        require(len(names) == 1, f"{len(names)} {tag} entries in nvcc.log")
-        u = usage[names[0]]
-        hgmma = sass_hgmma().get(names[0], 0)
-        require(hgmma > 0, f"{names[0]}: no HGMMA in its SASS")
-        kernels[kernel] = {"registers": u["registers"],
-                           "spills": u.get("spill_stores", 0) + u.get("spill_loads", 0),
-                           "sass_hgmma": hgmma, "rows": t.rows, "tile": t.tile,
+        kernels[kernel] = {**named_kernel_facts(source, tag), "rows": t.rows, "tile": t.tile,
                            "stages": t.stages, "smem": t.smem, "share": t.share,
                            "cluster": t.cluster}
     return {"design": plan.body, "kernels": kernels,
@@ -1006,9 +968,12 @@ def check_fused_gn_conv(gen):
     small shape and at the float32 engine's 32x32 512-channel conv (TF32
     off, as everywhere in the smoke).  Each row times the wrapper (``gn_affine``'s plain torch,
     then the kernel), the kernel alone on the affine made beforehand, and
-    ``gn_affine`` alone; the bf16 kernel's output repeats bit for bit, and
-    its facts (plan tiles, registers, no spills, HGMMA) are the Hopper
-    body's.  Library: F.group_norm, F.silu, then cuDNN's conv, in the
+    ``gn_affine`` alone; the output repeats bit for bit, and the facts
+    (plan tiles, registers, no spills, HGMMA) are the Hopper bodies': the
+    implicit-GEMM body in bf16, split TF32 in float32 (with its two
+    kernels' device times, the weight pre-pass and the conv: two launches a
+    counted call; its bound is split TF32's, three TF32 passes, with the
+    CUDA cores' beside it).  Library: F.group_norm, F.silu, then cuDNN's conv, in the
     compute dtype (three calls)."""
     import torch
     import torch.nn.functional as F
@@ -1037,10 +1002,22 @@ def check_fused_gn_conv(gen):
         err, ratio = _within(y_k, y_p, *tol)
         require(ratio <= 1.0, f"fused GN conv {(b, h, h, c, o)} {dtype}: error {err} beyond "
                               f"atol {tol[0]} + rtol {tol[1]}")
-        facts = {}
-        if dtype == torch.bfloat16:  # the Hopper body: y repeats bit for bit
-            require(torch.equal(y_k, y_a), f"fused GN conv {(b, h, h, c, o)}: two runs differ")
+        # both Hopper bodies: y repeats bit for bit
+        require(torch.equal(y_k, y_a), f"fused GN conv {(b, h, h, c, o)} {dtype}: two runs differ")
+        if dtype == torch.bfloat16:
             facts = {"bit_reproducible": True, **igemm_kernel_facts("same_gn", b, h, h, c, o)}
+        else:  # split TF32: the plan's tiles, and each of the call's two kernels alone
+            plan = fgc.gn_conv_f32_plan(b, h, h, c, o)
+            facts = named_kernel_facts("fused_gn_conv.cu", "gn_conv_split_tf32_kernel",
+                                       spill_free=True)
+            parts = device_kernel_ms(
+                lambda: fgc.fused_gn_swish_conv_affine_cuda(x, scale, shift, w, bias, res), 10)
+            facts = {"bit_reproducible": True, "design": "split_tf32", **facts,
+                     "kernels_per_call": 2,  # the weight pre-pass, then the conv
+                     "tile": "x".join(map(str, fgc.F32_TILE)), "tile_n": fgc.F32_TILE_N,
+                     "stages": fgc.F32_STAGES, "blocks": plan.blocks,
+                     "device_ms": {("weight_prep" if "weight_prep" in k else "conv"): v["ms"]
+                                   for k, v in parts.items()}}
         del y_p, y_a
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC buffer: channels_last
         w_cl = w.to(dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -1050,7 +1027,11 @@ def check_fused_gn_conv(gen):
         e = x.element_size()
         flops = 2.0 * b * h * h * 9 * c * o
         nbytes = e * (x.numel() + y_k.numel() * (2 if residual else 1) + w.numel()) + 4 * (2 * c + o)
-        bnd, by = bound_ms(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        if dtype == torch.bfloat16:
+            bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+        else:  # the body's bound, three TF32 passes; the CUDA cores' beside it
+            bnd, by = bound_ms(3 * flops, nbytes, PEAK_TF32)
+            facts["cuda_core_bound_ms"] = bound_ms(flops, nbytes, PEAK_FP32)[0]
         kernel_alone = time_ms(
             lambda: fgc.fused_gn_swish_conv_affine_cuda(x, scale, shift, w, bias, res))
         shapes.append({"shape": f"x ({b},{h},{h},{c}) -> O {o} {str(dtype).split('.')[-1]}"
@@ -2074,9 +2055,12 @@ def run_ln_matmul_lab(gen):
     fused:128:2304) at its full shape, (16384, 768) @ (768, N), N = 2304 and
     3072, through the lab's own ``run``, with the launches counted; each
     checked output held to the JAX lab's reference and to its plain version
-    within 1e-2 of max |reference|.  Then each kernel alone at the port's
-    row block (128) and N = 2304 for the kernels line, beside its plain
-    version and the library pair.  Returns (one line per combo, the kernels
+    within 1e-2 of max |reference|; each combo's line carries its kernel's
+    grid, tiles, registers, spills and HGMMA count (the TMA + wgmma GEMM
+    body).  Then each kernel alone at the port's row block (128) and N =
+    2304 for the kernels line, beside its plain version and the library
+    pair, and the fused call's statistics pass and GEMM alone.  Returns
+    (one line per combo, the kernels
     line's entries)."""
     import torch
     from vqvae_from_gaussian_vae_tpu_torch.labs import exp_ln_matmul as lab
@@ -2100,10 +2084,16 @@ def run_ln_matmul_lab(gen):
     plain = {(v, n): lab.plain_site(v, *inputs[n]) for v, _, n in lab.DEFAULT_COMBOS}
     xla_us = {n: 1e3 * time_ms(lambda s=lab.make_site("xla", 0, *args[1:]), x=args[0]: s(x))
               for n, args in inputs.items()}
+    # the GEMM body's kernels: ln_matmul_kernel<true> (fused), <false> (pmm)
+    body = {v: {"design": "tma_wgmma",
+                **named_kernel_facts("ln_matmul.cu",
+                                     f"16ln_matmul_kernelILb{int(v == 'fused')}E")}
+            for v in ("fused", "pmm")}
     lines, errs = [], {"fused": [], "pmm": []}
     for r in results:
         out = r.pop("out")
         variant, _, n = r["combo"].split(":")
+        r.update(body.get(variant, {}))
         bar = lab.REL_BAR * r["ref_max"]
         r["plain_err"] = float((out.float() - plain[(variant, int(n))].float()).abs().max())
         require(r["max_err"] <= bar, f"ln_matmul lab {r['combo']}: max_err {r['max_err']} > {bar}")
@@ -2134,7 +2124,11 @@ def run_ln_matmul_lab(gen):
              "bias_add": time_ms(lambda: torch.add(mm, wb, out=o)),
              "copy": time_ms(lambda: o.copy_(mm)),
              "feedback": time_ms(lambda: torch.add(x, mm[:, :x.shape[1]], alpha=1e-6))}
-    lines.append({"phase": "ln_matmul_lab", "n": n, "xla_pair_parts_ms": parts})
+    # the fused call's two kernels alone: the statistics pass and the GEMM
+    split = device_kernel_ms(lambda: LM.ln_matmul_cuda(x, g, b, w, wb, bm), 10)
+    split = {("statistics" if "ln_stats" in k else "gemm"): v["ms"] for k, v in split.items()}
+    lines.append({"phase": "ln_matmul_lab", "n": n, "xla_pair_parts_ms": parts,
+                  "ln_matmul_device_ms": split})
 
     def entry(name, variant, replaces, library):
         bound, by = lab.C.bound_ms(*lab.flops_bytes(variant, n))
@@ -2143,10 +2137,15 @@ def run_ln_matmul_lab(gen):
                 "replaces": replaces, "launches": launches[name], "path": "ln_matmul_lab",
                 "max_abs_err": max(errs[variant]), "ms": times[name],
                 "plain_ms": times[f"{name}_plain"], "bound_ms": bound, "bound_by": by,
-                "library_ms": times[f"{name}_library"],
-                "per": f"one launch at bm={bm}, (16384, 768) @ (768, {n}); max_abs_err over "
-                       f"the lab's {variant} combos against their plain versions; library: "
-                       + library}
+                "library_ms": times[f"{name}_library"], **body[variant],
+                "tile": f"{LM.TILE_M}x{LM.TILE_N}x{LM.TILE_K}", "stages": LM.STAGES,
+                **({"device_ms": split} if variant == "fused" else {}),
+                "kernels_per_call": 2 if variant == "fused" else 1,
+                "per": f"one launch at bm={bm}, (16384, 768) @ (768, {n})"
+                       + ("; each counted launch runs two kernels, the row statistics "
+                          "(ln_stats_kernel), then the GEMM" if variant == "fused" else "")
+                       + f"; max_abs_err over the lab's {variant} combos against their plain "
+                         "versions; library: " + library}
 
     summary = [
         entry("ln_matmul", "fused", "scripts/exp_ln_matmul.py:64",

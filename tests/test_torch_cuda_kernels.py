@@ -143,16 +143,39 @@ def test_upsample_kernel_matches_plain(gen, shape, o, with_add):
 
 def test_upsample_and_fused_gn_kernels_are_bit_reproducible(gen):
     """The upsample forward's y and statistics and the fused GN conv's y
-    repeat bit for bit (the Hopper body: fixed summation orders, no float
-    atomics), with and without the add or the residual."""
+    repeat bit for bit (the Hopper bodies, the bf16 implicit GEMM and the
+    float32 split TF32: fixed summation orders, no float atomics), with and
+    without the add or the residual."""
     for shape, o, with_add in [((2, 9, 21, 96), 384, True), ((2, 32, 32, 512), 512, False)]:
         x, add, w, bias = _conv_case(gen, shape, o, with_add)
         y, stats = up.upsample_nearest_conv3x3_gn_cuda(x, w, bias, add)
         y2, stats2 = up.upsample_nearest_conv3x3_gn_cuda(x, w, bias, add)
         assert torch.equal(y, y2) and torch.equal(stats, stats2)
-    for shape, o, residual in [((2, 9, 21, 32), 136, True), ((2, 32, 32, 512), 512, False)]:
-        args = _gn_conv_case(gen, shape, o, torch.bfloat16, residual)
+    for shape, o, dtype, residual in [((2, 9, 21, 32), 136, torch.bfloat16, True),
+                                      ((2, 32, 32, 512), 512, torch.bfloat16, False),
+                                      ((2, 32, 32, 512), 512, torch.float32, True),
+                                      ((1, 9, 21, 96), 72, torch.float32, False)]:
+        args = _gn_conv_case(gen, shape, o, dtype, residual)
         assert torch.equal(fgc.fused_gn_swish_conv_cuda(*args), fgc.fused_gn_swish_conv_cuda(*args))
+
+
+def test_fused_gn_conv_float32_kernel_takes_a_partial_k_step(gen):
+    """C = 36 through the affine entry: the last 32-channel K step is partly
+    past C (the halo box's zero fill, the transform's 0), held to a float64
+    reference."""
+    import torch.nn.functional as F
+
+    b, h, wd, c, o = 1, 9, 21, 36, 40
+    x = torch.randn((b, h, wd, c), generator=gen, device="cuda")
+    scale = 1 + 0.3 * torch.randn((b, c), generator=gen, device="cuda")
+    shift = 0.3 * torch.randn((b, c), generator=gen, device="cuda")
+    w = torch.randn((3, 3, c, o), generator=gen, device="cuda") / (3 * c ** 0.5)
+    bias = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+    got = fgc.fused_gn_swish_conv_affine_cuda(x, scale, shift, w, bias)
+    hd = x.double() * scale.double()[:, None, None] + shift.double()[:, None, None]
+    hd = (hd * torch.sigmoid(hd)).permute(0, 3, 1, 2)
+    want = F.conv2d(hd, w.double().permute(3, 2, 0, 1), bias.double(), padding=1)
+    _close(got, want.permute(0, 2, 3, 1).float().contiguous(), FUSED_F32_TOL)
 
 
 @pytest.mark.parametrize("b,l,h,d", [(2, 128, 4, 64), (1, 192, 2, 128), (2, 64, 1, 256),
@@ -620,6 +643,9 @@ def _gn_conv_case(gen, shape, o, dtype, residual):
     ((2, 32, 32, 512), 512, torch.bfloat16, True),   # the smallest main-path shape at bs 2
     ((2, 12, 20, 64), 32, torch.float32, False),
     ((1, 9, 7, 32), 12, torch.float32, True),
+    ((2, 32, 32, 512), 512, torch.float32, True),   # the float32 engine's shape, + residual
+    ((1, 9, 21, 96), 72, torch.float32, True),      # O off the 64-channel N tile
+    ((2, 17, 33, 160), 132, torch.float32, False),  # ragged pixel tiles both ways
 ])
 def test_fused_gn_conv_kernel_matches_plain(gen, shape, o, dtype, residual):
     args = _gn_conv_case(gen, shape, o, dtype, residual)
@@ -1152,9 +1178,11 @@ def test_flash_lab_kernels_refuse_uncompiled_combos(gen):
 
 # the LN-prologue matmul lab's kernels (ops/ln_matmul.py) against their plain
 # versions: the lab's shapes and row blocks, and ragged ones (R off the
-# 128-row sub-tile, N off the 128-column tile, C below 768)
+# 128-row tile, N off the 256-column tile, C below 768 and off the 64-channel
+# K step, a last raster group with fewer M tiles, fewer tiles than SMs)
 LN_MM_SHAPES = [(16384, 768, 2304, 128), (16384, 768, 3072, 512), (16384, 768, 2304, 1024),
-                (1000, 768, 200, 256), (300, 256, 136, 128)]
+                (1000, 768, 200, 256), (300, 256, 136, 128), (777, 96, 264, 384),
+                (130, 32, 8, 128), (5000, 480, 776, 640)]
 
 
 def _ln_mm_inputs(gen, r, c, n):
@@ -1184,6 +1212,15 @@ def test_matmul_bias_kernels_match_plain(gen, r, c, n, bm):
     assert _rel_max(got, lmm.matmul_bias_plain(x, w, wb)) <= BF16_RTOL
 
 
+@pytest.mark.parametrize("r,c,n,bm", [(16384, 768, 2304, 512), (777, 96, 264, 384)])
+def test_ln_matmul_kernels_are_bit_reproducible(gen, r, c, n, bm):
+    """No split-K and no atomics: both kernels repeat bit for bit."""
+    x, g, b, w, wb = _ln_mm_inputs(gen, r, c, n)
+    assert torch.equal(lmm.ln_matmul_cuda(x, g, b, w, wb, bm),
+                       lmm.ln_matmul_cuda(x, g, b, w, wb, bm))
+    assert torch.equal(lmm.matmul_bias_cuda(x, w, wb, bm), lmm.matmul_bias_cuda(x, w, wb, bm))
+
+
 def test_ln_matmul_kernels_refuse_uncompiled_tilings_and_shapes(gen):
     x, g, b, w, wb = _ln_mm_inputs(gen, 256, 768, 256)
     before = (lmm.ln_matmul_cuda.launches, lmm.matmul_bias_cuda.launches)
@@ -1191,7 +1228,7 @@ def test_ln_matmul_kernels_refuse_uncompiled_tilings_and_shapes(gen):
         lmm.ln_matmul_cuda(x, g, b, w, wb, 64)
     with pytest.raises(ValueError, match="not compiled"):
         lmm.matmul_bias_cuda(x, w, wb, 192)
-    x2, g2, b2, w2, wb2 = _ln_mm_inputs(gen, 256, 800, 256)  # C past the resident rows
+    x2, g2, b2, w2, wb2 = _ln_mm_inputs(gen, 256, 800, 256)  # C past a row in a warp's registers
     with pytest.raises(ValueError, match="unsupported"):
         lmm.ln_matmul_cuda(x2, g2, b2, w2, wb2, 128)
     with pytest.raises(ValueError, match="unsupported"):
@@ -1204,9 +1241,9 @@ def test_ln_matmul_kernels_refuse_uncompiled_tilings_and_shapes(gen):
 def test_shipped_kernels_keep_their_registers(gen):
     """ptxas gives every kernel of the recorded table the registers it had
     (``tests/torch_kernel_registers.json``, written by ``python -m
-    vqvae_from_gaussian_vae_tpu_torch.ops._build`` before the LN-prologue
-    matmul kernels were added): a new source must not move the register
-    choice, and with it the occupancy, of a shipped kernel."""
+    vqvae_from_gaussian_vae_tpu_torch.ops._build``): a new source must not
+    move the register choice, and with it the occupancy, of a shipped
+    kernel."""
     import json
     import os
 

@@ -145,11 +145,12 @@ def test_default_combos_are_the_jax_labs_and_each_has_a_counterpart():
     assert lab.DEFAULT_COMBOS == jax_defaults + [lab.PORT_COMBO]
     for variant, bm, n in lab.DEFAULT_COMBOS:
         LM.check_tiling(bm)  # every default row block is compiled: no skipped line
-    # one block an SM: 128 resident normalised rows at pitch 776 and a
-    # three-stage W ring, against the 232,448 bytes a block may have
-    assert LM.smem_bytes(lab.WIDTH) == 198_656 + 26_112 == 224_768 <= 232_448
-    assert [LM.blocks(lab.R, bm) for bm in (128, 256, 512, 1024)] == [128, 64, 32, 16]
-    assert lab.PORT_COMBO == ("fused", 128, 2304) and LM.blocks(lab.R, 128) <= 132
+        # bm sets the raster, not the grid: every combo fills the card's 132
+        # SMs, one 230,464-byte block each (under the 232,448 a block may have)
+        plan = LM.ln_matmul_plan(lab.R, lab.WIDTH, n, bm)
+        assert plan.grid == LM.SMS == 132 and plan.tiles >= 8 * plan.grid
+        assert plan.group == bm // 128 and plan.smem == LM.smem_bytes() == 230_464 <= 232_448
+    assert lab.PORT_COMBO == ("fused", 128, 2304)
 
 
 def test_command_line_parses_the_jax_syntax():
@@ -212,21 +213,22 @@ def test_kernel_registers_name_a_kernel_alike_in_every_checkout():
     a, b = _build.kernel_registers(log("c5a2a33b", "c8bd3a00")), \
         _build.kernel_registers(log("0190a741", "4848b001"))
     assert a == b == {"_ZN<ln_matmul.cu>16ln_matmul_kernelILb1EEEvNS_8LnMmArgsE": 167}
-    # the card test's table: every shipped kernel but this lab's, by its stable name
-    # (the weight-gradient body in two tile widths for each of its three sources;
+    # the card test's table: every shipped kernel by its stable name (the
+    # weight-gradient body in two tile widths for each of its three sources;
     # the wgmma flash backward's di pre-pass at D = 64, 128, 256 and 512; the
     # implicit-GEMM body, four downsample forward, two downsample dgrad, two
     # upsample dgrad, four upsample forward and two fused GroupNorm conv kernels;
     # the wide flash forward body at D = 256 and 512; the float32 head-major op's
     # split-TF32 forward, dK/dV and dQ kernels at D = 64 and 128 and their
-    # pre-pass, in place of the SIMT kernels at those D; the wide flash backward
-    # body's dK/dV and dQ kernels at D = 256 and 512, in place of the wmma
-    # body's eight and its di pre-pass; the flash labs' 28 forward and 20
-    # backward kernels and the di pre-pass at D = 64 on the wgmma bodies, in
-    # place of the wmma bodies' 23; the float32 op's wide split-TF32 forward,
-    # dK/dV and dQ kernels at D = 256 and 512, with and without the key
-    # mask, 12 in place of the SIMT bodies' 7)
+    # pre-pass; the wide flash backward body's dK/dV and dQ kernels at D = 256
+    # and 512; the flash labs' 28 forward and 20 backward kernels and the di
+    # pre-pass at D = 64 on the wgmma bodies; the float32 op's wide split-TF32
+    # forward, dK/dV and dQ kernels at D = 256 and 512, with and without the key
+    # mask; the float32 fused GroupNorm conv's split-TF32 kernel and its weight
+    # pre-pass, in place of the SIMT kernel; and this lab's GEMM body, fused
+    # and plain, and its statistics pass)
     with open(os.path.join(ROOT, "tests", "torch_kernel_registers.json")) as f:
         table = json.load(f)
-    assert len(table) == 216 and not any("ln_matmul" in k for k in table)
+    assert len(table) == 220 and sum("<ln_matmul.cu>" in k for k in table) == 3
+    assert not any("fused_gn_conv_f32_kernel" in k for k in table)
     assert all(k.count("<") == 1 and k.count(".cu>") == 1 for k in table)

@@ -658,19 +658,6 @@ conv_igemm_sm90_kernel(const __grid_constant__ CUtensorMap tmap_a,
   dst[a.N] = sumsq;
 }
 
-// A 4-D bf16 map, dims innermost first, byte strides of dims 1..3, written
-// with the 128-byte swizzle, zero fill out of bounds.
-inline bool ig_encode(CUtensorMap* map, const bf16* base, const cuuint64_t (&dims)[4],
-                      const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
-                      const cuuint32_t (&elem)[4]) {
-  const TensorMapEncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // NHWC (n, h, w, c) as (channel, column, row, sample); a box of 64 channels
 // x box_h x box_w pixels, reading every `step`-th row and column
 inline bool ig_nhwc_map(CUtensorMap* map, const bf16* base, int n, int h, int w, int c,
@@ -680,7 +667,7 @@ inline bool ig_nhwc_map(CUtensorMap* map, const bf16* base, int n, int h, int w,
                                  (cuuint64_t)h * w * c * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)(box_w * step), (cuuint32_t)(box_h * step), 1};
   const cuuint32_t elem[4] = {1, (cuuint32_t)step, (cuuint32_t)step, 1};
-  return ig_encode(map, base, dims, strides, box, elem);
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box, elem);
 }
 
 // (taps, taps, C, O) weights (HWIO: 3 x 3; k22 (2, 2, 2, 2, C, O): 4 x 4)
@@ -691,7 +678,7 @@ inline bool ig_weight_map(CUtensorMap* map, const bf16* w, int c, int o, int row
                                  (cuuint64_t)taps * c * o * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return ig_encode(map, w, dims, strides, box, elem);
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, w, dims, strides, box);
 }
 
 template <int MODE, int BN, class AX>

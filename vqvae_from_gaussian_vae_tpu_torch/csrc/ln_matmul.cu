@@ -16,87 +16,100 @@
 // written once), so the tensor cores bound it: 0.059 ms at the bf16 peak
 // (0.078 ms at N = 3072).
 //
-// The TPU block holds its whole (bm, 768) x and the whole W in VMEM.  A
-// Hopper block cannot: W alone is 3.5 MB at N = 2304, and (bm, N) float32
-// accumulators are 2.4 MB at bm = 256.  What stays is what the fusion is for:
-// the normalised activation never leaves the SM.  A block owns `bm` rows and
-// every column of them, as the TPU block does, and walks them in 128-row
-// sub-tiles.  For each sub-tile it computes the rows' statistics (one warp a
-// row, the row in registers, two passes) and writes the normalised bf16
-// rows, the whole K = C extent of them, into shared memory once: 128 x
-// (768 + 8) bf16 = 198,656 bytes.  It then walks N in 128-column tiles, each
-// one a K loop over 32-row tiles of W streamed by cp.async through a
-// three-stage ring (26,112 bytes), on bf16 tensor cores through
-// nvcuda::wmma (16x16x16, float32 accumulators; 8 warps in a 4 x 2 grid, a
-// warp 32 x 64).  The epilogue stages each 16 x 16 accumulator through a
-// per-warp scratch in the ring, adds the float32 bias, rounds once and
-// stores 16 bytes a lane.  Keeping the normalised rows resident (rather than
-// a statistics pre-pass and a transform of every loaded A tile, as the
-// conv core's kSameGn prologue does) normalises each row once for all N / 128
-// column tiles instead of once per tile, and reads x from device memory once.
-// Its price is one block an SM (224,768 bytes at C = 768), so the grid is
-// R / bm blocks: 128 at bm = 128, 16 at the TPU's bm = 1024.
+// The design: a TMA + wgmma GEMM whose A operand is normalised in shared
+// memory, so the normalised activation never goes through device memory.
+// - Statistics first: ln_stats_kernel (a warp a row, the row in registers,
+//   two passes in float32, as the TPU kernel's) writes each row's (mean,
+//   rstd), 8 bytes a row, into a scratch the wrapper allocates: one read of
+//   x.  The GEMM's tiles then need no row's other columns.
+// - The GEMM: a block owns a 128-row x 256-column output tile at a time and
+//   walks tiles persistently (one block an SM, the grid the card's SMs or
+//   the tiles if fewer).  Tiles go in raster groups of bm / 128 M tiles: a
+//   group's tiles run column tile by column tile, so the blocks that run
+//   together share W's tiles through L2 (bm is the TPU kernel's row block,
+//   the rows that share one pass over W; it no longer sets the grid).
+// - A producer warp keeps a four-stage ring of TMA boxes in flight: x's
+//   128 rows x 64 channels and W's 64 channels x 256 columns as it lies
+//   (N contiguous: an MN-major B operand, read with wgmma's transpose bit,
+//   no copy), each a 128-byte swizzled row per pixel or channel.  The ring
+//   flows across K steps, column tiles and row tiles with no drain.  The
+//   copies come from L2 (x and W together fit it), and the consumers hold
+//   two stages at a time (the products in flight and the stage being
+//   normalised), so the ring is as deep as shared memory allows.
+// - Two consumer warpgroups own 64 rows each and run wgmma m64n256k16 (one
+//   a k16 step, float32 accumulators, A and B from shared memory).  The
+//   fused kernel first rewrites its warpgroup's rows of each arrived A tile
+//   in place as bf16((x - mean) * rstd * g + b) (0 past C), while the
+//   previous K step's products run.
+// - The epilogue from the registers: + the float32 bias, one rounding, a
+//   swizzled bf16 half tile at a time staged in its own buffer and stored
+//   by TMA (which clips rows past R and columns past N), so the consumers
+//   go on to the next tile while the last store drains.
+// No split-K and no atomics: the output repeats bit for bit.
 //
-// The plain matmul + bias is the same body with the prologue a copy.
-//
-// Limits: C a multiple of 32 up to 768 (the resident rows fill shared
-// memory), N a multiple of 8 (16-byte rows; the last column tile is masked),
-// any R (rows past R load zeros and are not stored), bm a positive multiple
-// of 128.  Anything else returns cudaErrorInvalidValue and runs nothing.
-//
-// This file shares no header with the shipped kernels, so their register
-// allocation cannot move with it.
+// Limits: C a multiple of 32 up to 768 (the statistics pass holds a row in
+// a warp's registers), N a multiple of 8 (16-byte rows for TMA), any R, bm a
+// positive multiple of 128.  Anything else returns cudaErrorInvalidValue and
+// runs nothing.  ops/ln_matmul.py ln_matmul_plan mirrors the tiles, stages,
+// shared memory, raster and grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using gvq::mbar_arrive;
+using gvq::mbar_arrive_expect_tx;
+using gvq::mbar_init;
+using gvq::mbar_wait;
+using gvq::pack_bf16x2;
+using gvq::tma_load_2d;
+using gvq::tma_store_2d;
+using gvq::wg_desc;
+using gvq::wg_fence_acc;
+using gvq::wg_smem_addr;
+using gvq::wgmma_ss_t;
 
-constexpr int kSub = 128;     // rows of one sub-tile (resident, normalised)
-constexpr int kBN = 128;      // output columns per tile
-constexpr int kBK = 32;       // K rows of W per stage
-constexpr int kStages = 3;    // cp.async ring depth for W
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kBM = 128;                 // rows of an output tile: two warpgroups of 64
+constexpr int kBN = 256;                 // columns of an output tile: two 128-column products
+constexpr int kBK = 64;                  // channels a K step: a 128-byte row of bf16
+constexpr int kStages = 4;               // ring depth
+constexpr int kATile = kBM * kBK * 2;    // 16 KB
+constexpr int kBTile = kBN * kBK * 2;    // 32 KB: four boxes of 64 channels x 64 columns
+constexpr int kStage = kATile + kBTile;  // 48 KB
+constexpr int kEpi = kBM * kBN;          // 32 KB: half the output tile staged, 4 boxes of 64 x 64
+constexpr int kThreads = 384;            // two consumer warpgroups, then a producer warpgroup
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kMaxC = 768;
-constexpr int kLdB = kBN + 8;  // bf16 pitch of a W stage
-constexpr int kLdE = 20;       // f32 pitch of a warp's 16 x 16 epilogue scratch
-constexpr int kMaxChunks = kMaxC / 8 / 32;  // 16-byte chunks of a row per lane
-constexpr size_t kRingBytes = (size_t)kStages * kBK * kLdB * sizeof(bf16);
-static_assert((size_t)kWarps * 16 * kLdE * sizeof(float) <= kRingBytes,
-              "the epilogue scratch lives in the W ring");
-
-__host__ __device__ constexpr int lda_of(int C) { return C + 8; }  // bf16 pitch of the rows
-
-__host__ __device__ constexpr size_t smem_bytes(int C) {
-  return (size_t)kSub * lda_of(C) * sizeof(bf16) + kRingBytes;
-}
+constexpr int kMaxChunks = kMaxC / 8 / 32;  // 16-byte chunks of a row a lane (statistics)
+// the ring, the staged tile, the full and empty barriers, alignment slack
+constexpr size_t kSmem = (size_t)kStages * kStage + kEpi + 2 * kStages * 8 + 1024;
+static_assert(kSmem <= 232448, "one block an SM");
 
 struct LnMmArgs {
-  const bf16* x;     // (R, C): x (LN) or the normalised y (plain)
-  const float* g;    // (C,) LN scale (LN only)
-  const float* b;    // (C,) LN shift (LN only)
-  const bf16* w;     // (C, N)
-  const float* wb;   // (N,)
-  bf16* out;         // (R, N)
-  int R, C, N, bm;
-  float eps;
+  const float2* stats;  // LN: (R,) (mean, rstd) of each row
+  const float* g;       // (C,) LN scale (LN only)
+  const float* b;       // (C,) LN shift (LN only)
+  const float* wb;      // (N,)
+  int R, C, N;
+  int group;            // M tiles of a raster group (bm / 128)
+  int m_tiles, n_tiles, k_steps, tiles;
 };
 
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;  // 0: nothing is read, the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+// tile t of the raster -> (M tile, N tile): groups of `group` M tiles (the
+// last may have fewer), each walked column tile by column tile
+__device__ __forceinline__ void tile_coords(const LnMmArgs& a, int t, int* mt, int* nt) {
+  const int span = a.group * a.n_tiles;
+  const int grp = t / span;
+  const int left = a.m_tiles - grp * a.group;
+  const int rows = left < a.group ? left : a.group;
+  const int r = t - grp * span;
+  *nt = r / rows;
+  *mt = grp * a.group + r % rows;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -105,227 +118,293 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows r0 .. r0 + 127 of x into As (pitch lda), each warp 16 rows: LN
-// normalises them (float32 statistics, one bf16 rounding), else a copy.
-// Rows at or past R are zeros.
-template <bool LN>
-__device__ __forceinline__ void fill_rows(const LnMmArgs& g, bf16* As, int lda, int r0, int warp,
-                                          int lane) {
-  const int nch = g.C / 8;
-  for (int rr = warp * (kSub / kWarps); rr < (warp + 1) * (kSub / kWarps); ++rr) {
-    const int row = r0 + rr;
-    bf16* dst = As + (size_t)rr * lda;
-    if (row >= g.R) {
+// (mean, rstd) of each row of x (R, C): a warp a row, the row in registers,
+// float32, the variance as the mean of (x - mean)^2
+__global__ void __launch_bounds__(256) ln_stats_kernel(const bf16* __restrict__ x,
+                                                       float2* __restrict__ stats, int R, int C,
+                                                       float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + warp;
+  if (row >= R) return;
+  const int nch = C / 8;
+  const bf16* src = x + (size_t)row * C;
+  float v[kMaxChunks * 8];
 #pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        const int ch = j * 32 + lane;
-        if (ch < nch) *reinterpret_cast<uint4*>(dst + ch * 8) = make_uint4(0u, 0u, 0u, 0u);
-      }
-      continue;
-    }
-    const bf16* src = g.x + (size_t)row * g.C;
-    uint4 raw[kMaxChunks];
+  for (int j = 0; j < kMaxChunks; ++j) {
+    const int ch = j * 32 + lane;
+    const uint4 raw = ch < nch ? *reinterpret_cast<const uint4*>(src + ch * 8)
+                               : make_uint4(0u, 0u, 0u, 0u);
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int ch = j * 32 + lane;
-      raw[j] = ch < nch ? *reinterpret_cast<const uint4*>(src + ch * 8)
-                        : make_uint4(0u, 0u, 0u, 0u);
-    }
-    if (!LN) {
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        const int ch = j * 32 + lane;
-        if (ch < nch) *reinterpret_cast<uint4*>(dst + ch * 8) = raw[j];
-      }
-      continue;
-    }
-    float v[kMaxChunks * 8];
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw[j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p[e]);
-        v[j * 8 + 2 * e] = f.x;
-        v[j * 8 + 2 * e + 1] = f.y;
-      }
-    }
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMaxChunks * 8; ++i) sum += v[i];  // absent chunks are 0
-    const float mean = warp_sum(sum) / (float)g.C;
-    float sq = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      if (j * 32 + lane < nch) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float c = v[j * 8 + e] - mean;
-          sq += c * c;
-        }
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / (float)g.C + g.eps);
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int ch = j * 32 + lane;
-      if (ch >= nch) continue;
-      const float4* gp = reinterpret_cast<const float4*>(g.g + ch * 8);
-      const float4* bp = reinterpret_cast<const float4*>(g.b + ch * 8);
-      const float4 g0 = __ldg(gp), g1 = __ldg(gp + 1), b0 = __ldg(bp), b1 = __ldg(bp + 1);
-      const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      uint4 packed;
-      uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        const float y0 = (v[j * 8 + e] - mean) * rstd * gs[e] + bs[e];
-        const float y1 = (v[j * 8 + e + 1] - mean) * rstd * gs[e + 1] + bs[e + 1];
-        __nv_bfloat162 r = __floats2bfloat162_rn(y0, y1);
-        pk[e >> 1] = *reinterpret_cast<uint32_t*>(&r);
-      }
-      *reinterpret_cast<uint4*>(dst + ch * 8) = packed;
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(p[e]);
+      v[j * 8 + 2 * e] = f.x;
+      v[j * 8 + 2 * e + 1] = f.y;
     }
   }
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxChunks * 8; ++i) sum += v[i];  // absent chunks are 0
+  const float mean = warp_sum(sum) / (float)C;
+  float sq = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j) {
+    if (j * 32 + lane < nch) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float c = v[j * 8 + e] - mean;
+        sq += c * c;
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / (float)C + eps);
+  if (lane == 0) stats[row] = make_float2(mean, rstd);
+}
+
+// this warpgroup's 128 threads (barrier 1 + wg; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// LN: a warpgroup's 64 rows of an A tile (x's K step kb, at `tile`),
+// rewritten in place as bf16((x - mean) * rstd * g + b), 0 past C.  This
+// thread takes 16-byte chunk tw % 8 (channels 8 (tw % 8) .. + 7 of the
+// step) of rows tw / 8 + 16 i, whose statistics are mean[i], rstd[i].  The
+// writes are then ordered before the products' (async proxy) reads, and
+// the warpgroup's gathered.
+__device__ __forceinline__ void normalise_tile(unsigned char* tile, const LnMmArgs& a, int kb,
+                                               int tw, const float (&mean)[4],
+                                               const float (&rstd)[4], int wg) {
+  const int k = tw & 7, ch = kb * kBK + 8 * k;
+  const bool in = ch < a.C;  // C % 32 == 0: a chunk is all in or all out
+  float gs[8], bs[8];
+  if (in) {
+    const float4 g0 = __ldg(reinterpret_cast<const float4*>(a.g + ch));
+    const float4 g1 = __ldg(reinterpret_cast<const float4*>(a.g + ch) + 1);
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(a.b + ch));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(a.b + ch) + 1);
+    gs[0] = g0.x, gs[1] = g0.y, gs[2] = g0.z, gs[3] = g0.w;
+    gs[4] = g1.x, gs[5] = g1.y, gs[6] = g1.z, gs[7] = g1.w;
+    bs[0] = b0.x, bs[1] = b0.y, bs[2] = b0.z, bs[3] = b0.w;
+    bs[4] = b1.x, bs[5] = b1.y, bs[6] = b1.z, bs[7] = b1.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = (tw >> 3) + 16 * i;
+    uint4* e = reinterpret_cast<uint4*>(tile + p * 128 + ((k ^ (p & 7)) << 4));
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (in) {
+      const uint4 v = *e;
+      const uint32_t* pv = reinterpret_cast<const uint32_t*>(&v);
+      uint32_t* po = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pv[j]));
+        po[j] = pack_bf16x2((f.x - mean[i]) * rstd[i] * gs[2 * j] + bs[2 * j],
+                            (f.y - mean[i]) * rstd[i] * gs[2 * j + 1] + bs[2 * j + 1]);
+      }
+    }
+    *e = out;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wg_sync(wg);
 }
 
 template <bool LN>
-__global__ void __launch_bounds__(kThreads, 1) ln_matmul_kernel(LnMmArgs g) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = lda_of(g.C);
-  bf16* As = reinterpret_cast<bf16*>(smem);                                // kSub x lda
-  bf16* ring = As + (size_t)kSub * lda;                                    // kStages x kBK x kLdB
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp >> 1;  // 0..3: 32-row slab
-  const int warp_n = warp & 1;   // 0..1: 64-column slab
-  float* scratch = reinterpret_cast<float*>(ring) + warp * 16 * kLdE;
-  const int ksteps = g.C / kBK;
-  const int n_tiles = (g.N + kBN - 1) / kBN;
-  const int row_end = min(g.R, (int)blockIdx.x * g.bm + g.bm);
+__global__ void __launch_bounds__(kThreads, 1)
+ln_matmul_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                 const __grid_constant__ CUtensorMap tmap_w,
+                 const __grid_constant__ CUtensorMap tmap_out, LnMmArgs a) {
+  extern __shared__ unsigned char lm_smem_raw[];
+  const uint32_t raw = wg_smem_addr(lm_smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atom
+  unsigned char* const ring_p = lm_smem_raw + (ring - raw);
+  const uint32_t epi = ring + kStages * kStage;
+  const uint32_t full_bar = epi + kEpi;  // 8 bytes a stage
+  const uint32_t empty_bar = full_bar + kStages * 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  for (int r0 = blockIdx.x * g.bm; r0 < row_end; r0 += kSub) {
-    fill_rows<LN>(g, As, lda, r0, warp, lane);
-    __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);                // the producer's arrive; the copies' bytes
+      mbar_init(empty_bar + 8 * s, kConsumerWarps);  // one arrive a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    for (int nt = 0; nt < n_tiles; ++nt) {
-      const int n0 = nt * kBN;
-      // W rows k0 .. k0 + 31, columns n0 .. n0 + 127: 512 chunks, 2 a thread
-      auto load_w = [&](int ks, int stage) {
-        bf16* Bs = ring + (size_t)stage * kBK * kLdB;
+  if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (warp != kConsumerWarps || lane != 0) return;
+    int ks = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+      int mt, nt;
+      tile_coords(a, t, &mt, &nt);
+      for (int kb = 0; kb < a.k_steps; ++kb, ++ks) {
+        const int s = ks % kStages;
+        mbar_wait(empty_bar + 8 * s, ((ks / kStages) & 1) ^ 1);  // a fresh stage passes
+        const uint32_t bar = full_bar + 8 * s, st = ring + s * kStage;
+        mbar_arrive_expect_tx(bar, kStage);
+        tma_load_2d(st, &tmap_x, bar, kb * kBK, mt * kBM);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int id = tid + i * kThreads;
-          const int k = id >> 4, col = (id & 15) * 8;
-          const bool ok = n0 + col < g.N;
-          const bf16* src = ok ? g.w + (size_t)(ks * kBK + k) * g.N + n0 + col : g.w;
-          cp_async16_zfill(Bs + k * kLdB + col, src, ok);
-        }
-      };
-
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-#pragma unroll
-      for (int s = 0; s < kStages - 1; ++s) {
-        if (s < ksteps) load_w(s, s);
-        cp_async_commit();
+        for (int h = 0; h < kBN / 64; ++h)  // W[k][n]: 64 k rows of 64 n a box
+          tma_load_2d(st + kATile + h * 8192, &tmap_w, bar, nt * kBN + 64 * h, kb * kBK);
       }
-      for (int ks = 0; ks < ksteps; ++ks) {
-        cp_async_wait<kStages - 2>();  // stage ks is in (this thread's copies)
-        __syncthreads();               // ... everyone's; and stage ks - 1 is consumed
-        if (ks + kStages - 1 < ksteps) load_w(ks + kStages - 1, (ks + kStages - 1) % kStages);
-        cp_async_commit();
-        const bf16* Bs = ring + (size_t)(ks % kStages) * kBK * kLdB;
-        const bf16* Ak = As + ks * kBK;
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(fa[i], Ak + (size_t)(warp_m * 32 + i * 16) * lda + kk, lda);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            wmma::load_matrix_sync(fb[j], Bs + kk * kLdB + warp_n * 64 + j * 16, kLdB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // every MMA is done with the ring: it becomes the scratch
+    }
+    return;
+  }
 
-      // epilogue: one 16 x 16 accumulator at a time; lane -> row lane / 2,
-      // 8 columns from (lane & 1) * 8: bias in float32, one rounding
-      const int er = lane >> 1, ec = (lane & 1) * 8;
+  // consumers: warpgroup wg owns rows 64 wg .. + 63 of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+  const int wg = warp >> 2, tw = tid & 127;
+  float acc[kBN / 2];
+  int ks = 0;  // K steps consumed over the block's tiles
+
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    int mt, nt;
+    tile_coords(a, t, &mt, &nt);
+    const int m0 = mt * kBM, n0 = nt * kBN;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.0f;
+
+    // LN: the statistics of this thread's rows of the warpgroup's 64 (see
+    // normalise_tile); rows past R take (0, 0) (they are not stored)
+    float mean[4] = {}, rstd[4] = {};
+    if (LN) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::store_matrix_sync(scratch, acc[i][j], kLdE, wmma::mem_row_major);
-          __syncwarp();
-          const int row = r0 + warp_m * 32 + i * 16 + er;
-          const int col = n0 + warp_n * 64 + j * 16 + ec;
-          if (row < g.R && col < g.N) {
-            const float* s = scratch + er * kLdE + ec;
-            const float4 b0 = __ldg(reinterpret_cast<const float4*>(g.wb + col));
-            const float4 b1 = __ldg(reinterpret_cast<const float4*>(g.wb + col) + 1);
-            const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-            uint4 packed;
-            uint32_t* pk = reinterpret_cast<uint32_t*>(&packed);
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + wg * 64 + (tw >> 3) + 16 * i;
+        const float2 st = row < a.R ? a.stats[row] : make_float2(0.0f, 0.0f);
+        mean[i] = st.x;
+        rstd[i] = st.y;
+      }
+    }
+    // Stage ks is awaited (and normalised) while the previous K step's
+    // products run; the stage before that is released as soon as its
+    // products are done.
+    for (int kb = 0; kb < a.k_steps; ++kb, ++ks) {
+      const int s = ks % kStages;
+      mbar_wait(full_bar + 8 * s, (ks / kStages) & 1);
+      if (LN) normalise_tile(ring_p + s * kStage + wg * 8192, a, kb, tw, mean, rstd, wg);
+      const uint32_t st = ring + s * kStage;
+      wg_fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-            for (int e = 0; e < 8; e += 2) {
-              __nv_bfloat162 r = __floats2bfloat162_rn(s[e] + bs[e], s[e + 1] + bs[e + 1]);
-              pk[e >> 1] = *reinterpret_cast<uint32_t*>(&r);
-            }
-            *reinterpret_cast<uint4*>(g.out + (size_t)row * g.N + col) = packed;
-          }
-          __syncwarp();
+      for (int kk = 0; kk < 4; ++kk)  // A K-major rows; B MN-major, four 64-column boxes
+        wgmma_ss_t<0, 1>(acc, wg_desc(st + wg * 8192 + kk * 32, 16, 1024),
+                         wg_desc(st + kATile + kk * 2048, 8192, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the previous step's
+      wg_fence_acc(acc);
+      if (kb > 0 && lane == 0) mbar_arrive(empty_bar + 8 * ((ks - 1) % kStages));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wg_fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty_bar + 8 * ((ks - 1) % kStages));
+
+    // Epilogue, in two halves of 128 columns through this warpgroup's 16 KB
+    // staging buffer: once the previous store has read it, stage the half
+    // as two 64 x 64 boxes, row p at p * 128, 16-byte chunk c at (c ^ p %
+    // 8) * 16 (the map's 128-byte swizzle), and store them by TMA.
+    // Accumulator fragment: acc[4 j + e] is row (lane / 4) + 8 (e / 2) of
+    // the warp's 16, column 8 j + 2 (lane % 4) + e % 2.
+    unsigned char* const stage_p = ring_p + kStages * kStage + wg * (kEpi / 2);
+    const int q = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (tw == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      wg_sync(wg);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = (warp & 3) * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+        for (int j = 16 * h; j < 16 * h + 16; ++j) {
+          const int n = n0 + 8 * j + 2 * q;
+          const float2 bb = n < a.N ? __ldg(reinterpret_cast<const float2*>(a.wb + n))
+                                    : make_float2(0.0f, 0.0f);
+          const int box = (j >> 3) & 1, c = j & 7;
+          *reinterpret_cast<uint32_t*>(stage_p + box * 8192 + p * 128 + ((c ^ (p & 7)) << 4) +
+                                       q * 4) =
+              pack_bf16x2(acc[4 * j + 2 * half] + bb.x, acc[4 * j + 2 * half + 1] + bb.y);
         }
       }
-      __syncthreads();  // the scratch is free for the next tile's W stages
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(wg);
+      if (tw == 0 && m0 + wg * 64 < a.R) {
+#pragma unroll
+        for (int box = 0; box < 2; ++box)
+          if (n0 + 128 * h + 64 * box < a.N)
+            tma_store_2d(&tmap_out, epi + wg * (kEpi / 2) + box * 8192, n0 + 128 * h + 64 * box,
+                         m0 + wg * 64);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
     }
   }
+  if (tw == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a 2-D bf16 map of a row-major (rows, cols) tensor, a box of box_cols x
+// box_rows, the 128-byte swizzle, zero fill out of bounds
+bool encode_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+               int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return gvq::encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box);
 }
 
 template <bool LN>
-int launch(const LnMmArgs& g, cudaStream_t stream) {
-  if (g.R <= 0 || g.C <= 0 || g.C % kBK != 0 || g.C > kMaxC || g.N <= 0 || g.N % 8 != 0 ||
-      g.bm <= 0 || g.bm % kSub != 0)
+int launch(const bf16* x, float2* stats, const float* g, const float* b, const bf16* w,
+           const float* wb, bf16* out, int R, int C, int N, int bm, float eps,
+           cudaStream_t stream) {
+  if (R <= 0 || C <= 0 || C % 32 != 0 || C > kMaxC || N <= 0 || N % 8 != 0 || bm <= 0 ||
+      bm % kBM != 0 || (LN && (stats == nullptr || g == nullptr || b == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(g.C);
-  cudaError_t err = cudaFuncSetAttribute(ln_matmul_kernel<LN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap tx, tw, to;
+  if (!encode_2d(&tx, x, R, C, kBM, kBK) || !encode_2d(&tw, w, C, N, kBK, 64) ||
+      !encode_2d(&to, out, R, N, 64, 64))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (g.R + g.bm - 1) / g.bm;
-  ln_matmul_kernel<LN><<<blocks, kThreads, smem, stream>>>(g);
+  LnMmArgs a{stats, g, b, wb, R, C, N, bm / kBM, (R + kBM - 1) / kBM, (N + kBN - 1) / kBN,
+             (C + kBK - 1) / kBK, 0};
+  const long long tiles = (long long)a.m_tiles * a.n_tiles;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  if (LN) {
+    ln_stats_kernel<<<(R + 7) / 8, 256, 0, stream>>>(x, stats, R, C, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaFuncSetAttribute(ln_matmul_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = a.tiles < sms ? a.tiles : sms;
+  ln_matmul_kernel<LN><<<grid, kThreads, kSmem, stream>>>(tx, tw, to, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (R, C) bf16; g, b: (C,) float32; w: (C, N) bf16; wb: (N,) float32;
-// out: (R, N) bf16; all contiguous and 16-byte aligned.  bm: the rows one
-// block owns, a multiple of 128.
+// stats: (R, 2) float32 scratch; out: (R, N) bf16; all contiguous and
+// 16-byte aligned.  bm: the rows of one raster group, a multiple of 128.
 extern "C" int gvq_ln_matmul(const void* x, const void* g, const void* b, const void* w,
-                             const void* wb, void* out, int R, int C, int N, int bm, float eps,
-                             void* stream) {
-  const LnMmArgs a{static_cast<const bf16*>(x), static_cast<const float*>(g),
-                   static_cast<const float*>(b), static_cast<const bf16*>(w),
-                   static_cast<const float*>(wb), static_cast<bf16*>(out), R, C, N, bm, eps};
-  return launch<true>(a, static_cast<cudaStream_t>(stream));
+                             const void* wb, void* stats, void* out, int R, int C, int N, int bm,
+                             float eps, void* stream) {
+  return launch<true>(static_cast<const bf16*>(x), static_cast<float2*>(stats),
+                      static_cast<const float*>(g), static_cast<const float*>(b),
+                      static_cast<const bf16*>(w), static_cast<const float*>(wb),
+                      static_cast<bf16*>(out), R, C, N, bm, eps, static_cast<cudaStream_t>(stream));
 }
 
 // y: (R, C) bf16; w, wb, out, bm as above.
 extern "C" int gvq_matmul_bias(const void* y, const void* w, const void* wb, void* out, int R,
                                int C, int N, int bm, void* stream) {
-  const LnMmArgs a{static_cast<const bf16*>(y), nullptr, nullptr, static_cast<const bf16*>(w),
-                   static_cast<const float*>(wb), static_cast<bf16*>(out), R, C, N, bm, 0.0f};
-  return launch<false>(a, static_cast<cudaStream_t>(stream));
+  return launch<false>(static_cast<const bf16*>(y), nullptr, nullptr, nullptr,
+                       static_cast<const bf16*>(w), static_cast<const float*>(wb),
+                       static_cast<bf16*>(out), R, C, N, bm, 0.0f,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -19,13 +19,13 @@ lab's syntax:
          against cuBLAS)
   fused  ``ln_matmul_cuda``: one kernel, LN in the matmul's prologue
 
-bm keeps the JAX lab's meaning, the rows one block owns (with every column
-of them).  A Hopper block cannot hold them at once as the TPU block does,
-so it walks them in 128-row sub-tiles (``csrc/ln_matmul.cu``); every
-default combo has that counterpart, and the grid is 16384 / bm blocks on
-132 SMs: 32 at bm = 512, 16 at 1024.  The defaults are the JAX lab's seven
-and one of the port's, ``fused:128:2304``: 128 blocks, the tiling that fills
-the card, so the lab's question gets an answer at the port's best.
+bm keeps the JAX lab's meaning, the rows that share one pass over W.  A
+Hopper block cannot hold them at once as the TPU block does; the kernels
+(``csrc/ln_matmul.cu``) walk 128 x 256 output tiles persistently, one
+block an SM, and bm / 128 M tiles form a raster group whose column tiles
+run together, sharing W's tiles through L2.  So every combo fills the card
+whatever its bm.  The defaults are the JAX lab's seven and one of the
+port's, ``fused:128:2304``, the raster of single M tiles.
 
 Inputs are drawn as the JAX lab draws them (``default_rng(0)``: x, g, b, W,
 wb).  A site feeds ``x + 1e-6 y[:, :768]`` to the next (one ``torch.add``,
@@ -33,7 +33,8 @@ as XLA fuses it), 12 sites a chain; each line reports microseconds per site
 (the feedback included, as in the JAX lab; CUDA events, best of 3 trials of
 10 chains after a warm-up), the bound, ``max_err`` against the JAX lab's
 reference bf16(bf16(LN(x)) @ W + wb) in float32, the xla pair's time at the
-same n, and the kernel's registers and spills.  It runs on a CUDA card only.
+same n, and the kernel's grid, tiles, registers and spills.  It runs on a
+CUDA card only.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ VARIANTS = ("xla", "pmm", "fused")
 JAX_DEFAULTS = [("xla", 512, 2304), ("pmm", 512, 2304), ("fused", 512, 2304),
                 ("fused", 256, 2304), ("fused", 1024, 2304), ("xla", 512, 3072),
                 ("fused", 512, 3072)]
-PORT_COMBO = ("fused", 128, 2304)  # the port's own: 128 blocks on 132 SMs
+PORT_COMBO = ("fused", 128, 2304)  # the port's own: raster groups of one M tile
 DEFAULT_COMBOS = JAX_DEFAULTS + [PORT_COMBO]
 REL_BAR = 1e-2  # max_err over max |reference|: one bf16 ulp at the largest output
 
@@ -151,7 +152,11 @@ def run(variant: str, bm: int, n: int, inputs=None, ref=None, layers: int = LAYE
               "ref_max": float(ref.float().abs().max()), "checked": True,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "out": out}
     if variant != "xla":
-        report.update(blocks=LM.blocks(x.shape[0], bm), smem_bytes=LM.smem_bytes(width),
+        plan = LM.ln_matmul_plan(x.shape[0], width, n, bm,
+                                 torch.cuda.get_device_properties(x.device).multi_processor_count)
+        report.update(blocks=plan.grid, tiles=plan.tiles, raster_group=plan.group,
+                      tile=f"{LM.TILE_M}x{LM.TILE_N}x{LM.TILE_K}", stages=LM.STAGES,
+                      smem_bytes=plan.smem,
                       ptxas=LM.ptxas_of(C.ptxas_usage(), variant == "fused"))
     return report
 

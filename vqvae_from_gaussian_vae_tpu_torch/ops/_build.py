@@ -55,7 +55,7 @@ _SIGNATURES = {
     "gvq_upsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_upsample_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_fused_gn_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gvq_fused_gn_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gvq_fused_gn_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
@@ -67,7 +67,7 @@ _SIGNATURES = {
     "gvq_flash_lab_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P],
     "gvq_flash_lab_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                           _I, _P, _P],
-    "gvq_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "gvq_matmul_bias": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 

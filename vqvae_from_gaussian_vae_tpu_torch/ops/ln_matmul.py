@@ -11,13 +11,18 @@ microbenchmark that no model calls:
   out = bf16(y @ W + wb), float32 sums.
 
 Both are ``csrc/ln_matmul.cu`` (``gvq_ln_matmul``, ``gvq_matmul_bias``):
-one wmma body whose block owns ``bm`` rows and every column of them, walked
-in 128-row sub-tiles whose normalised rows stay in shared memory.  ``bm``
-is the TPU kernel's row block; the kernels take any positive multiple of
-the 128-row sub-tile and refuse any other with a ``ValueError``.  The
-wrappers take contiguous CUDA tensors only: x or y (R, C) bf16 with C a
-multiple of 32 up to 768, g and b (C,) float32, W (C, N) bf16 with N a
-multiple of 8, wb (N,) float32.  Neither has a backward.
+one TMA + wgmma GEMM body (128 x 256 output tiles walked persistently, a
+four-stage ring of x and W boxes, two consumer warpgroups) whose fused
+form first writes each row's float32 (mean, rstd) with a statistics pass
+into a scratch and then normalises each arrived x tile in shared memory
+before the products read it.  ``bm`` is the TPU kernel's row block, the
+rows that share one pass over W: here ``bm / 128`` M tiles form a raster
+group whose column tiles run together (W's tiles shared through L2); it
+does not set the grid, which is the card's SMs (``ln_matmul_plan``).  The
+kernels take any positive multiple of 128 and refuse any other with a
+``ValueError``.  The wrappers take contiguous CUDA tensors only: x or y
+(R, C) bf16 with C a multiple of 32 up to 768, g and b (C,) float32, W (C,
+N) bf16 with N a multiple of 8, wb (N,) float32.  Neither has a backward.
 
 The plain versions beside them compute the same functions with the same
 roundings in float32 PyTorch; the CPU tests hold them to the JAX lab's
@@ -26,34 +31,75 @@ Pallas bodies, and the card holds the kernels to them.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from vqvae_from_gaussian_vae_tpu_torch.ops import _build
 
 EPS = 1e-5
-SUB_ROWS = 128  # rows of one resident sub-tile (csrc/ln_matmul.cu kSub)
-BN, BK, STAGES = 128, 32, 3  # column tile, K rows of W a stage, W stages
+# the body's tiling (csrc/ln_matmul.cu kBM, kBN, kBK, kStages): one tiling
+# for both entries
+TILE_M, TILE_N, TILE_K, STAGES = 128, 256, 64, 4
 MAX_C = 768
+SMS = 132  # an H100's SMs; the kernel reads the card's own count
 
 
-def smem_bytes(c: int) -> int:
-    """Shared memory of one block: the sub-tile's rows at pitch C + 8 and the
-    W ring (``smem_bytes`` of ``csrc/ln_matmul.cu``)."""
-    return SUB_ROWS * (c + 8) * 2 + STAGES * BK * (BN + 8) * 2
+def smem_bytes() -> int:
+    """Shared memory of one block: the ring of x and W boxes, the staged
+    half output tile, the ring's full and empty barriers, alignment slack
+    (``kSmem`` of ``csrc/ln_matmul.cu``)."""
+    stage = TILE_M * TILE_K * 2 + TILE_N * TILE_K * 2
+    return STAGES * stage + TILE_M * TILE_N + 2 * STAGES * 8 + 1024
 
 
-def blocks(rows: int, bm: int) -> int:
-    """The grid: one block per ``bm`` rows."""
-    return -(-rows // bm)
+@dataclass(frozen=True)
+class LnMatmulPlan:
+    """One launch of the GEMM body on (R, C) @ (C, N) with row block bm:
+    ``group`` M tiles a raster group, the tile counts, the persistent grid."""
+    group: int
+    m_tiles: int
+    n_tiles: int
+    k_steps: int
+    tiles: int
+    grid: int
+    smem: int
 
 
 def check_tiling(bm: int) -> None:
-    """Raise unless the kernels are compiled for row blocks of ``bm``."""
-    if bm <= 0 or bm % SUB_ROWS:
-        raise ValueError(f"row block bm={bm} is not compiled: the kernels walk a block's rows "
-                         f"in {SUB_ROWS}-row sub-tiles, so bm is a positive multiple of "
-                         f"{SUB_ROWS} ({SUB_ROWS}, {2 * SUB_ROWS}, {4 * SUB_ROWS}, "
-                         f"{8 * SUB_ROWS}, ...)")
+    """Raise unless ``bm`` is a row block the kernels take."""
+    if bm <= 0 or bm % TILE_M:
+        raise ValueError(f"row block bm={bm} is not compiled: the kernels group {TILE_M}-row "
+                         f"tiles, so bm is a positive multiple of {TILE_M} ({TILE_M}, "
+                         f"{2 * TILE_M}, {4 * TILE_M}, {8 * TILE_M}, ...)")
+
+
+def check_shape(r: int, c: int, n: int) -> None:
+    """Raise unless the kernels take (R, C) @ (C, N)."""
+    if c % 32 or not 0 < c <= MAX_C or n % 8 or n <= 0 or r <= 0:
+        raise ValueError(f"(R, C) @ (C, N) = ({r}, {c}) @ ({c}, {n}) unsupported (C a multiple "
+                         f"of 32 up to {MAX_C}, N a multiple of 8)")
+
+
+def ln_matmul_plan(rows: int, c: int, n: int, bm: int, sms: int = SMS) -> LnMatmulPlan:
+    """The launch ``csrc/ln_matmul.cu`` makes: 128 x 256 output tiles, K
+    steps of 64 channels, a grid of ``min(tiles, sms)`` persistent blocks."""
+    check_tiling(bm)
+    check_shape(rows, c, n)
+    m_tiles, n_tiles = -(-rows // TILE_M), -(-n // TILE_N)
+    tiles = m_tiles * n_tiles
+    return LnMatmulPlan(bm // TILE_M, m_tiles, n_tiles, -(-c // TILE_K), tiles,
+                        min(tiles, sms), smem_bytes())
+
+
+def tile_coords(plan: LnMatmulPlan, t: int) -> tuple:
+    """Tile ``t`` of the raster -> (M tile, N tile), as the kernel's
+    ``tile_coords``: groups of ``plan.group`` M tiles (the last may have
+    fewer), each walked column tile by column tile."""
+    span = plan.group * plan.n_tiles
+    grp, r = divmod(t, span)
+    rows = min(plan.group, plan.m_tiles - grp * plan.group)
+    return grp * plan.group + r % rows, r // rows
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +149,12 @@ def _check(name: str, x, w, wb, *affine) -> tuple:
         raise ValueError(f"{name} takes (R, C) bf16 rows and a (C, N) bf16 weight, got "
                          f"{x.dtype} {tuple(x.shape)} and {w.dtype} {tuple(w.shape)}")
     (r, c), n = x.shape, w.shape[1]
-    if w.shape[0] != c or c % BK or not 0 < c <= MAX_C or n % 8 or n <= 0 or r <= 0:
-        raise ValueError(f"{name}: x {tuple(x.shape)} @ w {tuple(w.shape)} unsupported (C a "
-                         f"multiple of {BK} up to {MAX_C}, N a multiple of 8)")
+    if w.shape[0] != c:
+        raise ValueError(f"{name}: x {tuple(x.shape)} @ w {tuple(w.shape)} unsupported")
+    try:
+        check_shape(r, c, n)
+    except ValueError as e:
+        raise ValueError(f"{name}: x {tuple(x.shape)} @ w {tuple(w.shape)}: {e}") from None
     for t, size in ((wb, n), *((a, c) for a in affine)):
         if t.dtype != torch.float32 or tuple(t.shape) != (size,):
             raise ValueError(f"{name} takes float32 vectors of the width they scale, got "
@@ -117,16 +166,17 @@ def _check(name: str, x, w, wb, *affine) -> tuple:
 
 
 def ln_matmul_cuda(x, g, b, w, wb, bm: int, eps: float = EPS):
-    """Launch the fused kernel (``_pallas_fused``'s function) with ``bm``
-    rows a block."""
+    """Launch the fused kernel (``_pallas_fused``'s function), its tiles in
+    raster groups of ``bm`` rows: the statistics pass, then the GEMM."""
     _build.refuse_grad("ln_matmul kernel", x, g, b, w, wb)
     r, c, n = _check("ln_matmul kernel", x, w, wb, g, b)
     check_tiling(bm)
     out = torch.empty((r, n), dtype=torch.bfloat16, device=x.device)
+    stats = torch.empty((r, 2), dtype=torch.float32, device=x.device)  # (mean, rstd) a row
     with torch.cuda.device(x.device):
         err = _build.library().gvq_ln_matmul(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), wb.data_ptr(),
-            out.data_ptr(), r, c, n, bm, float(eps), _build.stream_of(x))
+            stats.data_ptr(), out.data_ptr(), r, c, n, bm, float(eps), _build.stream_of(x))
     _build.check(err, "gvq_ln_matmul")
     ln_matmul_cuda.launches += 1
     return out
@@ -136,8 +186,8 @@ ln_matmul_cuda.launches = 0
 
 
 def matmul_bias_cuda(y, w, wb, bm: int):
-    """Launch the matmul + bias kernel (``_pallas_mm``'s function) with
-    ``bm`` rows a block."""
+    """Launch the matmul + bias kernel (``_pallas_mm``'s function), its
+    tiles in raster groups of ``bm`` rows."""
     _build.refuse_grad("matmul_bias kernel", y, w, wb)
     r, c, n = _check("matmul_bias kernel", y, w, wb)
     check_tiling(bm)
