@@ -56,6 +56,7 @@ no result line.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -187,6 +188,41 @@ def named_kernel_facts(source: str, *tags: str, spill_free: bool = False) -> dic
     require(not spill_free or spills == 0, f"{names[0]}: {spills} bytes of spills")
     return {"symbol": names[0], "registers": u["registers"], "spills": spills,
             "sass_hgmma": hgmma}
+
+
+def ptxas_facts(source: str, *tags: str, spill_free: bool = True) -> dict:
+    """The one kernel of `source` whose mangled name holds every one of
+    `tags`: its symbol, and ptxas's registers and spill bytes (stores +
+    loads), which must be 0 where `spill_free`."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        usage = _build.ptxas_usage(f.read())
+    src = "_" + source.replace(".", "_") + "_"
+    names = [n for n in usage if src in n and all(t in n for t in tags)]
+    require(len(names) == 1, f"{len(names)} {' '.join(tags)} entries of {source} in nvcc.log")
+    u = usage[names[0]]
+    spills = u.get("spill_stores", 0) + u.get("spill_loads", 0)
+    require(not spill_free or spills == 0, f"{names[0]}: {spills} bytes of spills")
+    return {"symbol": names[0], "registers": u["registers"], "spills": spills}
+
+
+def one_kernel_a_call(fn, kernel: str) -> dict:
+    """The CUDA kernels three calls of fn run (torch.profiler), which must be
+    the one kernel named `kernel`, at most once a call: its device ms and
+    the launches recorded (the profiler may miss a launch of a long kernel,
+    never add one; a profile that records none is taken again, up to three
+    times)."""
+    for _ in range(3):
+        ran = device_kernel_ms(fn, iters=3)
+        if ran:
+            break
+    require(len(ran) == 1 and kernel in next(iter(ran))
+            and 1 <= next(iter(ran.values()))["launches"] <= 3,
+            f"{kernel}: three calls ran {ran}, not one kernel at most once a call")
+    only = next(iter(ran.values()))
+    return {"kernels_a_call": 1, "launches_recorded_of_3": only["launches"],
+            "kernel_alone_ms": only["ms"]}
 
 
 def wgrad_kernel_facts(source: str, o: int) -> dict:
@@ -891,10 +927,16 @@ def check_layer_norm_bwd(gen, add: bool):
         nbytes = e * (4 if add else 3) * x.numel() + 4 * 3 * c
         flops = 12.0 * x.numel()
         bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
+        plan = ln.ln_bwd_plan(rows, c, dtype, add=add)
+        tname = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+        facts = {"plan": dataclasses.asdict(plan),
+                 **ptxas_facts("layer_norm.cu", f"ln_bwd_kernelI{tname}Li"
+                               f"{ln.nch_class(c, dtype)}ELb{int(add)}E"),
+                 **one_kernel_a_call(kernel, "ln_bwd_kernel")}
         shapes.append({"shape": f"x ({rows},{c}) {str(dtype).split('.')[-1]}"
                                 + (" + ds_in" if add else ""), "main_path": main,
                        "kernel_ms": time_ms(kernel), "plain_ms": time_ms(plain),
-                       "library_ms": time_ms(library),
+                       "library_ms": time_ms(library), **facts,
                        "library": ("autograd of x + d, then F.layer_norm" if add
                                    else "autograd of F.layer_norm"),
                        "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
@@ -1105,8 +1147,8 @@ def check_conv3x3_wgrad(gen):
 
 def check_gn_swish_bwd(gen):
     """The GroupNorm + swish backward at every site shape of the sd3unet ae
-    step, bit-equal across two runs.  Library: autograd of F.group_norm and
-    F.silu in bf16 (forward outside the timed region)."""
+    step, bit-equal across two runs, one kernel a call.  Library: autograd
+    of F.group_norm and F.silu in bf16 (forward outside the timed region)."""
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
@@ -1142,7 +1184,13 @@ def check_gn_swish_bwd(gen):
         flops = 35.0 * x.numel()  # both passes' float32 arithmetic, exp counted once
         nbytes = 2 * 3 * x.numel() + 4 * (2 * BATCH * c + 4 * c)
         bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
-        shapes.append({"shape": f"x, dy ({BATCH},{h},{h},{c}) bf16", "per_step": n,
+        plan = gsb.gn_bwd_plan(BATCH, h * h, c, 32, torch.bfloat16)
+        facts = {"plan": dataclasses.asdict(plan),
+                 # one register's spill at the 512-thread cap (PERF.md)
+                 **ptxas_facts("gn_swish_bwd.cu", "gn_swish_bwd_kernelI13__nv_bfloat16E",
+                               spill_free=False),
+                 **one_kernel_a_call(lambda: gsb.gn_swish_bwd_cuda(*args), "gn_swish_bwd_kernel")}
+        shapes.append({"shape": f"x, dy ({BATCH},{h},{h},{c}) bf16", "per_step": n, **facts,
                        "kernel_ms": time_ms(lambda: gsb.gn_swish_bwd_cuda(*args)),
                        "plain_ms": time_ms(lambda: gsb.gn_swish_bwd_plain(*args), iters=3,
                                            warmup=1),

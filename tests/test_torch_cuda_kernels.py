@@ -709,20 +709,33 @@ def test_conv3x3_autograd_runs_the_wgrad_kernel(gen):
 GN_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}  # dx: summation order only
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((2, 16, 16, 64), torch.bfloat16),
-    ((1, 7, 9, 256), torch.float32),      # rows not a multiple of the band
-    ((3, 32, 32, 512), torch.bfloat16),
-    ((2, 4, 4, 2048), torch.float32),     # one row slot a block
-    ((16, 64, 64, 128), torch.bfloat16),
-])
-def test_gn_swish_bwd_kernel_matches_plain(gen, shape, dtype):
+def _gn_case(gen, shape, dtype):
     c = shape[-1]
     x = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(dtype)
     dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     gamma = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
     beta = 0.2 * torch.randn((c,), generator=gen, device="cuda")
     _, (mean_c, rstd_c) = gsb.gn_swish_ref(x, gamma, beta)
+    return x, dy, mean_c, rstd_c, gamma, beta
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 16, 16, 64), torch.bfloat16),
+    ((1, 7, 9, 256), torch.float32),      # rows not a multiple of the band
+    ((3, 32, 32, 512), torch.bfloat16),
+    ((2, 4, 4, 2048), torch.float32),     # one row slot a block
+    ((16, 64, 64, 128), torch.bfloat16),
+    # the sd3unet ae step's four sites: slices of 32 and 128 channels, two
+    # units a wave, three samples a wave
+    ((16, 256, 256, 128), torch.bfloat16),
+    ((16, 128, 128, 256), torch.bfloat16),
+    ((16, 64, 64, 512), torch.bfloat16),
+    ((16, 32, 32, 512), torch.bfloat16),
+    ((16, 128, 128, 256), torch.float32),
+])
+def test_gn_swish_bwd_kernel_matches_plain(gen, shape, dtype):
+    c = shape[-1]
+    x, dy, mean_c, rstd_c, gamma, beta = _gn_case(gen, shape, dtype)
     before = gsb.gn_swish_bwd_cuda.launches
     got = gsb.gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta)
     assert gsb.gn_swish_bwd_cuda.launches == before + 1
@@ -733,6 +746,77 @@ def test_gn_swish_bwd_kernel_matches_plain(gen, shape, dtype):
         _close_rel(g, w, 1e-4)
     again = gsb.gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((136, 4, 4, 64), torch.bfloat16),   # more samples than SMs: two waves, a block a sample
+    ((140, 3, 5, 128), torch.float32),
+])
+def test_gn_swish_bwd_kernel_takes_several_waves(gen, shape, dtype):
+    """A batch larger than the card's SMs runs in waves (one barrier each):
+    against the plain version, bit-reproducible."""
+    args = _gn_case(gen, shape, dtype)
+    assert gsb.gn_bwd_plan(shape[0], shape[1] * shape[2], shape[3], 32, dtype).waves == 2
+    got = gsb.gn_swish_bwd_cuda(*args)
+    want = gsb.gn_swish_bwd_plain(*args)
+    _close(got[0], want[0], GN_BWD_TOL[dtype])
+    for g, w in zip(got[1:], want[1:]):
+        _close_rel(g, w, 1e-4)
+    again = gsb.gn_swish_bwd_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _kernels_of_one_call(fn):
+    """Names of the CUDA kernels one call of fn runs (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+            for _ in range(ev.count)]
+
+
+def test_norm_bwd_kernels_are_one_launch_a_call(gen):
+    """The GroupNorm + swish backward and both LayerNorm backward entries
+    are one cooperative kernel a call: no fill, no second pass, no reduce."""
+    args = _gn_case(gen, (2, 32, 32, 256), torch.bfloat16)
+    x, _, w, dy = _ln_bwd_case(gen, 4096, 768, torch.bfloat16)
+    ds_in = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    for fn, kernel in ((lambda: gsb.gn_swish_bwd_cuda(*args), "gn_swish_bwd_kernel"),
+                       (lambda: ln.layer_norm_bwd_cuda(x, w, dy), "ln_bwd_kernel"),
+                       (lambda: ln.layer_norm_add_bwd_cuda(x, w, dy, ds_in), "ln_bwd_kernel")):
+        names = _kernels_of_one_call(fn)
+        assert len(names) == 1 and kernel in names[0], names
+
+
+def test_norm_bwd_kernels_keep_their_barriers_apart_on_two_streams(gen):
+    """Calls queued back to back on two streams at once (each stream's grid
+    barrier counters its own) give the bits of the same calls made one by
+    one."""
+    gn_args = _gn_case(gen, (16, 32, 32, 512), torch.bfloat16)
+    x, _, w, dy = _ln_bwd_case(gen, 16384, 768, torch.bfloat16)
+    ds_in = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    calls = (lambda: gsb.gn_swish_bwd_cuda(*gn_args),
+             lambda: ln.layer_norm_add_bwd_cuda(x, w, dy, ds_in),
+             lambda: ln.layer_norm_bwd_cuda(x, w, dy))
+    want = [fn() for fn in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append([fn() for fn in calls])
+    torch.cuda.synchronize()
+    for outs in got:
+        for a, b in zip(outs, want):
+            assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def test_gn_swish_autograd_runs_the_bwd_kernel(gen):

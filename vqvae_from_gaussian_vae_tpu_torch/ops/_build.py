@@ -35,7 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # plan (an int64 array, ops/flash_attention.py FlashFwdPlan.as_array,
 # FlashBwdPlan.as_array or, for the float32 head-major entries,
 # FlashF32Plan.as_array, which follows their scratch pointer) just before
-# the stream
+# the stream; the GroupNorm + swish and LayerNorm backward entries take
+# theirs (GnBwdPlan.as_array, LnBwdPlan.as_array) before the dtype
 _SIGNATURES = {
     "gvq_gq_argmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_downsample_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -46,8 +47,8 @@ _SIGNATURES = {
     "gvq_layer_norm_add_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "gvq_flash_fwd_qkv_res": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd_qkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
-    "gvq_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "gvq_layer_norm_add_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gvq_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _P],
+    "gvq_layer_norm_add_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _P],
     "gvq_flash_fwd_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "gvq_downsample_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -57,7 +58,7 @@ _SIGNATURES = {
     "gvq_fused_gn_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_fused_gn_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gvq_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gvq_gn_swish_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     "gvq_flash_fwd_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "gvq_flash_bwd_hm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
                          _P],

@@ -14,21 +14,30 @@ through swish) from x and dy instead of storing it:
     dgamma = sum dh * xhat,  dbeta = sum dh     (float32)
 
 Layout at this surface is the JAX package's: x and dy (B, H, W, C).  The
-CUDA kernel (``csrc/gn_swish_bwd.cu``) runs for CUDA tensors; the plain
-version below runs for CPU tensors and is what the kernel is held to on the
-card.
+CUDA kernel (``csrc/gn_swish_bwd.cu``: one cooperative launch, two
+streaming passes over x and dy with one grid barrier between them,
+``gn_bwd_plan`` sizing it) runs for CUDA tensors; the plain version below
+runs for CPU tensors and is what the kernel is held to on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
-from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+from vqvae_from_gaussian_vae_tpu_torch.ops import _build, grid_sync
 from vqvae_from_gaussian_vae_tpu_torch.ops.fused_gn_conv import group_stats
 
 # IO dtype -> the C entry point's dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_C = 2048  # 8 channels a thread, at most 256 threads a row
+MAX_C = 2048  # 16 bytes of channels a thread, at most 512 threads a row
+# the kernel's constants (csrc/gn_swish_bwd.cu): threads a block, bytes of
+# each tensor a thread has in flight, sets of group partials
+GN_THREADS = 512
+GN_PIPE_BYTES = 128
+GN_PARTIAL_SETS = 4
 
 
 def _bc(t):
@@ -66,19 +75,66 @@ def gn_swish_bwd_plain(x, dy, mean_c, rstd_c, gamma, beta, num_groups: int = 32)
     return dx.to(x.dtype), s1.sum(dim=0), s2.sum(dim=0)
 
 
-def bwd_bands(b: int, hw: int):
-    """(bands, rows a band) of the backward's grid: about four waves of
-    blocks over 132 SMs, at least 64 rows a band; a function of the shape
-    only, so a result repeats."""
-    bands = max(1, min(-(-4 * 132 // b), -(-hw // 64)))
-    rows = -(-hw // bands)
-    return -(-hw // rows), rows
+def gn_smem(c: int, groups: int, esize: int) -> int:
+    """Shared memory of a block (``csrc/gn_swish_bwd.cu`` ``GnSmem``): each
+    thread's ``GN_PIPE_BYTES`` of x and of dy in flight, the block
+    reduction's rows of 2 * C sums (16 warps' where a warp holds whole rows,
+    else every row slot's; a thread takes 16 bytes of a row), the block's 2
+    * C sums, the sample's group constants, gamma and the ordered sum's
+    scratch (a float a warp)."""
+    tpr = c // (16 // esize)
+    rows = GN_THREADS // 32 if tpr <= 32 and 32 % tpr == 0 else GN_THREADS // tpr
+    return (GN_THREADS * 2 * GN_PIPE_BYTES + 4 * rows * 2 * c + 4 * 2 * c
+            + 16 * -(-2 * groups // 4) + 4 * c + 4 * (GN_THREADS // 32))
+
+
+@dataclasses.dataclass(frozen=True)
+class GnBwdPlan:
+    """The backward's launch (``gn_bwd_plan``), as ``csrc/gn_swish_bwd.cu``
+    reads it (``as_array``, C ``GnPlan``): a sample's rows in ``cpu`` chunks
+    of ``rows`` rows (the last may be short), a wave ``upw`` samples; block
+    j of wave w takes chunk j % cpu of sample w * upw + j // cpu, so
+    ``grid`` = upw * cpu blocks of ``threads`` threads, all resident,
+    ``waves`` waves, ``smem`` bytes of shared memory a block."""
+
+    grid: int
+    threads: int
+    rows: int
+    cpu: int
+    upw: int
+    waves: int
+    smem: int
+
+    def as_array(self):
+        """The plan as the C entry takes it: 7 int64 in ``GnPlan``'s order."""
+        vals = [self.grid, self.threads, self.rows, self.cpu, self.upw, self.waves, self.smem]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+    def scratch_floats(self, b: int, c: int, groups: int) -> int:
+        """float32 scratch of a call: the group partials of 4 waves' chunks,
+        then every chunk's per-channel partials."""
+        return GN_PARTIAL_SETS * self.grid * 2 * groups + b * self.cpu * 2 * c
+
+
+def gn_bwd_plan(b: int, hw: int, c: int, groups: int, dtype,
+                sms: int = grid_sync.SMS) -> GnBwdPlan:
+    """The launch of the backward at x (b, hw, c), a function of the shape
+    alone (so a result repeats): a wave of every sample where b <= ``sms``
+    (else of ``sms`` samples), a sample's rows shared by ``sms // b`` blocks
+    (at least one).  ``sms`` is the card's (an H100's by default)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    upw = min(b, sms)
+    rows = -(-hw // (sms // upw))
+    cpu = -(-hw // rows)
+    return GnBwdPlan(upw * cpu, GN_THREADS, rows, cpu, upw, -(-b // upw),
+                     gn_smem(c, groups, esize))
 
 
 def gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta, num_groups: int = 32):
-    """Launch the backward kernels: x and dy (B, H, W, C) contiguous CUDA
-    tensors of one dtype (float32 or bf16), C a multiple of 8 and of the
-    groups, at most MAX_C -> (dx, dgamma, dbeta), bit-reproducible."""
+    """Launch the backward kernel: x and dy (B, H, W, C) contiguous, 16-byte
+    aligned CUDA tensors of one dtype (float32 or bf16), C a multiple of 8
+    and of the groups, at most MAX_C -> (dx, dgamma, dbeta),
+    bit-reproducible; one cooperative launch (``gn_bwd_plan``)."""
     _build.refuse_grad("GroupNorm + swish backward kernel", x, dy, gamma, beta)
     b, h, w, c = x.shape
     if not x.is_cuda or x.dtype not in _DTYPE_CODES:
@@ -89,21 +145,25 @@ def gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta, num_groups: int = 32):
     if c % 8 or c > MAX_C or c % num_groups:
         raise ValueError(f"GroupNorm + swish backward kernel: C={c} unsupported (a multiple of 8 "
                          f"and of {num_groups}, at most {MAX_C})")
-    stats = [t.float().contiguous() for t in (mean_c, rstd_c, gamma, beta)]
+    stats = [_build.kernel_operand(t.float()) for t in (mean_c, rstd_c, gamma, beta)]
     if stats[0].shape != (b, c) or stats[1].shape != (b, c) or stats[2].shape != (c,) \
             or stats[3].shape != (c,) or any(t.device != x.device for t in (dy, *stats)):
         raise ValueError("GroupNorm + swish backward kernel: mean_c, rstd_c (B, C) and gamma, "
                          "beta (C,) on x's device")
-    bands, rows = bwd_bands(b, h * w)
-    scratch = torch.empty((b * (bands + 2) * 2 * c,), dtype=torch.float32, device=x.device)
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("GroupNorm + swish backward kernel takes 16-byte aligned x and dy")
+    plan = gn_bwd_plan(b, h * w, c, num_groups, x.dtype)
+    scratch = torch.empty((plan.scratch_floats(b, c, num_groups),), dtype=torch.float32,
+                          device=x.device)
     dx = torch.empty_like(x)
     dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.gvq_gn_swish_bwd(x.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in stats),
-                                   scratch.data_ptr(), dx.data_ptr(), dgb[0].data_ptr(),
-                                   dgb[1].data_ptr(), b, h * w, c, num_groups, bands, rows,
-                                   _DTYPE_CODES[x.dtype], _build.stream_of(x))
+                                   scratch.data_ptr(), dx.data_ptr(), dgb.data_ptr(),
+                                   grid_sync.grid_counters(x.device).data_ptr(), b, h * w, c,
+                                   num_groups, plan.as_array(), _DTYPE_CODES[x.dtype],
+                                   _build.stream_of(x))
     _build.check(err, "gvq_gn_swish_bwd")
     gn_swish_bwd_cuda.launches += 1
     return dx, dgb[0], dgb[1]
@@ -127,8 +187,8 @@ class _GnSwishFn(torch.autograd.Function):
     def backward(ctx, dy):
         x, scale, bias, mean_c, rstd_c = ctx.saved_tensors
         bwd = gn_swish_bwd_plain if x.device.type == "cpu" else gn_swish_bwd_cuda
-        dx, dg, db = bwd(x.contiguous(), dy.contiguous(), mean_c, rstd_c, scale, bias,
-                         ctx.num_groups)
+        dx, dg, db = bwd(_build.kernel_operand(x), _build.kernel_operand(dy), mean_c, rstd_c,
+                         scale, bias, ctx.num_groups)
         return dx, dg.to(scale.dtype), db.to(bias.dtype), None, None
 
 

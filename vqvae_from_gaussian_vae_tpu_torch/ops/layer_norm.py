@@ -18,7 +18,9 @@ wanted: the forward saves only its input (``x``, or the add variant's
 variant's backward adds the cotangent of ``s`` to dx and returns dx for both
 ``x`` and ``d``.  dweight and dbias are float32 sums over all rows.
 
-The CUDA kernels (``csrc/layer_norm.cu``) run for CUDA tensors; the plain
+The CUDA kernels (``csrc/layer_norm.cu``; each backward one cooperative
+launch that streams row slabs through shared memory and sums dweight and
+dbias inside it, ``ln_bwd_plan`` sizing it) run for CUDA tensors; the plain
 versions below run for CPU tensors and are what the kernels are held to on
 the card.  The public ops take any layout: an operand that is strided or
 whose data lies off 16 bytes is copied once into a fresh buffer
@@ -27,15 +29,23 @@ whose data lies off 16 bytes is copied once into a fresh buffer
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
-from vqvae_from_gaussian_vae_tpu_torch.ops import _build
+from vqvae_from_gaussian_vae_tpu_torch.ops import _build, grid_sync
 
 # IO dtype -> the C entry points' dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_C = 4096  # a row of at most 128 floats in each lane's registers
-ROWS_PER_BLOCK = 8
-MAX_BWD_BLOCKS = 264  # the backward's grid: two blocks on each of 132 SMs
+# the backward's constants (csrc/layer_norm.cu): the most stages of its
+# ring, the bytes a slab aims at where a row a warp does not fit, and the
+# 16-byte chunks of a row a lane may hold (the kernels' NCH classes, as the
+# forward's dispatch)
+LN_BWD_MAX_STAGES = 4
+LN_BWD_SLAB_BYTES = 40960
+NCH_CLASSES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 
 
 def layer_norm_plain(x, weight, bias, eps: float = 1e-5):
@@ -139,9 +149,69 @@ def layer_norm_add_cuda(x, delta, weight, bias, eps: float = 1e-5):
 layer_norm_add_cuda.launches = 0
 
 
-def bwd_blocks(rows: int) -> int:
-    """The backward kernels' grid: one (2, C) float32 partial per block."""
-    return max(1, min(-(-rows // ROWS_PER_BLOCK), MAX_BWD_BLOCKS))
+def nch_class(c: int, dtype) -> int:
+    """16-byte chunks of a row a lane holds in the kernel that takes width c:
+    the smallest class that covers c (``dispatch_bwd``)."""
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    need = -(-(c // v) // 32)
+    return next(n for n in NCH_CLASSES if n * v <= MAX_C // 32 and need <= n)
+
+
+def ln_bwd_threads(c: int, dtype) -> int:
+    """Threads of the backward block at width c (``BwdThreads``): 16 warps
+    where a lane's share of a row leaves each thread 128 registers, else 8."""
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    return 512 if nch_class(c, dtype) * v <= 64 else 256
+
+
+def ln_bwd_smem(c: int, esize: int, add: bool, rows: int, stages: int) -> int:
+    """Shared memory of a backward block (``csrc/layer_norm.cu``
+    ``LnBwdSmem``): the stages of `rows` rows of x, dy (and ds_in), each
+    row's (mean, rstd), gamma, the ordered sum's scratch and the
+    mbarriers."""
+    stage = -(-rows * c * esize * (3 if add else 2) // 128) * 128
+    return stages * stage + 16 * -(-rows * 8 // 16) + 4 * c + 64 + 8 * stages
+
+
+@dataclasses.dataclass(frozen=True)
+class LnBwdPlan:
+    """The backward's launch (``ln_bwd_plan``), as ``csrc/layer_norm.cu``
+    reads it (``as_array``, C ``LnBwdPlan``): ``grid`` blocks of ``threads``
+    threads, one an SM, all resident, block j owning rows [R j / grid, R (j
+    + 1) / grid) and streaming them in slabs of ``rows`` rows through a ring
+    of ``stages`` stages; ``smem`` bytes of shared memory a block."""
+
+    grid: int
+    threads: int
+    rows: int
+    stages: int
+    smem: int
+
+    def as_array(self):
+        """The plan as the C entries take it: 5 int64 in ``LnBwdPlan``'s order."""
+        vals = [self.grid, self.threads, self.rows, self.stages, self.smem]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def ln_bwd_plan(rows: int, c: int, dtype, add: bool = True, sms: int = grid_sync.SMS,
+                smem_max: int = grid_sync.SMEM_BLOCK_MAX) -> LnBwdPlan:
+    """The launch of the LN backward (``add``: the LN-add backward, whose
+    slabs carry ds_in too) on (rows, c) rows, a function of the shape alone:
+    a slab of a row for each warp where three stages of it fit, else of 8
+    rows where three of those fit, else of about ``LN_BWD_SLAB_BYTES``; the
+    ring as deep as shared memory allows, up to four stages; one block an
+    SM, and at most one block a slab of rows."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    threads = ln_bwd_threads(c, dtype)
+    row_bytes = c * esize * (3 if add else 2)
+    slab = next((n for n in (threads // 32, 8)
+                 if ln_bwd_smem(c, esize, add, n, 3) <= smem_max),
+                max(1, min(64, LN_BWD_SLAB_BYTES // row_bytes)))
+    stages = LN_BWD_MAX_STAGES
+    while stages > 2 and ln_bwd_smem(c, esize, add, slab, stages) > smem_max:
+        stages -= 1
+    return LnBwdPlan(max(1, min(sms, -(-rows // slab))), threads, slab, stages,
+                     ln_bwd_smem(c, esize, add, slab, stages))
 
 
 def _bwd_cuda(name, x, weight, dy, ds_in, eps):
@@ -150,30 +220,33 @@ def _bwd_cuda(name, x, weight, dy, ds_in, eps):
     c = _check(name, x, others, weight, weight)
     rows = x.numel() // c
     dx = torch.empty_like(x)
-    dgb = torch.zeros((2, c), dtype=torch.float32, device=x.device)
     if rows == 0:
+        dgb = torch.zeros((2, c), dtype=torch.float32, device=x.device)
         return dx, dgb[0], dgb[1]
-    nblocks = bwd_blocks(rows)
-    part = torch.empty((nblocks, 2, c), dtype=torch.float32, device=x.device)
+    plan = ln_bwd_plan(rows, c, x.dtype, add=ds_in is not None)
+    dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.grid, 2, c), dtype=torch.float32, device=x.device)
     lib = _build.library()
     code, stream = _DTYPE_CODES[x.dtype], _build.stream_of(x)
     with torch.cuda.device(x.device):
+        counters = grid_sync.grid_counters(x.device).data_ptr()
         if ds_in is None:
             err = lib.gvq_layer_norm_bwd(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
-                                         dx.data_ptr(), part.data_ptr(), dgb.data_ptr(), rows, c,
-                                         nblocks, code, float(eps), stream)
+                                         dx.data_ptr(), part.data_ptr(), dgb.data_ptr(), counters,
+                                         rows, c, plan.as_array(), code, float(eps), stream)
         else:
             err = lib.gvq_layer_norm_add_bwd(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
                                              ds_in.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                                             dgb.data_ptr(), rows, c, nblocks, code, float(eps),
-                                             stream)
+                                             dgb.data_ptr(), counters, rows, c, plan.as_array(),
+                                             code, float(eps), stream)
     _build.check(err, "gvq_layer_norm_bwd" if ds_in is None else "gvq_layer_norm_add_bwd")
     return dx, dgb[0], dgb[1]
 
 
 def layer_norm_bwd_cuda(x, weight, dy, eps: float = 1e-5):
-    """Launch the LN backward kernels: (dx, dweight, dbias) from the
-    forward's input x and the cotangent dy (both (..., C), one dtype)."""
+    """Launch the LN backward kernel: (dx, dweight, dbias) from the
+    forward's input x and the cotangent dy (both (..., C), one dtype); one
+    cooperative launch (``ln_bwd_plan``)."""
     out = _bwd_cuda("layer_norm backward kernel", x, weight, dy, None, eps)
     layer_norm_bwd_cuda.launches += 1
     return out
@@ -183,8 +256,9 @@ layer_norm_bwd_cuda.launches = 0
 
 
 def layer_norm_add_bwd_cuda(s, weight, dy, ds_in, eps: float = 1e-5):
-    """Launch the LN-add backward kernels: (dx, dweight, dbias) from the
-    forward's rounded sum s and the cotangents dy (of y) and ds_in (of s)."""
+    """Launch the LN-add backward kernel: (dx, dweight, dbias) from the
+    forward's rounded sum s and the cotangents dy (of y) and ds_in (of s);
+    one cooperative launch (``ln_bwd_plan``)."""
     out = _bwd_cuda("layer_norm_add backward kernel", s, weight, dy, ds_in, eps)
     layer_norm_add_bwd_cuda.launches += 1
     return out
