@@ -25,6 +25,14 @@ then drives each path through the entry points a user calls, at bs=16,
     ``GVQ_GN_BWD=1`` (the resblock conv's wgrad and the GroupNorm + swish
     backward), set here around that pair only.  It refuses to start when
     one of the kernel variables is already set;
+  * the training entry point (``python -m vqvae_from_gaussian_vae_tpu_torch.main``,
+    driven in-process through its ``main(argv)``) on a temporary folder
+    of seeded JPEG and PNG images: sd3unet_gq_0.25 with the bf16 overlay at
+    full width and depth for 4 steps (a validation, the image logger, the
+    checkpoints), then ``--resume`` for 2 more, every restored tensor held
+    to the checkpoint's; bsqvit_gq_0.25 with the overlay at 2 layers for 4
+    steps; each ae, disc and eval step's kernel launches held to the
+    training pair's;
   * the head-major flash attention (``ops/flash_attention_lean.py``), an
     op no model calls: one training call (forward with residuals, then the
     backward) at B=1, H=12, L=8192, D=64, in bf16 and in float32 (split
@@ -879,10 +887,40 @@ def check_flash_bwd(gen):
             "per_step": 5, "path": "sd3unet_train_ae", "shapes": [shape]}
 
 
+PCIE_SMS = 114  # an H100 PCIe's SMs: the persistent grids' plans must fit it too
+
+
+def at_sms(sms: int, fn):
+    """fn() with the persistent-grid wrappers sizing their plans for `sms`
+    SMs (``ops/grid_sync.py:device_sms``), as on a card that has that many."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.ops import grid_sync
+
+    index = torch.cuda.current_device()
+    grid_sync.device_sms(index)
+    saved = grid_sync._DEVICE_SMS[index]
+    grid_sync._DEVICE_SMS[index] = sms
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        grid_sync._DEVICE_SMS[index] = saved
+
+
+def _grid_at_114(got, want, tol) -> dict:
+    """A plan sized for 114 SMs against the plain version, under the same
+    bars as the card's own plan."""
+    dx_err, ratio = _within(got[0], want[0], tol, tol)
+    rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got[1:], want[1:]))
+    return {"max_abs_err": dx_err, "err_over_tol": ratio, "param_grad_rel_err": rel}
+
+
 def check_layer_norm_bwd(gen, add: bool):
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
+    from vqvae_from_gaussian_vae_tpu_torch.ops import grid_sync
 
     rows, c = BATCH * 32 * 32, 768
     shapes = []
@@ -901,6 +939,10 @@ def check_layer_norm_bwd(gen, add: bool):
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"LN{'-add' if add else ''} backward: two runs differ")
         tol = LN_BWD_TOL[str(dtype)]
+        pcie = _grid_at_114(at_sms(PCIE_SMS, kernel), want, tol)
+        require(pcie["err_over_tol"] <= 1.0 and pcie["param_grad_rel_err"] <= PARAM_GRAD_REL,
+                f"LN{'-add' if add else ''} backward {dtype} on a {PCIE_SMS}-SM plan: {pcie}")
+        pcie["plan"] = dataclasses.asdict(ln.ln_bwd_plan(rows, c, dtype, add=add, sms=PCIE_SMS))
         dx_err = float((got[0].float() - want[0].float()).abs().max())
         require(bool(((got[0].float() - want[0].float()).abs()
                       <= tol + tol * want[0].float().abs()).all()),
@@ -927,7 +969,7 @@ def check_layer_norm_bwd(gen, add: bool):
         nbytes = e * (4 if add else 3) * x.numel() + 4 * 3 * c
         flops = 12.0 * x.numel()
         bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
-        plan = ln.ln_bwd_plan(rows, c, dtype, add=add)
+        plan = ln.ln_bwd_plan(rows, c, dtype, add=add, sms=grid_sync.device_sms(x.device))
         tname = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
         facts = {"plan": dataclasses.asdict(plan),
                  **ptxas_facts("layer_norm.cu", f"ln_bwd_kernelI{tname}Li"
@@ -941,7 +983,7 @@ def check_layer_norm_bwd(gen, add: bool):
                                    else "autograd of F.layer_norm"),
                        "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
                        "max_abs_err": dx_err, "param_grad_rel_err": p_err,
-                       "bit_reproducible": True})
+                       "bit_reproducible": True, f"at_{PCIE_SMS}_sms": pcie})
         del x, dy, ds_in, got, want, again, xl, yl
         torch.cuda.empty_cache()
     name = "layer_norm_add_bwd" if add else "layer_norm_bwd"
@@ -1152,6 +1194,7 @@ def check_gn_swish_bwd(gen):
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
+    from vqvae_from_gaussian_vae_tpu_torch.ops import grid_sync
 
     tol = LN_BWD_TOL["torch.bfloat16"]
     shapes = []
@@ -1167,6 +1210,11 @@ def check_gn_swish_bwd(gen):
         torch.cuda.synchronize()
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"GN + swish backward {(h, c)}: two runs differ")
+        pcie = _grid_at_114(at_sms(PCIE_SMS, lambda: gsb.gn_swish_bwd_cuda(*args)), want, tol)
+        require(pcie["err_over_tol"] <= 1.0 and pcie["param_grad_rel_err"] <= PARAM_GRAD_REL,
+                f"GN + swish backward {(h, c)} on a {PCIE_SMS}-SM plan: {pcie}")
+        pcie["plan"] = dataclasses.asdict(gsb.gn_bwd_plan(BATCH, h * h, c, 32, torch.bfloat16,
+                                                          PCIE_SMS))
         dx_err, ratio = _within(got[0], want[0], tol, tol)
         require(ratio <= 1.0, f"GN + swish backward {(h, c)}: dx error {dx_err}")
         p_err = 0.0
@@ -1184,7 +1232,8 @@ def check_gn_swish_bwd(gen):
         flops = 35.0 * x.numel()  # both passes' float32 arithmetic, exp counted once
         nbytes = 2 * 3 * x.numel() + 4 * (2 * BATCH * c + 4 * c)
         bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
-        plan = gsb.gn_bwd_plan(BATCH, h * h, c, 32, torch.bfloat16)
+        plan = gsb.gn_bwd_plan(BATCH, h * h, c, 32, torch.bfloat16,
+                               grid_sync.device_sms(x.device))
         facts = {"plan": dataclasses.asdict(plan),
                  # one register's spill at the 512-thread cap (PERF.md)
                  **ptxas_facts("gn_swish_bwd.cu", "gn_swish_bwd_kernelI13__nv_bfloat16E",
@@ -1198,7 +1247,8 @@ def check_gn_swish_bwd(gen):
                        "library": "autograd of F.group_norm, F.silu (bf16)",
                        "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
                        "max_abs_err": dx_err, "err_over_tol": ratio,
-                       "param_grad_rel_err": p_err, "bit_reproducible": True})
+                       "param_grad_rel_err": p_err, "bit_reproducible": True,
+                       f"at_{PCIE_SMS}_sms": pcie})
         del x, dy, args, xl, yl
         torch.cuda.empty_cache()
     return {"name": "gn_swish_bwd", "route": "cuda",
@@ -2319,6 +2369,324 @@ def run_gate_conv_bwd(gen):
             "launches_conv_form": launches_conv, "conv_vs_kernels_grad_rel_l2": total}
 
 
+# the trainer phase: the port's training entry point (``main.py``'s
+# ``main(argv)``) on a folder of seeded images: sd3unet with the bf16 overlay
+# at full width and depth, 4 steps with a validation and the image logger at
+# its first steps, then a resume for 2 more; bsqvit with the overlay at full
+# width and 2 layers, 4 steps.  The discriminator starts at step 2, so both
+# phases and the adaptive weight run.
+TRAINER_IMAGES = 64           # 320x288, half JPEG, half PNG
+TRAINER_VIT_LAYERS = 2
+TRAINER_DISC_START = 2
+
+
+def vit_launches(layers: int) -> dict:
+    """bsqvit's launches per step at ``layers`` layers a side: a flash call a
+    block; LN: ln_pre, the first block's ln_1 and ln_post a side; LN-add:
+    the other 2 layers - 1 norms a side."""
+    fwd = {"layer_norm_fwd": 6, "layer_norm_add_fwd": 2 * (2 * layers - 1)}
+    return {"ae": {"flash_attention_qkv_res_fwd": 2 * layers,
+                   "flash_attention_qkv_bwd": 2 * layers, **fwd, "layer_norm_bwd": 6,
+                   "layer_norm_add_bwd": 2 * (2 * layers - 1)},
+            "disc": {"flash_attention_qkv_fwd": 2 * layers, **fwd},
+            "eval": {"gq_argmax": 1, "flash_attention_qkv_fwd": 2 * layers, **fwd}}
+
+
+def write_images(folder: str, n: int, seed: int = SEED) -> str:
+    """n seeded 320x288 images, even ones JPEG and odd ones PNG: each
+    passes through load_image's resize and center crop."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        # smooth gradients plus noise, so that JPEG's decoders have work
+        yy, xx = np.mgrid[0:288, 0:320]
+        base = np.stack([(xx * (i + 1)) % 256, (yy * 3 + 7 * i) % 256, (xx + yy) % 256], -1)
+        arr = np.clip(base + rng.integers(-20, 20, base.shape), 0, 255).astype(np.uint8)
+        ext = "jpg" if i % 2 == 0 else "png"
+        Image.fromarray(arr).save(os.path.join(folder, f"img_{i:03d}.{ext}"))
+    return folder
+
+
+class StepLaunches:
+    """What the trainer does while it is open, with ``TrainStepBuilder``'s
+    step methods, ``Trainer.fit`` and ``Checkpointer._write`` wrapped: the
+    counts of every kernel in each ae, disc and eval step (``steps``), and
+    for each ``fit`` call (``runs``) its wall seconds, CUDA events around
+    each ae and disc step (read after the fit, so that no step waits for the
+    card), and (name, bytes, seconds) of each checkpoint write."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.steps = {"ae": [], "disc": [], "eval": []}
+        self.runs = []
+
+    def __enter__(self):
+        from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
+        from vqvae_from_gaussian_vae_tpu_torch.parallel.trainer import Checkpointer, Trainer
+
+        self.saved = [(TrainStepBuilder, f"{k}_step") for k in self.steps]
+        self.saved += [(Trainer, "fit"), (Checkpointer, "_write")]
+        self.saved = [(cls, name, getattr(cls, name)) for cls, name in self.saved]
+        for cls, name, fn in self.saved:
+            setattr(cls, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def step(builder, *args, **kwargs):
+            kind = name[:-len("_step")]
+            before = {n: k.launches for n, k in self.counters.items()}
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            out = fn(builder, *args, **kwargs)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            if kind != "eval":
+                self.runs[-1]["events"].append((begin, end))
+            self.steps[kind].append({n: k.launches - before[n]
+                                     for n, k in self.counters.items()
+                                     if k.launches != before[n]})
+            return out
+
+        def fit(trainer, *args, **kwargs):
+            run = {"events": [], "saves": []}
+            self.runs.append(run)
+            t0 = time.perf_counter()
+            out = fn(trainer, *args, **kwargs)
+            torch.cuda.synchronize()
+            run["fit_seconds"] = time.perf_counter() - t0
+            run["step_seconds"] = [a.elapsed_time(b) / 1e3 for a, b in run.pop("events")]
+            return out
+
+        def write(ckpt, state, ckpt_name):
+            t0 = time.perf_counter()
+            fn(ckpt, state, ckpt_name)
+            size = os.path.getsize(os.path.join(ckpt.dir, ckpt_name, "state.pt"))
+            self.runs[-1]["saves"].append((ckpt_name, size, time.perf_counter() - t0))
+
+        return {"fit": fit, "_write": write}.get(name, step)
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+def _same(a, b, where: str) -> int:
+    """Require nested dicts and lists of tensors and numbers equal bit for
+    bit; return the tensors compared."""
+    import torch
+
+    if torch.is_tensor(a):
+        require(torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()), f"trainer resume: {where} differs")
+        return 1
+    if isinstance(a, dict):
+        require(isinstance(b, dict) and set(a) == set(b), f"trainer resume: keys of {where}")
+        return sum(_same(a[k], b[k], f"{where}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        require(len(a) == len(b), f"trainer resume: length of {where}")
+        return sum(_same(x, y, f"{where}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
+    require(a == b, f"trainer resume: {where} {a} != {b}")
+    return 0
+
+
+class RestoreCheck:
+    """Holds every tensor a resumed trainer restores to its checkpoint:
+    ``Trainer.load_payload`` wrapped while it is open."""
+
+    def __enter__(self):
+        from vqvae_from_gaussian_vae_tpu_torch.parallel.trainer import Trainer
+
+        self.saved = Trainer.load_payload
+        self.restored = []
+        check = self
+
+        def load_payload(trainer, state, blob):
+            state = check.saved(trainer, state, blob)
+            now = trainer.checkpoint_payload(state)
+            # the optimizers' restored states, as their state_dicts give them
+            n = _same({k: blob[k] for k in now}, now, "state")
+            check.restored.append({"step": state.step, "tensors": n})
+            return state
+
+        Trainer.load_payload = load_payload
+        return self
+
+    def __exit__(self, *exc):
+        from vqvae_from_gaussian_vae_tpu_torch.parallel.trainer import Trainer
+
+        Trainer.load_payload = self.saved
+
+
+def _csv_rows(path: str):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _check_rows(label: str, rows, disc_start: int) -> dict:
+    """Every logged number finite; the disc loss logged from disc_start on."""
+    import math
+
+    bad = [(r["step"], k) for r in rows for k, v in r.items()
+           if v not in ("", None) and not math.isfinite(float(v))]
+    require(not bad, f"{label}: logged values not finite: {bad[:5]}")
+    disc = [int(r["step"]) for r in rows
+            if r.get("train/loss/disc") not in ("", None) and int(r["step"]) >= disc_start]
+    require(disc, f"{label}: no train/loss/disc logged from step {disc_start} on")
+    ae = [r for r in rows if r.get("train/loss/total") not in ("", None)]
+    require(any(float(r["train/scalars/d_weight"]) > 0 for r in ae
+                if int(r["step"]) >= disc_start),
+            f"{label}: the adaptive weight never ran")
+    return {"rows": len(rows), "disc_steps": disc}
+
+
+def _expect_per_step(label: str, steps, expected: dict) -> dict:
+    want = {k: v for k, v in expected.items() if v}
+    require(steps, f"{label}: no such step ran")
+    for i, got in enumerate(steps):
+        require(got == want, f"{label} {i}: launches {got} != {want}")
+    return want
+
+
+def _trainer_summary(trainer, run: dict, rows, steps_taken: int) -> dict:
+    """One ``fit`` call: ``run`` is its record in ``StepLaunches.runs``."""
+    import torch
+
+    require(len(run["step_seconds"]) == steps_taken,
+            f"trainer: {len(run['step_seconds'])} steps timed, not {steps_taken}")
+    step_s = sum(run["step_seconds"])
+    logged = [r for r in rows if r.get("imgs_per_sec")]  # training rows, not validation's
+    return {"loader": trainer.data.loader_kind,
+            "trainer_imgs_per_sec": float(logged[-1]["imgs_per_sec"]),
+            "step_img_per_s": steps_taken * BATCH / step_s if step_s else None,
+            "steps": steps_taken, "step_seconds": step_s,
+            "step_ms_each": [1e3 * t for t in run["step_seconds"]],
+            "fit_seconds": run["fit_seconds"],
+            "outside_steps_share": 1.0 - step_s / run["fit_seconds"],
+            "checkpoint_saves": [{"name": n, "bytes": b, "seconds": s}
+                                 for n, b, s in run["saves"]],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_trainer(gen, train_results) -> dict:
+    """The port's training entry point, in-process through ``main(argv)``,
+    on a temporary folder of images that it deletes afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import main as port_main
+
+    del gen  # the images come from SEED
+    import contextlib
+
+    def train(argv):  # the trainer's own prints go to stderr: stdout is one JSON line a phase
+        with contextlib.redirect_stdout(sys.stderr):
+            return port_main.main(argv)
+
+    require(vit_launches(12) == TRAIN_PATHS["bsqvit"]["launches"],
+            "vit_launches(12) disagrees with the bsqvit train phase's table")
+    counters = launch_counters()
+    tmp = tempfile.mkdtemp(prefix="gvq_trainer_")
+    try:
+        t0 = time.perf_counter()
+        images = write_images(os.path.join(tmp, "images"), TRAINER_IMAGES)
+        write_s = time.perf_counter() - t0
+        common = [f"data.params.train.params.root={images}",
+                  f"model.params.loss_config.params.disc_start={TRAINER_DISC_START}",
+                  "training.trainer.log_every_n_steps=1", "--seed", str(SEED), "--no-test",
+                  "--logdir", os.path.join(tmp, "logs")]
+        val = {"target": "vqvae_from_gaussian_vae_tpu.data.dataset.SimpleDataset",
+               "params": {"root": images, "image_size": RES}}
+        # three writes of ~2.25 GB: step_00000004, best_step_00000004 and last
+        unet = [f"data.params.validation={val!r}", "training.trainer.val_every_n_steps=3",
+                "training.checkpoint.keep_every_n_train_steps=4",
+                "training.checkpoint.monitor=val/loss/rec"]
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():  # the path's counts: 0 just before it
+            k.launches = 0
+        with StepLaunches(counters) as unet_steps:
+            first = train(["--base", os.path.join(ROOT, TRAIN_PATHS["sd3unet"][
+                "configs"][0]), os.path.join(ROOT, BF16_OVERLAY), "--name", "sd3unet",
+                "--max_steps", "4", *common, *unet])
+            logdir = first.logdir
+            rows1 = _csv_rows(os.path.join(logdir, "metrics.csv"))
+            summary1 = _trainer_summary(first, unet_steps.runs[0], rows1, 4)
+            ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+            require({"last", "step_00000004", "best.json"} <= set(ckpts),
+                    f"sd3unet trainer: checkpoints {ckpts}")
+            images_logged = sorted(os.listdir(os.path.join(logdir, "images", "train")))
+            require("reconstructions_gs-000000.png" in images_logged
+                    and "vis_logits_gs-000002.png" in images_logged,
+                    f"sd3unet trainer: images {images_logged}")
+            require(any(r.get("val/loss/rec") for r in rows1), "sd3unet trainer: no validation")
+            del first
+            torch.cuda.empty_cache()
+            with RestoreCheck() as restore:
+                resumed = train(["--resume", logdir, "--max_steps", "6", "--seed",
+                                          str(SEED), "--no-test"])
+            require(restore.restored and restore.restored[0]["step"] == 4,
+                    f"sd3unet trainer: resumed at {restore.restored}")
+            rows2 = _csv_rows(os.path.join(logdir, "metrics.csv"))
+            require([int(r["step"]) for r in rows2][0] == 4 and resumed.state.step == 6,
+                    f"sd3unet trainer: the resumed run logged {[r['step'] for r in rows2]}")
+            summary2 = _trainer_summary(resumed, unet_steps.runs[1], rows2, 2)
+            del resumed
+            torch.cuda.empty_cache()
+        train_unet = train_results["sd3unet"]
+        unet_counts = {kind: _expect_per_step(f"sd3unet trainer {kind} step",
+                                              unet_steps.steps[kind],
+                                              train_unet[f"launches_per_{kind}_step"])
+                       for kind in ("ae", "disc", "eval")}
+        unet_rows = _check_rows("sd3unet trainer", rows1 + rows2, TRAINER_DISC_START)
+        unet_total = {n: k.launches for n, k in counters.items() if k.launches}
+        for name in set().union(*unet_counts.values()):
+            require(unet_total.get(name, 0) > 0, f"sd3unet trainer: {name} never launched")
+        shutil.rmtree(os.path.join(tmp, "logs"), ignore_errors=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.launches = 0
+        layers = f"model.params.encoder_config.params.layers={TRAINER_VIT_LAYERS}"
+        with StepLaunches(counters) as vit_steps:
+            vit = train(["--base", os.path.join(ROOT, TRAIN_PATHS["bsqvit"]["configs"][0]),
+                                  os.path.join(ROOT, BF16_OVERLAY), "--name", "bsqvit",
+                                  "--max_steps", "4", *common, layers])
+        vit_rows = _csv_rows(os.path.join(vit.logdir, "metrics.csv"))
+        summary_vit = _trainer_summary(vit, vit_steps.runs[0], vit_rows, 4)
+        require(os.path.exists(os.path.join(vit.logdir, "checkpoints", "last", "state.pt")),
+                "bsqvit trainer: no checkpoints/last")
+        del vit
+        torch.cuda.empty_cache()
+        expected_vit = vit_launches(TRAINER_VIT_LAYERS)
+        vit_counts = {kind: _expect_per_step(f"bsqvit trainer {kind} step", vit_steps.steps[kind],
+                                             expected_vit[kind]) for kind in ("ae", "disc")}
+        _check_rows("bsqvit trainer", vit_rows, TRAINER_DISC_START)
+        vit_total = {n: k.launches for n, k in counters.items() if k.launches}
+        for name in set().union(*vit_counts.values(), expected_vit["eval"]):
+            require(vit_total.get(name, 0) > 0, f"bsqvit trainer: {name} never launched")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "trainer", "entry_point": "vqvae_from_gaussian_vae_tpu_torch.main:main",
+            "images": TRAINER_IMAGES, "image_write_s": write_s, "batch": BATCH,
+            "resolution": RES, "disc_start": TRAINER_DISC_START,
+            "sd3unet": {"configs": TRAIN_PATHS["sd3unet"]["configs"], "steps": "4 + resume 2",
+                        "first": summary1, "resumed": summary2,
+                        "restored_tensors": restore.restored[0]["tensors"],
+                        "launches_per_step": unet_counts, "launches_total": unet_total,
+                        "bare_pair_img_per_s": train_unet["pair_img_per_s"], **unet_rows},
+            "bsqvit": {"configs": TRAIN_PATHS["bsqvit"]["configs"], "layers": TRAINER_VIT_LAYERS,
+                       "steps": 4, "run": summary_vit, "launches_per_step": vit_counts,
+                       "launches_total": vit_total,
+                       "bare_pair_img_per_s_12_layers": train_results["bsqvit"]["pair_img_per_s"]}}
+
+
 def profile_step(step):
     """Device time over one encode -> dequant step: by kernel, and by the
     PyTorch op that launched it (the hand-written kernels, launched through
@@ -2414,11 +2782,15 @@ def main(argv=None) -> int:
         emit(e2e)
         launches[path] = e2e["launches_per_step"]
         torch.cuda.empty_cache()
+    train_results = {}
     for path in TRAIN_PATHS:
         train = run_train(gen, args.profile, path)
         emit(train)
         launches[f"{path}_train_ae"] = train["launches_per_ae_step"]
+        train_results[path] = train
         torch.cuda.empty_cache()
+    emit(run_trainer(gen, train_results))
+    torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
         op = run_flash_head_major(gen, dtype)
         emit(op)

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops.flash_blc import flash_attention_blc, flash_attention_qkv
 from vqvae_from_gaussian_vae_tpu.ops.flash_blc import sdpa_token_major as jax_sdpa
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa

@@ -6,6 +6,7 @@ import os
 import numpy as np
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import codebook as jax_cb
 from vqvae_from_gaussian_vae_tpu_torch.ops import codebook as port_cb
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import conv3x3_train as jconv
 from vqvae_from_gaussian_vae_tpu_torch.ops import conv3x3_train as conv
 

@@ -39,6 +39,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import flash_attention as jfl
 from vqvae_from_gaussian_vae_tpu.ops.flash_blc import (
     _bwd_call, _bwd_call_packed, _fwd_res_call, _fwd_res_call_packed)
@@ -257,38 +258,35 @@ def emulate_bwd(q, k, v, o, z, do, scale, plan):
     kp, vp = _pad(f(k), lk_p), _pad(f(v), lk_p)
     zp = torch.nn.functional.pad(z, (0, qp.shape[2] - lq))
     dip = torch.nn.functional.pad(di, (0, qp.shape[2] - lq))
-    dks, dvs = [], []
-    for k0 in range(0, lk, rows):
-        kb, vb = kp[:, :, k0:k0 + rows], vp[:, :, k0:k0 + rows]
-        dk = torch.zeros((b, h, rows, d))
-        dv = torch.zeros((b, h, rows, d))
-        for q0 in range(0, lq, nq):
-            qt, dot = qp[:, :, q0:q0 + nq], dop[:, :, q0:q0 + nq]
-            st = _scores(kb, qt, plan)                          # keys x q rows
-            dpt = _scores(vb, dot, plan)
-            p = torch.exp(st * scale - zp[:, :, None, q0:q0 + nq])
-            ds = p * (dpt - dip[:, :, None, q0:q0 + nq]) * scale
-            cols = torch.arange(q0, q0 + nq) >= lq
-            p, ds = p.masked_fill(cols, 0.0), ds.masked_fill(cols, 0.0)
-            dv = dv + p.to(io).float() @ dot
-            dk = dk + ds.to(io).float() @ qt
-        dks.append(dk)
-        dvs.append(dv)
-    dqs = []
-    for q0 in range(0, lq, rows):
-        qb, dob = qp[:, :, q0:q0 + rows], dop[:, :, q0:q0 + rows]
-        zb, dib = zp[:, :, q0:q0 + rows, None], dip[:, :, q0:q0 + rows, None]
-        dq = torch.zeros((b, h, rows, d))
-        for t0 in range(0, lk, nk):
-            kt, vt = kp[:, :, t0:t0 + nk], vp[:, :, t0:t0 + nk]
-            s = _scores(qb, kt, plan)
-            dp = _scores(dob, vt, plan)
-            ds = torch.exp(s * scale - zb) * (dp - dib) * scale
-            ds = ds.masked_fill(torch.arange(t0, t0 + nk) >= lk, 0.0)
-            dq = dq + ds.to(io).float() @ kt
-        dqs.append(dq)
-    cat = lambda ts, n: torch.cat(ts, dim=2)[:, :, :n].to(io)  # noqa: E731
-    return cat(dqs, lq), cat(dks, lk), cat(dvs, lk)
+    # the blocks of a kernel are independent: each one a slice of a batch
+    # dimension (dim 2), each with its own sums over the tiles it streams
+    blocks = lambda t, n: t[:, :, :n * rows].reshape(b, h, n, rows, *t.shape[3:])  # noqa: E731
+    nkb, nqb = -(-lk // rows), -(-lq // rows)
+    kb, vb = blocks(kp, nkb), blocks(vp, nkb)
+    dk = torch.zeros((b, h, nkb, rows, d))
+    dv = torch.zeros((b, h, nkb, rows, d))
+    for q0 in range(0, lq, nq):
+        qt, dot = qp[:, :, None, q0:q0 + nq], dop[:, :, None, q0:q0 + nq]
+        st = _scores(kb, qt, plan)                              # keys x q rows
+        dpt = _scores(vb, dot, plan)
+        p = torch.exp(st * scale - zp[:, :, None, None, q0:q0 + nq])
+        ds = p * (dpt - dip[:, :, None, None, q0:q0 + nq]) * scale
+        cols = torch.arange(q0, q0 + nq) >= lq
+        p, ds = p.masked_fill(cols, 0.0), ds.masked_fill(cols, 0.0)
+        dv = dv + p.to(io).float() @ dot
+        dk = dk + ds.to(io).float() @ qt
+    qb, dob = blocks(qp, nqb), blocks(dop, nqb)
+    zb, dib = blocks(zp[..., None], nqb), blocks(dip[..., None], nqb)
+    dq = torch.zeros((b, h, nqb, rows, d))
+    for t0 in range(0, lk, nk):
+        kt, vt = kp[:, :, None, t0:t0 + nk], vp[:, :, None, t0:t0 + nk]
+        s = _scores(qb, kt, plan)
+        dp = _scores(dob, vt, plan)
+        ds = torch.exp(s * scale - zb) * (dp - dib) * scale
+        ds = ds.masked_fill(torch.arange(t0, t0 + nk) >= lk, 0.0)
+        dq = dq + ds.to(io).float() @ kt
+    cat = lambda t, n: t.reshape(b, h, -1, d)[:, :, :n].to(io)  # noqa: E731
+    return cat(dq, lq), cat(dk, lk), cat(dv, lk)
 
 
 def _bf16(rng, *shape):

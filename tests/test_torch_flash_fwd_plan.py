@@ -31,6 +31,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import flash_attention as jfl
 from vqvae_from_gaussian_vae_tpu.ops.flash_blc import (
     _fwd_call, _fwd_hpb, _fwd_res_call, _fwd_res_call_packed)
@@ -192,28 +193,28 @@ def emulate_fwd(q, k, v, scale, plan):
     nq, nk = -(-lq // rq), -(-lk // rk)
     pad = lambda t, n: torch.nn.functional.pad(t.float(), (0, 0, 0, n - t.shape[2]))  # noqa: E731
     qp, kp, vp = pad(q, nq * rq), pad(k, nk * rk), pad(v, nk * rk)
-    os_, zs = [], []
-    for i in range(nq):
-        qt = qp[:, :, i * rq:(i + 1) * rq]
-        o = torch.zeros((b, h, rq, d))
-        m = torch.full((b, h, rq), -torch.inf)
-        l_ = torch.zeros((b, h, rq))
-        for t in range(nk):
-            s = qt @ kp[:, :, t * rk:(t + 1) * rk].transpose(-1, -2) * scale
-            if plan.key_mask and t == nk - 1:
-                s[..., lk - t * rk:] = -torch.inf
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l_ = l_ * alpha + p.sum(dim=-1)
-            vt = vp[:, :, t * rk:(t + 1) * rk]
-            halves = vt.chunk(2, dim=-1) if plan.body == "wgmma_wide" else (vt,)
-            o = o * alpha[..., None] + torch.cat([p.to(v.dtype).float() @ vh for vh in halves],
-                                                 dim=-1)
-            m = m_new
-        os_.append((o * (1.0 / l_)[..., None]).to(v.dtype))
-        zs.append(m + torch.log(l_))
-    return torch.cat(os_, dim=2)[:, :, :lq], torch.cat(zs, dim=2)[:, :, :lq]
+    # the q tiles' blocks are independent: each a slice of a batch dimension
+    qt = qp.reshape(b, h, nq, rq, d)
+    o = torch.zeros((b, h, nq, rq, d))
+    m = torch.full((b, h, nq, rq), -torch.inf)
+    l_ = torch.zeros((b, h, nq, rq))
+    for t in range(nk):
+        kt = kp[:, :, None, t * rk:(t + 1) * rk]
+        s = qt @ kt.transpose(-1, -2) * scale
+        if plan.key_mask and t == nk - 1:
+            s[..., lk - t * rk:] = -torch.inf
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_ = l_ * alpha + p.sum(dim=-1)
+        vt = vp[:, :, None, t * rk:(t + 1) * rk]
+        halves = vt.chunk(2, dim=-1) if plan.body == "wgmma_wide" else (vt,)
+        o = o * alpha[..., None] + torch.cat([p.to(v.dtype).float() @ vh for vh in halves],
+                                             dim=-1)
+        m = m_new
+    o = (o * (1.0 / l_)[..., None]).to(v.dtype).reshape(b, h, nq * rq, d)
+    z = (m + torch.log(l_)).reshape(b, h, nq * rq)
+    return o[:, :, :lq], z[:, :, :lq]
 
 
 def _bf16(rng, *shape):

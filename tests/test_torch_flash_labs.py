@@ -26,6 +26,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import flash_blc as F
 from vqvae_from_gaussian_vae_tpu_torch.labs import exp_flash_bwd_variants as lab_bwd
 from vqvae_from_gaussian_vae_tpu_torch.labs import exp_flash_fwd_tilings as lab_tilings

@@ -20,6 +20,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as upstream
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import flash_attention as jfl
 from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention_lean as fl
 

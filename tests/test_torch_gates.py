@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu import instantiate_from_config as jax_instantiate
 from vqvae_from_gaussian_vae_tpu.ops import downsample_conv as jdown
 from vqvae_from_gaussian_vae_tpu.ops import flash_blc as jflash

@@ -24,6 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import fused_gn_conv as jfused
 from vqvae_from_gaussian_vae_tpu_torch.ops import fused_gn_conv as fgc
 

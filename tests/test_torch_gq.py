@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops.gq_pallas import gq_argmax_pallas
 from vqvae_from_gaussian_vae_tpu.ops.gq_search import gq_search as jax_gq_search
 from vqvae_from_gaussian_vae_tpu.ops.gq_search import score_operands as jax_score_operands

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.quantization import gaussian as jgq
 from vqvae_from_gaussian_vae_tpu_torch.quantization import gaussian as gq
 

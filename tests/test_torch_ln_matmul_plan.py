@@ -23,6 +23,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu_torch.labs import exp_ln_matmul as lab
 from vqvae_from_gaussian_vae_tpu_torch.ops import ln_matmul as LM
 

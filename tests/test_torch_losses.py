@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.losses import discriminator as jdisc
 from vqvae_from_gaussian_vae_tpu.losses.discriminator_loss import (
     GeneralLPIPSWithDiscriminator as JaxLoss)

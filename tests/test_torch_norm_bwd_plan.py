@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import gn_swish_bwd as jgn
 from vqvae_from_gaussian_vae_tpu.ops.layer_norm import layer_norm as jax_layer_norm
 from vqvae_from_gaussian_vae_tpu.ops.layer_norm import layer_norm_add as jax_layer_norm_add

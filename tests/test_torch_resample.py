@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.models.unet import group_norm_from_stats as jax_gn_from_stats
 from vqvae_from_gaussian_vae_tpu.ops.downsample_conv import downsample_conv3x3_gn as jax_down
 from vqvae_from_gaussian_vae_tpu.ops.upsample_conv import phase_kernels as jax_phase_kernels

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import downsample_conv as jdown
 from vqvae_from_gaussian_vae_tpu.ops import upsample_conv as jup
 from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu import instantiate_from_config as jax_instantiate
 from vqvae_from_gaussian_vae_tpu.utils.config import load_config as jax_load_config
 from vqvae_from_gaussian_vae_tpu.utils.torch_convert import convert_state_dict
@@ -206,8 +207,12 @@ def test_config_targets_resolve_onto_the_port():
                      "pit.modules.losses.discriminator_loss.GeneralLPIPSWithDiscriminator"):
         assert resolve_target(spelling) == ("vqvae_from_gaussian_vae_tpu_torch.losses."
                                             "discriminator_loss.GeneralLPIPSWithDiscriminator")
-    target = "vqvae_from_gaussian_vae_tpu.data.dataset.ImageDataModuleFromConfig"
-    with pytest.raises(NotImplementedError, match="ImageDataModuleFromConfig"):
+    for spelling in ("vqvae_from_gaussian_vae_tpu.data.dataset.ImageDataModuleFromConfig",
+                     "pit.data.ImageDataModuleFromConfig"):
+        assert resolve_target(spelling) == ("vqvae_from_gaussian_vae_tpu_torch.data.dataset."
+                                            "ImageDataModuleFromConfig")
+    target = "vqvae_from_gaussian_vae_tpu.data.video.VideoDataset"
+    with pytest.raises(NotImplementedError, match="VideoDataset"):
         instantiate_from_config({"target": target, "params": {}})
     cfg = load_config(CONFIG, [t for t in TINY if "loss_config" not in t])
     eng = instantiate_from_config(copy.deepcopy(cfg["model"]), device="cpu")

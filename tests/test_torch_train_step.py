@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu import instantiate_from_config as jax_instantiate
 from vqvae_from_gaussian_vae_tpu.parallel.train_state import init_train_state
 from vqvae_from_gaussian_vae_tpu.parallel.train_state import make_optimizers as jax_make_optimizers
@@ -297,7 +298,7 @@ def test_make_optimizers_maps_optax_adam_and_parameter_groups():
 @pytest.mark.parametrize("kwargs", [
     {"optimizer_config": {"target": "optax.sgd"}},
     {"optimizer_config": {"target": "optax.adam", "params": {"eps_root": 1e-8}}},
-    {"accumulate_grad_batches": 2},
+    {"optimizer_config": {"target": "optax.adam", "params": {"nesterov": True}}},
 ])
 def test_make_optimizers_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError):

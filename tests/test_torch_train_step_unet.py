@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from tests.test_torch_train_step import _check_logs, _FixedNormal, _flat_grads, _np
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu import instantiate_from_config as jax_instantiate
 from vqvae_from_gaussian_vae_tpu.parallel.train_state import init_train_state
 from vqvae_from_gaussian_vae_tpu.parallel.train_state import make_optimizers as jax_make_optimizers

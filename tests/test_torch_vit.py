@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu import instantiate_from_config as jax_instantiate
 from vqvae_from_gaussian_vae_tpu.utils.config import load_config as jax_load_config
 from vqvae_from_gaussian_vae_tpu.utils.torch_convert import convert_state_dict

@@ -22,6 +22,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu.ops import conv3x3_train as jconv
 from vqvae_from_gaussian_vae_tpu.ops import downsample_conv as jdown
 from vqvae_from_gaussian_vae_tpu.ops import upsample_conv as jup

@@ -115,6 +115,7 @@ def main() -> int:
                                                                        LN_ROWS)
     from vqvae_from_gaussian_vae_tpu_torch.ops import _build
     from vqvae_from_gaussian_vae_tpu_torch.ops import gn_swish_bwd as gsb
+    from vqvae_from_gaussian_vae_tpu_torch.ops import grid_sync
     from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
 
     lib, usage = build_traced()
@@ -127,7 +128,7 @@ def main() -> int:
         gamma = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
         beta = 0.2 * torch.randn((c,), generator=gen, device="cuda")
         _, (mean_c, rstd_c) = gsb.gn_swish_ref(x, gamma, beta)
-        plan = gsb.gn_bwd_plan(BATCH, h * h, c, 32, dtype)
+        plan = gsb.gn_bwd_plan(BATCH, h * h, c, 32, dtype, grid_sync.device_sms(x.device))
         fn = lambda: gsb.gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta)  # noqa: E731
         marks = traced_call(lib, "gvq_trace_set_gn", plan.grid, fn)
         print(json.dumps({"op": "gn_swish_bwd", "shape": [BATCH, h, h, c],
@@ -142,7 +143,8 @@ def main() -> int:
         ds_in = torch.randn((LN_ROWS, LN_C), generator=gen, device="cuda").to(dtype)
         w = 1 + 0.3 * torch.randn((LN_C,), generator=gen, device="cuda")
         for add in (False, True):
-            plan = ln.ln_bwd_plan(LN_ROWS, LN_C, dtype, add=add)
+            plan = ln.ln_bwd_plan(LN_ROWS, LN_C, dtype, add=add,
+                                  sms=grid_sync.device_sms(x.device))
             fn = ((lambda: ln.layer_norm_add_bwd_cuda(x, w, dy, ds_in)) if add
                   else (lambda: ln.layer_norm_bwd_cuda(x, w, dy)))
             marks = traced_call(lib, "gvq_trace_set_ln", plan.grid, fn)

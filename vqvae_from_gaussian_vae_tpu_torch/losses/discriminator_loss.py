@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -108,6 +109,11 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
         return self._disc_loss_fn(logits_real, logits_fake), logits_real, logits_fake
 
     @torch.no_grad()
+    def disc_logits(self, inputs, reconstructions):
+        """The raw patch-logit maps of x and of xrec, each its own call."""
+        return self.discriminator(inputs), self.discriminator(reconstructions)
+
+    @torch.no_grad()
     def init_actnorm(self, inputs, reconstructions) -> None:
         """ActNorm's data-dependent init on a real batch, through the same
         interleaved call the discriminator phase makes."""
@@ -168,3 +174,49 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
                    f"{split}/logits/fake": logits_fake.detach().float().mean()}
             return d, log
         raise NotImplementedError(f"Unknown optimizer_idx {optimizer_idx}")
+
+
+# matplotlib's "PiYG" colormap (ColorBrewer's 11 points, as r, g, b / 255),
+# interpolated into its 256-entry table the way matplotlib builds it
+_PIYG = np.array([(142, 1, 82), (197, 27, 125), (222, 119, 174), (241, 182, 218),
+                  (253, 224, 239), (247, 247, 247), (230, 245, 208), (184, 225, 134),
+                  (127, 188, 65), (77, 146, 33), (39, 100, 25)]) / 255.0
+_LUT_SIZE = 256
+
+
+def piyg(x: np.ndarray) -> np.ndarray:
+    """matplotlib's ``colormaps["PiYG"](x)[..., :3]`` for x in [0, 1]."""
+    grid = np.linspace(0.0, 1.0, len(_PIYG))
+    lut = np.stack([np.interp(np.linspace(0.0, 1.0, _LUT_SIZE), grid, _PIYG[:, c])
+                    for c in range(3)], axis=-1)
+    idx = np.clip((np.asarray(x, np.float64) * _LUT_SIZE).astype(int), 0, _LUT_SIZE - 1)
+    return lut[idx]
+
+
+def visualize_disc_logits(loss_module, inputs, reconstructions) -> Dict[str, np.ndarray]:
+    """Colormapped real / fake patch-logit grids, blended over the images:
+    ``{"vis_logits", "vis_logits_blended"}``, NHWC numpy in [-1, 1] with
+    the real half above the fake one; {} when the logit map has no pixel."""
+    lr, lf = loss_module.disc_logits(inputs, reconstructions)
+    lr, lf = lr.float().cpu().numpy(), lf.float().cpu().numpy()
+    if lr.ndim < 4 or lr.size == 0 or lf.size == 0:
+        return {}
+    high = max(np.abs(lr).max(), np.abs(lf).max(), 1e-6)
+
+    def upsample(logits, target_hw):
+        reps_h = -(-target_hw[0] // logits.shape[1])
+        reps_w = -(-target_hw[1] // logits.shape[2])
+        up = np.repeat(np.repeat(logits, reps_h, 1), reps_w, 2)
+        return up[:, :target_hw[0], :target_hw[1]]
+
+    hw = inputs.shape[1:3]
+    lr_up = upsample(lr, hw)[..., 0]
+    lf_up = upsample(lf, hw)[..., 0]
+    vis = np.concatenate([piyg((lr_up + high) / (2 * high)),
+                          piyg((lf_up + high) / (2 * high))], axis=1)
+    imgs = np.concatenate([inputs.float().cpu().numpy(),
+                           reconstructions.float().cpu().numpy()], axis=1)
+    imgs01 = np.clip((imgs + 1) / 2, 0, 1)
+    alpha = np.concatenate([np.abs(lr_up), np.abs(lf_up)], axis=1)[..., None] / high * 0.8
+    blended = alpha * vis + (1 - alpha) * imgs01
+    return {"vis_logits": 2.0 * vis - 1.0, "vis_logits_blended": 2.0 * blended - 1.0}

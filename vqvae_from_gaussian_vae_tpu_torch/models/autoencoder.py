@@ -24,6 +24,7 @@ The vf branch is not ported: ``use_vf`` raises.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -31,13 +32,13 @@ import torch.nn as nn
 
 from vqvae_from_gaussian_vae_tpu_torch.utils.config import instantiate_from_config
 
-# trainer keys: accepted so training YAMLs load, unused until the trainer is
-# ported (the optimizer knobs are make_optimizers' arguments)
-_TRAINING_KEYS = (
-    "optimizer_config", "lr_g_factor", "trainable_ae_params", "ae_optimizer_args",
-    "trainable_disc_params", "disc_optimizer_args", "disc_start_iter",
-    "diff_boost_factor", "monitor",
-)
+# trainer keys: kept on the engine for the trainer (parallel/trainer.py),
+# with the JAX engine's defaults
+_TRAINING_KEYS = {
+    "optimizer_config": None, "lr_g_factor": 1.0, "trainable_ae_params": None,
+    "ae_optimizer_args": None, "trainable_disc_params": None, "disc_optimizer_args": None,
+    "disc_start_iter": 0, "diff_boost_factor": 3.0, "monitor": None,
+}
 
 
 class EngineModule(nn.Module):
@@ -189,7 +190,10 @@ class AutoencodingEngine:
             raise NotImplementedError("additional_decode_keys is not supported")
         if ckpt_path is not None and ckpt_engine is not None:
             raise ValueError("set ckpt_path or ckpt_engine, not both")
-        del input_key  # the data pipeline's batch key; no data module is ported yet
+        self.input_key = input_key
+        for key, value in _TRAINING_KEYS.items():
+            setattr(self, key, kwargs.get(key, value))
+        self.learning_rate: Optional[float] = None  # set by the trainer
         self.device = resolve_device(device)
         self.loss = (instantiate_from_config(loss_config)
                      if loss_config and not eval_only else None)
@@ -225,15 +229,39 @@ class AutoencodingEngine:
         return self.module.load_state_dict(state_dict, strict=strict)
 
     def load_checkpoint(self, path: str, ignore_keys: Sequence[str] = ()):
-        """Load a reference ``pit`` .ckpt (Lightning) or a raw state_dict;
-        strict=False semantics.  Returns (missing, unexpected) keys."""
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-        sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+        """Load a reference ``pit`` .ckpt (Lightning), a raw state_dict, or
+        a checkpoint directory of the port's trainer (its engine weights);
+        strict=False semantics.  Returns (missing, unexpected) keys.
+
+        Files are read with ``weights_only=True``: a checkpoint is data and
+        loading one runs no code it carries.  A Lightning .ckpt holds plain
+        containers, tensors, numbers and strings, which load; one that
+        pickles another class (a config object in ``hyper_parameters``, say)
+        is refused with torch's error, which names the class.  Re-save its
+        ``state_dict`` alone to load it.  (The JAX package's loader reads
+        with ``weights_only=False``.)"""
+        if os.path.isdir(path):
+            from vqvae_from_gaussian_vae_tpu_torch.parallel.trainer import read_checkpoint
+
+            sd = read_checkpoint(path)["engine"]
+        else:
+            blob = torch.load(path, map_location="cpu", weights_only=True)
+            sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
         keep = ("encoder.", "decoder.", "latent_mean", "latent_std")
         sd = {k: v for k, v in sd.items()
               if k.startswith(keep) and not any(k.startswith(i) for i in ignore_keys)}
         result = self.module.load_state_dict(sd, strict=False)
         return list(result.missing_keys), list(result.unexpected_keys)
+
+    def save_params(self, path: str) -> None:
+        """The engine's weights as one state_dict file (``load_checkpoint``
+        reads it back)."""
+        torch.save(self.module.state_dict(), path)
+
+    def get_last_layer(self) -> torch.Tensor:
+        """The decoder's last-layer weight, which the adaptive GAN weight
+        differentiates."""
+        return self.module.get_parameter(self.module.last_layer_path)
 
     # ------------------------------------------------------------- API
 
@@ -267,3 +295,13 @@ class AutoencodingEngine:
         return self.module(self._input(x), generator=self.generator, eps=eps)
 
     __call__ = forward
+
+    def log_images(self, batch: Dict, **kwargs) -> Dict[str, torch.Tensor]:
+        """Inputs, reconstructions (the eval forward, GQ search), the
+        difference and the boosted difference, each NHWC in [-1, 1]."""
+        x = self._input(batch[self.input_key]).float()
+        _, xrec, _ = self.forward(x)
+        xrec = xrec.float()
+        diff = torch.clamp(0.5 * torch.abs(torch.clamp(xrec, -1.0, 1.0) - x), 0.0, 1.0)
+        return {"inputs": x, "reconstructions": xrec, "diff": 2.0 * diff - 1.0,
+                "diff_boost": 2.0 * torch.clamp(self.diff_boost_factor * diff, 0.0, 1.0) - 1.0}

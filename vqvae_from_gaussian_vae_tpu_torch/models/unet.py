@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vqvae_from_gaussian_vae_tpu_torch.ops.conv3x3_train import conv3x3_same_wg
 from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import downsample_conv3x3_gn
@@ -299,9 +300,10 @@ def make_attn(in_channels: int, attn_type: str = "vanilla", dtype=torch.float32)
 class _DownLevel(nn.Module):
     def __init__(self, block_specs: Sequence[Tuple[int, int]], use_attn: bool, attn_type: str,
                  dropout: float, has_downsample: bool, resamp_with_conv: bool,
-                 fused_gn_conv: bool, fused_downsample: bool, dtype):
+                 fused_gn_conv: bool, fused_downsample: bool, dtype, remat: bool = False):
         super().__init__()
         self.use_attn = use_attn
+        self.remat = remat
         self.has_downsample = has_downsample
         self.fused_downsample = fused_downsample
         self.dtype = dtype
@@ -322,9 +324,9 @@ class _DownLevel(nn.Module):
         for i, blk in enumerate(self.block):
             stats = in_stats if i == 0 else None
             if defer and i == n - 1:
-                x, add = blk(x, train, stats, defer_add=True)
+                x, add = _block(blk, self.remat, x, train, stats, True)
             else:
-                x = blk(x, train, stats)
+                x = _block(blk, self.remat, x, train, stats, False)
                 if self.use_attn:
                     x = self.attn[i](x)
         out_stats = None
@@ -345,10 +347,13 @@ class _Mid(nn.Module):
         return self.block_2(self.block_1(x, train), train)
 
 
-def _check_knobs(remat: bool) -> None:
-    if remat:
-        raise NotImplementedError("remat (activation checkpointing) waits for the trainer "
-                                  "slice of the port")
+def _block(blk: ResnetBlock, remat: bool, x, train: bool, in_stats, defer_add: bool):
+    """A level's ResnetBlock; with ``remat`` under autograd its activations
+    are recomputed in the backward pass (``torch.utils.checkpoint``), as the
+    JAX model wraps the levels' blocks (not the mid blocks) in ``nn.remat``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(blk, x, train, in_stats, defer_add, use_reentrant=False)
+    return blk(x, train, in_stats, defer_add)
 
 
 class Encoder(nn.Module):
@@ -362,7 +367,6 @@ class Encoder(nn.Module):
                  remat: bool = False, fused_gn_conv: bool = False,
                  fused_downsample: bool = True, dtype=torch.float32):
         super().__init__()
-        _check_knobs(remat)
         self.dtype = as_torch_dtype(dtype)
         self.z_channels = z_channels
         attn_type = "linear" if use_linear_attn else attn_type
@@ -382,7 +386,7 @@ class Encoder(nn.Module):
                 specs, use_attn=(curr_res in attn_resolutions) and attn_type != "none",
                 attn_type=attn_type, dropout=dropout, has_downsample=i_level != n_res - 1,
                 resamp_with_conv=resamp_with_conv, fused_gn_conv=fused_gn_conv,
-                fused_downsample=fused_downsample, dtype=self.dtype))
+                fused_downsample=fused_downsample, dtype=self.dtype, remat=remat))
             if i_level != n_res - 1:
                 curr_res //= 2
         self.down = nn.ModuleList(levels)
@@ -410,9 +414,10 @@ class Encoder(nn.Module):
 class _UpLevel(nn.Module):
     def __init__(self, block_specs: Sequence[Tuple[int, int]], use_attn: bool, attn_type: str,
                  dropout: float, has_upsample: bool, resamp_with_conv: bool,
-                 fused_gn_conv: bool, fused_upsample: bool, dtype):
+                 fused_gn_conv: bool, fused_upsample: bool, dtype, remat: bool = False):
         super().__init__()
         self.use_attn = use_attn
+        self.remat = remat
         self.has_upsample = has_upsample
         self.fused_upsample = fused_upsample
         self.dtype = dtype
@@ -433,9 +438,9 @@ class _UpLevel(nn.Module):
         for i, blk in enumerate(self.block):
             stats = in_stats if i == 0 else None
             if defer and i == n - 1:
-                x, add = blk(x, train, stats, defer_add=True)
+                x, add = _block(blk, self.remat, x, train, stats, True)
             else:
-                x = blk(x, train, stats)
+                x = _block(blk, self.remat, x, train, stats, False)
                 if self.use_attn:
                     x = self.attn[i](x)
         out_stats = None
@@ -457,7 +462,6 @@ class Decoder(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         del in_channels, double_z  # accepted for config aliasing with the encoder
-        _check_knobs(remat)
         self.dtype = as_torch_dtype(dtype)
         self.give_pre_end = give_pre_end
         self.tanh_out = tanh_out
@@ -478,7 +482,7 @@ class Decoder(nn.Module):
                 specs, use_attn=(curr_res in attn_resolutions) and attn_type != "none",
                 attn_type=attn_type, dropout=dropout, has_upsample=i_level != 0,
                 resamp_with_conv=resamp_with_conv, fused_gn_conv=fused_gn_conv,
-                fused_upsample=fused_upsample, dtype=self.dtype)
+                fused_upsample=fused_upsample, dtype=self.dtype, remat=remat)
             if i_level != 0:
                 curr_res *= 2
         self.up = nn.ModuleList(levels)

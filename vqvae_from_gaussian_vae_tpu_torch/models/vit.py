@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import (
     flash_attention_qkv, flash_supported, kernels_disabled)
@@ -214,19 +215,29 @@ class ResidualAttentionBlock(nn.Module):
 
 class Transformer(nn.Module):
     """The pre-LN blocks as one streamed loop: each block's residual add is
-    fused into the next block's first LayerNorm."""
+    fused into the next block's first LayerNorm.  With ``remat`` under
+    autograd each streamed step's activations are recomputed in the backward
+    pass (``torch.utils.checkpoint``), so the result and the kernels launched
+    are those of the plain loop."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
-                 ls_init_value: Optional[float] = None, dtype=torch.float32):
+                 ls_init_value: Optional[float] = None, remat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_ratio, ls_init_value, dtype)
             for _ in range(layers))
 
     def forward(self, x, attn_mask=None):
+        remat = self.remat and torch.is_grad_enabled()
         stream, delta = x, None
         for blk in self.resblocks:
-            stream, delta = blk.streamed(stream, delta, attn_mask)
+            if remat:
+                stream, delta = checkpoint(blk.streamed, stream, delta, attn_mask,
+                                           use_reentrant=False)
+            else:
+                stream, delta = blk.streamed(stream, delta, attn_mask)
         return stream if delta is None else stream + delta
 
 
@@ -245,12 +256,9 @@ def _unpatchify(x: torch.Tensor, grid: Tuple[int, int], p: Tuple[int, int], c: i
     return x.reshape(b, grid[0] * p[0], grid[1] * p[1], c)
 
 
-def _check_inference_knobs(act_layer: str, norm_layer: str, remat: bool) -> None:
+def _check_knobs(act_layer: str, norm_layer: str) -> None:
     if act_layer.lower() != "gelu" or norm_layer.lower() != "layer_norm":
         raise ValueError(f"unsupported act_layer {act_layer!r} / norm_layer {norm_layer!r}")
-    if remat:
-        raise NotImplementedError("remat (activation checkpointing) waits for the trainer "
-                                  "slice of the port (ROADMAP A10)")
 
 
 def _mask_block(grid: Tuple[int, int], mask_block_size: int) -> int:
@@ -269,7 +277,7 @@ class TransformerEncoder(nn.Module):
                  mask_block_size: int = -1, remat: bool = False, dtype=torch.float32):
         super().__init__()
         del drop_rate, attn_drop_rate, drop_path_rate, ln_post  # ln_post is always on here
-        _check_inference_knobs(act_layer, norm_layer, remat)
+        _check_knobs(act_layer, norm_layer)
         self.dtype = as_torch_dtype(dtype)
         self.z_channels = z_channels
         self.patch = (patch_size, patch_size)
@@ -282,7 +290,7 @@ class TransformerEncoder(nn.Module):
             torch.empty(self.grid_size[0] * self.grid_size[1], width))
         self.ln_pre = FusedLayerNorm(width, dtype=self.dtype) if ln_pre else None
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       dtype=self.dtype)
+                                       remat=remat, dtype=self.dtype)
         self.ln_post = FusedLayerNorm(width, dtype=self.dtype)
         self.quant_embed = CastLinear(width, 2 * z_channels if double_z else z_channels,
                                       dtype=self.dtype)
@@ -314,7 +322,7 @@ class TransformerDecoder(nn.Module):
                  remat: bool = False, dtype=torch.float32):
         super().__init__()
         del double_z, drop_rate, attn_drop_rate, drop_path_rate  # accepted for config aliasing
-        _check_inference_knobs(act_layer, norm_layer, remat)
+        _check_knobs(act_layer, norm_layer)
         self.dtype = as_torch_dtype(dtype)
         self.patch = (patch_size, patch_size)
         self.grid_size = (image_size // patch_size, image_size // patch_size)
@@ -333,7 +341,7 @@ class TransformerDecoder(nn.Module):
             torch.empty(self.grid_size[0] * self.grid_size[1], width))
         self.ln_pre = FusedLayerNorm(width, dtype=self.dtype) if ln_pre else None
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       dtype=self.dtype)
+                                       remat=remat, dtype=self.dtype)
         self.ln_post = FusedLayerNorm(width, dtype=self.dtype) if ln_post else None
         self.post_quant_embed = CastLinear(z_channels, width, dtype=self.dtype)
 

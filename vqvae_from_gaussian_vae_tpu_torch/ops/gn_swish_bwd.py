@@ -152,7 +152,7 @@ def gn_swish_bwd_cuda(x, dy, mean_c, rstd_c, gamma, beta, num_groups: int = 32):
                          "beta (C,) on x's device")
     if x.data_ptr() % 16 or dy.data_ptr() % 16:
         raise ValueError("GroupNorm + swish backward kernel takes 16-byte aligned x and dy")
-    plan = gn_bwd_plan(b, h * w, c, num_groups, x.dtype)
+    plan = gn_bwd_plan(b, h * w, c, num_groups, x.dtype, grid_sync.device_sms(x.device))
     scratch = torch.empty((plan.scratch_floats(b, c, num_groups),), dtype=torch.float32,
                           device=x.device)
     dx = torch.empty_like(x)

@@ -1,7 +1,7 @@
 """What the persistent-grid kernels share on the Python side
-(``csrc/grid_sync.cuh``): the card's limits their plans are sized by, each
-stream's grid barrier counters, and a torch model of the fixed-order sum
-across blocks.
+(``csrc/grid_sync.cuh``): the card's limits their plans are sized by (the
+SM count read from the device), each stream's grid barrier counters, and a
+torch model of the fixed-order sum across blocks.
 
 Used by the GroupNorm + swish backward (``ops/gn_swish_bwd.py``) and the
 LayerNorm backward (``ops/layer_norm.py``), each one cooperative launch
@@ -11,12 +11,28 @@ blocks without float atomics.
 
 from __future__ import annotations
 
-SMS = 132                 # streaming multiprocessors of an H100 SXM
+SMS = 132                 # an H100 SXM's SMs: the plans' default, for the CPU tests
 SMEM_BLOCK_MAX = 232448   # dynamic shared memory one block may have
 SMEM_SM = 233472          # shared memory of an SM; each resident block also takes 1 KB
 THREADS_SM = 2048
 
 _COUNTERS = {}
+_DEVICE_SMS = {}
+
+
+def device_sms(device) -> int:
+    """The streaming multiprocessors of the CUDA `device` (an H100 SXM has
+    132, an H100 PCIe 114), read once a device: the callers size their
+    persistent grids by it, so that every block is resident."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    sms = _DEVICE_SMS.get(index)
+    if sms is None:
+        sms = _DEVICE_SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
 def blocks_per_sm(smem: int, threads: int) -> int:

@@ -223,7 +223,8 @@ def _bwd_cuda(name, x, weight, dy, ds_in, eps):
     if rows == 0:
         dgb = torch.zeros((2, c), dtype=torch.float32, device=x.device)
         return dx, dgb[0], dgb[1]
-    plan = ln_bwd_plan(rows, c, x.dtype, add=ds_in is not None)
+    plan = ln_bwd_plan(rows, c, x.dtype, add=ds_in is not None,
+                       sms=grid_sync.device_sms(x.device))
     dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)
     part = torch.empty((plan.grid, 2, c), dtype=torch.float32, device=x.device)
     lib = _build.library()

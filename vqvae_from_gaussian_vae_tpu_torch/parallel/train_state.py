@@ -15,6 +15,10 @@ and its ``b1``/``b2``/``eps`` arguments; the generator's learning rate scaled by
 parameter names (``encoder.*``, ``loss.logvar``, ``loss.discriminator.*``,
 matched with ``re.match``; the first group that matches wins, and a
 parameter no group matches is frozen), each group with its own arguments.
+With ``accumulate_grad_batches`` k > 1 each optimizer is wrapped in
+``MultiSteps``, optax.MultiSteps's counterpart: it keeps the running mean
+of k of its own phase's gradients and applies Adam on the k-th, so Adam's
+count advances once in k steps.
 """
 
 from __future__ import annotations
@@ -72,12 +76,58 @@ class OptimizerSpec:
                 groups.append(group)
         return groups
 
-    def build(self, named_params) -> torch.optim.Optimizer:
+    every_k: int = 1
+
+    def build(self, named_params):
         named_params = list(named_params)
         groups = self.groups(named_params)
         if not groups:
             groups = [{"params": []}]
-        return torch.optim.Adam(groups, lr=self.lr, **self.kwargs)
+        adam = torch.optim.Adam(groups, lr=self.lr, **self.kwargs)
+        return MultiSteps(adam, self.every_k) if self.every_k > 1 else adam
+
+
+class MultiSteps:
+    """Gradient accumulation over an optimizer, as optax.MultiSteps: each
+    ``step`` folds the parameters' ``.grad`` into a running mean
+    (acc += (g - acc) / (n + 1)); the k-th sets ``.grad`` to that mean, steps
+    the inner optimizer and starts again from zero.  The other k - 1 leave
+    the parameters and the inner state as they are."""
+
+    def __init__(self, inner: torch.optim.Optimizer, every_k: int):
+        self.inner = inner
+        self.every_k = every_k
+        self.mini_step = 0
+        self.acc: Dict[torch.nn.Parameter, torch.Tensor] = {}
+
+    def _params(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
+    def step(self) -> None:
+        n = self.mini_step
+        for p in self._params():
+            if p.grad is not None:
+                acc = self.acc.get(p, torch.zeros_like(p.grad))
+                self.acc[p] = acc + (p.grad - acc) / (n + 1)
+        if n < self.every_k - 1:
+            self.mini_step = n + 1
+            return
+        for p in self._params():
+            p.grad = self.acc.get(p)
+        self.inner.step()
+        self.acc = {}
+        self.mini_step = 0
+
+    def state_dict(self) -> Dict:
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": {i: self.acc[p] for i, p in enumerate(self._params()) if p in self.acc}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        self.mini_step = int(state["mini_step"])
+        params = self._params()
+        self.acc = {params[int(i)]: a.to(params[int(i)].device)
+                    for i, a in state["acc"].items()}
 
 
 def make_optimizers(learning_rate: float, optimizer_config: Optional[Dict] = None,
@@ -85,17 +135,16 @@ def make_optimizers(learning_rate: float, optimizer_config: Optional[Dict] = Non
                     trainable_ae_params=None, ae_optimizer_args=None,
                     trainable_disc_params=None, disc_optimizer_args=None):
     """(ae spec, disc spec), as the JAX package's ``make_optimizers``."""
-    if accumulate_grad_batches > 1:
-        raise NotImplementedError("accumulate_grad_batches > 1 waits for the trainer slice "
-                                  "of the port (ROADMAP A10)")
     cfg = optimizer_config or {"target": "optax.adam"}
     if cfg["target"] != "optax.adam":
         raise NotImplementedError(f"optimizer target {cfg['target']!r} has no counterpart in "
                                   "the port; only optax.adam (torch.optim.Adam) is ported")
     kwargs = _adam_kwargs(dict(cfg.get("params", {})))
     g_lr = float(lr_g_factor if lr_g_factor is not None else 1.0) * learning_rate
-    ae = OptimizerSpec(g_lr, kwargs, trainable_ae_params, ae_optimizer_args)
-    disc = OptimizerSpec(learning_rate, kwargs, trainable_disc_params, disc_optimizer_args)
+    k = int(accumulate_grad_batches)
+    ae = OptimizerSpec(g_lr, kwargs, trainable_ae_params, ae_optimizer_args, every_k=k)
+    disc = OptimizerSpec(learning_rate, kwargs, trainable_disc_params, disc_optimizer_args,
+                         every_k=k)
     return ae, disc
 
 
@@ -104,5 +153,5 @@ class TrainState:
     step: int                         # the reference's global_step
     duals: Dict[str, torch.Tensor]    # GQ lam / lam_min / lam_max, float32 on the device
     generator: torch.Generator        # the regularizer's eps
-    ae_opt: torch.optim.Optimizer
+    ae_opt: torch.optim.Optimizer     # or MultiSteps over one
     disc_opt: torch.optim.Optimizer

@@ -43,9 +43,21 @@ for _jax_path, _pit_path, _port_path in (
     ("losses.discriminator.NLayerDiscriminator",
      "pit.modules.lpips.model.model.NLayerDiscriminator",
      "losses.discriminator.NLayerDiscriminator"),
+    ("data.dataset.ImageDataModuleFromConfig", "pit.data.ImageDataModuleFromConfig",
+     "data.dataset.ImageDataModuleFromConfig"),
+    ("data.dataset.SimpleDataset", "pit.data.SimpleDataset", "data.dataset.SimpleDataset"),
+    ("data.dataset.StableDataModuleFromConfig",
+     "pit.dataset.dataset.StableDataModuleFromConfig",
+     "data.dataset.StableDataModuleFromConfig"),
+    # the reference's MNIST / CIFAR-10 are Lightning modules that download;
+    # like the JAX registry, no pit spelling maps onto these file readers
+    ("data.toy.MNISTDataset", None, "data.toy.MNISTDataset"),
+    ("data.toy.CIFAR10Dataset", None, "data.toy.CIFAR10Dataset"),
+    ("utils.loggers.ImageLogger", "main.ImageLogger", "utils.loggers.ImageLogger"),
 ):
     _PORT_TARGETS[f"vqvae_from_gaussian_vae_tpu.{_jax_path}"] = f"{_PKG}.{_port_path}"
-    _PORT_TARGETS[_pit_path] = f"{_PKG}.{_port_path}"
+    if _pit_path is not None:
+        _PORT_TARGETS[_pit_path] = f"{_PKG}.{_port_path}"
 
 # prefixes of targets that belong to the JAX package or the reference; any of
 # them not in _PORT_TARGETS is a module the port does not have yet
@@ -77,7 +89,8 @@ def resolve_target(target: str) -> str:
     """Map a config target onto an importable port path.
 
     Raises NotImplementedError for a JAX-package or reference target that
-    has no port counterpart yet (the loss, the data module, other models).
+    has no port counterpart yet (other regularizers and models, the video
+    data, the post-processor engine).
     """
     if target in _PORT_TARGETS:
         return _PORT_TARGETS[target]
