@@ -33,6 +33,21 @@ then drives each path through the entry points a user calls, at bs=16,
     to the checkpoint's; bsqvit_gq_0.25 with the overlay at 2 layers for 4
     steps; each ae, disc and eval step's kernel launches held to the
     training pair's;
+  * data parallel (``ddp``): the same entry point under ``torchrun
+    --nproc_per_node 2`` on a fresh folder of those images, sd3unet with
+    the overlay at full width and depth, 8 images a rank, 4 steps (NCCL
+    with a card a rank; on one card gloo, both ranks on card 0): every
+    rank's launches a step held to the training pair's, the ranks' state
+    bit-equal after the steps (digests), the first ae step's all-reduced
+    gradient held to one process's on the joined batch, the all-reduce's
+    bytes and ms a step;
+  * the evaluation sweep (``eval_sweep``, ``python -m
+    vqvae_from_gaussian_vae_tpu_torch.eval``): sd3unet full size at
+    ``--dtype bfloat16``, bs 16 a rank, seeded Inception and LPIPS weight
+    files, once on one rank in this process and once under torchrun on
+    two, each image in the same batch at the same position in both: the
+    codebook indices equal (or float64-proven near-ties), the metric means
+    within 1e-4 (FID 1e-3), every batch's launches the inference step's;
   * the head-major flash attention (``ops/flash_attention_lean.py``), an
     op no model calls: one training call (forward with residuals, then the
     backward) at B=1, H=12, L=8192, D=64, in bf16 and in float32 (split
@@ -67,6 +82,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2687,6 +2703,536 @@ def run_trainer(gen, train_results) -> dict:
                        "bare_pair_img_per_s_12_layers": train_results["bsqvit"]["pair_img_per_s"]}}
 
 
+# ---------------------------------------------------------------------------
+# the data-parallel phases: the training entry point and the evaluation sweep
+# under ``torchrun --nproc_per_node 2`` (this file's ``--ddp-worker`` and
+# ``--eval-worker`` modes wrap the entry points to count and time what each
+# rank does, then call them).  Two cards give NCCL, a card a rank; one card
+# gives gloo, both ranks on card 0.
+
+DDP_RANKS = 2
+DDP_BATCH = BATCH // DDP_RANKS  # per rank: a step's joined batch is the trainer phase's
+DDP_STEPS = 4
+DDP_VAL_EVERY = 3
+EVAL_METRIC_REL = 1e-4  # one rank against two: the same images, rows in another order
+EVAL_FID_REL = 1e-3
+EVAL_LAUNCHES = PATHS["sd3unet"]["launches"]  # a batch: the inference path's step
+
+
+def torchrun(worker: str, out_dir: str, argv, timeout: float = 600.0) -> None:
+    """This file's ``worker`` mode on DDP_RANKS ranks under torchrun."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DDP_RANKS), os.path.join(ROOT, "chip_smoke.py"), worker, out_dir, "--", *argv]
+    proc = subprocess.run(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=timeout)
+    with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
+        f.write(proc.stdout)
+    sys.stderr.write(proc.stdout[-4000:])
+    require(proc.returncode == 0, f"torchrun {worker} exited {proc.returncode}: "
+            f"{proc.stdout[-2000:]}")
+
+
+def _rank_outputs(out_dir: str, kind: str):
+    outs = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out_dir, f"{kind}_rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _digest(tree) -> str:
+    """sha256 over the bytes of every tensor in a nested payload, in key order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(node):
+        if torch.is_tensor(node):
+            h.update(node.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy())
+        elif isinstance(node, dict):
+            for k in sorted(node, key=str):
+                h.update(str(k).encode())
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        else:
+            h.update(repr(node).encode())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+class _Patched:
+    """Attributes replaced while open, restored after."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name)) for obj, name, _ in self.triples]
+        for obj, name, new in self.triples:
+            setattr(obj, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in self.saved:
+            setattr(obj, name, old)
+
+
+def ddp_worker(out_dir: str, argv) -> int:
+    """One rank of the ddp phase: the port's ``main(argv)`` with its steps,
+    the gradient all-reduces and the first ae step's update watched; then
+    the state's digest, and on rank 0 the first ae step's gradient again in
+    one process on the joined batch."""
+    import numpy as np
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import main as port_main
+    from vqvae_from_gaussian_vae_tpu_torch.parallel import distributed
+    from vqvae_from_gaussian_vae_tpu_torch.parallel import train_step as ts
+    from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import TrainState
+
+    counters = launch_counters()
+    steps = {"ae": [], "disc": [], "eval": []}
+    events, reduces, first, phase = [], [], {}, [None]
+    step_fns = {k: getattr(ts.TrainStepBuilder, f"{k}_step") for k in steps}
+    reduce_fn, apply_fn = distributed.all_reduce_mean_, ts._apply
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def wrap(kind):
+        def step(builder, state, batch, *args, **kwargs):
+            if kind == "ae" and not first:
+                first["joined"] = distributed.all_gather_rows(np.asarray(batch["img"]))
+                if distributed.rank() == 0:  # the state the step starts from
+                    eng = builder.engine
+                    first.update(
+                        engine={k: v.clone() for k, v in eng.module.state_dict().items()},
+                        loss={k: v.clone() for k, v in eng.loss.state_dict().items()},
+                        duals={k: v.clone() for k, v in state.duals.items()},
+                        generator=state.generator.get_state(), step=state.step,
+                        disc_active=args[0] if args else kwargs["disc_active"])
+            before = {n: k.launches for n, k in counters.items()}
+            phase[0] = kind
+            begin = event()
+            out = step_fns[kind](builder, state, batch, *args, **kwargs)
+            end = event()
+            phase[0] = None
+            steps[kind].append({n: k.launches - before[n] for n, k in counters.items()
+                                if k.launches != before[n]})
+            if kind != "eval":
+                events.append((kind, begin, end))
+            return out
+        return step
+
+    def timed_reduce(tensors, dtype=None):
+        tensors = list(tensors)
+        nbytes = sum(t.numel() * (torch.empty((), dtype=dtype).element_size() if dtype
+                                  else t.element_size()) for t in tensors)
+        begin = event()
+        reduce_fn(tensors, dtype=dtype)
+        reduces.append((phase[0], nbytes, begin, event()))
+
+    def apply(opt, named, grads):
+        if "grads" not in first and phase[0] == "ae" and distributed.rank() == 0:
+            first["grads"] = {k: g.detach().clone() for k, g in grads.items()}
+        apply_fn(opt, named, grads)
+
+    patches = [(ts.TrainStepBuilder, f"{k}_step", wrap(k)) for k in steps]
+    patches += [(distributed, "all_reduce_mean_", timed_reduce), (ts, "_apply", apply)]
+    t0 = time.perf_counter()
+    with _Patched(*patches):
+        trainer = port_main.main(argv)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rank, state = distributed.rank(), trainer.state
+    payload = trainer.checkpoint_payload(state)
+    out = {"rank": rank, "world": distributed.world(), "backend": distributed.backend(),
+           "device": str(trainer.engine.device),
+           "card": torch.cuda.get_device_name(trainer.engine.device),
+           "steps": steps, "main_seconds": fit_s,
+           "step_ms": [[k, b.elapsed_time(e)] for k, b, e in events],
+           "reduces": [[p, n, b.elapsed_time(e)] for p, n, b, e in reduces],
+           "digests": {k: _digest(payload[k]) for k in sorted(payload)},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del payload
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["grad_check"] = _one_process_grad(trainer, first, TrainState)
+    with open(os.path.join(out_dir, f"ddp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.barrier()
+    distributed.shutdown()
+    return 0
+
+
+def _one_process_grad(trainer, first, train_state_cls) -> dict:
+    """The first ae step's all-reduced gradient against one process's on
+    the joined batch, from the same weights, duals and generator state (so
+    the same eps); the bars of the bf16 gradient check, zero-gradient
+    tensors apart."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
+
+    engine = trainer.engine
+    engine.module.load_state_dict(first["engine"])
+    engine.loss.load_state_dict(first["loss"])
+    generator = torch.Generator(device=engine.device)
+    generator.set_state(first["generator"])
+    state = train_state_cls(step=first["step"], duals=first["duals"], generator=generator,
+                            ae_opt=trainer.state.ae_opt, disc_opt=trainer.state.disc_opt)
+    one = TrainStepBuilder(engine, trainer.builder.ae_opt_spec, trainer.builder.disc_opt_spec,
+                           mesh={"data": 1})
+    want, _, _ = one.ae_grads(state, {"img": first["joined"]}, first["disc_active"])
+    got = first["grads"]
+    whole = float(torch.cat([g.flatten() for g in want.values()]).double().norm())
+    zero = {k: [float(got[k].double().norm()), float(want[k].double().norm())]
+            for k in want if float(want[k].double().norm()) < ZERO_GRAD_REL * whole}
+    per = {k: rel_l2(got[k], want[k]) for k in want if k not in zero}
+    worst = max(per, key=per.get)
+    total = rel_l2(torch.cat([got[k].flatten() for k in want]),
+                   torch.cat([want[k].flatten() for k in want]))
+    top = sorted(per, key=per.get, reverse=True)[:5]
+    return {"joined_batch": len(first["joined"]), "disc_active": first["disc_active"],
+            "rel_l2_all": total, "worst_tensor": worst, "worst_rel_l2": per[worst],
+            "next_worst": {k: per[k] for k in top[1:]}, "zero_gradient_tensors": zero}
+
+
+def _seeded_metric_weights(folder: str):
+    """(Inception, LPIPS) weight files: seeded port ``state_dict``s."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.evaluations import inception, lpips_metric
+
+    net = inception.InceptionV3()
+    inception.seed_weights(net, 5)
+    lp = lpips_metric.LPIPSAlex()
+    lpips_metric.seed_weights(lp, 3)
+    with torch.no_grad():  # positive heads, as trained ones are
+        for k in range(len(lpips_metric.CHNS)):
+            getattr(lp, f"lin{k}").model[1].weight.abs_()
+    paths = os.path.join(folder, "pt_inception.pth"), os.path.join(folder, "alex.pth")
+    torch.save(net.state_dict(), paths[0])
+    torch.save(lp.state_dict(), paths[1])
+    return paths
+
+
+def eval_worker(out_dir: str, argv) -> int:
+    """The port's eval ``main(argv)`` with the engine's encode and decode
+    and the metric nets timed (CUDA events), each encoded image's indices
+    and pre-quantization latent kept by a hash of its pixels, and the
+    kernels counted."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import eval as port_eval
+    from vqvae_from_gaussian_vae_tpu_torch.models.autoencoder import AutoencodingEngine
+    from vqvae_from_gaussian_vae_tpu_torch.parallel import distributed
+    from vqvae_from_gaussian_vae_tpu_torch.quantization.gaussian import GaussianQuantRegularizer
+
+    counters = launch_counters()
+    for k in counters.values():  # the path's counts: 0 just before it
+        k.launches = 0
+    spans = {"tokenizer": [], "metrics": []}
+    latents, rows = [], {}
+    encode, decode = AutoencodingEngine.encode, AutoencodingEngine.decode
+    metrics_of, regularize = port_eval.metrics_of, GaussianQuantRegularizer.forward
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            begin = event()
+            out = fn(*args, **kwargs)
+            spans[kind].append((begin, event()))
+            return out
+        return call
+
+    def keep_latent(reg, z, *args, **kwargs):
+        latents.append(z.detach().float().cpu())
+        return regularize(reg, z, *args, **kwargs)
+
+    def encode_kept(engine, x, *args, **kwargs):
+        z, info = timed("tokenizer", encode)(engine, x, *args, **kwargs)
+        pixels = x.detach().cpu().numpy()
+        for i, idx in enumerate(info["indices"].cpu().numpy()):
+            rows[hashlib.sha1(pixels[i].tobytes()).hexdigest()] = (idx, latents[-1][i].numpy())
+        return z, info
+
+    t0 = time.perf_counter()
+    with _Patched((AutoencodingEngine, "encode", encode_kept),
+                  (AutoencodingEngine, "decode", timed("tokenizer", decode)),
+                  (port_eval, "metrics_of", timed("metrics", metrics_of)),
+                  (GaussianQuantRegularizer, "forward", keep_latent)):
+        result = port_eval.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    rank = distributed.rank()
+    batches = len(spans["metrics"])
+    tok = spans["tokenizer"]  # encode, decode: two a batch
+    per_batch = [[tok[2 * i][0].elapsed_time(tok[2 * i][1])
+                  + tok[2 * i + 1][0].elapsed_time(tok[2 * i + 1][1]),
+                  spans["metrics"][i][0].elapsed_time(spans["metrics"][i][1])]
+                 for i in range(batches)]
+    out = {"rank": rank, "world": distributed.world(), "backend": distributed.backend(),
+           "card": torch.cuda.get_device_name(), "batches": batches,
+           "launches": {n: k.launches for n, k in counters.items() if k.launches},
+           "batch_ms": per_batch,  # [tokenizer, metric nets] a batch
+           "sweep_ms": tok[0][0].elapsed_time(spans["metrics"][-1][1]),
+           "after_first_ms": (tok[2][0].elapsed_time(spans["metrics"][-1][1])
+                              if batches > 1 else None),
+           "main_seconds": main_s, "images": int(result["count"]), "my_images": len(rows)}
+    if rank == 0:
+        out.update({k: float(np.nanmean(result[k])) if len(result[k]) else None
+                    for k in ("psnr", "ssim", "msssim", "lpips")})
+        out.update(fid=result["fid"], usage=result.get("usage"), entropy=result.get("entropy"))
+        np.save(os.path.join(out_dir, "hist.npy"), result["hist"])
+    keys = sorted(rows)
+    np.savez(os.path.join(out_dir, f"rows_rank{rank}.npz"), keys=np.array(keys),
+             indices=np.stack([rows[k][0] for k in keys]),
+             latents=np.stack([rows[k][1] for k in keys]))
+    with open(os.path.join(out_dir, f"eval_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+    return 0
+
+
+def _eval_rows(out_dir: str, ranks: int):
+    import numpy as np
+
+    rows = {}
+    for r in range(ranks):
+        blob = np.load(os.path.join(out_dir, f"rows_rank{r}.npz"))
+        for k, idx, lat in zip(blob["keys"], blob["indices"], blob["latents"]):
+            rows[str(k)] = (idx, lat)
+    return rows
+
+
+def _compare_indices(one: dict, two: dict, config: str) -> dict:
+    """Per image, one rank's indices and latent against two ranks'.  Where
+    an index differs, each sweep's index must be the float64 best code of
+    that sweep's own latent, within the near-tie bound of the GQ checks."""
+    import numpy as np
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
+    from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import gq_scores_reference
+    from vqvae_from_gaussian_vae_tpu_torch.quantization.common import to_tokens
+    from vqvae_from_gaussian_vae_tpu_torch.quantization.gaussian import _split_posterior
+
+    require(set(one) == set(two), "eval_sweep: the two sweeps saw different images")
+    lat_rel = {k: float(np.linalg.norm(one[k][1] - two[k][1]) / np.linalg.norm(two[k][1]))
+               for k in one}
+    differ = [k for k in one if not (one[k][0] == two[k][0]).all()]
+    result = {"images": len(one), "latents_bit_equal": sum(v == 0.0 for v in lat_rel.values()),
+              "latent_rel_l2_max": max(lat_rel.values()),
+              "images_with_a_differing_index": len(differ),
+              "differing_indices": 0, "own_argmax_gap": 0.0}
+    require(result["latent_rel_l2_max"] <= BF16_RTOL,
+            f"eval_sweep: an image's latents differ by {result['latent_rel_l2_max']}")
+    if differ:
+        cfg = load_config(os.path.join(ROOT, config))
+        reg = instantiate_from_config(cfg["model"]["params"]["regularizer_config"])
+        codebook = reg.codebook.numpy()
+        for k in differ:
+            rows = np.nonzero(one[k][0].reshape(-1) != two[k][0].reshape(-1))[0]
+            result["differing_indices"] += len(rows)
+            for idx, lat in (one[k], two[k]):
+                z, _ = to_tokens(torch.from_numpy(lat)[None], reg.format)
+                mu, _, std = _split_posterior(z, reg.logvar_range)
+                mu, std = reg.rows(mu).numpy(), reg.rows(std).numpy()
+                for r in rows:
+                    s = gq_scores_reference(mu[r:r + 1], std[r:r + 1], codebook)[0]
+                    gap = float(s.max() - s[int(idx.reshape(-1)[r])])
+                    require(gap <= NEAR_TIE * max(1.0, abs(float(s.max()))),
+                            f"eval_sweep: index {int(idx.reshape(-1)[r])} of row {r} is not "
+                            f"the best code of its latent (float64 gap {gap})")
+                    result["own_argmax_gap"] = max(result["own_argmax_gap"], gap)
+    return result
+
+
+def run_ddp(images: str, tmp: str, train_results) -> dict:
+    """The port's training entry point on DDP_RANKS ranks (``torchrun``), on
+    the trainer phase's folder at DDP_BATCH images a rank."""
+    out_dir = os.path.join(tmp, "ddp")
+    os.makedirs(out_dir)
+    argv = ["--base", os.path.join(ROOT, TRAIN_PATHS["sd3unet"]["configs"][0]),
+            os.path.join(ROOT, BF16_OVERLAY), "--name", "ddp", "--max_steps", str(DDP_STEPS),
+            f"data.params.train.params.root={images}", f"data.params.batch_size={DDP_BATCH}",
+            f"data.params.validation={{'target': "
+            f"'vqvae_from_gaussian_vae_tpu.data.dataset.SimpleDataset', "
+            f"'params': {{'root': {images!r}, 'image_size': {RES}}}}}",
+            f"training.trainer.val_every_n_steps={DDP_VAL_EVERY}",
+            f"model.params.loss_config.params.disc_start={TRAINER_DISC_START}",
+            "training.trainer.log_every_n_steps=1", "--seed", str(SEED), "--no-test",
+            "--logdir", os.path.join(tmp, "ddp_logs")]
+    t0 = time.perf_counter()
+    torchrun("--ddp-worker", out_dir, argv)
+    wall = time.perf_counter() - t0
+    ranks = _rank_outputs(out_dir, "ddp")
+    require([r["rank"] for r in ranks] == list(range(DDP_RANKS)), "ddp: missing ranks")
+    backend = ranks[0]["backend"]
+    cards = sorted({r["device"] for r in ranks})
+    import torch
+
+    want = "nccl" if torch.cuda.device_count() >= DDP_RANKS else "gloo"
+    require(backend == want and all(r["backend"] == backend for r in ranks),
+            f"ddp: backend {[r['backend'] for r in ranks]}, not {want}")
+    require(all(r["device"].startswith("cuda") for r in ranks), f"ddp: ranks on {cards}")
+    require(len(cards) == (DDP_RANKS if want == "nccl" else 1), f"ddp: ranks on {cards}")
+    digests = ranks[0]["digests"]
+    differ = [k for k in digests if any(r["digests"][k] != digests[k] for r in ranks[1:])]
+    require(not differ, f"ddp: the ranks' {differ} differ after {DDP_STEPS} steps")
+    unet = train_results["sd3unet"]
+    launches = [{kind: _expect_per_step(f"ddp rank {r['rank']} {kind} step", r["steps"][kind],
+                                        unet[f"launches_per_{kind}_step"])
+                 for kind in ("ae", "disc", "eval")} for r in ranks]
+    g = ranks[0]["grad_check"]
+    require(g["rel_l2_all"] <= TRAIN_GRAD_REL_L2 and g["worst_rel_l2"] <= TRAIN_GRAD_TENSOR_REL_L2,
+            f"ddp: the first ae step's reduced gradient against one process's: {g}")
+    step_ms = ranks[0]["step_ms"]
+    per_phase = {}
+    for kind in ("ae", "disc"):
+        n = sum(1 for k, _ in step_ms if k == kind)
+        rs = [(nb, ms) for p, nb, ms in ranks[0]["reduces"] if p == kind]
+        per_phase[kind] = {"steps": n, "step_ms": [ms for k, ms in step_ms if k == kind],
+                           "all_reduce_calls_per_step": len(rs) / n if n else None,
+                           "all_reduce_bytes_per_step": sum(nb for nb, _ in rs) / n if n else None,
+                           "all_reduce_ms_per_step": sum(ms for _, ms in rs) / n if n else None}
+    step_s = sum(ms for _, ms in step_ms) / 1e3
+    return {"phase": "ddp", "entry_point": "torchrun --nproc_per_node 2 "
+            "vqvae_from_gaussian_vae_tpu_torch.main:main", "ranks": DDP_RANKS,
+            "backend": backend, "cards": cards, "card_names": sorted({r["card"] for r in ranks}),
+            "configs": TRAIN_PATHS["sd3unet"]["configs"], "batch_per_rank": DDP_BATCH,
+            "joined_batch": DDP_BATCH * DDP_RANKS, "steps": DDP_STEPS,
+            "disc_start": TRAINER_DISC_START, "state_digests_equal": len(digests),
+            "launches_per_step": launches[0], "grad_vs_one_process": g,
+            "joined_img_per_s": len(step_ms) * DDP_BATCH * DDP_RANKS / step_s,
+            "per_phase": per_phase, "torchrun_seconds": wall,
+            "rank_main_seconds": [r["main_seconds"] for r in ranks],
+            "peak_mem_gib": [r["peak_mem_gib"] for r in ranks]}
+
+
+def run_eval_sweep(images: str, tmp: str) -> dict:
+    """The port's evaluation entry point on the same images: under torchrun
+    on DDP_RANKS ranks on the folder, and in this process on one rank on a
+    ``.txt`` list of the folder's files in the order the ranks' shards
+    cover them, so that each image sits in the same batch at the same
+    position in both sweeps (cuDNN's bf16 3x3 conv gives the first and last
+    image of a batch other bits when they change places:
+    ``labs/batch_position_probe.py``)."""
+    import numpy as np
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.data.dataset import SimpleDataset
+
+    config = "configs/sd3unet_gq_0.25.yaml"
+    inc, lp = _seeded_metric_weights(tmp)
+    files = SimpleDataset(images, RES).fpaths
+    shard_order = os.path.join(tmp, "shard_order.txt")
+    with open(shard_order, "w") as f:
+        f.write("\n".join(p for r in range(DDP_RANKS) for p in files[r::DDP_RANKS]))
+    argv = ["--base", os.path.join(ROOT, config), "--img_size", str(RES), "--bs", str(BATCH),
+            "--dtype", "bfloat16", "--inception_weights", inc, "--lpips_weights", lp]
+    require(len(files) % (DDP_RANKS * BATCH) == 0, "eval_sweep: shards of whole batches")
+    runs = {}
+    for n in (1, DDP_RANKS):
+        out_dir = os.path.join(tmp, f"eval{n}")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        if n == 1:
+            import contextlib
+
+            with contextlib.redirect_stdout(sys.stderr):
+                eval_worker(out_dir, argv + ["--dataset", shard_order])
+            outs = [json.load(open(os.path.join(out_dir, "eval_rank0.json")))]
+        else:
+            torchrun("--eval-worker", out_dir, argv + ["--dataset", images])
+            outs = _rank_outputs(out_dir, "eval")
+        runs[n] = {"outs": outs, "wall": time.perf_counter() - t0, "dir": out_dir,
+                   "hist": np.load(os.path.join(out_dir, "hist.npy"))}
+        torch.cuda.empty_cache()
+    one, two = runs[1]["outs"][0], runs[DDP_RANKS]["outs"]
+    require(one["images"] == two[0]["images"] == TRAINER_IMAGES,
+            f"eval_sweep: {one['images']} and {two[0]['images']} images")
+    for out in [one] + two:
+        per_batch = {k: v / out["batches"] for k, v in out["launches"].items()}
+        require(per_batch == EVAL_LAUNCHES,
+                f"eval_sweep rank {out['rank']} of {out['world']}: launches a batch {per_batch}")
+    rows = {n: _eval_rows(runs[n]["dir"], n) for n in runs}
+    for n in runs:  # each sweep's gathered histogram is its ranks' indices
+        counts = np.bincount(np.concatenate([v[0].reshape(-1) for v in rows[n].values()]),
+                             minlength=len(runs[n]["hist"]))
+        require((counts == runs[n]["hist"]).all(),
+                f"eval_sweep: the histogram of {n} rank(s) is not its ranks' indices")
+    indices = _compare_indices(rows[1], rows[DDP_RANKS], config)
+    hist_equal = bool((runs[1]["hist"] == runs[DDP_RANKS]["hist"]).all())
+    require(hist_equal or indices["differing_indices"],
+            "eval_sweep: the histograms differ, but no image's indices do")
+    metrics = {}
+    for k in ("psnr", "ssim", "msssim", "lpips", "fid"):
+        a, b = one[k], two[0][k]
+        metrics[k] = {"one_rank": a, "two_ranks": b, "rel": abs(a - b) / max(abs(b), 1e-12)}
+    far = {k: m for k, m in metrics.items() if not (math.isfinite(m["one_rank"]) and m["rel"] <= (
+        EVAL_FID_REL if k == "fid" else EVAL_METRIC_REL))}
+
+    def timing(out):
+        """img/s over the whole sweep and past its first batch (the warm-up:
+        cuDNN's and the metric nets' first calls), and the tokenizer's share
+        of the device time a batch past the first."""
+        later = out["batch_ms"][1:]
+        tok, met = sum(b[0] for b in later), sum(b[1] for b in later)
+        return {"img_per_s": out["my_images"] / (out["sweep_ms"] / 1e3),
+                "img_per_s_past_first_batch": (len(later) * BATCH / (out["after_first_ms"] / 1e3)
+                                               if later else None),
+                "tokenizer_share_past_first_batch": tok / (tok + met) if later else None,
+                "batch_ms_tokenizer_metrics": out["batch_ms"], "sweep_ms": out["sweep_ms"],
+                "main_seconds": out["main_seconds"]}
+
+    line = {"phase": "eval_sweep", "entry_point": "vqvae_from_gaussian_vae_tpu_torch.eval:main",
+            "config": config, "dtype": "bfloat16", "batch_per_rank": BATCH, "resolution": RES,
+            "images": TRAINER_IMAGES, "metric_weights": "seeded (Inception, LPIPS alex)",
+            "one_rank_dataset": "the folder's files as a .txt list in the ranks' shard order",
+            "launches_per_batch": EVAL_LAUNCHES, "metrics": metrics,
+            "usage": [one["usage"], two[0]["usage"]], "entropy": [one["entropy"],
+                                                                   two[0]["entropy"]],
+            "histograms_equal": hist_equal, "indices": indices,
+            "backend": two[0]["backend"], "card_names": sorted({o["card"] for o in two}),
+            "one_rank": timing(one), "two_ranks": [timing(o) for o in two],
+            "two_ranks_joined_img_per_s": TRAINER_IMAGES / max(
+                o["sweep_ms"] for o in two) * 1e3,
+            "seconds": {n: runs[n]["wall"] for n in runs}, "metrics_off_their_bars": far}
+    if far:
+        emit(line)  # what was measured, then the failure
+    require(not far, f"eval_sweep: one rank against {DDP_RANKS}: {far}")
+    return line
+
+
+def run_data_parallel(train_results):
+    """The ddp and eval_sweep phases on a temporary folder of the trainer
+    phase's images, which they delete afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="gvq_ddp_")
+    try:
+        images = write_images(os.path.join(tmp, "images"), TRAINER_IMAGES)
+        torch.cuda.empty_cache()
+        ddp = run_ddp(images, tmp, train_results)
+        emit(ddp)
+        emit(run_eval_sweep(images, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def profile_step(step):
     """Device time over one encode -> dequant step: by kernel, and by the
     PyTorch op that launched it (the hand-written kernels, launched through
@@ -2723,6 +3269,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one main-path step")
+    ap.add_argument("--ddp-worker", metavar="OUT_DIR",
+                    help="(a rank of the ddp phase, under torchrun) the training entry point "
+                         "on the arguments after --")
+    ap.add_argument("--eval-worker", metavar="OUT_DIR",
+                    help="(a rank of the eval_sweep phase) the evaluation entry point on the "
+                         "arguments after --")
+    ap.add_argument("entry_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2744,6 +3297,10 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ddp_worker:
+        return ddp_worker(args.ddp_worker, args.entry_argv)
+    if args.eval_worker:
+        return eval_worker(args.eval_worker, args.entry_argv)
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -2790,6 +3347,8 @@ def main(argv=None) -> int:
         train_results[path] = train
         torch.cuda.empty_cache()
     emit(run_trainer(gen, train_results))
+    torch.cuda.empty_cache()
+    run_data_parallel(train_results)
     torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
         op = run_flash_head_major(gen, dtype)

@@ -306,13 +306,14 @@ def test_make_optimizers_refuses_what_is_not_ported(kwargs):
 
 
 def test_builder_refuses_collectives_and_cut_graphs():
-    """One card has no collective; a trainable parameter the loss does not
-    reach makes the ae phase raise instead of training it with a zero
-    gradient."""
+    """A mesh the process group cannot give (tensor parallelism, more
+    data-parallel ranks than it has) is refused; a trainable parameter the
+    loss does not reach makes the ae phase raise instead of training it
+    with a zero gradient."""
     eng = instantiate_from_config(copy.deepcopy(CONFIG), device="cpu")
-    for kw in ({"grad_allreduce_dtype": "bfloat16"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            TrainStepBuilder(eng, *make_optimizers(1e-4), **kw)
+    for mesh, error in (({"model": 2}, NotImplementedError), ({"data": 2}, ValueError)):
+        with pytest.raises(error):
+            TrainStepBuilder(eng, *make_optimizers(1e-4), mesh=mesh)
     eng.module.register_parameter("cut", torch.nn.Parameter(torch.zeros(1)))
     pb = TrainStepBuilder(eng, *make_optimizers(1e-4))
     state = pb.init_state(0, {"img": _batch(0)}, eps=torch.from_numpy(_eps(0)))

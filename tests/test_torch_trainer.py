@@ -193,7 +193,9 @@ def test_cli_refuses_what_the_port_lacks(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_main.main(["--base", "configs/sd3unet_gq_0.25.yaml"])
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        Trainer(None, None, mesh_spec={"data": 1, "model": 2})
+    with pytest.raises(ValueError, match="process group has 1"):
         Trainer(None, None, mesh_spec={"data": 4})
     with pytest.raises(NotImplementedError):
         instantiate_from_config({"target": f"{PKG}.models.postprocessor.AutoencodingPostEngine",

@@ -16,8 +16,21 @@ of at most 10 steps into ``<logdir>/trace``; ``--matmul_precision highest``
 turns TF32 off for matmuls and cuDNN, ``default`` and ``high`` turn it on.
 The engine runs on the CUDA card unless ``--device cpu`` is given.
 
+Data parallel on N cards of one host::
+
+    torchrun --nproc_per_node N -m vqvae_from_gaussian_vae_tpu_torch.main --base ...
+
+runs one process a card (``parallel/distributed.py``): ``--device cuda``
+is this rank's card, the backend NCCL with a card a rank and gloo when the
+ranks share cards (or with ``--device cpu``).  ``data.params.batch_size``
+stays per card, as in the reference's Lightning DDP: a step's joined batch
+is N x ``batch_size`` (the JAX trainer on one multi-device host instead
+splits one loader batch over its devices).  Rank 0 names the run's log
+directory and writes the logs and checkpoints.
+
 ``main(argv)`` returns the ``Trainer``, so a caller in the same process can
-read what it did.  Importing this module does nothing.
+read what it did; it leaves the process group up for such a caller, and
+``python -m`` leaves it at exit.  Importing this module does nothing.
 """
 
 from __future__ import annotations
@@ -87,11 +100,16 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit("need --base config(s) or --resume")
 
     from vqvae_from_gaussian_vae_tpu_torch.models.autoencoder import resolve_device
+    from vqvae_from_gaussian_vae_tpu_torch.parallel import distributed
     from vqvae_from_gaussian_vae_tpu_torch.parallel.trainer import Trainer
     from vqvae_from_gaussian_vae_tpu_torch.utils.config import (
         instantiate_from_config, load_config)
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    if distributed.launched():
+        device = distributed.maybe_initialize_distributed(args.device)
+    else:
+        device = resolve_device(None if args.device == "cuda" else args.device)
+    writer = distributed.rank() == 0
     _set_matmul_precision(args.matmul_precision)
 
     resume_dir = ""
@@ -110,12 +128,15 @@ def main(argv: Optional[Sequence[str]] = None):
     else:
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         cfg_name = os.path.splitext(os.path.basename(bases[0]))[0] if bases else "run"
-        logdir = os.path.join(args.logdir, f"{now}_{args.name or cfg_name}")
-        os.makedirs(os.path.join(logdir, "configs"), exist_ok=True)
-        import yaml
+        logdir = distributed.broadcast_object(
+            os.path.join(args.logdir, f"{now}_{args.name or cfg_name}"))
+        if writer:
+            os.makedirs(os.path.join(logdir, "configs"), exist_ok=True)
+            import yaml
 
-        with open(os.path.join(logdir, "configs", "merged.yaml"), "w") as f:
-            yaml.safe_dump(cfg, f, sort_keys=False)
+            with open(os.path.join(logdir, "configs", "merged.yaml"), "w") as f:
+                yaml.safe_dump(cfg, f, sort_keys=False)
+        distributed.barrier()
 
     # the trainer's seed makes the engine's weights unless the config names one
     model_params = cfg["model"].get("params", {}) or {}
@@ -137,7 +158,9 @@ def main(argv: Optional[Sequence[str]] = None):
         checkpoint_cfg=ckpt_cfg, image_logger_cfg=img_cfg, use_wandb=args.wandb,
         wandb_project=args.projectname, run_name=os.path.basename(logdir),
         lpips_weights=args.lpips_weights or None)
-    print(f"logdir: {logdir}  lr: {trainer.learning_rate}  device: {device}")
+    if writer:
+        print(f"logdir: {logdir}  lr: {trainer.learning_rate}  device: {device}  "
+              f"ranks: {distributed.world()} ({distributed.backend() or 'one process'})")
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -147,8 +170,9 @@ def main(argv: Optional[Sequence[str]] = None):
         trainer.max_steps = min(trainer.max_steps, 10)
         with profile(activities=activities) as prof:
             trainer.fit(resume=bool(resume_dir))
+        name = "trace.json" if writer else f"trace_rank{distributed.rank()}.json"
         os.makedirs(os.path.join(logdir, "trace"), exist_ok=True)
-        prof.export_chrome_trace(os.path.join(logdir, "trace", "trace.json"))
+        prof.export_chrome_trace(os.path.join(logdir, "trace", name))
         return trainer
     trainer.fit(resume=bool(resume_dir))
     if not args.no_test:
@@ -157,4 +181,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
 
 if __name__ == "__main__":
+    from vqvae_from_gaussian_vae_tpu_torch.parallel import distributed as _distributed
+
     main()
+    _distributed.shutdown()

@@ -75,15 +75,16 @@ class EngineModule(nn.Module):
 
     def encode(self, x, return_reg_log: bool = False, unregularized: bool = False,
                train: bool = False, duals=None, generator: Optional[torch.Generator] = None,
-               eps: Optional[torch.Tensor] = None):
+               eps: Optional[torch.Tensor] = None, noise_rows=None):
         """``train=True`` runs the encoder's training path and takes the
         regularizer's train branch (the reparameterised sample and the KL
-        loss, weighted by ``duals``)."""
+        loss, weighted by ``duals``).  ``noise_rows`` (rank, world): this
+        rank's rows of the joined batch's eps (``quantization/gaussian.py``)."""
         z = self.encoder(x, train=train)
         if unregularized:
             return z, {}
         z, reg_log = self.regularization(z, train=train, duals=duals, generator=generator,
-                                         eps=eps)
+                                         eps=eps, noise_rows=noise_rows)
         z = self._standardize(z)
         return (z, reg_log) if return_reg_log else z
 

@@ -19,19 +19,39 @@ gradients.
 
 The GQ duals update from each training forward's KL statistics in both
 phases.  eps comes from the state's generator or is passed in (``eps=``),
-so a test can feed both packages the same numbers.  One card has no
-collective: ``grad_allreduce_dtype`` and ``mesh`` raise.
+so a test can feed both packages the same numbers.
+
+Data parallelism (``parallel/distributed.py``): each rank computes its
+own per-card batch and the step reduces explicitly, to the global-batch
+semantics GSPMD gives the JAX step (``autograd.grad`` bypasses
+``DistributedDataParallel``'s hooks).  Each phase's gradients are
+all-reduced to their mean before the update; the adaptive weight's two
+last-layer gradients are all-reduced before their norms; the KL
+statistics ``bits-mean``, ``bits-min`` and ``bits-max`` are reduced as
+mean, min and max before the dual update, so the duals stay bit-equal on
+every rank; the train sample's eps is the joined batch's, this rank's rows
+(``noise_rows``).  ``grad_allreduce_dtype`` casts a phase's gradients to
+that dtype before the reduce and back after it, for the phases in
+``grad_allreduce_phases`` (default the disc phase), less the phases that
+already compute in bf16, with the JAX package's warning.  ``mesh``, a mesh
+spec, names the data-parallel size: ``None`` every rank of the process
+group, ``{"data": 1}`` this rank alone.  The eval step has no collective.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Dict, Optional
 
 import torch
 
+from vqvae_from_gaussian_vae_tpu_torch.parallel import distributed
 from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import TrainState
 from vqvae_from_gaussian_vae_tpu_torch.quantization import gaussian as gq
+from vqvae_from_gaussian_vae_tpu_torch.utils.config import as_torch_dtype
+
+STAT_OPS = {"bits-mean": "mean", "bits-min": "min", "bits-max": "max"}
 
 
 def _dual_config(reg):
@@ -44,12 +64,32 @@ def _dual_config(reg):
 class TrainStepBuilder:
     """ae / disc / eval steps for an ``AutoencodingEngine`` built with a loss."""
 
-    def __init__(self, engine, ae_opt, disc_opt, grad_allreduce_dtype=None, mesh=None):
+    def __init__(self, engine, ae_opt, disc_opt, grad_allreduce_dtype=None, mesh=None,
+                 grad_allreduce_phases=("disc",)):
         if engine.loss is None:
             raise ValueError("engine was built eval_only / without a loss")
-        if grad_allreduce_dtype is not None or mesh is not None:
-            raise NotImplementedError("one card has no collective: grad_allreduce_dtype and "
-                                      "mesh wait for the data-parallel slice of the port")
+        self.world = distributed.data_parallel_size(mesh)
+        self.rank = distributed.rank() if self.world > 1 else 0
+        self.grad_allreduce_dtype = (as_torch_dtype(grad_allreduce_dtype)
+                                     if grad_allreduce_dtype else None)
+        self.grad_allreduce_phases = tuple(grad_allreduce_phases)
+        if self.grad_allreduce_dtype is not None:
+            # bf16 compute already reduces bf16 partials on the JAX package's
+            # backend, where the knob would reduce twice; the same phases drop
+            loss_bf16 = engine.loss.dtype == torch.bfloat16
+            eng_bf16 = getattr(engine.encoder, "dtype", torch.float32) == torch.bfloat16
+            drop = []
+            if loss_bf16 and "disc" in self.grad_allreduce_phases:
+                drop.append("disc")
+            if (loss_bf16 or eng_bf16) and "ae" in self.grad_allreduce_phases:
+                drop.append("ae")
+            if drop:
+                warnings.warn(
+                    f"grad_allreduce_dtype: phases {drop} already run bf16 "
+                    "compute — their grad collectives ride bf16 natively and "
+                    "the knob would double the wire bytes; skipping them")
+                self.grad_allreduce_phases = tuple(
+                    p for p in self.grad_allreduce_phases if p not in drop)
         self.engine = engine
         self.module = engine.module
         self.loss_mod = engine.loss
@@ -75,17 +115,42 @@ class TrainStepBuilder:
 
     # ----------------------------------------------------------- pieces
 
+    @property
+    def noise_rows(self):
+        """(rank, world) of this rank's eps rows, or None on one rank."""
+        return (self.rank, self.world) if self.world > 1 else None
+
+    def _encode_train(self, x, state: TrainState, eps):
+        """encode's train branch, the KL statistics reduced over the ranks."""
+        z, reg_log = self.module.encode(x, return_reg_log=True, train=True, duals=state.duals,
+                                        generator=state.generator, eps=eps,
+                                        noise_rows=self.noise_rows)
+        if self.world > 1 and "bits-mean" in reg_log:
+            reg_log = dict(reg_log)
+            for k, op in STAT_OPS.items():
+                reg_log[k] = distributed.all_reduce_scalars({k: reg_log[k]}, op)[k]
+        return z, reg_log
+
     def _forward_split(self, x, state: TrainState, eps):
         """encode (train branch) -> (z, reg_log), decoder trunk h, xrec."""
-        z, reg_log = self.module.encode(x, return_reg_log=True, train=True, duals=state.duals,
-                                        generator=state.generator, eps=eps)
+        z, reg_log = self._encode_train(x, state, eps)
         h = self.module.decode_pre_last_layer(z, train=True)
         return z, reg_log, h, self.module.decode_last_layer(h, train=True)
+
+    def _reduce_grads(self, grads, phase: str):
+        """The ranks' mean of each gradient (in place), in
+        ``grad_allreduce_dtype`` for the phases it names."""
+        dtype = self.grad_allreduce_dtype if phase in self.grad_allreduce_phases else None
+        if self.world > 1 or dtype is not None:
+            distributed.all_reduce_mean_(grads, dtype=dtype)
+        return grads
 
     def _adaptive_d_weight(self, nll, g):
         w = self.last_layer
         (nll_grad,) = torch.autograd.grad(nll, w, retain_graph=True)
         (g_grad,) = torch.autograd.grad(g, w, retain_graph=True)
+        if self.world > 1:  # the global batch's gradients, then their norms
+            distributed.all_reduce_mean_([nll_grad, g_grad])
         d_weight = nll_grad.norm() / (g_grad.norm() + 1e-4)
         return torch.clamp(d_weight, 0.0, 1e4).detach() * self.loss_mod.disc_weight
 
@@ -115,6 +180,7 @@ class TrainStepBuilder:
                 split="train", d_weight=self._adaptive_d_weight if disc_active else 0.0,
                 train=True)
             grads = torch.autograd.grad(loss, [p for _, p in named])
+        grads = self._reduce_grads(list(grads), "ae")
         return dict(zip((n for n, _ in named), grads)), log, reg_log
 
     def ae_step(self, state: TrainState, batch, disc_active: bool,
@@ -134,15 +200,14 @@ class TrainStepBuilder:
         the discriminator sees x and xrec."""
         x = self._input(batch, self.engine.device)
         with torch.no_grad():
-            z, reg_log = self.module.encode(x, return_reg_log=True, train=True,
-                                            duals=state.duals, generator=state.generator,
-                                            eps=eps)
+            z, reg_log = self._encode_train(x, state, eps)
             xrec = self.module.decode(z)
         named = self.disc_named_parameters()
         with torch.enable_grad():
             d, log = self.loss_mod(x, xrec, regularization_log={}, optimizer_idx=1,
                                    global_step=state.step, split="train", train=True)
             grads = torch.autograd.grad(d, [p for _, p in named])
+        grads = self._reduce_grads(list(grads), "disc")
         return dict(zip((n for n, _ in named), grads)), log, reg_log
 
     def disc_step(self, state: TrainState, batch, eps: Optional[torch.Tensor] = None):
@@ -156,10 +221,15 @@ class TrainStepBuilder:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, eps: Optional[torch.Tensor] = None) -> Dict:
-        """Validation losses of both phases on the eval forward (GQ search)."""
+        """Validation losses of both phases on the eval forward (GQ search).
+        Its eps comes from a copy of the state's generator, which it leaves
+        as it was: the JAX step draws from ``fold_in(rng, 17)`` and leaves
+        ``rng``, and ranks with shards of different lengths keep one state."""
         x = self._input(batch, self.engine.device)
+        generator = torch.Generator(device=state.generator.device)
+        generator.set_state(state.generator.get_state())
         _, xrec, reg_log = self.module(x, train=False, duals=state.duals,
-                                       generator=state.generator, eps=eps)
+                                       generator=generator, eps=eps)
         kw = dict(regularization_log=reg_log, global_step=state.step, split="val", train=False)
         _, log = self.loss_mod(x, xrec, optimizer_idx=0, **kw)
         _, log1 = self.loss_mod(x, xrec, optimizer_idx=1, **kw)

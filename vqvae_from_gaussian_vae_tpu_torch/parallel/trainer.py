@@ -18,8 +18,20 @@ weights, the loss head's (LPIPS, ``logvar``, the discriminator with
 ActNorm's ``loc`` and ``scale``), both optimizers' states, the duals, the
 step and the regularizer's generator.  Resume restores it after
 ``init_state``'s ActNorm init, as the JAX trainer does, and restarts the
-loader and the batch parity.  One process drives one card; ``mesh_spec``
-takes one card only (data parallelism is the port's next slice).
+loader and the batch parity.
+
+Data parallel under ``torchrun`` (``parallel/distributed.py``): one
+process a card, each loading its own shard of every split
+(``shard_id=rank``) at the per-card ``batch_size``, so a step's joined
+batch is world x ``batch_size`` and ``scale_lr`` counts the world size.
+``init_state``'s ActNorm init runs on the joined first batch, so that N
+ranks equal one process on the joined batches.  The logged losses are the
+ranks' means; validation reduces once, after its loop, the ranks' sums and
+image counts of their batch logs (shards may differ in length, so no
+collective runs inside the loop), and logs the image-weighted mean.  Rank
+0 writes checkpoints, logs and images, and every rank waits for each
+write; every rank reads a checkpoint on resume.  ``mesh_spec``
+``{"data": -1 | N}`` is accepted; a ``model`` axis above 1 raises.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from vqvae_from_gaussian_vae_tpu_torch.parallel import distributed
 from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import TrainState, make_optimizers
 from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
 from vqvae_from_gaussian_vae_tpu_torch.utils.loggers import CSVLogger, ImageLogger, WandbLogger
@@ -47,9 +60,8 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def _is_writer() -> bool:
-    """Rank 0 writes checkpoints (every rank holds the same state)."""
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    """Rank 0 writes checkpoints and logs (every rank holds the same state)."""
+    return distributed.rank() == 0
 
 
 class Checkpointer:
@@ -120,14 +132,6 @@ class Checkpointer:
         return name
 
 
-def _one_card(mesh_spec: Optional[Dict[str, int]]) -> None:
-    if mesh_spec is None or dict(mesh_spec) in ({"data": -1}, {"data": 1}):
-        return
-    raise NotImplementedError(
-        f"mesh {mesh_spec!r}: the port trains on one card ({{data: -1}}); data parallelism "
-        "and model sharding come with the port's data-parallel slice (ROADMAP A10)")
-
-
 class Trainer:
     def __init__(self, engine, data_module, logdir: str = "logs/run",
                  max_steps: int = 1_000_000, log_every_n_steps: int = 50,
@@ -137,7 +141,7 @@ class Trainer:
                  checkpoint_cfg: Optional[Dict] = None, image_logger_cfg: Optional[Dict] = None,
                  use_wandb: bool = False, wandb_project: str = "vqvae_from_gaussian_vae_tpu",
                  run_name: str = "run", lpips_weights: Optional[str] = None):
-        _one_card(mesh_spec)
+        self.world = distributed.data_parallel_size(mesh_spec)
         self.engine = engine
         self.lpips_weights = lpips_weights
         self.data = data_module
@@ -150,7 +154,7 @@ class Trainer:
 
         # lr = accumulate * cards * per-card batch * base_lr with scale_lr;
         # float() because YAML 1.1 reads "1e-4" as a string
-        n_dev = 1
+        n_dev = self.world
         base_lr = float(base_lr)
         bs = data_module.batch_size
         lr = base_lr * accumulate_grad_batches * n_dev * bs if scale_lr else base_lr
@@ -168,7 +172,7 @@ class Trainer:
             ae_optimizer_args=engine.ae_optimizer_args,
             trainable_disc_params=engine.trainable_disc_params,
             disc_optimizer_args=engine.disc_optimizer_args)
-        self.builder = TrainStepBuilder(engine, ae_opt, disc_opt)
+        self.builder = TrainStepBuilder(engine, ae_opt, disc_opt, mesh=mesh_spec)
 
         ckpt_cfg = checkpoint_cfg or {}
         self.checkpointer = Checkpointer(
@@ -226,24 +230,30 @@ class Trainer:
         from vqvae_from_gaussian_vae_tpu_torch.losses.lpips import load_lpips_weights
 
         loss = self.engine.loss
+        say = print if _is_writer() else (lambda *a, **k: None)
         if self.lpips_weights:
             missing, unexpected = load_lpips_weights(loss.perceptual_loss, self.lpips_weights)
             if missing or unexpected:
-                print(f"LPIPS weight load: missing={missing[:5]}... "
-                      f"unexpected={unexpected[:5]}...")
-            print(f"installed LPIPS weights from {self.lpips_weights}")
+                say(f"LPIPS weight load: missing={missing[:5]}... "
+                    f"unexpected={unexpected[:5]}...")
+            say(f"installed LPIPS weights from {self.lpips_weights}")
         elif not loss.lpips_weights and loss.perceptual_weight > 0:
-            print("WARNING: perceptual_weight > 0 but no LPIPS weights configured - "
-                  "training will use a RANDOMLY-INITIALIZED perceptual net. Set "
-                  "model.params.loss_config.params.lpips_weights (or --lpips_weights) "
-                  "to the reference's vgg.pth.")
+            say("WARNING: perceptual_weight > 0 but no LPIPS weights configured - "
+                "training will use a RANDOMLY-INITIALIZED perceptual net. Set "
+                "model.params.loss_config.params.lpips_weights (or --lpips_weights) "
+                "to the reference's vgg.pth.")
 
     def _init_or_resume(self, example_batch, resume: bool) -> TrainState:
-        state = self.builder.init_state(self.seed, {"img": example_batch["img"]})
+        """ActNorm's init on the ranks' first batches joined in rank order."""
+        joined = example_batch["img"]
+        if self.world > 1:
+            joined = distributed.all_gather_rows(np.asarray(joined))
+        state = self.builder.init_state(self.seed, {"img": joined})
         self._install_lpips_weights()
         if resume and self.checkpointer.has("last"):
             state = self.load_payload(state, self.checkpointer.restore("last"))
-            print(f"resumed from step {state.step}")
+            if _is_writer():
+                print(f"resumed from step {state.step}")
         return state
 
     # ------------------------------------------------------------- loop
@@ -261,11 +271,28 @@ class Trainer:
         if self.wandb:
             self.wandb.log_images(grids, step)
 
+    def _shard(self) -> Dict[str, int]:
+        """This rank's loader shard."""
+        if self.world == 1:
+            return {}
+        return {"shard_id": distributed.rank(), "num_shards": self.world}
+
+    def _save(self, name: Optional[str] = None, force: bool = False) -> None:
+        """A checkpoint by rank 0, the other ranks waiting for it."""
+        self.checkpointer.save(self.state, name=name, force=force)
+        distributed.barrier()
+
+    def _log_scalars(self, scalars: Dict[str, float], step: int) -> None:
+        if _is_writer():
+            self.scalar_logger.log(scalars, step)
+            if self.wandb:
+                self.wandb.log(scalars, step)
+
     def fit(self, resume: bool = False) -> TrainState:
-        loader = self.data.train_dataloader()
+        loader = self.data.train_dataloader(**self._shard())
         val_loader = None
         if self.val_every and "validation" in self.data.dataset_configs:
-            val_loader = self.data.val_dataloader()
+            val_loader = self.data.val_dataloader(**self._shard())
         it = iter(loader)
         first = next(it)
         self.state = self._init_or_resume(first, resume)
@@ -286,23 +313,24 @@ class Trainer:
                         self.state, x, disc_active=step >= loss.disc_start)
                 else:
                     self.state, log = self.builder.disc_step(self.state, x)
-                imgs_seen += batch["img"].shape[0]
+                imgs_seen += batch["img"].shape[0] * self.world  # the joined batch
                 batch_idx += 1
 
                 if step % self.log_every == 0:
+                    log = distributed.all_reduce_scalars(log, "mean")
                     scalars = {k: float(v) for k, v in log.items()}
                     for dk, dv in self.state.duals.items():
                         scalars[f"duals/{dk}"] = float(dv)
                     scalars["imgs_per_sec"] = imgs_seen / max(time.time() - t0, 1e-9)
                     scalars["lr"] = self.learning_rate
-                    self.scalar_logger.log(scalars, step)
-                    if self.wandb:
-                        self.wandb.log(scalars, step)
-                if self.image_logger.should_log(step) and _is_writer():
-                    self._log_images(batch, step)
-                self.checkpointer.save(self.state)
+                    self._log_scalars(scalars, step)
+                if self.image_logger.should_log(step):
+                    if _is_writer():
+                        self._log_images(batch, step)
+                    distributed.barrier()
+                self._save()
                 if self._want_ckpt:
-                    self.checkpointer.save(self.state, name="last", force=True)
+                    self._save(name="last", force=True)
                     self._want_ckpt = False
                 if val_loader is not None and step and step % self.val_every == 0:
                     self.validate(val_loader)
@@ -316,28 +344,40 @@ class Trainer:
 
             print(f"crash on host {socket.gethostname()} at step "
                   f"{self.state.step if self.state is not None else '?'}; writing last")
-            if self.state is not None:
+            if self.state is not None:  # no barrier: another rank may be gone
                 self.checkpointer.save(self.state, name="last", force=True)
             raise
-        self.checkpointer.save(self.state, name="last", force=True)
+        self._save(name="last", force=True)
         return self.state
 
     def validate(self, loader, max_batches: Optional[int] = 50) -> Dict[str, float]:
-        logs = []
+        """The image-weighted mean of each batch log over this rank's first
+        ``max_batches`` batches and, under data parallelism, every rank's:
+        the sums and image counts are reduced once, after the loop."""
+        sums: Dict[str, float] = {}
+        count = 0
         for i, batch in enumerate(loader):
             if max_batches is not None and i >= max_batches:
                 break
-            logs.append(self.builder.eval_step(self.state, {"img": batch["img"]}))
-        if not logs:
+            n = len(batch["img"])
+            for k, v in self.builder.eval_step(self.state, {"img": batch["img"]}).items():
+                sums[k] = sums.get(k, 0.0) + n * float(v)
+            count += n
+        if self.world > 1:
+            ranks = distributed.all_gather_object((sums, count))
+            keys = next((s for s, _ in ranks if s), {})
+            sums = {k: sum(s[k] for s, _ in ranks if s) for k in keys}
+            count = sum(c for _, c in ranks)
+        if not count:
             return {}
-        mean = {k: float(np.mean([float(lg[k]) for lg in logs])) for k in logs[0]}
-        self.scalar_logger.log(mean, self.state.step)
-        if self.wandb:
-            self.wandb.log(mean, self.state.step)
-        print({k: round(v, 5) for k, v in sorted(mean.items())[:8]})
+        mean = {k: v / count for k, v in sums.items()}
+        self._log_scalars(mean, self.state.step)
+        if _is_writer():
+            print({k: round(v, 5) for k, v in sorted(mean.items())[:8]})
         if self.monitor and self.monitor in mean:
             saved = self.checkpointer.save_best(self.state, mean[self.monitor], self.monitor,
                                                 top_k=self.save_top_k, mode=self.monitor_mode)
+            distributed.barrier()
             if saved:
                 print(f"saved {saved} ({self.monitor}={mean[self.monitor]:.5f})")
         return mean
@@ -346,9 +386,9 @@ class Trainer:
         """A whole validation epoch after fit, logged under the same keys."""
         if loader is None:
             if "test" in self.data.dataset_configs:
-                loader = self.data.test_dataloader()
+                loader = self.data.test_dataloader(**self._shard())
             elif "validation" in self.data.dataset_configs:
-                loader = self.data.val_dataloader()
+                loader = self.data.val_dataloader(**self._shard())
             else:
                 return {}
         return self.validate(loader, max_batches=None)

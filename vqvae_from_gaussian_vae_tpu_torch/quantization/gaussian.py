@@ -19,7 +19,11 @@ each of the ng = c // group index groups gathers the strided channels
 
 Both branches draw eps (the train sample ``mu + eps * std``, the eval
 branch's ``zhat_noquant``) from the caller's ``torch.Generator``, or take it
-injected (``eps=``), since torch cannot replay ``jax.random``.
+injected (``eps=``), since torch cannot replay ``jax.random``.  Under data
+parallelism the caller passes ``noise_rows=(rank, world)``: every rank
+draws eps for the joined batch of world x B rows from the same generator
+state and keeps its own rows, as the JAX package's replicated key draws
+the global batch's noise and shards it.
 """
 
 from __future__ import annotations
@@ -58,6 +62,19 @@ def update_duals(duals: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
     lam_min = duals["lam_min"] * torch.where(stats["bits-min"] < log_n_samples - tolerance, inv, f)
     lam_min = torch.clamp(lam_min, lam_range[0], 1.0)
     return {"lam": lam, "lam_min": lam_min, "lam_max": lam_max}
+
+
+def draw_eps(shape, generator: Optional[torch.Generator], device,
+             noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Standard-normal float32 eps of ``shape``; with ``noise_rows`` (rank,
+    world), rows [rank B, (rank + 1) B) of a draw for world x B rows."""
+    if noise_rows is None or noise_rows[1] == 1:
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    r, w = noise_rows
+    b = shape[0]
+    full = torch.randn((w * b,) + tuple(shape[1:]), generator=generator, device=device,
+                       dtype=torch.float32)
+    return full[r * b:(r + 1) * b]
 
 
 def _split_posterior(z: torch.Tensor, logvar_range) -> Tuple[torch.Tensor, ...]:
@@ -102,15 +119,15 @@ class GaussianQuantRegularizer(nn.Module):
     def forward(self, z: torch.Tensor, train: bool = False,
                 duals: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None):
+                eps: Optional[torch.Tensor] = None,
+                noise_rows: Optional[Tuple[int, int]] = None):
         zt, hw = to_tokens(z, self.format)
         b, l, c2 = zt.shape
         c = c2 // 2
         ng = c // self.group
         mu, logvar, std = _split_posterior(zt, self.logvar_range)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                              dtype=torch.float32)
+            eps = draw_eps(mu.shape, generator, mu.device, noise_rows)
         eps = eps.reshape(mu.shape).to(mu)
         if train:
             return self._train(mu, logvar, std, eps, duals, hw)
