@@ -25,6 +25,14 @@ then drives each path through the entry points a user calls, at bs=16,
     ``GVQ_GN_BWD=1`` (the resblock conv's wgrad and the GroupNorm + swish
     backward), set here around that pair only.  It refuses to start when
     one of the kernel variables is already set;
+  * the regularizers (``regularizers``): the eight other sd3unet configs,
+    VQ, FSQ, LFQ, BSQ, GQ2, the two Gaussian ones and vf (its frozen
+    DINOv2 ViT-L at full size), each with the bf16 overlay at full width
+    and depth: a counted ae + disc pair with exact launches, two timed
+    pairs and an eval step, parameters that move, encode -> dequant
+    against decode, VQ's and GQ2's indices against the plain search, for
+    VQ and vf one ae step's bf16 gradient against a float32 engine's and
+    two steps of the training entry point;
   * the training entry point (``python -m vqvae_from_gaussian_vae_tpu_torch.main``,
     driven in-process through its ``main(argv)``) on a temporary folder
     of seeded JPEG and PNG images: sd3unet_gq_0.25 with the bf16 overlay at
@@ -112,6 +120,7 @@ FLASH_BWD_REL = 2e-2  # max error over max |grad|: the JAX package's flash bar
 FLASH_F32_REL = 1e-4  # float32 flash kernels vs plain, TF32 off: float32 sums in another
 #                       order, over the largest value
 LN_BWD_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}  # dx: summation order only
+LN_F32_REL = 1e-4  # the float32 LN forward vs plain: float32 sums in another order, over max |y|
 PARAM_GRAD_REL = 1e-4  # dweight, dbias: float32 sums over 16384 rows in another order
 TRAIN_GRAD_REL_L2 = 0.1  # one ae step's bf16 gradient vs a float32 engine's
 TRAIN_GRAD_TENSOR_REL_L2 = 0.2  # the same, each tensor alone (worst measured: 7-11%)
@@ -397,9 +406,10 @@ def nvidia_smi_line() -> str:
 # kernel phases: each kernel against its plain version at main-path shapes
 
 
-def near_tie_gap(got, want, mu, std, codebook) -> float:
+def near_tie_gap(got, want, mu, std, codebook, beta: float = 1.0) -> float:
     """Largest float64 score gap over rows where `got` != `want`; raises if
-    any such row is not a near-tie."""
+    any such row is not a near-tie.  At std 1 and beta 0 the score is minus
+    half the squared L2 distance plus a constant: VQ's search."""
     from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import gq_scores_reference
 
     rows = (got != want).nonzero().flatten().tolist()
@@ -407,7 +417,7 @@ def near_tie_gap(got, want, mu, std, codebook) -> float:
     for r in rows:
         g, w = int(got[r]), int(want[r])
         s = gq_scores_reference(mu[r:r + 1].cpu().numpy(), std[r:r + 1].cpu().numpy(),
-                                codebook[[g, w]].cpu().numpy())[0]
+                                codebook[[g, w]].cpu().numpy(), beta)[0]
         gap = abs(float(s[0] - s[1]))
         require(gap <= NEAR_TIE * max(1.0, abs(float(s[1]))),
                 f"GQ index {g} != {w} at row {r} is no near-tie (float64 gap {gap})")
@@ -1688,15 +1698,54 @@ TRAIN_PATHS = {
 }
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
+# the regularizers phase: the sd3unet configs whose regularizer (or vf
+# branch) is not the GQ pair's, each with the bf16 overlay at full width and
+# depth: launches of one ae, disc and eval step.  VQ and GQ2 search on every
+# forward (the GQ search kernel, B1); FSQ, LFQ, BSQ and the Gaussian search
+# on none.  The vf config's frozen DINOv2 ViT-L runs 48 LayerNorm launches
+# (B6a) a forward (the ae and eval steps), and its adaptive vf weight's nll
+# gradient adds a backward through the decoder: 3 upsample dgrad and wgrad,
+# 3 flash backward.
+B1 = {"gq_argmax": 1}
+VF_TRUNK = {"layer_norm_fwd": 48}
+UNET_AE_VF = {**UNET_AE, "upsample_dgrad": 6, "upsample_wgrad": 6, "flash_attention_bwd": 8,
+              **VF_TRUNK}
+PLAIN_REG = {"ae": UNET_AE, "disc": UNET_DISC, "eval": UNET_DISC}
+SEARCH_REG = {"ae": {**UNET_AE, **B1}, "disc": {**UNET_DISC, **B1}, "eval": {**UNET_DISC, **B1}}
+REG_PATHS = {
+    "sd3unet_vq_16": {"search": "vq", "launches": SEARCH_REG, "grad_check": True,
+                      "entry_point": True, "watched": ["regularization.embedding.weight"]},
+    "sd3unet_fsq_16": {"launches": PLAIN_REG},
+    "sd3unet_lfq_16": {"launches": PLAIN_REG},
+    "sd3unet_bsq_16": {"launches": PLAIN_REG},
+    "sd3unet_gq2_0.25": {"search": "gq2", "launches": SEARCH_REG, "duals": True},
+    "sd3unet_gaussian_kl_0.64": {"launches": PLAIN_REG, "indices": False},
+    "sd3unet_gq_0.25_gaussian": {"launches": PLAIN_REG, "indices": False},
+    "sd3unet_gq_0.25_vf": {"launches": {"ae": UNET_AE_VF, "disc": UNET_DISC,
+                                        "eval": {**UNET_DISC, **B1, **VF_TRUNK}},
+                           "grad_check": True, "entry_point": True, "duals": True,
+                           "watched": ["linear_proj.weight"],
+                           "frozen": "foundation.blocks.0.attn.in_proj_weight"},
+}
+for _name, _spec in REG_PATHS.items():
+    _spec.update(configs=[f"configs/{_name}.yaml", BF16_OVERLAY], tokens=32 * 32)
+REG_TIMED = 2  # timed pairs after one counted warm-up pair
+REG_ENTRY_IMAGES = 32  # the training entry point's folder: 2 steps at bs=16
+
+
+def _train_spec(path: str) -> dict:
+    return TRAIN_PATHS[path] if path in TRAIN_PATHS else REG_PATHS[path]
+
 
 def build_trainer(path: str, dtype: str, seed: int = SEED, overrides=None):
     from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_state import make_optimizers
     from vqvae_from_gaussian_vae_tpu_torch.parallel.train_step import TrainStepBuilder
 
-    spec = TRAIN_PATHS[path]
+    spec = _train_spec(path)
     cfg = load_config([os.path.join(ROOT, c) for c in spec["configs"]])
     params = cfg["model"]["params"]
+    params.pop("ckpt_path", None)  # seeded weights: no checkpoint file is shipped
     _set_backbones(params, dtype, {**spec.get("overrides", {}), **(overrides or {})})
     params["loss_config"]["params"]["dtype"] = dtype
     engine = instantiate_from_config(cfg["model"], seed=seed, device="cuda")
@@ -1970,7 +2019,7 @@ def train_grad_check(path, engine, builder, state, gen):
     ref_engine.load_state_dict(engine.state_dict())
     ref_engine.loss.load_state_dict(engine.loss.state_dict())
     x = torch.rand((2, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
-    eps = torch.randn((2, TRAIN_PATHS[path]["tokens"], engine.encoder.z_channels), generator=gen,
+    eps = torch.randn((2, _train_spec(path)["tokens"], engine.encoder.z_channels), generator=gen,
                       device="cuda")
     g16, log16, _ = builder.ae_grads(state, {"img": x}, True, eps=eps)
     g32, log32, _ = ref_builder.ae_grads(state, {"img": x}, True, eps=eps)
@@ -1994,6 +2043,249 @@ def train_grad_check(path, engine, builder, state, gen):
             "d_weight": [float(log16["train/scalars/d_weight"]),
                          float(log32["train/scalars/d_weight"])],
             "loss_total": [float(log16["train/loss/total"]), float(log32["train/loss/total"])]}
+
+
+def _host_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def run_regularizer(gen, path: str) -> dict:
+    """One config of ``REG_PATHS`` at full width and depth, bs=16, 256x256,
+    the bf16 overlay: a warm-up ae + disc pair with exact launches, then
+    ``REG_TIMED`` timed pairs and an eval step; parameters that move (and a
+    frozen trunk that does not), the duals where the regularizer has them;
+    for a regularizer with indices, encode -> dequant against decode, and
+    VQ's and GQ2's card indices against the plain search of the same
+    latents; for VQ and vf one ae step's bf16 gradient against a float32
+    engine's."""
+    import torch
+
+    spec = REG_PATHS[path]
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    engine, builder, _ = build_trainer(path, "bfloat16")
+    build_s = time.perf_counter() - t_build
+    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    x2 = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    batch = {"img": x}
+    state = builder.init_state(SEED, batch)
+    state.step = engine.loss.disc_start + 10  # both phases run their real graphs
+    counters = launch_counters()
+    names = ["encoder.conv_out.weight", "decoder.conv_out.weight"] + spec.get("watched", [])
+    watched = {n: engine.module.get_parameter(n) for n in names}
+    before = {k: p.detach().clone() for k, p in watched.items()}
+    frozen = spec.get("frozen")
+    frozen_before = engine.module.get_parameter(frozen).detach().clone() if frozen else None
+    duals0 = {k: float(v) for k, v in state.duals.items()}
+
+    (_, log), ae_counts = counted(counters, lambda: builder.ae_step(state, batch, True))
+    ae_launches = require_launches(f"{path} ae step", ae_counts, spec["launches"]["ae"])
+    require(_finite(log), f"{path} ae step: a loss is not finite: {log}")
+    (_, log_d), disc_counts = counted(counters, lambda: builder.disc_step(state, batch))
+    disc_launches = require_launches(f"{path} disc step", disc_counts, spec["launches"]["disc"])
+    require(_finite(log_d), f"{path} disc step: a loss is not finite: {log_d}")
+    ae_ms, disc_ms = [], []
+    for _ in range(REG_TIMED):
+        ae_ms.append(_host_ms(lambda: builder.ae_step(state, batch, True)))
+        disc_ms.append(_host_ms(lambda: builder.disc_step(state, batch)))
+    log_e, eval_counts = counted(counters, lambda: builder.eval_step(state, {"img": x2}))
+    eval_launches = require_launches(f"{path} eval step", eval_counts, spec["launches"]["eval"])
+    require(_finite(log_e), f"{path} eval step: a loss is not finite: {log_e}")
+    moved = {k: float((p.detach() - before[k]).abs().max()) for k, p in watched.items()}
+    require(all(v > 0 for v in moved.values()), f"{path}: a parameter did not change: {moved}")
+    if frozen:
+        require(torch.equal(engine.module.get_parameter(frozen), frozen_before),
+                f"{path}: the frozen {frozen} changed")
+    duals1 = {k: float(v) for k, v in state.duals.items()}
+    require((duals1 != duals0) == bool(spec.get("duals")),
+            f"{path}: duals {duals0} -> {duals1}")
+    ae_mean, disc_mean = sum(ae_ms) / len(ae_ms), sum(disc_ms) / len(disc_ms)
+    result = {"phase": "regularizers", "path": path, "configs": spec["configs"],
+              "regularizer": type(engine.regularization).__name__,
+              "dtype": "bfloat16 compute, float32 parameters", "batch": BATCH,
+              "resolution": RES, "build_s": build_s,
+              "launches_per_ae_step": ae_launches, "launches_per_disc_step": disc_launches,
+              "launches_per_eval_step": eval_launches,
+              "ae_log": {k: float(v) for k, v in log.items()},
+              "eval_log": {k: float(v) for k, v in log_e.items()},
+              "param_max_change": moved, "duals": {"before": duals0, "after": duals1},
+              "ae_ms": ae_mean, "disc_ms": disc_mean, "ae_ms_all": ae_ms,
+              "disc_ms_all": disc_ms,
+              "pair_img_per_s": 2 * BATCH / ((ae_mean + disc_mean) / 1e3)}
+    if spec.get("indices", True):
+        result["tokenization"] = _check_tokens(path, engine, x)
+    else:
+        z, reg = engine.encode(x, return_reg_log=True)
+        require("indices" not in reg and bool(torch.isfinite(z).all()),
+                f"{path}: the Gaussian encode gave {sorted(reg)}")
+    if frozen:
+        result["vf_trunk"] = _vf_trunk(engine, x, counters)
+        result["vf_trunk"]["share_of_ae_step"] = result["vf_trunk"]["ms"] / ae_mean
+    if spec.get("grad_check"):
+        result["bf16_vs_fp32_grad"] = train_grad_check(path, engine, builder, state, gen)
+    result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del builder, engine
+    torch.cuda.empty_cache()
+    if spec.get("entry_point"):
+        result["entry_point"] = _train_entry_point(path)
+    return result
+
+
+def _train_entry_point(path: str) -> dict:
+    """The training entry point, ``main(argv)``, on the config with the
+    overlay for 2 steps (ae, then disc) on a temporary folder of seeded
+    images: each step's launches those of the phase's pair, every logged
+    value finite, and for vf the vf loss logged."""
+    import contextlib
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import main as port_main
+
+    spec = REG_PATHS[path]
+    counters = launch_counters()
+    tmp = tempfile.mkdtemp(prefix="gvq_regularizer_")
+    try:
+        images = write_images(os.path.join(tmp, "images"), REG_ENTRY_IMAGES)
+        argv = ["--base", *[os.path.join(ROOT, c) for c in spec["configs"]], "--name", path,
+                "--max_steps", "2", f"data.params.train.params.root={images}",
+                "model.params.loss_config.params.disc_start=1",
+                "training.trainer.log_every_n_steps=1", "--seed", str(SEED), "--no-test",
+                "--logdir", os.path.join(tmp, "logs")]
+        for k in counters.values():  # the entry point's counts: 0 just before it
+            k.launches = 0
+        with StepLaunches(counters) as steps, contextlib.redirect_stdout(sys.stderr):
+            trainer = port_main.main(argv)
+        require(trainer.state.step == 2, f"{path} entry point: step {trainer.state.step}")
+        launches = {kind: _expect_per_step(f"{path} entry point {kind} step", steps.steps[kind],
+                                           spec["launches"][kind]) for kind in ("ae", "disc")}
+        rows = _csv_rows(os.path.join(trainer.logdir, "metrics.csv"))
+        values = {k: float(v) for r in rows for k, v in r.items()
+                  if v not in ("", None) and k.startswith("train/")}
+        require(all(math.isfinite(v) for v in values.values()),
+                f"{path} entry point: logged values not finite: {values}")
+        want = ["train/loss/total", "train/loss/disc"] + (
+            ["train/loss/vf"] if path.endswith("_vf") else [])
+        require(all(k in values for k in want), f"{path} entry point: logged {sorted(values)}")
+        run = steps.runs[0]
+        out = {"steps": 2, "launches_per_step": launches,
+               "step_ms_each": [1e3 * t for t in run["step_seconds"]],
+               "fit_seconds": run["fit_seconds"],
+               "checkpoint_saves": [{"name": n, "bytes": b, "seconds": sec}
+                                    for n, b, sec in run["saves"]],
+               "logged": {k: values[k] for k in want}}
+        del trainer
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _check_tokens(path: str, engine, x) -> dict:
+    """encode -> dequant(indices) against the clamped decode of the
+    quantized latent (2e-2), the latent itself against the codebook lookup
+    (one bf16 ulp: LFQ's and BSQ's straight-through sums round in z's
+    dtype), and for VQ and GQ2 the card's indices against the plain search
+    of the same latents, differing only at float64-proven near-ties."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import (
+        argmax_blocked, score_operands, vq_score_operands, vq_search_plain)
+    from vqvae_from_gaussian_vae_tpu_torch.quantization.gaussian import _split_posterior
+
+    z, reg = engine.encode(x, return_reg_log=True)
+    idx = reg["indices"]
+    require(idx.dtype == torch.int32 and idx.shape[:3] == z.shape[:3],
+            f"{path}: indices {tuple(idx.shape)} {idx.dtype}, z {tuple(z.shape)}")
+    xhat = engine.dequant(idx)
+    xrec = engine.module._clamp(engine.decode(z))
+    deq_err = float((xrec.float() - xhat.float()).abs().max())
+    require(deq_err <= FLASH_ATOL, f"{path}: dequant(indices) vs decode(zhat) differ by {deq_err}")
+    with torch.no_grad():
+        lat = engine.regularization.dequant(idx).float()
+    lat_err = float(((lat - z.float()).abs() / lat.abs().clamp_min(1.0)).max())
+    require(lat_err <= 2.0 ** -8, f"{path}: dequant latent vs zhat differ by {lat_err}")
+    out = {"indices": list(idx.shape), "dequant_vs_decode_max_abs": deq_err,
+           "latent_max_rel": lat_err}
+    search = REG_PATHS[path].get("search")
+    if search is None:
+        return out
+    reg_mod = engine.regularization
+    zraw, _ = engine.encode(x, unregularized=True)
+    got = idx.reshape(-1)
+    if search == "vq":
+        dim, cn = reg_mod.dim, reg_mod.codebook_num
+        rows = zraw.float().reshape(-1, dim, cn).transpose(1, 2).reshape(-1, dim)
+        e = reg_mod.embedding.weight.detach()
+        ones = torch.ones_like(rows)
+        formula = vq_search_plain(rows, e)
+        kernel_form = argmax_blocked(*vq_score_operands(rows, e))
+        out.update(
+            vs_plain_mismatches=int((got != formula).sum()),
+            vs_plain_max_near_tie_gap=near_tie_gap(got, formula, rows, ones, e, beta=0.0),
+            vs_kernel_form_mismatches=int((got != kernel_form).sum()),
+            vs_kernel_form_max_near_tie_gap=near_tie_gap(got, kernel_form, rows, ones, e,
+                                                         beta=0.0))
+    else:
+        rows, _ = reg_mod._to_rows(zraw)
+        mu, _, std = _split_posterior(rows, reg_mod.logvar_range)
+        mu, std = mu.reshape(-1, reg_mod.dim), std.reshape(-1, reg_mod.dim)
+        want = argmax_blocked(*score_operands(mu, std, reg_mod.codebook, reg_mod.beta))
+        out.update(vs_plain_mismatches=int((got != want).sum()),
+                   vs_plain_max_near_tie_gap=near_tie_gap(got, want, mu, std, reg_mod.codebook,
+                                                          reg_mod.beta))
+    return out
+
+
+def _vf_trunk(engine, x, counters) -> dict:
+    """The frozen DINOv2 trunk alone: its launches a forward (48 LayerNorm)
+    and its host ms (one warm-up, then the mean of two)."""
+    import torch
+
+    trunk = engine.module.foundation
+    grid = x.shape[1] // trunk.patch_size
+    with torch.no_grad():
+        feats, counts = counted(counters, lambda: trunk(x))
+        launches = require_launches("vf trunk forward", counts, VF_TRUNK)
+        require(tuple(feats.shape) == (x.shape[0], grid, grid, trunk.width)
+                and bool(torch.isfinite(feats).all()), f"vf trunk features {tuple(feats.shape)}")
+        ms = [_host_ms(lambda: trunk(x)) for _ in range(2)]
+    rows = x.shape[0] * (grid * grid + 1)
+    return {"launches_per_forward": launches, "ms": sum(ms) / 2, "ms_all": ms,
+            "tokens": rows, "width": trunk.width, "layers": len(trunk.blocks),
+            "layer_norm_fwd": _trunk_layer_norm(rows, trunk.width)}
+
+
+def _trunk_layer_norm(rows: int, c: int) -> dict:
+    """B6a at the trunk's float32 (rows, width): the kernel against its
+    plain version (``LN_F32_REL``), each timed, beside its bound and
+    ``F.layer_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = 2 * torch.randn((rows, c), generator=gen, device="cuda") + 0.5
+    w = 1 + 0.3 * torch.randn((c,), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    y_k, y_p = ln.layer_norm_cuda(x, w, bias), ln.layer_norm_plain(x, w, bias)
+    err = float((y_k - y_p).abs().max())
+    require(err <= LN_F32_REL * float(y_p.abs().max()),
+            f"float32 LN at ({rows}, {c}): kernel vs plain {err}")
+    nbytes, flops = 2 * 4 * x.numel() + 2 * 4 * c, 8.0 * x.numel()
+    bnd, by = bound_ms(flops, nbytes, PEAK_FP32)
+    return {"shape": f"x ({rows},{c}) float32", "max_abs_err": err,
+            "kernel_ms": time_ms(lambda: ln.layer_norm_cuda(x, w, bias)),
+            "plain_ms": time_ms(lambda: ln.layer_norm_plain(x, w, bias)),
+            "library_ms": time_ms(lambda: F.layer_norm(x, (c,), w, bias, 1e-5)),
+            "bound_ms": bnd, "bound_by": by}
 
 
 def run_flash_head_major(gen, dtype: str = "bfloat16"):
@@ -3345,6 +3637,9 @@ def main(argv=None) -> int:
         emit(train)
         launches[f"{path}_train_ae"] = train["launches_per_ae_step"]
         train_results[path] = train
+        torch.cuda.empty_cache()
+    for path in REG_PATHS:
+        emit(run_regularizer(gen, path))
         torch.cuda.empty_cache()
     emit(run_trainer(gen, train_results))
     torch.cuda.empty_cache()

@@ -188,9 +188,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             out = metrics_of(img, rec, inception, lpips)
             for k in acc:
                 acc[k].append(out[k].float().cpu().numpy())
-            idx = info["indices"].reshape(-1).long()
-            if int(idx.max()) < N_CODES:
-                hist += torch.bincount(idx, minlength=N_CODES)
+            if info.get("indices") is not None:  # the Gaussian regularizer has no codes
+                idx = info["indices"].reshape(-1).long()
+                if int(idx.max()) < N_CODES:
+                    hist += torch.bincount(idx, minlength=N_CODES)
             if args.save:
                 _save_images(batch, rec.cpu().numpy(), args.save_dir)
             if i % 20 == 0:

@@ -15,8 +15,13 @@ decoder's last layer on the graph this call builds
 
 Parameters: ``perceptual_loss`` (frozen LPIPS), ``logvar`` (a scalar) and
 ``discriminator``.  ``dtype`` is the compute dtype of the LPIPS trunk and
-the discriminator's convs; every parameter stays float32.  The vf
-alignment loss is not ported (the engine's ``use_vf`` raises).
+the discriminator's convs; every parameter stays float32.
+
+When the reg log holds the vf branch's ``zp`` and ``aux_feature``, phase 0
+adds ``vf_weight * vf_loss`` (the distance-matrix and cosine margins
+between the two, VA-VAE's).  ``vf_weight`` is the adaptive weight, a
+callable ``(nll, vf) -> weight`` the train step supplies, or None: then the
+configured ``vf_weight``, or 0 with ``adaptive_vf`` (the eval step).
 """
 
 from __future__ import annotations
@@ -46,8 +51,6 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
                  adaptive_vf: bool = True, cos_margin: float = 0.5, distmat_margin: float = 0.25,
                  distmat_weight: float = 1.0, cos_weight: float = 1.0, dtype=torch.float32):
         super().__init__()
-        # the vf loss's knobs: accepted so the YAMLs load (use_vf raises)
-        del vf_weight, adaptive_vf, cos_margin, distmat_margin, distmat_weight, cos_weight
         del scale_input_to_tgt_size
         if disc_loss not in ("hinge", "vanilla"):
             raise ValueError(f"unknown disc_loss {disc_loss!r}")
@@ -59,6 +62,12 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
         self.perceptual_weight = perceptual_weight
         self.lpips_weights = lpips_weights
         self.learn_logvar = learn_logvar
+        self.vf_weight = vf_weight
+        self.adaptive_vf = adaptive_vf
+        self.cos_margin = cos_margin
+        self.distmat_margin = distmat_margin
+        self.distmat_weight = distmat_weight
+        self.cos_weight = cos_weight
         self.dtype = as_torch_dtype(dtype)
         self.perceptual_loss = LPIPS(dtype=self.dtype)
         self.logvar = nn.Parameter(torch.tensor(float(logvar_init)),
@@ -108,6 +117,20 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
         logits_real, logits_fake = pair[:, 0], pair[:, 1]
         return self._disc_loss_fn(logits_real, logits_fake), logits_real, logits_fake
 
+    def vf_loss(self, regularization_log):
+        """The distance-matrix and cosine margin losses between the latent
+        projection ``zp`` and the foundation features ``aux_feature``."""
+        zp, aux = regularization_log["zp"], regularization_log["aux_feature"]
+        zf = zp.reshape(zp.shape[0], -1, zp.shape[-1])
+        af = aux.reshape(aux.shape[0], -1, aux.shape[-1])
+        zn = zf / torch.clamp(torch.linalg.vector_norm(zf, dim=-1, keepdim=True), min=1e-12)
+        an = af / torch.clamp(torch.linalg.vector_norm(af, dim=-1, keepdim=True), min=1e-12)
+        z_sim = torch.einsum("bic,bjc->bij", zn, zn)
+        a_sim = torch.einsum("bic,bjc->bij", an, an)
+        vf1 = torch.relu(torch.abs(z_sim - a_sim) - self.distmat_margin).mean()
+        vf2 = torch.relu(1.0 - self.cos_margin - torch.sum(zn * an, dim=-1)).mean()
+        return vf1 * self.distmat_weight + vf2 * self.cos_weight
+
     @torch.no_grad()
     def disc_logits(self, inputs, reconstructions):
         """The raw patch-logit maps of x and of xrec, each its own call."""
@@ -137,8 +160,6 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
                 d_weight=None, vf_weight=None, train: bool = False):
         disc_on = int(global_step) >= self.disc_start or not train
         if optimizer_idx == 0:
-            if "zp" in regularization_log or vf_weight is not None:
-                raise NotImplementedError("the vf alignment loss is not ported")
             rec = self.rec_loss(inputs, reconstructions)
             nll, weighted_nll = self.nll_loss(rec, weights)
             g = self.g_loss(reconstructions, train=train) if disc_on else nll.new_zeros(())
@@ -151,6 +172,14 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
             d_weight = torch.as_tensor(d_weight, dtype=torch.float32, device=nll.device)
             loss = weighted_nll + d_weight * self.disc_factor * g
             log = {}
+            if "zp" in regularization_log and "aux_feature" in regularization_log:
+                vf = self.vf_loss(regularization_log)
+                if vf_weight is None:
+                    vf_weight = 0.0 if self.adaptive_vf else self.vf_weight
+                elif callable(vf_weight):
+                    vf_weight = vf_weight(nll, vf)
+                loss = loss + vf_weight * vf
+                log[f"{split}/loss/vf"] = vf.detach()
             for k, v in regularization_log.items():
                 if k in self._reg_weights:
                     loss = loss + self._reg_weights[k] * v

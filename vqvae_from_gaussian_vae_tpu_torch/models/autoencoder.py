@@ -19,7 +19,14 @@ not ``eval_only``) the engine also builds its loss head (``engine.loss``),
 and ``EngineModule`` offers the training pieces the GAN step uses
 (``encode(..., train=True, duals=...)``, ``decode_pre_last_layer``,
 ``decode_last_layer``, ``last_layer_path``; ``parallel/train_step.py``).
-The vf branch is not ported: ``use_vf`` raises.
+
+The vf alignment branch (``use_vf``: "dinov2", "dinov3" or "mae") adds a
+frozen foundation trunk (``models/foundation.py``) and ``linear_proj``, a
+1x1 conv: with ``reverse_proj`` z is resized to the trunk's feature grid
+and projected to its width, else the features are projected to z's
+channels.  The forward then puts ``aux_feature`` and ``zp`` in the reg log
+for the loss's vf terms.  The resize is ``jax.image.resize``'s antialiased
+bilinear (``resize_bilinear``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from vqvae_from_gaussian_vae_tpu_torch.utils.config import instantiate_from_config
 
@@ -41,11 +49,22 @@ _TRAINING_KEYS = {
 }
 
 
+def resize_bilinear(z: torch.Tensor, size) -> torch.Tensor:
+    """NHWC z -> (B, size[0], size[1], C) float32: ``jax.image.resize(...,
+    "bilinear")``, which antialiases a downsample; torch's antialiased
+    bilinear (half-pixel centres) is the same filter."""
+    out = F.interpolate(z.float().permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
+
+
 class EngineModule(nn.Module):
     """encode -> regularize -> decode, all tensors NHWC."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module, regularization: nn.Module,
-                 latent_stats: bool = False, clamp_range: Optional[Sequence[float]] = None):
+                 latent_stats: bool = False, clamp_range: Optional[Sequence[float]] = None,
+                 foundation: Optional[nn.Module] = None, reverse_proj: bool = False,
+                 vf_dim: Optional[int] = None):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
@@ -57,6 +76,13 @@ class EngineModule(nn.Module):
             # the reference's (1, C, 1, 1) layout, applied over NHWC channels
             self.latent_mean = nn.Parameter(torch.zeros(1, zc, 1, 1), requires_grad=False)
             self.latent_std = nn.Parameter(torch.ones(1, zc, 1, 1), requires_grad=False)
+        self.foundation = foundation
+        self.reverse_proj = reverse_proj
+        if foundation is not None:
+            zc = encoder.z_channels
+            # a 1x1 conv: z -> the features' width without bias, or back
+            self.linear_proj = (nn.Conv2d(zc, vf_dim, 1, bias=False) if reverse_proj
+                                else nn.Conv2d(vf_dim, zc, 1, bias=True))
 
     def _standardize(self, z):
         if self.latent_stats:
@@ -106,6 +132,20 @@ class EngineModule(nn.Module):
         """The name of the weight the adaptive GAN weight differentiates."""
         return ".".join(("decoder",) + tuple(self.decoder.last_layer_path()))
 
+    def _linear_proj(self, t):
+        p = self.linear_proj
+        return F.linear(t, p.weight.flatten(1), p.bias)
+
+    def vf_features(self, x, z):
+        """(aux_feature, zp) of the vf branch: the frozen trunk's features
+        (no gradient) and z resized to their grid, one of them projected."""
+        with torch.no_grad():
+            aux = self.foundation(x)
+        zp = resize_bilinear(z, aux.shape[1:3])
+        if self.reverse_proj:
+            return aux, self._linear_proj(zp)
+        return self._linear_proj(aux), zp
+
     def dequant(self, indices):
         # as the reference: dequant routes through decode (un-standardising)
         return self._clamp(self.decode(self.regularization.dequant(indices)))
@@ -114,7 +154,11 @@ class EngineModule(nn.Module):
                 generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
         z, reg_log = self.encode(x, return_reg_log=True, train=train, duals=duals,
                                  generator=generator, eps=eps)
-        return z, self._clamp(self.decode(z, train=train)), reg_log
+        dec = self.decode(z, train=train)
+        if self.foundation is not None:
+            aux, zp = self.vf_features(x, z)
+            reg_log = {**reg_log, "aux_feature": aux, "zp": zp}
+        return z, self._clamp(dec), reg_log
 
 
 def resolve_device(device=None) -> torch.device:
@@ -139,8 +183,10 @@ def init_weights(module: nn.Module, seed: int) -> None:
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("latent_mean", "latent_std", "gamma"):
                 continue
-            if leaf == "positional_embedding":
+            if leaf in ("positional_embedding", "pos_embed", "cls_token"):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+            elif name.endswith("embedding.weight"):  # VQ's codebook: uniform(-1/n, 1/n)
+                p.uniform_(-1.0 / p.shape[0], 1.0 / p.shape[0], generator=gen)
             elif p.dim() in (2, 4):
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
@@ -180,13 +226,12 @@ class AutoencodingEngine:
                  ckpt_path: Optional[str] = None, ckpt_engine: Optional[str] = None,
                  additional_decode_keys: Optional[Sequence[str]] = None,
                  use_vf: Optional[str] = None, reverse_proj: bool = False,
+                 vf_weights_path: Optional[str] = None,
                  clamp_range: Optional[Sequence[float]] = None, latent_stats: bool = False,
                  seed: int = 0, device=None, **kwargs):
         unknown = sorted(set(kwargs) - set(_TRAINING_KEYS))
         if unknown:
             raise TypeError(f"AutoencodingEngine got unsupported kwargs: {unknown}")
-        if use_vf is not None or reverse_proj:
-            raise NotImplementedError("the vf alignment branch is not ported yet")
         if additional_decode_keys:
             raise NotImplementedError("additional_decode_keys is not supported")
         if ckpt_path is not None and ckpt_engine is not None:
@@ -201,8 +246,21 @@ class AutoencodingEngine:
         self.encoder = instantiate_from_config(encoder_config)
         self.decoder = instantiate_from_config(decoder_config)
         self.regularization = instantiate_from_config(regularizer_config)
+        self.use_vf = use_vf
+        self.foundation_model = None
+        if use_vf is not None:
+            from vqvae_from_gaussian_vae_tpu_torch.models.foundation import aux_foundation_model
+
+            p = encoder_config.get("params", {})
+            self.foundation_model = aux_foundation_model(
+                use_vf, weights_path=vf_weights_path,
+                image_size=p.get("resolution", p.get("image_size", 256)))
+        fm = self.foundation_model
         self.module = EngineModule(self.encoder, self.decoder, self.regularization,
-                                   latent_stats=latent_stats, clamp_range=clamp_range)
+                                   latent_stats=latent_stats, clamp_range=clamp_range,
+                                   foundation=None if fm is None else fm.module,
+                                   reverse_proj=reverse_proj,
+                                   vf_dim=None if fm is None else fm.feature_dim)
         self.module.eval()
         self.init_params(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -216,6 +274,8 @@ class AutoencodingEngine:
         """Seeded random weights (see ``init_weights``), on the engine's device."""
         self.module.to("cpu")
         init_weights(self.module, seed)
+        if self.foundation_model is not None:
+            self.foundation_model.load_weights()
         self.module.to(self.device, memory_format=torch.channels_last)
         if self.loss is not None:
             self.loss.to("cpu")
@@ -248,7 +308,7 @@ class AutoencodingEngine:
         else:
             blob = torch.load(path, map_location="cpu", weights_only=True)
             sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
-        keep = ("encoder.", "decoder.", "latent_mean", "latent_std")
+        keep = ("encoder.", "decoder.", "regularization.", "latent_mean", "latent_std")
         sd = {k: v for k, v in sd.items()
               if k.startswith(keep) and not any(k.startswith(i) for i in ignore_keys)}
         result = self.module.load_state_dict(sd, strict=False)

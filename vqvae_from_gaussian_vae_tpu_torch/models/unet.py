@@ -406,8 +406,7 @@ class Encoder(nn.Module):
 
     @staticmethod
     def last_layer_path() -> Tuple[str, ...]:
-        """The encoder's final projection (the vf adaptive weight's target in
-        the JAX package; the vf branch is not ported)."""
+        """The encoder's final projection: the vf adaptive weight's target."""
         return ("conv_out", "weight")
 
 

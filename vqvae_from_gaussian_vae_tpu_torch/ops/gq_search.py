@@ -17,6 +17,13 @@ strict ``>``, so ties keep the first maximum as torch.argmax does.
 ``gq_search`` runs the hand-written CUDA kernel (``ops/gq_cuda.py``) for
 CUDA tensors and the plain blocked search for CPU tensors; backend
 "xla"/"torch" asks for the plain search explicitly.
+
+``vq_search`` is the VQ quantizer's nearest-entry search through the same
+kernel: argmin_n |z - e_n|^2 = argmax_n (2 z . e_n - |e_n|^2), the score
+above at std 1 and beta 0, so A = [2z, -1] and B = [E; E^2] (K = 2 dim,
+zero-padded to the next K the kernel takes).  Its plain version, for CPU
+tensors, is the JAX package's float32 formula |z|^2 + |e|^2 - 2 z . e and
+argmin, blocked over rows.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vqvae_from_gaussian_vae_tpu_torch.ops.gq_cuda import gq_argmax_cuda
+from vqvae_from_gaussian_vae_tpu_torch.ops.gq_cuda import SUPPORTED_K, gq_argmax_cuda
 
 KERNEL_BACKENDS = ("auto", "pallas", "cuda")
 PLAIN_BACKENDS = ("xla", "torch")
@@ -82,6 +89,46 @@ def gq_search(mu: torch.Tensor, std: torch.Tensor, codebook: torch.Tensor,
     if backend in PLAIN_BACKENDS:
         return argmax_blocked(a, b)
     raise ValueError(f"unknown gq_search backend {backend!r}")
+
+
+def vq_score_operands(z: torch.Tensor, codebook: torch.Tensor):
+    """(A, B) of the VQ search: ``score_operands`` at std 1 and beta 0,
+    with K = 2 dim padded by zero columns of A and zero rows of B to the
+    next K in ``SUPPORTED_K``."""
+    a, b = score_operands(z, torch.ones_like(z, dtype=torch.float32), codebook, 0.0)
+    k = next((k for k in SUPPORTED_K if k >= a.shape[1]), None)
+    if k is None:
+        raise ValueError(f"vq_search: dim {z.shape[1]} is over the kernel's "
+                         f"{SUPPORTED_K[-1] // 2}")
+    if k > a.shape[1]:
+        a = torch.nn.functional.pad(a, (0, k - a.shape[1])).contiguous()
+        b = torch.nn.functional.pad(b, (0, 0, 0, k - b.shape[0])).contiguous()
+    return a, b
+
+
+def vq_search_plain(z: torch.Tensor, codebook: torch.Tensor,
+                    block_r: int = 4096) -> torch.Tensor:
+    """argmin_n of |z|^2 + |e_n|^2 - 2 z . e_n in float32 -> (R,) int32,
+    one block of rows at a time (the first minimum, as jnp.argmin).  The
+    product runs in float32 (callers on the card turn TF32 off)."""
+    z = z.float()
+    e = codebook.float()
+    e2 = (e * e).sum(dim=1)
+    out = torch.empty(z.shape[0], dtype=torch.int32, device=z.device)
+    for r0 in range(0, z.shape[0], block_r):
+        zb = z[r0:r0 + block_r]
+        d = (zb * zb).sum(dim=1, keepdim=True) + e2[None, :] - 2.0 * (zb @ e.t())
+        out[r0:r0 + block_r] = torch.argmin(d, dim=1).to(torch.int32)
+    return out
+
+
+def vq_search(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(R, dim) rows, (N, dim) codebook -> (R,) int32 index of each row's
+    L2-nearest entry: the search kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if z.device.type == "cpu":
+        return vq_search_plain(z, codebook)
+    return gq_argmax_cuda(*vq_score_operands(z, codebook))
 
 
 def gq_scores_reference(mu: np.ndarray, std: np.ndarray, codebook: np.ndarray,

@@ -21,6 +21,15 @@ The GQ duals update from each training forward's KL statistics in both
 phases.  eps comes from the state's generator or is passed in (``eps=``),
 so a test can feed both packages the same numbers.
 
+With the vf branch and ``adaptive_vf`` the vf loss's weight is
+``||d nll / d w|| / (||d vf / d w|| + 1e-4)``, clamped to [0, 1e8] and
+scaled by ``vf_weight``, with w the encoder's last-layer weight.  The JAX
+step runs a second forward of the engine (with the same eps) for the two
+gradients; here both are taken on the step's own graph (one forward, one
+eps draw), which holds the same values: the frozen trunk's ``aux_feature``
+does not depend on w.  The nll gradient adds one backward through the
+decoder to the ae step.
+
 Data parallelism (``parallel/distributed.py``): each rank computes its
 own per-card batch and the step reduces explicitly, to the global-batch
 semantics GSPMD gives the JAX step (``autograd.grad`` bypasses
@@ -55,9 +64,11 @@ STAT_OPS = {"bits-mean": "mean", "bits-min": "min", "bits-max": "max"}
 
 
 def _dual_config(reg):
-    """(log2 codebook, tolerance, lam_factor, lam_range) for the GQ regularizer."""
+    """(log2 codebook, tolerance, lam_factor, lam_range) for the GQ regularizers."""
     if isinstance(reg, gq.GaussianQuantRegularizer):
         return (int(math.log2(reg.n_samples)), reg.tolerance, reg.lam_factor, (1e-3, 1e3))
+    if isinstance(reg, gq.GaussianQuantRegularizer2):
+        return (int(math.log2(reg.codebook_size)), reg.tolerance, reg.lam_factor, reg.lam_range)
     return None
 
 
@@ -98,6 +109,10 @@ class TrainStepBuilder:
         self.dual_cfg = _dual_config(engine.regularization)
         self.last_layer_path = self.module.last_layer_path
         self.last_layer = self.module.get_parameter(self.last_layer_path)
+        self.vf_adaptive = bool(engine.use_vf) and bool(self.loss_mod.adaptive_vf)
+        if self.vf_adaptive:
+            self.enc_last_layer = self.module.get_parameter(
+                ".".join(("encoder",) + tuple(engine.encoder.last_layer_path())))
 
     # ----------------------------------------------------------- parameters
 
@@ -132,10 +147,15 @@ class TrainStepBuilder:
         return z, reg_log
 
     def _forward_split(self, x, state: TrainState, eps):
-        """encode (train branch) -> (z, reg_log), decoder trunk h, xrec."""
+        """encode (train branch) -> (z, reg_log), decoder trunk h, xrec;
+        with the vf branch its ``aux_feature`` and ``zp`` in reg_log."""
         z, reg_log = self._encode_train(x, state, eps)
         h = self.module.decode_pre_last_layer(z, train=True)
-        return z, reg_log, h, self.module.decode_last_layer(h, train=True)
+        xrec = self.module.decode_last_layer(h, train=True)
+        if self.engine.use_vf:
+            aux, zp = self.module.vf_features(x, z)
+            reg_log = {**reg_log, "aux_feature": aux, "zp": zp}
+        return z, reg_log, h, xrec
 
     def _reduce_grads(self, grads, phase: str):
         """The ranks' mean of each gradient (in place), in
@@ -153,6 +173,15 @@ class TrainStepBuilder:
             distributed.all_reduce_mean_([nll_grad, g_grad])
         d_weight = nll_grad.norm() / (g_grad.norm() + 1e-4)
         return torch.clamp(d_weight, 0.0, 1e4).detach() * self.loss_mod.disc_weight
+
+    def _adaptive_vf_weight(self, nll, vf):
+        w = self.enc_last_layer
+        (nll_grad,) = torch.autograd.grad(nll, w, retain_graph=True)
+        (vf_grad,) = torch.autograd.grad(vf, w, retain_graph=True)
+        if self.world > 1:
+            distributed.all_reduce_mean_([nll_grad, vf_grad])
+        weight = nll_grad.norm() / (vf_grad.norm() + 1e-4)
+        return torch.clamp(weight, 0.0, 1e8).detach() * self.loss_mod.vf_weight
 
     def _update_duals(self, duals, reg_log):
         if self.dual_cfg is None or "bits-mean" not in reg_log:
@@ -178,7 +207,7 @@ class TrainStepBuilder:
             loss, log = self.loss_mod(
                 x, xrec, regularization_log=reg_log, optimizer_idx=0, global_step=state.step,
                 split="train", d_weight=self._adaptive_d_weight if disc_active else 0.0,
-                train=True)
+                vf_weight=self._adaptive_vf_weight if self.vf_adaptive else None, train=True)
             grads = torch.autograd.grad(loss, [p for _, p in named])
         grads = self._reduce_grads(list(grads), "ae")
         return dict(zip((n for n, _ in named), grads)), log, reg_log

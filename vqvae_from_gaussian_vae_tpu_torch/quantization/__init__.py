@@ -1,1 +1,1 @@
-"""Regularizers (the Gaussian-quant eval branch)."""
+"""Regularizers: GQ (the paper's), GQ2, VQ, FSQ, LFQ, BSQ, Gaussian, Identity."""

@@ -33,3 +33,8 @@ def from_tokens(z: torch.Tensor, fmt: str, hw):
         h, w = hw
         return z.reshape(b, h, w, c)
     return z
+
+
+def round_ste(z: torch.Tensor) -> torch.Tensor:
+    """Round half to even with a straight-through gradient."""
+    return z + (torch.round(z) - z).detach()

@@ -1,7 +1,9 @@
-"""Gaussian-quantization regularizer: the paper's contribution.
+"""Gaussian-quantization regularizers: the paper's contribution.
 
 Port of ``vqvae_from_gaussian_vae_tpu/quantization/gaussian.py``
-(``GaussianQuantRegularizer``, ``init_duals``, ``update_duals``).
+(``GaussianQuantRegularizer``, ``init_duals``, ``update_duals``, and the
+baselines ``GaussianRegularizer``, ``IdentityRegularizer`` and
+``GaussianQuantRegularizer2`` at the end of this module).
 
 Train branch: plain Gaussian-VAE sampling plus a three-band KL loss that
 pushes each group's KL (in bits) toward log2(n_samples) within
@@ -175,3 +177,143 @@ class GaussianQuantRegularizer(nn.Module):
         zhat = self.codebook[indices.reshape(-1).long()]
         zhat = zhat.reshape(b, l, ng, self.group).transpose(2, 3).reshape(b, l, ng * self.group)
         return from_tokens(zhat, self.format, hw)
+
+
+class GaussianRegularizer(nn.Module):
+    """The plain Gaussian-VAE KL regularizer: the reparameterised sample
+    and the standard KL (summed over tokens and channels, averaged over the
+    batch) under the key "kl".  No codebook: ``dequant`` raises."""
+
+    def __init__(self, format: str, logvar_range: Tuple[float, float] = (-30.0, 20.0)):
+        super().__init__()
+        if format not in ALL_FORMATS:
+            raise ValueError(f"unknown format {format!r}")
+        self.format = format
+        self.logvar_range = tuple(logvar_range)
+
+    def forward(self, z, train: bool = False, duals=None, generator=None, eps=None,
+                noise_rows=None):
+        zt, hw = to_tokens(z, self.format)
+        mu, logvar, std = _split_posterior(zt, self.logvar_range)
+        if eps is None:
+            eps = draw_eps(mu.shape, generator, mu.device, noise_rows)
+        zhat = mu + eps.reshape(mu.shape).to(mu) * std
+        kl = (0.5 * torch.sum(mu * mu + torch.exp(logvar) - 1.0 - logvar, dim=(1, 2))).mean()
+        zhat = from_tokens(zhat, self.format, hw)
+        if train:
+            return zhat, {"kl": kl}
+        return zhat, {"kl": kl, "zhat_noquant": zhat}
+
+    def dequant(self, indices):
+        raise NotImplementedError("pure Gaussian VAE has no codebook to dequantize from")
+
+
+class IdentityRegularizer(nn.Module):
+    """Pass-through."""
+
+    def forward(self, z, train: bool = False, duals=None, generator=None, eps=None,
+                noise_rows=None):
+        return z, {}
+
+    def dequant(self, indices):
+        return indices
+
+
+class GaussianQuantRegularizer2(nn.Module):
+    """Dimension-generic GQ with a straight-through estimate.
+
+    The channel axis ``dim_idx`` (the last, NHWC) holds (mu, logvar); each
+    half splits into contiguous sub-codebooks of width ``dim``.  Every
+    forward, train or eval, runs both branches: the Gaussian sample with the
+    three-band KL loss (its mean over rows and sub-codebooks) and the search
+    over the fixed 2^n codebook (``gq_search`` with ``beta``: the kernel on
+    the card); with ``use_ste`` the output is the Gaussian sample's
+    gradient on the code's value.  ``lam_range`` defaults to (1e-7, 1e7);
+    ``lam_max`` decays symmetrically, as the JAX package implements it.
+    """
+
+    def __init__(self, dim: int, codebook_size: int, dim_idx: int = -1,
+                 logvar_range: Tuple[float, float] = (-30.0, 20.0), tolerance: float = 0.5,
+                 lam_factor: float = 1.01, seed: int = 42, beta: float = 1.0,
+                 use_ste: bool = True, backend: str = "auto",
+                 lam_range: Tuple[float, float] = (1e-7, 1e7)):
+        super().__init__()
+        if backend not in KERNEL_BACKENDS + PLAIN_BACKENDS:
+            raise ValueError(f"unknown gq_search backend {backend!r}")
+        self.dim = dim
+        self.codebook_size = codebook_size
+        self.dim_idx = dim_idx
+        self.logvar_range = tuple(logvar_range)
+        self.tolerance = tolerance
+        self.lam_factor = lam_factor
+        self.beta = beta
+        self.use_ste = use_ste
+        self.backend = backend
+        self.lam_range = tuple(lam_range)
+        self.log_n_samples = int(math.log(codebook_size, 2))
+        table = codebook_ops.prior_samples(codebook_size, dim, seed)
+        self.register_buffer("codebook", torch.from_numpy(table.copy()), persistent=False)
+
+    def _to_rows(self, z):
+        z = torch.movedim(z, self.dim_idx, -1)
+        if z.shape[-1] % (self.dim * 2):
+            raise ValueError(f"GaussianQuantRegularizer2: {z.shape[-1]} channels are not a "
+                             f"multiple of 2 x dim {self.dim}")
+        return z.reshape(-1, z.shape[-1]), tuple(z.shape)
+
+    def _from_rows(self, x, shape):
+        return torch.movedim(x.reshape(*shape[:-1], -1), -1, self.dim_idx)
+
+    def quant_gaussian(self, z, duals, eps):
+        rows, shape = self._to_rows(z)
+        codebook_num = shape[-1] // (self.dim * 2)
+        mu, logvar, std = _split_posterior(rows, self.logvar_range)
+        zhat = mu + eps.reshape(mu.shape).to(mu) * std
+        kl2 = LOG2E * 0.5 * (mu * mu + torch.exp(logvar) - 1.0 - logvar)
+        kl2 = kl2.reshape(-1, codebook_num, self.dim).sum(dim=-1)
+        target = float(self.log_n_samples)
+        hi, lo = target + self.tolerance, target - self.tolerance
+        ge = (kl2 > hi).to(kl2.dtype) * duals["lam_max"]
+        eq = (kl2 <= hi).to(kl2.dtype) * (kl2 >= lo).to(kl2.dtype)
+        le = (kl2 < lo).to(kl2.dtype) * duals["lam_min"]
+        kl_loss = torch.mean((ge + eq + le) * kl2) * duals["lam"]
+        k = kl2.detach()
+        info = {"kl_loss": kl_loss, "bits-mean": k.mean(), "bits-min": k.min(),
+                "bits-max": k.max(), "lam": duals["lam"], "lam-min": duals["lam_min"],
+                "lam-max": duals["lam_max"], "mu": self._from_rows(mu, shape),
+                "std": self._from_rows(std, shape),
+                "zhat_noquant": self._from_rows(zhat, shape)}
+        return self._from_rows(zhat, shape), info
+
+    def quant_vq(self, z):
+        rows, shape = self._to_rows(z.detach())
+        codebook_num = shape[-1] // (self.dim * 2)
+        mu, _, std = _split_posterior(rows, self.logvar_range)
+        indices = gq_search(mu.reshape(-1, self.dim), std.reshape(-1, self.dim), self.codebook,
+                            beta=self.beta, backend=self.backend)
+        zhat = self.codebook[indices.long()].reshape(-1, codebook_num * self.dim)
+        zhat = self._from_rows(zhat, shape)
+        indices = self._from_rows(indices.reshape(-1, codebook_num), shape)
+        return zhat, {"indices": indices, "zhat_quant": zhat}
+
+    def forward(self, z, train: bool = False, duals=None, generator=None, eps=None,
+                noise_rows=None):
+        if duals is None:
+            duals = init_duals(z.device)
+        if eps is None:
+            shape = torch.movedim(z, self.dim_idx, -1).shape
+            eps = draw_eps(shape[:-1] + (shape[-1] // 2,), generator, z.device, noise_rows)
+        zhat_g, info_g = self.quant_gaussian(z, duals, eps)
+        zhat_v, info_v = self.quant_vq(z)
+        if self.use_ste:
+            zhat = zhat_g - zhat_g.detach() + zhat_v
+        else:
+            zhat = zhat_g if train else zhat_v
+        return zhat, {**info_g, **info_v}
+
+    def dequant(self, indices):
+        indices = torch.movedim(indices, self.dim_idx, -1)
+        i_shape = indices.shape
+        zhat = self.codebook[indices.reshape(-1).long()]
+        zhat = zhat.reshape(*i_shape[:-1], i_shape[-1] * self.dim)
+        return torch.movedim(zhat, -1, self.dim_idx)

@@ -37,6 +37,27 @@ for _jax_path, _pit_path, _port_path in (
     ("quantization.gaussian.GaussianQuantRegularizer",
      "pit.quantization.gaussian.GaussianQuantRegularizer",
      "quantization.gaussian.GaussianQuantRegularizer"),
+    ("quantization.gaussian.GaussianQuantRegularizer2",
+     "pit.quantization.gaussian.GaussianQuantRegularizer2",
+     "quantization.gaussian.GaussianQuantRegularizer2"),
+    ("quantization.gaussian.GaussianRegularizer", "pit.quantization.gaussian.GaussianRegularizer",
+     "quantization.gaussian.GaussianRegularizer"),
+    ("quantization.gaussian.IdentityRegularizer", "pit.quantization.gaussian.IdentityRegularizer",
+     "quantization.gaussian.IdentityRegularizer"),
+    ("quantization.vq.VQQuantizer", "pit.quantization.vq.VQQuantizer",
+     "quantization.vq.VQQuantizer"),
+    ("quantization.fsq.FSQQuantizer", "pit.quantization.fsq.FSQQuantizer",
+     "quantization.fsq.FSQQuantizer"),
+    ("quantization.lfq.LFQQuantizer", "pit.quantization.lfq.LFQQuantizer",
+     "quantization.lfq.LFQQuantizer"),
+    ("quantization.bsq.BSQQuantizer", "pit.quantization.bsq.BSQQuantizer",
+     "quantization.bsq.BSQQuantizer"),
+    # the vf branch's frozen trunk: the reference's foundation_models module
+    ("models.foundation.FoundationViT", None, "models.foundation.FoundationViT"),
+    ("models.foundation.aux_foundation_model", "pit.models.foundation_models.aux_foundation_model",
+     "models.foundation.aux_foundation_model"),
+    ("models.foundation.DINOEncoder", "pit.models.foundation_models.DINOEncoder",
+     "models.foundation.DINOEncoder"),
     ("losses.discriminator_loss.GeneralLPIPSWithDiscriminator",
      "pit.modules.losses.discriminator_loss.GeneralLPIPSWithDiscriminator",
      "losses.discriminator_loss.GeneralLPIPSWithDiscriminator"),
@@ -89,8 +110,8 @@ def resolve_target(target: str) -> str:
     """Map a config target onto an importable port path.
 
     Raises NotImplementedError for a JAX-package or reference target that
-    has no port counterpart yet (other regularizers and models, the video
-    data, the post-processor engine).
+    has no port counterpart yet (the other backbones, the video data, the
+    post-processor engine).
     """
     if target in _PORT_TARGETS:
         return _PORT_TARGETS[target]

@@ -14,6 +14,11 @@ dicts of arrays) onto the port's ``pit``-named state_dict:
   * GroupNorm and LayerNorm ``scale`` -> ``weight``
   * latent statistics (1, 1, 1, C) -> the reference's (1, C, 1, 1)
   * ``positional_embedding`` and LayerScale ``gamma`` unchanged
+  * the VQ codebook ``regularization / embedding`` -> the ``nn.Embedding``'s
+    ``regularization.embedding.weight``
+  * the vf branch: ``foundation / patch_embed`` (a conv), ``cls_token``,
+    ``pos_embed`` (unchanged), ``blocks_<i> / ...`` (the ViT block's names)
+    and ``norm``; ``linear_proj`` (a 1x1 conv)
 
 and the loss head's tree (the JAX train state's ``loss_params``) onto the
 port's loss state_dict: ``perceptual_loss / net / features_N`` ->
@@ -34,7 +39,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_LIST_SEGMENT = re.compile(r"^(down|up|block|attn|resblocks|ffn|features|main|model)_(\d+)$")
+_LIST_SEGMENT = re.compile(
+    r"^(down|up|block|blocks|attn|resblocks|ffn|features|main|model)_(\d+)$")
 _NCHW_STATS = ("latent_mean", "latent_std", "loc", "scale")  # (1, 1, 1, C) -> (1, C, 1, 1)
 
 
@@ -48,6 +54,8 @@ def _key(path, keep_leaf: bool = False) -> str:
         else:
             out.append(seg)
     leaf = path[-1]
+    if leaf == "embedding":  # a flax table param -> nn.Embedding's weight
+        return ".".join(out + [leaf, "weight"])
     if out and out[-1] == "in_proj":  # nn.MultiheadAttention's packed projection
         out[-1] = {"kernel": "in_proj_weight", "bias": "in_proj_bias"}[leaf]
     else:
