@@ -11,6 +11,14 @@ against its plain PyTorch version at the shapes the main paths give it,
 then drives each path through the entry points a user calls, at bs=16,
 256x256, with seeded random weights, and checks what comes out:
 
+  * first, serving (``serve``): the port's daemon (``serve.py``) on
+    sd3unet_gq_0.25 in bf16 at 127.0.0.1, whose worker thread makes the
+    process's first kernel launches; 16 concurrent clients send rounds of
+    /tokenize, /detokenize and /reconstruct with 256x256 PNGs, a cold load
+    then a warm one: zero 5xx replies, a live worker, the launches exactly
+    those of the drained buckets; a padded bucket against solo requests
+    in bf16 and in float32 (each reply its own latent's code); requests a
+    second, p50 and p99 a route, the bare engine's img/s at bs = 8;
   * tokenization (encode -> 2^16 GQ search -> dequant, bf16) of
     sd3unet_gq_0.25 (the UNet) and bsqvit_gq_0.25 (the ViT);
   * the two-phase GAN training pair of bsqvit_gq_0.25 and of
@@ -71,14 +79,25 @@ then drives each path through the entry points a user calls, at bs=16,
     matmul, the fused kernel at row blocks 128 to 1024) at (16384, 768) @
     (768, 2304 and 3072) bf16 through the lab's own ``run``, each output
     held to the JAX lab's reference and to its plain version;
+  * the post engine (``post``): sd3unet_gq_0.25's autoencoder with the
+    bf16 dotlist and HDiT at its defaults in bf16 (its bottleneck's global
+    attention on the flash kernels at (16, 1024, 4x64), whose entries the
+    kernel phase also holds to their plain versions), ``patch_out`` and
+    every ``attn_out`` seeded nonzero (their zero init cuts the attention
+    off the velocity): a 50-step ``post`` call with its 200 flash launches,
+    held to the same call on the einsum path, two train steps with exact
+    launches, and the bf16 poster's gradient against a float32 poster's;
   * the kernel gates, read as the JAX package reads them: an sd3unet encode
     -> dequant at 200x200 (its 25x25 AttnBlocks take the einsum path), a
     2-layer bsqvit with ``GVQ_DISABLE_FUSED_KERNELS=1`` (no LayerNorm or
     flash kernel), and a reduced-depth sd3unet ae step with
     ``GVQ_DOWNSAMPLE_BWD=conv`` and ``GVQ_UPSAMPLE_BWD=conv`` (no resample
-    dgrad or wgrad kernel), each held to the default path.
+    dgrad or wgrad kernel), each held to the default path, and sd3unet
+    with ``attn_type: linear`` at full width (no flash kernel), held to a
+    float32 engine.
 
-Every phase prints one JSON line.  The line before the last is the card's
+Every phase prints one JSON line; the ``seconds`` line gives each group of
+phases its wall seconds.  The line before the last is the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and prints
 no result line.  Nothing here imports JAX or the JAX package.
@@ -565,12 +584,26 @@ def check_resample(gen, kind: str):
             "per_step": 3, "path": "sd3unet", "shapes": shapes}
 
 
-def check_flash(gen):
+UNET_FLASH = (BATCH, 32 * 32, 1, 512)  # (B, L, heads, D): the UNet AttnBlock at 32x32
+
+
+def _flash_body(d: int, direction: str) -> str:
+    """The ``csrc`` body of the bf16 flash kernels at head dim d."""
+    wide = "_wide" if d in (256, 512) else ""
+    return f"vqvae_from_gaussian_vae_tpu_torch/csrc/flash_{direction}_sm90{wide}.cuh"
+
+
+def check_flash(gen, dims=UNET_FLASH, name="flash_attention_fwd", path="sd3unet",
+                per_step=5):
+    """The unpacked token-major forward at `dims` against its plain version,
+    SDPA's time on head-major copies beside it; `name`, `path` and
+    `per_step` name the kernel line (another name counts the launches of
+    ``flash_attention_fwd`` on that path)."""
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
 
-    b, l, heads, d = BATCH, 32 * 32, 1, 512  # the UNet AttnBlock at the 32x32 level
+    b, l, heads, d = dims
     q, k, v = (torch.randn((b, l, heads * d), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     scale = d ** -0.5
@@ -590,10 +623,10 @@ def check_flash(gen):
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)),
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
              "max_abs_err": err, **flash_fwd_kernel_facts(d, l, l)}
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90_wide.cuh",
+    return {"name": name, "counters": ["flash_attention_fwd"], "route": "cuda",
+            "source": _flash_body(d, "fwd"),
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:319",
-            "tolerance": f"bf16 atol {FLASH_ATOL}", "per_step": 5, "path": "sd3unet",
+            "tolerance": f"bf16 atol {FLASH_ATOL}", "per_step": per_step, "path": path,
             "shapes": [shape]}
 
 
@@ -822,14 +855,16 @@ def check_resample_bwd(gen, kind: str):
              "shapes": wshapes}]
 
 
-def check_flash_res(gen):
-    """The unpacked training forward (the UNet AttnBlock's): o and z against
-    the plain version; its time beside the inference entry's."""
+def check_flash_res(gen, dims=UNET_FLASH, name="flash_attention_res_fwd",
+                    path="sd3unet_train_ae", per_step=5):
+    """The unpacked training forward (the UNet AttnBlock's, or at `dims`):
+    o and z against the plain version; its time beside the inference
+    entry's."""
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
 
-    b, l, heads, d = BATCH, 32 * 32, 1, 512
+    b, l, heads, d = dims
     q, k, v = (torch.randn((b, l, heads * d), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     scale = d ** -0.5
@@ -855,23 +890,24 @@ def check_flash_res(gen):
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
              "max_abs_err": max(err, z_err), "o_max_abs_err": err, "z_max_abs_err": z_err,
              **flash_fwd_kernel_facts(d, l, l)}
-    return {"name": "flash_attention_res_fwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_fwd_sm90_wide.cuh",
+    return {"name": name, "counters": ["flash_attention_res_fwd"], "route": "cuda",
+            "source": _flash_body(d, "fwd"),
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:387",
-            "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}", "per_step": 5,
-            "path": "sd3unet_train_ae", "shapes": [shape]}
+            "tolerance": f"o bf16 atol {FLASH_ATOL}; z atol {Z_ATOL}", "per_step": per_step,
+            "path": path, "shapes": [shape]}
 
 
-def check_flash_bwd(gen):
-    """The unpacked D=512 backward at the UNet AttnBlock's shape (the wide
-    wgmma body, two blocks a cluster): dq, dk, dv against the plain version,
-    bit-equal across two runs; its kernels' symbols, registers, spills and
-    HGMMA counts."""
+def check_flash_bwd(gen, dims=UNET_FLASH, name="flash_attention_bwd",
+                    path="sd3unet_train_ae", per_step=5):
+    """The unpacked backward at the UNet AttnBlock's shape (D = 512: the
+    wide wgmma body, two blocks a cluster), or at `dims`: dq, dk, dv
+    against the plain version, bit-equal across two runs; its kernels'
+    symbols, registers, spills and HGMMA counts."""
     import torch
     import torch.nn.functional as F
     from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention as fa
 
-    b, l, heads, d = BATCH, 32 * 32, 1, 512
+    b, l, heads, d = dims
     q, k, v, do = (torch.randn((b, l, heads * d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
@@ -882,9 +918,9 @@ def check_flash_bwd(gen):
     torch.cuda.synchronize()
     require(all(torch.equal(x, y) for x, y in zip(got, again)), "flash backward: two runs differ")
     errs = []
-    for name, g, w in zip("qkv", got, want):
+    for which, g, w in zip("qkv", got, want):
         rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
-        require(rel <= FLASH_BWD_REL, f"flash backward: d{name} error {rel} of max |grad|")
+        require(rel <= FLASH_BWD_REL, f"flash backward: d{which} error {rel} of max |grad|")
         errs.append(rel)
     err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
     del want, again
@@ -905,12 +941,12 @@ def check_flash_bwd(gen):
              "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
              "max_abs_err": err, "rel_err_dq_dk_dv": errs, "bit_reproducible": True,
              **flash_bwd_kernel_facts(d, l, l)}
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "vqvae_from_gaussian_vae_tpu_torch/csrc/flash_bwd_sm90_wide.cuh",
+    return {"name": name, "counters": ["flash_attention_bwd"], "route": "cuda",
+            "source": _flash_body(d, "bwd"),
             "replaces": "vqvae_from_gaussian_vae_tpu/ops/flash_blc.py:439",
             "tolerance": f"max error / max |grad| <= {FLASH_BWD_REL} per dq, dk, dv; "
                          "bit-equal across runs",
-            "per_step": 5, "path": "sd3unet_train_ae", "shapes": [shape]}
+            "per_step": per_step, "path": path, "shapes": [shape]}
 
 
 PCIE_SMS = 114  # an H100 PCIe's SMs: the persistent grids' plans must fit it too
@@ -1700,7 +1736,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 # the regularizers phase: the sd3unet configs whose regularizer (or vf
 # branch) is not the GQ pair's, each with the bf16 overlay at full width and
-# depth: launches of one ae, disc and eval step.  VQ and GQ2 search on every
+# one resblock a level (for the smoke's time; at full depth their pairs ran
+# within 3% of the GQ pair's but FSQ's, PERF.md §5): launches of one ae, disc and eval
+# step, whose 32x32 level holds one AttnBlock in the encoder and two in the
+# decoder (flash 3 a step, not 5).  VQ and GQ2 search on every
 # forward (the GQ search kernel, B1); FSQ, LFQ, BSQ and the Gaussian search
 # on none.  The vf config's frozen DINOv2 ViT-L runs 48 LayerNorm launches
 # (B6a) a forward (the ae and eval steps), and its adaptive vf weight's nll
@@ -1708,10 +1747,13 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 # 3 flash backward.
 B1 = {"gq_argmax": 1}
 VF_TRUNK = {"layer_norm_fwd": 48}
-UNET_AE_VF = {**UNET_AE, "upsample_dgrad": 6, "upsample_wgrad": 6, "flash_attention_bwd": 8,
-              **VF_TRUNK}
-PLAIN_REG = {"ae": UNET_AE, "disc": UNET_DISC, "eval": UNET_DISC}
-SEARCH_REG = {"ae": {**UNET_AE, **B1}, "disc": {**UNET_DISC, **B1}, "eval": {**UNET_DISC, **B1}}
+REG_DEPTH = {"num_res_blocks": 1}
+REG_AE = {**UNET_AE, "flash_attention_res_fwd": 3, "flash_attention_bwd": 3}
+REG_DISC = {**UNET_DISC, "flash_attention_fwd": 3}
+REG_AE_VF = {**REG_AE, "upsample_dgrad": 6, "upsample_wgrad": 6, "flash_attention_bwd": 5,
+             **VF_TRUNK}
+PLAIN_REG = {"ae": REG_AE, "disc": REG_DISC, "eval": REG_DISC}
+SEARCH_REG = {"ae": {**REG_AE, **B1}, "disc": {**REG_DISC, **B1}, "eval": {**REG_DISC, **B1}}
 REG_PATHS = {
     "sd3unet_vq_16": {"search": "vq", "launches": SEARCH_REG, "grad_check": True,
                       "entry_point": True, "watched": ["regularization.embedding.weight"]},
@@ -1721,14 +1763,15 @@ REG_PATHS = {
     "sd3unet_gq2_0.25": {"search": "gq2", "launches": SEARCH_REG, "duals": True},
     "sd3unet_gaussian_kl_0.64": {"launches": PLAIN_REG, "indices": False},
     "sd3unet_gq_0.25_gaussian": {"launches": PLAIN_REG, "indices": False},
-    "sd3unet_gq_0.25_vf": {"launches": {"ae": UNET_AE_VF, "disc": UNET_DISC,
-                                        "eval": {**UNET_DISC, **B1, **VF_TRUNK}},
+    "sd3unet_gq_0.25_vf": {"launches": {"ae": REG_AE_VF, "disc": REG_DISC,
+                                        "eval": {**REG_DISC, **B1, **VF_TRUNK}},
                            "grad_check": True, "entry_point": True, "duals": True,
                            "watched": ["linear_proj.weight"],
                            "frozen": "foundation.blocks.0.attn.in_proj_weight"},
 }
 for _name, _spec in REG_PATHS.items():
-    _spec.update(configs=[f"configs/{_name}.yaml", BF16_OVERLAY], tokens=32 * 32)
+    _spec.update(configs=[f"configs/{_name}.yaml", BF16_OVERLAY], tokens=32 * 32,
+                 overrides=REG_DEPTH)
 REG_TIMED = 2  # timed pairs after one counted warm-up pair
 REG_ENTRY_IMAGES = 32  # the training entry point's folder: 2 steps at bs=16
 
@@ -2107,6 +2150,7 @@ def run_regularizer(gen, path: str) -> dict:
             f"{path}: duals {duals0} -> {duals1}")
     ae_mean, disc_mean = sum(ae_ms) / len(ae_ms), sum(disc_ms) / len(disc_ms)
     result = {"phase": "regularizers", "path": path, "configs": spec["configs"],
+              "overrides": spec["overrides"],
               "regularizer": type(engine.regularization).__name__,
               "dtype": "bfloat16 compute, float32 parameters", "batch": BATCH,
               "resolution": RES, "build_s": build_s,
@@ -2158,6 +2202,8 @@ def _train_entry_point(path: str) -> dict:
         argv = ["--base", *[os.path.join(ROOT, c) for c in spec["configs"]], "--name", path,
                 "--max_steps", "2", f"data.params.train.params.root={images}",
                 "model.params.loss_config.params.disc_start=1",
+                *[f"model.params.encoder_config.params.{k}={v}"
+                  for k, v in spec.get("overrides", {}).items()],
                 "training.trainer.log_every_n_steps=1", "--seed", str(SEED), "--no-test",
                 "--logdir", os.path.join(tmp, "logs")]
         for k in counters.values():  # the entry point's counts: 0 just before it
@@ -2997,10 +3043,11 @@ def run_trainer(gen, train_results) -> dict:
 
 # ---------------------------------------------------------------------------
 # the data-parallel phases: the training entry point and the evaluation sweep
-# under ``torchrun --nproc_per_node 2`` (this file's ``--ddp-worker`` and
-# ``--eval-worker`` modes wrap the entry points to count and time what each
-# rank does, then call them).  Two cards give NCCL, a card a rank; one card
-# gives gloo, both ranks on card 0.
+# under one ``torchrun --nproc_per_node 2``: this file's ``--ddp-worker``
+# mode wraps the training entry point to count and time what each rank does
+# and calls it, then (``--eval-after``) the evaluation entry point the same
+# way (``eval_worker``) in the same ranks.  Two cards give NCCL, a card a
+# rank; one card gives gloo, both ranks on card 0.
 
 DDP_RANKS = 2
 DDP_BATCH = BATCH // DDP_RANKS  # per rank: a step's joined batch is the trainer phase's
@@ -3011,10 +3058,12 @@ EVAL_FID_REL = 1e-3
 EVAL_LAUNCHES = PATHS["sd3unet"]["launches"]  # a batch: the inference path's step
 
 
-def torchrun(worker: str, out_dir: str, argv, timeout: float = 600.0) -> None:
-    """This file's ``worker`` mode on DDP_RANKS ranks under torchrun."""
+def torchrun(worker: str, out_dir: str, argv, timeout: float = 600.0, options=()) -> None:
+    """This file's ``worker`` mode (with ``options``) on DDP_RANKS ranks
+    under torchrun."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(DDP_RANKS), os.path.join(ROOT, "chip_smoke.py"), worker, out_dir, "--", *argv]
+           str(DDP_RANKS), os.path.join(ROOT, "chip_smoke.py"), worker, out_dir, *options, "--",
+           *argv]
     proc = subprocess.run(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, timeout=timeout)
     with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
@@ -3074,11 +3123,14 @@ class _Patched:
             setattr(obj, name, old)
 
 
-def ddp_worker(out_dir: str, argv) -> int:
+def ddp_worker(out_dir: str, argv, keep_group: bool = False) -> int:
     """One rank of the ddp phase: the port's ``main(argv)`` with its steps,
     the gradient all-reduces and the first ae step's update watched; then
     the state's digest, and on rank 0 the first ae step's gradient again in
-    one process on the joined batch."""
+    one process on the joined batch.  With ``keep_group`` the process group
+    stays up for the evaluation entry point that follows in the same ranks
+    (a group made again after ``destroy_process_group`` takes the first
+    one's name, and its rendezvous could read the first one's keys)."""
     import numpy as np
     import torch
     from vqvae_from_gaussian_vae_tpu_torch import main as port_main
@@ -3137,6 +3189,8 @@ def ddp_worker(out_dir: str, argv) -> int:
 
     patches = [(ts.TrainStepBuilder, f"{k}_step", wrap(k)) for k in steps]
     patches += [(distributed, "all_reduce_mean_", timed_reduce), (ts, "_apply", apply)]
+    if keep_group:
+        patches.append((distributed, "shutdown", lambda: None))
     t0 = time.perf_counter()
     with _Patched(*patches):
         trainer = port_main.main(argv)
@@ -3159,7 +3213,8 @@ def ddp_worker(out_dir: str, argv) -> int:
     with open(os.path.join(out_dir, f"ddp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     distributed.barrier()
-    distributed.shutdown()
+    if not keep_group:
+        distributed.shutdown()
     return 0
 
 
@@ -3350,9 +3405,11 @@ def _compare_indices(one: dict, two: dict, config: str) -> dict:
     return result
 
 
-def run_ddp(images: str, tmp: str, train_results) -> dict:
+def run_ddp(images: str, tmp: str, train_results, eval_dir: str) -> dict:
     """The port's training entry point on DDP_RANKS ranks (``torchrun``), on
-    the trainer phase's folder at DDP_BATCH images a rank."""
+    the trainer phase's folder at DDP_BATCH images a rank; then, in the same
+    ranks, the evaluation entry point on the arguments in ``eval_dir`` (the
+    eval_sweep phase's two-rank run: one torchrun start for both)."""
     out_dir = os.path.join(tmp, "ddp")
     os.makedirs(out_dir)
     argv = ["--base", os.path.join(ROOT, TRAIN_PATHS["sd3unet"]["configs"][0]),
@@ -3366,7 +3423,7 @@ def run_ddp(images: str, tmp: str, train_results) -> dict:
             "training.trainer.log_every_n_steps=1", "--seed", str(SEED), "--no-test",
             "--logdir", os.path.join(tmp, "ddp_logs")]
     t0 = time.perf_counter()
-    torchrun("--ddp-worker", out_dir, argv)
+    torchrun("--ddp-worker", out_dir, argv, options=["--eval-after", eval_dir])
     wall = time.perf_counter() - t0
     ranks = _rank_outputs(out_dir, "ddp")
     require([r["rank"] for r in ranks] == list(range(DDP_RANKS)), "ddp: missing ranks")
@@ -3407,48 +3464,63 @@ def run_ddp(images: str, tmp: str, train_results) -> dict:
             "disc_start": TRAINER_DISC_START, "state_digests_equal": len(digests),
             "launches_per_step": launches[0], "grad_vs_one_process": g,
             "joined_img_per_s": len(step_ms) * DDP_BATCH * DDP_RANKS / step_s,
-            "per_phase": per_phase, "torchrun_seconds": wall,
+            "per_phase": per_phase, "torchrun_seconds_with_the_two_rank_sweep": wall,
             "rank_main_seconds": [r["main_seconds"] for r in ranks],
             "peak_mem_gib": [r["peak_mem_gib"] for r in ranks]}
 
 
-def run_eval_sweep(images: str, tmp: str) -> dict:
-    """The port's evaluation entry point on the same images: under torchrun
-    on DDP_RANKS ranks on the folder, and in this process on one rank on a
-    ``.txt`` list of the folder's files in the order the ranks' shards
-    cover them, so that each image sits in the same batch at the same
-    position in both sweeps (cuDNN's bf16 3x3 conv gives the first and last
-    image of a batch other bits when they change places:
+EVAL_CONFIG = "configs/sd3unet_gq_0.25.yaml"
+
+
+def eval_sweep_argv(images: str, tmp: str):
+    """(argv of the two-rank sweep on the folder, written to ``<tmp>/eval2``
+    for the ddp ranks to run after their training; argv of the one-rank
+    sweep on a ``.txt`` list of the folder's files in the order the ranks'
+    shards cover them, so that each image sits in the same batch at the
+    same position in both sweeps: cuDNN's bf16 3x3 conv gives the first and
+    last image of a batch other bits when they change places,
     ``labs/batch_position_probe.py``)."""
-    import numpy as np
-    import torch
     from vqvae_from_gaussian_vae_tpu_torch.data.dataset import SimpleDataset
 
-    config = "configs/sd3unet_gq_0.25.yaml"
     inc, lp = _seeded_metric_weights(tmp)
     files = SimpleDataset(images, RES).fpaths
     shard_order = os.path.join(tmp, "shard_order.txt")
     with open(shard_order, "w") as f:
         f.write("\n".join(p for r in range(DDP_RANKS) for p in files[r::DDP_RANKS]))
-    argv = ["--base", os.path.join(ROOT, config), "--img_size", str(RES), "--bs", str(BATCH),
-            "--dtype", "bfloat16", "--inception_weights", inc, "--lpips_weights", lp]
+    argv = ["--base", os.path.join(ROOT, EVAL_CONFIG), "--img_size", str(RES), "--bs",
+            str(BATCH), "--dtype", "bfloat16", "--inception_weights", inc, "--lpips_weights", lp]
     require(len(files) % (DDP_RANKS * BATCH) == 0, "eval_sweep: shards of whole batches")
+    two = os.path.join(tmp, f"eval{DDP_RANKS}")
+    os.makedirs(two)
+    with open(os.path.join(two, "argv.json"), "w") as f:
+        json.dump(argv + ["--dataset", images], f)
+    return two, argv + ["--dataset", shard_order]
+
+
+def run_eval_sweep(tmp: str, one_argv) -> dict:
+    """The port's evaluation entry point on the same images in this process
+    on one rank (``one_argv``), held to the two-rank sweep that the ddp
+    phase's ranks ran after their training (``eval_sweep_argv``)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    config = EVAL_CONFIG
     runs = {}
     for n in (1, DDP_RANKS):
         out_dir = os.path.join(tmp, f"eval{n}")
-        os.makedirs(out_dir)
         t0 = time.perf_counter()
         if n == 1:
-            import contextlib
-
+            os.makedirs(out_dir)
             with contextlib.redirect_stdout(sys.stderr):
-                eval_worker(out_dir, argv + ["--dataset", shard_order])
+                eval_worker(out_dir, one_argv)
             outs = [json.load(open(os.path.join(out_dir, "eval_rank0.json")))]
         else:
-            torchrun("--eval-worker", out_dir, argv + ["--dataset", images])
             outs = _rank_outputs(out_dir, "eval")
-        runs[n] = {"outs": outs, "wall": time.perf_counter() - t0, "dir": out_dir,
-                   "hist": np.load(os.path.join(out_dir, "hist.npy"))}
+        runs[n] = {"outs": outs, "wall": (time.perf_counter() - t0 if n == 1 else
+                                          max(o["main_seconds"] for o in outs)),
+                   "dir": out_dir, "hist": np.load(os.path.join(out_dir, "hist.npy"))}
         torch.cuda.empty_cache()
     one, two = runs[1]["outs"][0], runs[DDP_RANKS]["outs"]
     require(one["images"] == two[0]["images"] == TRAINER_IMAGES,
@@ -3499,7 +3571,8 @@ def run_eval_sweep(images: str, tmp: str) -> dict:
             "one_rank": timing(one), "two_ranks": [timing(o) for o in two],
             "two_ranks_joined_img_per_s": TRAINER_IMAGES / max(
                 o["sweep_ms"] for o in two) * 1e3,
-            "seconds": {n: runs[n]["wall"] for n in runs}, "metrics_off_their_bars": far}
+            "seconds": {n: runs[n]["wall"] for n in runs},  # ranks: their main's
+            "metrics_off_their_bars": far}
     if far:
         emit(line)  # what was measured, then the failure
     require(not far, f"eval_sweep: one rank against {DDP_RANKS}: {far}")
@@ -3518,11 +3591,485 @@ def run_data_parallel(train_results):
     try:
         images = write_images(os.path.join(tmp, "images"), TRAINER_IMAGES)
         torch.cuda.empty_cache()
-        ddp = run_ddp(images, tmp, train_results)
+        two_dir, one_argv = eval_sweep_argv(images, tmp)
+        ddp = run_ddp(images, tmp, train_results, two_dir)
         emit(ddp)
-        emit(run_eval_sweep(images, tmp))
+        emit(run_eval_sweep(tmp, one_argv))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# serving, the post engine, the UNet's linear attention
+
+# the serve phase: the port's daemon (``serve.py``) on sd3unet_gq_0.25 with
+# its bf16 dotlist, in this process on 127.0.0.1; SERVE_CLIENTS clients each
+# send SERVE_ROUNDS rounds of /tokenize, /detokenize (of its own tokens) and
+# /reconstruct.  A drained /tokenize bucket runs the encoder's kernels and
+# the search, a /detokenize bucket the decoder's; /reconstruct is one of each.
+SERVE_CONFIG = "configs/sd3unet_gq_0.25.yaml"
+SERVE_BF16 = ["model.params.encoder_config.params.dtype=bfloat16"]
+SERVE_MAX_BATCH = 8
+SERVE_WINDOW_MS = 5.0
+SERVE_CLIENTS = 16
+SERVE_ROUNDS = 4
+SERVE_TOKENIZE = {"gq_argmax": 1, "downsample_conv3x3_gn": 3, "flash_attention_fwd": 2}
+SERVE_DETOKENIZE = {"upsample_nearest_conv3x3_gn": 3, "flash_attention_fwd": 3}
+SERVE_PROBE = 5  # requests queued at once for the bucket-vs-solo probe: one bucket of 8
+
+
+def _png_bytes(rgb) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _serve_images(n: int, seed: int):
+    """n seeded 256x256 RGB images (uint8): smooth gradients plus noise, so
+    the latents are not all alike."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ramp = np.linspace(0, 1, RES, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        a, b, c = rng.uniform(0, 255, 3)
+        base = a * ramp[None, :, None] + b * ramp[:, None, None] + c * 0.2
+        img = base + rng.normal(0, 40, (RES, RES, 3))
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def _percentile(values, q: float) -> float:
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, int(round(q / 100 * (len(vals) - 1))))]
+
+
+def _pair_gaps(rows, first, second, mu, std, codebook):
+    """For each row: (float64 score of code `first` - score of `second`, the
+    near-tie bound) at the posterior (mu, std)."""
+    from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import gq_scores_reference
+
+    out = []
+    for r in rows:
+        s = gq_scores_reference(mu[r:r + 1].cpu().numpy(), std[r:r + 1].cpu().numpy(),
+                                codebook[[int(first[r]), int(second[r])]].cpu().numpy())[0]
+        out.append((float(s[0] - s[1]), NEAR_TIE * max(1.0, abs(float(s[1])))))
+    return out
+
+
+def _bucket_vs_solo(service, images) -> dict:
+    """The daemon's padding and positions against a solo request: the
+    `images` queued at once drain as one padded bucket (positions 0..n-1,
+    the last repeated), then each alone (a bucket of 1).  At each differing
+    index the float64 score gap of the two codes is taken at the bucket's
+    latent and at the solo's.  Required: each reply's code scores at least
+    as well at its own latent (within the near-tie bound), so the search is
+    right for the latent it was given and the mismatch is a tie that the
+    latent's move broke: each gap is at most the pair's gap change between
+    the two latents (their sum).  Reported: how many are also near-ties at
+    NEAR_TIE (that bound is for one latent; a latent that moves by Δ moves a
+    pair's score by about Δ |c - mu| / std^2), and the largest latent
+    difference between bucket and solo."""
+    import threading
+
+    import numpy as np
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.quantization.gaussian import _split_posterior
+
+    engine = service.engine
+    boxes = []
+    with service._cv:  # one drain takes them all, in this order
+        for img in images:
+            box, done = {}, threading.Event()
+            service._pending["tokenize"].append((("tokenize", img), box, done))
+            boxes.append((box, done))
+        service._cv.notify()
+    for box, done in boxes:
+        require(done.wait(600) and "result" in box, f"bucket-vs-solo probe: {box}")
+    bucket = [box["result"] for box, _ in boxes]
+    solo = [service.tokenize(img) for img in images]
+    n, cap = len(images), service.max_batch
+    padded = np.stack(images + [images[-1]] * (service._bucket(n, cap) - n))
+    reg = engine.regularization
+    z_b, _ = engine.encode(torch.from_numpy(padded).cuda(), unregularized=True)
+    mismatched, z_diff = [], 0.0
+    worst = {"bucket_latent": 0.0, "solo_latent": 0.0}
+    for i, img in enumerate(images):
+        z_s, _ = engine.encode(torch.from_numpy(img[None]).cuda(), unregularized=True)
+        z_diff = max(z_diff, float((z_b[i].float() - z_s[0].float()).abs().max()))
+        got = bucket[i].reshape(-1)
+        want = solo[i].reshape(-1)
+        rows = np.nonzero(got != want)[0].tolist()
+        post = {}
+        for key, z in (("bucket_latent", z_b[i:i + 1]), ("solo_latent", z_s)):
+            mu, _, std = _split_posterior(z.reshape(1, 32 * 32, -1), reg.logvar_range)
+            post[key] = (reg.rows(mu), reg.rows(std))
+        at_b = _pair_gaps(rows, got, want, *post["bucket_latent"], reg.codebook)
+        at_s = _pair_gaps(rows, want, got, *post["solo_latent"], reg.codebook)
+        for r, (gb, tb), (gs, ts) in zip(rows, at_b, at_s):
+            require(gb >= -tb and gs >= -ts,
+                    f"bucket-vs-solo image {i} row {r}: a reply is not its latent's code "
+                    f"(gaps {gb} at the bucket's latent, {gs} at the solo's)")
+            tie = gb <= tb and gs <= ts
+            worst["bucket_latent"] = max(worst["bucket_latent"], gb)
+            worst["solo_latent"] = max(worst["solo_latent"], gs)
+            mismatched.append({"image": i, "row": r, "bucket_code": int(got[r]),
+                               "solo_code": int(want[r]), "gap_at_bucket_latent": gb,
+                               "gap_at_solo_latent": gs, "gap_change": gb + gs,
+                               "near_tie": tie})
+    return {"requests": n, "bucket": service._bucket(n, cap), "mismatches": len(mismatched),
+            "near_ties": sum(m["near_tie"] for m in mismatched),
+            "mismatched": mismatched[:16], "max_gap": worst, "max_latent_abs_diff": z_diff}
+
+
+def _serve_load(url, pngs, service, counters, drains, buckets) -> dict:
+    """One load on the daemon: each of SERVE_CLIENTS threads sends
+    SERVE_ROUNDS rounds of /tokenize, /detokenize of its reply and
+    /reconstruct.  Required: every reply 200 (no 5xx), the worker alive, and
+    the launches exactly the drained buckets' (`counters` set to 0 before);
+    the requests a second, p50 and p99 a route and the mean drained batch."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    lat = {"tokenize": [], "detokenize": [], "reconstruct": []}
+    codes, errors = [], []
+    lock = threading.Lock()
+
+    def request(route, body, kind):
+        req = urllib.request.Request(f"{url}/{route}", data=body,
+                                     headers={"Content-Type": kind})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                out, code = r.read(), r.status
+        except urllib.error.HTTPError as e:
+            out, code = e.read(), e.code
+        with lock:
+            lat[route].append(1e3 * (time.perf_counter() - t0))
+            codes.append(code)
+        return out, code
+
+    def client(i):
+        try:
+            for _ in range(SERVE_ROUNDS):
+                tok, code = request("tokenize", pngs[i], "image/png")
+                if code == 200:
+                    request("detokenize", tok, "application/json")
+                request("reconstruct", pngs[i], "image/png")
+        except Exception as e:  # a client that fails is reported, and fails the phase
+            with lock:
+                errors.append(repr(e))
+
+    for k in counters.values():
+        k.launches = 0
+    drains.clear()
+    buckets.update(tokenize=0, detokenize=0)
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in counters.items()}
+    require(not any(c.is_alive() for c in clients), "serve: a client did not finish")
+    require(not errors, f"serve: client errors {errors[:3]}")
+    fives = sum(1 for c in codes if c >= 500)
+    require(fives == 0 and all(c == 200 for c in codes),
+            f"serve: {fives} replies of 5xx, codes {sorted(set(codes))}")
+    require(service.worker_alive(), "serve: the worker thread died")
+    expected = {n: buckets["tokenize"] * SERVE_TOKENIZE.get(n, 0)
+                + buckets["detokenize"] * SERVE_DETOKENIZE.get(n, 0) for n in counts}
+    launches = require_launches(f"serve ({buckets} buckets)", counts,
+                                {n: v for n, v in expected.items() if v})
+    return {"requests": len(codes), "replies_5xx": fives, "worker_alive": True,
+            "requests_per_s": len(codes) / wall, "wall_s": wall,
+            "latency_ms": {r: {"n": len(v), "p50": _percentile(v, 50),
+                               "p99": _percentile(v, 99)} for r, v in lat.items()},
+            "drains": len(drains), "mean_drained_batch": sum(drains) / len(drains),
+            "buckets": dict(buckets), "launches": launches}
+
+
+def run_serve(gen) -> dict:
+    """The serving daemon through its HTTP surface, its worker thread making
+    the process's first launches of the path's kernels (this phase runs
+    before any other), then the bucket-vs-solo probe in bf16 and in float32
+    (TF32 off), and the bare engine's encode -> dequant at bs = 8."""
+    import json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import serve
+
+    config = os.path.join(ROOT, SERVE_CONFIG)
+    service, name = serve.build_service(config, image_size=RES, max_batch=SERVE_MAX_BATCH,
+                                        batch_window_ms=SERVE_WINDOW_MS, overrides=SERVE_BF16,
+                                        device="cuda")
+    engine = service.engine
+    require(engine.encoder.dtype == torch.bfloat16, "serve: the engine is not bf16")
+    drains, buckets = [], {"tokenize": 0, "detokenize": 0}
+
+    def bucket(n, cap):  # the service's own rule, each drain recorded
+        drains.append(n)
+        return serve.TokenizerService._bucket(n, cap)
+
+    def counting(kind, fn):
+        def call(x):
+            buckets[kind] += 1
+            return fn(x)
+        return call
+
+    service._bucket = bucket
+    engine.quant = counting("tokenize", engine.quant)
+    engine.dequant = counting("detokenize", engine.dequant)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service, name))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        require(health == {"status": "ok", "model": os.path.basename(config),
+                           "devices": torch.cuda.device_count()}, f"serve: /healthz {health}")
+        pngs = [_png_bytes(img) for img in _serve_images(SERVE_CLIENTS, SEED)]
+        counters = launch_counters()
+        result = {"phase": "serve", "config": SERVE_CONFIG, "overrides": SERVE_BF16,
+                  "image_size": RES, "max_batch": SERVE_MAX_BATCH,
+                  "batch_window_ms": SERVE_WINDOW_MS, "clients": SERVE_CLIENTS,
+                  "rounds": SERVE_ROUNDS, "healthz": health,
+                  "launches_per_bucket": {"tokenize": SERVE_TOKENIZE,
+                                          "detokenize": SERVE_DETOKENIZE},
+                  # the first load makes the worker's first launches; the second is warm
+                  "cold": _serve_load(url, pngs, service, counters, drains, buckets),
+                  "warm": _serve_load(url, pngs, service, counters, drains, buckets)}
+        probe = _serve_images(SERVE_PROBE, SEED + 1)
+        arrays = [img.astype(np.float32) / 127.5 - 1.0 for img in probe]
+        result["bucket_vs_solo_bf16"] = _bucket_vs_solo(service, arrays)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    # the bare engine at the daemon's largest bucket: encode -> dequant, bs = 8
+    x = torch.rand((SERVE_MAX_BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+
+    def step():
+        _, idx = engine.quant(x)
+        return engine.dequant(idx)
+
+    step()
+    iters = 5
+    ms = sum(_host_ms(step) for _ in range(iters)) / iters
+    result["bare_engine_bs8"] = {"step_ms": ms, "img_per_s": SERVE_MAX_BATCH / (ms / 1e3)}
+    del service, engine
+    torch.cuda.empty_cache()
+    fp32, _ = serve.build_service(config, image_size=RES, max_batch=SERVE_MAX_BATCH,
+                                  batch_window_ms=SERVE_WINDOW_MS, device="cuda")
+    result["bucket_vs_solo_float32"] = _bucket_vs_solo(fp32, arrays)
+    del fp32
+    torch.cuda.empty_cache()
+    return result
+
+
+# the post phase: the post engine on sd3unet_gq_0.25's autoencoder with the
+# bf16 dotlist and create_hdit_model's defaults at bf16 (patch 4, widths
+# 128, 256, depths 2, 4, heads 2, 4, windows 8, 0, mapping 256), bs = 16,
+# 256x256, 50 Euler steps.  Only the four bottleneck blocks' global
+# attention (L = 1024, four heads of 64) passes the flash gate; the level-0
+# windows hold 64 tokens.
+POST_STEPS = 50
+POST_MID_BLOCKS = 4
+HDIT_FLASH = (BATCH, 32 * 32, 4, 64)  # (B, L, heads, D) at the bottleneck
+POST_LAUNCHES = {"flash_attention_fwd": POST_MID_BLOCKS * POST_STEPS}
+POST_TRAIN = {"gq_argmax": 1, "downsample_conv3x3_gn": 3, "upsample_nearest_conv3x3_gn": 3,
+              "flash_attention_fwd": 5, "flash_attention_res_fwd": POST_MID_BLOCKS,
+              "flash_attention_bwd": POST_MID_BLOCKS}
+POST_LR = 1e-4
+# the post call's displacement x_50 - x_0, flash kernels against the einsum
+# path (GVQ_DISABLE_FUSED_KERNELS=1) from the same start: bf16 rounds p
+# at other places (PATH_SWITCH_REL_L2's reason), and 50 Euler steps add
+# those per-step differences up without amplifying them
+POST_SWITCH_REL_L2 = 2e-2
+# the zero-initialised heads that would cut the attention off v: patch_out
+# (v = 0) and attn_out (the attention's output times zero); seeded N(0, 1/fan_in)
+POST_SEEDED_HEADS = ("patch_out.", "attn_out.")
+
+
+def build_post_engine(dtype: str = "bfloat16"):
+    from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
+
+    cfg = load_config(os.path.join(ROOT, SERVE_CONFIG), SERVE_BF16)
+    p = cfg["model"]["params"]
+    post = {"target": "vqvae_from_gaussian_vae_tpu.models.postprocessor.AutoencodingPostEngine",
+            "params": {"encoder_config": p["encoder_config"],
+                       "decoder_config": p["decoder_config"],
+                       "regularizer_config": p["regularizer_config"],
+                       "post_config": {"target":
+                                       "vqvae_from_gaussian_vae_tpu.models.hdit.create_hdit_model",
+                                       "params": {"dtype": dtype}},
+                       "clamp_range": p.get("clamp_range", [-1.0, 1.0]),
+                       "num_flow_steps": POST_STEPS}}
+    engine = instantiate_from_config(post, seed=SEED, device="cuda")
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    with torch.no_grad():
+        for name, prm in engine.poster.named_parameters():
+            if any(h in f".{name}" for h in POST_SEEDED_HEADS) and prm.dim() == 2:
+                prm.copy_((torch.randn(prm.shape, generator=gen) * prm.shape[1] ** -0.5)
+                          .to(prm.device))
+    return engine
+
+
+def check_flash_hdit(gen) -> list:
+    """The unpacked token-major flash entries at HDiT's bottleneck, (16,
+    1024, 4x64) bf16, on the D = 64 ``wgmma`` bodies (192-row q tiles of the
+    forward: 1024 rows end in a ragged tile): the forward, the training
+    forward with z and the backward, each against its plain version."""
+    return [check_flash(gen, HDIT_FLASH, "flash_attention_fwd_hdit", "post",
+                        POST_LAUNCHES["flash_attention_fwd"]),
+            check_flash_res(gen, HDIT_FLASH, "flash_attention_res_fwd_hdit", "post_train_step",
+                            POST_MID_BLOCKS),
+            check_flash_bwd(gen, HDIT_FLASH, "flash_attention_bwd_hdit", "post_train_step",
+                            POST_MID_BLOCKS)]
+
+
+def _post_grads(engine, x, t, noise) -> dict:
+    for p in engine.poster.parameters():
+        p.grad = None
+    engine.flow_loss(x, t=t, noise=noise).backward()
+    return {n: p.grad.detach().clone() for n, p in engine.poster.named_parameters()
+            if p.grad is not None}
+
+
+def run_post(gen) -> dict:
+    """The post engine through its own API at full width: a counted, timed
+    ``post`` call (its 200 launches of the flash forward at HDiT's shape),
+    held to the same call with the kernels disabled; two counted train steps
+    (the frozen autoencoder's inference kernels, then the bottleneck's
+    training forward and backward); the bf16 poster's gradient against a
+    float32 poster's at bs = 2 (TF32 off)."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.models.hdit import create_hdit_model
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = build_post_engine()
+    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    counters = launch_counters()
+    xhat, idx_counts = counted(counters, lambda: engine.dequant(engine.quant(x)[1]))
+    require_launches("post: the autoencoder's encode -> dequant", idx_counts,
+                     PATHS["sd3unet"]["launches"])
+    noise = torch.randn(xhat.shape, generator=gen, device="cuda")
+    x0 = xhat.float() + noise * engine.mmse_noise_std
+    out, counts = counted(counters, lambda: engine.post(xhat, noise=noise))
+    launches = require_launches("post call", counts, POST_LAUNCHES)
+    require(tuple(out.shape) == (BATCH, RES, RES, 3) and bool(torch.isfinite(out).all()),
+            f"post: output {tuple(out.shape)} not finite")
+    require(float(out.abs().max()) <= 1.0, "post: the clamp did not hold")
+    post_ms = _host_ms(lambda: engine.post(xhat, noise=noise))
+    plain = with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"},
+                     lambda: engine.post(xhat, noise=noise))
+    moved = rel_l2(out - x0.clamp(-1, 1), plain - x0.clamp(-1, 1))
+    require(moved <= POST_SWITCH_REL_L2,
+            f"post: flash vs einsum displacement rel L2 {moved} > {POST_SWITCH_REL_L2}")
+    disp = float((out - x0.clamp(-1, 1)).abs().mean())
+
+    train_step, _ = engine.make_train_step(POST_LR)
+    steps, step_launches = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, c = counted(counters, lambda: train_step(x))
+        steps.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": float(loss)})
+        step_launches.append(require_launches(f"post train step {i}", c, POST_TRAIN))
+        require(math.isfinite(float(loss)), f"post train step {i}: loss {float(loss)}")
+
+    xs, ts = x[:2], torch.rand((2,), generator=gen, device="cuda")
+    ns = torch.randn((2, RES, RES, 3), generator=gen, device="cuda")
+    g16 = _post_grads(engine, xs, ts, ns)
+    ref = create_hdit_model(dtype="float32").cuda()
+    ref.load_state_dict(engine.poster.state_dict())
+    bf16_poster, engine.poster = engine.poster, ref
+    try:
+        g32 = _post_grads(engine, xs, ts, ns)
+    finally:
+        engine.poster = bf16_poster
+    require(set(g16) == set(g32), "post: bf16 and float32 posters differ in their gradients")
+    whole = float(torch.cat([g.flatten() for g in g32.values()]).double().norm())
+    zero = {k: [float(g16[k].double().norm()), float(g32[k].double().norm())]
+            for k in g32 if float(g32[k].double().norm()) < ZERO_GRAD_REL * whole}
+    per = {k: rel_l2(g16[k], g32[k]) for k in g32 if k not in zero}
+    worst = max(per, key=per.get)
+    total = rel_l2(torch.cat([g16[k].flatten() for k in g32]),
+                   torch.cat([g32[k].flatten() for k in g32]))
+    require(total <= TRAIN_GRAD_REL_L2 and per[worst] <= TRAIN_GRAD_TENSOR_REL_L2,
+            f"post: bf16 vs float32 poster gradient rel L2 {total} (worst {worst} {per[worst]})")
+    del ref, engine
+    torch.cuda.empty_cache()
+    return {"phase": "post", "config": SERVE_CONFIG, "overrides": SERVE_BF16,
+            "poster": "create_hdit_model defaults, dtype bfloat16",
+            "seeded_heads": "patch_out and every block's attn_out seeded N(0, 1/fan_in) "
+                            "(zero-initialised in the model: v = 0, the attention cut off)",
+            "batch": BATCH, "resolution": RES, "num_flow_steps": POST_STEPS,
+            "flash_shape": list(HDIT_FLASH), "launches_per_post": launches,
+            "launches_per_train_step": step_launches[0], "post_ms": post_ms,
+            "post_img_per_s": BATCH / (post_ms / 1e3),
+            "flash_vs_einsum_displacement_rel_l2": moved,
+            "tolerance": f"displacement rel L2 <= {POST_SWITCH_REL_L2}",
+            "mean_abs_displacement": disp, "train_steps": steps,
+            "bf16_vs_fp32_grad": {"batch": 2, "rel_l2_all": total, "worst_tensor": worst,
+                                  "worst_rel_l2": per[worst], "zero_gradient_tensors": zero},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+UNET_LINEAR = {"attn_type": "linear"}
+UNET_LINEAR_LAUNCHES = {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
+                        "upsample_nearest_conv3x3_gn": 3}
+
+
+def run_gate_linear_attention(gen) -> dict:
+    """sd3unet_gq_0.25 with ``attn_type: linear`` at full width, bs = 16,
+    bf16: one encode -> dequant step launches the resample kernels and the
+    search and no flash kernel (the linear blocks are plain torch, as in the
+    JAX model); held to a float32 engine at bs = 2."""
+    import torch
+
+    engine, _ = build_engine(SERVE_CONFIG, "bfloat16", UNET_LINEAR)
+    require(type(engine.encoder.down[3].attn[0]).__name__ == "LinAttnBlock",
+            "linear gate: the 32x32 level has no LinAttnBlock")
+    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+
+    def step():
+        zhat, reg = engine.encode(x, return_reg_log=True)
+        return zhat, reg["indices"], engine.dequant(reg["indices"])
+
+    (zhat, idx, xhat), counts = counted(launch_counters(), step)
+    launches = require_launches("sd3unet, linear attention", counts, UNET_LINEAR_LAUNCHES)
+    require(tuple(idx.shape) == PATHS["sd3unet"]["indices"]
+            and bool(torch.isfinite(xhat.float()).all()),
+            f"linear gate: indices {tuple(idx.shape)}, xhat finite")
+    ms = _host_ms(step)
+    ref, _ = build_engine(SERVE_CONFIG, "float32", UNET_LINEAR)
+    enc_rel = rel_l2(engine.encode(x[:2], unregularized=True)[0],
+                     ref.encode(x[:2], unregularized=True)[0])
+    dec_rel = rel_l2(engine.decode(zhat[:2]), ref.decode(zhat[:2]))
+    require(enc_rel <= 0.1 and dec_rel <= 0.1,
+            f"linear gate, bf16 vs float32: encoder rel L2 {enc_rel}, decoder {dec_rel}")
+    del ref, engine
+    torch.cuda.empty_cache()
+    return {"phase": "gate", "check": "sd3unet_linear_attention", "overrides": UNET_LINEAR,
+            "batch": BATCH, "launches_per_step": launches, "step_ms": ms,
+            "bf16_vs_fp32_rel_l2": {"encoder": enc_rel, "decoder": dec_rel}}
 
 
 def profile_step(step):
@@ -3564,9 +4111,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ddp-worker", metavar="OUT_DIR",
                     help="(a rank of the ddp phase, under torchrun) the training entry point "
                          "on the arguments after --")
-    ap.add_argument("--eval-worker", metavar="OUT_DIR",
-                    help="(a rank of the eval_sweep phase) the evaluation entry point on the "
-                         "arguments after --")
+    ap.add_argument("--eval-after", metavar="EVAL_DIR",
+                    help="(with --ddp-worker) then the evaluation entry point on the arguments "
+                         "in EVAL_DIR/argv.json, in the same ranks (the eval_sweep phase)")
     ap.add_argument("entry_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3590,15 +4137,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.ddp_worker:
-        return ddp_worker(args.ddp_worker, args.entry_argv)
-    if args.eval_worker:
-        return eval_worker(args.eval_worker, args.entry_argv)
+        rc = ddp_worker(args.ddp_worker, args.entry_argv, keep_group=bool(args.eval_after))
+        if rc or not args.eval_after:
+            return rc
+        torch.cuda.empty_cache()
+        with open(os.path.join(args.eval_after, "argv.json")) as f:
+            return eval_worker(args.eval_after, json.load(f))
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     _build.library()
     log_path = os.path.join(_build.build_dir(), "nvcc.log")
     ptxas = []
@@ -3609,6 +4159,13 @@ def main(argv=None) -> int:
           "ptxas": ptxas, "flash_f32_split_tf32": f32_build_facts()})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    seconds = {}
+    t_phase = time.perf_counter()
+    # first, so that the daemon's worker thread makes the first launches
+    emit(run_serve(gen))
+    torch.cuda.empty_cache()
+    seconds["serve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     kernels = []
     for check in (check_gq, lambda g: check_resample(g, "down"),
                   lambda g: check_resample(g, "up"), check_flash, check_flash_qkv,
@@ -3618,19 +4175,24 @@ def main(argv=None) -> int:
                   lambda g: check_layer_norm_bwd(g, True),
                   lambda g: check_resample_bwd(g, "down"), lambda g: check_resample_bwd(g, "up"),
                   check_flash_res, check_flash_bwd, check_fused_gn_conv, check_conv3x3_wgrad,
-                  check_gn_swish_bwd, check_flash_lean, check_flash_lean_f32):
+                  check_gn_swish_bwd, check_flash_lean, check_flash_lean_f32,
+                  check_flash_hdit):
         out = check(gen)
         for k in (out if isinstance(out, list) else [out]):
             emit({"phase": "kernel", **k})
             kernels.append(k)
         torch.cuda.empty_cache()
 
+    seconds["kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     launches = {}
     for path in PATHS:
         e2e = run_e2e(gen, args.profile, path)
         emit(e2e)
         launches[path] = e2e["launches_per_step"]
         torch.cuda.empty_cache()
+    seconds["e2e"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     train_results = {}
     for path in TRAIN_PATHS:
         train = run_train(gen, args.profile, path)
@@ -3638,26 +4200,47 @@ def main(argv=None) -> int:
         launches[f"{path}_train_ae"] = train["launches_per_ae_step"]
         train_results[path] = train
         torch.cuda.empty_cache()
+    seconds["train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     for path in REG_PATHS:
         emit(run_regularizer(gen, path))
         torch.cuda.empty_cache()
+    seconds["regularizers"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     emit(run_trainer(gen, train_results))
     torch.cuda.empty_cache()
+    seconds["trainer"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     run_data_parallel(train_results)
     torch.cuda.empty_cache()
+    seconds["ddp_and_eval_sweep"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     for dtype in ("bfloat16", "float32"):
         op = run_flash_head_major(gen, dtype)
         emit(op)
         launches[op["path"]] = op["launches_per_call"]
         torch.cuda.empty_cache()
+    seconds["head_major"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     lab_lines, lab_summary = run_flash_labs(gen)
     for line in lab_lines:
         emit(line)
     ln_lines, ln_summary = run_ln_matmul_lab(gen)
     for line in ln_lines:
         emit(line)
-    for gate in (run_gate_unet_odd, run_gate_vit_disabled, run_gate_conv_bwd):
+    seconds["labs"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    post = run_post(gen)
+    emit(post)
+    launches["post"] = post["launches_per_post"]
+    launches["post_train_step"] = post["launches_per_train_step"]
+    seconds["post"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    for gate in (run_gate_unet_odd, run_gate_vit_disabled, run_gate_conv_bwd,
+                 run_gate_linear_attention):
         emit(gate(gen))
+    seconds["gates"] = time.perf_counter() - t_phase
+    emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
 
     summary = []
     for k in kernels:
@@ -3682,6 +4265,8 @@ def main(argv=None) -> int:
                         "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
                         "library_ms": total("library_ms"),
                         "per": "one main-path step (sum over its launches)"})
+    names = [k["name"] for k in summary + lab_summary + ln_summary]
+    require(len(set(names)) == len(names), f"the kernels line repeats a name: {names}")
     emit({"kernels": summary + lab_summary + ln_summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,8 +120,12 @@ def sweeps(tmp_path_factory):
               "--ckpt", ckpt, "--inception_weights", inc_path, "--lpips_weights", lp_path]
     stats = str(tmp / "stats.npz")
 
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["JAX_PLATFORMS"] = "cpu"
+    # the root eval.py builds its models by flax's un-jitted init, some 500
+    # small programs that XLA compiles one by one; its LLVM passes at level 0
+    # halve that compile and leave the printed summary as it is
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_backend_optimization_level=0 "
+                         "--xla_llvm_disable_expensive_passes=true")
     jax_run = subprocess.Popen([sys.executable, os.path.join(REPO, "eval.py"), *common],
                                cwd=REPO, env=env, stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT, text=True)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_jax_compile import light_xla_compile  # noqa: F401  (JAX side)
 from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu import instantiate_from_config as jax_instantiate
 from vqvae_from_gaussian_vae_tpu.utils.config import load_config as jax_load_config
@@ -237,6 +238,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "import vqvae_from_gaussian_vae_tpu_torch as p\n"
         "from vqvae_from_gaussian_vae_tpu_torch.models import autoencoder, unet\n"
+        "from vqvae_from_gaussian_vae_tpu_torch.models import attention, hdit, postprocessor\n"
+        "from vqvae_from_gaussian_vae_tpu_torch import serve\n"
         "from vqvae_from_gaussian_vae_tpu_torch.ops import _build, codebook, gq_search\n"
         "from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv, upsample_conv\n"
         "from vqvae_from_gaussian_vae_tpu_torch.ops import flash_attention, gq_cuda\n"

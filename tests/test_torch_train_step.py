@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_jax_compile import light_xla_compile  # noqa: F401  (JAX side)
 from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 from vqvae_from_gaussian_vae_tpu import instantiate_from_config as jax_instantiate
 from vqvae_from_gaussian_vae_tpu.parallel.train_state import init_train_state

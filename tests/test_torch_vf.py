@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_torch_train_step import _FixedNormal, _flat_grads, _np
+from tests.test_torch_jax_compile import light_xla_compile  # noqa: F401  (JAX side)
 from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 import tests.test_vf_branch as jax_vf_test
 from tests.test_vf_branch import _vf_engine
@@ -100,17 +101,26 @@ def _run(mp, reverse_proj):
     jstate = _jax_state_from_port(jb, peng, jnp.asarray(x0))
     out["keys"] = (set(peng.state_dict()), set(_flat_grads(jstate.engine_params)))
 
-    # the frozen trunk's features
-    feats_j = jb.module.apply({"params": jstate.engine_params}, jnp.asarray(x1),
-                              method=lambda m, x: m.foundation(x))
+    # the JAX side in one compiled call: the frozen trunk's features, the
+    # adaptive vf weight on one forward, and one ae step's gradient with both
+    # adaptive weights on, all with the same eps
+    mp.setattr(jax.random, "normal", _FixedNormal(e1))
+
+    def jax_side(state, x, rng):
+        feats = jb.module.apply({"params": state.engine_params}, x,
+                                method=lambda m, x: m.foundation(x))
+        w = jb._adaptive_vf_weight(state.engine_params, state.loss_params, x, rng, state.duals)
+        grads = jax.grad(jb._ae_loss, has_aux=True)(
+            (state.engine_params, state.loss_params["logvar"]), state, x, rng, True)
+        return feats, w, grads
+
+    feats_j, jw, ((jg_eng, jg_logvar), (jlog, _)) = jax.jit(jax_side)(
+        jstate, jnp.asarray(x1), jax.random.PRNGKey(1))
     with torch.no_grad():
         feats_p = peng.module.foundation(torch.from_numpy(x1))
     out["features"] = (np.asarray(feats_j), feats_p.numpy())
 
     # the adaptive vf weight and vf_loss on one forward
-    mp.setattr(jax.random, "normal", _FixedNormal(e1))
-    jw = jax.jit(jb._adaptive_vf_weight)(jstate.engine_params, jstate.loss_params,
-                                         jnp.asarray(x1), jax.random.PRNGKey(1), jstate.duals)
     with torch.enable_grad():
         _, reg_log, _, xrec = pb._forward_split(torch.from_numpy(x1), pstate,
                                                 torch.from_numpy(e1))
@@ -124,10 +134,6 @@ def _run(mp, reverse_proj):
         {k: v.detach() for k, v in reg_log.items()})))
 
     # one ae step's gradient, both adaptive weights on, the same eps
-    logvar = jstate.loss_params["logvar"]
-    ae_grad = jax.jit(jax.grad(jb._ae_loss, has_aux=True), static_argnums=(4,))
-    (jg_eng, jg_logvar), (jlog, _) = ae_grad(
-        (jstate.engine_params, logvar), jstate, jnp.asarray(x1), jax.random.PRNGKey(1), True)
     pg, plog, _ = pb.ae_grads(pstate, {"img": x1}, disc_active=True, eps=torch.from_numpy(e1))
     jgrads = {**_flat_grads(jg_eng), "loss.logvar": _np(jg_logvar)}
     out["ae"] = (jlog, plog, jgrads, pg)

@@ -51,6 +51,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from vqvae_from_gaussian_vae_tpu_torch.models.vit import CastLinear
 from vqvae_from_gaussian_vae_tpu_torch.ops.conv3x3_train import conv3x3_same_wg
 from vqvae_from_gaussian_vae_tpu_torch.ops.downsample_conv import downsample_conv3x3_gn
 from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import (
@@ -287,13 +288,35 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(_nchw(o))
 
 
+class LinAttnBlock(nn.Module):
+    """Linear (kernel-feature) attention, single head, over the grid's H*W
+    tokens: q softmaxed over channels, k over tokens, the (C, C) context
+    k^T v, then q ctx through ``to_out``; ``to_qkv`` has no bias.  Plain
+    torch, as the JAX model computes it in plain XLA (no kernel backs it)."""
+
+    def __init__(self, in_channels: int, dtype=torch.float32):
+        super().__init__()
+        c = in_channels
+        self.to_qkv = CastLinear(c, 3 * c, bias=False, dtype=dtype)
+        self.to_out = CastLinear(c, c, dtype=dtype)
+
+    def forward(self, x):
+        b, c, hh, ww = x.shape
+        q, k, v = self.to_qkv(_nhwc(x).reshape(b, hh * ww, c)).chunk(3, dim=-1)
+        q = torch.softmax(q, dim=-1)
+        k = torch.softmax(k, dim=1)
+        ctx = torch.einsum("bnd,bne->bde", k, v)
+        out = self.to_out(torch.einsum("bnd,bde->bne", q, ctx))
+        return x + _nchw(out.reshape(b, hh, ww, c))
+
+
 def make_attn(in_channels: int, attn_type: str = "vanilla", dtype=torch.float32):
     if attn_type in ("vanilla", "vanilla-xformers"):
         return AttnBlock(in_channels, dtype=dtype)
     if attn_type == "none":
         return None
     if attn_type == "linear":
-        raise NotImplementedError("linear attention is not ported yet")
+        return LinAttnBlock(in_channels, dtype=dtype)
     raise ValueError(f"unknown attn_type {attn_type!r}")
 
 

@@ -75,6 +75,20 @@ for _jax_path, _pit_path, _port_path in (
     ("data.toy.MNISTDataset", None, "data.toy.MNISTDataset"),
     ("data.toy.CIFAR10Dataset", None, "data.toy.CIFAR10Dataset"),
     ("utils.loggers.ImageLogger", "main.ImageLogger", "utils.loggers.ImageLogger"),
+    # the post engine and its velocity net; the attention zoo
+    ("models.postprocessor.AutoencodingPostEngine",
+     "pit.models.postprocessor.AutoencodingPostEngine",
+     "models.postprocessor.AutoencodingPostEngine"),
+    ("models.hdit.create_hdit_model", "pit.modules.hdit.create_hdit_model",
+     "models.hdit.create_hdit_model"),
+    ("models.hdit.ImageTransformerDenoiserModelV2",
+     "pit.modules.hdit.ImageTransformerDenoiserModelV2",
+     "models.hdit.ImageTransformerDenoiserModelV2"),
+    *((f"models.attention.{_cls}", f"pit.modules.attention.{_cls}",
+       f"models.attention.{_cls}") for _cls in (
+        "CrossAttention", "MemoryEfficientCrossAttention", "SelfAttention",
+        "SpatialSelfAttention", "GEGLU", "FeedForward", "BasicTransformerBlock",
+        "BasicTransformerSingleLayerBlock", "SimpleTransformer", "SpatialTransformer")),
 ):
     _PORT_TARGETS[f"vqvae_from_gaussian_vae_tpu.{_jax_path}"] = f"{_PKG}.{_port_path}"
     if _pit_path is not None:
@@ -110,8 +124,7 @@ def resolve_target(target: str) -> str:
     """Map a config target onto an importable port path.
 
     Raises NotImplementedError for a JAX-package or reference target that
-    has no port counterpart yet (the other backbones, the video data, the
-    post-processor engine).
+    has no port counterpart yet (the baseline VAEs, flux, the video data).
     """
     if target in _PORT_TARGETS:
         return _PORT_TARGETS[target]

@@ -19,6 +19,14 @@ dicts of arrays) onto the port's ``pit``-named state_dict:
   * the vf branch: ``foundation / patch_embed`` (a conv), ``cls_token``,
     ``pos_embed`` (unchanged), ``blocks_<i> / ...`` (the ViT block's names)
     and ``norm``; ``linear_proj`` (a 1x1 conv)
+  * the UNet's linear attention ``attn_<i> / to_qkv``, ``to_out`` (Dense)
+  * the attention zoo (``models/attention.py``): ``to_out_0``, ``net_<i>``,
+    ``layers_<i>`` and ``transformer_blocks_<i>`` are list elements
+  * the post engine's HDiT (``models/hdit.py``, the tree of its
+    ``poster_params``): its module names are the flax names, so
+    ``down_0_block_1 / attn_norm / mod / kernel`` ->
+    ``down_0_block_1.attn_norm.mod.weight``, ``FourierFeatures_0 / freqs``
+    and ``skip_gate_0`` unchanged, ``merge_0 / Dense_0`` a Linear
 
 and the loss head's tree (the JAX train state's ``loss_params``) onto the
 port's loss state_dict: ``perceptual_loss / net / features_N`` ->
@@ -40,7 +48,8 @@ import numpy as np
 import torch
 
 _LIST_SEGMENT = re.compile(
-    r"^(down|up|block|blocks|attn|resblocks|ffn|features|main|model)_(\d+)$")
+    r"^(down|up|block|blocks|attn|resblocks|ffn|features|main|model|to_out|net|layers"
+    r"|transformer_blocks)_(\d+)$")
 _NCHW_STATS = ("latent_mean", "latent_std", "loc", "scale")  # (1, 1, 1, C) -> (1, C, 1, 1)
 
 
