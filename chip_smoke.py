@@ -1772,7 +1772,7 @@ REG_PATHS = {
 for _name, _spec in REG_PATHS.items():
     _spec.update(configs=[f"configs/{_name}.yaml", BF16_OVERLAY], tokens=32 * 32,
                  overrides=REG_DEPTH)
-REG_TIMED = 2  # timed pairs after one counted warm-up pair
+REG_TIMED = 1  # timed pairs after one counted warm-up pair
 REG_ENTRY_IMAGES = 32  # the training entry point's folder: 2 steps at bs=16
 
 
@@ -3045,8 +3045,8 @@ def run_trainer(gen, train_results) -> dict:
 # the data-parallel phases: the training entry point and the evaluation sweep
 # under one ``torchrun --nproc_per_node 2``: this file's ``--ddp-worker``
 # mode wraps the training entry point to count and time what each rank does
-# and calls it, then (``--eval-after``) the evaluation entry point the same
-# way (``eval_worker``) in the same ranks.  Two cards give NCCL, a card a
+# and calls it, then the evaluation entry point the same way
+# (``eval_worker``) in the same ranks.  Two cards give NCCL, a card a
 # rank; one card gives gloo, both ranks on card 0.
 
 DDP_RANKS = 2
@@ -3058,18 +3058,19 @@ EVAL_FID_REL = 1e-3
 EVAL_LAUNCHES = PATHS["sd3unet"]["launches"]  # a batch: the inference path's step
 
 
-def torchrun(worker: str, out_dir: str, argv, timeout: float = 600.0, options=()) -> None:
-    """This file's ``worker`` mode (with ``options``) on DDP_RANKS ranks
-    under torchrun."""
+def torchrun(out_dir: str, eval_dir: str, argv, timeout: float = 600.0) -> None:
+    """This file's ``--ddp-worker`` mode on DDP_RANKS ranks under torchrun:
+    the training entry point on ``argv``, then the evaluation entry point on
+    the arguments in ``eval_dir``."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(DDP_RANKS), os.path.join(ROOT, "chip_smoke.py"), worker, out_dir, *options, "--",
-           *argv]
+           str(DDP_RANKS), os.path.join(ROOT, "chip_smoke.py"), "--ddp-worker", out_dir,
+           eval_dir, "--", *argv]
     proc = subprocess.run(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, timeout=timeout)
     with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
         f.write(proc.stdout)
     sys.stderr.write(proc.stdout[-4000:])
-    require(proc.returncode == 0, f"torchrun {worker} exited {proc.returncode}: "
+    require(proc.returncode == 0, f"torchrun --ddp-worker exited {proc.returncode}: "
             f"{proc.stdout[-2000:]}")
 
 
@@ -3123,14 +3124,14 @@ class _Patched:
             setattr(obj, name, old)
 
 
-def ddp_worker(out_dir: str, argv, keep_group: bool = False) -> int:
+def ddp_worker(out_dir: str, argv) -> None:
     """One rank of the ddp phase: the port's ``main(argv)`` with its steps,
     the gradient all-reduces and the first ae step's update watched; then
     the state's digest, and on rank 0 the first ae step's gradient again in
-    one process on the joined batch.  With ``keep_group`` the process group
-    stays up for the evaluation entry point that follows in the same ranks
-    (a group made again after ``destroy_process_group`` takes the first
-    one's name, and its rendezvous could read the first one's keys)."""
+    one process on the joined batch.  The process group stays up for the
+    evaluation entry point that follows in the same ranks (a group made again
+    after ``destroy_process_group`` takes the first one's name, and its
+    rendezvous could read the first one's keys)."""
     import numpy as np
     import torch
     from vqvae_from_gaussian_vae_tpu_torch import main as port_main
@@ -3188,9 +3189,8 @@ def ddp_worker(out_dir: str, argv, keep_group: bool = False) -> int:
         apply_fn(opt, named, grads)
 
     patches = [(ts.TrainStepBuilder, f"{k}_step", wrap(k)) for k in steps]
-    patches += [(distributed, "all_reduce_mean_", timed_reduce), (ts, "_apply", apply)]
-    if keep_group:
-        patches.append((distributed, "shutdown", lambda: None))
+    patches += [(distributed, "all_reduce_mean_", timed_reduce), (ts, "_apply", apply),
+                (distributed, "shutdown", lambda: None)]
     t0 = time.perf_counter()
     with _Patched(*patches):
         trainer = port_main.main(argv)
@@ -3213,9 +3213,6 @@ def ddp_worker(out_dir: str, argv, keep_group: bool = False) -> int:
     with open(os.path.join(out_dir, f"ddp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     distributed.barrier()
-    if not keep_group:
-        distributed.shutdown()
-    return 0
 
 
 def _one_process_grad(trainer, first, train_state_cls) -> dict:
@@ -3423,7 +3420,7 @@ def run_ddp(images: str, tmp: str, train_results, eval_dir: str) -> dict:
             "training.trainer.log_every_n_steps=1", "--seed", str(SEED), "--no-test",
             "--logdir", os.path.join(tmp, "ddp_logs")]
     t0 = time.perf_counter()
-    torchrun("--ddp-worker", out_dir, argv, options=["--eval-after", eval_dir])
+    torchrun(out_dir, eval_dir, argv)
     wall = time.perf_counter() - t0
     ranks = _rank_outputs(out_dir, "ddp")
     require([r["rank"] for r in ranks] == list(range(DDP_RANKS)), "ddp: missing ranks")
@@ -3604,18 +3601,26 @@ def run_data_parallel(train_results):
 
 # the serve phase: the port's daemon (``serve.py``) on sd3unet_gq_0.25 with
 # its bf16 dotlist, in this process on 127.0.0.1; SERVE_CLIENTS clients each
-# send SERVE_ROUNDS rounds of /tokenize, /detokenize (of its own tokens) and
-# /reconstruct.  A drained /tokenize bucket runs the encoder's kernels and
-# the search, a /detokenize bucket the decoder's; /reconstruct is one of each.
+# send rounds of /tokenize, /detokenize (of its own tokens) and /reconstruct
+# (SERVE_COLD_ROUNDS on the cold daemon, then SERVE_ROUNDS).  A drained
+# /tokenize bucket runs the encoder's kernels and the search, a /detokenize
+# bucket the decoder's; /reconstruct is one of each.
 SERVE_CONFIG = "configs/sd3unet_gq_0.25.yaml"
 SERVE_BF16 = ["model.params.encoder_config.params.dtype=bfloat16"]
 SERVE_MAX_BATCH = 8
 SERVE_WINDOW_MS = 5.0
 SERVE_CLIENTS = 16
+SERVE_COLD_ROUNDS = 1
 SERVE_ROUNDS = 4
 SERVE_TOKENIZE = {"gq_argmax": 1, "downsample_conv3x3_gn": 3, "flash_attention_fwd": 2}
 SERVE_DETOKENIZE = {"upsample_nearest_conv3x3_gn": 3, "flash_attention_fwd": 3}
-SERVE_PROBE = 5  # requests queued at once for the bucket-vs-solo probe: one bucket of 8
+# the probe's drains through the service's API, each held to the plain path:
+# SERVE_PROBE requests at once (a bucket of 8), 3 (of 4) and 2, then each
+# image alone (a bucket of 1); a batch window long enough that the
+# requests released together drain as one batch
+SERVE_PROBE = 5
+SERVE_PROBE_DRAINS = (SERVE_PROBE, 3, 2)
+SERVE_PROBE_WINDOW_S = 0.5
 
 
 def _png_bytes(rgb) -> bytes:
@@ -3662,83 +3667,158 @@ def _pair_gaps(rows, first, second, mu, std, codebook):
     return out
 
 
-def _bucket_vs_solo(service, images) -> dict:
-    """The daemon's padding and positions against a solo request: the
-    `images` queued at once drain as one padded bucket (positions 0..n-1,
-    the last repeated), then each alone (a bucket of 1).  At each differing
-    index the float64 score gap of the two codes is taken at the bucket's
-    latent and at the solo's.  Required: each reply's code scores at least
-    as well at its own latent (within the near-tie bound), so the search is
-    right for the latent it was given and the mismatch is a tie that the
-    latent's move broke: each gap is at most the pair's gap change between
-    the two latents (their sum).  Reported: how many are also near-ties at
-    NEAR_TIE (that bound is for one latent; a latent that moves by Δ moves a
-    pair's score by about Δ |c - mu| / std^2), and the largest latent
-    difference between bucket and solo."""
+def _drain_together(service, kind: str, items) -> list:
+    """`items` sent through the service's ``tokenize`` or ``detokenize``,
+    one thread each, released together at a barrier inside a batch window
+    of SERVE_PROBE_WINDOW_S; required: ``drained`` counts them as one batch.
+    Their replies, in order."""
     import threading
 
+    n = len(items)
+    before = dict(service.drained[kind])
+    barrier, out, errors = threading.Barrier(n), [None] * n, []
+    call = getattr(service, kind)
+
+    def send(i):
+        barrier.wait()
+        try:
+            out[i] = call(items[i])
+        except Exception as e:  # reported, and fails the phase
+            errors.append(repr(e))
+
+    window, service.window = service.window, SERVE_PROBE_WINDOW_S if n > 1 else 0.0
+    try:
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        service.window = window
+    require(not errors and all(o is not None for o in out), f"serve probe {kind}: {errors}")
+    after = service.drained[kind]
+    got = (after["batches"] - before["batches"], after["requests"] - before["requests"])
+    require(got == (1, n), f"serve probe {kind}: {n} requests drained as (batches, requests) "
+            f"{got}, not one batch")
+    return out
+
+
+def _serve_probe(service, images) -> dict:
+    """The daemon's replies at each bucket size against the plain path at
+    the same inputs.  /tokenize: drains of SERVE_PROBE_DRAINS requests and
+    each image alone; every index of every reply against the plain blocked
+    search (float32, TF32 off) at the latent of its padded batch (re-encoded
+    here: the worker's batch, the last item repeated), each mismatch a
+    float64 near-tie.  Bucket against solo: at each index where the bucket
+    of 8's reply and the solo reply differ, the float64 score gap of the two
+    codes at the bucket's latent and at the solo's; required: each reply's
+    code scores at least as well at its own latent within the near-tie
+    bound; reported: how many are near-ties at both latents, and the
+    largest latent difference.  /detokenize: the bucket of 8's indices
+    drained together, and the first alone, against ``dequant`` on the plain
+    path (``GVQ_DISABLE_FUSED_KERNELS=1``) of the same padded batch, each
+    image within PATH_SWITCH_REL_L2."""
     import numpy as np
     import torch
+    from vqvae_from_gaussian_vae_tpu_torch.ops.gq_search import argmax_blocked, score_operands
     from vqvae_from_gaussian_vae_tpu_torch.quantization.gaussian import _split_posterior
 
-    engine = service.engine
-    boxes = []
-    with service._cv:  # one drain takes them all, in this order
-        for img in images:
-            box, done = {}, threading.Event()
-            service._pending["tokenize"].append((("tokenize", img), box, done))
-            boxes.append((box, done))
-        service._cv.notify()
-    for box, done in boxes:
-        require(done.wait(600) and "result" in box, f"bucket-vs-solo probe: {box}")
-    bucket = [box["result"] for box, _ in boxes]
-    solo = [service.tokenize(img) for img in images]
-    n, cap = len(images), service.max_batch
-    padded = np.stack(images + [images[-1]] * (service._bucket(n, cap) - n))
+    engine, cap = service.engine, service.max_batch
     reg = engine.regularization
-    z_b, _ = engine.encode(torch.from_numpy(padded).cuda(), unregularized=True)
+    bucket = service._bucket
+
+    def padded(items):
+        return items + [items[-1]] * (bucket(len(items), cap) - len(items))
+
+    def tokenize(n, items):
+        """(replies, latents, posterior rows, plain indices) of one drain."""
+        replies = _drain_together(service, "tokenize", items)
+        x = torch.from_numpy(np.stack(padded(items))).to(engine.device)
+        z, _ = engine.encode(x, unregularized=True)
+        mu, _, std = _split_posterior(z.reshape(z.shape[0], -1, z.shape[-1]), reg.logvar_range)
+        mu, std = reg.rows(mu), reg.rows(std)
+        plain = argmax_blocked(*score_operands(mu, std, reg.codebook, reg.beta))
+        per = mu.shape[0] // z.shape[0]
+        got = torch.from_numpy(np.stack(replies).reshape(-1)).to(plain)
+        want = plain[:n * per]
+        gap = near_tie_gap(got, want, mu[:n * per], std[:n * per], reg.codebook, reg.beta)
+        return replies, z[:n], (mu[:n * per], std[:n * per]), per, {
+            "requests": n, "bucket": bucket(n, cap), "indices": int(got.numel()),
+            "mismatches_vs_plain": int((got != want).sum()), "max_near_tie_gap": gap}
+
+    drains, bucket_out = [], None
+    for n in SERVE_PROBE_DRAINS:
+        out = tokenize(n, images[:n])
+        drains.append(out[-1])
+        if n == SERVE_PROBE:
+            bucket_out = out
+    solos = [tokenize(1, [img]) for img in images]
+    solo_mis = sum(s[-1]["mismatches_vs_plain"] for s in solos)
+    drains.append({"requests": 1, "bucket": 1, "images": len(solos),
+                   "indices": sum(s[-1]["indices"] for s in solos),
+                   "mismatches_vs_plain": solo_mis,
+                   "max_near_tie_gap": max(s[-1]["max_near_tie_gap"] for s in solos)})
+
+    b_replies, z_b, (mu_b, std_b), per, _ = bucket_out
     mismatched, z_diff = [], 0.0
     worst = {"bucket_latent": 0.0, "solo_latent": 0.0}
-    for i, img in enumerate(images):
-        z_s, _ = engine.encode(torch.from_numpy(img[None]).cuda(), unregularized=True)
+    for i, (s_replies, z_s, (mu_s, std_s), _, _) in enumerate(solos):
         z_diff = max(z_diff, float((z_b[i].float() - z_s[0].float()).abs().max()))
-        got = bucket[i].reshape(-1)
-        want = solo[i].reshape(-1)
+        got, want = b_replies[i].reshape(-1), s_replies[0].reshape(-1)
         rows = np.nonzero(got != want)[0].tolist()
-        post = {}
-        for key, z in (("bucket_latent", z_b[i:i + 1]), ("solo_latent", z_s)):
-            mu, _, std = _split_posterior(z.reshape(1, 32 * 32, -1), reg.logvar_range)
-            post[key] = (reg.rows(mu), reg.rows(std))
-        at_b = _pair_gaps(rows, got, want, *post["bucket_latent"], reg.codebook)
-        at_s = _pair_gaps(rows, want, got, *post["solo_latent"], reg.codebook)
+        sl = slice(i * per, (i + 1) * per)
+        at_b = _pair_gaps(rows, got, want, mu_b[sl], std_b[sl], reg.codebook)
+        at_s = _pair_gaps(rows, want, got, mu_s, std_s, reg.codebook)
         for r, (gb, tb), (gs, ts) in zip(rows, at_b, at_s):
             require(gb >= -tb and gs >= -ts,
                     f"bucket-vs-solo image {i} row {r}: a reply is not its latent's code "
                     f"(gaps {gb} at the bucket's latent, {gs} at the solo's)")
-            tie = gb <= tb and gs <= ts
             worst["bucket_latent"] = max(worst["bucket_latent"], gb)
             worst["solo_latent"] = max(worst["solo_latent"], gs)
             mismatched.append({"image": i, "row": r, "bucket_code": int(got[r]),
                                "solo_code": int(want[r]), "gap_at_bucket_latent": gb,
                                "gap_at_solo_latent": gs, "gap_change": gb + gs,
-                               "near_tie": tie})
-    return {"requests": n, "bucket": service._bucket(n, cap), "mismatches": len(mismatched),
-            "near_ties": sum(m["near_tie"] for m in mismatched),
-            "mismatched": mismatched[:16], "max_gap": worst, "max_latent_abs_diff": z_diff}
+                               "near_tie": gb <= tb and gs <= ts})
+
+    detok = []
+    for idx in (list(b_replies), [b_replies[0]]):
+        replies = _drain_together(service, "detokenize", idx)
+        x = torch.from_numpy(np.stack(padded(idx))).to(engine.device)
+        plain = with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"}, lambda x=x: engine.dequant(x))
+        plain = plain.float().cpu()
+        rels = [rel_l2(torch.from_numpy(r), plain[i]) for i, r in enumerate(replies)]
+        require(max(rels) <= PATH_SWITCH_REL_L2,
+                f"serve probe /detokenize of {len(idx)} (bucket {bucket(len(idx), cap)}): "
+                f"rel L2 {rels} against the plain path")
+        detok.append({"requests": len(idx), "bucket": bucket(len(idx), cap),
+                      "max_rel_l2_vs_plain": max(rels)})
+    return {"tokenize_vs_plain": drains, "detokenize_vs_plain": detok,
+            "bucket_vs_solo": {"requests": SERVE_PROBE, "bucket": bucket(SERVE_PROBE, cap),
+                               "mismatches": len(mismatched),
+                               "near_ties": sum(m["near_tie"] for m in mismatched),
+                               "mismatched": mismatched[:16], "max_gap": worst,
+                               "max_latent_abs_diff": z_diff}}
 
 
-def _serve_load(url, pngs, service, counters, drains, buckets) -> dict:
-    """One load on the daemon: each of SERVE_CLIENTS threads sends
-    SERVE_ROUNDS rounds of /tokenize, /detokenize of its reply and
-    /reconstruct.  Required: every reply 200 (no 5xx), the worker alive, and
-    the launches exactly the drained buckets' (`counters` set to 0 before);
-    the requests a second, p50 and p99 a route and the mean drained batch."""
+def _serve_load(url, pngs, service, counters, rounds: int) -> dict:
+    """One load on the daemon: each of SERVE_CLIENTS threads sends `rounds`
+    rounds of /tokenize, /detokenize of its reply and /reconstruct.
+    Required: every reply 200 (no 5xx) and of its shape (the tokens' grid
+    and range, a 256x256 RGB PNG), the worker alive, and the launches
+    exactly those of the batches ``drained`` counts (`counters` set to 0
+    before); the requests a second, p50 and p99 a route and the mean
+    drained batch."""
+    import io
+    import json
     import threading
     import urllib.error
     import urllib.request
 
+    import numpy as np
     import torch
+    from PIL import Image
 
+    reg = service.engine.regularization
     lat = {"tokenize": [], "detokenize": [], "reconstruct": []}
     codes, errors = [], []
     lock = threading.Lock()
@@ -3757,21 +3837,32 @@ def _serve_load(url, pngs, service, counters, drains, buckets) -> dict:
             codes.append(code)
         return out, code
 
+    def check_png(route, body):
+        shape = np.asarray(Image.open(io.BytesIO(body))).shape
+        require(shape == (RES, RES, 3), f"serve: /{route} gave an image of shape {shape}")
+
     def client(i):
         try:
-            for _ in range(SERVE_ROUNDS):
+            for _ in range(rounds):
                 tok, code = request("tokenize", pngs[i], "image/png")
                 if code == 200:
-                    request("detokenize", tok, "application/json")
-                request("reconstruct", pngs[i], "image/png")
+                    t = json.loads(tok)
+                    require(t["shape"][:2] == [RES // 8, RES // 8] and
+                            0 <= min(t["indices"]) and max(t["indices"]) < reg.n_samples,
+                            f"serve: /tokenize gave shape {t['shape']}")
+                    img, code = request("detokenize", tok, "application/json")
+                    if code == 200:
+                        check_png("detokenize", img)
+                img, code = request("reconstruct", pngs[i], "image/png")
+                if code == 200:
+                    check_png("reconstruct", img)
         except Exception as e:  # a client that fails is reported, and fails the phase
             with lock:
                 errors.append(repr(e))
 
     for k in counters.values():
         k.launches = 0
-    drains.clear()
-    buckets.update(tokenize=0, detokenize=0)
+    before = {k: dict(v) for k, v in service.drained.items()}
     clients = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
     t0 = time.perf_counter()
     for c in clients:
@@ -3787,23 +3878,27 @@ def _serve_load(url, pngs, service, counters, drains, buckets) -> dict:
     require(fives == 0 and all(c == 200 for c in codes),
             f"serve: {fives} replies of 5xx, codes {sorted(set(codes))}")
     require(service.worker_alive(), "serve: the worker thread died")
+    buckets = {k: service.drained[k]["batches"] - before[k]["batches"] for k in before}
+    requests = sum(service.drained[k]["requests"] - before[k]["requests"] for k in before)
     expected = {n: buckets["tokenize"] * SERVE_TOKENIZE.get(n, 0)
                 + buckets["detokenize"] * SERVE_DETOKENIZE.get(n, 0) for n in counts}
     launches = require_launches(f"serve ({buckets} buckets)", counts,
                                 {n: v for n, v in expected.items() if v})
-    return {"requests": len(codes), "replies_5xx": fives, "worker_alive": True,
-            "requests_per_s": len(codes) / wall, "wall_s": wall,
+    return {"rounds": rounds, "requests": len(codes), "replies_5xx": fives,
+            "worker_alive": True, "requests_per_s": len(codes) / wall, "wall_s": wall,
             "latency_ms": {r: {"n": len(v), "p50": _percentile(v, 50),
                                "p99": _percentile(v, 99)} for r, v in lat.items()},
-            "drains": len(drains), "mean_drained_batch": sum(drains) / len(drains),
-            "buckets": dict(buckets), "launches": launches}
+            "drains": sum(buckets.values()),
+            "mean_drained_batch": requests / sum(buckets.values()),
+            "buckets": buckets, "launches": launches}
 
 
 def run_serve(gen) -> dict:
     """The serving daemon through its HTTP surface, its worker thread making
     the process's first launches of the path's kernels (this phase runs
-    before any other), then the bucket-vs-solo probe in bf16 and in float32
-    (TF32 off), and the bare engine's encode -> dequant at bs = 8."""
+    before any other), then the probe of its replies against the plain
+    path in bf16 and in float32 (TF32 off), and the bare engine's encode ->
+    dequant at bs = 8."""
     import json
     import threading
     import urllib.request
@@ -3819,21 +3914,6 @@ def run_serve(gen) -> dict:
                                         device="cuda")
     engine = service.engine
     require(engine.encoder.dtype == torch.bfloat16, "serve: the engine is not bf16")
-    drains, buckets = [], {"tokenize": 0, "detokenize": 0}
-
-    def bucket(n, cap):  # the service's own rule, each drain recorded
-        drains.append(n)
-        return serve.TokenizerService._bucket(n, cap)
-
-    def counting(kind, fn):
-        def call(x):
-            buckets[kind] += 1
-            return fn(x)
-        return call
-
-    service._bucket = bucket
-    engine.quant = counting("tokenize", engine.quant)
-    engine.dequant = counting("detokenize", engine.dequant)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service, name))
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
@@ -3848,18 +3928,19 @@ def run_serve(gen) -> dict:
         result = {"phase": "serve", "config": SERVE_CONFIG, "overrides": SERVE_BF16,
                   "image_size": RES, "max_batch": SERVE_MAX_BATCH,
                   "batch_window_ms": SERVE_WINDOW_MS, "clients": SERVE_CLIENTS,
-                  "rounds": SERVE_ROUNDS, "healthz": health,
+                  "healthz": health,
                   "launches_per_bucket": {"tokenize": SERVE_TOKENIZE,
                                           "detokenize": SERVE_DETOKENIZE},
                   # the first load makes the worker's first launches; the second is warm
-                  "cold": _serve_load(url, pngs, service, counters, drains, buckets),
-                  "warm": _serve_load(url, pngs, service, counters, drains, buckets)}
-        probe = _serve_images(SERVE_PROBE, SEED + 1)
-        arrays = [img.astype(np.float32) / 127.5 - 1.0 for img in probe]
-        result["bucket_vs_solo_bf16"] = _bucket_vs_solo(service, arrays)
+                  "cold": _serve_load(url, pngs, service, counters, SERVE_COLD_ROUNDS),
+                  "warm": _serve_load(url, pngs, service, counters, SERVE_ROUNDS)}
     finally:
         httpd.shutdown()
         httpd.server_close()
+    probe = _serve_images(SERVE_PROBE, SEED + 1)
+    arrays = [img.astype(np.float32) / 127.5 - 1.0 for img in probe]
+    result["probe_bf16"] = _serve_probe(service, arrays)
+    require(service.worker_alive(), "serve: the worker thread died")
     # the bare engine at the daemon's largest bucket: encode -> dequant, bs = 8
     x = torch.rand((SERVE_MAX_BATCH, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
 
@@ -3875,7 +3956,8 @@ def run_serve(gen) -> dict:
     torch.cuda.empty_cache()
     fp32, _ = serve.build_service(config, image_size=RES, max_batch=SERVE_MAX_BATCH,
                                   batch_window_ms=SERVE_WINDOW_MS, device="cuda")
-    result["bucket_vs_solo_float32"] = _bucket_vs_solo(fp32, arrays)
+    result["probe_float32"] = _serve_probe(fp32, arrays)
+    require(fp32.worker_alive(), "serve: the float32 worker thread died")
     del fp32
     torch.cuda.empty_cache()
     return result
@@ -4108,12 +4190,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one main-path step")
-    ap.add_argument("--ddp-worker", metavar="OUT_DIR",
-                    help="(a rank of the ddp phase, under torchrun) the training entry point "
-                         "on the arguments after --")
-    ap.add_argument("--eval-after", metavar="EVAL_DIR",
-                    help="(with --ddp-worker) then the evaluation entry point on the arguments "
-                         "in EVAL_DIR/argv.json, in the same ranks (the eval_sweep phase)")
+    ap.add_argument("--ddp-worker", nargs=2, metavar=("OUT_DIR", "EVAL_DIR"),
+                    help="(a rank of the ddp and eval_sweep phases, under torchrun) the "
+                         "training entry point on the arguments after --, then the evaluation "
+                         "entry point on the arguments in EVAL_DIR/argv.json")
     ap.add_argument("entry_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4137,12 +4217,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.ddp_worker:
-        rc = ddp_worker(args.ddp_worker, args.entry_argv, keep_group=bool(args.eval_after))
-        if rc or not args.eval_after:
-            return rc
+        out_dir, eval_dir = args.ddp_worker
+        ddp_worker(out_dir, args.entry_argv)
         torch.cuda.empty_cache()
-        with open(os.path.join(args.eval_after, "argv.json")) as f:
-            return eval_worker(args.eval_after, json.load(f))
+        with open(os.path.join(eval_dir, "argv.json")) as f:
+            return eval_worker(eval_dir, json.load(f))
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,

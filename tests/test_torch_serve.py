@@ -167,6 +167,33 @@ def test_padded_batch_matches_solo(server):
         assert out[i]["indices"] == solo[0]["indices"]
 
 
+def test_drained_counts(daemons):
+    """Requests released together inside one batch window drain as one
+    padded batch, and ``drained`` counts it with its requests."""
+    service, server, _ = daemons
+    n = 3
+    before = {k: dict(v) for k, v in service.drained.items()}
+    barrier, out = threading.Barrier(n), {}
+
+    def tok(i):
+        barrier.wait()
+        out[i] = json.loads(_post(f"{server}/tokenize", _png_bytes(20 + i)))
+
+    window, service.window = service.window, 2.0
+    try:
+        threads = [threading.Thread(target=tok, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        service.window = window
+    assert len(out) == n
+    assert service.drained["tokenize"] == {"batches": before["tokenize"]["batches"] + 1,
+                                           "requests": before["tokenize"]["requests"] + n}
+    assert service.drained["detokenize"] == before["detokenize"]
+
+
 def test_error_paths(daemons):
     service, server, _ = daemons
     with pytest.raises(urllib.error.HTTPError) as exc:  # malformed image

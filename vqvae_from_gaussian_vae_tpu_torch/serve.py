@@ -45,7 +45,8 @@ class TokenizerService:
     One pending list per op kind; a worker thread drains the deepest
     backlog, waits up to the batch window for it to fill, pads the batch to
     its bucket and runs it on the engine's device.  The worker binds that
-    device before its first launch.
+    device before its first launch.  ``drained[kind]`` counts the batches
+    of each kind that went to the engine and the requests they held.
     """
 
     def __init__(self, engine, image_size: int, max_batch: int = 8,
@@ -56,6 +57,7 @@ class TokenizerService:
         self.window = batch_window_ms / 1e3
         self._cv = threading.Condition()
         self._pending = {"tokenize": [], "detokenize": []}
+        self.drained = {k: {"batches": 0, "requests": 0} for k in self._pending}
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -128,6 +130,8 @@ class TokenizerService:
                     fill = np.repeat(arrays[-1:], bucket - n, axis=0)
                     arrays = np.concatenate([arrays, fill], axis=0)
                 x = torch.from_numpy(arrays).to(device)
+                self.drained[kind]["batches"] += 1
+                self.drained[kind]["requests"] += n
                 if kind == "tokenize":
                     _, out = self.engine.quant(x)
                 else:
