@@ -87,6 +87,23 @@ then drives each path through the entry points a user calls, at bs=16,
     off the velocity): a 50-step ``post`` call with its 200 flash launches,
     held to the same call on the einsum path, two train steps with exact
     launches, and the bf16 poster's gradient against a float32 poster's;
+  * FLUX (``flux``): flux-dev at full width (11.9 B parameters, hidden
+    3072, 24 heads of 128, 19 + 38 blocks) built on the card in bf16 with
+    seeded weights, the JAX init's zero layers reseeded (zero, they make the
+    velocity 0): one forward at bs 1, 256x256, 512 zero text tokens with
+    its 57 launches of the flash forward at (1, 768, 24x128), whose entry
+    the kernel phase also holds to its plain version, held to the same
+    forward on the einsum path; ms a forward, its profile, peak memory; one
+    forward with rank-128 LoRA deltas;
+  * the token decoder (``flux_dequant``): ``AutoencodingFluxEngine`` on
+    sd3unet_gq_0.25's bf16 tokenizer with the full pipeline (flux-dev, its
+    depth-2 ControlNet, the FLUX VAE): 2 steps of ``dequant`` held to the
+    einsum path, then one timed 25-step ``dequant`` (2615 flash launches
+    at flux's shape, the negative pass only under CFG, and the decoder's 3);
+  * the baseline VAEs (``baselines``): FLUX, SD3, EQ, HunyuanImage-2 and -3
+    at their published widths in float32 through the port's ``eval.py`` in
+    protocol mode over 12 seeded 256x256 images at bs 4 (PSNR, SSIM, LPIPS,
+    img/s, peak memory), and the Qwen-Image wrapper's NotImplementedError;
   * the kernel gates, read as the JAX package reads them: an sd3unet encode
     -> dequant at 200x200 (its 25x25 AttnBlocks take the einsum path), a
     2-layer bsqvit with ``GVQ_DISABLE_FUSED_KERNELS=1`` (no LayerNorm or
@@ -4114,6 +4131,341 @@ def run_post(gen) -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# flux-dev at full width (hidden 3072, 24 heads of 128, 19 + 38 blocks,
+# context 4096, vec 768) on a 256x256 image: 512 text tokens (flux-dev's T5
+# length) and 16 x 16 image tokens
+FLUX_TXT = 512
+FLUX_FLASH = (1, FLUX_TXT + (RES // 16) ** 2, 24, 128)  # (B, L, heads, D): L = 768
+FLUX_BLOCKS = 19 + 38  # row 4's launches a flux forward: every block's attention
+CONTROLNET_BLOCKS = 2
+FLUX_LAUNCHES = {"flash_attention_fwd": FLUX_BLOCKS}
+FLUX_LORA_RANK = 128
+FLUX_TIMED = 3  # timed forwards after the counted one
+FLUX_REL_L2 = 2e-2  # the velocity, kernels on against off: bf16 rounds at other places
+FLUX_DEQUANT_REL_L2 = 3e-2  # 2 Euler steps through both nets, then the FLUX VAE
+FLUX_CHECK_STEPS = 2
+FLUX_STEPS = 25  # AutoencodingFluxEngine's num_steps
+FLUX_CFG_FROM = 5  # its timestep_to_start_cfg: the negative pass from step 5
+FLUX_CLAMP = [-1.0, 1.0]  # the engine's clamp_range (the config sets none), as the post phase's
+
+
+def flux_dequant_launches(steps: int) -> dict:
+    """Row 4 and the upsample a dequant of one image launches: the
+    ControlNet's 2 and flux's 57 a step, flux's 57 again from step 5 (the
+    negative pass), the tokenizer decoder's 3 AttnBlocks and 3 upsamples."""
+    unet = PATHS["sd3unet"]["launches"]
+    cfg_steps = max(0, steps - FLUX_CFG_FROM)
+    return {"flash_attention_fwd": steps * (CONTROLNET_BLOCKS + FLUX_BLOCKS)
+            + cfg_steps * FLUX_BLOCKS + 3,
+            "upsample_nearest_conv3x3_gn": unet["upsample_nearest_conv3x3_gn"]}
+
+
+def reseed_zero_layers(module, seed: int) -> list:
+    """Seed the layers the JAX init zeroes (``flux.ZERO_INIT``: the final
+    projection, the ControlNet's output projections and last hint conv,
+    LoRA's up) N(0, 1/fan_in): zero, they make the velocity exactly 0 and
+    cut every attention off it."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.models.flux import ZERO_INIT
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    names = []
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if ZERO_INIT.search(name):
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+                names.append(name)
+    return names
+
+
+def build_flux(lora_rank: int = 0):
+    """flux-dev built on the meta device, its storage on the card in bf16,
+    seeded there by ``init_flux_weights``, the zero layers reseeded."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.models import flux as F
+
+    model = F.build(F.Flux, F.flux_dev_params(), lora_rank=lora_rank, device="cuda")
+    F.init_flux_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    return model, reseed_zero_layers(model, SEED + 1)
+
+
+def flux_inputs(gen) -> dict:
+    """One 256x256 image's latent noise as 256 tokens, 512 zero text tokens
+    (no T5 weights here), a zero CLIP vector, t = 0.5, guidance 4."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.models import flux as F
+
+    noise = F.get_noise(gen, 1, RES, RES, device="cuda")
+    p = F.flux_dev_params()
+    return {"img": F.pack_latents(noise).to(torch.bfloat16),
+            "img_ids": F.make_img_ids(noise.shape[1], noise.shape[2], 1, device="cuda"),
+            "txt": torch.zeros((1, FLUX_TXT, p.context_in_dim), dtype=torch.bfloat16,
+                               device="cuda"),
+            "txt_ids": torch.zeros((1, FLUX_TXT, 3), device="cuda"),
+            "timesteps": torch.full((1,), 0.5, device="cuda"),
+            "y": torch.zeros((1, p.vec_in_dim), dtype=torch.bfloat16, device="cuda"),
+            "guidance": torch.full((1,), 4.0, device="cuda")}
+
+
+def _with_bf16_qk(fn):
+    """fn() with flux's attention rounding the rotated q and k to v's bf16
+    before the einsum path, as the kernel path rounds them."""
+    from vqvae_from_gaussian_vae_tpu_torch.models import flux as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import sdpa_token_major
+
+    def attention(q, k, v, pe):
+        qf, kf = F.apply_rope(q, k, pe)
+        return sdpa_token_major(qf.to(v.dtype), kf.to(v.dtype), v)
+
+    real, F.attention = F.attention, attention
+    try:
+        return fn()
+    finally:
+        F.attention = real
+
+
+def check_flash_flux(gen):
+    """Row 4's entry at flux-dev's attention, (1, 768, 24x128) bf16, on the
+    D = 128 ``wgmma`` body, against its plain version, SDPA beside it."""
+    return check_flash(gen, FLUX_FLASH, "flash_attention_fwd_flux", "flux", FLUX_BLOCKS)
+
+
+def run_flux(gen) -> dict:
+    """One flux-dev forward through ``Flux.forward`` at full width, bs 1,
+    256x256, 512 text tokens, bf16: its 57 launches of row 4's kernel, held
+    to the same forward with the kernels disabled (the einsum attention);
+    ms a forward, peak memory; then one forward with rank-128 LoRA deltas."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, reseeded = build_flux()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kw = flux_inputs(gen)
+    counters = launch_counters()
+    with torch.inference_mode():
+        out, counts = counted(counters, lambda: model(**kw))
+        launches = require_launches("flux forward", counts, FLUX_LAUNCHES)
+        require(tuple(out.shape) == (1, (RES // 16) ** 2, 64) and bool(torch.isfinite(out).all()),
+                f"flux: velocity {tuple(out.shape)} not finite")
+        ms = [_host_ms(lambda: model(**kw)) for _ in range(FLUX_TIMED)]
+        breakdown = profile_step(lambda: model(**kw))
+        plain = with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"}, lambda: model(**kw))
+        plain_ms = _host_ms(lambda: with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"},
+                                             lambda: model(**kw)))
+        plain_bf16_qk = with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"},
+                                 lambda: _with_bf16_qk(lambda: model(**kw)))
+    rel = rel_l2(out.float(), plain.float())
+    # where the difference comes from: the kernel against the einsum path
+    # with q and k rounded to bf16 as the kernel path rounds them, and that
+    # rounding alone
+    rel_parts = {"kernel_vs_einsum_bf16_qk": rel_l2(out.float(), plain_bf16_qk.float()),
+                 "bf16_qk_rounding_alone": rel_l2(plain_bf16_qk.float(), plain.float())}
+    require(rel <= FLUX_REL_L2, f"flux: flash vs einsum velocity rel L2 {rel} > {FLUX_REL_L2}")
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, out, plain, plain_bf16_qk
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    lora, lora_reseeded = build_flux(FLUX_LORA_RANK)
+    with torch.inference_mode():
+        out, lora_counts = counted(counters, lambda: lora(**kw))
+        lora_launches = require_launches("flux forward, LoRA rank 128", lora_counts,
+                                         FLUX_LAUNCHES)
+        require(bool(torch.isfinite(out).all()), "flux LoRA: velocity not finite")
+        lora_ms = [_host_ms(lambda: lora(**kw)) for _ in range(FLUX_TIMED)]
+    lora_params = sum(p.numel() for p in lora.parameters())
+    lora_peak = torch.cuda.max_memory_allocated() / 2**30
+    del lora, out
+    torch.cuda.empty_cache()
+    return {"phase": "flux", "model": "flux-dev (FluxParams defaults), bf16",
+            "parameters": n_params, "batch": 1, "resolution": RES, "text_tokens": FLUX_TXT,
+            "flash_shape": list(FLUX_FLASH), "launches_per_forward": launches,
+            "reseeded_zero_layers": len(reseeded),
+            "seeded": "init_flux_weights on the card (generator seed 0); the JAX init's zero "
+                      "layers reseeded N(0, 1/fan_in)",
+            "build_s": build_s, "forward_ms": ms, "einsum_forward_ms": plain_ms,
+            "flash_vs_einsum_rel_l2": rel, "tolerance": f"rel L2 <= {FLUX_REL_L2}",
+            "rel_l2_parts": rel_parts, "peak_mem_gib": peak, "profile": breakdown,
+            "lora": {"rank": FLUX_LORA_RANK, "parameters": lora_params,
+                     "reseeded_zero_layers": len(lora_reseeded), "launches": lora_launches,
+                     "forward_ms": lora_ms, "peak_mem_gib": lora_peak}}
+
+
+def run_flux_dequant(gen) -> dict:
+    """``AutoencodingFluxEngine`` on sd3unet_gq_0.25's tokenizer in bf16 with
+    the full pipeline (flux-dev, its depth-2 ControlNet, the FLUX VAE in
+    float32) through ``quant`` and ``dequant``: 2 steps held to the same
+    call with the kernels disabled (the latents the FLUX VAE decodes, and
+    the image), then one timed 25-step ``dequant`` with its exact launches."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config, load_config
+    from vqvae_from_gaussian_vae_tpu_torch.models import flux as F
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(os.path.join(ROOT, SERVE_CONFIG), SERVE_BF16)
+    cfg["model"]["target"] = ("vqvae_from_gaussian_vae_tpu.models.flux_pipeline."
+                              "AutoencodingFluxEngine")
+    cfg["model"]["params"]["loss_config"] = None
+    cfg["model"]["params"]["clamp_range"] = FLUX_CLAMP
+    engine = instantiate_from_config(cfg["model"], seed=SEED, device="cuda")
+    t0 = time.perf_counter()
+    engine.load_flux_pipeline()
+    pipe = engine.xflux_pipeline
+    reseeded = reseed_zero_layers(pipe.model, SEED + 1) + \
+        reseed_zero_layers(pipe.controlnet, SEED + 2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x = torch.rand((1, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    _, indices = engine.quant(x)
+    noise = F.get_noise(gen, 1, RES, RES, device="cuda")
+    latents = []
+    ae_decode = pipe.ae.decode
+
+    def recorded(z):
+        latents.append(z.clone())
+        return ae_decode(z)
+
+    pipe.ae.decode = recorded
+    counters = launch_counters()
+    try:
+        engine.num_steps = FLUX_CHECK_STEPS
+        out2, c2 = counted(counters, lambda: engine.dequant(indices, noise=noise))
+        check_launches = require_launches("flux_dequant, 2 steps", c2,
+                                          flux_dequant_launches(FLUX_CHECK_STEPS))
+        plain2 = with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"},
+                          lambda: engine.dequant(indices, noise=noise))
+    finally:
+        pipe.ae.decode = ae_decode
+        engine.num_steps = FLUX_STEPS
+    rel_latent = rel_l2(latents[0], latents[1])
+    rel_image = rel_l2(out2, plain2)
+    require(rel_latent <= FLUX_DEQUANT_REL_L2 and rel_image <= FLUX_DEQUANT_REL_L2,
+            f"flux_dequant: kernels vs einsum rel L2 latent {rel_latent}, image {rel_image}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, counts = counted(counters, lambda: engine.dequant(indices, noise=noise))
+    seconds = time.perf_counter() - t0
+    launches = require_launches("flux_dequant, 25 steps", counts,
+                                flux_dequant_launches(FLUX_STEPS))
+    require(tuple(out.shape) == (1, RES, RES, 3) and bool(torch.isfinite(out).all()),
+            f"flux_dequant: image {tuple(out.shape)} not finite")
+    require(float(out.abs().max()) <= 1.0, "flux_dequant: the clamp did not hold")
+    line = {"phase": "flux_dequant", "config": SERVE_CONFIG,
+            "overrides": SERVE_BF16 + [f"model.params.clamp_range={FLUX_CLAMP}"],
+            "engine": "AutoencodingFluxEngine (flux-dev, ControlNet depth 2, FLUX VAE float32)",
+            "batch": 1, "resolution": RES, "indices": list(indices.shape),
+            "reseeded_zero_layers": len(reseeded), "build_s": build_s,
+            "check_steps": FLUX_CHECK_STEPS, "check_launches": check_launches,
+            "kernels_vs_einsum_rel_l2": {"latent": rel_latent, "image": rel_image},
+            "tolerance": f"rel L2 <= {FLUX_DEQUANT_REL_L2}", "steps": FLUX_STEPS,
+            "cfg_from_step": FLUX_CFG_FROM, "negative_pass": "only on CFG steps",
+            "launches_per_dequant": launches, "dequant_s": seconds,
+            "clamped_share": float((out.abs() >= 1.0).float().mean()),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del engine, pipe, out, out2, plain2, latents
+    torch.cuda.empty_cache()
+    return line
+
+
+# the frozen baselines at their published widths, float32, through the port's
+# eval.py in protocol mode: its ``_engine`` and ``metrics_of`` (its ``main``
+# adds FID, whose host sqrtm of 2048 x 2048 takes about 20 s a call; the
+# CPU tests run ``main`` on a baseline, the eval_sweep phase on the card)
+BASELINES = ("AutoencoderKLFLUX", "AutoencoderKLSD3", "AutoencoderKLEQ",
+             "AutoencoderKLHYImage2", "AutoencoderKLHYImage3")
+BASELINE_IMAGES = 12
+BASELINE_BATCH = 4
+
+
+def run_baselines(gen) -> dict:
+    """Each baseline VAE built by the port's ``eval.py`` (``_engine``: a
+    wrapper with no ``.module``) from a ``pit.models.autoencoder.*`` target,
+    over seeded 256x256 images at bs 4: finite PSNR, SSIM and LPIPS (the
+    sweep's ``metrics_of``, seeded Inception and LPIPS), img/s of encode ->
+    decode past the first batch, peak memory; ``AutoencoderKLQwenImage``
+    raises."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+    from vqvae_from_gaussian_vae_tpu_torch import eval as port_eval
+    from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config
+    from vqvae_from_gaussian_vae_tpu_torch.data.dataset import SimpleDataset
+    from vqvae_from_gaussian_vae_tpu_torch.evaluations import inception as inception_mod
+    from vqvae_from_gaussian_vae_tpu_torch.evaluations.lpips_metric import LPIPSMetric
+
+    tmp = tempfile.mkdtemp(prefix="gvq_baselines_")
+    folder = write_images(os.path.join(tmp, "images"), BASELINE_IMAGES)
+    data = SimpleDataset(folder, image_size=RES)
+    images = torch.as_tensor(np.stack([data[i]["img"] for i in range(BASELINE_IMAGES)]),
+                             device="cuda")
+    inception = inception_mod.InceptionV3(output_blocks=(3,), resize_input=True,
+                                          normalize_input=False)
+    inception_mod.seed_weights(inception, 1)
+    inception.to("cuda").eval()
+    lpips = LPIPSMetric("alex", device=torch.device("cuda"))
+    rows = {}
+    for i, name in enumerate(BASELINES):
+        base = os.path.join(tmp, f"{name}.yaml")
+        with open(base, "w") as f:
+            yaml.safe_dump({"model": {"target": f"pit.models.autoencoder.{name}",
+                                      "params": {"seed": SEED + i}}}, f)
+        args = port_eval.get_parser().parse_args(["--base", base, "--dataset", folder])
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(sys.stderr):  # its random-weights warning
+            engine = port_eval._engine(args, torch.device("cuda"))
+        require(not hasattr(engine, "module") and not hasattr(engine, "encoder_config"),
+                f"baselines: {name} is not a protocol-mode wrapper")
+        acc = {k: [] for k in ("psnr", "ssim", "lpips")}
+        ms = []
+        with port_eval.float32_math(), torch.inference_mode():
+            for i in range(0, BASELINE_IMAGES, BASELINE_BATCH):
+                img = images[i:i + BASELINE_BATCH]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                z, info = engine.encode(img, return_reg_log=True)
+                rec = engine.decode(z).float()
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                require(info == {} and tuple(rec.shape) == tuple(img.shape),
+                        f"baselines: {name} gave {tuple(rec.shape)}, {info}")
+                out = port_eval.metrics_of(img, rec, inception, lpips)
+                for k in acc:
+                    acc[k].append(out[k].float().cpu().numpy())
+        vals = {k: np.concatenate(v) for k, v in acc.items()}
+        require(all(np.isfinite(v).all() for v in vals.values()),
+                f"baselines: {name} metrics not finite")
+        rows[name] = {"latent": list(z.shape), **{k: float(v.mean()) for k, v in vals.items()},
+                      "batch_ms": ms,
+                      "img_per_s_past_first_batch": BASELINE_BATCH * (len(ms) - 1)
+                      / (sum(ms[1:]) / 1e3),
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del engine, z, rec
+        torch.cuda.empty_cache()
+    try:
+        instantiate_from_config({"target": "pit.models.autoencoder.AutoencoderKLQwenImage",
+                                 "params": {}})
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    require(raised is not None and "WAN" in raised,
+            "baselines: AutoencoderKLQwenImage did not name what it lacks")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "baselines",
+            "entry_point": "vqvae_from_gaussian_vae_tpu_torch.eval (protocol mode: _engine, "
+                           "metrics_of)",
+            "dtype": "float32", "batch": BASELINE_BATCH, "images": BASELINE_IMAGES,
+            "resolution": RES, "weights": "seeded (no checkpoints); Inception, LPIPS seeded",
+            "models": rows, "qwen_image": raised}
+
+
 UNET_LINEAR = {"attn_type": "linear"}
 UNET_LINEAR_LAUNCHES = {"gq_argmax": 1, "downsample_conv3x3_gn": 3,
                         "upsample_nearest_conv3x3_gn": 3}
@@ -4238,6 +4590,9 @@ def main(argv=None) -> int:
           "ptxas": ptxas, "flash_f32_split_tf32": f32_build_facts()})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # FLUX's and the baselines' draws come from a generator of their own, so
+    # that every other phase draws what it drew before they were added
+    flux_gen = torch.Generator(device="cuda").manual_seed(SEED)
     seconds = {}
     t_phase = time.perf_counter()
     # first, so that the daemon's worker thread makes the first launches
@@ -4255,7 +4610,7 @@ def main(argv=None) -> int:
                   lambda g: check_resample_bwd(g, "down"), lambda g: check_resample_bwd(g, "up"),
                   check_flash_res, check_flash_bwd, check_fused_gn_conv, check_conv3x3_wgrad,
                   check_gn_swish_bwd, check_flash_lean, check_flash_lean_f32,
-                  check_flash_hdit):
+                  check_flash_hdit, lambda g: check_flash_flux(flux_gen)):
         out = check(gen)
         for k in (out if isinstance(out, list) else [out]):
             emit({"phase": "kernel", **k})
@@ -4314,6 +4669,19 @@ def main(argv=None) -> int:
     launches["post"] = post["launches_per_post"]
     launches["post_train_step"] = post["launches_per_train_step"]
     seconds["post"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    flux = run_flux(flux_gen)
+    emit(flux)
+    launches["flux"] = flux["launches_per_forward"]
+    seconds["flux"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    dequant = run_flux_dequant(flux_gen)
+    emit(dequant)
+    launches["flux_dequant"] = dequant["launches_per_dequant"]
+    seconds["flux_dequant"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    emit(run_baselines(flux_gen))
+    seconds["baselines"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     for gate in (run_gate_unet_odd, run_gate_vit_disabled, run_gate_conv_bwd,
                  run_gate_linear_attention):

@@ -198,7 +198,7 @@ def test_cli_refuses_what_the_port_lacks(tmp_path):
     with pytest.raises(ValueError, match="process group has 1"):
         Trainer(None, None, mesh_spec={"data": 4})
     with pytest.raises(NotImplementedError):
-        instantiate_from_config({"target": f"{PKG}.models.hyvae.HunyuanVAE2D", "params": {}})
+        instantiate_from_config({"target": f"{PKG}.models.wan.AutoencoderKLWan", "params": {}})
     port_main._set_matmul_precision("highest")
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     port_main._set_matmul_precision("high")

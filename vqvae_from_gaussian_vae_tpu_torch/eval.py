@@ -14,6 +14,11 @@ InceptionV3 pool features (the source statistics from ``--stats_cache``
 when the file exists, written there when it does not), and the codebook's
 usage and entropy over the 2^16 codes.  ``--dtype bfloat16`` runs the
 engine's backbones in bf16 and so the hand-written inference kernels.
+A config whose target is a frozen baseline VAE
+(``pit.models.autoencoder.AutoencoderKLFLUX``, SD3, EQ, HYImage2, HYImage3:
+``models/third_party.py``) runs in protocol mode, as the root ``eval.py``
+does: the wrapper's ``encode`` gives ``(z, {})`` and ``decode(z)`` the
+reconstruction, with no indices and so no codebook histogram.
 
 Under ``torchrun`` each rank sweeps its own shard of the folder at the
 per-card ``--bs`` (``parallel/distributed.py``) and the per-image rows and

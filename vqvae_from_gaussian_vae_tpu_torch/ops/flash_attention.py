@@ -891,15 +891,18 @@ def sdpa_token_major(q, k, v, sm_scale: float = None):
     """softmax(q k^T * sm_scale) v over token-major (B, L, H, D) inputs,
     returning (B, L, H*D).
 
-    Where ``sdpa_uses_flash`` holds, through ``flash_attention`` (the kernel
-    on the card); elsewhere (float32, a shape the kernels do not take, the
-    kernels disabled) the einsum path with a float32 softmax, as the JAX
-    package's fallback.
+    Where ``sdpa_uses_flash`` holds and k has q's length, through
+    ``flash_attention`` (the kernel on the card); elsewhere (float32, a shape
+    the kernels do not take, the kernels disabled, a cross-attention over
+    fewer or more keys than queries) the einsum path with a float32 softmax,
+    as the JAX package's fallback.  JAX's gate reads q's length alone: on the
+    TPU a cross-attention (flux's IP-adapter over its image tokens) would
+    fail at its reshape, off the TPU it takes the einsum path, as here.
     """
     b, l, h, d = q.shape
     if sm_scale is None:
         sm_scale = d ** -0.5
-    if sdpa_uses_flash(v.dtype, l, h, d):
+    if k.shape[1] == l and sdpa_uses_flash(v.dtype, l, h, d):
         return flash_attention(q.to(v.dtype).reshape(b, l, h * d),
                                k.to(v.dtype).reshape(b, l, h * d),
                                v.reshape(b, l, h * d), sm_scale, h)

@@ -89,6 +89,21 @@ for _jax_path, _pit_path, _port_path in (
         "CrossAttention", "MemoryEfficientCrossAttention", "SelfAttention",
         "SpatialSelfAttention", "GEGLU", "FeedForward", "BasicTransformerBlock",
         "BasicTransformerSingleLayerBlock", "SimpleTransformer", "SpatialTransformer")),
+    # the frozen baseline VAEs (the reference's eval wrappers) and HunyuanVAE2D
+    *((f"models.third_party.{_cls}", f"pit.models.autoencoder.{_cls}",
+       f"models.third_party.{_cls}") for _cls in (
+        "AutoencoderKLFLUX", "AutoencoderKLSD3", "AutoencoderKLEQ", "AutoencoderKLHYImage2",
+        "AutoencoderKLHYImage3", "AutoencoderKLQwenImage", "AutoencoderKLWAN")),
+    ("models.third_party.AutoencoderKLDiffusers", None,
+     "models.third_party.AutoencoderKLDiffusers"),
+    ("models.hyvae.HunyuanVAE2D", "pit.models.hyvae.HunyuanVAE2D", "models.hyvae.HunyuanVAE2D"),
+    ("models.hyvae.Encoder", None, "models.hyvae.Encoder"),
+    ("models.hyvae.Decoder", None, "models.hyvae.Decoder"),
+    # the generative token decoder: FLUX, its ControlNet, the pipeline, the engines
+    *((f"models.{_path}", None, f"models.{_path}") for _path in (
+        "flux.Flux", "flux.ControlNetFlux", "flux.ImageProjModel",
+        "flux_pipeline.FluxPipeline", "flux_pipeline.AutoencodingFluxEngine",
+        "flux_pipeline.AutoencodingFluxLoraEngine", "conditioner.HFEmbedder")),
 ):
     _PORT_TARGETS[f"vqvae_from_gaussian_vae_tpu.{_jax_path}"] = f"{_PKG}.{_port_path}"
     if _pit_path is not None:
@@ -124,7 +139,7 @@ def resolve_target(target: str) -> str:
     """Map a config target onto an importable port path.
 
     Raises NotImplementedError for a JAX-package or reference target that
-    has no port counterpart yet (the baseline VAEs, flux, the video data).
+    has no port counterpart yet (the WAN video VAE, the video data).
     """
     if target in _PORT_TARGETS:
         return _PORT_TARGETS[target]

@@ -28,6 +28,25 @@ dicts of arrays) onto the port's ``pit``-named state_dict:
     ``down_0_block_1.attn_norm.mod.weight``, ``FourierFeatures_0 / freqs``
     and ``skip_gate_0`` unchanged, ``merge_0 / Dense_0`` a Linear
 
+  * flux (``models/flux.py``: the trees of ``Flux``, ``ControlNetFlux`` and
+    ``ImageProjModel``): ``double_blocks_<i>``, ``single_blocks_<i>``,
+    ``controlnet_blocks_<i>`` and ``input_hint_block_<i>`` are list
+    elements; ``img_attn_qkv`` -> ``img_attn.qkv`` (``proj``, ``norm`` and
+    the txt stream likewise), ``img_mlp_0`` -> ``img_mlp.0``,
+    ``adaLN_modulation_1`` -> ``adaLN_modulation.1``; the LoRA deltas
+    ``img_qkv_lora``, ``img_proj_lora`` -> ``processor.qkv_lora1``,
+    ``processor.proj_lora1`` (``txt_*`` -> ``*_lora2``; the single block's
+    ``qkv_lora``, ``proj_lora`` -> ``processor.qkv_lora``, ...) and the
+    IP-adapter's ``ip_adapter_*_proj`` -> ``processor.ip_adapter_*_proj``;
+    RMSNorm's ``query_norm / scale`` and ``key_norm / scale`` keep ``scale``
+  * HunyuanVAE2D (``models/hyvae.py``, the tree under ``encoder`` and
+    ``decoder``): ``down_<i>_block_<j>`` -> ``down.<i>.block.<j>``,
+    ``down_<i>_downsample`` -> ``down.<i>.downsample`` (``up`` likewise),
+    ``mid_block_1`` / ``mid_attn_1`` -> ``mid.block_1`` / ``mid.attn_1``
+  * the third-party wrappers: the UNet's names under ``encoder`` and
+    ``decoder`` (``AutoencoderKLDiffusers``), HunyuanVAE2D's (the
+    HunyuanImage wrappers' ``model``)
+
 and the loss head's tree (the JAX train state's ``loss_params``) onto the
 port's loss state_dict: ``perceptual_loss / net / features_N`` ->
 ``perceptual_loss.net.features.N``, ``lin{k} / model_1`` ->
@@ -51,18 +70,47 @@ _LIST_SEGMENT = re.compile(
     r"^(down|up|block|blocks|attn|resblocks|ffn|features|main|model|to_out|net|layers"
     r"|transformer_blocks)_(\d+)$")
 _NCHW_STATS = ("latent_mean", "latent_std", "loc", "scale")  # (1, 1, 1, C) -> (1, C, 1, 1)
+# flux's flat flax names -> the reference's module paths
+_RENAMES = tuple((re.compile(a), b) for a, b in (
+    (r"^(double_blocks|single_blocks|controlnet_blocks|input_hint_block)_(\d+)$", r"\1.\2"),
+    (r"^(img|txt)_attn_(qkv|proj|norm)$", r"\1_attn.\2"),
+    (r"^(img|txt)_mlp_(\d+)$", r"\1_mlp.\2"),
+    (r"^img_(qkv|proj)_lora$", r"processor.\1_lora1"),
+    (r"^txt_(qkv|proj)_lora$", r"processor.\1_lora2"),
+    (r"^(qkv|proj)_lora$", r"processor.\1_lora"),
+    (r"^(ip_adapter_\w+)$", r"processor.\1"),
+    (r"^adaLN_modulation_(\d+)$", r"adaLN_modulation.\1"),
+))
+# HunyuanVAE2D's, under a root ``encoder`` or ``decoder`` (HDiT's tree keeps
+# its own ``down_<i>_block_<j>`` names)
+_HYVAE_RENAMES = tuple((re.compile(a), b) for a, b in (
+    (r"^(down|up)_(\d+)_block_(\d+)$", r"\1.\2.block.\3"),
+    (r"^(down|up)_(\d+)_(downsample|upsample)$", r"\1.\2.\3"),
+    (r"^mid_(block|attn)_(\d+)$", r"mid.\1_\2"),
+))
+_KEEP_SCALE = ("query_norm", "key_norm")  # flux's RMSNorm names its weight ``scale``
+
+
+def _rename(seg: str, renames) -> list:
+    for pattern, repl in renames:
+        if pattern.match(seg):
+            return pattern.sub(repl, seg).split(".")
+    return [seg]
 
 
 def _key(path, keep_leaf: bool = False) -> str:
     out = []
+    renames = _RENAMES + (_HYVAE_RENAMES if path[0] in ("encoder", "decoder") else ())
     for i, seg in enumerate(path[:-1]):
         m = _LIST_SEGMENT.match(seg)
         parent = path[i - 1] if i else ""
         if m and not (parent == "mid" and m.group(1) == "block"):
             out += [m.group(1), m.group(2)]
         else:
-            out.append(seg)
+            out += _rename(seg, renames)
     leaf = path[-1]
+    if leaf == "scale" and out and out[-1] in _KEEP_SCALE:
+        keep_leaf = True
     if leaf == "embedding":  # a flax table param -> nn.Embedding's weight
         return ".".join(out + [leaf, "weight"])
     if out and out[-1] == "in_proj":  # nn.MultiheadAttention's packed projection
