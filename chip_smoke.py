@@ -93,17 +93,32 @@ then drives each path through the entry points a user calls, at bs=16,
     velocity 0): one forward at bs 1, 256x256, 512 zero text tokens with
     its 57 launches of the flash forward at (1, 768, 24x128), whose entry
     the kernel phase also holds to its plain version, held to the same
-    forward on the einsum path; ms a forward, its profile, peak memory; one
-    forward with rank-128 LoRA deltas;
+    forward on the einsum path, and each of its 57 attention calls held to
+    the einsum on that call's own inputs at the flash entry's bar; ms a
+    forward, its profile, peak memory; one forward with rank-128 LoRA deltas;
   * the token decoder (``flux_dequant``): ``AutoencodingFluxEngine`` on
     sd3unet_gq_0.25's bf16 tokenizer with the full pipeline (flux-dev, its
     depth-2 ControlNet, the FLUX VAE): 2 steps of ``dequant`` held to the
     einsum path, then one timed 25-step ``dequant`` (2615 flash launches
     at flux's shape, the negative pass only under CFG, and the decoder's 3);
-  * the baseline VAEs (``baselines``): FLUX, SD3, EQ, HunyuanImage-2 and -3
-    at their published widths in float32 through the port's ``eval.py`` in
-    protocol mode over 12 seeded 256x256 images at bs 4 (PSNR, SSIM, LPIPS,
-    img/s, peak memory), and the Qwen-Image wrapper's NotImplementedError;
+  * the baseline VAEs (``baselines``): FLUX, SD3, EQ, HunyuanImage-2 and -3,
+    Qwen-Image and WAN (the WAN video VAE on one-frame clips) at their
+    published widths in float32 through the port's ``eval.py`` in protocol
+    mode over 12 seeded 256x256 images at bs 4 (PSNR, SSIM, LPIPS, img/s,
+    peak memory);
+  * the WAN video VAE (``wan_clip``) at the Qwen-Image widths in float32:
+    the chunked streaming encode and decode of a seeded 9-frame 256x256
+    clip (latent (1, 3, 32, 32, 16), the clip finite in [-1, 1], the first
+    chunk equal to the whole-clip path on frame 0 within 1e-4);
+  * the video sweep (``video_eval``): the port's ``eval.py --video --fvd
+    --num_frames 9 --bs 2`` on sd3unet_gq_0.25 in bf16 over 4 seeded GIF
+    clips with seeded Inception, LPIPS and I3D weights: each batch of 18
+    frames with exactly the inference step's launches, finite PSNR, SSIM,
+    LPIPS, FID and FVD, I3D's ms a clip; the VGG LPIPS on the card against
+    the CPU within 1e-4;
+  * the training entry point's ``--profile`` (``profile``): bsqvit at 2
+    layers for 2 steps, its Chrome trace holding the flash kernels' CUDA
+    events;
   * the kernel gates, read as the JAX package reads them: an sd3unet encode
     -> dequant at 200x200 (its 25x25 AttnBlocks take the einsum path), a
     2-layer bsqvit with ``GVQ_DISABLE_FUSED_KERNELS=1`` (no LayerNorm or
@@ -4224,6 +4239,73 @@ def _with_bf16_qk(fn):
         F.attention = real
 
 
+def _flux_attention_calls(model, kw) -> dict:
+    """Each of one flux forward's attention calls against the einsum path on
+    that call's own inputs (the rotated q and k rounded to bf16, as the
+    kernel reads them), at row 4's entry bar (FLASH_ATOL).  The entry holds
+    outputs of unit-variance inputs, under 1 in size, where the bar is many
+    bf16 ulps; flux's outputs reach 4-8, where one bf16 ulp is 0.03125.
+    So each call is held at the entry's scale: its v divided by the power of
+    two at or above its output's largest magnitude, an exact scaling in bf16
+    under which the attention, linear in v, and both paths' roundings scale
+    exactly (the kernel's scaled output times that power is checked equal
+    to its output).  The unscaled differences are reported beside."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.models import flux as F
+    from vqvae_from_gaussian_vae_tpu_torch.ops.flash_attention import sdpa_token_major
+
+    calls, real = [], F.attention
+
+    def recording(q, k, v, pe):
+        o = real(q, k, v, pe)
+        calls.append((q, k, v, pe, o))
+        return o
+
+    def plain(fn):
+        return with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"}, fn)
+
+    counters = launch_counters()
+    with _Patched((F, "attention", recording)), torch.inference_mode():
+        _, counts = counted(counters, lambda: model(**kw))
+    require(len(calls) == FLUX_BLOCKS and counts.get("flash_attention_fwd") == FLUX_BLOCKS,
+            f"flux: {len(calls)} attention calls, {counts} launches")
+    rows = []
+    with torch.inference_mode():
+        for q, k, v, pe, o in calls:
+            qf, kf = F.apply_rope(q, k, pe)
+            qb, kb = qf.to(v.dtype), kf.to(v.dtype)
+            got = sdpa_token_major(qb, kb, v)  # the call as the kernel reads it
+            ref = plain(lambda: sdpa_token_major(qb, kb, v))
+            scale = 2.0 ** math.ceil(math.log2(max(float(ref.abs().max()), 2.0 ** -60)))
+            o_unit = sdpa_token_major(qb, kb, v / scale)
+            ref_unit = plain(lambda: sdpa_token_major(qb, kb, v / scale))
+            rows.append({"scale": scale,
+                         "max_abs_at_unit_scale": float((o_unit.float() - ref_unit.float())
+                                                        .abs().max()),
+                         "max_abs": float((got.float() - ref.float()).abs().max()),
+                         "scaled_exactly": bool(torch.equal(o_unit * scale, got)),
+                         "same_as_the_forward": bool(torch.equal(got, o)),
+                         "max_abs_vs_float32_qk": float(
+                             (got.float() - plain(lambda: real(q, k, v, pe)).float()).abs().max())})
+    del calls
+    unit = [r["max_abs_at_unit_scale"] for r in rows]
+    worst = max(range(len(unit)), key=unit.__getitem__)
+    require(unit[worst] <= FLASH_ATOL,
+            f"flux: attention call {worst} against the einsum at unit scale: {unit[worst]} > "
+            f"{FLASH_ATOL}")
+    require(all(r["scaled_exactly"] for r in rows),
+            "flux: a call's kernel output does not scale exactly with v")
+    require(all(r["same_as_the_forward"] for r in rows),
+            "flux: a call's kernel output differs from the forward's")
+    absolute = [r["max_abs"] for r in rows]
+    return {"calls": len(rows), "tolerance": f"bf16 atol {FLASH_ATOL} (row 4's entry) on v "
+            "scaled by a power of two to outputs within 1",
+            "worst_call": worst, "worst_max_abs_at_unit_scale": unit[worst],
+            "worst_max_abs_unscaled": max(absolute),
+            "worst_call_unscaled": max(range(len(absolute)), key=absolute.__getitem__),
+            "rows": rows}
+
+
 def check_flash_flux(gen):
     """Row 4's entry at flux-dev's attention, (1, 768, 24x128) bf16, on the
     D = 128 ``wgmma`` body, against its plain version, SDPA beside it."""
@@ -4256,6 +4338,7 @@ def run_flux(gen) -> dict:
                                              lambda: model(**kw)))
         plain_bf16_qk = with_env({"GVQ_DISABLE_FUSED_KERNELS": "1"},
                                  lambda: _with_bf16_qk(lambda: model(**kw)))
+    per_call = _flux_attention_calls(model, kw)
     rel = rel_l2(out.float(), plain.float())
     # where the difference comes from: the kernel against the einsum path
     # with q and k rounded to bf16 as the kernel path rounds them, and that
@@ -4288,7 +4371,8 @@ def run_flux(gen) -> dict:
                       "layers reseeded N(0, 1/fan_in)",
             "build_s": build_s, "forward_ms": ms, "einsum_forward_ms": plain_ms,
             "flash_vs_einsum_rel_l2": rel, "tolerance": f"rel L2 <= {FLUX_REL_L2}",
-            "rel_l2_parts": rel_parts, "peak_mem_gib": peak, "profile": breakdown,
+            "rel_l2_parts": rel_parts, "attention_calls": per_call,
+            "peak_mem_gib": peak, "profile": breakdown,
             "lora": {"rank": FLUX_LORA_RANK, "parameters": lora_params,
                      "reseeded_zero_layers": len(lora_reseeded), "launches": lora_launches,
                      "forward_ms": lora_ms, "peak_mem_gib": lora_peak}}
@@ -4375,7 +4459,8 @@ def run_flux_dequant(gen) -> dict:
 # adds FID, whose host sqrtm of 2048 x 2048 takes about 20 s a call; the
 # CPU tests run ``main`` on a baseline, the eval_sweep phase on the card)
 BASELINES = ("AutoencoderKLFLUX", "AutoencoderKLSD3", "AutoencoderKLEQ",
-             "AutoencoderKLHYImage2", "AutoencoderKLHYImage3")
+             "AutoencoderKLHYImage2", "AutoencoderKLHYImage3", "AutoencoderKLQwenImage",
+             "AutoencoderKLWAN")
 BASELINE_IMAGES = 12
 BASELINE_BATCH = 4
 
@@ -4385,8 +4470,8 @@ def run_baselines(gen) -> dict:
     wrapper with no ``.module``) from a ``pit.models.autoencoder.*`` target,
     over seeded 256x256 images at bs 4: finite PSNR, SSIM and LPIPS (the
     sweep's ``metrics_of``, seeded Inception and LPIPS), img/s of encode ->
-    decode past the first batch, peak memory; ``AutoencoderKLQwenImage``
-    raises."""
+    decode past the first batch, peak memory.  The Qwen-Image and WAN
+    wrappers run the WAN video VAE on one-frame clips."""
     import contextlib
     import tempfile
 
@@ -4394,7 +4479,6 @@ def run_baselines(gen) -> dict:
     import torch
     import yaml
     from vqvae_from_gaussian_vae_tpu_torch import eval as port_eval
-    from vqvae_from_gaussian_vae_tpu_torch import instantiate_from_config
     from vqvae_from_gaussian_vae_tpu_torch.data.dataset import SimpleDataset
     from vqvae_from_gaussian_vae_tpu_torch.evaluations import inception as inception_mod
     from vqvae_from_gaussian_vae_tpu_torch.evaluations.lpips_metric import LPIPSMetric
@@ -4447,14 +4531,6 @@ def run_baselines(gen) -> dict:
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         del engine, z, rec
         torch.cuda.empty_cache()
-    try:
-        instantiate_from_config({"target": "pit.models.autoencoder.AutoencoderKLQwenImage",
-                                 "params": {}})
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    require(raised is not None and "WAN" in raised,
-            "baselines: AutoencoderKLQwenImage did not name what it lacks")
     import shutil
 
     shutil.rmtree(tmp, ignore_errors=True)
@@ -4463,7 +4539,296 @@ def run_baselines(gen) -> dict:
                            "metrics_of)",
             "dtype": "float32", "batch": BASELINE_BATCH, "images": BASELINE_IMAGES,
             "resolution": RES, "weights": "seeded (no checkpoints); Inception, LPIPS seeded",
-            "models": rows, "qwen_image": raised}
+            "models": rows}
+
+
+# the WAN video VAE at the published Wan2.1 / Qwen-Image widths, float32
+WAN_FRAMES = 1 + 4 * 2  # T = 1 + 4k: the first frame alone, then two 4-frame chunks
+WAN_FIRST_CHUNK_ATOL = 1e-4
+
+
+def run_wan_clip(gen) -> dict:
+    """``AutoencoderKLWan`` (base 96, z 16, dim_mult (1, 2, 4, 4), two
+    temporal stages; seeded weights) in float32 with TF32 off:
+    ``encode_chunked`` -> ``decode_chunked`` of one seeded 9-frame 256x256
+    clip, the diffusers streaming path (cuDNN's Conv3d / Conv2d, the
+    per-frame attention in float32 matmuls: no hand-written kernel, as the
+    JAX package has no ``pallas_call`` there).  The latent is (1, 3, 32, 32,
+    16) and the clip (1, 9, 256, 256, 3), finite and within [-1, 1]; the
+    first chunk is the whole-clip ``encode`` / ``decode`` of frame 0 alone,
+    within 1e-4; the ms of two passes of each direction and frames/s of the
+    second (past cuDNN's first calls), peak memory."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.models.wan import AutoencoderKLWan
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AutoencoderKLWan(seed=SEED, device="cuda")
+    build_s = time.perf_counter() - t0
+    clip = torch.rand((1, WAN_FRAMES, RES, RES, 3), generator=gen, device="cuda") * 2 - 1
+    runs = []
+    for _ in range(2):
+        box = {}
+        enc_ms = _host_ms(lambda: box.update(post=model.encode_chunked(clip)))
+        dec_ms = _host_ms(lambda: box.update(rec=model.decode_chunked(box["post"].mean)))
+        runs.append((box["post"], box["rec"], enc_ms, dec_ms))
+    post, rec, enc_ms, dec_ms = runs[-1]
+    f = RES // 8
+    require(tuple(post.mean.shape) == (1, 3, f, f, 16),
+            f"wan_clip: latent {tuple(post.mean.shape)}")
+    require(tuple(rec.shape) == (1, WAN_FRAMES, RES, RES, 3), f"wan_clip: clip {tuple(rec.shape)}")
+    require(bool(torch.isfinite(rec).all()) and float(rec.abs().max()) <= 1.0,
+            "wan_clip: the decoded clip is not finite or leaves [-1, 1]")
+    repeat = {"moments": float((runs[0][0].parameters - post.parameters).abs().max()),
+              "clip": float((runs[0][1] - rec).abs().max())}
+    whole_enc = model.encode(clip[:, :1])
+    enc_err = float((post.parameters[:, :1] - whole_enc.parameters).abs().max())
+    whole_dec = model.decode(post.mean[:, :1])
+    dec_err = float((rec[:, :1] - whole_dec).abs().max())
+    require(enc_err <= WAN_FIRST_CHUNK_ATOL and dec_err <= WAN_FIRST_CHUNK_ATOL,
+            f"wan_clip: first chunk against the whole-clip path: encode {enc_err}, "
+            f"decode {dec_err} > {WAN_FIRST_CHUNK_ATOL}")
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pass_ms = {"encode_ms": [r[2] for r in runs], "decode_ms": [r[3] for r in runs]}
+    del model, runs, post, rec, whole_enc, whole_dec
+    torch.cuda.empty_cache()
+    return {"phase": "wan_clip", "model": "AutoencoderKLWan (Wan2.1 / Qwen-Image widths: "
+            "base 96, z 16, dim_mult 1 2 4 4, temperal_downsample F T T), float32, TF32 off",
+            "parameters": n_params, "build_s": build_s, "frames": WAN_FRAMES,
+            "resolution": RES, "latent": [1, 3, f, f, 16],
+            "first_chunk_vs_whole_clip_max_abs": {"encode_moments": enc_err,
+                                                  "decode": dec_err},
+            "tolerance": f"atol {WAN_FIRST_CHUNK_ATOL}",
+            "second_pass_vs_first_max_abs": repeat,
+            **pass_ms,
+            "encode_frames_per_s": WAN_FRAMES / (enc_ms / 1e3),
+            "decode_frames_per_s": WAN_FRAMES / (dec_ms / 1e3),
+            "peak_mem_gib": peak}
+
+
+# the video sweep: sd3unet_gq_0.25 in bf16 tokenizes clips as frame batches
+VIDEO_CLIPS = 4
+VIDEO_FRAMES = 9  # the least that I3D takes
+VIDEO_BATCH = 2  # clips a batch: 18 frames for the tokenizer
+VGG_LPIPS_REL = 1e-4
+
+
+def write_clips(folder: str, n: int, frames: int, seed: int = SEED) -> str:
+    """n seeded GIF clips of ``frames`` RES x RES frames: a gradient that
+    drifts from frame to frame, plus noise."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:RES, 0:RES]
+    for c in range(n):
+        imgs = []
+        for t in range(frames):
+            base = np.stack([(xx * (c + 1) + 5 * t) % 256, (yy * 3 + 7 * c + 9 * t) % 256,
+                             (xx + yy + 3 * t) % 256], -1)
+            arr = np.clip(base + rng.integers(-20, 20, base.shape), 0, 255).astype(np.uint8)
+            imgs.append(Image.fromarray(arr))
+        imgs[0].save(os.path.join(folder, f"clip_{c:02d}.gif"), save_all=True,
+                     append_images=imgs[1:], duration=40, loop=0)
+    return folder
+
+
+def _seeded_i3d_weights(path: str, seed: int = SEED) -> str:
+    """A seeded I3D ``state_dict``: convs at He scale, BatchNorm affine and
+    statistics away from identity (so that the logits keep their size)."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch.evaluations import i3d
+
+    net = i3d.InceptionI3d()
+    i3d.seed_weights(net, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            if t.dim() == 5:
+                t.mul_(2 ** 0.5)
+            elif name.endswith("running_mean") or name.endswith("bn.bias"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=g))
+            elif name.endswith("running_var") or name.endswith("bn.weight"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+    torch.save(net.state_dict(), path)
+    return path
+
+
+def _check_vgg_lpips(gen) -> dict:
+    """C6 on the card: ``get_lpips(..., network_type="vgg")`` on CUDA tensors
+    against the same seeded metric on the CPU."""
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import eval as port_eval
+    from vqvae_from_gaussian_vae_tpu_torch.evaluations import lpips_metric
+
+    x = torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    y = (x + 0.1 * torch.rand(x.shape, generator=gen, device="cuda")).clamp(0, 1)
+    with port_eval.float32_math():
+        got = lpips_metric.get_lpips(x, y, network_type="vgg").cpu()
+        want = lpips_metric.get_lpips(x.cpu(), y.cpu(), network_type="vgg")
+    err = float((got - want).abs().max())
+    bar = VGG_LPIPS_REL * max(1.0, float(want.abs().max()))
+    require(err <= bar, f"video_eval: VGG LPIPS card vs CPU {err} > {bar}")
+    lpips_metric._METRICS.clear()
+    return {"card": got.tolist(), "cpu": want.tolist(), "max_abs": err,
+            "tolerance": f"{VGG_LPIPS_REL} x max(1, |cpu|)"}
+
+
+def run_video_eval(gen) -> dict:
+    """The port's evaluation entry point in video mode, ``main(argv)`` with
+    ``--video --fvd --num_frames 9 --bs 2 --dtype bfloat16`` on
+    sd3unet_gq_0.25 (full width and depth, seeded weights) over 4 seeded
+    256x256 GIF clips, with seeded Inception, LPIPS and I3D weight files:
+    each batch of 2 clips tokenized as 18 frames with exactly the inference
+    step's launches (GQ 1, downsample 3, upsample 3, flash 5), finite
+    PSNR, SSIM, LPIPS, FID and FVD; frames/s of the tokenizer and I3D's ms
+    a clip; then the VGG LPIPS on the card against the CPU (C6)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import eval as port_eval
+    from vqvae_from_gaussian_vae_tpu_torch.models.autoencoder import AutoencodingEngine
+
+    tmp = tempfile.mkdtemp(prefix="gvq_video_")
+    try:
+        clips = write_clips(os.path.join(tmp, "clips"), VIDEO_CLIPS, VIDEO_FRAMES)
+        inc, lp = _seeded_metric_weights(tmp)
+        i3d_path = _seeded_i3d_weights(os.path.join(tmp, "i3d.pth"))
+        argv = ["--base", os.path.join(ROOT, EVAL_CONFIG), "--dataset", clips, "--img_size",
+                str(RES), "--bs", str(VIDEO_BATCH), "--dtype", "bfloat16", "--video", "--fvd",
+                "--num_frames", str(VIDEO_FRAMES), "--inception_weights", inc,
+                "--lpips_weights", lp, "--i3d_weights", i3d_path]
+        counters = launch_counters()
+        spans, frames, i3d_ms = [], [], []
+        encode, decode, make_i3d = (AutoencodingEngine.encode, AutoencodingEngine.decode,
+                                    port_eval._i3d)
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def encode_timed(engine, x, *args, **kwargs):
+            frames.append(int(x.shape[0]))
+            spans.append([event()])
+            return encode(engine, x, *args, **kwargs)
+
+        def decode_timed(engine, z, *args, **kwargs):
+            out = decode(engine, z, *args, **kwargs)
+            spans[-1].append(event())
+            return out
+
+        def i3d_timed(*args, **kwargs):
+            fn = make_i3d(*args, **kwargs)
+
+            def timed(videos):  # the wall ms a clip of one batch's I3D call
+                box = []
+                i3d_ms.append(_host_ms(lambda: box.append(fn(videos))) / len(videos))
+                return box[0]
+            return timed
+
+        for k in counters.values():  # the path's counts: 0 just before it
+            k.launches = 0
+        t0 = time.perf_counter()
+        with _Patched((AutoencodingEngine, "encode", encode_timed),
+                      (AutoencodingEngine, "decode", decode_timed),
+                      (port_eval, "_i3d", i3d_timed)), contextlib.redirect_stdout(sys.stderr):
+            result = port_eval.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in counters.items() if k.launches}
+        batches = len(frames)
+        require(batches == VIDEO_CLIPS // VIDEO_BATCH
+                and frames == [VIDEO_BATCH * VIDEO_FRAMES] * batches,
+                f"video_eval: frame batches {frames}")
+        per_batch = {k: v / batches for k, v in launches.items()}
+        require(per_batch == EVAL_LAUNCHES, f"video_eval: launches a frame batch {per_batch}")
+        summary = {k: float(np.nanmean(result[k])) for k in ("psnr", "ssim", "lpips")}
+        summary.update(fid=float(result["fid"]), fvd=float(result["fvd"]))
+        require(all(math.isfinite(v) for v in summary.values()),
+                f"video_eval: a metric is not finite: {summary}")
+        require(result["count"] == VIDEO_CLIPS * VIDEO_FRAMES,
+                f"video_eval: {result['count']} frames")
+        tok_ms = [b.elapsed_time(e) for b, e in spans]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    vgg = _check_vgg_lpips(gen)
+    torch.cuda.empty_cache()
+    return {"phase": "video_eval", "entry_point": "vqvae_from_gaussian_vae_tpu_torch.eval:main "
+            "--video --fvd", "config": EVAL_CONFIG, "dtype": "bfloat16",
+            "clips": VIDEO_CLIPS, "frames_a_clip": VIDEO_FRAMES, "clips_a_batch": VIDEO_BATCH,
+            "resolution": RES, "weights": "seeded engine; seeded Inception, LPIPS (alex), I3D "
+            "(He-scaled convs, BatchNorm away from identity)",
+            "launches_per_frame_batch": per_batch, "metrics": summary,
+            "tokenizer_ms_a_batch": tok_ms,
+            "tokenizer_frames_per_s_past_first_batch": (
+                VIDEO_BATCH * VIDEO_FRAMES * (batches - 1) / (sum(tok_ms[1:]) / 1e3)
+                if batches > 1 else None),
+            "i3d_ms_a_clip": i3d_ms, "main_seconds": main_s,
+            "frames_per_s_whole_sweep": VIDEO_CLIPS * VIDEO_FRAMES / main_s,
+            "vgg_lpips_card_vs_cpu": vgg}
+
+
+PROFILE_STEPS = 2
+PROFILE_IMAGES = 2 * BATCH
+PROFILE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                   "flash_bwd_dq_sm90_kernel")
+
+
+def run_profile_entry(gen) -> dict:
+    """The training entry point's ``--profile`` (``utils/profiling.py:trace``)
+    on bsqvit_gq_0.25 with the bf16 overlay at 2 layers for 2 steps through
+    ``main(argv)``: ``<logdir>/trace/trace.json`` exists and holds CUDA
+    kernel events, the packed flash forward's and backward's among them."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+    from vqvae_from_gaussian_vae_tpu_torch import main as port_main
+
+    del gen  # the images come from SEED
+    tmp = tempfile.mkdtemp(prefix="gvq_profile_")
+    try:
+        images = write_images(os.path.join(tmp, "images"), PROFILE_IMAGES)
+        argv = ["--base", os.path.join(ROOT, TRAIN_PATHS["bsqvit"]["configs"][0]),
+                os.path.join(ROOT, BF16_OVERLAY), "--name", "profile", "--profile",
+                "--max_steps", str(PROFILE_STEPS), "--seed", str(SEED), "--no-test",
+                "--logdir", os.path.join(tmp, "logs"),
+                f"data.params.train.params.root={images}",
+                f"model.params.encoder_config.params.layers={TRAINER_VIT_LAYERS}",
+                f"model.params.loss_config.params.disc_start={TRAINER_DISC_START}"]
+        counters = launch_counters()
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer = port_main.main(argv)
+        wall_s = time.perf_counter() - t0
+        path = os.path.join(trainer.logdir, "trace", "trace.json")
+        require(os.path.exists(path), f"profile: no trace at {path}")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        named = {k: sum(k in e.get("name", "") for e in kernels) for k in PROFILE_KERNELS}
+        require(kernels and all(named.values()),
+                f"profile: {len(kernels)} CUDA kernel events; the flash kernels {named}")
+        launches = {n: k.launches for n, k in counters.items() if k.launches}
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "profile", "entry_point": "vqvae_from_gaussian_vae_tpu_torch.main:main "
+            "--profile", "config": TRAIN_PATHS["bsqvit"]["configs"][0], "overlay": BF16_OVERLAY,
+            "layers": TRAINER_VIT_LAYERS, "steps": PROFILE_STEPS, "trace_bytes": size,
+            "events": len(events), "kernel_events": len(kernels),
+            "flash_kernel_events": named, "launches": launches, "wall_s": wall_s}
 
 
 UNET_LINEAR = {"attn_type": "linear"}
@@ -4682,6 +5047,16 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     emit(run_baselines(flux_gen))
     seconds["baselines"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    emit(run_wan_clip(flux_gen))
+    torch.cuda.empty_cache()
+    seconds["wan_clip"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    emit(run_video_eval(flux_gen))
+    seconds["video_eval"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    emit(run_profile_entry(flux_gen))
+    seconds["profile"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     for gate in (run_gate_unet_odd, run_gate_vit_disabled, run_gate_conv_bwd,
                  run_gate_linear_attention):

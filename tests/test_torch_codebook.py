@@ -29,3 +29,10 @@ def test_generator_matches_jax_package(n, g, seed):
 def test_prior_samples_matches_jax_package():
     np.testing.assert_array_equal(port_cb.prior_samples(65536, 16, 42),
                                   jax_cb.prior_samples(65536, 16, 42))
+
+
+def test_standard_normal_log_prob_matches_jax_package():
+    table = port_cb.prior_samples(65536, 16, 42)[:4096]
+    got = port_cb.standard_normal_log_prob(table)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, jax_cb.standard_normal_log_prob(table))

@@ -134,3 +134,40 @@ def test_eval_sweep_runs_a_regularizer_without_indices(tmp_path, monkeypatch, ca
     assert result["count"] == 4 and np.isfinite(result["psnr"]).all()
     assert "usage" not in result and "codebook usage" not in out
     assert int(result["hist"].sum()) == 0
+
+
+def _unet_params(cfg_path):
+    cfg = load_config(os.path.join(REPO, cfg_path))
+    p = cfg["model"]["params"]
+    if "unet" not in p["encoder_config"]["target"]:
+        return None, p
+    return p["encoder_config"]["params"], p
+
+
+@pytest.mark.parametrize("cfg_path", CONFIGS)
+def test_flop_counters_match_jax_for_the_shipped_configs(cfg_path):
+    """The counters the roofline reads (``utils/flops.py``: the GAN step's
+    per-image FLOPs, the UNet's GroupNorm elements, the GQ search's extra
+    charge, FLUX's forward) equal the JAX package's."""
+    from vqvae_from_gaussian_vae_tpu.utils import flops as jflops
+    from vqvae_from_gaussian_vae_tpu_torch.utils import flops as pflops
+
+    enc, params = _unet_params(cfg_path)
+    if enc is not None:
+        disc = params.get("loss_config", {}).get("params", {})
+        kw = dict(img=enc["resolution"], ndf=160, n_layers=disc.get("disc_num_layers", 6))
+        for adaptive in (True, False):
+            assert pflops.gan_train_step_flops(enc, adaptive=adaptive, **kw) == \
+                jflops.gan_train_step_flops(enc, adaptive=adaptive, **kw)
+        assert pflops.unet_groupnorm_elems(enc) == jflops.unet_groupnorm_elems(enc) > 0
+    reg = params.get("regularizer_config", {}).get("params", {})
+    if "n_samples" in reg:
+        group = reg.get("group", reg.get("n_variable", 16))
+        for rows in (16 * 1024, 12345):
+            assert pflops.gq_search_extra(rows, group, reg["n_samples"]) == \
+                jflops.gq_search_extra(rows, group, reg["n_samples"])
+    from vqvae_from_gaussian_vae_tpu_torch.models.flux import flux_dev_params
+
+    dev = flux_dev_params()  # 4096 image and 512 text tokens at 1024^2
+    args = (4096, 512, dev.hidden_size, dev.depth, dev.depth_single_blocks, dev.mlp_ratio)
+    assert pflops.flux_mmdit_flops(*args) == jflops.flux_mmdit_flops(*args) > 0

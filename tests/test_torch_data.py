@@ -202,5 +202,12 @@ def test_every_shipped_data_section_instantiates(image_root):
                    "pit.dataset.dataset.StableDataModuleFromConfig"):
         with pytest.raises(NotImplementedError, match="sdata"):
             instantiate_from_config({"target": target, "params": {}})
-    with pytest.raises(NotImplementedError):
-        instantiate_from_config({"target": f"{PKG}.data.video.VideoDataset", "params": {}})
+    from vqvae_from_gaussian_vae_tpu_torch.data import video as pvideo
+
+    stills = instantiate_from_config({"target": f"{PKG}.data.video.ImageDataset",
+                                      "params": {"root": image_root, "image_size": 8,
+                                                 "num_frames": 3}})
+    assert isinstance(stills, pvideo.ImageDataset) and stills[0]["video"].shape == (3, 8, 8, 3)
+    with pytest.raises(ValueError, match="Clip list is empty"):  # an image folder holds no clip
+        instantiate_from_config({"target": f"{PKG}.data.video.VideoDataset",
+                                 "params": {"root": image_root, "image_size": 8}})

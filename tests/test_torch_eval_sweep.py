@@ -177,10 +177,18 @@ def test_the_sweep_returns_its_rows(sweeps):
     assert np.isfinite(res["psnr"]).all() and np.isnan(res["msssim"]).all()
 
 
-def test_video_flags_name_what_is_not_ported():
-    for flags in (["--video"], ["--fvd"], ["--num_frames", "16"], ["--i3d_weights", "x"]):
-        with pytest.raises(NotImplementedError, match="A15"):
-            port_eval.main(["--base", "x.yaml", "--dataset", "d", *flags])
+def test_video_flags_name_what_is_not_ported(tmp_path):
+    """The video flags, no longer refused: the root ``eval.py``'s defaults,
+    and ``--video`` reads the folder as clips (an image folder holds none)."""
+    args = port_eval.get_parser().parse_args(["--base", "x.yaml", "--dataset", "d"])
+    assert (args.video, args.num_frames, args.fvd, args.i3d_weights) == (False, 16, False, "")
+    _images(str(tmp_path / "images"), n=2)
+    _engine_cfg(str(tmp_path / "tiny.yaml"))
+    for flags in (["--video"], ["--video", "--fvd", "--num_frames", "9"]):
+        with pytest.raises(ValueError, match="Clip list is empty"):
+            port_eval.main(["--base", str(tmp_path / "tiny.yaml"), "--dataset",
+                            str(tmp_path / "images"), "--img_size", "32", "--device", "cpu",
+                            *flags])
 
 
 def test_batch_position_probe_names_the_first_module_that_depends_on_position():

@@ -1,7 +1,8 @@
 """The port's reconstruction metrics against the JAX package's, on the same
 numpy inputs: PSNR, SSIM and MS-SSIM (NaN below 256 pixels a side), the
 AlexNet LPIPS distance, InceptionV3's 2048-d pool features of (2, 64, 64,
-3) images resized to 299, FID and IS.  The metric nets are seeded port
+3) images resized to 299, FID and IS, and the VGG16 LPIPS (the training
+loss's net) with ``get_lpips``'s cache.  The metric nets are seeded port
 modules; the JAX nets load their ``state_dict`` (``torch.save``) through
 the JAX package's own loaders, ``LPIPSMetric.load_weights`` and
 ``load_inception_weights``.  Bars: 1e-5 relative on the scalar metrics,
@@ -10,6 +11,8 @@ the JAX package's own loaders, ``LPIPSMetric.load_weights`` and
 entries (``fc``, ``AuxLogits``, ``num_batches_tracked``), load with
 ``strict=True``.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,9 +29,11 @@ from vqvae_from_gaussian_vae_tpu.evaluations.inception import load_inception_wei
 from vqvae_from_gaussian_vae_tpu.evaluations.lpips_metric import LPIPSMetric as JaxLPIPS
 from vqvae_from_gaussian_vae_tpu.evaluations.psnr import get_psnr as jax_psnr
 from vqvae_from_gaussian_vae_tpu.evaluations.ssim import get_ssim_and_msssim as jax_ssim
-from vqvae_from_gaussian_vae_tpu_torch.evaluations import fid, inception, inception_score
+from vqvae_from_gaussian_vae_tpu_torch.evaluations import (
+    fid, inception, inception_score, lpips_metric)
 from vqvae_from_gaussian_vae_tpu_torch.evaluations.lpips_metric import (
     LPIPSAlex, LPIPSMetric, seed_weights)
+from vqvae_from_gaussian_vae_tpu_torch.losses.lpips import LPIPS
 from vqvae_from_gaussian_vae_tpu_torch.evaluations.psnr import get_psnr
 from vqvae_from_gaussian_vae_tpu_torch.evaluations.ssim import get_ssim_and_msssim
 
@@ -80,7 +85,7 @@ def lpips_file(tmp_path_factory):
 
 def test_lpips_alex_matches_jax(lpips_file):
     x, y = _pair(64, seed=1)
-    got = LPIPSMetric("alex", weights_path=str(lpips_file))(
+    got = LPIPSMetric("alex", weights_path=str(lpips_file), device="cpu")(
         torch.from_numpy(x), torch.from_numpy(y)).numpy()
     want = np.asarray(JaxLPIPS("alex", weights_path=str(lpips_file))(
         jnp.asarray(x), jnp.asarray(y)))
@@ -96,14 +101,64 @@ def test_lpips_loader_reads_the_lpips_and_torchvision_names(lpips_file, tmp_path
     renamed["classifier.1.weight"] = torch.zeros(4, 4)
     renamed["scaling_layer.shift"] = torch.zeros(1, 3, 1, 1)
     torch.save(renamed, tmp_path / "renamed.pth")
-    a = LPIPSMetric("alex", weights_path=str(lpips_file)).module.state_dict()
-    b = LPIPSMetric("alex", weights_path=str(tmp_path / "renamed.pth")).module.state_dict()
+    a = LPIPSMetric("alex", weights_path=str(lpips_file), device="cpu").module.state_dict()
+    b = LPIPSMetric("alex", weights_path=str(tmp_path / "renamed.pth"),
+                    device="cpu").module.state_dict()
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
     torch.save({k: v for k, v in sd.items() if not k.startswith("lin0")}, tmp_path / "cut.pth")
     with pytest.raises(RuntimeError, match="lin0"):
-        LPIPSMetric("alex", weights_path=str(tmp_path / "cut.pth"))
-    with pytest.raises(NotImplementedError):
-        LPIPSMetric("vgg")
+        LPIPSMetric("alex", weights_path=str(tmp_path / "cut.pth"), device="cpu")
+    with pytest.raises(ValueError, match="squeeze"):
+        LPIPSMetric("squeeze", device="cpu")
+    vgg = LPIPS()  # the VGG metric reads the lpips package's slice names too
+    seed_weights(vgg, 4)
+    sliced = {re.sub(r"^net\.features\.(\d+)\.", lambda m: f"net.slice1.{m[1]}.", k): v
+              for k, v in vgg.state_dict().items()}
+    torch.save(sliced, tmp_path / "vgg_sliced.pth")
+    got = LPIPSMetric("vgg", weights_path=str(tmp_path / "vgg_sliced.pth"),
+                      device="cpu").module.state_dict()
+    assert all(torch.equal(v, got[k]) for k, v in vgg.state_dict().items())
+    if not torch.cuda.is_available():  # the default device is the card
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LPIPSMetric("alex")
+
+
+@pytest.fixture(scope="module")
+def lpips_vgg_file(tmp_path_factory):
+    net = LPIPS()
+    seed_weights(net, 5)
+    with torch.no_grad():  # positive heads, as trained ones are
+        for k in range(5):
+            getattr(net, f"lin{k}").model[1].weight.abs_()
+    path = tmp_path_factory.mktemp("lpips") / "vgg.pth"
+    torch.save(net.state_dict(), path)
+    return path
+
+
+def test_lpips_vgg_matches_jax(lpips_vgg_file):
+    """C6: the VGG16 metric (the training loss's net) gives JAX's distance."""
+    x, y = _pair(64, seed=9)
+    got = LPIPSMetric("vgg", weights_path=str(lpips_vgg_file), device="cpu")(
+        torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    want = np.asarray(JaxLPIPS("vgg", weights_path=str(lpips_vgg_file))(
+        jnp.asarray(x), jnp.asarray(y)))
+    assert (got > 0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("network_type", ["alex", "vgg"])
+def test_get_lpips_caches_one_metric_a_network(monkeypatch, network_type):
+    """The reference's call: [0, 1] inputs by default, one metric per
+    network type (and device), seeded as ``LPIPSMetric(seed=0)``."""
+    monkeypatch.setattr(lpips_metric, "_METRICS", {})
+    x, y = _pair(32, seed=10)
+    x01, y01 = torch.from_numpy((x + 1) / 2), torch.from_numpy((y + 1) / 2)
+    got = lpips_metric.get_lpips(x01, y01, network_type=network_type, is_video=True)
+    want = LPIPSMetric(network_type, device="cpu")(torch.from_numpy(x), torch.from_numpy(y))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    first = lpips_metric._METRICS[(network_type, torch.device("cpu"))]
+    lpips_metric.get_lpips(x01, y01, network_type=network_type)
+    assert list(lpips_metric._METRICS.values()) == [first]
 
 
 @pytest.fixture(scope="module")

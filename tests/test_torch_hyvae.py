@@ -272,11 +272,24 @@ def test_published_widths_are_the_jax_wrappers(monkeypatch):
 
 @pytest.mark.parametrize("name", ["AutoencoderKLQwenImage", "AutoencoderKLWAN"])
 def test_wan_wrappers_name_what_is_missing(name):
-    with pytest.raises(NotImplementedError, match="WAN"):
-        getattr(ptp, name)(device="cpu")
-    with pytest.raises(NotImplementedError, match="WAN"):
-        instantiate_from_config({"target": f"pit.models.autoencoder.{name}",
-                                 "params": {"device": "cpu"}})
+    """The WAN wrappers were the port's missing baselines: they now build on
+    ``models/wan.py`` at the published Wan2.1 / Qwen-Image widths (base 96,
+    z 16, f = 8, two temporal stages), and the config target reaches them."""
+    from vqvae_from_gaussian_vae_tpu_torch.models.wan import AutoencoderKLWan
+
+    small = dict(base_dim=8, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
+                 temperal_downsample=(False,))
+    vae = instantiate_from_config({"target": f"pit.models.autoencoder.{name}",
+                                   "params": {"device": "cpu", **small}})
+    assert isinstance(vae, getattr(ptp, name)) and isinstance(vae.model, AutoencoderKLWan)
+    z, log = vae.encode(torch.zeros(1, 16, 16, 3))
+    assert log == {} and tuple(z.shape) == (1, 8, 8, 4)
+    assert tuple(vae.decode(z).shape) == (1, 16, 16, 3)
+    full = getattr(ptp, name)(device="cpu").model
+    assert full.encoder.conv_in.out_channels == 96 and full.z_dim == 16
+    assert full.decoder.conv_in.in_channels == 16
+    assert sum(m.mode.endswith("3d") for m in full.encoder.modules()
+               if type(m).__name__ == "WanResample") == 2
 
 
 def test_baseline_targets_resolve_onto_the_port():
@@ -291,8 +304,8 @@ def test_baseline_targets_resolve_onto_the_port():
     vae = instantiate_from_config({"target": "pit.models.hyvae.HunyuanVAE2D",
                                    "params": {**TINY_HY, "device": "cpu"}})
     assert isinstance(vae, phy.HunyuanVAE2D) and vae.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="AutoencoderKLWan"):
-        resolve_target("vqvae_from_gaussian_vae_tpu.models.wan.AutoencoderKLWan")
+    assert resolve_target("vqvae_from_gaussian_vae_tpu.models.wan.AutoencoderKLWan") == \
+        "vqvae_from_gaussian_vae_tpu_torch.models.wan.AutoencoderKLWan"
 
 
 class _FeatureStandIn(torch.nn.Module):

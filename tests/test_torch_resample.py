@@ -14,6 +14,7 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401  (torch on o
 from vqvae_from_gaussian_vae_tpu.models.unet import group_norm_from_stats as jax_gn_from_stats
 from vqvae_from_gaussian_vae_tpu.ops.downsample_conv import downsample_conv3x3_gn as jax_down
 from vqvae_from_gaussian_vae_tpu.ops.upsample_conv import phase_kernels as jax_phase_kernels
+from vqvae_from_gaussian_vae_tpu.ops.upsample_conv import upsample_nearest_conv3x3 as jax_up_nostats
 from vqvae_from_gaussian_vae_tpu.ops.upsample_conv import upsample_nearest_conv3x3_gn as jax_up
 from vqvae_from_gaussian_vae_tpu_torch.models.unet import group_norm_from_stats
 from vqvae_from_gaussian_vae_tpu_torch.ops import downsample_conv as down
@@ -77,6 +78,17 @@ def test_plain_upsample_matches_jax_kernel(shape, o, with_add):
     _check(got, want)
     routed = up.upsample_nearest_conv3x3_gn(_t(x), _t(w), _t(bias), _t(add))
     assert torch.equal(routed[0], got[0]) and torch.equal(routed[1], got[1])
+
+
+@pytest.mark.parametrize("shape,o", [((2, 8, 12, 16), 16), ((1, 4, 4, 32), 24)])
+def test_upsample_without_statistics_matches_jax_kernel(shape, o):
+    """``upsample_nearest_conv3x3``: the fused upsample without its
+    statistics epilogue, on a CPU tensor its plain version."""
+    x, _, w, bias = _inputs(shape, o, False, seed=2)
+    got = up.upsample_nearest_conv3x3(_t(x), _t(w), _t(bias))
+    want = jax_up_nostats(_j(x), _j(w), _j(bias), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    assert torch.equal(got, up.upsample_nearest_conv3x3_gn_plain(_t(x), _t(w), _t(bias))[0])
 
 
 def test_phase_kernels_match_jax():

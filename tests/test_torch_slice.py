@@ -213,7 +213,8 @@ def test_config_targets_resolve_onto_the_port():
         assert resolve_target(spelling) == ("vqvae_from_gaussian_vae_tpu_torch.data.dataset."
                                             "ImageDataModuleFromConfig")
     target = "vqvae_from_gaussian_vae_tpu.data.video.VideoDataset"
-    with pytest.raises(NotImplementedError, match="VideoDataset"):
+    assert resolve_target(target) == "vqvae_from_gaussian_vae_tpu_torch.data.video.VideoDataset"
+    with pytest.raises(TypeError, match="root"):  # the port's class, called without its root
         instantiate_from_config({"target": target, "params": {}})
     cfg = load_config(CONFIG, [t for t in TINY if "loss_config" not in t])
     eng = instantiate_from_config(copy.deepcopy(cfg["model"]), device="cpu")

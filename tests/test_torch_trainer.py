@@ -197,8 +197,10 @@ def test_cli_refuses_what_the_port_lacks(tmp_path):
         Trainer(None, None, mesh_spec={"data": 1, "model": 2})
     with pytest.raises(ValueError, match="process group has 1"):
         Trainer(None, None, mesh_spec={"data": 4})
-    with pytest.raises(NotImplementedError):
-        instantiate_from_config({"target": f"{PKG}.models.wan.AutoencoderKLWan", "params": {}})
+    wan = instantiate_from_config({"target": f"{PKG}.models.wan.AutoencoderKLWan", "params": {
+        "device": "cpu", "base_dim": 8, "z_dim": 4, "dim_mult": [1, 2], "num_res_blocks": 1,
+        "temperal_downsample": [False]}})
+    assert type(wan).__module__ == "vqvae_from_gaussian_vae_tpu_torch.models.wan"
     port_main._set_matmul_precision("highest")
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     port_main._set_matmul_precision("high")

@@ -216,6 +216,14 @@ def test_vit_engine_api_shapes(fp32_engines, image):
     dec = peng.decoder
     with torch.inference_mode():
         assert torch.equal(dec.last_layer(dec.pre_last_layer(z)), dec(z))
+    from vqvae_from_gaussian_vae_tpu.models.vit import TransformerEncoder as JaxEncoder
+
+    # the encoder's last layer (the vf adaptive weight's target): JAX's path in
+    # torch's leaf name, a parameter of the port's encoder
+    jpath = JaxEncoder.last_layer_path()
+    assert vit.TransformerEncoder.last_layer_path() == jpath[:-1] + ("weight",)
+    w = peng.encoder.get_parameter(".".join(vit.TransformerEncoder.last_layer_path()))
+    assert w.shape == peng.encoder.quant_embed.weight.shape
     for spelling in ("vqvae_from_gaussian_vae_tpu.models.vit.TransformerDecoder",
                      "pit.modules.vit.TransformerDecoder"):
         assert resolve_target(spelling) == \

@@ -15,8 +15,9 @@ partial batch; every loader takes ``(shard_id, num_shards)``.  With
 ``use_native`` the C++ decoder of ``native/`` serves ``SimpleDataset``
 splits when it builds (``data/native_loader.py``), else the Python loader
 does; ``loader_kind`` says which one the last loader is.  Batches are numpy,
-``{"img": (B, H, W, 3) float32, "fpath": [str]}``: the trainer moves them to
-the device.
+``{"img": (B, H, W, 3) float32, "fpath": [str]}`` and, where the items carry
+clips (``data/video.py``), ``"video": (B, T, H, W, 3)``: the trainer moves
+them to the device.
 """
 
 from __future__ import annotations
@@ -122,8 +123,11 @@ class _PrefetchLoader:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for batch_idx in batches:
                         items = list(pool.map(self.dataset.__getitem__, map(int, batch_idx)))
-                        if not put({"img": np.stack([it["img"] for it in items]),
-                                    "fpath": [it["fpath"] for it in items]}):
+                        batch = {"img": np.stack([it["img"] for it in items]),
+                                 "fpath": [it["fpath"] for it in items]}
+                        if "video" in items[0]:  # clip datasets (data/video.py)
+                            batch["video"] = np.stack([it["video"] for it in items])
+                        if not put(batch):
                             return
             except Exception as e:  # handed to the consumer, which raises it
                 failed.append(e)

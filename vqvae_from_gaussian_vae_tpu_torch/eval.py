@@ -20,6 +20,16 @@ A config whose target is a frozen baseline VAE
 does: the wrapper's ``encode`` gives ``(z, {})`` and ``decode(z)`` the
 reconstruction, with no indices and so no codebook histogram.
 
+``--video`` reads ``--dataset`` as a folder of clips (GIF; MP4 with
+``imageio``) of ``--num_frames`` frames (``data/video.py``): each batch of
+clips folds into one batch of frames for the tokenizer, which reconstructs
+frames one by one, and the per-frame metrics and FID run over every frame.
+``--fvd`` adds the FVD between the source and the reconstructed clips over
+I3D logits (``evaluations/i3d.py``, frames resized to 224; at least 9
+frames; ``--i3d_weights`` a pytorch-i3d ``state_dict``, else seeded with a
+warning).  As in the root ``eval.py``, ``--save`` with ``--video`` and
+``--fvd`` on more than one rank are refused.
+
 Under ``torchrun`` each rank sweeps its own shard of the folder at the
 per-card ``--bs`` (``parallel/distributed.py``) and the per-image rows and
 features are gathered to every rank in rank order, as the JAX sweep's
@@ -29,8 +39,7 @@ FID off the JAX package's float32); the flags are restored after the
 sweep.  Inception and LPIPS load ``--inception_weights`` and
 ``--lpips_weights`` with ``strict=True``; without them they run on seeded
 weights, with a warning, and only relative comparisons mean anything.
-``--video``, ``--fvd``, ``--i3d_weights`` and ``--num_frames`` (video
-evaluation) are not ported and raise.  ``--dist-backend`` is accepted for
+``--dist-backend`` is accepted for
 the reference's command lines and ignored: the backend follows the cards.
 
 ``main(argv)`` returns the sweep's gathered arrays and summary, so a
@@ -65,10 +74,14 @@ def get_parser() -> argparse.ArgumentParser:
                    help="engine backbone compute dtype; bfloat16 runs the inference kernels")
     p.add_argument("--inception_weights", default="", type=str)
     p.add_argument("--lpips_weights", default="", type=str)
-    p.add_argument("--video", action="store_true", help="not ported (video evaluation)")
-    p.add_argument("--num_frames", default=None, type=int, help="not ported (video evaluation)")
-    p.add_argument("--fvd", action="store_true", help="not ported (video evaluation)")
-    p.add_argument("--i3d_weights", default="", type=str, help="not ported (video evaluation)")
+    p.add_argument("--video", action="store_true",
+                   help="treat --dataset as a folder of clips (GIF/MP4): per-frame metrics, "
+                        "optionally FVD (--fvd)")
+    p.add_argument("--num_frames", default=16, type=int, help="frames per clip (video mode)")
+    p.add_argument("--fvd", action="store_true",
+                   help="also compute FVD over I3D features (needs --num_frames >= 9)")
+    p.add_argument("--i3d_weights", default="", type=str,
+                   help="a pytorch-i3d state_dict (video mode FVD)")
     p.add_argument("--stats_cache", default="", type=str,
                    help=".npz path caching the source dataset's Inception (mu, sigma)")
     p.add_argument("--dist-backend", default="", type=str,
@@ -135,11 +148,34 @@ def _save_images(batch, rec, save_dir: str) -> None:
             Image.fromarray(u8).save(os.path.join(save_dir, sub, fname))
 
 
+def _video_guards(args, world: int) -> None:
+    """The root ``eval.py``'s refusals of video mode."""
+    from vqvae_from_gaussian_vae_tpu_torch.evaluations.i3d import MIN_FRAMES
+
+    if args.video and args.save:
+        raise SystemExit("--save writes per-image PNGs; not supported with --video")
+    if args.video and args.fvd:
+        if world > 1:
+            raise SystemExit("--video --fvd gathers clip features on one rank; run one process")
+        if args.num_frames < MIN_FRAMES:
+            raise SystemExit(f"FVD's I3D trunk needs >= {MIN_FRAMES} frames per clip "
+                             "(temporal stride 8 plus the final window-2 pool)")
+
+
+def _i3d(args, device):
+    """The FVD feature function: I3D on ``--i3d_weights`` (else seeded, with
+    a warning), frames resized to 224."""
+    import torch
+
+    from vqvae_from_gaussian_vae_tpu_torch.evaluations.i3d import make_i3d_feature_fn
+
+    sd = (torch.load(args.i3d_weights, map_location="cpu", weights_only=True)
+          if args.i3d_weights else None)
+    return make_i3d_feature_fn(sd, resize=True, device=device)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = get_parser().parse_args(argv)
-    if args.video or args.fvd or args.i3d_weights or args.num_frames is not None:
-        raise NotImplementedError("video evaluation (--video, --fvd, --i3d_weights, "
-                                  "--num_frames) is not ported (ROADMAP A15)")
     if not (args.base and args.dataset):
         raise SystemExit("need --base and --dataset")
 
@@ -158,9 +194,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         device = resolve_device(None if args.device == "cuda" else args.device)
     rank, world = distributed.rank(), distributed.world()
     say = print if rank == 0 else (lambda *a, **k: None)
+    _video_guards(args, world)
 
     engine = _engine(args, device)
-    dataset = SimpleDataset(args.dataset, image_size=args.img_size)
+    if args.video:
+        from vqvae_from_gaussian_vae_tpu_torch.data.video import VideoDataset
+
+        dataset = VideoDataset(args.dataset, image_size=args.img_size,
+                               num_frames=args.num_frames)
+    else:
+        dataset = SimpleDataset(args.dataset, image_size=args.img_size)
     loader = _PrefetchLoader(dataset, args.bs, shuffle=False, drop_last=True, shard_id=rank,
                              num_shards=world)
 
@@ -175,22 +218,31 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     lpips = LPIPSMetric("alex", weights_path=args.lpips_weights or None, device=device)
     if not args.lpips_weights:
         say("WARNING: no --lpips_weights; LPIPS uses random-weight features")
+    i3d_fn = _i3d(args, device) if args.video and args.fvd else None
 
     if args.save:
         for sub in ("src", "rec"):
             os.makedirs(os.path.join(args.save_dir, sub), exist_ok=True)
-    # the JAX sweep stops once its global count reaches --limit
-    max_batches = -(-args.limit // (args.bs * world)) if args.limit else None
+    # the JAX sweep stops once its global count of images (frames) reaches --limit
+    per_batch = args.bs * world * (args.num_frames if args.video else 1)
+    max_batches = -(-args.limit // per_batch) if args.limit else None
     acc = {k: [] for k in ("psnr", "ssim", "msssim", "lpips", "feat_x", "feat_r")}
+    fvd_real, fvd_fake = [], []
     hist = torch.zeros(N_CODES, dtype=torch.int64, device=device)
     with float32_math(), torch.inference_mode():
         for i, batch in enumerate(loader):
             if max_batches is not None and i >= max_batches:
                 break
+            if args.video:  # clips -> one batch of frames
+                vid = batch["video"]
+                batch = dict(batch, img=vid.reshape((-1,) + vid.shape[2:]))
             img = torch.as_tensor(batch["img"], device=device)
             z, info = engine.encode(img, return_reg_log=True)
             rec = engine.decode(z).float()
             out = metrics_of(img, rec, inception, lpips)
+            if i3d_fn is not None:
+                fvd_real.append(i3d_fn(vid))
+                fvd_fake.append(i3d_fn(rec.reshape(vid.shape)))
             for k in acc:
                 acc[k].append(out[k].float().cpu().numpy())
             if info.get("indices") is not None:  # the Gaussian regularizer has no codes
@@ -200,7 +252,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             if args.save:
                 _save_images(batch, rec.cpu().numpy(), args.save_dir)
             if i % 20 == 0:
-                say(f"\r{(i + 1) * args.bs * world} images", end="", flush=True)
+                say(f"\r{(i + 1) * per_batch} images", end="", flush=True)
 
     local = {k: (np.concatenate(v) if v else np.zeros((0,) + ((2048,) if "feat" in k else ()),
                                                          np.float32)) for k, v in acc.items()}
@@ -227,6 +279,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 say(f"(source stats cached to {args.stats_cache})")
         result["fid"] = calculate_frechet_distance(m1, s1, m2, s2)
         say(f"FID: {result['fid']:.4f}")
+    if fvd_real:
+        from vqvae_from_gaussian_vae_tpu_torch.evaluations.fvd import fvd_from_features
+
+        result["fvd"] = fvd_from_features(np.concatenate(fvd_real), np.concatenate(fvd_fake))
+        say(f"FVD: {result['fvd']:.4f}")
     if hist.sum() > 0:
         usage = (hist > 0).mean()
         p = hist / hist.sum()

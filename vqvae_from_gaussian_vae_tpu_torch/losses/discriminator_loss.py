@@ -54,8 +54,7 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
         del scale_input_to_tgt_size
         if disc_loss not in ("hinge", "vanilla"):
             raise ValueError(f"unknown disc_loss {disc_loss!r}")
-        if dims != 2:
-            raise NotImplementedError("the video (dims > 2) loss branch is not ported")
+        self.dims = dims
         self.disc_start = disc_start
         self.disc_factor = disc_factor
         self.disc_weight = disc_weight
@@ -87,11 +86,18 @@ class GeneralLPIPSWithDiscriminator(nn.Module):
     # ------------------------------------------------------------ pieces
 
     def rec_loss(self, inputs, reconstructions):
-        """L1 + perceptual, (B, H, W, C)."""
+        """L1 + perceptual, (B, H, W, C); with ``dims > 2`` (video, (B, T, H,
+        W, C)) the frames fold into the batch for LPIPS and each frame's
+        distance broadcasts back over its pixels."""
         rec = torch.abs(inputs - reconstructions)
         if self.perceptual_weight > 0:
-            rec = rec + self.perceptual_weight * self.perceptual_loss(
-                inputs, reconstructions).permute(0, 2, 3, 1)
+            if self.dims > 2:
+                b, t = inputs.shape[:2]
+                p = self.perceptual_loss(inputs.flatten(0, 1), reconstructions.flatten(0, 1))
+                p = p.reshape(b, t, 1, 1, 1)
+            else:
+                p = self.perceptual_loss(inputs, reconstructions).permute(0, 2, 3, 1)
+            rec = rec + self.perceptual_weight * p
         return rec
 
     def nll_loss(self, rec_loss, weights=None):

@@ -12,8 +12,9 @@ interpolation; ``--resume <logdir>`` reloads that run's
 writes ``<logdir>/<time>_<name>/configs/merged.yaml``.  The ``training:``
 section gives the trainer's knobs, and a reference-style ``lightning:``
 section is read as well.  ``--profile`` records a ``torch.profiler`` trace
-of at most 10 steps into ``<logdir>/trace``; ``--matmul_precision highest``
-turns TF32 off for matmuls and cuDNN, ``default`` and ``high`` turn it on.
+of at most 10 steps into ``<logdir>/trace`` (``utils/profiling.py:trace``);
+``--matmul_precision highest`` turns TF32 off for matmuls and cuDNN,
+``default`` and ``high`` turn it on.
 The engine runs on the CUDA card unless ``--device cpu`` is given.
 
 Data parallel on N cards of one host::
@@ -162,17 +163,12 @@ def main(argv: Optional[Sequence[str]] = None):
         print(f"logdir: {logdir}  lr: {trainer.learning_rate}  device: {device}  "
               f"ranks: {distributed.world()} ({distributed.backend() or 'one process'})")
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+        from vqvae_from_gaussian_vae_tpu_torch.utils.profiling import trace
 
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        trainer.max_steps = min(trainer.max_steps, 10)
-        with profile(activities=activities) as prof:
-            trainer.fit(resume=bool(resume_dir))
         name = "trace.json" if writer else f"trace_rank{distributed.rank()}.json"
-        os.makedirs(os.path.join(logdir, "trace"), exist_ok=True)
-        prof.export_chrome_trace(os.path.join(logdir, "trace", name))
+        trainer.max_steps = min(trainer.max_steps, 10)
+        with trace(os.path.join(logdir, "trace"), name):
+            trainer.fit(resume=bool(resume_dir))
         return trainer
     trainer.fit(resume=bool(resume_dir))
     if not args.no_test:

@@ -172,9 +172,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def init_weights(module: nn.Module, seed: int) -> None:
-    """Seeded weights: conv kernels (O, I, kh, kw), Linear weights (O, I)
-    and the attention's ``in_proj_weight`` (3C, C) N(0, 1/fan_in) (the
-    lecun-normal scale of the JAX package's default init); the ViT's
+    """Seeded weights: conv kernels (O, I, kh, kw) and (O, I, kt, kh, kw),
+    Linear weights (O, I) and the attention's ``in_proj_weight`` (3C, C)
+    N(0, 1/fan_in) (the lecun-normal scale of the JAX package's default
+    init); the ViT's
     positional embedding N(0, 0.02^2), as its JAX init; biases 0; GroupNorm
     and LayerNorm affine (1, 0); LayerScale ``gamma`` keeps its init value."""
     gen = torch.Generator().manual_seed(seed)
@@ -187,7 +188,7 @@ def init_weights(module: nn.Module, seed: int) -> None:
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
             elif name.endswith("embedding.weight"):  # VQ's codebook: uniform(-1/n, 1/n)
                 p.uniform_(-1.0 / p.shape[0], 1.0 / p.shape[0], generator=gen)
-            elif p.dim() in (2, 4):
+            elif p.dim() in (2, 4, 5):
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
             elif leaf.endswith("bias"):

@@ -12,12 +12,11 @@ splits a ``jax.random`` key), or is injected as ``eps``.
 The weights are the port's own modules at the published widths: FLUX, SD3
 and EQ are diffusers ``AutoencoderKL`` layouts on the port's UNet
 ``Encoder`` / ``Decoder`` (``AutoencoderKLDiffusers``), HunyuanImage-2 and
--3 are ``HunyuanVAE2D`` (``models/hyvae.py``).  Nothing downloads: pass
-``ckpt_path`` (a converted state_dict), else the weights are seeded and a
-warning says so.  The runs are on the CUDA device unless the caller passes
-``device="cpu"``.  ``AutoencoderKLQwenImage`` and ``AutoencoderKLWAN`` sit
-on the WAN video VAE, which the port does not have yet (ROADMAP.md queue
-A): they raise ``NotImplementedError``.
+-3 are ``HunyuanVAE2D`` (``models/hyvae.py``), Qwen-Image and Wan2.2 are
+the causal-3D WAN VAE (``models/wan.py``) fed single images as one-frame
+clips.  Nothing downloads: pass ``ckpt_path`` (a converted state_dict, the
+diffusers names), else the weights are seeded and a warning says so.  The
+runs are on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -182,13 +181,36 @@ class AutoencoderKLHYImage3(_HunyuanWrapper):
 
 
 class AutoencoderKLQwenImage(_FrozenVAEBase):
-    """The Qwen-Image VAE: the causal-3D WAN autoencoder on single frames."""
+    """The Qwen-Image VAE: the causal-3D WAN autoencoder (``AutoencoderKLWan``,
+    published Wan2.1 / Qwen-Image widths unless ``wan_kwargs`` say
+    otherwise) on single frames: an image is a one-frame clip, and the
+    sample and the reconstruction drop the time axis."""
 
     def __init__(self, ckpt_path: Optional[str] = None, seed: int = 0, device=None,
                  **wan_kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} runs on the WAN video VAE (models/wan.py), which the port "
-            "does not have yet (ROADMAP.md queue A)")
+        super().__init__(seed, device)
+        from vqvae_from_gaussian_vae_tpu_torch.models.wan import AutoencoderKLWan
+
+        self.model = AutoencoderKLWan(seed=seed, device=self.device, **wan_kwargs)
+        if ckpt_path:
+            self.load_checkpoint(ckpt_path)
+        else:
+            print(f"WARNING: {type(self).__name__} running with random weights "
+                  f"(pass ckpt_path with converted diffusers weights)")
+
+    @torch.inference_mode()
+    def encode(self, x, return_reg_log: bool = False, unregularized: bool = False,
+               eps: Optional[torch.Tensor] = None):
+        """(B, H, W, 3) -> (B, H/8, W/8, z); ``eps`` of that shape, if given,
+        replaces the generator's draw."""
+        posterior = self.model.encode(self._input(x)[:, None])
+        if eps is not None:
+            eps = eps.reshape(posterior.mean.shape)
+        return posterior.sample(self.generator, eps)[:, 0], {}
+
+    @torch.inference_mode()
+    def decode(self, z):
+        return self.model.decode(self._input(z)[:, None])[:, 0]
 
 
 class AutoencoderKLWAN(AutoencoderKLQwenImage):

@@ -307,6 +307,12 @@ class TransformerEncoder(nn.Module):
         x = self.transformer(x, mask)
         return self.quant_embed(self.ln_post(x))
 
+    @staticmethod
+    def last_layer_path() -> Tuple[str, ...]:
+        """The encoder's final projection (``quant_embed``'s weight): the vf
+        adaptive weight's target, as the UNet encoder's ``conv_out``."""
+        return ("quant_embed", "weight")
+
 
 class TransformerDecoder(nn.Module):
     """(B, L, z_channels) tokens -> (B, H, W, 3) image."""

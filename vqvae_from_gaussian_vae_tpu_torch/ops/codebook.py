@@ -104,3 +104,10 @@ def prior_samples(n_samples: int, n_variable: int, seed: int = 42) -> np.ndarray
         table.setflags(write=False)
         _CACHE[key] = table
     return _CACHE[key]
+
+
+def standard_normal_log_prob(codebook: np.ndarray) -> np.ndarray:
+    """log N(c; 0, 1) of each entry, float32: the prior term of the search
+    score."""
+    c = codebook.astype(np.float32)
+    return (-0.5 * c * c - 0.5 * np.log(2.0 * np.pi).astype(np.float32)).astype(np.float32)

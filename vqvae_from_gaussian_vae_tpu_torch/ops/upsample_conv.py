@@ -303,3 +303,12 @@ def upsample_nearest_conv3x3_gn(x, w, bias, add=None):
     if x.device.type == "cpu":
         return upsample_nearest_conv3x3_gn_plain(x, w, bias, add)
     return upsample_nearest_conv3x3_gn_cuda(x, w, bias, add)
+
+
+def upsample_nearest_conv3x3(x, w, bias):
+    """Nearest x2 + 3x3 same conv without the statistics: (B, H, W, C) ->
+    (B, 2H, 2W, O).  On a CUDA tensor it launches the fused kernel (and
+    drops its statistics); the plain version runs only for a CPU tensor."""
+    y, _ = (upsample_nearest_conv3x3_gn_plain if x.device.type == "cpu"
+            else upsample_nearest_conv3x3_gn_cuda)(x, w, bias)
+    return y

@@ -5,7 +5,8 @@ interpolation, ``key=value`` dotlist overrides) with one difference: targets
 never import the JAX package.  The shipped YAMLs name
 ``vqvae_from_gaussian_vae_tpu.*`` classes and the reference's ``pit.*``
 classes; both spellings map through ``_PORT_TARGETS`` onto this package.  A
-known target without a port counterpart yet raises ``NotImplementedError``.
+JAX-package or reference target without a port counterpart raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,6 +71,8 @@ for _jax_path, _pit_path, _port_path in (
     ("data.dataset.StableDataModuleFromConfig",
      "pit.dataset.dataset.StableDataModuleFromConfig",
      "data.dataset.StableDataModuleFromConfig"),
+    ("data.video.VideoDataset", None, "data.video.VideoDataset"),
+    ("data.video.ImageDataset", None, "data.video.ImageDataset"),
     # the reference's MNIST / CIFAR-10 are Lightning modules that download;
     # like the JAX registry, no pit spelling maps onto these file readers
     ("data.toy.MNISTDataset", None, "data.toy.MNISTDataset"),
@@ -99,6 +102,9 @@ for _jax_path, _pit_path, _port_path in (
     ("models.hyvae.HunyuanVAE2D", "pit.models.hyvae.HunyuanVAE2D", "models.hyvae.HunyuanVAE2D"),
     ("models.hyvae.Encoder", None, "models.hyvae.Encoder"),
     ("models.hyvae.Decoder", None, "models.hyvae.Decoder"),
+    # the WAN video VAE under the Qwen-Image and WAN wrappers
+    *((f"models.wan.{_cls}", None, f"models.wan.{_cls}") for _cls in (
+        "AutoencoderKLWan", "WanEncoder3d", "WanDecoder3d")),
     # the generative token decoder: FLUX, its ControlNet, the pipeline, the engines
     *((f"models.{_path}", None, f"models.{_path}") for _path in (
         "flux.Flux", "flux.ControlNetFlux", "flux.ImageProjModel",
@@ -139,7 +145,7 @@ def resolve_target(target: str) -> str:
     """Map a config target onto an importable port path.
 
     Raises NotImplementedError for a JAX-package or reference target that
-    has no port counterpart yet (the WAN video VAE, the video data).
+    has no port counterpart.
     """
     if target in _PORT_TARGETS:
         return _PORT_TARGETS[target]

@@ -46,6 +46,13 @@ dicts of arrays) onto the port's ``pit``-named state_dict:
   * the third-party wrappers: the UNet's names under ``encoder`` and
     ``decoder`` (``AutoencoderKLDiffusers``), HunyuanVAE2D's (the
     HunyuanImage wrappers' ``model``)
+  * the WAN VAE (``models/wan.py``, the diffusers ``AutoencoderKLWan``
+    tree): ``down_blocks_<i>``, ``up_blocks_<i>``, ``resnets_<i>``,
+    ``attentions_<i>``, ``upsamplers_<i>`` and ``resample_1`` are list
+    elements; Conv3d kernels DHWIO (kt, kh, kw, I, O) -> OIDHW
+  * a flax module's variables ``{"params", "batch_stats"}`` (I3D,
+    ``evaluations/i3d.py``): BatchNorm's ``scale`` -> ``weight`` and the
+    statistics ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
 
 and the loss head's tree (the JAX train state's ``loss_params``) onto the
 port's loss state_dict: ``perceptual_loss / net / features_N`` ->
@@ -68,7 +75,7 @@ import torch
 
 _LIST_SEGMENT = re.compile(
     r"^(down|up|block|blocks|attn|resblocks|ffn|features|main|model|to_out|net|layers"
-    r"|transformer_blocks)_(\d+)$")
+    r"|transformer_blocks|down_blocks|up_blocks|resnets|attentions|upsamplers|resample)_(\d+)$")
 _NCHW_STATS = ("latent_mean", "latent_std", "loc", "scale")  # (1, 1, 1, C) -> (1, C, 1, 1)
 # flux's flat flax names -> the reference's module paths
 _RENAMES = tuple((re.compile(a), b) for a, b in (
@@ -130,7 +137,14 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX engine (or loss-head) param tree (nested mappings of numpy or
-    array leaves) -> port state_dict."""
+    array leaves), or a flax module's ``{"params", "batch_stats"}``
+    variables -> port state_dict."""
+    if set(params) == {"params", "batch_stats"}:
+        sd = state_dict_from_jax(params["params"])
+        for path, value in _flatten(params["batch_stats"]):
+            key = _key(path[:-1] + ("running_" + path[-1],))
+            sd[key] = torch.tensor(np.asarray(value, dtype=np.float32))
+        return sd
     sd = {}
     for path, value in _flatten(params):
         v = np.asarray(value, dtype=np.float32)
@@ -139,6 +153,8 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             v = v.transpose(0, 3, 1, 2)
         elif v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)
+        elif v.ndim == 5:
+            v = v.transpose(4, 3, 0, 1, 2)
         elif v.ndim == 2 and path[-1] == "kernel":
             v = v.T
         sd[_key(path, keep_leaf=stats)] = torch.tensor(v)  # a copy: the source may be read-only

@@ -196,3 +196,72 @@ def gan_train_step_flops_from_backbone(enc: float, dec: float, *, img: int = 256
         "disc_step": disc_phase,
         "pair_avg": (ae + adaptive_extra + disc_phase) / 2.0,
     }
+
+
+def gan_train_step_flops(enc_cfg: Dict, img: int = 256, ndf: int = 160,
+                         n_layers: int = 6, adaptive: bool = True) -> Dict[str, float]:
+    """Per-image FLOPs of the two GAN phases of a UNet engine (``enc_cfg``
+    the UNet's params): ``gan_train_step_flops_from_backbone`` on its
+    encoder and decoder forward FLOPs."""
+    return gan_train_step_flops_from_backbone(unet_encoder_flops(enc_cfg),
+                                              unet_decoder_flops(enc_cfg), img=img, ndf=ndf,
+                                              n_layers=n_layers, adaptive=adaptive)
+
+
+def flux_mmdit_flops(l_img: int, l_txt: int, hidden: int, depth: int, depth_single: int,
+                     mlp_ratio: float = 4.0) -> float:
+    """One Flux forward (``models/flux.py``): each block, double or single,
+    gives its L = l_img + l_txt tokens a 3h qkv projection, two L^2-by-h
+    attention matmuls, an h-by-h output projection and an h <-> mlp_ratio h
+    MLP, 2 L h^2 (4 + 2 mlp_ratio) + 4 L^2 h; embedders, modulations and
+    the final layer are O(h^2) or O(L h) and left out."""
+    l = l_img + l_txt
+    per_block = 2.0 * l * hidden * hidden * (4 + 2 * mlp_ratio) + 4.0 * l * l * hidden
+    return (depth + depth_single) * per_block
+
+
+def unet_groupnorm_elems(cfg: Dict) -> float:
+    """Elements through the GroupNorm sites of one UNet encoder + decoder
+    forward, per image: each ResnetBlock normalises its input and its
+    hidden, each attention block once, the mid blocks, and each norm_out.
+    Times bytes an element and the passes gives the GroupNorm bytes' bound."""
+    ch, ch_mult = cfg["ch"], list(cfg["ch_mult"])
+    n_blocks, attn_res = cfg["num_res_blocks"], set(cfg.get("attn_resolutions", []))
+    total, cur = 0.0, cfg["resolution"]
+    in_mult = [1] + ch_mult
+    for i, mult in enumerate(ch_mult):  # encoder
+        cin, cout = ch * in_mult[i], ch * mult
+        for _ in range(n_blocks):
+            total += cur * cur * (cin + cout)  # norm1 (input) + norm2 (hidden)
+            cin = cout
+            if cur in attn_res:
+                total += cur * cur * cout
+        if i != len(ch_mult) - 1:
+            cur //= 2
+    c_mid = ch * ch_mult[-1]
+    total += 2 * (2 * cur * cur * c_mid)  # the encoder's two mid resblocks
+    total += cur * cur * c_mid            # its norm_out
+    total += 2 * (2 * cur * cur * c_mid)  # the decoder's two mid resblocks
+    block_in = c_mid
+    for i in reversed(range(len(ch_mult))):  # decoder, num_res_blocks + 1 a level
+        block_out = ch * ch_mult[i]
+        for _ in range(n_blocks + 1):
+            total += cur * cur * (block_in + block_out)
+            block_in = block_out
+            if cur in attn_res:
+                total += cur * cur * block_out
+        if i != 0:
+            cur *= 2
+    total += cur * cur * block_in         # the decoder's norm_out
+    return total
+
+
+def gq_search_extra(rows: int, group: int, n_samples: int) -> float:
+    """Extra time-equivalent FLOPs of the GQ search on a 128-row systolic
+    matrix unit (the JAX package's TPU accounting): the contraction depth
+    K = 2 group under 128 runs at K / 128 of peak, so the search costs
+    (128 / K - 1) more times its FLOPs.  Kept for comparison with the JAX
+    package's figures; the H100's tensor cores have no such 128-deep
+    penalty."""
+    r = 128.0 / min(2 * group, 128)
+    return (r - 1.0) * gq_search_flops(rows, group, n_samples)
